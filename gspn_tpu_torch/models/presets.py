@@ -1,0 +1,48 @@
+"""Configuration presets: the PyTorch counterpart of
+``gspn_tpu/models/presets.py``."""
+
+from __future__ import annotations
+
+import torch
+
+from gspn_tpu_torch.models.gspn import GSPNConfig
+from gspn_tpu_torch.models.pipeline import PipelineConfig
+from gspn_tpu_torch.models.rpointnet import RPointNetConfig
+
+
+def scannet_pipeline(
+    num_seeds: int = 64,
+    num_classes: int = 18,
+    feature_dim: int = 0,
+    dtype: torch.dtype = torch.float32,
+    fps_segments: int = 8,
+    fps_segment_mode: str = "spatial",
+    sa1_fps_segments: int = 0,
+    group_select: str = "first",
+) -> PipelineConfig:
+    """The flagship scene-level inference preset (spatial segmented FPS,
+    S=8). Its ``mask_project`` is the JAX default "1nn"; this port runs
+    ``dataclasses.replace(scannet_pipeline(), mask_project="3nn")``."""
+    return PipelineConfig(
+        gspn=GSPNConfig(
+            context_radii=(0.25, 0.5, 1.0),
+            context_nsample=(32, 64, 128),
+            encoder_mlp=(64, 128, 256),
+            num_gen_points=256,
+            feature_dim=feature_dim,
+            dtype=dtype,
+            fps_segments=fps_segments,
+            fps_segment_mode=fps_segment_mode,
+            group_select=group_select,
+        ),
+        rpointnet=RPointNetConfig(
+            num_classes=num_classes,
+            feature_dim=feature_dim,
+            dtype=dtype,
+            fps_segments=fps_segments,
+            fps_segment_mode=fps_segment_mode,
+            group_select=group_select,
+        ),
+        num_seeds=num_seeds,
+        sa1_fps_segments=sa1_fps_segments,
+    )

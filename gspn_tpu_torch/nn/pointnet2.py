@@ -1,0 +1,112 @@
+"""PointNet++ set abstraction (SSG, max pool) and feature propagation
+(exact interpolation): the PyTorch counterpart of
+``gspn_tpu/nn/pointnet2.py``'s inference path.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Sequence
+
+import torch
+from torch import nn
+
+from gspn_tpu_torch import ops
+from gspn_tpu_torch.nn.layers import PointMLP
+
+
+def sample_and_group(
+    npoint: int,
+    radius: float,
+    nsample: int,
+    xyz,
+    points=None,
+    valid=None,
+    impl: str = "auto",
+    fps_idx=None,
+    fps_segments: int = 1,
+    fps_segment_mode: str = "contiguous",
+    select: str = "first",
+):
+    """FPS -> gather -> fused ball group (local coordinates) [-> feature
+    gather]. ``fps_idx (B, npoint)``: precomputed FPS indices to reuse.
+
+    Returns ``(new_xyz (B,P,3), new_points (B,P,K,3+C), idx (B,P,K),
+    grouped_xyz (B,P,K,3), pts_cnt (B,P))``."""
+    if fps_idx is None:
+        fps_idx = ops.farthest_point_sample(
+            npoint, xyz, valid, impl=impl,
+            segments=ops.eligible_fps_segments(fps_segments, npoint, xyz.shape[1]),
+            segment_mode=fps_segment_mode,
+        )
+    new_xyz = ops.gather_point(xyz, fps_idx)
+    ((idx, pts_cnt, grouped_xyz),) = ops.query_ball_group_multi(
+        (radius,), (nsample,), xyz, new_xyz, valid, impl=impl, select=select
+    )
+    if points is not None:
+        new_points = torch.cat([grouped_xyz, ops.group_point(points, idx)], dim=-1)
+    else:
+        new_points = grouped_xyz
+    return new_xyz, new_points, idx, grouped_xyz, pts_cnt
+
+
+class PointNetSAModule(nn.Module):
+    """Set abstraction, single-scale grouping with max pooling (what every
+    published config uses). Returns ``(new_xyz, pooled (B,P,C_out),
+    new_valid)``; groups whose centre found no valid point are zeroed."""
+
+    def __init__(
+        self,
+        in_dim: int,
+        npoint: int,
+        radius: float,
+        nsample: int,
+        mlp: Sequence[int],
+        use_bn: bool = True,
+        ops_impl: str = "auto",
+        fps_segments: int = 1,
+        fps_segment_mode: str = "contiguous",
+        select: str = "first",
+    ):
+        super().__init__()
+        self.npoint, self.radius, self.nsample = npoint, radius, nsample
+        self.ops_impl = ops_impl
+        self.fps_segments, self.fps_segment_mode = fps_segments, fps_segment_mode
+        self.select = select
+        self.mlp = PointMLP(in_dim, mlp, use_bn=use_bn)
+
+    def forward(self, xyz, points=None, valid=None, fps_idx=None):
+        new_xyz, new_points, _, _, pts_cnt = sample_and_group(
+            self.npoint, self.radius, self.nsample, xyz, points, valid,
+            self.ops_impl, fps_idx, self.fps_segments, self.fps_segment_mode,
+            self.select,
+        )
+        # groups are self-padded by replicate-first, so no group mask is
+        # needed for max; empty groups are zeroed through new_valid
+        new_valid = pts_cnt > 0 if valid is not None else None
+        pooled = self.mlp(new_points).amax(dim=2)
+        if new_valid is not None:
+            pooled = torch.where(new_valid[..., None], pooled, torch.zeros_like(pooled))
+        return new_xyz, pooled, new_valid
+
+
+class PointNetFPModule(nn.Module):
+    """Feature propagation: three_nn -> inverse-distance weights -> exact
+    interpolation -> skip concat -> shared MLP. The TPU's MXU interpolation
+    (``interp="mm"``) is not ported; this is ``interp="exact"``."""
+
+    def __init__(self, in_dim: int, mlp: Sequence[int], use_bn: bool = True, ops_impl: str = "auto"):
+        super().__init__()
+        self.ops_impl = ops_impl
+        self.mlp = PointMLP(in_dim, mlp, use_bn=use_bn)
+
+    def forward(self, xyz1, xyz2, points1, points2, valid1=None, valid2=None):
+        """``xyz1 (B,N,3)`` targets with skip features ``points1 (B,N,C1)``
+        or None; ``xyz2 (B,M,3)`` sources with ``points2 (B,M,C2)`` ->
+        ``(B,N,mlp[-1])``."""
+        dist, idx = ops.three_nn(xyz1, xyz2, valid2, impl=self.ops_impl)
+        interp = ops.three_interpolate(points2, idx, ops.three_interpolate_weights(dist))
+        feats = interp if points1 is None else torch.cat([interp, points1], dim=-1)
+        out = self.mlp(feats)
+        if valid1 is not None:
+            out = torch.where(valid1[..., None], out, torch.zeros_like(out))
+        return out

@@ -1,0 +1,72 @@
+"""First-S in-box scene points per RoI, for Point RoIAlign.
+
+Counterpart of ``gspn_tpu/ops/box_group.py::query_box_group`` with
+``select="first"``: the first ``s`` points in input order inside each box
+(inclusive ``lo <= p <= hi``), replicate-first padding, count capped at
+``s``, empty rows read index 0; coordinates relative to the box centre.
+The CUDA route is ``csrc/box_group.cu``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gspn_tpu_torch.ops import _cuda
+from gspn_tpu_torch.ops.ball_group import check_select
+from gspn_tpu_torch.ops.ball_query import finalize, first_k_hits
+from gspn_tpu_torch.ops.common import resolve_impl
+from gspn_tpu_torch.ops.grouping import group_point
+
+KERNEL = _cuda.KERNELS["box_group"]
+
+
+def box_contains(boxes: torch.Tensor, xyz: torch.Tensor, valid=None) -> torch.Tensor:
+    """``boxes (B,R,6)``, ``xyz (B,N,3)`` -> ``(B,R,N)`` bool, inclusive."""
+    p = xyz[:, None, :, :]
+    inside = ((p >= boxes[..., None, 0:3]) & (p <= boxes[..., None, 3:6])).all(dim=-1)
+    if valid is not None:
+        inside = inside & valid[:, None, :]
+    return inside
+
+
+def _box_group_plain(boxes, s, xyz1, valid1):
+    """The mask + first-s formulation (``_box_query_xla``)."""
+    inside = box_contains(boxes, xyz1, valid1)
+    cnt = torch.clamp(inside.sum(dim=-1), max=s)
+    idx, cnt = finalize(first_k_hits(inside, s), cnt, s)
+    center = (boxes[..., 0:3] + boxes[..., 3:6]) * 0.5
+    local = group_point(xyz1, idx) - center[..., None, :]
+    return idx, cnt, local
+
+
+def _box_group_cuda(boxes, s, xyz1, valid1):
+    b, n, _ = xyz1.shape
+    r = boxes.shape[1]
+    xyz1 = xyz1.contiguous()
+    boxes = boxes.contiguous()
+    _cuda.check_cuda_input("xyz1", xyz1, torch.float32, (b, n, 3))
+    _cuda.check_cuda_input("boxes", boxes, torch.float32, (b, r, 6))
+    v = None
+    if valid1 is not None:
+        v = valid1.to(torch.uint8).contiguous()
+        _cuda.check_cuda_input("valid1", v, torch.uint8, (b, n))
+    dev = xyz1.device
+    idx = torch.empty((b, r, s), dtype=torch.int32, device=dev)
+    cnt = torch.empty((b, r), dtype=torch.int32, device=dev)
+    local = torch.empty((b, r, s, 3), dtype=torch.float32, device=dev)
+    if b and r:
+        KERNEL.launch(
+            dev, _cuda.ptr(xyz1), _cuda.ptr(v), _cuda.ptr(boxes), b, n, r, int(s),
+            _cuda.ptr(idx), _cuda.ptr(cnt), _cuda.ptr(local),
+        )
+    return idx, cnt, local
+
+
+def query_box_group(boxes, s: int, xyz1, valid1=None, *, impl: str = "auto", select=None):
+    """``boxes (B,R,6)`` [lo, hi], ``xyz1 (B,N,3)`` -> ``(idx (B,R,S)
+    int32, cnt (B,R) int32, local (B,R,S,3) f32)`` with ``local ==
+    xyz1[idx] - (lo + hi) / 2`` bit for bit."""
+    check_select(select)
+    if resolve_impl(impl, xyz1) == "cuda":
+        return _box_group_cuda(boxes, s, xyz1, valid1)
+    return _box_group_plain(boxes, s, xyz1, valid1)

@@ -1,0 +1,98 @@
+#!/usr/bin/env python3
+"""Where the PyTorch port's inference slice spends its time on the card.
+
+    python3 -m gspn_tpu_torch.utils.profile_slice [--out DIR]
+
+Runs the slice of ``chip_smoke.py`` (``utils.bench_slice``: seeded weights,
+the bench's scenes) at B=8 x N=8192 and B=1 x N=65536 under
+``torch.profiler``, ``ITERS`` requests after a warm-up, and prints per
+shape: wall ms per request, device busy ms (the union of kernel intervals
+on the timeline) and the idle share, the device time of the hand-written
+kernels, and the top device kernels by time. Writes a Chrome trace per
+shape to ``--out`` (default ``runs/profile``, gitignored). Needs a CUDA
+device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import time
+
+import torch
+
+from gspn_tpu_torch.models.pipeline import make_inference_fn
+from gspn_tpu_torch.utils import bench_slice
+
+HAND_WRITTEN = ("fps_kernel", "group_scan_kernel", "three_nn_kernel")
+ITERS = 5
+
+
+def _busy_us(events) -> float:
+    """Union of device-kernel intervals (us), so overlap is counted once."""
+    iv = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in iv:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy
+
+
+def profile(label, infer, model, xyz, valid, eps, out_dir):
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    with torch.inference_mode():
+        for _ in range(2):
+            infer(model, xyz, valid, z_eps=eps)
+        torch.cuda.synchronize()
+        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(ITERS):
+                infer(model, xyz, valid, z_eps=eps)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / ITERS
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = _busy_us(kernels) / 1e3 / ITERS
+    by_name: dict[str, list[float]] = {}
+    for e in kernels:
+        d = by_name.setdefault(e.name, [0.0, 0])
+        d[0] += (e.time_range.end - e.time_range.start) / 1e3 / ITERS
+        d[1] += 1
+    hand = sum(v[0] for k, v in by_name.items() if any(h in k for h in HAND_WRITTEN))
+    total = sum(v[0] for v in by_name.values())
+    out_dir.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(out_dir / f"trace_{label}.json"))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    print(json.dumps({
+        "shape": label, "wall_ms_per_request": wall_ms, "device_busy_ms": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / wall_ms, "kernel_sum_ms": total,
+        "hand_written_kernel_ms": hand, "launches_per_request": len(kernels) / ITERS,
+        "top": [[k[:90], round(v[0], 4), v[1] // ITERS] for k, v in top],
+    }))
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default="runs/profile")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_slice: needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    bench_slice.float32_matmuls()
+    cfg = bench_slice.slice_config()
+    model = bench_slice.seeded_model(cfg, dev)
+    infer = make_inference_fn(cfg)
+    for seed, label in enumerate(bench_slice.SHAPES, start=1):
+        xyz, valid, eps = bench_slice.request(cfg, label, dev, seed)
+        profile(label, infer, model, xyz, valid, eps, pathlib.Path(args.out))
+
+
+if __name__ == "__main__":
+    main()

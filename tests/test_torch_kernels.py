@@ -1,0 +1,114 @@
+"""Each hand-written CUDA kernel of ``gspn_tpu_torch`` against its plain
+PyTorch version, on the card, at the inference slice's shapes.
+
+Needs an NVIDIA GPU with ``nvcc`` (the kernels build at first use); skipped
+elsewhere. Run on the card with ``python -m pytest tests/test_torch_kernels.py``.
+Integer outputs must be equal; coordinates and distances bitwise equal
+(the kernels compile with ``-fmad=false`` and write the distance with
+round-to-nearest intrinsics in the plain version's order).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from gspn_tpu_torch import ops
+from gspn_tpu_torch.data import synthetic
+from gspn_tpu_torch.ops import fps as tfps
+from gspn_tpu_torch.ops import interpolate as tinterp
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    return torch.device("cuda", 0)
+
+
+def _scenes(dev, b, n, seed=0, pad_frac=0.1):
+    sb = synthetic.scene_batch(np.random.default_rng(seed), b, n_points=n, max_instances=8)
+    valid = sb["valid"].copy()
+    valid[:, n - int(n * pad_frac):] = False
+    return torch.from_numpy(sb["xyz"]).to(dev), torch.from_numpy(valid).to(dev)
+
+
+def _equal(a, b):
+    assert a.shape == b.shape and a.dtype == b.dtype
+    assert torch.equal(a, b), (a != b).sum().item()
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("rows,n,npoint", [(64, 1024, 128), (8, 8192, 128), (8, 64, 16)])
+def test_fps_kernel(dev, rows, n, npoint, masked):
+    xyz, valid = _scenes(dev, rows, n)
+    v = valid if masked else None
+    before = tfps.KERNEL.launches
+    got = ops.farthest_point_sample(npoint, xyz, v, impl="cuda")
+    torch.cuda.synchronize()
+    assert tfps.KERNEL.launches == before + 1
+    _equal(got, ops.farthest_point_sample(npoint, xyz, v, impl="plain"))
+
+
+def test_fps_kernel_refuses_rows_beyond_shared_memory(dev):
+    xyz = torch.zeros((1, tfps.FPS_MAX_N + 1, 3), device=dev)
+    with pytest.raises(ValueError, match="shared"):
+        ops.farthest_point_sample(4, xyz, impl="cuda")
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize(
+    "b,n,radii,ks,m",
+    [
+        (8, 8192, (0.25, 0.5, 1.0), (32, 64, 128), 64),  # GSPN crops
+        (8, 8192, (0.1,), (32,), 1024),  # SA1
+        (2, 100, (0.3, 0.6), (8, 16), 7),  # ragged sizes
+    ],
+)
+def test_ball_group_kernel(dev, b, n, radii, ks, m, masked):
+    xyz, valid = _scenes(dev, b, n)
+    q = xyz[:, torch.randperm(n, generator=torch.Generator().manual_seed(1))[:m].to(dev)]
+    q[:, -1] = 100.0  # a ball with no point: index 0, point 0's coordinates
+    v = valid if masked else None
+    got = ops.query_ball_group_multi(radii, ks, xyz, q, v, impl="cuda")
+    want = ops.query_ball_group_multi(radii, ks, xyz, q, v, impl="plain")
+    torch.cuda.synchronize()
+    for g, w in zip(got, want, strict=True):
+        for x, y in zip(g, w, strict=True):
+            _equal(x, y)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("b,n,r,s", [(8, 8192, 64, 64), (2, 100, 5, 8)])
+def test_box_group_kernel(dev, b, n, r, s, masked):
+    xyz, valid = _scenes(dev, b, n)
+    gen = torch.Generator().manual_seed(2)
+    c = xyz[:, torch.randperm(n, generator=gen)[:r].to(dev)]
+    half = torch.rand((b, r, 3), generator=gen).to(dev) * 0.5
+    half[:, :2] = 1e-4  # near-empty boxes exercise padding and empty rows
+    boxes = torch.cat([c - half, c + half], dim=-1)
+    v = valid if masked else None
+    got = ops.query_box_group(boxes, s, xyz, v, impl="cuda")
+    want = ops.query_box_group(boxes, s, xyz, v, impl="plain")
+    torch.cuda.synchronize()
+    for x, y in zip(got, want, strict=True):
+        _equal(x, y)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("b,n,m", [(8, 8192, 1024), (512, 8192, 64), (2, 100, 3)])
+def test_three_nn_kernel(dev, b, n, m, masked):
+    gen = torch.Generator().manual_seed(3)
+    tgt = (torch.rand((b, n, 3), generator=gen) * 4).to(dev)
+    src = (torch.rand((b, m, 3), generator=gen) * 4).to(dev)
+    src[:, 1] = src[:, 0]  # equal distances: ties go to the lower index
+    svalid = (torch.rand((b, m), generator=gen) > 0.3).to(dev)
+    v = svalid if masked else None
+    before = tinterp.KERNEL.launches
+    got = ops.three_nn(tgt, src, v, impl="cuda")
+    want = ops.three_nn(tgt, src, v, impl="plain")
+    torch.cuda.synchronize()
+    assert tinterp.KERNEL.launches == before + 1
+    for a, w in zip(got, want, strict=True):
+        _equal(a, w)

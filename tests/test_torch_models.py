@@ -1,0 +1,124 @@
+"""The port's GSPN and R-PointNet (``gspn_tpu_torch.models``) against the JAX
+package's, at the TINY pipeline's widths, with randomized Flax variables
+carried across by ``gspn_tpu_torch.convert`` and the same CVAE noise.
+Floats at ``rtol=1e-4, atol=1e-5``; indices and validity equal."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from gspn_tpu.models import gspn as jg
+from gspn_tpu.models import rpointnet as jr
+from gspn_tpu_torch.convert import GSPN_TRAINING_ONLY, flax_to_state_dict
+from gspn_tpu_torch.models import gspn as tg
+from gspn_tpu_torch.models import rpointnet as tr
+from tests.test_pipeline_eval import TINY
+from tests.torch_parity import as_numpy_tree, gspn_config, n, randomized, rpointnet_config, t
+
+TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def _scene(rng, b=2, npts=128):
+    xyz = rng.uniform(0, 2, (b, npts, 3)).astype(np.float32)
+    valid = np.ones((b, npts), bool)
+    valid[:, -20:] = False
+    return xyz, valid
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_gspn_inference(rng, masked):
+    xyz, valid = _scene(rng)
+    vm = valid if masked else None
+    s = 12
+    seed_idx = rng.integers(0, 100, (2, s)).astype(np.int32)
+    cfg = TINY.gspn
+    jm = jg.GSPN(cfg)
+    v = jm.init(
+        jax.random.PRNGKey(0), jnp.asarray(xyz), jnp.asarray(seed_idx),
+        gt_points=jnp.zeros((2, s, 8, 3)), gt_valid=jnp.ones((2, s, 8), bool),
+        z_rng=jax.random.PRNGKey(1),
+    )
+    v = randomized(v, 7)
+    eps = np.asarray(jax.random.normal(jax.random.PRNGKey(2), (2, s, cfg.latent_dim)))
+    jo = jm.apply(v, jnp.asarray(xyz), jnp.asarray(seed_idx), valid=vm, z_eps=jnp.asarray(eps))
+
+    tm = tg.GSPN(gspn_config(cfg))
+    tm.load_state_dict(flax_to_state_dict(as_numpy_tree(v), skip=GSPN_TRAINING_ONLY))
+    to = tm.eval()(t(xyz), t(seed_idx), t(valid) if masked else None, z_eps=t(eps))
+    for f in ("center", "generated", "objectness", "prior_mu", "prior_logvar", "cond"):
+        np.testing.assert_allclose(n(getattr(to, f)), np.asarray(getattr(jo, f)), **TOL)
+    np.testing.assert_allclose(
+        n(tg.proposal_boxes(to.generated, 0.1)),
+        np.asarray(jg.proposal_boxes(jo.generated, 0.1)), **TOL)
+
+
+@pytest.mark.parametrize("percentile", [0.0, 0.1])
+def test_proposal_boxes(rng, percentile):
+    gen = rng.normal(size=(2, 5, 16, 3)).astype(np.float32)
+    np.testing.assert_allclose(
+        n(tg.proposal_boxes(t(gen), 0.1, percentile)),
+        np.asarray(jg.proposal_boxes(jnp.asarray(gen), 0.1, percentile)), **TOL)
+
+
+def test_gspn_draws_noise_from_a_generator(rng):
+    import torch
+
+    xyz, valid = _scene(rng)
+    tm = tg.GSPN(gspn_config(TINY.gspn)).eval()
+    seed_idx = t(np.arange(12, dtype=np.int32)[None].repeat(2, 0))
+    a = tm(t(xyz), seed_idx, t(valid), generator=torch.Generator().manual_seed(0))
+    b = tm(t(xyz), seed_idx, t(valid), generator=torch.Generator().manual_seed(0))
+    np.testing.assert_array_equal(n(a.generated), n(b.generated))
+    with pytest.raises(ValueError, match="z_eps"):
+        tm(t(xyz), seed_idx, t(valid))
+
+
+def _boxes(rng, xyz, r):
+    c = xyz[:, :r]
+    half = rng.uniform(0.05, 0.5, (xyz.shape[0], r, 3)).astype(np.float32)
+    boxes = np.concatenate([c - half, c + half], axis=-1)
+    boxes[:, 0] = [5, 5, 5, 6, 6, 6]  # an empty RoI
+    return boxes
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_point_roi_align(rng, masked):
+    xyz, valid = _scene(rng)
+    boxes = _boxes(rng, xyz, 10)
+    vm = valid if masked else None
+    want = jr.point_roi_align(jnp.asarray(xyz), jnp.asarray(boxes), 8, vm, impl="xla")
+    got = tr.point_roi_align(t(xyz), t(boxes), 8, t(valid) if masked else None)
+    for g, w in zip(got, want, strict=True):
+        np.testing.assert_array_equal(n(g), np.asarray(w))
+
+
+def test_apply_box_deltas(rng):
+    boxes = _boxes(rng, rng.uniform(0, 2, (2, 10, 3)).astype(np.float32), 10)
+    deltas = rng.normal(0, 2, (2, 10, 6)).astype(np.float32)
+    np.testing.assert_allclose(
+        n(tr.apply_box_deltas(t(boxes), t(deltas))),
+        np.asarray(jr.apply_box_deltas(jnp.asarray(boxes), jnp.asarray(deltas))), **TOL)
+
+
+@pytest.mark.parametrize("shared_fps", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+def test_rpointnet_inference(rng, masked, shared_fps):
+    xyz, valid = _scene(rng)
+    boxes = _boxes(rng, xyz, 12)
+    vm = valid if masked else None
+    fps = rng.integers(0, 100, (2, 32)).astype(np.int32) if shared_fps else None
+    cfg = TINY.rpointnet
+    jm = jr.RPointNet(cfg)
+    v = randomized(jm.init(jax.random.PRNGKey(0), jnp.asarray(xyz), jnp.asarray(boxes)), 8)
+    jo = jm.apply(v, jnp.asarray(xyz), jnp.asarray(boxes), valid=vm,
+                  sa1_fps_idx=None if fps is None else jnp.asarray(fps))
+
+    tm = tr.RPointNet(rpointnet_config(cfg))
+    tm.load_state_dict(flax_to_state_dict(as_numpy_tree(v)))
+    to = tm.eval()(t(xyz), t(boxes), t(valid) if masked else None,
+                   sa1_fps_idx=None if fps is None else t(fps))
+    for f in ("roi_idx", "roi_valid", "roi_xyz"):
+        np.testing.assert_array_equal(n(getattr(to, f)), np.asarray(getattr(jo, f)))
+    for f in ("cls_logits", "box_deltas", "mask_logits"):
+        np.testing.assert_allclose(n(getattr(to, f)), np.asarray(getattr(jo, f)), **TOL)

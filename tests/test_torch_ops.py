@@ -1,0 +1,242 @@
+"""The PyTorch port's point ops (``gspn_tpu_torch.ops``, plain versions on
+the CPU) against the JAX package's ops (``impl="xla"``) and the NumPy
+oracles, on the same NumPy inputs. Integer outputs must be equal and
+coordinates / distances bitwise equal. Coordinates are often snapped to a
+coarse grid so that equal distances (ties) actually occur."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gspn_tpu import ops as jops
+from gspn_tpu_torch import ops
+from tests import oracles
+from tests.torch_parity import n, t
+
+
+def _cloud(rng, b, npts, grid=False, pad=0.25):
+    xyz = rng.uniform(0, 2, (b, npts, 3)).astype(np.float32)
+    if grid:
+        xyz = (np.round(xyz * 4) / 4).astype(np.float32)
+    valid = np.ones((b, npts), bool)
+    valid[:, npts - int(npts * pad):] = False
+    valid[:, 0] = False  # the first valid point is not index 0
+    return xyz, valid
+
+
+def _mask(valid, masked):
+    return valid if masked else None
+
+
+def _tv(valid, masked):
+    return t(valid) if masked else None
+
+
+@pytest.mark.parametrize("grid", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+def test_fps_exact(rng, masked, grid):
+    xyz, valid = _cloud(rng, 3, 64, grid=grid)
+    got = n(ops.farthest_point_sample(16, t(xyz), _tv(valid, masked)))
+    want = np.asarray(
+        jops.farthest_point_sample(16, jnp.asarray(xyz), _mask(valid, masked), impl="xla")
+    )
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, oracles.fps_oracle(16, xyz, _mask(valid, masked)))
+    assert got.dtype == np.int32
+
+
+@pytest.mark.parametrize("mode", ["contiguous", "strided", "spatial"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_fps_segmented(rng, mode, masked):
+    xyz, valid = _cloud(rng, 2, 128, pad=0.6)  # trailing segments all-invalid
+    got = n(ops.farthest_point_sample(
+        32, t(xyz), _tv(valid, masked), segments=4, segment_mode=mode))
+    want = np.asarray(jops.farthest_point_sample(
+        32, jnp.asarray(xyz), _mask(valid, masked), impl="xla", segments=4,
+        segment_mode=mode))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_spatial_sorted_view(rng, masked):
+    xyz, valid = _cloud(rng, 2, 96, grid=True)  # equal codes: stability matters
+    sxyz, svalid, sidx = ops.spatial_sorted_view(t(xyz), _tv(valid, masked))
+    jx, jv, ji = jops.spatial_sorted_view(jnp.asarray(xyz), _mask(valid, masked))
+    np.testing.assert_array_equal(n(sxyz), np.asarray(jx))
+    np.testing.assert_array_equal(n(sidx), np.asarray(ji))
+    if masked:
+        np.testing.assert_array_equal(n(svalid), np.asarray(jv))
+    else:
+        assert svalid is None
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_morton_codes_and_order(rng, masked):
+    xyz, valid = _cloud(rng, 2, 96)
+    got = n(ops.morton_codes(t(xyz), _tv(valid, masked)))
+    np.testing.assert_array_equal(
+        got, np.asarray(jops.morton_codes(jnp.asarray(xyz), _mask(valid, masked))))
+    np.testing.assert_array_equal(
+        n(ops.spatial_order(t(xyz), _tv(valid, masked))),
+        np.asarray(jops.spatial_order(jnp.asarray(xyz), _mask(valid, masked))),
+    )
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_query_ball_group_multi(rng, masked):
+    xyz, valid = _cloud(rng, 2, 128)
+    q = np.concatenate(
+        [xyz[:, :12], np.full((2, 1, 3), 50.0, np.float32)], axis=1)  # + an empty ball
+    radii, ks = (0.3, 0.6), (8, 16)
+    got = ops.query_ball_group_multi(radii, ks, t(xyz), t(q), _tv(valid, masked))
+    want = jops.query_ball_group_multi(
+        radii, ks, jnp.asarray(xyz), jnp.asarray(q), _mask(valid, masked), impl="xla")
+    for (gi, gc, gl), (wi, wc, wl), r, k in zip(got, want, radii, ks, strict=True):
+        np.testing.assert_array_equal(n(gi), np.asarray(wi))
+        np.testing.assert_array_equal(n(gc), np.asarray(wc))
+        np.testing.assert_array_equal(n(gl), np.asarray(wl))
+        oi, oc = oracles.ball_query_oracle(r, k, xyz, q, _mask(valid, masked))
+        np.testing.assert_array_equal(n(gi), oi)
+        np.testing.assert_array_equal(n(gc), oc)
+        want_local = np.take_along_axis(
+            xyz, oi.reshape(2, -1, 1), axis=1).reshape(2, -1, k, 3) - q[:, :, None]
+        np.testing.assert_array_equal(n(gl), want_local)
+        assert gi.dtype == torch.int32 and gc.dtype == torch.int32
+
+
+def _box_oracle(boxes, s, xyz, valid):
+    b, r, _ = boxes.shape
+    idx = np.zeros((b, r, s), np.int32)
+    cnt = np.zeros((b, r), np.int32)
+    for bi in range(b):
+        for ri in range(r):
+            lo, hi = boxes[bi, ri, :3], boxes[bi, ri, 3:]
+            hits = [
+                j for j in range(xyz.shape[1])
+                if (valid is None or valid[bi, j]) and np.all(xyz[bi, j] >= lo)
+                and np.all(xyz[bi, j] <= hi)
+            ][:s]
+            cnt[bi, ri] = len(hits)
+            if hits:
+                idx[bi, ri, :] = hits[0]
+                idx[bi, ri, : len(hits)] = hits
+    return idx, cnt
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_query_box_group(rng, masked):
+    xyz, valid = _cloud(rng, 2, 128, grid=True)  # points on box faces: inclusive
+    c = xyz[:, :10]
+    half = (np.round(rng.uniform(0.1, 0.6, (2, 10, 3)) * 4) / 4).astype(np.float32)
+    half[:, 0] = 0.0  # a degenerate box holding exactly the grid points at c
+    boxes = np.concatenate([c - half, c + half], axis=-1)
+    boxes[:, 1] = [9, 9, 9, 10, 10, 10]  # an empty box
+    got = ops.query_box_group(t(boxes), 8, t(xyz), _tv(valid, masked))
+    want = jops.query_box_group(
+        jnp.asarray(boxes), 8, jnp.asarray(xyz), _mask(valid, masked), impl="xla")
+    for g, w in zip(got, want, strict=True):
+        np.testing.assert_array_equal(n(g), np.asarray(w))
+    oi, oc = _box_oracle(boxes, 8, xyz, _mask(valid, masked))
+    np.testing.assert_array_equal(n(got[0]), oi)
+    np.testing.assert_array_equal(n(got[1]), oc)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_three_nn(rng, masked):
+    tgt, _ = _cloud(rng, 2, 96, grid=True)
+    src, svalid = _cloud(rng, 2, 24, grid=True, pad=0.3)
+    dist, idx = ops.three_nn(t(tgt), t(src), _tv(svalid, masked))
+    jd, ji = jops.three_nn(
+        jnp.asarray(tgt), jnp.asarray(src), _mask(svalid, masked), impl="xla")
+    np.testing.assert_array_equal(n(dist), np.asarray(jd))
+    np.testing.assert_array_equal(n(idx), np.asarray(ji))
+    od, oi = oracles.three_nn_oracle(tgt, src, _mask(svalid, masked))
+    np.testing.assert_array_equal(n(dist), od)
+    np.testing.assert_array_equal(n(idx), oi)
+
+
+def test_three_nn_fewer_than_three_valid_sources(rng):
+    tgt, _ = _cloud(rng, 1, 16)
+    src, _ = _cloud(rng, 1, 6)
+    svalid = np.zeros((1, 6), bool)
+    svalid[0, 4] = True
+    dist, idx = ops.three_nn(t(tgt), t(src), t(svalid))
+    jd, ji = jops.three_nn(jnp.asarray(tgt), jnp.asarray(src), svalid, impl="xla")
+    np.testing.assert_array_equal(n(dist), np.asarray(jd))
+    np.testing.assert_array_equal(n(idx), np.asarray(ji))
+
+
+def test_three_interpolate(rng):
+    pts = rng.normal(size=(2, 24, 5)).astype(np.float32)
+    dist = rng.uniform(0, 1, (2, 40, 3)).astype(np.float32)
+    dist[0, 0] = 0.0  # clamped to eps
+    idx = rng.integers(0, 24, (2, 40, 3)).astype(np.int32)
+    w = ops.three_interpolate_weights(t(dist))
+    jw = jops.three_interpolate_weights(jnp.asarray(dist))
+    np.testing.assert_array_equal(n(w), np.asarray(jw))
+    np.testing.assert_array_equal(
+        n(ops.three_interpolate(t(pts), t(idx), w)),
+        np.asarray(jops.three_interpolate(jnp.asarray(pts), jnp.asarray(idx), jw)),
+    )
+
+
+def test_gather_and_group_point(rng):
+    pts = rng.normal(size=(2, 30, 4)).astype(np.float32)
+    idx2 = rng.integers(0, 30, (2, 7)).astype(np.int32)
+    idx3 = rng.integers(0, 30, (2, 7, 5)).astype(np.int32)
+    np.testing.assert_array_equal(
+        n(ops.gather_point(t(pts), t(idx2))),
+        np.asarray(jops.gather_point(jnp.asarray(pts), jnp.asarray(idx2))))
+    np.testing.assert_array_equal(
+        n(ops.group_point(t(pts), t(idx3))),
+        np.asarray(jops.group_point(jnp.asarray(pts), jnp.asarray(idx3))))
+
+
+def _boxes(rng, b, r):
+    c = rng.uniform(0, 2, (b, r, 3))
+    half = rng.uniform(0.1, 0.6, (b, r, 3))
+    return np.concatenate([c - half, c + half], axis=-1).astype(np.float32)
+
+
+def test_box_iou(rng):
+    a, b = _boxes(rng, 2, 9), _boxes(rng, 2, 7)
+    np.testing.assert_array_equal(
+        n(ops.box_iou(t(a), t(b))), np.asarray(jops.box_iou(jnp.asarray(a), jnp.asarray(b))))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_nms_3d_batched(rng, masked):
+    boxes = _boxes(rng, 3, 24)
+    scores = rng.uniform(0, 1, (3, 24)).astype(np.float32)
+    scores[:, 5] = scores[:, 6]  # equal scores: the stable sort keeps input order
+    valid = rng.uniform(size=(3, 24)) > 0.2
+    got = n(ops.nms_3d_batched(t(boxes), t(scores), 0.25, _tv(valid, masked)))
+    want = np.asarray(jops.nms_3d_batched(
+        jnp.asarray(boxes), jnp.asarray(scores), 0.25, _mask(valid, masked)))
+    np.testing.assert_array_equal(got, want)
+    for bi in range(3):
+        np.testing.assert_array_equal(
+            got[bi], oracles.nms_oracle(
+                boxes[bi], scores[bi], 0.25, valid[bi] if masked else None))
+
+
+@pytest.mark.parametrize(
+    "call",
+    [
+        lambda: ops.farthest_point_sample(4, torch.zeros(1, 8, 3), impl="cuda"),
+        lambda: ops.three_nn(torch.zeros(1, 8, 3), torch.zeros(1, 4, 3), impl="cuda"),
+        lambda: ops.query_box_group(torch.zeros(1, 2, 6), 4, torch.zeros(1, 8, 3), impl="cuda"),
+        lambda: ops.query_ball_group_multi(
+            (0.1,), (4,), torch.zeros(1, 8, 3), torch.zeros(1, 2, 3), impl="cuda"),
+    ],
+    ids=["fps", "three_nn", "box_group", "ball_group"],
+)
+def test_cuda_impl_refuses_cpu_tensors(call):
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        call()
+
+
+def test_three_nn_refuses_fewer_than_three_sources():
+    with pytest.raises(ValueError, match="at least 3"):
+        ops.three_nn(torch.zeros(1, 8, 3), torch.zeros(1, 2, 3))

@@ -1,0 +1,230 @@
+"""The port's inference slice end to end (``gspn_tpu_torch.models.pipeline``)
+against the JAX package's ``make_inference_fn`` on the TINY pipeline with
+``mask_project="3nn"``, weights carried across by
+``gspn_tpu_torch.convert``, and the CVAE noise the JAX ``infer`` draws from
+``PRNGKey(1)``. Masks, valid and classes must be equal; scores and boxes
+within the fixtures' tolerances (``tests/test_fixtures.py``). Plus the
+package's boundaries: no JAX import, no kernel launch on the CPU, unported
+knobs raise, and the synthetic scenes equal the JAX package's."""
+
+import dataclasses
+import pathlib
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gspn_tpu.data import synthetic as jsynthetic
+from gspn_tpu.models import pipeline as jpl
+from gspn_tpu.models.presets import set_pipeline_fps_segments
+from gspn_tpu_torch import convert, ops
+from gspn_tpu_torch.data import synthetic as tsynthetic
+from gspn_tpu_torch.models import pipeline as tpl
+from gspn_tpu_torch.models import presets as tpresets
+from gspn_tpu_torch.utils import bench_slice
+from tests.test_fixtures import _base_pipeline_variables, _load
+from tests.test_pipeline_eval import TINY
+from tests.torch_parity import as_numpy_tree, n, pipeline_config, t
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+TINY_3NN = dataclasses.replace(TINY, mask_project="3nn")
+
+
+def _cases():
+    """Configs under test. ``mask_thresh`` sits inside the range of the mask
+    logits the fixture's weights give (about -0.23..-0.04), so that masks
+    hold points on both sides of the threshold and their comparison is not
+    vacuous (at 0.5 every mask is empty, the frozen fixture's included)."""
+    return {
+        "exact_fps": dataclasses.replace(TINY_3NN, mask_thresh=0.47),
+        "spatial_fps": set_pipeline_fps_segments(
+            dataclasses.replace(TINY_3NN, num_seeds=16, mask_thresh=0.47), 2, "spatial"
+        ),
+        "strided_fps": set_pipeline_fps_segments(
+            dataclasses.replace(TINY_3NN, num_seeds=16, mask_thresh=0.47), 2, "strided"
+        ),
+    }
+
+
+def _inputs(case):
+    """(xyz, valid, JAX variables): the frozen fixture's weights, on its
+    scenes or (strided case) on other synthetic scenes."""
+    z = _load("instance_inference.npz")
+    if case != "strided_fps":
+        return z["in/xyz"], z["in/valid"], _base_pipeline_variables(z)
+    sb = jsynthetic.scene_batch(
+        np.random.default_rng(5), 2, n_points=192, max_instances=3, extent=2.0
+    )
+    return sb["xyz"], sb["valid"], _base_pipeline_variables(z)
+
+
+def _port_model(cfg, variables):
+    model = tpl.PipelineModel(cfg)
+    model.load_state_dict(convert.pipeline_state_dict(as_numpy_tree(variables)))
+    return model.eval()
+
+
+@pytest.mark.parametrize("case", ["exact_fps", "spatial_fps", "strided_fps"])
+def test_slice_matches_jax_make_inference_fn(case):
+    jcfg = _cases()[case]
+    xyz, valid, variables = _inputs(case)
+    want = jpl.make_inference_fn(jcfg)(
+        variables, jnp.asarray(xyz), None, jnp.asarray(valid), jax.random.PRNGKey(1)
+    )
+    # exactly the noise the JAX infer draws from PRNGKey(1) (gspn.py:230)
+    eps = np.asarray(jax.random.normal(
+        jax.random.PRNGKey(1), (xyz.shape[0], jcfg.num_seeds, jcfg.gspn.latent_dim),
+        jnp.float32,
+    ))
+    cfg = pipeline_config(jcfg)
+    with torch.inference_mode():
+        got = tpl.make_inference_fn(cfg)(
+            _port_model(cfg, variables), t(xyz), t(valid), z_eps=t(eps)
+        )
+    for f in ("masks", "valid", "classes"):
+        np.testing.assert_array_equal(n(getattr(got, f)), np.asarray(getattr(want, f)))
+    for f in ("scores", "boxes"):
+        np.testing.assert_allclose(
+            n(getattr(got, f)), np.asarray(getattr(want, f)), rtol=1e-4, atol=1e-5
+        )
+    m = n(got.masks)[n(got.valid)]
+    assert m.any() and not m.all()  # the masks comparison sees both outcomes
+    assert got.classes.dtype == torch.int32 and got.masks.dtype == torch.bool
+
+
+def test_cpu_calls_launch_no_kernel():
+    z = _load("instance_inference.npz")
+    cfg = pipeline_config(TINY_3NN)
+    model = _port_model(cfg, _base_pipeline_variables(z))
+    out = tpl.make_inference_fn(cfg)(
+        model, t(z["in/xyz"]), t(z["in/valid"]), generator=torch.Generator().manual_seed(0)
+    )
+    assert out.masks.shape == (2, TINY.num_seeds, 128)
+    assert ops.launch_counts() == {"fps": 0, "ball_group": 0, "box_group": 0, "three_nn": 0}
+
+
+def test_package_imports_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import gspn_tpu_torch\n"
+        "for m in pkgutil.walk_packages(gspn_tpu_torch.__path__, 'gspn_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'gspn_tpu')]\n"
+        "assert not bad, bad\n"
+        "print(len([m for m in sys.modules if m.startswith('gspn_tpu_torch')]))\n"
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300
+    )
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.split()[-1]) >= 15  # every module was imported
+
+
+@pytest.mark.parametrize(
+    "knob",
+    [
+        {"mask_project": "1nn"},
+        {"mask_project_prune": "auto"},
+        {"sa1_fps_segments": 8},
+        {"group_select": "strided"},
+        {"roi_sample": "grid"},
+        {"dtype": torch.bfloat16},
+        {"feature_dim": 3},
+    ],
+    ids=lambda k: next(iter(k)),
+)
+def test_unported_knobs_raise(knob):
+    cfg = pipeline_config(TINY_3NN)
+    (key, value), = knob.items()
+    if key in ("group_select", "dtype", "feature_dim"):
+        cfg = dataclasses.replace(cfg, gspn=dataclasses.replace(cfg.gspn, **knob))
+    elif key == "roi_sample":
+        cfg = dataclasses.replace(cfg, rpointnet=dataclasses.replace(cfg.rpointnet, **knob))
+    else:
+        cfg = dataclasses.replace(cfg, **knob)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tpl.make_inference_fn(cfg)
+
+
+def test_unported_ops_raise():
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ops.query_ball_group_multi(
+            (0.1,), (4,), torch.zeros(1, 8, 3), torch.zeros(1, 2, 3), select="strided"
+        )
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tpl.project_roi_masks(
+            torch.zeros(1, 8, 3), torch.zeros(1, 2, 6), torch.zeros(1, 2, 4, 3),
+            torch.zeros(1, 2, 4), 0.5, mode="1nn",
+        )
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [
+        dict(n_points=192, max_instances=3, extent=2.0),
+        dict(n_points=1000, max_instances=24, extent=8.0),
+        dict(n_points=64, max_instances=8, bg_frac=0.5),
+    ],
+)
+def test_scene_batch_matches_jax_package(kw):
+    a = tsynthetic.scene_batch(np.random.default_rng(0), 3, **kw)
+    b = jsynthetic.scene_batch(np.random.default_rng(0), 3, **kw)
+    assert a.keys() == b.keys()
+    for k in a:
+        assert a[k].dtype == b[k].dtype
+        np.testing.assert_array_equal(a[k], b[k])
+
+
+def test_init_pipeline_variables_matches_jax_tree():
+    """Seeded init: reproducible, Flax's init values for BatchNorm and biases,
+    and the same names and shapes as converted JAX variables."""
+    cfg = tpresets.scannet_pipeline()
+    sd = tpl.init_pipeline_variables(cfg, torch.Generator().manual_seed(0), 1024)
+    again = tpl.init_pipeline_variables(cfg, torch.Generator().manual_seed(0), 1024)
+    assert all(torch.equal(sd[k], again[k]) for k in sd)
+    jv = jax.eval_shape(
+        lambda: jpl.init_pipeline_variables(
+            jpl.PipelineConfig(gspn=TINY.gspn, rpointnet=TINY.rpointnet, num_seeds=12),
+            jax.random.PRNGKey(0), 64,
+        )
+    )
+    tiny = tpl.init_pipeline_variables(
+        pipeline_config(TINY_3NN), torch.Generator().manual_seed(0), 64
+    )
+    conv = convert.pipeline_state_dict(
+        jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32), jv)
+    )
+    assert {k: tuple(v.shape) for k, v in conv.items()} == {
+        k: tuple(v.shape) for k, v in tiny.items()
+    }
+    for k, v in sd.items():
+        if k.endswith((".bias", ".mean")):
+            assert not v.any(), k
+        elif k.endswith((".scale", ".var")):
+            assert (v == 1).all(), k
+        else:
+            fan_out, fan_in = v.shape
+            assert v.abs().max() <= (6.0 / (fan_in + fan_out)) ** 0.5
+
+
+@pytest.mark.parametrize("shape", list(bench_slice.SHAPES))
+def test_bench_slice_requests(shape):
+    """The measured slice's inputs: the bench's scenes (``bench.py`` builds
+    them from the JAX package's generator, padding the whole scene's tail),
+    seeded noise, and a config the port runs."""
+    b, n_pts, kw, pad = bench_slice.SHAPES[shape]
+    cfg = bench_slice.slice_config()
+    tpl.check_supported(cfg)
+    xyz, valid, eps = bench_slice.request(cfg, shape, torch.device("cpu"), seed=1)
+    want = jsynthetic.scene_batch(np.random.default_rng(0), b, n_points=n_pts, **kw)
+    want_valid = want["valid"].copy()
+    if pad:
+        want_valid[:, -n_pts // 10:] = False
+    np.testing.assert_array_equal(n(xyz), want["xyz"])
+    np.testing.assert_array_equal(n(valid), want_valid)
+    assert eps.shape == (b, cfg.num_seeds, cfg.gspn.latent_dim)
+    assert torch.equal(eps, bench_slice.request(cfg, shape, torch.device("cpu"), seed=1)[2])
