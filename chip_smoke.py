@@ -7,20 +7,32 @@ Needs one CUDA device and ``nvcc``; exits non-zero without them. Phases,
 each printing one line or a few:
 
 1. device: the card's name and power limit, CUDA and nvcc versions;
-2. build: compiles the hand-written kernels (``gspn_tpu_torch/csrc``);
-3. kernels: each kernel against its plain PyTorch version at the slice's
-   shapes (integer outputs equal, coordinates and distances bitwise), with
-   both times from CUDA events;
-4. slice: ``scannet_pipeline()`` with ``mask_project="3nn"`` (and
-   thresholds for random weights, see ``gspn_tpu_torch.utils.bench_slice``)
-   at full width, seeded weights, on the bench's scenes: per shape
-   (B=8 x N=8192, then the whole scene B=1 x N=65536) one warm-up and
-   ``REQUESTS`` timed requests through the kernels (every kernel's launch
-   count must grow), then the same inputs through the plain ops on the card
-   (identical masks, valid and classes; scores and boxes within rtol 1e-4 /
-   atol 1e-5; as many timed requests), and a small scene on the CPU as a
-   second reference;
-5. a JSON line of kernel results, the card's name and power limit, and last
+2. build: compiles the hand-written kernels (``gspn_tpu_torch/csrc``), one
+   ``nvcc`` per source, all at once;
+3. kernels: each of the seven kernels against its plain PyTorch version at
+   the slice's shapes, bitwise (integer outputs equal, floats bit for
+   bit), with the wrapper's and the plain version's times from CUDA events
+   over as many launches, and the kernel's own device time from
+   ``torch.profiler``;
+4. slices, seeded weights on the bench's scenes (``gspn_tpu_torch.utils.
+   bench_slice``). Each runs its kernel path, with every launch count set to
+   0 just before and read just after (the kernels it must launch grow, the
+   others stay at 0), then a plain path: a model built from the plain
+   config with the same weights (``bench_slice.plain_model``), which must
+   launch no kernel. Masks, valid and classes equal; scores and boxes
+   within rtol 1e-4 / atol 1e-5; masks neither empty nor full.
+   (A) ``scannet_pipeline()`` as the JAX package ships it, thresholds moved
+   for random weights (``bench_slice.slice_config``), at B=8 x N=8192 and
+   the whole scene B=1 x N=65536: one warm-up and ``REQUESTS`` timed
+   requests per path, and a small scene on the CPU as a second reference;
+   (B) ``mask_project_prune="auto"`` at both shapes: every output equal to
+   (A)'s, bit for bit;
+   (C) ``roi_sample="grid"`` at B=8 x N=8192: three_nn over 8192 sources;
+   (D) ``mask_project="3nn"`` at B=8 x N=8192;
+5. a JSON line of kernel results (``launches`` from the first slice that
+   launches the kernel, named in ``slice``: (A) for all but
+   mask_project_boxed, (B) for it; ``launches_by_slice`` for each slice's
+   own count), the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises; no phase's error is caught. Imports nothing of JAX.
@@ -28,7 +40,6 @@ Any failure raises; no phase's error is caught. Imports nothing of JAX.
 
 from __future__ import annotations
 
-import dataclasses
 import json
 import statistics
 import subprocess
@@ -40,8 +51,24 @@ import torch
 B, N = 8, 8192  # flagship request: 8 scenes x 8192 points
 WS_N = 65536  # whole-scene request: 1 scene, last 10% of points padding
 FLAGSHIP, WHOLE_SCENE = "B8xN8192", "B1xN65536"  # keys of bench_slice.SHAPES
-REQUESTS = 20  # timed requests per shape and path, after one warm-up
+REQUESTS = 20  # slice (A): timed requests per shape and path, after one warm-up
+VARIANT_REQUESTS = 3  # slices (B)-(D)
 KERNEL_ITERS = 20  # timed launches per kernel and per plain version
+FIELDS = ("masks", "valid", "classes", "scores", "boxes")  # of InstancePredictions
+PATH_KERNELS = {"fps", "ball_group", "box_group", "three_nn", "interp_mm"}
+# the kernel's symbol in the profiler's (demangled) device events
+DEVICE_SYMBOLS = {
+    "fps": "fps_kernel", "ball_group": "group_scan_kernel<false>",
+    "box_group": "group_scan_kernel<true>", "three_nn": "three_nn_kernel",
+    "interp_mm": "interp_mm_kernel", "mask_project": "mask_project_kernel<false>",
+    "mask_project_boxed": "mask_project_kernel<true>",
+}
+SLICE_KERNELS = {  # what each slice's kernel path launches; the others stay at 0
+    "A": PATH_KERNELS | {"mask_project"},
+    "B": PATH_KERNELS | {"mask_project_boxed"},
+    "C": PATH_KERNELS - {"box_group"} | {"mask_project"},
+    "D": PATH_KERNELS,
+}
 
 
 def _card() -> str:
@@ -63,6 +90,26 @@ def _cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _device_ms(fn, iters: int, symbol: str) -> float:
+    """Mean device time per launch of the kernel ``symbol`` over ``iters``
+    calls of ``fn`` after a warm-up, from ``torch.profiler``'s device
+    events: the kernel alone, without its wrapper's host work or other
+    device work."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    mine = [e for e in device if symbol in e.name]
+    if not mine:
+        raise AssertionError(f"no device event of {symbol} among {sorted({e.name for e in device})}")
+    return sum(e.time_range.end - e.time_range.start for e in mine) / 1e3 / iters
 
 
 def _host_ms(fn) -> tuple[float, object]:
@@ -94,22 +141,50 @@ def _flatten(outs):
 
 def check_kernels(dev, ops, bench_slice):
     """Phase 3. Returns the JSON entries (time at each kernel's main shape)."""
+    from gspn_tpu_torch.models.rpointnet import roi_grid_points
+    from gspn_tpu_torch.ops.mask_project import (
+        ROI_BLOCK_BOXED, TILE_N_BOXED, boxed_layout, tile_relevance,
+    )
+
     xyz, valid = (torch.from_numpy(a).to(dev) for a in bench_slice.scenes(FLAGSHIP))
     ws, wsv = (torch.from_numpy(a).to(dev) for a in bench_slice.scenes(WHOLE_SCENE))
-
-    # the slice's shapes: 8 spatial FPS chains per scene, 128 picks each
-    sxyz, svalid, sidx = ops.spatial_sorted_view(xyz, valid)
-    wsx, wsvv, _ = ops.spatial_sorted_view(ws, wsv)
-    seeds = ops.gather_point(xyz, torch.gather(sidx, 1, ops.farthest_point_sample(
-        64, sxyz, svalid, segments=8, segment_mode="contiguous").long()))
-    sa1 = ops.gather_point(xyz, ops.farthest_point_sample(1024, xyz, valid, segments=8,
-                                                           segment_mode="spatial"))
     gen = torch.Generator().manual_seed(0)
-    half = (torch.rand((B, 64, 3), generator=gen) * 0.5 + 0.1).to(dev)
-    boxes = torch.cat([seeds - half, seeds + half], dim=-1)
-    roi_xyz = ops.query_box_group(boxes, 64, xyz, valid)[2] + (
-        (boxes[..., 0:3] + boxes[..., 3:6]) * 0.5)[..., None, :]
+
+    def rois(pts, pvalid, sidx, sxyz, svalid):
+        """The slice's shapes: 64 seeds from 8 spatial FPS chains, 1024 sa1
+        centres, boxes about the seeds, their first 64 in-box points as RoI
+        samples, and grid RoI points."""
+        b = pts.shape[0]
+        seeds = ops.gather_point(pts, torch.gather(sidx, 1, ops.farthest_point_sample(
+            64, sxyz, svalid, segments=8, segment_mode="contiguous").long()))
+        sa1 = ops.gather_point(pts, ops.farthest_point_sample(
+            1024, pts, pvalid, segments=8, segment_mode="spatial"))
+        half = (torch.rand((b, 64, 3), generator=gen) * 0.5 + 0.1).to(dev)
+        boxes = torch.cat([seeds - half, seeds + half], dim=-1)
+        roi_xyz = ops.query_box_group(boxes, 64, pts, pvalid)[2] + (
+            (boxes[..., 0:3] + boxes[..., 3:6]) * 0.5)[..., None, :]
+        logits = (torch.randn((b, 64, 64), generator=gen) * 0.1).to(dev)
+        grid = roi_grid_points(boxes, 64)[0].reshape(b, 64 * 64, 3)
+        return seeds, sa1, boxes, roi_xyz, logits, grid
+
+    sxyz, svalid, sidx = ops.spatial_sorted_view(xyz, valid)
+    wsx, wsvv, wsidx = ops.spatial_sorted_view(ws, wsv)
+    seeds, sa1, boxes, roi_xyz, logits, grid = rois(xyz, valid, sidx, sxyz, svalid)
+    _, ws_sa1, ws_boxes, ws_roi_xyz, ws_logits, ws_grid = rois(ws, wsv, wsidx, wsx, wsvv)
     targets = xyz[:, None].expand(B, 64, N, 3).reshape(B * 64, N, 3)
+
+    def fp(tgt, src, c):  # an FP level's interpolation inputs
+        dist, idx = ops.three_nn(tgt, src)
+        feats = torch.randn((src.shape[0], src.shape[1], c), generator=gen).to(dev)
+        return feats, idx, ops.three_interpolate_weights(dist)
+
+    fp4, fp1, ws_fp4 = fp(xyz, sa1, 128), fp(sa1[:, :64], sa1[:, 64:80], 512), fp(ws, ws_sa1, 128)
+    tn, npad, rb, rpad = boxed_layout(N, 64, ROI_BLOCK_BOXED, TILE_N_BOXED)
+    rel = tile_relevance(sxyz, svalid, boxes, tn, npad, rb, rpad)
+    tn, npad, rb, rpad = boxed_layout(WS_N, 64, ROI_BLOCK_BOXED, TILE_N_BOXED)
+    ws_rel = tile_relevance(wsx, wsvv, ws_boxes, tn, npad, rb, rpad)
+    print(f"mask_project_boxed: relevant (RoI block, tile) share {rel.float().mean().item():.4f} "
+          f"flagship, {ws_rel.float().mean().item():.4f} whole scene")
 
     cases = {  # name -> [(shape label, fn(impl))], main shape first
         "fps": [
@@ -139,6 +214,32 @@ def check_kernels(dev, ops, bench_slice):
              lambda impl: ops.three_nn(xyz, sa1, impl=impl)),
             (f"3nn masks: {B * 64}x{N} targets <- 64",
              lambda impl: ops.three_nn(targets, roi_xyz.reshape(B * 64, 64, 3), impl=impl)),
+            (f"grid RoIAlign: {B}x4096 targets <- {N}",
+             lambda impl: ops.three_nn(grid, xyz, valid, impl=impl)),
+            (f"grid RoIAlign, whole scene: 1x4096 targets <- {WS_N}",
+             lambda impl: ops.three_nn(ws_grid, ws, wsv, impl=impl)),
+        ],
+        "interp_mm": [
+            (f"fp4: {B}x{N} <- 1024, C 128",
+             lambda impl: ops.three_interpolate_mm(*fp4, impl=impl)),
+            (f"fp1: {B}x64 <- 16, C 512",
+             lambda impl: ops.three_interpolate_mm(*fp1, impl=impl)),
+            (f"fp4, whole scene: 1x{WS_N} <- 1024, C 128",
+             lambda impl: ops.three_interpolate_mm(*ws_fp4, impl=impl)),
+        ],
+        "mask_project": [
+            (f"{B}x64 RoIs x {N} pts, S 64",
+             lambda impl: ops.nearest_sample_logit(xyz, roi_xyz, logits, impl=impl)),
+            (f"1x64 RoIs x {WS_N} pts, S 64 (whole scene)",
+             lambda impl: ops.nearest_sample_logit(ws, ws_roi_xyz, ws_logits, impl=impl)),
+        ],
+        "mask_project_boxed": [
+            (f"Morton-sorted {B}x64 RoIs x {N} pts, S 64",
+             lambda impl: ops.nearest_sample_logit_boxed(
+                 sxyz, roi_xyz, logits, boxes, point_valid=svalid, impl=impl)),
+            (f"Morton-sorted 1x64 RoIs x {WS_N} pts, S 64 (whole scene)",
+             lambda impl: ops.nearest_sample_logit_boxed(
+                 wsx, ws_roi_xyz, ws_logits, ws_boxes, point_valid=wsvv, impl=impl)),
         ],
     }
     entries = []
@@ -149,32 +250,35 @@ def check_kernels(dev, ops, bench_slice):
             err = _max_abs_err(_flatten(fn("cuda")), _flatten(fn("plain")))
             ms = _cuda_ms(lambda fn=fn: fn("cuda"), KERNEL_ITERS)
             plain_ms = _cuda_ms(lambda fn=fn: fn("plain"), KERNEL_ITERS)
+            dev_ms = _device_ms(lambda fn=fn: fn("cuda"), KERNEL_ITERS, DEVICE_SYMBOLS[name])
             print(f"kernel {name} [{label}]: equal to plain (max abs err {err}); "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+                  f"wrapper {ms:.4f} ms (kernel's device time {dev_ms:.4f} ms), "
+                  f"plain {plain_ms:.4f} ms")
             if main is None:
-                main = (err, ms, plain_ms)
+                main = (err, ms, plain_ms, dev_ms)
         entries.append({
             "name": name, "route": "cuda", "source": k.source,
-            "replaces": k.replaces.split()[0], "launches": 0,
-            "max_abs_err": main[0], "ms": main[1], "plain_ms": main[2],
+            "replaces": "; ".join(r.split()[0] for r in k.replaces.split("; ")),
+            "launches": 0, "max_abs_err": main[0], "ms": main[1], "plain_ms": main[2],
+            "device_ms": main[3],
         })
     return entries
 
 
-def _timed_requests(infer, model, req):
-    """One warm-up request, then ``REQUESTS`` timed ones on the host clock
+def _timed_requests(infer, model, req, n_requests):
+    """One warm-up request, then ``n_requests`` timed ones on the host clock
     around a synchronized call. Returns ``(ms per request, output)`` and
     raises unless every timed request gave the same output."""
     xyz, valid, eps = req
     infer(model, xyz, valid, z_eps=eps)
     times, first = [], None
-    for _ in range(REQUESTS):
+    for _ in range(n_requests):
         ms, out = _host_ms(lambda: infer(model, xyz, valid, z_eps=eps))
         times.append(ms)
         if first is None:
             first = out
             continue
-        for f in ("masks", "valid", "classes", "scores", "boxes"):
+        for f in FIELDS:
             if not torch.equal(getattr(out, f), getattr(first, f)):
                 raise AssertionError(f"repeated requests differ in {f}")
     return times, first
@@ -185,52 +289,93 @@ def _spread(times) -> str:
             f"max {max(times):.3f}; {len(times)} requests after a warm-up)")
 
 
-def run_slice(dev, ops, bench_slice, card):
-    """Phase 4. Returns the launch counts of the kernel-path run."""
+def run_slice(name, ops, bench_slice, cfg, model, reqs, n_requests):
+    """One slice: the kernel path on ``reqs`` with the launch counts set to 0
+    just before and read just after, then the plain path, which must launch
+    nothing, and the comparison. Returns ``(kernel {shape: (times, out)},
+    plain {shape: (times, out)}, counts)``."""
+    from gspn_tpu_torch.models.pipeline import make_inference_fn
+
+    pcfg, pmodel = bench_slice.plain_model(cfg, model)
+    infer, infer_plain = make_inference_fn(cfg), make_inference_fn(pcfg)
+    ops.reset_launch_counts()
+    kernel = {shape: _timed_requests(infer, model, req, n_requests) for shape, req in reqs.items()}
+    counts = ops.launch_counts()
+    print(f"slice ({name}) launches: {json.dumps(counts)}")
+    launched = {k for k, c in counts.items() if c}
+    if launched != SLICE_KERNELS[name]:
+        raise AssertionError(f"slice ({name}) launched {sorted(launched)}, "
+                             f"expected {sorted(SLICE_KERNELS[name])}")
+
+    plain = {shape: _timed_requests(infer_plain, pmodel, req, n_requests)
+             for shape, req in reqs.items()}
+    if ops.launch_counts() != counts:
+        raise AssertionError(f"slice ({name}): the plain path launched kernels")
+    for shape, (_, got) in kernel.items():
+        want = plain[shape][1]
+        b, n_pts = reqs[shape][1].shape
+        if tuple(got.masks.shape) != (b, cfg.num_seeds, n_pts):
+            raise AssertionError(f"({name}) {shape}: masks shape {tuple(got.masks.shape)}")
+        for f in ("scores", "boxes"):
+            if not torch.isfinite(getattr(got, f)).all():
+                raise AssertionError(f"({name}) {shape}: non-finite {f}")
+        for f in ("masks", "valid", "classes"):
+            if not torch.equal(getattr(got, f), getattr(want, f)):
+                raise AssertionError(f"({name}) {shape}: kernel path and plain path differ in {f}")
+        for f in ("scores", "boxes"):
+            torch.testing.assert_close(getattr(got, f), getattr(want, f), rtol=1e-4, atol=1e-5)
+        m = got.masks[got.valid]
+        share = m.float().mean().item() if m.numel() else 0.0
+        if not 0.0 < share < 1.0:
+            raise AssertionError(f"({name}) {shape}: masks of valid instances hold {share} "
+                                 "of the points")
+        print(f"slice ({name}) {shape}: kernel path == plain path (masks, valid, classes equal; "
+              f"scores, boxes within rtol 1e-4 atol 1e-5); {int(got.valid.sum())} valid "
+              f"instances, mask share {share:.4f}; kernel {_spread(kernel[shape][0])}; "
+              f"plain {_spread(plain[shape][0])}")
+    return kernel, plain, counts
+
+
+def run_slices(dev, ops, bench_slice, card):
+    """Phase 4. Returns ``{slice: launch counts of its kernel path}``."""
     from gspn_tpu_torch.data import synthetic
     from gspn_tpu_torch.models.pipeline import make_inference_fn
 
     cfg = bench_slice.slice_config()
-    plain_cfg = dataclasses.replace(
-        cfg,
-        gspn=dataclasses.replace(cfg.gspn, ops_impl="plain"),
-        rpointnet=dataclasses.replace(cfg.rpointnet, ops_impl="plain"),
-    )
     model = bench_slice.seeded_model(cfg, dev)
-    infer, infer_plain = make_inference_fn(cfg), make_inference_fn(plain_cfg)
     reqs = {shape: bench_slice.request(cfg, shape, dev, seed)
             for seed, shape in enumerate((FLAGSHIP, WHOLE_SCENE), start=1)}
-
+    flagship = {FLAGSHIP: reqs[FLAGSHIP]}
     with torch.inference_mode():
-        ops.reset_launch_counts()
-        kernel = {shape: _timed_requests(infer, model, req) for shape, req in reqs.items()}
-        counts = ops.launch_counts()
-        print(f"slice launches: {json.dumps(counts)}")
-        missing = [k for k, c in counts.items() if c == 0]
-        if missing:
-            raise AssertionError(f"the slice never launched kernels {missing}")
+        kernel, plain, counts = run_slice("A", ops, bench_slice, cfg, model, reqs, REQUESTS)
+        per_request = {k: c / (2 * (REQUESTS + 1)) for k, c in counts.items()}
+        runs = {"A": counts}
 
-        plain = {shape: _timed_requests(infer_plain, model, req) for shape, req in reqs.items()}
-        for shape, (_, got) in kernel.items():
-            want = plain[shape][1]
-            b, n_pts = reqs[shape][1].shape
-            if tuple(got.masks.shape) != (b, cfg.num_seeds, n_pts):
-                raise AssertionError(f"{shape}: masks shape {tuple(got.masks.shape)}")
-            for f in ("scores", "boxes"):
-                if not torch.isfinite(getattr(got, f)).all():
-                    raise AssertionError(f"{shape}: non-finite {f}")
-            for f in ("masks", "valid", "classes"):
-                if not torch.equal(getattr(got, f), getattr(want, f)):
-                    raise AssertionError(f"{shape}: kernel path and plain path differ in {f}")
-            for f in ("scores", "boxes"):
-                torch.testing.assert_close(getattr(got, f), getattr(want, f), rtol=1e-4, atol=1e-5)
-            print(f"slice {shape}: kernel path == plain path (masks, valid, classes equal; "
-                  f"scores, boxes within rtol 1e-4 atol 1e-5); {int(got.valid.sum())} valid "
-                  f"instances, {int(got.masks.sum())} mask points")
+        pcfg = bench_slice.variant_config("prune")
+        pruned, _, runs["B"] = run_slice("B", ops, bench_slice, pcfg, model, reqs, VARIANT_REQUESTS)
+        for shape, (_, out) in pruned.items():
+            for f in FIELDS:
+                if not torch.equal(getattr(out, f), getattr(kernel[shape][1], f)):
+                    raise AssertionError(f"(B) {shape}: pruned projection differs from (A) in {f}")
+        print("slice (B): every output equal to (A)'s at both shapes")
+
+        gcfg = bench_slice.variant_config("grid")
+        _, _, runs["C"] = run_slice("C", ops, bench_slice, gcfg,
+                                    bench_slice.rebuilt_model(gcfg, model), flagship,
+                                    VARIANT_REQUESTS)
+        grid_nn = runs["C"]["three_nn"] / (VARIANT_REQUESTS + 1) - per_request["three_nn"]
+        if grid_nn != 1:
+            raise AssertionError(f"(C): {grid_nn} three_nn launches per request beside the FP's")
+        print(f"slice (C): one three_nn launch per request over {N} sources (grid RoIAlign)")
+
+        _, _, runs["D"] = run_slice("D", ops, bench_slice, bench_slice.variant_config("3nn"),
+                                    model, flagship, VARIANT_REQUESTS)
 
         # a second reference: the CPU's plain path (the one the CPU tests hold
-        # against JAX) on a small scene; matmul sums differ between CPU and
-        # GPU, so masks may flip at a logit's threshold: allow 1e-3 of them
+        # against JAX) on a small scene; the MLPs' matmul sums differ between
+        # CPU and GPU, so masks may flip at a logit's threshold: allow 1e-3
+        # of them
+        infer = make_inference_fn(cfg)
         sb = synthetic.scene_batch(np.random.default_rng(0), 1, n_points=2048,
                                    max_instances=4, extent=2.0)
         sx, sv = torch.from_numpy(sb["xyz"]), torch.from_numpy(sb["valid"])
@@ -243,16 +388,16 @@ def run_slice(dev, ops, bench_slice, card):
             raise AssertionError(f"GPU vs CPU on a small scene: mask flips {flips}, "
                                  f"valid equal {torch.equal(gpu.valid.cpu(), cpu.valid)}")
         torch.testing.assert_close(gpu.boxes.cpu(), cpu.boxes, rtol=1e-4, atol=1e-4)
-        print(f"slice B=1 x N=2048: GPU kernel path vs CPU plain path: valid equal, "
+        print(f"slice (A) B=1 x N=2048: GPU kernel path vs CPU plain path: valid equal, "
               f"mask flips {flips}, boxes within 1e-4")
 
     for shape, (times, _) in kernel.items():
         points = reqs[shape][0].shape[0] * reqs[shape][0].shape[1]
-        print(f"slice {shape} kernel path: {_spread(times)}, "
+        print(f"slice (A) {shape} kernel path: {_spread(times)}, "
               f"{points / statistics.median(times) * 1e3:.0f} points/s; "
               f"plain path {_spread(plain[shape][0])} [{card}]")
-        print(f"slice {shape} kernel path requests ms: {[round(x, 3) for x in times]}")
-    return counts
+        print(f"slice (A) {shape} kernel path requests ms: {[round(x, 3) for x in times]}")
+    return runs
 
 
 def main() -> None:
@@ -275,9 +420,11 @@ def main() -> None:
 
     dev = torch.device("cuda", 0)
     entries = check_kernels(dev, ops, bench_slice)
-    counts = run_slice(dev, ops, bench_slice, card)
+    runs = run_slices(dev, ops, bench_slice, card)
     for e in entries:
-        e["launches"] = counts[e["name"]]
+        e["slice"] = next(s for s, c in runs.items() if c[e["name"]])
+        e["launches"] = runs[e["slice"]][e["name"]]
+        e["launches_by_slice"] = {s: c[e["name"]] for s, c in runs.items()}
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

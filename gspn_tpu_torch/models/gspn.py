@@ -19,10 +19,12 @@ from gspn_tpu_torch.nn.layers import FCLayers, PointMLP
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to gspn_tpu_torch yet ({item})")
+    """``item`` is the title of the ROADMAP.md entry that ports ``what``
+    (titles stay put when the queues are renumbered)."""
+    return NotImplementedError(f'{what} is not ported to gspn_tpu_torch yet (ROADMAP.md, "{item}")')
 
 
-KNOB_PATHS = "ROADMAP.md queue 1 item 11, knob paths"
+KNOB_PATHS = "Knob paths"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,8 +1,9 @@
 """Full-scene instance-segmentation inference: GSPN proposals -> NMS ->
 Point RoIAlign -> heads -> per-point masks. The PyTorch counterpart of
-``gspn_tpu/models/pipeline.py`` for the configuration this port runs:
-exact or segmented FPS shared by the seeds and backbone sa1, exact FP
-interpolation, and ``mask_project="3nn"``.
+``gspn_tpu/models/pipeline.py``: exact or segmented FPS shared by the seeds
+and backbone sa1, ``mask_project`` "1nn" (nearest sample) or "3nn"
+(inverse-distance weighted), and ``mask_project_prune="auto"`` (box-pruned
+1-NN projection over the shared pass's Morton-sorted view).
 
 Weights live in a :class:`PipelineModel` (``gspn`` and ``rpointnet``
 submodules named as the Flax variable trees); its state dict comes from
@@ -32,9 +33,7 @@ from gspn_tpu_torch.models.rpointnet import RPointNet, RPointNetConfig, apply_bo
 
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
-    """Same names and defaults as the JAX package's ``PipelineConfig``.
-    ``mask_project`` defaults to "1nn" there too; this port runs only
-    "3nn" so far and raises for the rest."""
+    """Same names and defaults as the JAX package's ``PipelineConfig``."""
 
     gspn: GSPNConfig = GSPNConfig()
     rpointnet: RPointNetConfig = RPointNetConfig()
@@ -59,52 +58,73 @@ class InstancePredictions:
 
 
 def check_supported(cfg: PipelineConfig) -> None:
-    """Raise ``NotImplementedError`` for every knob this port does not run."""
-    if cfg.mask_project != "3nn":
-        raise not_ported(
-            f"mask_project={cfg.mask_project!r}",
-            "ROADMAP.md queue 2 kernel 8, mask_project.py::_mask_project_kernel",
-        )
-    if cfg.mask_project_prune != "off":
-        raise not_ported(
-            f"mask_project_prune={cfg.mask_project_prune!r}",
-            "ROADMAP.md queue 2 kernel 9, mask_project.py::_mask_project_boxed_kernel",
-        )
+    """Raise ``ValueError`` for a value no version takes and
+    ``NotImplementedError`` for every knob this port does not run yet."""
+    if cfg.mask_project not in ("1nn", "3nn"):
+        raise ValueError(f"mask projection mode must be 1nn|3nn, got {cfg.mask_project!r}")
+    if cfg.mask_project_prune not in ("auto", "off"):
+        raise ValueError(f"mask_project_prune must be auto|off, got {cfg.mask_project_prune!r}")
     if cfg.sa1_fps_segments > 0:
         raise not_ported("sa1_fps_segments>0 (split FPS passes)", KNOB_PATHS)
     check_stage_config(cfg.gspn)
     check_stage_config(cfg.rpointnet)
-    if cfg.rpointnet.roi_sample != "inbox":
-        raise not_ported(f"roi_sample={cfg.rpointnet.roi_sample!r}", KNOB_PATHS)
+    if cfg.rpointnet.roi_sample not in ("inbox", "grid"):
+        raise ValueError(f"roi_sample must be inbox|grid, got {cfg.rpointnet.roi_sample!r}")
+
+
+def _unpermute(mask_s, sidx):
+    """``mask_s (B,R,N)`` over a sorted view back to the input order: input
+    point ``p`` sits at sorted position ``inv[p]``, ``sidx[inv[p]] == p``."""
+    b, r, n = mask_s.shape
+    iota = torch.arange(n, dtype=torch.int64, device=sidx.device).expand(b, n)
+    inv = torch.empty((b, n), dtype=torch.int64, device=sidx.device).scatter_(1, sidx.long(), iota)
+    return torch.gather(mask_s, 2, inv[:, None, :].expand(b, r, n))
 
 
 def project_roi_masks(xyz, boxes, roi_xyz, mask_logits, mask_thresh, valid=None,
-                      impl: str = "auto", mode: str = "3nn"):
+                      impl: str = "auto", mode: str = "1nn", sorted_view=None):
     """Per-point masks ``(B, R, N)`` bool: a scene point belongs to RoI r when
-    it lies inside the refined box and the inverse-distance-weighted logit
-    of its 3 nearest RoI samples (``roi_xyz (B,R,S,3)``) passes
-    ``mask_thresh`` after a sigmoid."""
-    if mode != "3nn":
-        raise not_ported(
-            f"mask projection mode {mode!r}",
-            "ROADMAP.md queue 2 kernel 8, mask_project.py::_mask_project_kernel",
-        )
+    it lies inside the refined box and its projected logit passes
+    ``mask_thresh`` after a sigmoid. ``roi_xyz (B,R,S,3)`` are the world
+    coordinates of the RoI samples.
+
+    ``mode="1nn"``: the nearest sample's logit (``ops.nearest_sample_logit``);
+    ``"3nn"``: the inverse-distance-weighted logit of the 3 nearest samples.
+    ``sorted_view=(sxyz, svalid, sidx)`` (``ops.spatial_sorted_view`` of
+    ``xyz``/``valid``): "1nn" projects over the view with box pruning
+    (``ops.nearest_sample_logit_boxed``) and unpermutes the masks; every
+    valid in-box point's logit is the dense one, and the rest is ANDed
+    away, so the masks are the same."""
     b, r, s, _ = roi_xyz.shape
     n = xyz.shape[1]
+    if sorted_view is not None and mode == "1nn":
+        sxyz, svalid, sidx = sorted_view
+        inside_s = ops.box_contains(boxes, sxyz, svalid)
+        logit_s = ops.nearest_sample_logit_boxed(
+            sxyz, roi_xyz, mask_logits, boxes, point_valid=svalid, impl=impl
+        )
+        return _unpermute(inside_s & (torch.sigmoid(logit_s) > mask_thresh), sidx)
+
     inside = ops.box_contains(boxes, xyz, valid)
-    targets = xyz[:, None].expand(b, r, n, 3).reshape(b * r, n, 3)
-    dist, idx3 = ops.three_nn(targets, roi_xyz.reshape(b * r, s, 3), impl=impl)
-    w = ops.three_interpolate_weights(dist)
-    logit = ops.three_interpolate(mask_logits.reshape(b * r, s, 1), idx3, w).reshape(b, r, n)
+    if mode == "3nn":
+        targets = xyz[:, None].expand(b, r, n, 3).reshape(b * r, n, 3)
+        dist, idx3 = ops.three_nn(targets, roi_xyz.reshape(b * r, s, 3), impl=impl)
+        w = ops.three_interpolate_weights(dist)
+        logit = ops.three_interpolate(mask_logits.reshape(b * r, s, 1), idx3, w).reshape(b, r, n)
+    elif mode == "1nn":
+        logit = ops.nearest_sample_logit(xyz, roi_xyz, mask_logits, impl=impl)
+    else:
+        raise ValueError(f"mask projection mode must be 1nn|3nn, got {mode!r}")
     return inside & (torch.sigmoid(logit) > mask_thresh)
 
 
-def shared_fps_indices(cfg: PipelineConfig, xyz, valid):
-    """``(seed_idx, sa1_fps_idx or None)``: greedy FPS is prefix-consistent,
-    so ONE pass serves the proposal seeds and the backbone's sa1 when both
-    stages sample the same way (at multiples of the segment count for a
-    segmented pass). The spatial mode Morton-sorts once and runs contiguous
-    chains over the sorted view (``gspn_tpu`` ``shared_fps_indices_view``)."""
+def shared_fps_indices_view(cfg: PipelineConfig, xyz, valid):
+    """``(seed_idx, sa1_fps_idx or None, sorted_view or None)``: greedy FPS
+    is prefix-consistent, so ONE pass serves the proposal seeds and the
+    backbone's sa1 when both stages sample the same way (at multiples of
+    the segment count for a segmented pass). The spatial mode Morton-sorts
+    once, runs contiguous chains over the sorted view and returns the view
+    ``(sxyz, svalid, sidx)`` for the box-pruned mask projection."""
     if cfg.sa1_fps_segments:
         raise not_ported("sa1_fps_segments>0 (split FPS passes)", KNOB_PATHS)
     g, rp = cfg.gspn, cfg.rpointnet
@@ -117,8 +137,10 @@ def shared_fps_indices(cfg: PipelineConfig, xyz, valid):
     ):
         segs = ops.shared_eligible_fps_segments(g.fps_segments, (cfg.num_seeds, sa1_n), n)
         total = max(cfg.num_seeds, sa1_n)
+        view = None
         if segs > 1 and g.fps_segment_mode == "spatial":
-            sxyz, svalid, sidx = ops.spatial_sorted_view(xyz, valid)
+            view = ops.spatial_sorted_view(xyz, valid)
+            sxyz, svalid, sidx = view
             pos = ops.farthest_point_sample(
                 total, sxyz, svalid, impl=g.ops_impl, segments=segs,
                 segment_mode="contiguous",
@@ -129,13 +151,13 @@ def shared_fps_indices(cfg: PipelineConfig, xyz, valid):
                 total, xyz, valid, impl=g.ops_impl, segments=segs,
                 segment_mode=g.fps_segment_mode,
             )
-        return fps_all[:, : cfg.num_seeds], fps_all[:, :sa1_n]
+        return fps_all[:, : cfg.num_seeds], fps_all[:, :sa1_n], view
     seed_idx = ops.farthest_point_sample(
         cfg.num_seeds, xyz, valid, impl=g.ops_impl,
         segments=ops.eligible_fps_segments(g.fps_segments, cfg.num_seeds, n),
         segment_mode=g.fps_segment_mode,
     )
-    return seed_idx, None  # the backbone samples with its own settings
+    return seed_idx, None, None  # the backbone samples with its own settings
 
 
 class PipelineModel(nn.Module):
@@ -153,13 +175,22 @@ def make_inference_fn(cfg: PipelineConfig):
     ``z_eps (B, num_seeds, latent_dim)`` is the CVAE noise; without it the
     noise is drawn from ``generator``.
 
+    The model must have been built from this config's stages (its modules
+    keep their ``ops_impl``), or ``infer`` raises ``ValueError``: the config
+    a model was built with is the config it runs.
+
     Float32 matrix products are assumed to stay float32 (torch's default;
     a TF32 product can flip a mask threshold): callers that enable TF32 get
     different masks. ``utils.bench_slice.float32_matmuls`` pins it."""
     check_supported(cfg)
 
     def infer(model: PipelineModel, xyz, valid=None, z_eps=None, generator=None):
-        seed_idx, sa1_idx = shared_fps_indices(cfg, xyz, valid)
+        if model.gspn.config != cfg.gspn or model.rpointnet.config != cfg.rpointnet:
+            raise ValueError(
+                "the model was built from other stage configs than this inference "
+                "function's; build it from the same PipelineConfig"
+            )
+        seed_idx, sa1_idx, view = shared_fps_indices_view(cfg, xyz, valid)
         gout = model.gspn(xyz, seed_idx, valid, z_eps=z_eps, generator=generator)
         boxes = proposal_boxes(gout.generated, cfg.rpointnet.box_margin, cfg.box_percentile)
         obj = torch.sigmoid(gout.objectness)
@@ -175,6 +206,7 @@ def make_inference_fn(cfg: PipelineConfig):
         masks = project_roi_masks(
             xyz, refined, out.roi_xyz, out.mask_logits, cfg.mask_thresh, valid,
             impl=cfg.rpointnet.ops_impl, mode=cfg.mask_project,
+            sorted_view=view if cfg.mask_project_prune == "auto" else None,
         )
         masks = masks & pvalid[..., None]
         return InstancePredictions(

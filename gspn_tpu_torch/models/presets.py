@@ -21,8 +21,7 @@ def scannet_pipeline(
     group_select: str = "first",
 ) -> PipelineConfig:
     """The flagship scene-level inference preset (spatial segmented FPS,
-    S=8). Its ``mask_project`` is the JAX default "1nn"; this port runs
-    ``dataclasses.replace(scannet_pipeline(), mask_project="3nn")``."""
+    S=8, 1-NN mask projection, FP interpolation "auto")."""
     return PipelineConfig(
         gspn=GSPNConfig(
             context_radii=(0.25, 0.5, 1.0),

@@ -1,9 +1,11 @@
 """R-PointNet instance segmentation over proposals, inference forward: the
 PyTorch counterpart of ``gspn_tpu/models/rpointnet.py``.
 
-Backbone (PointNet++ SA x k + FP x k), deterministic in-box Point RoIAlign
-(the first S scene points in each box, cycled when fewer), and the heads
-(classification, box refinement, per-sample mask logits). Matching and
+Backbone (PointNet++ SA x k + FP x k), Point RoIAlign, and the heads
+(classification, box refinement, per-sample mask logits). RoIAlign is
+``roi_sample="inbox"`` (the first S scene points in each box, cycled when
+fewer) or ``"grid"`` (S free points on a cell-centre grid in each box,
+features interpolated from their three nearest scene points). Matching and
 losses are training-only and not ported.
 """
 
@@ -15,7 +17,7 @@ import torch
 from torch import nn
 
 from gspn_tpu_torch import ops
-from gspn_tpu_torch.models.gspn import KNOB_PATHS, check_stage_config, not_ported
+from gspn_tpu_torch.models.gspn import check_stage_config
 from gspn_tpu_torch.nn.layers import FCLayers, PointMLP
 from gspn_tpu_torch.nn.pointnet2 import PointNetFPModule, PointNetSAModule
 
@@ -126,12 +128,55 @@ def point_roi_align(xyz, boxes, s: int, valid=None, impl: str = "auto", select: 
     return idx, canon, roi_valid, cnt
 
 
+def _grid_factors(s: int) -> tuple[int, int, int]:
+    """Near-cubic ``(gx, gy, gz)`` with ``gx * gy * gz == s`` (64 -> 4x4x4)."""
+    best = (1, 1, s)
+    for gx in range(1, int(round(s ** (1 / 3))) + 2):
+        if s % gx:
+            continue
+        rem = s // gx
+        for gy in range(gx, int(rem ** 0.5) + 2):
+            if rem % gy:
+                continue
+            gz = rem // gy
+            if max(gx, gy, gz) - min(gx, gy, gz) <= max(*best) - min(*best):
+                best = (gx, gy, gz)
+    return best
+
+
+def roi_grid_points(boxes, s: int):
+    """``s`` free points on a canonical cell-centre grid inside each box:
+    ``boxes (B,R,6)`` -> ``(world (B,R,S,3), canon (B,R,S,3))``; ``canon``
+    (cell centres in [-0.5, 0.5]^3) is the same for every RoI."""
+    dev = boxes.device
+    axes = []
+    for g in _grid_factors(s):
+        gt = torch.full((g,), g, dtype=torch.float32, device=dev)  # a true division
+        axes.append((torch.arange(g, dtype=torch.float32, device=dev) + 0.5) / gt - 0.5)
+    canon = torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=-1).reshape(s, 3)
+    center = (boxes[..., 0:3] + boxes[..., 3:6]) * 0.5
+    extent = torch.clamp(boxes[..., 3:6] - boxes[..., 0:3], min=1e-6)
+    world = center[..., None, :] + canon * extent[..., None, :]
+    return world, canon.expand(world.shape)
+
+
+def interpolate_roi_features(xyz, features, world, valid=None, impl: str = "auto"):
+    """Backbone features at free RoI points by three_nn and exact
+    inverse-distance interpolation: ``xyz (B,N,3)``, ``features (B,N,C)``,
+    ``world (B,R,S,3)`` -> ``(feats (B,R,S,C), nearest scene point (B,R,S)
+    int32)``."""
+    b, r, s, _ = world.shape
+    dist, idx3 = ops.three_nn(world.reshape(b, r * s, 3), xyz, valid, impl=impl)
+    feats = ops.three_interpolate(features, idx3, ops.three_interpolate_weights(dist))
+    return feats.reshape(b, r, s, features.shape[-1]), idx3[..., 0].reshape(b, r, s)
+
+
 @dataclasses.dataclass
 class RoIOutputs:
     cls_logits: torch.Tensor  # (B, R, num_classes + 1); class 0 = background
     box_deltas: torch.Tensor  # (B, R, 6)
     mask_logits: torch.Tensor  # (B, R, S)
-    roi_idx: torch.Tensor  # (B, R, S) scene index of each sample
+    roi_idx: torch.Tensor  # (B, R, S) scene index of each sample ("grid": its nearest)
     roi_xyz: torch.Tensor  # (B, R, S, 3) world coordinates of the samples
     roi_valid: torch.Tensor  # (B, R) bool
 
@@ -160,13 +205,13 @@ class RoIHeads(nn.Module):
 
 
 class RPointNet(nn.Module):
-    """Backbone + in-box Point RoIAlign + heads."""
+    """Backbone + Point RoIAlign + heads."""
 
     def __init__(self, config: RPointNetConfig = RPointNetConfig()):
         super().__init__()
         check_stage_config(config)
-        if config.roi_sample != "inbox":
-            raise not_ported(f"roi_sample={config.roi_sample!r}", KNOB_PATHS)
+        if config.roi_sample not in ("inbox", "grid"):
+            raise ValueError(f"roi_sample must be inbox|grid, got {config.roi_sample!r}")
         self.config = config
         self.backbone = Backbone(config)
         self.heads = RoIHeads(config, config.fp_mlps[-1][-1])
@@ -174,11 +219,16 @@ class RPointNet(nn.Module):
     def forward(self, xyz, boxes, valid=None, sa1_fps_idx=None) -> RoIOutputs:
         cfg = self.config
         feat = self.backbone(xyz, valid, sa1_fps_idx)
-        idx, canon, roi_valid, _ = point_roi_align(
-            xyz, boxes, cfg.roi_samples, valid, impl=cfg.ops_impl, select=cfg.group_select
-        )
-        roi_feats = ops.group_point(feat, idx)
-        roi_xyz = ops.group_point(xyz, idx)
+        if cfg.roi_sample == "grid":
+            roi_xyz, canon = roi_grid_points(boxes, cfg.roi_samples)
+            roi_feats, idx = interpolate_roi_features(xyz, feat, roi_xyz, valid, impl=cfg.ops_impl)
+            roi_valid = ops.box_contains(boxes, xyz, valid).any(dim=-1)
+        else:
+            idx, canon, roi_valid, _ = point_roi_align(
+                xyz, boxes, cfg.roi_samples, valid, impl=cfg.ops_impl, select=cfg.group_select
+            )
+            roi_feats = ops.group_point(feat, idx)
+            roi_xyz = ops.group_point(xyz, idx)
         cls_logits, box_deltas, mask_logits = self.heads(canon, roi_feats)
         cls_logits = torch.where(roi_valid[..., None], cls_logits, torch.zeros_like(cls_logits))
         mask_logits = torch.where(

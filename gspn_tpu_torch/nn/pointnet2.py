@@ -1,6 +1,5 @@
-"""PointNet++ set abstraction (SSG, max pool) and feature propagation
-(exact interpolation): the PyTorch counterpart of
-``gspn_tpu/nn/pointnet2.py``'s inference path.
+"""PointNet++ set abstraction (SSG, max pool) and feature propagation: the
+PyTorch counterpart of ``gspn_tpu/nn/pointnet2.py``'s inference path.
 """
 
 from __future__ import annotations
@@ -90,13 +89,28 @@ class PointNetSAModule(nn.Module):
 
 
 class PointNetFPModule(nn.Module):
-    """Feature propagation: three_nn -> inverse-distance weights -> exact
-    interpolation -> skip concat -> shared MLP. The TPU's MXU interpolation
-    (``interp="mm"``) is not ported; this is ``interp="exact"``."""
+    """Feature propagation: three_nn -> inverse-distance weights ->
+    interpolation -> skip concat -> shared MLP.
 
-    def __init__(self, in_dim: int, mlp: Sequence[int], use_bn: bool = True, ops_impl: str = "auto"):
+    ``interp`` picks the interpolation, as in the JAX package:
+
+    - "exact": the neighbor-ordered gather and weighted sum;
+    - "mm": ``ops.three_interpolate_mm``, the TPU's matmul kernel's
+      counterpart, which launches the ``interp_mm`` kernel on the card and
+      gives the same bits as "exact";
+    - "auto": "mm" when ``ops_impl`` resolves to the CUDA kernels for the
+      input, "exact" otherwise (as the JAX "auto" takes "mm" only on the
+      Pallas path)."""
+
+    def __init__(
+        self, in_dim: int, mlp: Sequence[int], use_bn: bool = True, ops_impl: str = "auto",
+        interp: str = "auto",
+    ):
         super().__init__()
+        if interp not in ("auto", "exact", "mm"):
+            raise ValueError(f"interp must be auto|exact|mm, got {interp!r}")
         self.ops_impl = ops_impl
+        self.interp = interp
         self.mlp = PointMLP(in_dim, mlp, use_bn=use_bn)
 
     def forward(self, xyz1, xyz2, points1, points2, valid1=None, valid2=None):
@@ -104,7 +118,14 @@ class PointNetFPModule(nn.Module):
         or None; ``xyz2 (B,M,3)`` sources with ``points2 (B,M,C2)`` ->
         ``(B,N,mlp[-1])``."""
         dist, idx = ops.three_nn(xyz1, xyz2, valid2, impl=self.ops_impl)
-        interp = ops.three_interpolate(points2, idx, ops.three_interpolate_weights(dist))
+        weight = ops.three_interpolate_weights(dist)
+        use_mm = self.interp == "mm" or (
+            self.interp == "auto" and ops.resolve_impl(self.ops_impl, xyz1) == "cuda"
+        )
+        if use_mm:
+            interp = ops.three_interpolate_mm(points2, idx, weight, impl=self.ops_impl)
+        else:
+            interp = ops.three_interpolate(points2, idx, weight)
         feats = interp if points1 is None else torch.cat([interp, points1], dim=-1)
         out = self.mlp(feats)
         if valid1 is not None:

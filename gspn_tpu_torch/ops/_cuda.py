@@ -1,8 +1,9 @@
 """Build, load and launch the hand-written Hopper kernels in ``csrc/``.
 
-The sources are compiled with ``nvcc`` into one shared library with a plain
-C interface and loaded with ``ctypes`` — no PyTorch headers, so the build
-takes seconds. It happens at the first CUDA launch (or an explicit
+Each source is compiled with ``nvcc`` to an object, all of them at once in
+parallel, and the objects are linked into one shared library with a plain C
+interface, loaded with ``ctypes`` — no PyTorch headers, so the build takes
+seconds. It happens at the first CUDA launch (or an explicit
 :func:`build`), into ``gspn_tpu_torch/_build/``, keyed by a hash of the
 sources and flags. Nothing here runs at import time: the CPU tests import
 every module on machines without ``nvcc``.
@@ -29,13 +30,17 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("fps.cu", "ball_group.cu", "box_group.cu", "three_nn.cu")
+SOURCES = (
+    "fps.cu", "ball_group.cu", "box_group.cu", "three_nn.cu", "interp_mm.cu",
+    "mask_project.cu",
+)
 HEADERS = ("common.cuh", "group_scan.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-fmad=false",
 )
+LINK_FLAGS = ("-shared", "-gencode", "arch=compute_90a,code=sm_90a")
 
 _ptr = ctypes.c_void_p
 _int = ctypes.c_int
@@ -57,31 +62,46 @@ def _library_path() -> pathlib.Path:
     for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     return BUILD_DIR / f"libgspn_kernels-{h.hexdigest()[:16]}.so"
 
 
 def build() -> tuple[pathlib.Path, float]:
-    """Compile the kernels if this source hash has no library yet.
-    Returns ``(library path, seconds spent compiling)``; raises with the
-    compiler's output when ``nvcc`` fails."""
+    """Compile the kernels if this source hash has no library yet: one
+    ``nvcc -c`` per source, all started together, then one link. Returns
+    ``(library path, seconds spent compiling)``; raises with the compiler's
+    output when ``nvcc`` fails."""
     lib = _library_path()
     if lib.exists():
         return lib, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    secs = time.perf_counter() - t0
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stdout}\n{res.stderr}"
-        )
-    os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
-    return lib, secs
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, f"{pathlib.Path(s).stem}.o") for s in SOURCES]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / src)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            )
+            for src, obj in zip(SOURCES, objs, strict=True)
+        ]
+        failed = []
+        for src, proc in zip(SOURCES, procs, strict=True):
+            out, err = proc.communicate()  # waits for every compiler
+            if proc.returncode != 0:
+                failed.append(f"{src} ({proc.returncode}):\n{out}\n{err}")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        so = os.path.join(tmp, "lib.so")
+        cmd = [nvcc, *LINK_FLAGS, "-o", so, *objs]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({res.returncode}): {' '.join(cmd)}\n{res.stdout}\n{res.stderr}"
+            )
+        os.replace(so, lib)  # atomic: a concurrent loader sees all or nothing
+    return lib, time.perf_counter() - t0
 
 
 @functools.cache
@@ -147,7 +167,27 @@ KERNELS: dict[str, CudaKernel] = {
             "three_nn", "three_nn.cu", "gspn_three_nn",
             # xyz1, xyz2, valid2, b, n, m, dist, idx
             (_ptr, _ptr, _ptr, _int, _int, _int, _ptr, _ptr),
-            "gspn_tpu/ops/interpolate.py:38 _three_nn_kernel",
+            "gspn_tpu/ops/interpolate.py:38 _three_nn_kernel (M <= 2048); "
+            "gspn_tpu/ops/interpolate.py:132 _three_nn_tiled_kernel (M > 2048)",
+        ),
+        CudaKernel(
+            "interp_mm", "interp_mm.cu", "gspn_interp_mm",
+            # points, idx, weight, b, n, m, c, out
+            (_ptr, _ptr, _ptr, _int, _int, _int, _int, _ptr),
+            "gspn_tpu/ops/interpolate.py:347 _interp_mm_kernel",
+        ),
+        CudaKernel(
+            "mask_project", "mask_project.cu", "gspn_mask_project",
+            # xyz, sampled, logits, sample_valid, b, n, r, s, out
+            (_ptr, _ptr, _ptr, _ptr, _int, _int, _int, _int, _ptr),
+            "gspn_tpu/ops/mask_project.py:67 _mask_project_kernel",
+        ),
+        CudaKernel(
+            "mask_project_boxed", "mask_project.cu", "gspn_mask_project_boxed",
+            # xyz, sampled, logits, sample_valid, b, n, r, s,
+            # relevance, roi_block, tile_n, relevance rows, relevance cols, out
+            (_ptr, _ptr, _ptr, _ptr, _int, _int, _int, _int, _ptr, _int, _int, _int, _int, _ptr),
+            "gspn_tpu/ops/mask_project.py:72 _mask_project_boxed_kernel",
         ),
     )
 }

@@ -25,7 +25,7 @@ def check_select(select: str | None) -> None:
     if select not in (None, "first"):
         raise NotImplementedError(
             f"group_select={select!r} is not ported; only 'first' is "
-            "(ROADMAP.md queue 1 item 11, knob paths; queue 2 kernel 3)"
+            '(ROADMAP.md, "Knob paths" and "_fused_kernel_strided")'
         )
 
 

@@ -1,9 +1,16 @@
 """Three-nearest-neighbor search and inverse-distance interpolation.
 
-Counterpart of ``gspn_tpu/ops/interpolate.py``: ``three_nn`` (CUDA route
-``csrc/three_nn.cu``; plain route the XLA ``top_k`` branch), and the exact
-``three_interpolate_weights`` / ``three_interpolate`` (the FP modules' exact
-interpolation; the TPU's MXU form ``three_interpolate_mm`` is not ported).
+Counterpart of ``gspn_tpu/ops/interpolate.py``:
+
+- ``three_nn``: CUDA route ``csrc/three_nn.cu`` at every source count (it
+  streams sources through shared memory with a running top-3, the
+  algorithm of both TPU kernels, single-shot and tiled-M); plain route the
+  XLA ``top_k`` branch, taken over chunks of targets at large sizes.
+- ``three_interpolate_weights`` / ``three_interpolate``: the exact,
+  neighbor-ordered interpolation.
+- ``three_interpolate_mm``: the FP modules' interpolation on the kernel
+  path (the TPU's MXU kernel), the same neighbor-ordered sum; CUDA route
+  ``csrc/interp_mm.cu``.
 """
 
 from __future__ import annotations
@@ -15,9 +22,13 @@ from gspn_tpu_torch.ops.common import masked_sqdist, resolve_impl
 from gspn_tpu_torch.ops.grouping import group_point
 
 KERNEL = _cuda.KERNELS["three_nn"]
+MM_KERNEL = _cuda.KERNELS["interp_mm"]
+
+# (target, source) distances one plain chunk holds: 256 MB of float32
+_PLAIN_PAIRS = 1 << 26
 
 
-def _three_nn_plain(xyz1, xyz2, valid2):
+def _three_nn_dense(xyz1, xyz2, valid2):
     """Masked squared distances, then three first-occurrence argmins: the
     (distance, index)-lexicographic top 3, like ``lax.top_k(-d2, 3)``."""
     d2 = masked_sqdist(xyz1, xyz2, valid2)  # (B, N, M)
@@ -29,6 +40,18 @@ def _three_nn_plain(xyz1, xyz2, valid2):
         work.scatter_(-1, i, float("inf"))
     idx = torch.cat(idx, dim=-1)
     return torch.gather(d2, -1, idx), idx.to(torch.int32)
+
+
+def _three_nn_plain(xyz1, xyz2, valid2):
+    """``_three_nn_dense`` over chunks of targets, so the (B, N, M) distance
+    matrix of a whole scene is never held at once; targets are independent,
+    so the result is the same."""
+    b, n, _ = xyz1.shape
+    step = max(1, _PLAIN_PAIRS // max(1, b * xyz2.shape[1]))
+    if n <= step:
+        return _three_nn_dense(xyz1, xyz2, valid2)
+    parts = [_three_nn_dense(xyz1[:, i:i + step], xyz2, valid2) for i in range(0, n, step)]
+    return torch.cat([p[0] for p in parts], 1), torch.cat([p[1] for p in parts], 1)
 
 
 def _three_nn_cuda(xyz1, xyz2, valid2):
@@ -77,3 +100,58 @@ def three_interpolate(points, idx, weight) -> torch.Tensor:
     g = group_point(points, idx)  # (B, N, 3, C)
     w = weight[..., None]
     return g[:, :, 0] * w[:, :, 0] + g[:, :, 1] * w[:, :, 1] + g[:, :, 2] * w[:, :, 2]
+
+
+def _interp_mm_cuda(points, idx, weight):
+    b, m, c = points.shape
+    n = idx.shape[1]
+    points = points.contiguous()
+    idx = idx.to(torch.int32).contiguous()
+    weight = weight.contiguous()
+    _cuda.check_cuda_input("points", points, torch.float32, (b, m, c))
+    _cuda.check_cuda_input("idx", idx, torch.int32, (b, n, 3))
+    _cuda.check_cuda_input("weight", weight, torch.float32, (b, n, 3))
+    out = torch.empty((b, n, c), dtype=torch.float32, device=points.device)
+    if b and n and c:
+        MM_KERNEL.launch(
+            points.device, _cuda.ptr(points), _cuda.ptr(idx), _cuda.ptr(weight), b, n, m, c,
+            _cuda.ptr(out),
+        )
+    return out
+
+
+class _InterpolateMM(torch.autograd.Function):
+    """Forward: the kernel (or its plain version); backward: the exact
+    scatter-add / inner-product pair, plain PyTorch as in the JAX package's
+    ``_mm_bwd`` (gspn_tpu/ops/interpolate.py:431-447)."""
+
+    @staticmethod
+    def forward(ctx, points, idx, weight, impl):
+        ctx.save_for_backward(points, idx, weight)
+        if resolve_impl(impl, points) == "cuda":
+            return _interp_mm_cuda(points, idx, weight)
+        return three_interpolate(points, idx, weight)
+
+    @staticmethod
+    def backward(ctx, g):
+        points, idx, weight = ctx.saved_tensors
+        b, n, _ = idx.shape
+        m, c = points.shape[1:]
+        contrib = (weight[..., None] * g[..., None, :]).reshape(b * n * 3, c)
+        offs = torch.arange(b, device=idx.device)[:, None, None] * m
+        flat = (idx.long() + offs).reshape(-1)
+        dpoints = torch.zeros((b * m, c), dtype=g.dtype, device=g.device)
+        dpoints.index_add_(0, flat, contrib)
+        dweight = (group_point(points, idx) * g[..., None, :]).sum(-1)
+        return dpoints.reshape(b, m, c).to(points.dtype), None, dweight.to(weight.dtype), None
+
+
+def three_interpolate_mm(points, idx, weight, *, impl: str = "auto") -> torch.Tensor:
+    """:func:`three_interpolate` on the FP modules' kernel path: the CUDA
+    kernel sums in neighbor order, bitwise the plain version, where the
+    TPU's sparse-matmul kernel sums in source order (within 1-2 ulp). The
+    JAX package falls back to the exact form above the TPU kernel's 8 MB
+    source block; here every size launches the kernel, with the same
+    result. ``idx`` must lie in ``[0, M)``. Differentiable in ``points``
+    and ``weight``."""
+    return _InterpolateMM.apply(points, idx, weight, impl)

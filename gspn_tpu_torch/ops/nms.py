@@ -3,7 +3,8 @@
 Counterpart of ``gspn_tpu/ops/nms.py``'s default path: a stable descending
 score sort, one IoU matrix, then Jacobi fixpoint suppression. Boxes are
 ``[xmin, ymin, zmin, xmax, ymax, zmax]``. The TPU's sequential suppression
-kernel (``_nms_kernel``) is a cross-check there and is not ported.
+kernel (``_nms_kernel``) is a cross-check there and is not ported yet
+(ROADMAP queue 2).
 """
 
 from __future__ import annotations

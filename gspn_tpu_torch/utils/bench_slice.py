@@ -1,6 +1,7 @@
 """The inference slice as ``chip_smoke.py`` and ``profile_slice`` drive it:
-its config, seeded model and the bench's two request shapes, set up in one
-place so both measure the same program."""
+its config and the variants of it, the seeded model, the plain-path model
+and the bench's two request shapes, set up in one place so both measure
+the same program."""
 
 from __future__ import annotations
 
@@ -26,16 +27,55 @@ SHAPES = {
 
 
 def slice_config() -> PipelineConfig:
-    """``scannet_pipeline()`` with ``mask_project="3nn"``.
+    """``scannet_pipeline()`` as the JAX package ships it (1-NN masks, FP
+    interpolation "auto"), with only the two thresholds moved.
 
     Random weights put every score below the preset's 0.05 (fg probability
-    ~1/18 x objectness ~0.5) and every mask logit just below 0 (about
-    -0.035 +- 0.011 for the seeded model), which would leave every mask
-    empty and a comparison of outputs blind to the mask projection: keep
-    all NMS survivors and threshold the masks where those logits fall."""
+    ~1/18 x objectness ~0.5) and every mask logit just below 0, which would
+    leave every mask empty and a comparison of outputs blind to the mask
+    projection: keep all NMS survivors and threshold the masks where those
+    logits fall (``mask_thresh=0.49`` is a logit of -0.04)."""
+    return dataclasses.replace(scannet_pipeline(), score_thresh=0.0, mask_thresh=0.49)
+
+
+def variant_config(name: str) -> PipelineConfig:
+    """:func:`slice_config` with one knob of the JAX package set: "prune"
+    (``mask_project_prune="auto"``), "grid" (``roi_sample="grid"``) or
+    "3nn" (``mask_project="3nn"``). All take the same weights."""
+    cfg = slice_config()
+    if name == "prune":
+        return dataclasses.replace(cfg, mask_project_prune="auto")
+    if name == "grid":
+        grid = dataclasses.replace(cfg.rpointnet, roi_sample="grid")
+        return dataclasses.replace(cfg, rpointnet=grid)
+    if name == "3nn":
+        return dataclasses.replace(cfg, mask_project="3nn")
+    raise ValueError(f"variant must be prune|grid|3nn, got {name!r}")
+
+
+def plain_config(cfg: PipelineConfig) -> PipelineConfig:
+    """``cfg`` with both stages on the plain PyTorch ops."""
     return dataclasses.replace(
-        scannet_pipeline(), mask_project="3nn", score_thresh=0.0, mask_thresh=0.49
+        cfg,
+        gspn=dataclasses.replace(cfg.gspn, ops_impl="plain"),
+        rpointnet=dataclasses.replace(cfg.rpointnet, ops_impl="plain"),
     )
+
+
+def rebuilt_model(cfg: PipelineConfig, model: PipelineModel) -> PipelineModel:
+    """A model built from ``cfg`` with ``model``'s weights, on its device, in
+    eval mode (modules keep the ``ops_impl`` of the config they were built
+    from, so each config needs its own model)."""
+    out = PipelineModel(cfg)
+    out.load_state_dict(model.state_dict())
+    return out.to(next(model.parameters()).device).eval()
+
+
+def plain_model(cfg: PipelineConfig, model: PipelineModel) -> tuple[PipelineConfig, PipelineModel]:
+    """``(plain_config(cfg), model rebuilt from it with model's weights)``:
+    the plain path, which launches no kernel."""
+    pcfg = plain_config(cfg)
+    return pcfg, rebuilt_model(pcfg, model)
 
 
 def seeded_model(cfg: PipelineConfig, device) -> PipelineModel:

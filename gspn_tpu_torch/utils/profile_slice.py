@@ -3,14 +3,15 @@
 
     python3 -m gspn_tpu_torch.utils.profile_slice [--out DIR]
 
-Runs the slice of ``chip_smoke.py`` (``utils.bench_slice``: seeded weights,
-the bench's scenes) at B=8 x N=8192 and B=1 x N=65536 under
-``torch.profiler``, ``ITERS`` requests after a warm-up, and prints per
-shape: wall ms per request, device busy ms (the union of kernel intervals
-on the timeline) and the idle share, the device time of the hand-written
-kernels, and the top device kernels by time. Writes a Chrome trace per
-shape to ``--out`` (default ``runs/profile``, gitignored). Needs a CUDA
-device.
+Runs slices (A) and (B) of ``chip_smoke.py`` (``utils.bench_slice.
+slice_config``: ``scannet_pipeline()`` with the thresholds moved, and its
+"prune" variant; seeded weights, the bench's scenes) at B=8 x N=8192 and
+B=1 x N=65536 under ``torch.profiler``, ``ITERS`` requests after a
+warm-up, and prints per slice and shape: wall ms per request, device busy
+ms (the union of kernel intervals on the timeline) and the idle share, the
+device time and launches per request of each hand-written kernel, and the
+top device kernels by time. Writes a Chrome trace per slice and shape to
+``--out`` (default ``runs/profile``, gitignored). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -25,7 +26,10 @@ import torch
 from gspn_tpu_torch.models.pipeline import make_inference_fn
 from gspn_tpu_torch.utils import bench_slice
 
-HAND_WRITTEN = ("fps_kernel", "group_scan_kernel", "three_nn_kernel")
+HAND_WRITTEN = (  # symbols in the profiler's demangled device events
+    "fps_kernel", "group_scan_kernel<false>", "group_scan_kernel<true>", "three_nn_kernel",
+    "interp_mm_kernel", "mask_project_kernel<false>", "mask_project_kernel<true>",
+)
 ITERS = 5
 
 
@@ -65,15 +69,22 @@ def profile(label, infer, model, xyz, valid, eps, out_dir):
         d = by_name.setdefault(e.name, [0.0, 0])
         d[0] += (e.time_range.end - e.time_range.start) / 1e3 / ITERS
         d[1] += 1
-    hand = sum(v[0] for k, v in by_name.items() if any(h in k for h in HAND_WRITTEN))
+    hand_written = {h: [0.0, 0] for h in HAND_WRITTEN}
+    for k, (ms, count) in by_name.items():
+        for h in HAND_WRITTEN:
+            if h in k:
+                hand_written[h][0] += ms
+                hand_written[h][1] += count / ITERS
+    hand = sum(v[0] for v in hand_written.values())
     total = sum(v[0] for v in by_name.values())
     out_dir.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(out_dir / f"trace_{label}.json"))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     print(json.dumps({
-        "shape": label, "wall_ms_per_request": wall_ms, "device_busy_ms": busy_ms,
+        "run": label, "wall_ms_per_request": wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms, "kernel_sum_ms": total,
         "hand_written_kernel_ms": hand, "launches_per_request": len(kernels) / ITERS,
+        "hand_written": {h: v for h, v in hand_written.items() if v[1]},
         "top": [[k[:90], round(v[0], 4), v[1] // ITERS] for k, v in top],
     }))
 
@@ -88,10 +99,11 @@ def main() -> None:
     bench_slice.float32_matmuls()
     cfg = bench_slice.slice_config()
     model = bench_slice.seeded_model(cfg, dev)
-    infer = make_inference_fn(cfg)
-    for seed, label in enumerate(bench_slice.SHAPES, start=1):
-        xyz, valid, eps = bench_slice.request(cfg, label, dev, seed)
-        profile(label, infer, model, xyz, valid, eps, pathlib.Path(args.out))
+    for name, scfg in (("A", cfg), ("B", bench_slice.variant_config("prune"))):
+        infer = make_inference_fn(scfg)
+        for seed, shape in enumerate(bench_slice.SHAPES, start=1):
+            xyz, valid, eps = bench_slice.request(scfg, shape, dev, seed)
+            profile(f"{name}_{shape}", infer, model, xyz, valid, eps, pathlib.Path(args.out))
 
 
 if __name__ == "__main__":

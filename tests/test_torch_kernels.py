@@ -16,6 +16,7 @@ from gspn_tpu_torch import ops
 from gspn_tpu_torch.data import synthetic
 from gspn_tpu_torch.ops import fps as tfps
 from gspn_tpu_torch.ops import interpolate as tinterp
+from gspn_tpu_torch.ops import mask_project as tmask
 
 pytestmark = pytest.mark.cuda
 
@@ -97,7 +98,10 @@ def test_box_group_kernel(dev, b, n, r, s, masked):
 
 
 @pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("b,n,m", [(8, 8192, 1024), (512, 8192, 64), (2, 100, 3)])
+@pytest.mark.parametrize(
+    "b,n,m",
+    [(8, 8192, 1024), (512, 8192, 64), (2, 100, 3), (8, 4096, 8192), (1, 4096, 65536)],
+)
 def test_three_nn_kernel(dev, b, n, m, masked):
     gen = torch.Generator().manual_seed(3)
     tgt = (torch.rand((b, n, 3), generator=gen) * 4).to(dev)
@@ -112,3 +116,80 @@ def test_three_nn_kernel(dev, b, n, m, masked):
     assert tinterp.KERNEL.launches == before + 1
     for a, w in zip(got, want, strict=True):
         _equal(a, w)
+
+
+@pytest.mark.parametrize(
+    "b,n,m,c",
+    [(8, 8192, 1024, 128), (8, 64, 16, 512), (1, 65536, 1024, 128), (2, 100, 5, 7),
+     (1, 4096, 2100, 1000)],  # the last above the TPU kernel's 8 MB source block
+)
+def test_interp_mm_kernel(dev, b, n, m, c):
+    gen = torch.Generator().manual_seed(4)
+    pts = torch.randn((b, m, c), generator=gen).to(dev)
+    idx = torch.randint(0, m, (b, n, 3), generator=gen, dtype=torch.int32)
+    idx[:, ::7, 1] = idx[:, ::7, 0]  # repeated sources
+    idx[:, ::11, 2] = idx[:, ::11, 0]
+    idx[:, ::13, :] = idx[:, ::13, :1]
+    w = torch.rand((b, n, 3), generator=gen).to(dev)
+    idx = idx.to(dev)
+    before = tinterp.MM_KERNEL.launches
+    got = ops.three_interpolate_mm(pts, idx, w, impl="cuda")
+    want = ops.three_interpolate_mm(pts, idx, w, impl="plain")
+    torch.cuda.synchronize()
+    assert tinterp.MM_KERNEL.launches == before + 1
+    _equal(got, want)
+    _equal(got, ops.three_interpolate(pts, idx, w))
+
+
+def _projection(dev, b, n, r, s, seed=5):
+    """Scenes, RoI samples about scene points on a 1 cm grid (equal
+    distances), duplicated sample coordinates with other logits, boxes."""
+    xyz, valid = _scenes(dev, b, n, seed=seed)
+    xyz = torch.round(xyz * 100) / 100
+    gen = torch.Generator().manual_seed(seed)
+    pick = torch.randint(0, n, (b, r, s), generator=gen).to(dev)
+    samp = torch.gather(xyz, 1, pick.reshape(b, r * s, 1).expand(-1, -1, 3)).reshape(b, r, s, 3)
+    samp[:, :, 1] = samp[:, :, 0]
+    logits = torch.randn((b, r, s), generator=gen).to(dev)
+    svalid = (torch.rand((b, r, s), generator=gen) > 0.2).to(dev)
+    svalid[:, 0] = False  # a RoI with no valid sample
+    half = (torch.rand((b, r, 3), generator=gen) * 0.5 + 0.1).to(dev)
+    boxes = torch.cat([samp[:, :, 0] - half, samp[:, :, 0] + half], dim=-1)
+    return xyz, valid, samp, logits, svalid, boxes
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("b,n,r,s", [(8, 8192, 64, 64), (1, 65536, 64, 64), (2, 300, 5, 70)])
+def test_mask_project_kernel(dev, b, n, r, s, masked):
+    xyz, _, samp, logits, svalid, _ = _projection(dev, b, n, r, s)
+    v = svalid if masked else None
+    before = tmask.KERNEL.launches
+    got = ops.nearest_sample_logit(xyz, samp, logits, v, impl="cuda")
+    want = ops.nearest_sample_logit(xyz, samp, logits, v, impl="plain")
+    torch.cuda.synchronize()
+    assert tmask.KERNEL.launches == before + 1
+    _equal(got, want)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize(
+    "b,n,r,s,tiling",
+    [(8, 8192, 64, 64, {}), (1, 65536, 64, 64, {}), (2, 300, 13, 6, dict(roi_block=8, tile_n=128))],
+)
+def test_mask_project_boxed_kernel(dev, b, n, r, s, tiling, masked):
+    """On the Morton-sorted scenes, as the pipeline calls it: bitwise the
+    plain version everywhere, the fill included, and the dense logit at
+    every valid point inside a box."""
+    xyz, valid, samp, logits, svalid, boxes = _projection(dev, b, n, r, s)
+    sxyz, svld, _ = ops.spatial_sorted_view(xyz, valid if masked else None)
+    v = svalid if masked else None
+    before = tmask.BOXED_KERNEL.launches
+    got = ops.nearest_sample_logit_boxed(sxyz, samp, logits, boxes, v, svld, impl="cuda", **tiling)
+    want = ops.nearest_sample_logit_boxed(sxyz, samp, logits, boxes, v, svld, impl="plain",
+                                          **tiling)
+    torch.cuda.synchronize()
+    assert tmask.BOXED_KERNEL.launches == before + 1
+    _equal(got, want)
+    dense = ops.nearest_sample_logit(sxyz, samp, logits, v, impl="plain")
+    inside = ops.box_contains(boxes, sxyz, svld)
+    _equal(got[inside], dense[inside])

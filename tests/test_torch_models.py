@@ -1,7 +1,10 @@
 """The port's GSPN and R-PointNet (``gspn_tpu_torch.models``) against the JAX
 package's, at the TINY pipeline's widths, with randomized Flax variables
 carried across by ``gspn_tpu_torch.convert`` and the same CVAE noise.
-Floats at ``rtol=1e-4, atol=1e-5``; indices and validity equal."""
+Floats at ``rtol=1e-4, atol=1e-5`` (grid RoI points bitwise, their
+interpolated features at 1e-6); indices and validity equal."""
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -120,5 +123,53 @@ def test_rpointnet_inference(rng, masked, shared_fps):
                    sa1_fps_idx=None if fps is None else t(fps))
     for f in ("roi_idx", "roi_valid", "roi_xyz"):
         np.testing.assert_array_equal(n(getattr(to, f)), np.asarray(getattr(jo, f)))
+    for f in ("cls_logits", "box_deltas", "mask_logits"):
+        np.testing.assert_allclose(n(getattr(to, f)), np.asarray(getattr(jo, f)), **TOL)
+
+
+def test_grid_factors():
+    for s in (1, 6, 8, 16, 27, 30, 64, 100):
+        assert tr._grid_factors(s) == jr._grid_factors(s)
+
+
+@pytest.mark.parametrize("s", [8, 27, 64])
+def test_roi_grid_points(rng, s):
+    xyz, _ = _scene(rng)
+    boxes = _boxes(rng, xyz, 7)
+    boxes[:, 1, 3:] = boxes[:, 1, :3]  # a degenerate box: extent clamped to 1e-6
+    world, canon = tr.roi_grid_points(t(boxes), s)
+    jw, jc = jr.roi_grid_points(jnp.asarray(boxes), s)
+    np.testing.assert_array_equal(n(world), np.asarray(jw))
+    np.testing.assert_array_equal(n(canon), np.asarray(jc))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_interpolate_roi_features(rng, masked):
+    xyz, valid = _scene(rng)
+    feat = rng.standard_normal((2, 128, 5)).astype(np.float32)
+    world = rng.uniform(0, 2, (2, 6, 8, 3)).astype(np.float32)
+    vm = valid if masked else None
+    got, gidx = tr.interpolate_roi_features(t(xyz), t(feat), t(world), t(valid) if masked else None)
+    want, widx = jr.interpolate_roi_features(
+        jnp.asarray(xyz), jnp.asarray(feat), jnp.asarray(world), vm, impl="xla")
+    np.testing.assert_array_equal(n(gidx), np.asarray(widx))
+    np.testing.assert_allclose(n(got), np.asarray(want), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_rpointnet_grid_inference(rng, masked):
+    xyz, valid = _scene(rng)
+    boxes = _boxes(rng, xyz, 12)
+    vm = valid if masked else None
+    cfg = dataclasses.replace(TINY.rpointnet, roi_sample="grid")
+    jm = jr.RPointNet(cfg)
+    v = randomized(jm.init(jax.random.PRNGKey(0), jnp.asarray(xyz), jnp.asarray(boxes)), 9)
+    jo = jm.apply(v, jnp.asarray(xyz), jnp.asarray(boxes), valid=vm)
+    tm = tr.RPointNet(rpointnet_config(cfg))
+    tm.load_state_dict(flax_to_state_dict(as_numpy_tree(v)))
+    to = tm.eval()(t(xyz), t(boxes), t(valid) if masked else None)
+    for f in ("roi_idx", "roi_valid", "roi_xyz"):
+        np.testing.assert_array_equal(n(getattr(to, f)), np.asarray(getattr(jo, f)))
+    assert not n(to.roi_valid).all()  # the empty RoI
     for f in ("cls_logits", "box_deltas", "mask_logits"):
         np.testing.assert_allclose(n(getattr(to, f)), np.asarray(getattr(jo, f)), **TOL)

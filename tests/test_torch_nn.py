@@ -117,6 +117,33 @@ def test_fp_module_exact(rng, masked, with_skip):
     np.testing.assert_allclose(n(got), want, **TOL)
 
 
+@pytest.mark.parametrize("interp", ["mm", "auto"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_fp_module_interp(rng, masked, interp):
+    """``interp="mm"`` against the JAX module's "mm" (the TPU kernel in
+    interpret mode); "auto" on a CPU tensor is the exact interpolation, as
+    the JAX "auto" is off the Pallas path."""
+    xyz1, valid1 = _cloud(rng, 2, 96)
+    xyz2, valid2 = _cloud(rng, 2, 24, pad=0.3)
+    p1 = rng.normal(size=(2, 96, 4)).astype(np.float32)
+    p2 = rng.normal(size=(2, 24, 6)).astype(np.float32)
+    v1, v2 = (valid1, valid2) if masked else (None, None)
+    jm = jp.PointNetFPModule((16, 8), ops_impl="xla", interp="mm" if interp == "mm" else "exact")
+    args = (jnp.asarray(xyz1), jnp.asarray(xyz2), jnp.asarray(p1), jnp.asarray(p2), v1, v2)
+    v = randomized(jm.init(jax.random.PRNGKey(0), *args), 7)
+    want = np.asarray(jm.apply(v, *args))
+    tm = _port(tpn.PointNetFPModule(10, (16, 8), interp=interp), v)
+    targs = (t(xyz1), t(xyz2), t(p1), t(p2), None if v1 is None else t(v1),
+             None if v2 is None else t(v2))
+    got = n(tm(*targs))
+    np.testing.assert_allclose(got, want, **TOL)
+    if interp == "auto":
+        tm.interp = "exact"
+        np.testing.assert_array_equal(got, n(tm(*targs)))
+    with pytest.raises(ValueError, match="interp"):
+        tpn.PointNetFPModule(10, (16, 8), interp="fast")
+
+
 def test_convert_rejects_unknown_leaves():
     with pytest.raises(ValueError, match="unknown Flax leaf"):
         flax_to_state_dict({"params": {"dense_0": {"gamma": np.zeros(3)}}})

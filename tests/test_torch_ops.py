@@ -1,16 +1,23 @@
 """The PyTorch port's point ops (``gspn_tpu_torch.ops``, plain versions on
-the CPU) against the JAX package's ops (``impl="xla"``) and the NumPy
-oracles, on the same NumPy inputs. Integer outputs must be equal and
-coordinates / distances bitwise equal. Coordinates are often snapped to a
-coarse grid so that equal distances (ties) actually occur."""
+the CPU) against the JAX package's ops (``impl="xla"``, and the Pallas
+kernels in interpret mode where the port has their counterpart) and the
+NumPy oracles, on the same NumPy inputs. Integer outputs must be equal and
+coordinates / distances bitwise equal, but for ``three_interpolate_mm``,
+which sums in neighbor order where the JAX package's matmul kernel sums in
+source order: 2e-6, the JAX package's own bound. Coordinates are often
+snapped to a coarse grid so that equal distances (ties) actually occur."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from gspn_tpu import ops as jops
+from gspn_tpu.ops import interpolate as jinterp
+from gspn_tpu.ops import mask_project as jmask
 from gspn_tpu_torch import ops
+from gspn_tpu_torch.ops import interpolate as tinterp
 from tests import oracles
 from tests.torch_parity import n, t
 
@@ -156,6 +163,31 @@ def test_three_nn(rng, masked):
     np.testing.assert_array_equal(n(idx), oi)
 
 
+@pytest.mark.parametrize("chunked", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+def test_three_nn_beyond_2048_sources(rng, monkeypatch, masked, chunked):
+    """M = 2304 is the TPU's tiled-M kernel (``_three_nn_tiled_kernel``):
+    indices equal to it; distances bitwise equal to the XLA path and the
+    oracle, and within 1e-6 of the kernel, which XLA's CPU interpret mode
+    compiles with contracted multiply-adds. ``chunked``: the plain version
+    over chunks of targets gives the same bits."""
+    tgt, _ = _cloud(rng, 2, 40)
+    src, svalid = _cloud(rng, 2, 2304, grid=True, pad=0.3)
+    if chunked:
+        monkeypatch.setattr(tinterp, "_PLAIN_PAIRS", 2 * 2304 * 7)  # 7 targets a chunk
+    dist, idx = ops.three_nn(t(tgt), t(src), _tv(svalid, masked))
+    args = (jnp.asarray(tgt), jnp.asarray(src), _mask(svalid, masked))
+    pd, pi = jops.three_nn(*args, impl="pallas")
+    xd, xi = jops.three_nn(*args, impl="xla")
+    np.testing.assert_array_equal(n(idx), np.asarray(pi))
+    np.testing.assert_array_equal(n(idx), np.asarray(xi))
+    np.testing.assert_array_equal(n(dist), np.asarray(xd))
+    np.testing.assert_allclose(n(dist), np.asarray(pd), rtol=1e-6)
+    od, oi = oracles.three_nn_oracle(tgt, src, _mask(svalid, masked))
+    np.testing.assert_array_equal(n(dist), od)
+    np.testing.assert_array_equal(n(idx), oi)
+
+
 def test_three_nn_fewer_than_three_valid_sources(rng):
     tgt, _ = _cloud(rng, 1, 16)
     src, _ = _cloud(rng, 1, 6)
@@ -179,6 +211,136 @@ def test_three_interpolate(rng):
         n(ops.three_interpolate(t(pts), t(idx), w)),
         np.asarray(jops.three_interpolate(jnp.asarray(pts), jnp.asarray(idx), jw)),
     )
+
+
+def _interp_case(rng, b, m, nt, c):
+    pts = rng.standard_normal((b, m, c)).astype(np.float32)
+    xyz1 = rng.uniform(0, 2, (b, nt, 3)).astype(np.float32)
+    xyz2 = rng.uniform(0, 2, (b, m, 3)).astype(np.float32)
+    dist, idx = jops.three_nn(jnp.asarray(xyz1), jnp.asarray(xyz2), impl="xla")
+    return pts, np.asarray(idx), np.asarray(jops.three_interpolate_weights(dist))
+
+
+@pytest.mark.parametrize("shape", [(2, 150, 200, 40), (1, jinterp._IMC + 300, 64, 8)],
+                         ids=["small", "chunked_sources"])
+def test_three_interpolate_mm_matches_jax(rng, shape):
+    """Values within 2e-6 of JAX ``three_interpolate_mm`` (the TPU kernel in
+    interpret mode), gradients within rtol 2e-5 / atol 2e-6."""
+    pts, idx, w = _interp_case(rng, *shape)
+    want = jops.three_interpolate_mm(jnp.asarray(pts), jnp.asarray(idx), jnp.asarray(w))
+    got = ops.three_interpolate_mm(t(pts), t(idx), t(w))
+    np.testing.assert_allclose(n(got), np.asarray(want), rtol=2e-6, atol=2e-6)
+
+    def loss(p, ww):
+        return jnp.sum(jnp.sin(jops.three_interpolate_mm(p, jnp.asarray(idx), ww)))
+
+    jg = jax.grad(loss, argnums=(0, 1))(jnp.asarray(pts), jnp.asarray(w))
+    tp = t(pts).requires_grad_(True)
+    tw = t(w).requires_grad_(True)
+    torch.sin(ops.three_interpolate_mm(tp, t(idx), tw)).sum().backward()
+    for g, want_g in zip((tp.grad, tw.grad), jg, strict=True):
+        np.testing.assert_allclose(n(g), np.asarray(want_g), rtol=2e-5, atol=2e-6)
+
+
+def _interp_oracle(pts, idx, w):
+    """Neighbor-ordered sum in NumPy float32: ``(p_0 w_0 + p_1 w_1) + p_2 w_2``."""
+    g = np.take_along_axis(pts[:, None], idx[..., None].astype(np.int64), axis=2)  # (B,N,3,C)
+    terms = (g * w[..., None]).astype(np.float32)
+    return ((terms[:, :, 0] + terms[:, :, 1]) + terms[:, :, 2]).astype(np.float32)
+
+
+def test_three_interpolate_mm_neighbor_order_and_repeats(rng):
+    """The plain version is bitwise the neighbor-ordered sum and
+    :func:`three_interpolate`, with sources picked two and three times."""
+    pts = rng.standard_normal((2, 30, 6)).astype(np.float32)
+    idx = rng.integers(0, 30, (2, 50, 3)).astype(np.int32)
+    idx[:, :10, 1] = idx[:, :10, 0]  # a repeated source
+    idx[:, 10:15, 2] = idx[:, 10:15, 0]
+    idx[:, 15:20, 2] = idx[:, 15:20, 1]
+    idx[:, 20:25, :] = idx[:, 20:25, :1]  # one source three times
+    w = rng.uniform(0.01, 1, (2, 50, 3)).astype(np.float32)
+    got = n(ops.three_interpolate_mm(t(pts), t(idx), t(w)))
+    np.testing.assert_array_equal(got, _interp_oracle(pts, idx, w))
+    np.testing.assert_array_equal(got, n(ops.three_interpolate(t(pts), t(idx), t(w))))
+
+
+def test_three_interpolate_mm_large_source_block_equals_jax(rng):
+    """Above the TPU kernel's 8 MB source block the JAX package takes the
+    exact interpolation, which the port's neighbor-ordered sum equals."""
+    pts, idx, w = _interp_case(rng, 1, 2100, 16, 1000)
+    got = n(ops.three_interpolate_mm(t(pts), t(idx), t(w)))
+    want = jops.three_interpolate_mm(jnp.asarray(pts), jnp.asarray(idx), jnp.asarray(w))
+    np.testing.assert_array_equal(got, np.asarray(want))
+    np.testing.assert_array_equal(
+        np.asarray(want), np.asarray(jops.three_interpolate(jnp.asarray(pts), jnp.asarray(idx),
+                                                            jnp.asarray(w))))
+
+
+def _proj_case(rng, b=2, npts=300, r=10, s=6, masked=True):
+    """Points and samples on a coarse grid (equal distances), duplicate
+    sample coordinates with different logits (the tie rule), a RoI whose
+    samples are all invalid, and boxes about the first sample."""
+    xyz = (np.round(rng.standard_normal((b, npts, 3)) * 2) / 2).astype(np.float32)
+    samp = (np.round(rng.standard_normal((b, r, s, 3)) * 2) / 2).astype(np.float32)
+    samp[:, :, 1] = samp[:, :, 0]
+    logits = rng.standard_normal((b, r, s)).astype(np.float32)
+    svalid = rng.random((b, r, s)) > 0.3 if masked else np.ones((b, r, s), bool)
+    if masked:
+        svalid[:, 0] = False
+    pvalid = rng.random((b, npts)) > 0.15 if masked else np.ones((b, npts), bool)
+    half = rng.uniform(0.2, 1.0, (b, r, 3)).astype(np.float32)
+    boxes = np.concatenate([samp[:, :, 0] - half, samp[:, :, 0] + half], -1)
+    return xyz, samp, logits, svalid, pvalid, boxes
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_nearest_sample_logit(rng, impl, masked):
+    xyz, samp, logits, svalid, _, _ = _proj_case(rng, masked=masked)
+    got = n(ops.nearest_sample_logit(t(xyz), t(samp), t(logits), _tv(svalid, masked)))
+    want = jops.nearest_sample_logit(
+        jnp.asarray(xyz), jnp.asarray(samp), jnp.asarray(logits), _mask(svalid, masked),
+        impl=impl)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    if masked:
+        assert (got[:, 0] == -1e10).all()  # no valid sample
+
+
+@pytest.mark.parametrize("layout", ["random", "sorted"])
+@pytest.mark.parametrize(
+    "tiling", [dict(roi_block=8, tile_n=128), {}], ids=["rb8_tn128", "default"]
+)
+@pytest.mark.parametrize("masked", [False, True])
+def test_nearest_sample_logit_boxed(rng, masked, tiling, layout):
+    """Bitwise equal to the TPU's boxed kernel (interpret mode) everywhere,
+    the -1e10 fill included; equal to the dense projection inside the boxes."""
+    xyz, samp, logits, svalid, pvalid, boxes = _proj_case(rng, npts=512, r=12, masked=masked)
+    if layout == "sorted":  # x-sorted points and boxes at the low end: tiles prune
+        xyz[..., 0] = np.sort(xyz[..., 0], axis=1)
+        boxes[..., 0] = np.minimum(boxes[..., 0], -1.0)
+        boxes[..., 3] = np.minimum(boxes[..., 3], -0.5)
+    args = (xyz, samp, logits, boxes, svalid, pvalid)
+    got = n(ops.nearest_sample_logit_boxed(*(t(a) for a in args), **tiling))
+    want = np.asarray(jops.nearest_sample_logit_boxed(
+        *(jnp.asarray(a) for a in args), impl="pallas", **tiling))
+    np.testing.assert_array_equal(got, want)
+    dense = n(ops.nearest_sample_logit(t(xyz), t(samp), t(logits), t(svalid)))
+    inside = n(ops.box_contains(t(boxes), t(xyz), t(pvalid)))
+    assert inside.any()
+    np.testing.assert_array_equal(got[inside], dense[inside])
+    if layout == "sorted" and tiling:
+        assert (got == -1e10).any() and ((got == -1e10) != (dense == -1e10)).any()
+
+
+def test_tile_relevance_matches_jax(rng):
+    xyz, _, _, _, pvalid, boxes = _proj_case(rng, npts=500, r=13)
+    tn, npad, rb, rpad = ops.mask_project.boxed_layout(500, 13, 8, 128)
+    assert (tn, npad, rb, rpad) == (128, 512, 8, 16)
+    got = ops.tile_relevance(t(xyz), t(pvalid), t(boxes), tn, npad, rb, rpad)
+    want = jmask._tile_relevance(jnp.asarray(xyz), jnp.asarray(pvalid), jnp.asarray(boxes),
+                                 tn, npad, rb, rpad)
+    np.testing.assert_array_equal(n(got), np.asarray(want))
+    assert got.dtype == torch.int32
 
 
 def test_gather_and_group_point(rng):
@@ -229,8 +391,17 @@ def test_nms_3d_batched(rng, masked):
         lambda: ops.query_box_group(torch.zeros(1, 2, 6), 4, torch.zeros(1, 8, 3), impl="cuda"),
         lambda: ops.query_ball_group_multi(
             (0.1,), (4,), torch.zeros(1, 8, 3), torch.zeros(1, 2, 3), impl="cuda"),
+        lambda: ops.three_interpolate_mm(
+            torch.zeros(1, 4, 2), torch.zeros(1, 8, 3, dtype=torch.int32), torch.zeros(1, 8, 3),
+            impl="cuda"),
+        lambda: ops.nearest_sample_logit(
+            torch.zeros(1, 8, 3), torch.zeros(1, 2, 4, 3), torch.zeros(1, 2, 4), impl="cuda"),
+        lambda: ops.nearest_sample_logit_boxed(
+            torch.zeros(1, 8, 3), torch.zeros(1, 2, 4, 3), torch.zeros(1, 2, 4),
+            torch.zeros(1, 2, 6), impl="cuda"),
     ],
-    ids=["fps", "three_nn", "box_group", "ball_group"],
+    ids=["fps", "three_nn", "box_group", "ball_group", "interp_mm", "mask_project",
+         "mask_project_boxed"],
 )
 def test_cuda_impl_refuses_cpu_tensors(call):
     with pytest.raises(ValueError, match="CUDA tensor"):

@@ -1,14 +1,17 @@
 """The port's inference slice end to end (``gspn_tpu_torch.models.pipeline``)
-against the JAX package's ``make_inference_fn`` on the TINY pipeline with
-``mask_project="3nn"``, weights carried across by
-``gspn_tpu_torch.convert``, and the CVAE noise the JAX ``infer`` draws from
-``PRNGKey(1)``. Masks, valid and classes must be equal; scores and boxes
-within the fixtures' tolerances (``tests/test_fixtures.py``). Plus the
-package's boundaries: no JAX import, no kernel launch on the CPU, unported
-knobs raise, and the synthetic scenes equal the JAX package's."""
+against the JAX package's ``make_inference_fn`` on the TINY pipeline (its
+default ``mask_project="1nn"``, plus the box-pruned, grid-RoI and "3nn"
+variants), weights carried across by ``gspn_tpu_torch.convert``, and the
+CVAE noise the JAX ``infer`` draws from ``PRNGKey(1)``. Masks, valid and
+classes must be equal; scores and boxes within the fixtures' tolerances
+(``tests/test_fixtures.py``). Plus the package's boundaries: no JAX import,
+no kernel launch on the CPU, a model runs only its own config, unported
+knobs raise naming their ROADMAP entry, and the synthetic scenes equal the
+JAX package's."""
 
 import dataclasses
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -34,19 +37,28 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 TINY_3NN = dataclasses.replace(TINY, mask_project="3nn")
 
 
+def _spatial(cfg):
+    return set_pipeline_fps_segments(dataclasses.replace(cfg, num_seeds=16), 2, "spatial")
+
+
 def _cases():
     """Configs under test. ``mask_thresh`` sits inside the range of the mask
     logits the fixture's weights give (about -0.23..-0.04), so that masks
     hold points on both sides of the threshold and their comparison is not
     vacuous (at 0.5 every mask is empty, the frozen fixture's included)."""
+    tiny = dataclasses.replace(TINY, mask_thresh=0.47)
     return {
-        "exact_fps": dataclasses.replace(TINY_3NN, mask_thresh=0.47),
-        "spatial_fps": set_pipeline_fps_segments(
-            dataclasses.replace(TINY_3NN, num_seeds=16, mask_thresh=0.47), 2, "spatial"
-        ),
+        "exact_fps": tiny,
+        "spatial_fps": _spatial(tiny),
         "strided_fps": set_pipeline_fps_segments(
-            dataclasses.replace(TINY_3NN, num_seeds=16, mask_thresh=0.47), 2, "strided"
+            dataclasses.replace(tiny, num_seeds=16), 2, "strided"
         ),
+        "pruned_spatial": dataclasses.replace(_spatial(tiny), mask_project_prune="auto"),
+        "grid_roi": dataclasses.replace(  # grid samples' logits lie lower
+            tiny, mask_thresh=0.455,
+            rpointnet=dataclasses.replace(tiny.rpointnet, roi_sample="grid"),
+        ),
+        "exact_fps_3nn": dataclasses.replace(TINY_3NN, mask_thresh=0.47),
     }
 
 
@@ -68,7 +80,10 @@ def _port_model(cfg, variables):
     return model.eval()
 
 
-@pytest.mark.parametrize("case", ["exact_fps", "spatial_fps", "strided_fps"])
+@pytest.mark.parametrize(
+    "case",
+    ["exact_fps", "spatial_fps", "strided_fps", "pruned_spatial", "grid_roi", "exact_fps_3nn"],
+)
 def test_slice_matches_jax_make_inference_fn(case):
     jcfg = _cases()[case]
     xyz, valid, variables = _inputs(case)
@@ -98,13 +113,34 @@ def test_slice_matches_jax_make_inference_fn(case):
 
 def test_cpu_calls_launch_no_kernel():
     z = _load("instance_inference.npz")
-    cfg = pipeline_config(TINY_3NN)
+    ops.reset_launch_counts()
+    for case in ("spatial_fps", "pruned_spatial", "grid_roi", "exact_fps_3nn"):
+        cfg = pipeline_config(_cases()[case])
+        model = _port_model(cfg, _base_pipeline_variables(z))
+        out = tpl.make_inference_fn(cfg)(
+            model, t(z["in/xyz"]), t(z["in/valid"]), generator=torch.Generator().manual_seed(0)
+        )
+        assert out.masks.shape == (2, cfg.num_seeds, 128)
+    assert set(ops.launch_counts()) == set(ops.KERNELS) and len(ops.KERNELS) == 7
+    assert all(c == 0 for c in ops.launch_counts().values()), ops.launch_counts()
+
+
+def test_infer_refuses_a_model_built_from_another_config():
+    """The plain path must be plain: a model keeps the ``ops_impl`` it was
+    built with, so running it under another config's ``infer`` raises."""
+    z = _load("instance_inference.npz")
+    cfg = pipeline_config(TINY)
     model = _port_model(cfg, _base_pipeline_variables(z))
-    out = tpl.make_inference_fn(cfg)(
-        model, t(z["in/xyz"]), t(z["in/valid"]), generator=torch.Generator().manual_seed(0)
-    )
-    assert out.masks.shape == (2, TINY.num_seeds, 128)
-    assert ops.launch_counts() == {"fps": 0, "ball_group": 0, "box_group": 0, "three_nn": 0}
+    pcfg = bench_slice.plain_config(cfg)
+    with pytest.raises(ValueError, match="other stage configs"):
+        tpl.make_inference_fn(pcfg)(model, t(z["in/xyz"]), t(z["in/valid"]),
+                                    generator=torch.Generator().manual_seed(0))
+    _, pmodel = bench_slice.plain_model(pcfg, model)
+    assert pmodel.rpointnet.config == pcfg.rpointnet and pmodel.gspn.config == pcfg.gspn
+    assert pmodel.rpointnet.backbone.sa1.ops_impl == "plain"
+    out = tpl.make_inference_fn(pcfg)(pmodel, t(z["in/xyz"]), t(z["in/valid"]),
+                                      generator=torch.Generator().manual_seed(0))
+    assert out.masks.shape == (2, cfg.num_seeds, 128)
 
 
 def test_package_imports_no_jax():
@@ -124,30 +160,26 @@ def test_package_imports_no_jax():
     assert int(res.stdout.split()[-1]) >= 15  # every module was imported
 
 
-@pytest.mark.parametrize(
-    "knob",
-    [
-        {"mask_project": "1nn"},
-        {"mask_project_prune": "auto"},
-        {"sa1_fps_segments": 8},
-        {"group_select": "strided"},
-        {"roi_sample": "grid"},
-        {"dtype": torch.bfloat16},
-        {"feature_dim": 3},
-    ],
-    ids=lambda k: next(iter(k)),
-)
-def test_unported_knobs_raise(knob):
-    cfg = pipeline_config(TINY_3NN)
+_UNPORTED_KNOBS = [
+    {"sa1_fps_segments": 8},
+    {"group_select": "strided"},
+    {"dtype": torch.bfloat16},
+    {"feature_dim": 3},
+]
+
+
+def _knobbed(knob):
+    cfg = pipeline_config(TINY)
     (key, value), = knob.items()
     if key in ("group_select", "dtype", "feature_dim"):
-        cfg = dataclasses.replace(cfg, gspn=dataclasses.replace(cfg.gspn, **knob))
-    elif key == "roi_sample":
-        cfg = dataclasses.replace(cfg, rpointnet=dataclasses.replace(cfg.rpointnet, **knob))
-    else:
-        cfg = dataclasses.replace(cfg, **knob)
+        return dataclasses.replace(cfg, gspn=dataclasses.replace(cfg.gspn, **knob))
+    return dataclasses.replace(cfg, **knob)
+
+
+@pytest.mark.parametrize("knob", _UNPORTED_KNOBS, ids=lambda k: next(iter(k)))
+def test_unported_knobs_raise(knob):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tpl.make_inference_fn(cfg)
+        tpl.make_inference_fn(_knobbed(knob))
 
 
 def test_unported_ops_raise():
@@ -155,11 +187,56 @@ def test_unported_ops_raise():
         ops.query_ball_group_multi(
             (0.1,), (4,), torch.zeros(1, 8, 3), torch.zeros(1, 2, 3), select="strided"
         )
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tpl.project_roi_masks(
-            torch.zeros(1, 8, 3), torch.zeros(1, 2, 6), torch.zeros(1, 2, 4, 3),
-            torch.zeros(1, 2, 4), 0.5, mode="1nn",
+
+
+def test_not_ported_messages_quote_roadmap_titles():
+    """Each not-ported message names its ROADMAP.md entry by a title that is
+    in ROADMAP.md (numbers move when the queues are renumbered)."""
+    messages = []
+    for knob in _UNPORTED_KNOBS:
+        with pytest.raises(NotImplementedError) as err:
+            tpl.make_inference_fn(_knobbed(knob))
+        messages.append(str(err.value))
+    with pytest.raises(NotImplementedError) as err:
+        ops.query_ball_group_multi(
+            (0.1,), (4,), torch.zeros(1, 8, 3), torch.zeros(1, 2, 3), select="strided"
         )
+    messages.append(str(err.value))
+    roadmap = (REPO / "ROADMAP.md").read_text()
+    for msg in messages:
+        titles = re.findall(r'"([^"]+)"', msg.split("ROADMAP.md", 1)[1])
+        assert titles, msg
+        for title in titles:
+            assert title in roadmap, (title, msg)
+
+
+@pytest.mark.parametrize(
+    "knob", [{"mask_project": "2nn"}, {"mask_project_prune": "on"}], ids=lambda k: next(iter(k))
+)
+def test_unknown_knob_values_raise_value_error(knob):
+    with pytest.raises(ValueError, match="must be"):
+        tpl.make_inference_fn(dataclasses.replace(pipeline_config(TINY), **knob))
+
+
+def test_variants_take_the_same_weights():
+    """The prune, grid and 3nn configs need no new converter parameter: the
+    JAX variables of each variant have the slice's tree, and they load
+    strictly into the port's model of every variant."""
+    trees = {}
+    for name, jcfg in _cases().items():
+        jv = jax.eval_shape(
+            lambda c=jcfg: jpl.init_pipeline_variables(c, jax.random.PRNGKey(0), 64))
+        trees[name] = jax.tree_util.tree_map(lambda s: (s.shape, s.dtype), jv)
+        conv = convert.pipeline_state_dict(
+            jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32), jv))
+        tpl.PipelineModel(pipeline_config(jcfg)).load_state_dict(conv, strict=True)
+    assert all(tr == trees["exact_fps"] for tr in trees.values())
+    base = tpl.init_pipeline_variables(
+        bench_slice.slice_config(), torch.Generator().manual_seed(0), 1024)
+    for name in ("prune", "grid", "3nn"):
+        sd = tpl.init_pipeline_variables(
+            bench_slice.variant_config(name), torch.Generator().manual_seed(0), 1024)
+        assert sd.keys() == base.keys() and all(torch.equal(sd[k], base[k]) for k in sd)
 
 
 @pytest.mark.parametrize(
