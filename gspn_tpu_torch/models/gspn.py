@@ -52,13 +52,15 @@ class GSPNConfig:
 
 
 def check_stage_config(cfg) -> None:
-    """Raise for the knobs of a stage config that this port does not run."""
+    """Raise ``ValueError`` for a ``group_select`` no version takes and
+    ``NotImplementedError`` for the knobs of a stage config that this port
+    does not run yet."""
     if cfg.feature_dim > 0:
         raise not_ported("feature_dim>0 (per-point input features)", KNOB_PATHS)
     if cfg.dtype != torch.float32:
         raise not_ported(f"dtype={cfg.dtype} (bf16 compute)", KNOB_PATHS)
-    if cfg.group_select != "first":
-        raise not_ported(f"group_select={cfg.group_select!r}", KNOB_PATHS)
+    if cfg.group_select not in ("first", "strided"):
+        raise ValueError(f"group_select must be first|strided, got {cfg.group_select!r}")
 
 
 @dataclasses.dataclass

@@ -194,7 +194,9 @@ def make_inference_fn(cfg: PipelineConfig):
         gout = model.gspn(xyz, seed_idx, valid, z_eps=z_eps, generator=generator)
         boxes = proposal_boxes(gout.generated, cfg.rpointnet.box_margin, cfg.box_percentile)
         obj = torch.sigmoid(gout.objectness)
-        keep = ops.nms_3d_batched(boxes, obj, cfg.rpointnet.nms_iou)
+        keep = ops.nms_3d_batched(
+            boxes, obj, cfg.rpointnet.nms_iou, impl=cfg.rpointnet.ops_impl
+        )
 
         out = model.rpointnet(xyz, boxes, valid, sa1_fps_idx=sa1_idx)
         fg_prob = torch.softmax(out.cls_logits, dim=-1)[..., 1:]  # drop background

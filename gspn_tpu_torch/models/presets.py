@@ -3,11 +3,26 @@
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from gspn_tpu_torch.models.gspn import GSPNConfig
 from gspn_tpu_torch.models.pipeline import PipelineConfig
 from gspn_tpu_torch.models.rpointnet import RPointNetConfig
+
+
+def set_pipeline_group_select(cfg: PipelineConfig, select: str) -> PipelineConfig:
+    """Both stages' neighborhood K-selection: "first" (first K in input
+    order) or "strided" (a systematic sample of every hit, for spatially
+    sorted layouts where first-K collapses to one corner of the ball). It
+    applies to the GSPN context crops, the backbone's SA neighborhoods and
+    the in-box RoI sampling."""
+    return dataclasses.replace(
+        cfg,
+        gspn=dataclasses.replace(cfg.gspn, group_select=select),
+        rpointnet=dataclasses.replace(cfg.rpointnet, group_select=select),
+    )
 
 
 def scannet_pipeline(

@@ -31,8 +31,8 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
 SOURCES = (
-    "fps.cu", "ball_group.cu", "box_group.cu", "three_nn.cu", "interp_mm.cu",
-    "mask_project.cu",
+    "fps.cu", "ball_group.cu", "box_group.cu", "ball_query.cu", "three_nn.cu",
+    "interp_mm.cu", "mask_project.cu", "nms.cu",
 )
 HEADERS = ("common.cuh", "group_scan.cuh")
 NVCC_FLAGS = (
@@ -158,10 +158,34 @@ KERNELS: dict[str, CudaKernel] = {
             "gspn_tpu/ops/ball_group.py:83 _fused_kernel",
         ),
         CudaKernel(
+            "ball_group_strided", "ball_group.cu", "gspn_ball_group_strided",
+            # as ball_group
+            (_ptr, _ptr, _ptr, _int, _int, _int, _int, _ptr, _ptr, _ptr, _ptr, _ptr),
+            "gspn_tpu/ops/ball_group.py:318 _fused_kernel_strided",
+        ),
+        CudaKernel(
             "box_group", "box_group.cu", "gspn_box_group",
             # xyz1, valid1, boxes, b, n, r, s, idx, cnt, local
             (_ptr, _ptr, _ptr, _int, _int, _int, _int, _ptr, _ptr, _ptr),
             "gspn_tpu/ops/box_group.py:38 _box_kernel",
+        ),
+        CudaKernel(
+            "box_group_strided", "box_group.cu", "gspn_box_group_strided",
+            # as box_group
+            (_ptr, _ptr, _ptr, _int, _int, _int, _int, _ptr, _ptr, _ptr),
+            "gspn_tpu/ops/ball_group.py:318 _fused_kernel_strided (pred=\"box\")",
+        ),
+        CudaKernel(
+            "ball_query", "ball_query.cu", "gspn_ball_query",
+            # xyz1, valid1, xyz2, b, n, m, nscales, r2s, ks, idx[], cnt[]
+            (_ptr, _ptr, _ptr, _int, _int, _int, _int, _ptr, _ptr, _ptr, _ptr),
+            "gspn_tpu/ops/ball_query.py:117 _ball_query_multi_kernel",
+        ),
+        CudaKernel(
+            "ball_query_strided", "ball_query.cu", "gspn_ball_query_strided",
+            # as ball_query
+            (_ptr, _ptr, _ptr, _int, _int, _int, _int, _ptr, _ptr, _ptr, _ptr),
+            "gspn_tpu/ops/ball_query.py:117 _ball_query_multi_kernel (select=\"strided\")",
         ),
         CudaKernel(
             "three_nn", "three_nn.cu", "gspn_three_nn",
@@ -188,6 +212,12 @@ KERNELS: dict[str, CudaKernel] = {
             # relevance, roi_block, tile_n, relevance rows, relevance cols, out
             (_ptr, _ptr, _ptr, _ptr, _int, _int, _int, _int, _ptr, _int, _int, _int, _int, _ptr),
             "gspn_tpu/ops/mask_project.py:72 _mask_project_boxed_kernel",
+        ),
+        CudaKernel(
+            "nms", "nms.cu", "gspn_nms",
+            # iou, alive, b, r, thresh (f32), keep
+            (_ptr, _ptr, _int, _int, ctypes.c_float, _ptr),
+            "gspn_tpu/ops/nms.py:83 _nms_kernel",
         ),
     )
 }

@@ -1,17 +1,40 @@
-"""Ball query (fixed-radius neighborhood), plain first-K semantics.
+"""Ball query (fixed-radius neighborhood), first-K or strided selection.
 
-Counterpart of ``gspn_tpu/ops/ball_query.py`` (``_ball_query_xla`` and
-``_finalize``): for each query, the first ``nsample`` dataset points in
-input order with squared distance strictly below ``radius**2``; slots past
-the count repeat the first hit; an empty query gets index 0 and count 0.
-The CUDA route is the fused ball-group kernel (``ops/ball_group.py``).
+Counterpart of ``gspn_tpu/ops/ball_query.py``: for each query, the first
+``nsample`` dataset points in input order with squared distance strictly
+below ``radius**2`` (``select="first"``), or, once a query has ``total >
+nsample`` hits, those of rank ``floor(j * total / nsample)`` in the
+ascending hit list (``select="strided"``, a systematic sample that does
+not collapse to one corner of the ball on spatially sorted layouts); slots
+past the count repeat the first hit; an empty query gets index 0 and count
+0; the count is capped at ``nsample`` either way.
+
+``query_ball_point(_multi)`` take ``impl="auto|cuda|plain"``: the CUDA
+route is the index-only scan ``csrc/ball_query.cu``, one kernel per
+selection; the fused ball group (``ops/ball_group.py``) shares the scan and
+:func:`ball_scan_cuda`.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from gspn_tpu_torch.ops.common import f32_scalar, pairwise_sqdist
+from gspn_tpu_torch.ops import _cuda
+from gspn_tpu_torch.ops.common import f32_scalar, pairwise_sqdist, resolve_impl
+
+KERNEL = _cuda.KERNELS["ball_query"]
+STRIDED_KERNEL = _cuda.KERNELS["ball_query_strided"]
+MAX_SCALES = 4  # csrc/group_scan.cuh kMaxScales
+
+
+def check_select(select: str | None) -> str:
+    """``select`` normalized to "first" or "strided"; anything else raises
+    ``ValueError``, as the JAX package's ``_check_select`` does."""
+    if select is not None and select not in ("first", "strided"):
+        raise ValueError(f"select must be first|strided, got {select!r}")
+    return select or "first"
 
 
 def finalize(idx_asc: torch.Tensor, cnt: torch.Tensor, nsample: int):
@@ -34,7 +57,24 @@ def first_k_hits(hit: torch.Tensor, k: int) -> torch.Tensor:
     return torch.where(first >= n, torch.zeros_like(first), first)
 
 
-def ball_query_plain(radius: float, nsample: int, xyz1, xyz2, valid1=None):
+def strided_target_mask(hit: torch.Tensor, nsample: int) -> torch.Tensor:
+    """Refine a ``(..., N)`` hit mask to the ``select="strided"`` subset:
+    with ``total > nsample`` hits in a row, keep the hit of rank ``r`` when
+    ``j = ceil(r * nsample / total)`` satisfies ``j * total < r * nsample +
+    nsample`` and ``j < nsample`` (rank ``floor(j * total / nsample)`` for
+    some slot ``j``); rows with ``total <= nsample`` are unchanged. In int64,
+    so it equals the CUDA kernels' 64-bit arithmetic at every size and the
+    JAX package's int32 wherever that does not overflow."""
+    hit_i = hit.to(torch.int64)
+    total = hit_i.sum(dim=-1, keepdim=True)
+    rank = torch.cumsum(hit_i, dim=-1) - hit_i  # exclusive
+    j = (rank * nsample + total - 1) // torch.clamp(total, min=1)
+    target = (j * total < rank * nsample + nsample) & (j < nsample)
+    return hit & ((total <= nsample) | target)
+
+
+def ball_query_plain(radius: float, nsample: int, xyz1, xyz2, valid1=None,
+                     select: str = "first"):
     """``xyz1 (B,N,3)`` dataset, ``xyz2 (B,M,3)`` queries -> ``idx
     (B,M,nsample)`` int32, ``cnt (B,M)`` int32."""
     d2 = pairwise_sqdist(xyz2, xyz1)  # (B, M, N)
@@ -42,4 +82,79 @@ def ball_query_plain(radius: float, nsample: int, xyz1, xyz2, valid1=None):
     if valid1 is not None:
         hit = hit & valid1[:, None, :]
     cnt = torch.clamp(hit.sum(dim=-1), max=nsample)
+    if check_select(select) == "strided":
+        hit = strided_target_mask(hit, nsample)
     return finalize(first_k_hits(hit, nsample), cnt, nsample)
+
+
+def ball_scan_cuda(kernel, radii, nsamples, xyz1, xyz2, valid1, with_coords):
+    """Launch one of the warp-per-query ball scans of ``csrc/group_scan.cuh``
+    (``kernel``: ball_group(_strided) with coordinates, ball_query(_strided)
+    without). Returns per scale ``(idx (B,M,K) int32, cnt (B,M) int32[,
+    local (B,M,K,3) f32])``."""
+    b, n, _ = xyz1.shape
+    m = xyz2.shape[1]
+    s = len(radii)
+    if not 1 <= s <= MAX_SCALES or len(nsamples) != s:
+        raise ValueError(f"the ball scan takes 1..{MAX_SCALES} (radius, K) scales, got "
+                         f"{len(radii)} radii and {len(nsamples)} Ks")
+    xyz1 = xyz1.contiguous()
+    xyz2 = xyz2.contiguous()
+    _cuda.check_cuda_input("xyz1", xyz1, torch.float32, (b, n, 3))
+    _cuda.check_cuda_input("xyz2", xyz2, torch.float32, (b, m, 3))
+    v = None
+    if valid1 is not None:
+        v = valid1.to(torch.uint8).contiguous()
+        _cuda.check_cuda_input("valid1", v, torch.uint8, (b, n))
+    dev = xyz1.device
+    outs = [
+        (
+            torch.empty((b, m, k), dtype=torch.int32, device=dev),
+            torch.empty((b, m), dtype=torch.int32, device=dev),
+        ) + ((torch.empty((b, m, k, 3), dtype=torch.float32, device=dev),)
+             if with_coords else ())
+        for k in nsamples
+    ]
+    if b and m:
+        # r^2 in Python double, rounded once to f32 (as the JAX package does)
+        r2s = (ctypes.c_float * s)(*(float(r) * float(r) for r in radii))
+        ks = (ctypes.c_int * s)(*(int(k) for k in nsamples))
+        ptrs = [
+            (ctypes.c_void_p * s)(*(_cuda.ptr(o[i]) for o in outs))
+            for i in range(3 if with_coords else 2)
+        ]
+        kernel.launch(
+            dev, _cuda.ptr(xyz1), _cuda.ptr(v), _cuda.ptr(xyz2), b, n, m, s,
+            ctypes.addressof(r2s), ctypes.addressof(ks),
+            *(ctypes.addressof(p) for p in ptrs),
+        )
+    return outs
+
+
+def query_ball_point_multi(
+    radii, nsamples, xyz1, xyz2, valid1=None, *, impl: str = "auto", select=None
+):
+    """Concentric multi-radius ball query: per scale ``(idx (B,M,K_s)
+    int32, cnt (B,M) int32)``, each as :func:`query_ball_point`."""
+    select = check_select(select)
+    if resolve_impl(impl, xyz1) == "cuda":
+        kernel = STRIDED_KERNEL if select == "strided" else KERNEL
+        return ball_scan_cuda(kernel, radii, nsamples, xyz1, xyz2, valid1, False)
+    return [
+        ball_query_plain(r, k, xyz1, xyz2, valid1, select)
+        for r, k in zip(radii, nsamples, strict=True)
+    ]
+
+
+def query_ball_point(
+    radius: float, nsample: int, xyz1, xyz2, valid1=None, *, impl: str = "auto", select=None
+):
+    """Fixed-radius neighborhood indices with replicate-first padding:
+    ``xyz1 (B,N,3)`` dataset, ``xyz2 (B,M,3)`` query centres, ``valid1
+    (B,N)`` optional -> ``idx (B,M,nsample) int32``, ``cnt (B,M) int32``.
+    ``select`` is "first" (default) or "strided" (see the module)."""
+    if xyz1.ndim != 3 or xyz2.ndim != 3:
+        raise ValueError("xyz1/xyz2 must be (B, N, 3)/(B, M, 3)")
+    return query_ball_point_multi(
+        (radius,), (nsample,), xyz1, xyz2, valid1, impl=impl, select=select
+    )[0]

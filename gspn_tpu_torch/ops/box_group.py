@@ -1,10 +1,11 @@
-"""First-S in-box scene points per RoI, for Point RoIAlign.
+"""S in-box scene points per RoI, for Point RoIAlign.
 
-Counterpart of ``gspn_tpu/ops/box_group.py::query_box_group`` with
-``select="first"``: the first ``s`` points in input order inside each box
-(inclusive ``lo <= p <= hi``), replicate-first padding, count capped at
-``s``, empty rows read index 0; coordinates relative to the box centre.
-The CUDA route is ``csrc/box_group.cu``.
+Counterpart of ``gspn_tpu/ops/box_group.py::query_box_group``: the first
+``s`` points in input order inside each box (inclusive ``lo <= p <= hi``;
+``select="first"``) or, once a box holds ``total > s`` points, those of
+rank ``floor(j * total / s)`` (``select="strided"``); replicate-first
+padding, count capped at ``s``, empty rows read index 0; coordinates
+relative to the box centre. The CUDA routes are ``csrc/box_group.cu``.
 """
 
 from __future__ import annotations
@@ -12,12 +13,17 @@ from __future__ import annotations
 import torch
 
 from gspn_tpu_torch.ops import _cuda
-from gspn_tpu_torch.ops.ball_group import check_select
-from gspn_tpu_torch.ops.ball_query import finalize, first_k_hits
+from gspn_tpu_torch.ops.ball_query import (
+    check_select,
+    finalize,
+    first_k_hits,
+    strided_target_mask,
+)
 from gspn_tpu_torch.ops.common import resolve_impl
 from gspn_tpu_torch.ops.grouping import group_point
 
 KERNEL = _cuda.KERNELS["box_group"]
+STRIDED_KERNEL = _cuda.KERNELS["box_group_strided"]
 
 
 def box_contains(boxes: torch.Tensor, xyz: torch.Tensor, valid=None) -> torch.Tensor:
@@ -29,17 +35,20 @@ def box_contains(boxes: torch.Tensor, xyz: torch.Tensor, valid=None) -> torch.Te
     return inside
 
 
-def _box_group_plain(boxes, s, xyz1, valid1):
-    """The mask + first-s formulation (``_box_query_xla``)."""
+def _box_group_plain(boxes, s, xyz1, valid1, select):
+    """The mask [+ strided refinement] + first-s formulation
+    (``_box_query_xla``)."""
     inside = box_contains(boxes, xyz1, valid1)
     cnt = torch.clamp(inside.sum(dim=-1), max=s)
+    if select == "strided":
+        inside = strided_target_mask(inside, s)
     idx, cnt = finalize(first_k_hits(inside, s), cnt, s)
     center = (boxes[..., 0:3] + boxes[..., 3:6]) * 0.5
     local = group_point(xyz1, idx) - center[..., None, :]
     return idx, cnt, local
 
 
-def _box_group_cuda(boxes, s, xyz1, valid1):
+def _box_group_cuda(kernel, boxes, s, xyz1, valid1):
     b, n, _ = xyz1.shape
     r = boxes.shape[1]
     xyz1 = xyz1.contiguous()
@@ -55,7 +64,7 @@ def _box_group_cuda(boxes, s, xyz1, valid1):
     cnt = torch.empty((b, r), dtype=torch.int32, device=dev)
     local = torch.empty((b, r, s, 3), dtype=torch.float32, device=dev)
     if b and r:
-        KERNEL.launch(
+        kernel.launch(
             dev, _cuda.ptr(xyz1), _cuda.ptr(v), _cuda.ptr(boxes), b, n, r, int(s),
             _cuda.ptr(idx), _cuda.ptr(cnt), _cuda.ptr(local),
         )
@@ -65,8 +74,10 @@ def _box_group_cuda(boxes, s, xyz1, valid1):
 def query_box_group(boxes, s: int, xyz1, valid1=None, *, impl: str = "auto", select=None):
     """``boxes (B,R,6)`` [lo, hi], ``xyz1 (B,N,3)`` -> ``(idx (B,R,S)
     int32, cnt (B,R) int32, local (B,R,S,3) f32)`` with ``local ==
-    xyz1[idx] - (lo + hi) / 2`` bit for bit."""
-    check_select(select)
+    xyz1[idx] - (lo + hi) / 2`` bit for bit; ``select`` "first" (default)
+    or "strided"."""
+    select = check_select(select)
     if resolve_impl(impl, xyz1) == "cuda":
-        return _box_group_cuda(boxes, s, xyz1, valid1)
-    return _box_group_plain(boxes, s, xyz1, valid1)
+        kernel = STRIDED_KERNEL if select == "strided" else KERNEL
+        return _box_group_cuda(kernel, boxes, s, xyz1, valid1)
+    return _box_group_plain(boxes, s, xyz1, valid1, select)

@@ -1,15 +1,32 @@
 """3D axis-aligned-box NMS on the device.
 
-Counterpart of ``gspn_tpu/ops/nms.py``'s default path: a stable descending
-score sort, one IoU matrix, then Jacobi fixpoint suppression. Boxes are
-``[xmin, ymin, zmin, xmax, ymax, zmax]``. The TPU's sequential suppression
-kernel (``_nms_kernel``) is a cross-check there and is not ported yet
-(ROADMAP queue 2).
+Counterpart of ``gspn_tpu/ops/nms.py``: a stable descending score sort, one
+IoU matrix, then greedy suppression over the sorted boxes. Boxes are
+``[xmin, ymin, zmin, xmax, ymax, zmax]``.
+
+``impl`` picks the suppression:
+
+- ``"cuda"``: the sequential greedy kernel ``csrc/nms.cu`` (the TPU's
+  ``_nms_kernel``); a CPU tensor raises.
+- ``"plain"``: the Jacobi fixpoint loop (:func:`_suppress_jacobi`), on any
+  device; it syncs the host every 8 steps.
+- ``"auto"``: as in ``ops/common.py``, the kernel for a CUDA tensor and the
+  Jacobi loop for a CPU tensor (the JAX package's ``auto`` is its XLA loop
+  on every device; the two give the same keep mask).
+
+The sort, the gather and :func:`box_iou` run in PyTorch on either route, as
+the JAX package runs them in XLA.
 """
 
 from __future__ import annotations
 
 import torch
+
+from gspn_tpu_torch.ops import _cuda
+from gspn_tpu_torch.ops.common import resolve_impl
+
+KERNEL = _cuda.KERNELS["nms"]
+MAX_R = 1024  # csrc/nms.cu kMaxR: one thread per candidate
 
 
 def box_volume(boxes: torch.Tensor) -> torch.Tensor:
@@ -49,9 +66,26 @@ def _suppress_jacobi(iou: torch.Tensor, alive: torch.Tensor, iou_thresh: float):
     return keep
 
 
-def nms_3d_batched(boxes, scores, iou_thresh: float, valid=None):
+def _suppress_cuda(iou: torch.Tensor, alive: torch.Tensor, iou_thresh: float):
+    """:func:`_suppress_jacobi`'s result from the sequential kernel."""
+    b, r, _ = iou.shape
+    if r > MAX_R:
+        raise ValueError(f"the NMS kernel takes at most {MAX_R} boxes per scene, got {r}")
+    iou = iou.contiguous()
+    a = alive.to(torch.uint8).contiguous()
+    _cuda.check_cuda_input("iou", iou, torch.float32, (b, r, r))
+    _cuda.check_cuda_input("alive", a, torch.uint8, (b, r))
+    keep = torch.empty((b, r), dtype=torch.uint8, device=iou.device)
+    if b and r:
+        KERNEL.launch(iou.device, _cuda.ptr(iou), _cuda.ptr(a), b, r, float(iou_thresh),
+                      _cuda.ptr(keep))
+    return keep.bool()
+
+
+def nms_3d_batched(boxes, scores, iou_thresh: float, valid=None, *, impl: str = "auto"):
     """Batched greedy NMS: ``(B,R,6), (B,R) -> keep (B,R)`` bool in the
-    original box order."""
+    original box order; ``valid (B,R)`` boxes only are kept."""
+    choice = resolve_impl(impl, boxes)
     s = scores if valid is None else torch.where(valid, scores, torch.full_like(scores, -torch.inf))
     order = torch.sort(-s, dim=-1, stable=True).indices  # ties keep input order
     bs = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 6))
@@ -60,5 +94,18 @@ def nms_3d_batched(boxes, scores, iou_thresh: float, valid=None):
         if valid is None
         else torch.gather(valid, 1, order)
     )
-    keep_sorted = _suppress_jacobi(box_iou(bs, bs), alive, iou_thresh)
+    iou = box_iou(bs, bs)
+    if choice == "cuda":
+        keep_sorted = _suppress_cuda(iou, alive, iou_thresh)
+    else:
+        keep_sorted = _suppress_jacobi(iou, alive, iou_thresh)
     return torch.zeros_like(keep_sorted).scatter(1, order, keep_sorted)
+
+
+def nms_3d(boxes, scores, iou_thresh: float, valid=None, *, impl: str = "auto"):
+    """Single-scene greedy NMS: ``(R,6), (R,) -> keep (R,)`` bool in the
+    original box order."""
+    keep = nms_3d_batched(
+        boxes[None], scores[None], iou_thresh, None if valid is None else valid[None], impl=impl
+    )
+    return keep[0]

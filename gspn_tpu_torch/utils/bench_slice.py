@@ -16,7 +16,7 @@ from gspn_tpu_torch.models.pipeline import (
     PipelineModel,
     init_pipeline_variables,
 )
-from gspn_tpu_torch.models.presets import scannet_pipeline
+from gspn_tpu_torch.models.presets import scannet_pipeline, set_pipeline_group_select
 
 # shape name -> (B, N, scene_batch kwargs, padded tail); bench.py's flagship
 # request and its whole scene with the last ~10 % of points invalid
@@ -38,10 +38,14 @@ def slice_config() -> PipelineConfig:
     return dataclasses.replace(scannet_pipeline(), score_thresh=0.0, mask_thresh=0.49)
 
 
+VARIANTS = ("prune", "grid", "3nn", "strided")
+
+
 def variant_config(name: str) -> PipelineConfig:
     """:func:`slice_config` with one knob of the JAX package set: "prune"
-    (``mask_project_prune="auto"``), "grid" (``roi_sample="grid"``) or
-    "3nn" (``mask_project="3nn"``). All take the same weights."""
+    (``mask_project_prune="auto"``), "grid" (``roi_sample="grid"``), "3nn"
+    (``mask_project="3nn"``) or "strided" (``group_select="strided"`` in both
+    stages). All take the same weights."""
     cfg = slice_config()
     if name == "prune":
         return dataclasses.replace(cfg, mask_project_prune="auto")
@@ -50,7 +54,9 @@ def variant_config(name: str) -> PipelineConfig:
         return dataclasses.replace(cfg, rpointnet=grid)
     if name == "3nn":
         return dataclasses.replace(cfg, mask_project="3nn")
-    raise ValueError(f"variant must be prune|grid|3nn, got {name!r}")
+    if name == "strided":
+        return set_pipeline_group_select(cfg, "strided")
+    raise ValueError(f"variant must be {'|'.join(VARIANTS)}, got {name!r}")
 
 
 def plain_config(cfg: PipelineConfig) -> PipelineConfig:

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Where the PyTorch port's inference slice spends its time on the card.
 
-    python3 -m gspn_tpu_torch.utils.profile_slice [--out DIR]
+    python3 -m gspn_tpu_torch.utils.profile_slice [--variant NAME] [--out DIR]
 
 Runs slices (A) and (B) of ``chip_smoke.py`` (``utils.bench_slice.
 slice_config``: ``scannet_pipeline()`` with the thresholds moved, and its
-"prune" variant; seeded weights, the bench's scenes) at B=8 x N=8192 and
-B=1 x N=65536 under ``torch.profiler``, ``ITERS`` requests after a
-warm-up, and prints per slice and shape: wall ms per request, device busy
+"prune" variant; seeded weights, the bench's scenes), or with ``--variant``
+only that variant of ``bench_slice.variant_config`` (``strided`` is slice
+(E)), at B=8 x N=8192 and B=1 x N=65536 under ``torch.profiler``,
+``ITERS`` requests after a warm-up, and prints per slice and shape: wall
+ms per request, device busy
 ms (the union of kernel intervals on the timeline) and the idle share, the
 device time and launches per request of each hand-written kernel, and the
 top device kernels by time. Writes a Chrome trace per slice and shape to
@@ -27,8 +29,11 @@ from gspn_tpu_torch.models.pipeline import make_inference_fn
 from gspn_tpu_torch.utils import bench_slice
 
 HAND_WRITTEN = (  # symbols in the profiler's demangled device events
-    "fps_kernel", "group_scan_kernel<false>", "group_scan_kernel<true>", "three_nn_kernel",
-    "interp_mm_kernel", "mask_project_kernel<false>", "mask_project_kernel<true>",
+    "fps_kernel", "group_scan_kernel<false, false, true>", "group_scan_kernel<true, false, true>",
+    "group_scan_kernel<false, true, true>", "group_scan_kernel<true, true, true>",
+    "group_scan_kernel<false, false, false>", "group_scan_kernel<false, true, false>",
+    "three_nn_kernel", "interp_mm_kernel", "mask_project_kernel<false>",
+    "mask_project_kernel<true>", "nms_kernel",
 )
 ITERS = 5
 
@@ -91,6 +96,8 @@ def profile(label, infer, model, xyz, valid, eps, out_dir):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--variant", choices=bench_slice.VARIANTS,
+                    help="profile only this variant of the slice")
     ap.add_argument("--out", default="runs/profile")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -99,11 +106,14 @@ def main() -> None:
     bench_slice.float32_matmuls()
     cfg = bench_slice.slice_config()
     model = bench_slice.seeded_model(cfg, dev)
-    for name, scfg in (("A", cfg), ("B", bench_slice.variant_config("prune"))):
+    runs = ((args.variant, bench_slice.variant_config(args.variant)),) if args.variant else (
+        ("A", cfg), ("B", bench_slice.variant_config("prune")))
+    for name, scfg in runs:
         infer = make_inference_fn(scfg)
+        smodel = bench_slice.rebuilt_model(scfg, model)  # modules keep their config
         for seed, shape in enumerate(bench_slice.SHAPES, start=1):
             xyz, valid, eps = bench_slice.request(scfg, shape, dev, seed)
-            profile(f"{name}_{shape}", infer, model, xyz, valid, eps, pathlib.Path(args.out))
+            profile(f"{name}_{shape}", infer, smodel, xyz, valid, eps, pathlib.Path(args.out))
 
 
 if __name__ == "__main__":

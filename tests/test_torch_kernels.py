@@ -14,9 +14,13 @@ import torch
 
 from gspn_tpu_torch import ops
 from gspn_tpu_torch.data import synthetic
+from gspn_tpu_torch.ops import ball_group as tball
+from gspn_tpu_torch.ops import ball_query as tquery
+from gspn_tpu_torch.ops import box_group as tbox
 from gspn_tpu_torch.ops import fps as tfps
 from gspn_tpu_torch.ops import interpolate as tinterp
 from gspn_tpu_torch.ops import mask_project as tmask
+from gspn_tpu_torch.ops import nms as tnms
 
 pytestmark = pytest.mark.cuda
 
@@ -80,21 +84,145 @@ def test_ball_group_kernel(dev, b, n, radii, ks, m, masked):
             _equal(x, y)
 
 
+_BALL_CASES = [
+    (8, 8192, (0.25, 0.5, 1.0), (32, 64, 128), 64),  # GSPN crops
+    (8, 8192, (0.1,), (32,), 1024),  # SA1
+    (1, 65536, (0.25, 0.5, 1.0), (32, 64, 128), 64),  # whole-scene crops
+    (2, 100, (0.3, 0.6), (8, 16), 7),  # ragged sizes
+]
+
+
+def _centres(dev, xyz, m):
+    q = xyz[:, torch.randperm(xyz.shape[1], generator=torch.Generator().manual_seed(1))[:m]
+            .to(dev)]
+    q[:, -1] = 100.0  # a ball with no point: index 0, point 0's coordinates
+    return q
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("b,n,radii,ks,m", _BALL_CASES)
+def test_ball_group_strided_kernel(dev, b, n, radii, ks, m, masked):
+    """Bitwise its plain version; where a ball overflows K, not first-K."""
+    xyz, valid = _scenes(dev, b, n)
+    q = _centres(dev, xyz, m)
+    v = valid if masked else None
+    before = tball.STRIDED_KERNEL.launches
+    got = ops.query_ball_group_multi(radii, ks, xyz, q, v, impl="cuda", select="strided")
+    torch.cuda.synchronize()
+    assert tball.STRIDED_KERNEL.launches == before + 1
+    want = ops.query_ball_group_multi(radii, ks, xyz, q, v, impl="plain", select="strided")
+    first = ops.query_ball_group_multi(radii, ks, xyz, q, v, impl="cuda")
+    for g, w in zip(got, want, strict=True):
+        for x, y in zip(g, w, strict=True):
+            _equal(x, y)
+    if n > 1000:
+        assert any(not torch.equal(g[0], f[0]) for g, f in zip(got, first, strict=True))
+
+
+@pytest.mark.parametrize("select", ["first", "strided"])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("b,n,radii,ks,m", _BALL_CASES)
+def test_ball_query_kernel(dev, b, n, radii, ks, m, masked, select):
+    """Bitwise its plain version and the ball group's indices and counts."""
+    xyz, valid = _scenes(dev, b, n)
+    q = _centres(dev, xyz, m)
+    v = valid if masked else None
+    kernel = tquery.STRIDED_KERNEL if select == "strided" else tquery.KERNEL
+    before = kernel.launches
+    got = ops.query_ball_point_multi(radii, ks, xyz, q, v, impl="cuda", select=select)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    want = ops.query_ball_point_multi(radii, ks, xyz, q, v, impl="plain", select=select)
+    grouped = ops.query_ball_group_multi(radii, ks, xyz, q, v, impl="cuda", select=select)
+    for g, w, f in zip(got, want, grouped, strict=True):
+        for x, y, z in zip(g, w, f[:2], strict=True):
+            _equal(x, y)
+            _equal(x, z)
+    single = ops.query_ball_point(radii[0], ks[0], xyz, q, v, impl="cuda", select=select)
+    for x, y in zip(single, got[0], strict=True):
+        _equal(x, y)
+
+
+def _rois(dev, xyz, r, seed=2):
+    b, n, _ = xyz.shape
+    gen = torch.Generator().manual_seed(seed)
+    c = xyz[:, torch.randperm(n, generator=gen)[:r].to(dev)]
+    half = torch.rand((b, r, 3), generator=gen).to(dev) * 0.5
+    half[:, :2] = 1e-4  # near-empty boxes exercise padding and empty rows
+    return torch.cat([c - half, c + half], dim=-1)
+
+
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("b,n,r,s", [(8, 8192, 64, 64), (2, 100, 5, 8)])
 def test_box_group_kernel(dev, b, n, r, s, masked):
     xyz, valid = _scenes(dev, b, n)
-    gen = torch.Generator().manual_seed(2)
-    c = xyz[:, torch.randperm(n, generator=gen)[:r].to(dev)]
-    half = torch.rand((b, r, 3), generator=gen).to(dev) * 0.5
-    half[:, :2] = 1e-4  # near-empty boxes exercise padding and empty rows
-    boxes = torch.cat([c - half, c + half], dim=-1)
+    boxes = _rois(dev, xyz, r)
     v = valid if masked else None
     got = ops.query_box_group(boxes, s, xyz, v, impl="cuda")
     want = ops.query_box_group(boxes, s, xyz, v, impl="plain")
     torch.cuda.synchronize()
     for x, y in zip(got, want, strict=True):
         _equal(x, y)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("b,n,r,s", [(8, 8192, 64, 64), (1, 65536, 64, 64), (2, 100, 5, 8)])
+def test_box_group_strided_kernel(dev, b, n, r, s, masked):
+    xyz, valid = _scenes(dev, b, n)
+    boxes = _rois(dev, xyz, r)
+    v = valid if masked else None
+    before = tbox.STRIDED_KERNEL.launches
+    got = ops.query_box_group(boxes, s, xyz, v, impl="cuda", select="strided")
+    torch.cuda.synchronize()
+    assert tbox.STRIDED_KERNEL.launches == before + 1
+    want = ops.query_box_group(boxes, s, xyz, v, impl="plain", select="strided")
+    for x, y in zip(got, want, strict=True):
+        _equal(x, y)
+    if n > 1000:
+        assert not torch.equal(got[0], ops.query_box_group(boxes, s, xyz, v, impl="cuda")[0])
+
+
+def _nms_case(dev, b, r, seed=6):
+    """Random boxes with tied scores, plus (in every scene) a chain of
+    boxes sliding along x, each overlapping the next above the threshold,
+    scores descending along it: suppression depth r // 4."""
+    gen = torch.Generator().manual_seed(seed)
+    c = torch.rand((b, r, 3), generator=gen) * 4
+    half = torch.rand((b, r, 3), generator=gen) * 0.6 + 0.1
+    scores = torch.rand((b, r), generator=gen)
+    scores[:, 1::5] = scores[:, ::5][:, : scores[:, 1::5].shape[1]]  # ties
+    chain = r // 4
+    c[:, :chain] = torch.tensor([10.0, 10.0, 10.0])
+    c[:, :chain, 0] += torch.arange(chain, dtype=torch.float32) * 0.35
+    half[:, :chain] = 0.5
+    scores[:, :chain] = 2.0 - torch.arange(chain, dtype=torch.float32) / r
+    boxes = torch.cat([c - half, c + half], dim=-1)
+    valid = torch.rand((b, r), generator=gen) > 0.1
+    valid[:, :chain] = True
+    return boxes.to(dev), scores.to(dev), valid.to(dev)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("b,r", [(8, 64), (2, 1024), (3, 5)])
+def test_nms_kernel(dev, b, r, masked):
+    boxes, scores, valid = _nms_case(dev, b, r)
+    v = valid if masked else None
+    before = tnms.KERNEL.launches
+    got = ops.nms_3d_batched(boxes, scores, 0.25, v, impl="cuda")
+    torch.cuda.synchronize()
+    assert tnms.KERNEL.launches == before + 1
+    _equal(got, ops.nms_3d_batched(boxes, scores, 0.25, v, impl="plain"))
+    assert tnms.KERNEL.launches == before + 1
+    _equal(got, ops.nms_3d_batched(boxes, scores, 0.25, v))  # "auto" is the kernel
+    assert tnms.KERNEL.launches == before + 2
+    _equal(ops.nms_3d(boxes[0], scores[0], 0.25, None if v is None else v[0], impl="cuda"),
+           got[0])
+
+
+def test_nms_kernel_refuses_more_than_1024_boxes(dev):
+    boxes, scores, _ = _nms_case(dev, 1, 1025)
+    with pytest.raises(ValueError, match="at most 1024"):
+        ops.nms_3d_batched(boxes, scores, 0.25, impl="cuda")
 
 
 @pytest.mark.parametrize("masked", [False, True])

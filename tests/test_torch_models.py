@@ -56,6 +56,32 @@ def test_gspn_inference(rng, masked):
         np.asarray(jg.proposal_boxes(jo.generated, 0.1)), **TOL)
 
 
+def test_gspn_inference_strided_crops(rng):
+    """``group_select="strided"`` context crops: the same as the JAX GSPN's,
+    and not the first-K crops' outputs."""
+    xyz, valid = _scene(rng, npts=400)
+    seed_idx = rng.integers(0, 300, (2, 12)).astype(np.int32)
+    cfg = dataclasses.replace(TINY.gspn, group_select="strided")
+    jm = jg.GSPN(cfg)
+    v = jm.init(
+        jax.random.PRNGKey(0), jnp.asarray(xyz), jnp.asarray(seed_idx),
+        gt_points=jnp.zeros((2, 12, 8, 3)), gt_valid=jnp.ones((2, 12, 8), bool),
+        z_rng=jax.random.PRNGKey(1),
+    )
+    v = randomized(v, 9)
+    eps = np.asarray(jax.random.normal(jax.random.PRNGKey(2), (2, 12, cfg.latent_dim)))
+    jo = jm.apply(v, jnp.asarray(xyz), jnp.asarray(seed_idx), valid=valid, z_eps=jnp.asarray(eps))
+    sd = flax_to_state_dict(as_numpy_tree(v), skip=GSPN_TRAINING_ONLY)
+    outs = []
+    for select in ("strided", "first"):
+        tm = tg.GSPN(dataclasses.replace(gspn_config(cfg), group_select=select))
+        tm.load_state_dict(sd)
+        outs.append(tm.eval()(t(xyz), t(seed_idx), t(valid), z_eps=t(eps)))
+    for f in ("center", "generated", "objectness", "cond"):
+        np.testing.assert_allclose(n(getattr(outs[0], f)), np.asarray(getattr(jo, f)), **TOL)
+    assert not np.allclose(n(outs[0].cond), n(outs[1].cond), **TOL)
+
+
 @pytest.mark.parametrize("percentile", [0.0, 0.1])
 def test_proposal_boxes(rng, percentile):
     gen = rng.normal(size=(2, 5, 16, 3)).astype(np.float32)
@@ -94,6 +120,21 @@ def test_point_roi_align(rng, masked):
     got = tr.point_roi_align(t(xyz), t(boxes), 8, t(valid) if masked else None)
     for g, w in zip(got, want, strict=True):
         np.testing.assert_array_equal(n(g), np.asarray(w))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_point_roi_align_strided(rng, masked):
+    xyz, valid = _scene(rng, npts=400)
+    boxes = _boxes(rng, xyz, 10)
+    vm = valid if masked else None
+    want = jr.point_roi_align(jnp.asarray(xyz), jnp.asarray(boxes), 8, vm, impl="xla",
+                              select="strided")
+    got = tr.point_roi_align(t(xyz), t(boxes), 8, t(valid) if masked else None,
+                             select="strided")
+    for g, w in zip(got, want, strict=True):
+        np.testing.assert_array_equal(n(g), np.asarray(w))
+    first = tr.point_roi_align(t(xyz), t(boxes), 8, t(valid) if masked else None)
+    assert not np.array_equal(n(got[0]), n(first[0]))
 
 
 def test_apply_box_deltas(rng):

@@ -86,6 +86,24 @@ def test_sa_module(rng, masked, with_points):
         assert tv is None and jv is None
 
 
+@pytest.mark.parametrize("masked", [False, True])
+def test_sa_module_strided(rng, masked):
+    """``select="strided"`` neighborhoods, as the JAX SA module takes them."""
+    xyz, valid = _cloud(rng, 2, 400)
+    vm = valid if masked else None
+    jm = jp.PointNetSAModule(npoint=32, radius=0.4, nsample=8, mlp=(8, 16), ops_impl="xla",
+                             select="strided")
+    v = randomized(jm.init(jax.random.PRNGKey(0), jnp.asarray(xyz), None, vm), 6)
+    jx, jf, _ = jm.apply(v, jnp.asarray(xyz), None, vm)
+    tm = _port(tpn.PointNetSAModule(3, 32, 0.4, 8, (8, 16), select="strided"), v)
+    tx, tf, _ = tm(t(xyz), None, t(valid) if masked else None)
+    np.testing.assert_array_equal(n(tx), np.asarray(jx))
+    np.testing.assert_allclose(n(tf), np.asarray(jf), **TOL)
+    first = _port(tpn.PointNetSAModule(3, 32, 0.4, 8, (8, 16)), v)
+    assert not np.allclose(n(first(t(xyz), None, t(valid) if masked else None)[1]), n(tf),
+                           **TOL)
+
+
 def test_sa_module_with_precomputed_fps(rng):
     xyz, valid = _cloud(rng, 2, 64)
     fps_idx = rng.integers(0, 48, (2, 16)).astype(np.int32)

@@ -14,10 +14,13 @@ import pytest
 import torch
 
 from gspn_tpu import ops as jops
+from gspn_tpu.ops import ball_query as jquery
 from gspn_tpu.ops import interpolate as jinterp
 from gspn_tpu.ops import mask_project as jmask
+from gspn_tpu.ops import nms as jnms
 from gspn_tpu_torch import ops
 from gspn_tpu_torch.ops import interpolate as tinterp
+from gspn_tpu_torch.ops.ball_query import strided_target_mask
 from tests import oracles
 from tests.torch_parity import n, t
 
@@ -112,6 +115,84 @@ def test_query_ball_group_multi(rng, masked):
         assert gi.dtype == torch.int32 and gc.dtype == torch.int32
 
 
+def _overflowing_balls(rng, b=2, npts=400):
+    """A cloud, centres on it (balls of r 0.6 overflow K 16), and a
+    centre with no point in reach."""
+    xyz, valid = _cloud(rng, b, npts)
+    q = np.concatenate([xyz[:, 1:10], np.full((b, 1, 3), 50.0, np.float32)], axis=1)
+    return xyz, valid, q
+
+
+@pytest.mark.parametrize("jax_impl", ["xla", "pallas"])
+@pytest.mark.parametrize("select", ["first", "strided"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_query_ball_point_multi(rng, masked, select, jax_impl):
+    """Against JAX ``query_ball_point_multi`` (its XLA path, and the TPU's
+    ``_ball_query_multi_kernel`` in interpret mode) and the oracle; strided
+    differs from first-K where a ball holds more than K points."""
+    xyz, valid, q = _overflowing_balls(rng)
+    radii, ks = (0.3, 0.6), (8, 16)
+    got = ops.query_ball_point_multi(radii, ks, t(xyz), t(q), _tv(valid, masked), select=select)
+    want = jops.query_ball_point_multi(
+        radii, ks, jnp.asarray(xyz), jnp.asarray(q), _mask(valid, masked), impl=jax_impl,
+        select=select)
+    first = ops.query_ball_point_multi(radii, ks, t(xyz), t(q), _tv(valid, masked))
+    differs = False
+    for (gi, gc), (wi, wc), (fi, _), r, k in zip(got, want, first, radii, ks, strict=True):
+        np.testing.assert_array_equal(n(gi), np.asarray(wi))
+        np.testing.assert_array_equal(n(gc), np.asarray(wc))
+        oi, oc = oracles.ball_query_oracle(r, k, xyz, q, _mask(valid, masked), select=select)
+        np.testing.assert_array_equal(n(gi), oi)
+        np.testing.assert_array_equal(n(gc), oc)
+        assert gi.dtype == torch.int32 and gc.dtype == torch.int32
+        differs |= not torch.equal(gi, fi)
+    assert differs == (select == "strided")
+
+
+@pytest.mark.parametrize("select", ["first", "strided"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_query_ball_point(rng, masked, select):
+    xyz, valid, q = _overflowing_balls(rng)
+    gi, gc = ops.query_ball_point(0.6, 8, t(xyz), t(q), _tv(valid, masked), select=select)
+    wi, wc = jops.query_ball_point(0.6, 8, jnp.asarray(xyz), jnp.asarray(q),
+                                   _mask(valid, masked), impl="xla", select=select)
+    np.testing.assert_array_equal(n(gi), np.asarray(wi))
+    np.testing.assert_array_equal(n(gc), np.asarray(wc))
+    with pytest.raises(ValueError, match="must be"):
+        ops.query_ball_point(0.6, 8, t(xyz[0]), t(q[0]))
+
+
+def test_strided_target_mask(rng):
+    """Rows with 0, fewer than, exactly and more than K hits (up to all N)."""
+    hit = rng.random((3, 7, 200)) < np.linspace(0, 1, 7)[None, :, None]
+    hit[0, 1, :5] = True
+    for k in (1, 5, 16):
+        got = n(strided_target_mask(t(hit), k))
+        want = np.asarray(jquery._strided_target_mask(jnp.asarray(hit), k))
+        np.testing.assert_array_equal(got, want)
+        total = hit.sum(-1)
+        np.testing.assert_array_equal(got.sum(-1), np.minimum(total, k))
+
+
+@pytest.mark.parametrize("jax_impl", ["xla", "pallas"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_query_ball_group_multi_strided(rng, masked, jax_impl):
+    """Against JAX (its XLA path, and ``_fused_kernel_strided`` in interpret
+    mode): indices and counts equal, local coordinates bitwise."""
+    xyz, valid, q = _overflowing_balls(rng)
+    radii, ks = (0.3, 0.6), (8, 16)
+    got = ops.query_ball_group_multi(radii, ks, t(xyz), t(q), _tv(valid, masked),
+                                     select="strided")
+    want = jops.query_ball_group_multi(
+        radii, ks, jnp.asarray(xyz), jnp.asarray(q), _mask(valid, masked), impl=jax_impl,
+        select="strided")
+    for g, w, r, k in zip(got, want, radii, ks, strict=True):
+        for x, y in zip(g, w, strict=True):
+            np.testing.assert_array_equal(n(x), np.asarray(y))
+        oi, _ = oracles.ball_query_oracle(r, k, xyz, q, _mask(valid, masked), select="strided")
+        np.testing.assert_array_equal(n(g[0]), oi)
+
+
 def _box_oracle(boxes, s, xyz, valid):
     b, r, _ = boxes.shape
     idx = np.zeros((b, r, s), np.int32)
@@ -147,6 +228,46 @@ def test_query_box_group(rng, masked):
     oi, oc = _box_oracle(boxes, 8, xyz, _mask(valid, masked))
     np.testing.assert_array_equal(n(got[0]), oi)
     np.testing.assert_array_equal(n(got[1]), oc)
+
+
+@pytest.mark.parametrize("jax_impl", ["xla", "pallas"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_query_box_group_strided(rng, masked, jax_impl):
+    """Against JAX (its XLA path, and ``_fused_kernel_strided`` with
+    ``pred="box"`` in interpret mode); boxes holding more than S points
+    take other points than first-S."""
+    xyz, valid = _cloud(rng, 2, 160, grid=True)
+    c = xyz[:, :10]
+    half = (np.round(rng.uniform(0.25, 0.75, (2, 10, 3)) * 4) / 4).astype(np.float32)
+    boxes = np.concatenate([c - half, c + half], axis=-1)
+    boxes[:, 1] = [9, 9, 9, 10, 10, 10]  # an empty box
+    got = ops.query_box_group(t(boxes), 8, t(xyz), _tv(valid, masked), select="strided")
+    want = jops.query_box_group(jnp.asarray(boxes), 8, jnp.asarray(xyz), _mask(valid, masked),
+                                impl=jax_impl, select="strided")
+    for g, w in zip(got, want, strict=True):
+        np.testing.assert_array_equal(n(g), np.asarray(w))
+    first = ops.query_box_group(t(boxes), 8, t(xyz), _tv(valid, masked))
+    assert not torch.equal(got[0], first[0])
+    np.testing.assert_array_equal(n(got[1]), n(first[1]))
+
+
+@pytest.mark.parametrize(
+    "call",
+    [
+        lambda sel: ops.query_ball_point(0.1, 4, torch.zeros(1, 8, 3), torch.zeros(1, 2, 3),
+                                         select=sel),
+        lambda sel: ops.query_ball_point_multi(
+            (0.1,), (4,), torch.zeros(1, 8, 3), torch.zeros(1, 2, 3), select=sel),
+        lambda sel: ops.query_ball_group_multi(
+            (0.1,), (4,), torch.zeros(1, 8, 3), torch.zeros(1, 2, 3), select=sel),
+        lambda sel: ops.query_box_group(torch.zeros(1, 2, 6), 4, torch.zeros(1, 8, 3),
+                                        select=sel),
+    ],
+    ids=["query_ball_point", "query_ball_point_multi", "ball_group", "box_group"],
+)
+def test_unknown_select_raises(call):
+    with pytest.raises(ValueError, match="first|strided"):
+        call("middle")
 
 
 @pytest.mark.parametrize("masked", [False, True])
@@ -383,6 +504,60 @@ def test_nms_3d_batched(rng, masked):
                 boxes[bi], scores[bi], 0.25, valid[bi] if masked else None))
 
 
+def _nms_case(rng, b, r, chain):
+    """Random boxes with tied scores, plus a chain of ``chain`` boxes sliding
+    along x, each overlapping the next above 0.25 IoU (but not the one
+    after), with descending scores: greedy suppression alternates along it,
+    which takes the Jacobi loop one step per link (more than one round of 8
+    when ``chain > 8``)."""
+    boxes = _boxes(rng, b, r)
+    scores = rng.uniform(0, 1, (b, r)).astype(np.float32)
+    scores[:, 5] = scores[:, 6]  # equal scores: the stable sort keeps input order
+    scores[:, 7] = scores[:, 6]
+    x = 10.0 + 0.35 * np.arange(chain, dtype=np.float32)
+    boxes[:, :chain] = np.stack([x - 0.5, np.full_like(x, 9.5), np.full_like(x, 9.5),
+                                 x + 0.5, np.full_like(x, 10.5), np.full_like(x, 10.5)], -1)
+    scores[:, :chain] = 2.0 - np.arange(chain, dtype=np.float32) / r
+    valid = rng.uniform(size=(b, r)) > 0.2
+    valid[:, :chain] = True
+    return boxes, scores, valid
+
+
+@pytest.mark.parametrize("jax_impl", ["xla", "pallas"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_nms_3d_batched_deep_chain(rng, masked, jax_impl):
+    """The plain loop against JAX's Jacobi loop (``xla``) and the TPU's
+    sequential ``_nms_kernel`` (``pallas``, interpret mode) and the oracle,
+    with a suppression chain 20 deep."""
+    boxes, scores, valid = _nms_case(rng, 3, 40, chain=20)
+    got = n(ops.nms_3d_batched(t(boxes), t(scores), 0.25, _tv(valid, masked), impl="plain"))
+    want = np.asarray(jops.nms_3d_batched(
+        jnp.asarray(boxes), jnp.asarray(scores), 0.25, _mask(valid, masked), impl=jax_impl))
+    np.testing.assert_array_equal(got, want)
+    for bi in range(3):
+        np.testing.assert_array_equal(
+            got[bi], oracles.nms_oracle(boxes[bi], scores[bi], 0.25,
+                                        valid[bi] if masked else None))
+    np.testing.assert_array_equal(got[:, :20], np.tile([True, False], 10)[None].repeat(3, 0))
+    np.testing.assert_array_equal(
+        got, n(ops.nms_3d_batched(t(boxes), t(scores), 0.25, _tv(valid, masked))))  # auto
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_nms_3d(rng, masked):
+    boxes, scores, valid = _nms_case(rng, 1, 24, chain=10)
+    got = n(ops.nms_3d(t(boxes[0]), t(scores[0]), 0.25, t(valid[0]) if masked else None))
+    want = np.asarray(jnms.nms_3d(jnp.asarray(boxes[0]), jnp.asarray(scores[0]), 0.25,
+                                  valid[0] if masked else None, impl="pallas"))
+    np.testing.assert_array_equal(got, want)
+    assert got.shape == (24,) and got.dtype == bool
+
+
+def test_nms_refuses_unknown_impl():
+    with pytest.raises(ValueError, match="auto\\|cuda\\|plain"):
+        ops.nms_3d_batched(torch.zeros(1, 2, 6), torch.zeros(1, 2), 0.25, impl="pallas")
+
+
 @pytest.mark.parametrize(
     "call",
     [
@@ -399,9 +574,21 @@ def test_nms_3d_batched(rng, masked):
         lambda: ops.nearest_sample_logit_boxed(
             torch.zeros(1, 8, 3), torch.zeros(1, 2, 4, 3), torch.zeros(1, 2, 4),
             torch.zeros(1, 2, 6), impl="cuda"),
+        lambda: ops.query_box_group(torch.zeros(1, 2, 6), 4, torch.zeros(1, 8, 3), impl="cuda",
+                                    select="strided"),
+        lambda: ops.query_ball_group_multi(
+            (0.1,), (4,), torch.zeros(1, 8, 3), torch.zeros(1, 2, 3), impl="cuda",
+            select="strided"),
+        lambda: ops.query_ball_point_multi(
+            (0.1,), (4,), torch.zeros(1, 8, 3), torch.zeros(1, 2, 3), impl="cuda"),
+        lambda: ops.query_ball_point_multi(
+            (0.1,), (4,), torch.zeros(1, 8, 3), torch.zeros(1, 2, 3), impl="cuda",
+            select="strided"),
+        lambda: ops.nms_3d_batched(torch.zeros(1, 2, 6), torch.zeros(1, 2), 0.25, impl="cuda"),
     ],
     ids=["fps", "three_nn", "box_group", "ball_group", "interp_mm", "mask_project",
-         "mask_project_boxed"],
+         "mask_project_boxed", "box_group_strided", "ball_group_strided", "ball_query",
+         "ball_query_strided", "nms"],
 )
 def test_cuda_impl_refuses_cpu_tensors(call):
     with pytest.raises(ValueError, match="CUDA tensor"):

@@ -7,7 +7,8 @@ classes must be equal; scores and boxes within the fixtures' tolerances
 (``tests/test_fixtures.py``). Plus the package's boundaries: no JAX import,
 no kernel launch on the CPU, a model runs only its own config, unported
 knobs raise naming their ROADMAP entry, and the synthetic scenes equal the
-JAX package's."""
+JAX package's. The "strided_select" case runs ``group_select="strided"``
+in both stages."""
 
 import dataclasses
 import pathlib
@@ -23,7 +24,7 @@ import torch
 
 from gspn_tpu.data import synthetic as jsynthetic
 from gspn_tpu.models import pipeline as jpl
-from gspn_tpu.models.presets import set_pipeline_fps_segments
+from gspn_tpu.models.presets import set_pipeline_fps_segments, set_pipeline_group_select
 from gspn_tpu_torch import convert, ops
 from gspn_tpu_torch.data import synthetic as tsynthetic
 from gspn_tpu_torch.models import pipeline as tpl
@@ -59,6 +60,7 @@ def _cases():
             rpointnet=dataclasses.replace(tiny.rpointnet, roi_sample="grid"),
         ),
         "exact_fps_3nn": dataclasses.replace(TINY_3NN, mask_thresh=0.47),
+        "strided_select": set_pipeline_group_select(tiny, "strided"),
     }
 
 
@@ -82,7 +84,8 @@ def _port_model(cfg, variables):
 
 @pytest.mark.parametrize(
     "case",
-    ["exact_fps", "spatial_fps", "strided_fps", "pruned_spatial", "grid_roi", "exact_fps_3nn"],
+    ["exact_fps", "spatial_fps", "strided_fps", "pruned_spatial", "grid_roi", "exact_fps_3nn",
+     "strided_select"],
 )
 def test_slice_matches_jax_make_inference_fn(case):
     jcfg = _cases()[case]
@@ -90,6 +93,11 @@ def test_slice_matches_jax_make_inference_fn(case):
     want = jpl.make_inference_fn(jcfg)(
         variables, jnp.asarray(xyz), None, jnp.asarray(valid), jax.random.PRNGKey(1)
     )
+    if case == "strided_select":  # the scenes' balls and boxes overflow K: selection differs
+        first = jpl.make_inference_fn(_cases()["exact_fps"])(
+            variables, jnp.asarray(xyz), None, jnp.asarray(valid), jax.random.PRNGKey(1)
+        )
+        assert not np.array_equal(np.asarray(want.scores), np.asarray(first.scores))
     # exactly the noise the JAX infer draws from PRNGKey(1) (gspn.py:230)
     eps = np.asarray(jax.random.normal(
         jax.random.PRNGKey(1), (xyz.shape[0], jcfg.num_seeds, jcfg.gspn.latent_dim),
@@ -114,14 +122,14 @@ def test_slice_matches_jax_make_inference_fn(case):
 def test_cpu_calls_launch_no_kernel():
     z = _load("instance_inference.npz")
     ops.reset_launch_counts()
-    for case in ("spatial_fps", "pruned_spatial", "grid_roi", "exact_fps_3nn"):
+    for case in ("spatial_fps", "pruned_spatial", "grid_roi", "exact_fps_3nn", "strided_select"):
         cfg = pipeline_config(_cases()[case])
         model = _port_model(cfg, _base_pipeline_variables(z))
         out = tpl.make_inference_fn(cfg)(
             model, t(z["in/xyz"]), t(z["in/valid"]), generator=torch.Generator().manual_seed(0)
         )
         assert out.masks.shape == (2, cfg.num_seeds, 128)
-    assert set(ops.launch_counts()) == set(ops.KERNELS) and len(ops.KERNELS) == 7
+    assert set(ops.launch_counts()) == set(ops.KERNELS) and len(ops.KERNELS) == 12
     assert all(c == 0 for c in ops.launch_counts().values()), ops.launch_counts()
 
 
@@ -162,17 +170,17 @@ def test_package_imports_no_jax():
 
 _UNPORTED_KNOBS = [
     {"sa1_fps_segments": 8},
-    {"group_select": "strided"},
     {"dtype": torch.bfloat16},
     {"feature_dim": 3},
 ]
 
 
-def _knobbed(knob):
+def _knobbed(knob, stage="gspn"):
     cfg = pipeline_config(TINY)
     (key, value), = knob.items()
     if key in ("group_select", "dtype", "feature_dim"):
-        return dataclasses.replace(cfg, gspn=dataclasses.replace(cfg.gspn, **knob))
+        return dataclasses.replace(
+            cfg, **{stage: dataclasses.replace(getattr(cfg, stage), **knob)})
     return dataclasses.replace(cfg, **knob)
 
 
@@ -183,10 +191,19 @@ def test_unported_knobs_raise(knob):
 
 
 def test_unported_ops_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    """Every op-level selection is ported: an unknown ``select`` is a
+    ``ValueError``, as in the JAX package."""
+    with pytest.raises(ValueError, match="first|strided"):
         ops.query_ball_group_multi(
-            (0.1,), (4,), torch.zeros(1, 8, 3), torch.zeros(1, 2, 3), select="strided"
+            (0.1,), (4,), torch.zeros(1, 8, 3), torch.zeros(1, 2, 3), select="middle"
         )
+
+
+@pytest.mark.parametrize("stage", ["gspn", "rpointnet"])
+def test_unknown_group_select_raises_value_error(stage):
+    with pytest.raises(ValueError, match="group_select must be first|strided"):
+        tpl.make_inference_fn(_knobbed({"group_select": "middle"}, stage))
+    tpl.make_inference_fn(_knobbed({"group_select": "strided"}, stage))  # ported
 
 
 def test_not_ported_messages_quote_roadmap_titles():
@@ -197,11 +214,6 @@ def test_not_ported_messages_quote_roadmap_titles():
         with pytest.raises(NotImplementedError) as err:
             tpl.make_inference_fn(_knobbed(knob))
         messages.append(str(err.value))
-    with pytest.raises(NotImplementedError) as err:
-        ops.query_ball_group_multi(
-            (0.1,), (4,), torch.zeros(1, 8, 3), torch.zeros(1, 2, 3), select="strided"
-        )
-    messages.append(str(err.value))
     roadmap = (REPO / "ROADMAP.md").read_text()
     for msg in messages:
         titles = re.findall(r'"([^"]+)"', msg.split("ROADMAP.md", 1)[1])
@@ -219,7 +231,7 @@ def test_unknown_knob_values_raise_value_error(knob):
 
 
 def test_variants_take_the_same_weights():
-    """The prune, grid and 3nn configs need no new converter parameter: the
+    """The prune, grid, 3nn and strided configs need no new converter parameter: the
     JAX variables of each variant have the slice's tree, and they load
     strictly into the port's model of every variant."""
     trees = {}
@@ -233,7 +245,7 @@ def test_variants_take_the_same_weights():
     assert all(tr == trees["exact_fps"] for tr in trees.values())
     base = tpl.init_pipeline_variables(
         bench_slice.slice_config(), torch.Generator().manual_seed(0), 1024)
-    for name in ("prune", "grid", "3nn"):
+    for name in bench_slice.VARIANTS:
         sd = tpl.init_pipeline_variables(
             bench_slice.variant_config(name), torch.Generator().manual_seed(0), 1024)
         assert sd.keys() == base.keys() and all(torch.equal(sd[k], base[k]) for k in sd)
