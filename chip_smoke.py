@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's inference slice once on an NVIDIA GPU.
+"""Drive the PyTorch port's inference and training slices once on an NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -10,7 +10,7 @@ line or a few:
 1. device: the card's name and power limit, CUDA and nvcc versions;
 2. build: compiles the hand-written kernels (``gspn_tpu_torch/csrc``), one
    ``nvcc`` per source, all at once;
-3. kernels: each of the twelve kernels against its plain PyTorch version at
+3. kernels: each of the thirteen kernels against its plain PyTorch version at
    the slice's shapes, bitwise (integer outputs equal, floats bit for
    bit), with the wrapper's and the plain version's times from CUDA events
    over as many launches, the kernel's own device time from
@@ -41,10 +41,28 @@ line or a few:
    centres from the shared FPS pass, launch counts set to 0 just before:
    strided crops and SA1, and first-K SA1, each equal to the matching ball
    group's indices and counts;
-5. a JSON line of kernel results (``launches`` from the first slice that
+5. slice (G), GSPN stage-1 training (``bench_slice.train_config()`` =
+   ``GSPNConfig()`` at full width, B=4 x N=4096, 64 FPS seeds, 256 GT
+   points per seed, Adam at 1e-3), outside ``torch.inference_mode``: one
+   warm-up step and ``TRAIN_STEPS`` timed steps with the same noise each
+   step, launch counts set to 0 just before (exactly fps and ball_group
+   once and nn_argmin twice a step), then the plain path (a GSPN built from
+   the plain config with the same initial weights), which launches
+   nothing. Step 1's loss and terms within rtol 1e-5 / atol 1e-6, its
+   gradients as ``bench_slice.assert_grads_close`` holds them (norm-wise
+   within 1e-4; the Dense biases that feed a BatchNorm, whose true
+   gradient is 0, within an atol scaled by their layer), later losses
+   within ``LATER_LOSS_RTOL``, every loss finite, every running mean moved
+   off 0;
+   step 1 on the CPU's plain path on a small batch (B=1 x N=1024, 16
+   seeds, GT 64) within rtol 1e-4 of the card's; and ``train_gspn.main``
+   at its defaults on the card for 3 steps, with 3 finite JSONL lines and
+   a checkpoint;
+6. a JSON line of kernel results (``launches`` from the first slice that
    launches the kernel, named in ``slice``: (A) for the first-K path's,
    (B) for mask_project_boxed, (E) for the strided groups, (F) for the
-   ball queries; ``launches_by_slice`` for each slice's own count;
+   ball queries, (G) for nn_argmin; ``launches_by_slice`` for each slice's
+   own count;
    ``device_events``, the profiler's events under ``device_ms``), the
    card's name and power limit, and last ``{"ok": true, "device": {...}}``.
 
@@ -66,7 +84,10 @@ WS_N = 65536  # whole-scene request: 1 scene, last 10% of points padding
 FLAGSHIP, WHOLE_SCENE = "B8xN8192", "B1xN65536"  # keys of bench_slice.SHAPES
 REQUESTS = 20  # slice (A): timed requests per shape and path, after one warm-up
 VARIANT_REQUESTS = 3  # slices (B)-(E)
+TRAIN_STEPS = 10  # slice (G): timed training steps per path, after one warm-up
+LATER_LOSS_RTOL = 5e-3  # slice (G): kernel path vs plain path after step 1
 KERNEL_ITERS = 20  # timed launches per kernel and per plain version
+PROFILER_WINDOWS = 3  # tries at a profiler window that records the kernel
 FIELDS = ("masks", "valid", "classes", "scores", "boxes")  # of InstancePredictions
 PATH_KERNELS = {"fps", "ball_group", "box_group", "three_nn", "interp_mm", "nms"}
 STRIDED = {"ball_group": "ball_group_strided", "box_group": "box_group_strided"}
@@ -82,6 +103,7 @@ DEVICE_SYMBOLS = {
     "three_nn": ("three_nn_kernel",), "interp_mm": ("interp_mm_kernel",),
     "mask_project": ("mask_project_kernel<false>",),
     "mask_project_boxed": ("mask_project_kernel<true>",), "nms": ("nms_kernel",),
+    "nn_argmin": ("nn_argmin_kernel",),
 }
 SLICE_KERNELS = {  # what each slice's kernel path launches; the others stay at 0
     "A": PATH_KERNELS | {"mask_project"},
@@ -90,7 +112,9 @@ SLICE_KERNELS = {  # what each slice's kernel path launches; the others stay at 
     "D": PATH_KERNELS,
     "E": {STRIDED.get(k, k) for k in PATH_KERNELS} | {"mask_project"},
     "F": {"fps", "ball_query", "ball_query_strided"},
+    "G": {"fps", "ball_group", "nn_argmin"},
 }
+G_PER_STEP = {"fps": 1, "ball_group": 1, "nn_argmin": 2}  # slice (G) launches per step
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 # H100 SXM float32 outside the tensor cores, one instruction per lane and
 # clock: 132 SMs x 128 lanes x 1.98 GHz. The published 67 TFLOP/s counts an
@@ -134,27 +158,34 @@ def _cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(fn, iters: int, symbols: tuple[str, ...]) -> tuple[float, int]:
+def _device_ms(fn, iters: int, symbols: tuple[str, ...]) -> tuple[float | None, int]:
     """``(mean device ms per launch, events)`` of the kernel (any of
     ``symbols``) over ``iters`` calls of ``fn`` (one launch each) after a
     warm-up, from ``torch.profiler``'s device events: the kernel alone,
     without its wrapper's host work or other device work. The mean is over
     the ``events`` the profiler recorded, which may be fewer than
-    ``iters``."""
+    ``iters``. Now and then a profiler window records no device event at
+    all (seen once in about 240 windows on an H100); the window is then
+    taken again, up to ``PROFILER_WINDOWS`` times, and ``(None, 0)`` means
+    none recorded one (the kernel's launches and outputs are checked apart
+    from this)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    mine = [e for e in device if any(sym in e.name for sym in symbols)]
-    if not mine:
-        raise AssertionError(f"no device event of {symbols} among "
-                             f"{sorted({e.name for e in device})}")
-    return sum(e.time_range.end - e.time_range.start for e in mine) / 1e3 / len(mine), len(mine)
+    for _ in range(PROFILER_WINDOWS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        mine = [e for e in device if any(sym in e.name for sym in symbols)]
+        if mine:
+            ms = sum(e.time_range.end - e.time_range.start for e in mine) / 1e3 / len(mine)
+            return ms, len(mine)
+        print(f"profiler: no device event of {symbols} among "
+              f"{sorted({e.name for e in device})}; window taken again")
+    return None, 0
 
 
 def _host_ms(fn) -> tuple[float, object]:
@@ -214,6 +245,23 @@ def _chain_nms_case(dev, b: int, r: int, chain: int, gen):
     return torch.cat([c - half, c + half], dim=-1).to(dev), scores.to(dev)
 
 
+def _chamfer_case(dev, ops, bench_slice, gen):
+    """The training step's chamfer inputs, flattened over (scene, seed):
+    the GT instances ``gather_seed_instances`` pairs with the 64 FPS seeds
+    of ``bench_slice.train_batch`` (256 points each, with their real
+    validity) and as many predicted points drawn about each seed."""
+    from gspn_tpu_torch.data.instances import gather_seed_instances
+
+    tb = bench_slice.train_batch(dev)
+    seeds = ops.farthest_point_sample(bench_slice.TRAIN_SEEDS, tb["xyz"], tb["valid"])
+    gt, gt_valid, _, _ = gather_seed_instances(tb["xyz"], tb["inst_label"], seeds,
+                                               bench_slice.TRAIN_GT)
+    b, s, g, _ = gt.shape
+    noise = (torch.randn((b, s, g, 3), generator=gen) * 0.3).to(dev)
+    pred = ops.gather_point(tb["xyz"], seeds)[:, :, None, :] + noise
+    return pred.reshape(b * s, g, 3), gt.reshape(b * s, g, 3), gt_valid.reshape(b * s, g)
+
+
 def check_kernels(dev, ops, bench_slice):
     """Phase 3. Returns the JSON entries (time at each kernel's main shape)."""
     from gspn_tpu_torch.models.rpointnet import roi_grid_points
@@ -263,6 +311,11 @@ def check_kernels(dev, ops, bench_slice):
           f"flagship, {ws_rel_share:.4f} whole scene")
     nms_scores = torch.rand((B, 64), generator=gen).to(dev)
     chain_boxes, chain_scores = _chain_nms_case(dev, B, 64, 32, gen)
+    pred, gt, gt_valid = _chamfer_case(dev, ops, bench_slice, gen)
+    tie_src = torch.rand((16, 2048, 3), generator=gen) * 4
+    tie_src = torch.cat([tie_src, tie_src], dim=1).to(dev)  # source j + 2048 repeats j
+    tie_tgt = (torch.rand((16, 4096, 3), generator=gen) * 4).to(dev)
+    tie_valid = (torch.rand((16, 4096), generator=gen) > 0.2).to(dev)
 
     # work(plain outputs) -> (bytes, float32 operations) that these inputs
     # need; see _bound
@@ -290,7 +343,7 @@ def check_kernels(dev, ops, bench_slice):
         return work
 
     def nn_work(tgt, src, svld=None):  # a pair: the distance and a compare
-        return lambda out: (_nbytes(tgt, src, svld, *out),
+        return lambda out: (_nbytes(tgt, src, svld, *_flatten(out)),
                             tgt.shape[0] * tgt.shape[1] * src.shape[1] * 9)
 
     def mm_work(args):  # a target channel: three multiplies, two adds
@@ -436,6 +489,16 @@ def check_kernels(dev, ops, bench_slice):
                  wsx, ws_roi_xyz, ws_logits, ws_boxes, point_valid=wsvv, impl=impl),
              proj_work(wsx, ws_roi_xyz, ws_logits, ws_rel_share, ws_boxes, wsvv)),
         ],
+        "nn_argmin": [
+            ("chamfer pred -> GT: 256 rows x 256 targets <- 256, GT masked",
+             lambda impl: ops.nn_argmin(pred, gt, gt_valid, impl=impl),
+             nn_work(pred, gt, gt_valid)),
+            ("chamfer GT -> pred: 256 rows x 256 <- 256",
+             lambda impl: ops.nn_argmin(gt, pred, impl=impl), nn_work(gt, pred)),
+            ("16 rows x 4096 <- 4096, each source twice (ties), masked",
+             lambda impl: ops.nn_argmin(tie_tgt, tie_src, tie_valid, impl=impl),
+             nn_work(tie_tgt, tie_src, tie_valid)),
+        ],
         "nms": [
             (f"{B}x64 RoI boxes, random scores, IoU 0.25",
              lambda impl: ops.nms_3d_batched(boxes, nms_scores, 0.25, impl=impl),
@@ -445,7 +508,29 @@ def check_kernels(dev, ops, bench_slice):
              nms_work(chain_boxes, chain_scores)),
         ],
     }
-    library = {"interp_mm": sparse_interp(fp4)}  # name -> one PyTorch call at the main shape
+    def cdist_argmin(tgt, src):
+        """One ``torch.cdist`` (explicit differences, no matmul expansion)
+        and its argmin: the nearest source by distance, not squared."""
+        return lambda: torch.cdist(tgt, src, compute_mode="donot_use_mm_for_euclid_dist").argmin(-1)
+
+    def max_abs_diff(got, want):
+        return (got - want).abs().max().item()
+
+    def sqdist_gap(tgt, src):
+        """Max gap between the squared distances of the library's and the
+        kernel's picks: the square root can merge near-ties, so the indices
+        may differ where the distances do not."""
+        def gap(got, want):
+            d = [(tgt - ops.gather_point(src, i)).square().sum(-1) for i in (got, want)]
+            return max_abs_diff(*d)
+        return gap
+
+    # name -> (case index, one PyTorch call on that case's inputs, its gap to
+    # the kernel's output, the largest gap allowed)
+    library = {
+        "interp_mm": (0, sparse_interp(fp4), max_abs_diff, 1e-4),
+        "nn_argmin": (1, cdist_argmin(gt, pred), sqdist_gap(gt, pred), 1e-6),
+    }
     entries = []
     for name, shapes in cases.items():
         k = ops.KERNELS[name]
@@ -458,19 +543,21 @@ def check_kernels(dev, ops, bench_slice):
             dev_ms, events = _device_ms(lambda fn=fn: fn("cuda"), KERNEL_ITERS,
                                         DEVICE_SYMBOLS[name])
             bound_ms, bound_by = _bound(*work(want))
+            dev = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
             print(f"kernel {name} [{label}]: equal to plain (max abs err {err}); "
-                  f"wrapper {ms:.4f} ms (kernel's device time {dev_ms:.4f} ms over "
+                  f"wrapper {ms:.4f} ms (kernel's device time {dev} over "
                   f"{events} of {KERNEL_ITERS} launches), "
                   f"plain {plain_ms:.4f} ms; bound {bound_ms:.5f} ms ({bound_by})")
             if main is None:
                 main = (err, ms, plain_ms, dev_ms, events, bound_ms, bound_by)
         library_ms = None
         if name in library:
-            lib_err = (library[name]() - cases[name][0][1]("cuda")).abs().max().item()
-            if lib_err > 1e-4:
+            case, lib_fn, lib_gap, lib_tol = library[name]
+            lib_err = lib_gap(lib_fn(), shapes[case][1]("cuda"))
+            if lib_err > lib_tol:
                 raise AssertionError(f"{name}: the library call differs by {lib_err}")
-            library_ms = _cuda_ms(library[name], KERNEL_ITERS)
-            print(f"kernel {name} [{shapes[0][0]}]: library call {library_ms:.4f} ms "
+            library_ms = _cuda_ms(lib_fn, KERNEL_ITERS)
+            print(f"kernel {name} [{shapes[case][0]}]: library call {library_ms:.4f} ms "
                   f"(max abs diff {lib_err:.2e})")
         entries.append({
             "name": name, "route": "cuda", "source": k.source,
@@ -676,6 +763,113 @@ def run_slices(dev, ops, bench_slice, card):
     return runs
 
 
+def _train_steps(bench_slice, model, batch, eps, n_steps):
+    """Train ``model`` (Adam at 1e-3, as ``train_gspn``'s default) for one
+    warm-up step and ``n_steps`` timed ones on the host clock around a
+    synchronized step, the same batch and noise each step. Returns ``(step
+    1's metrics, step 1's gradients, every step's loss, timed ms)``."""
+    from gspn_tpu_torch.train.steps import (
+        TrainState, make_gspn_loss_fn, make_optimizer, make_train_step,
+    )
+
+    loss_fn = make_gspn_loss_fn(bench_slice.TRAIN_SEEDS, bench_slice.TRAIN_GT)
+    step = make_train_step(loss_fn)
+    state = TrainState(model, make_optimizer(model, 1e-3))
+    first = step(state, batch, z_eps=eps)
+    grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+    losses, times = [first["loss"]], []
+    for _ in range(n_steps):
+        ms, m = _host_ms(lambda: step(state, batch, z_eps=eps))
+        times.append(ms)
+        losses.append(m["loss"])
+    return first, grads, torch.stack(losses), times
+
+
+def run_training(dev, ops, bench_slice, card):
+    """Slice (G): GSPN stage-1 training steps on the card, kernel path
+    against plain path, then a CPU reference and the trainer's entry point.
+    Returns the kernel path's launch counts."""
+    import pathlib
+    import tempfile
+
+    from gspn_tpu_torch.nn.layers import MaskedBatchNorm
+    from gspn_tpu_torch.train import train_gspn
+    from gspn_tpu_torch.train.steps import make_gspn_loss_fn
+
+    _phase("slice (G)")
+    cfg = bench_slice.train_config()
+    batch = bench_slice.train_batch(dev)
+    model = bench_slice.seeded_gspn(cfg, dev)
+    _, pmodel = bench_slice.plain_gspn(cfg, model)  # same initial weights
+    eps = torch.randn((bench_slice.TRAIN_BATCH, bench_slice.TRAIN_SEEDS, cfg.latent_dim),
+                      generator=torch.Generator().manual_seed(1)).to(dev)
+    ops.reset_launch_counts()
+    first, grads, losses, times = _train_steps(bench_slice, model, batch, eps, TRAIN_STEPS)
+    counts = ops.launch_counts()
+    print(f"slice (G) launches: {json.dumps(counts)}")
+    want = {k: c * (TRAIN_STEPS + 1) for k, c in G_PER_STEP.items()}
+    got = {k: c for k, c in counts.items() if c}
+    if got != want:
+        raise AssertionError(f"slice (G) launched {got}, expected {want}")
+    pfirst, pgrads, plosses, ptimes = _train_steps(bench_slice, pmodel, batch, eps, TRAIN_STEPS)
+    if ops.launch_counts() != counts:
+        raise AssertionError("slice (G): the plain path launched kernels")
+
+    for name, ls in (("kernel", losses), ("plain", plosses)):
+        if not torch.isfinite(ls).all():
+            raise AssertionError(f"slice (G) {name} path: non-finite losses {ls.tolist()}")
+    for k in first:
+        torch.testing.assert_close(first[k], pfirst[k], rtol=1e-5, atol=1e-6)
+    bench_slice.assert_grads_close(grads, pgrads)
+    # each run's gradients carry atomics' rounding, which Adam (dividing by
+    # sqrt(v)) and the steps after it amplify: the paths drift apart by up
+    # to 7.6e-4 relative over 11 steps (PERF.md, PR 5), so later losses are
+    # held to LATER_LOSS_RTOL, above rtol 1e-3
+    gaps = ((losses - plosses).abs() / plosses.abs()).tolist()
+    print(f"slice (G): kernel path vs plain path, relative loss gap per step "
+          f"{[f'{g:.2e}' for g in gaps]}")
+    torch.testing.assert_close(losses, plosses, rtol=LATER_LOSS_RTOL, atol=0.0)
+    still = [k for k, m in model.named_modules()
+             if isinstance(m, MaskedBatchNorm) and not m.mean.any()]
+    if still:
+        raise AssertionError(f"slice (G): running means still 0 in {still}")
+    print(f"slice (G): step 1 loss {first['loss'].item():.6f} "
+          f"({', '.join(f'{k} {v.item():.6f}' for k, v in first.items() if k != 'loss')}), "
+          f"kernel == plain within the tolerances; losses {[round(x, 4) for x in losses.tolist()]}")
+    for name, ts in (("kernel", times), ("plain", ptimes)):
+        med = statistics.median(ts)
+        print(f"slice (G) {name} path: median {med:.3f} ms/step (min {min(ts):.3f}, max "
+              f"{max(ts):.3f}; {len(ts)} steps after a warm-up), "
+              f"{bench_slice.TRAIN_BATCH / med * 1e3:.2f} scenes/s [{card}]")
+
+    _phase("slice (G) cpu reference")
+    def small_step_loss(device):
+        b = bench_slice.train_batch(device, b=1, n=1024)
+        seps = torch.randn((1, 16, cfg.latent_dim), generator=torch.Generator().manual_seed(2))
+        return make_gspn_loss_fn(16, 64)(
+            bench_slice.seeded_gspn(cfg, device), b, z_eps=seps.to(device))[0].item()
+
+    on_card, on_cpu = small_step_loss(dev), small_step_loss(torch.device("cpu"))
+    if abs(on_card - on_cpu) > 1e-4 * abs(on_cpu):
+        raise AssertionError(f"slice (G) B=1 x N=1024: card {on_card} vs CPU {on_cpu}")
+    print(f"slice (G) B=1 x N=1024, 16 seeds, GT 64: step 1 loss card kernel path "
+          f"{on_card:.6f}, CPU plain path {on_cpu:.6f} (within rtol 1e-4)")
+
+    _phase("slice (G) train_gspn")
+    with tempfile.TemporaryDirectory() as tmp:
+        state = train_gspn.main(["--steps", "3", "--log-every", "1", "--ckpt-every", "3",
+                                 "--log-dir", tmp])
+        lines = [json.loads(x) for x in pathlib.Path(tmp, "train.jsonl").read_text().splitlines()]
+        if state.step != 3 or len(lines) != 3 or not all(
+                np.isfinite(v) for rec in lines for v in rec.values()):
+            raise AssertionError(f"train_gspn: step {state.step}, metrics {lines}")
+        if not pathlib.Path(tmp, "ckpt", "ckpt_3.pt").exists():
+            raise AssertionError("train_gspn: no checkpoint at step 3")
+    print(f"slice (G) train_gspn.main at its defaults: 3 steps, 3 finite metric lines, "
+          f"checkpoint ckpt_3.pt; last loss {lines[-1]['loss']:.4f}")
+    return counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs an NVIDIA GPU")
@@ -700,6 +894,7 @@ def main() -> None:
     _phase("kernels")
     entries = check_kernels(dev, ops, bench_slice)
     runs = run_slices(dev, ops, bench_slice, card)
+    runs["G"] = run_training(dev, ops, bench_slice, card)
     for e in entries:
         e["slice"] = next(s for s, c in runs.items() if c[e["name"]])
         e["launches"] = runs[e["slice"]][e["name"]]

@@ -6,6 +6,11 @@ a mechanical rename: ``params/a/b/dense_0/kernel`` (in, out) becomes
 their names; ``batch_stats/.../bn_0/mean|var`` become the BatchNorm
 buffers. Inputs are nested dicts of array-likes (NumPy, or anything
 ``numpy.asarray`` takes), never JAX objects this module must import.
+A training GSPN's variables (``recog_enc``, ``recognition`` included) go
+through :func:`flax_to_state_dict` with no ``skip`` into
+``GSPN(cfg, recognition=True)``; :func:`state_dict_to_flax` carries a state
+dict back to a NumPy Flax tree, so a test can hold parameters against the
+JAX package's after training steps.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import torch
 
 # GSPN scopes that only training builds (recognition network); inference
 # variables carry them, the port's inference model has no such modules
+# (the pipeline skips them)
 GSPN_TRAINING_ONLY = ("recog_enc", "recognition")
 
 
@@ -62,3 +68,28 @@ def pipeline_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
     sd = flax_to_state_dict(variables["gspn"], "gspn.", skip=GSPN_TRAINING_ONLY)
     sd.update(flax_to_state_dict(variables["rpointnet"], "rpointnet."))
     return sd
+
+
+def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """The inverse of :func:`flax_to_state_dict` (no prefix): a flat state
+    dict -> ``{"params": ..., "batch_stats": ...}`` nested dicts of NumPy
+    float32 arrays, ``weight`` (out, in) back to ``kernel`` (in, out)."""
+    out: dict = {"params": {}, "batch_stats": {}}
+    for key, value in state_dict.items():
+        *scopes, name = key.split(".")
+        arr = value.detach().cpu().numpy().astype(np.float32)
+        if name == "weight":
+            collection, name, arr = "params", "kernel", arr.T
+        elif name in ("bias", "scale"):
+            collection = "params"
+        elif name in ("mean", "var"):
+            collection = "batch_stats"
+        else:
+            raise ValueError(f"unknown state-dict entry {key!r}")
+        node = out[collection]
+        for scope in scopes:
+            node = node.setdefault(scope, {})
+        node[name] = arr
+    if not out["batch_stats"]:
+        del out["batch_stats"]
+    return out

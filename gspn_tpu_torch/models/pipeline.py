@@ -14,7 +14,6 @@ submodules named as the Flax variable trees); its state dict comes from
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import torch
 from torch import nn
@@ -29,6 +28,7 @@ from gspn_tpu_torch.models.gspn import (
     proposal_boxes,
 )
 from gspn_tpu_torch.models.rpointnet import RPointNet, RPointNetConfig, apply_box_deltas
+from gspn_tpu_torch.nn.layers import glorot_init_
 
 
 @dataclasses.dataclass(frozen=True)
@@ -222,17 +222,11 @@ def make_inference_fn(cfg: PipelineConfig):
     return infer
 
 
-def _glorot_uniform_(w: torch.Tensor, generator: torch.Generator) -> None:
-    fan_out, fan_in = w.shape
-    limit = math.sqrt(6.0 / (fan_in + fan_out))
-    with torch.no_grad():
-        w.uniform_(-limit, limit, generator=generator)
-
-
 def init_pipeline_variables(cfg: PipelineConfig, generator: torch.Generator, n: int):
     """Seeded weights for both stages as a :class:`PipelineModel` state dict,
-    initialized as the JAX package initializes them: glorot-uniform Linear
-    weights, zero biases, BatchNorm scale 1 / bias 0 / mean 0 / var 1.
+    initialized as the JAX package initializes them
+    (``nn.layers.glorot_init_``: glorot-uniform Linear weights, zero biases,
+    BatchNorm scale 1 / bias 0 / mean 0 / var 1).
 
     ``n`` (points per scene) is kept for signature parity with the JAX
     function, which traces dummy inputs of that size; no width here depends
@@ -240,8 +234,5 @@ def init_pipeline_variables(cfg: PipelineConfig, generator: torch.Generator, n: 
     reproducible but are not the JAX package's numbers."""
     del n
     model = PipelineModel(cfg)
-    for mod in model.modules():
-        if isinstance(mod, nn.Linear):
-            _glorot_uniform_(mod.weight, generator)
-            nn.init.zeros_(mod.bias)
+    glorot_init_(model, generator)
     return model.state_dict()

@@ -4,7 +4,8 @@ Ops with a hand-written Hopper kernel (``farthest_point_sample``,
 ``query_ball_group_multi`` and ``query_box_group`` with ``select`` "first"
 or "strided", ``query_ball_point(_multi)``, ``three_nn``,
 ``three_interpolate_mm``, ``nearest_sample_logit``,
-``nearest_sample_logit_boxed``, ``nms_3d(_batched)``) take
+``nearest_sample_logit_boxed``, ``nms_3d(_batched)``, ``nn_argmin`` under
+``nn_distance``) take
 ``impl="auto|cuda|plain"`` (see ``ops/common.py``); each kernel counts its
 launches in ``KERNELS[name].launches``.
 """
@@ -17,6 +18,7 @@ from gspn_tpu_torch.ops.ball_query import (
     query_ball_point_multi,
 )
 from gspn_tpu_torch.ops.box_group import box_contains, query_box_group
+from gspn_tpu_torch.ops.chamfer import chamfer_loss, nn_argmin, nn_distance
 from gspn_tpu_torch.ops.common import masked_sqdist, pairwise_sqdist, resolve_impl, round_up
 from gspn_tpu_torch.ops.fps import (
     eligible_fps_segments,
@@ -45,6 +47,7 @@ __all__ = [
     "box_contains",
     "box_iou",
     "box_volume",
+    "chamfer_loss",
     "eligible_fps_segments",
     "farthest_point_sample",
     "gather_point",
@@ -54,6 +57,8 @@ __all__ = [
     "morton_codes",
     "nearest_sample_logit",
     "nearest_sample_logit_boxed",
+    "nn_argmin",
+    "nn_distance",
     "nms_3d",
     "nms_3d_batched",
     "pairwise_sqdist",

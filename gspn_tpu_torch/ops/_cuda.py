@@ -32,7 +32,7 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
 SOURCES = (
     "fps.cu", "ball_group.cu", "box_group.cu", "ball_query.cu", "three_nn.cu",
-    "interp_mm.cu", "mask_project.cu", "nms.cu",
+    "interp_mm.cu", "mask_project.cu", "nms.cu", "chamfer.cu",
 )
 HEADERS = ("common.cuh", "group_scan.cuh")
 NVCC_FLAGS = (
@@ -218,6 +218,12 @@ KERNELS: dict[str, CudaKernel] = {
             # iou, alive, b, r, thresh (f32), keep
             (_ptr, _ptr, _int, _int, ctypes.c_float, _ptr),
             "gspn_tpu/ops/nms.py:83 _nms_kernel",
+        ),
+        CudaKernel(
+            "nn_argmin", "chamfer.cu", "gspn_nn_argmin",
+            # xyz1, xyz2, valid2, b, n, m, idx
+            (_ptr, _ptr, _ptr, _int, _int, _int, _ptr),
+            "gspn_tpu/ops/chamfer.py:44 _nn_kernel",
         ),
     )
 }

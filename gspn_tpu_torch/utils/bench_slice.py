@@ -1,22 +1,26 @@
-"""The inference slice as ``chip_smoke.py`` and ``profile_slice`` drive it:
-its config and the variants of it, the seeded model, the plain-path model
-and the bench's two request shapes, set up in one place so both measure
-the same program."""
+"""The slices as ``chip_smoke.py``, ``profile_slice`` and the card tests
+drive them, set up in one place so all measure the same program: the
+inference slice's config and its variants, the seeded model, the
+plain-path model and the bench's two request shapes; and the training
+slice's config, batch, seeded GSPN and plain-path GSPN."""
 
 from __future__ import annotations
 
 import dataclasses
+import re
 
 import numpy as np
 import torch
 
 from gspn_tpu_torch.data import synthetic
+from gspn_tpu_torch.models.gspn import GSPN, GSPNConfig
 from gspn_tpu_torch.models.pipeline import (
     PipelineConfig,
     PipelineModel,
     init_pipeline_variables,
 )
 from gspn_tpu_torch.models.presets import scannet_pipeline, set_pipeline_group_select
+from gspn_tpu_torch.nn.layers import glorot_init_
 
 # shape name -> (B, N, scene_batch kwargs, padded tail); bench.py's flagship
 # request and its whole scene with the last ~10 % of points invalid
@@ -116,3 +120,63 @@ def float32_matmuls() -> None:
     flip a mask threshold between the kernel path and its references."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+# the training slice: ``train_gspn``'s defaults (B=4 x N=4096 synthetic
+# scenes, 64 FPS seeds, 256 GT points per seed)
+TRAIN_BATCH, TRAIN_POINTS, TRAIN_SEEDS, TRAIN_GT = 4, 4096, 64, 256
+
+
+def train_config() -> GSPNConfig:
+    """``GSPNConfig()`` at full width, as ``train_gspn`` trains it."""
+    return GSPNConfig()
+
+
+def train_batch(device, b: int = TRAIN_BATCH, n: int = TRAIN_POINTS) -> dict:
+    """``scene_batch(default_rng(0), b, n_points=n, max_instances=8)`` as
+    tensors on ``device`` (``xyz``, ``valid``, ``inst_label``, ...)."""
+    sb = synthetic.scene_batch(np.random.default_rng(0), b, n_points=n, max_instances=8)
+    return {k: torch.from_numpy(v).to(device) for k, v in sb.items()}
+
+
+def seeded_gspn(cfg: GSPNConfig, device, recognition: bool = True) -> GSPN:
+    """Training-mode GSPN with glorot weights from
+    ``torch.Generator().manual_seed(0)``."""
+    model = GSPN(cfg, recognition=recognition)
+    glorot_init_(model, torch.Generator().manual_seed(0))
+    return model.to(device).train()
+
+
+def plain_gspn(cfg: GSPNConfig, model: GSPN) -> tuple[GSPNConfig, GSPN]:
+    """``(cfg on the plain ops, a GSPN built from it with model's weights
+    and mode, on its device)``: the training slice's plain path."""
+    pcfg = dataclasses.replace(cfg, ops_impl="plain")
+    out = GSPN(pcfg, recognition=model.has_recognition)
+    out.load_state_dict(model.state_dict())
+    return pcfg, out.to(next(model.parameters()).device).train(model.training)
+
+
+_BN_FED_BIAS = re.compile(r"\.dense_\d+\.bias$")
+
+
+def assert_grads_close(got: dict, want: dict) -> None:
+    """Hold one run's gradients (``name -> tensor``) of a training step
+    against another run's. Their sums are taken in no fixed order
+    (``gather``'s backward adds with atomics on the card), which moves the
+    small elements of a large gradient far in relative terms, so each
+    parameter is held norm-wise: ``|got - want| <= 1e-4 |want| + 1e-6``. A
+    Dense bias that feeds a training-mode BatchNorm (``*.dense_<i>.bias``)
+    has a true gradient of 0 (the batch mean removes it): both runs' values
+    are rounding noise, held within an atol of 1e-5 x the largest gradient
+    of the same layer's weight."""
+    for name, w in want.items():
+        g = got[name]
+        if _BN_FED_BIAS.search(name):
+            atol = 1e-5 * want[name[: -len("bias")] + "weight"].abs().max().item()
+            torch.testing.assert_close(g, w, rtol=0.0, atol=atol,
+                                       msg=lambda m, name=name: f"gradient {name}: {m}")
+            continue
+        err, ref = (g - w).norm().item(), w.norm().item()
+        if not err <= 1e-4 * ref + 1e-6:
+            raise AssertionError(f"gradient {name}: |got - want| = {err:.3e} against "
+                                 f"|want| = {ref:.3e}")

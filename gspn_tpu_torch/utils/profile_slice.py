@@ -27,31 +27,16 @@ import torch
 
 from gspn_tpu_torch.models.pipeline import make_inference_fn
 from gspn_tpu_torch.utils import bench_slice
+from gspn_tpu_torch.utils.profiling import busy_us, device_kernels
 
 HAND_WRITTEN = (  # symbols in the profiler's demangled device events
     "fps_kernel", "group_scan_kernel<false, false, true>", "group_scan_kernel<true, false, true>",
     "group_scan_kernel<false, true, true>", "group_scan_kernel<true, true, true>",
     "group_scan_kernel<false, false, false>", "group_scan_kernel<false, true, false>",
     "three_nn_kernel", "interp_mm_kernel", "mask_project_kernel<false>",
-    "mask_project_kernel<true>", "nms_kernel",
+    "mask_project_kernel<true>", "nms_kernel", "nn_argmin_kernel",
 )
 ITERS = 5
-
-
-def _busy_us(events) -> float:
-    """Union of device-kernel intervals (us), so overlap is counted once."""
-    iv = sorted((e.time_range.start, e.time_range.end) for e in events)
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e in iv:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy += cur_e - cur_s
-    return busy
 
 
 def profile(label, infer, model, xyz, valid, eps, out_dir):
@@ -67,8 +52,8 @@ def profile(label, infer, model, xyz, valid, eps, out_dir):
                 infer(model, xyz, valid, z_eps=eps)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / ITERS
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = _busy_us(kernels) / 1e3 / ITERS
+    kernels = device_kernels(prof)
+    busy_ms = busy_us(kernels) / 1e3 / ITERS
     by_name: dict[str, list[float]] = {}
     for e in kernels:
         d = by_name.setdefault(e.name, [0.0, 0])

@@ -1,5 +1,6 @@
 """Each hand-written CUDA kernel of ``gspn_tpu_torch`` against its plain
-PyTorch version, on the card, at the inference slice's shapes.
+PyTorch version, on the card, at the inference and training slices'
+shapes, and one training step's kernel path against its plain path.
 
 Needs an NVIDIA GPU with ``nvcc`` (the kernels build at first use); skipped
 elsewhere. Run on the card with ``python -m pytest tests/test_torch_kernels.py``.
@@ -17,10 +18,13 @@ from gspn_tpu_torch.data import synthetic
 from gspn_tpu_torch.ops import ball_group as tball
 from gspn_tpu_torch.ops import ball_query as tquery
 from gspn_tpu_torch.ops import box_group as tbox
+from gspn_tpu_torch.ops import chamfer as tchamfer
 from gspn_tpu_torch.ops import fps as tfps
 from gspn_tpu_torch.ops import interpolate as tinterp
 from gspn_tpu_torch.ops import mask_project as tmask
 from gspn_tpu_torch.ops import nms as tnms
+from gspn_tpu_torch.train import steps as tsteps
+from gspn_tpu_torch.utils import bench_slice
 
 pytestmark = pytest.mark.cuda
 
@@ -321,3 +325,71 @@ def test_mask_project_boxed_kernel(dev, b, n, r, s, tiling, masked):
     dense = ops.nearest_sample_logit(sxyz, samp, logits, v, impl="plain")
     inside = ops.box_contains(boxes, sxyz, svld)
     _equal(got[inside], dense[inside])
+
+
+def _nn_case(dev, b, n, m, seed=7):
+    """Targets, sources whose second half repeats the first (ties go to the
+    lower index), and a source mask with row 0 fully padded."""
+    gen = torch.Generator().manual_seed(seed)
+    tgt = (torch.rand((b, n, 3), generator=gen) * 2).to(dev)
+    src = torch.rand((b, (m + 1) // 2, 3), generator=gen) * 2
+    src = torch.cat([src, src], dim=1)[:, :m].to(dev)
+    valid = (torch.rand((b, m), generator=gen) > 0.3).to(dev)
+    valid[0] = False
+    return tgt, src, valid
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("b,n,m", [(256, 256, 256), (16, 4096, 4096), (3, 100, 7), (2, 5, 3000)])
+def test_nn_argmin_kernel(dev, b, n, m, masked):
+    """Bitwise its plain version (the chamfer step's 256 x 256 <- 256, a
+    tiled 4096 sources, ragged sizes); a fully padded row gets index 0."""
+    tgt, src, valid = _nn_case(dev, b, n, m)
+    v = valid if masked else None
+    before = tchamfer.KERNEL.launches
+    got = ops.nn_argmin(tgt, src, v, impl="cuda")
+    torch.cuda.synchronize()
+    assert tchamfer.KERNEL.launches == before + 1
+    _equal(got, ops.nn_argmin(tgt, src, v, impl="plain"))
+    if masked:
+        assert not got[0].any()
+
+
+def test_nn_distance_auto_launches_the_kernel(dev):
+    tgt, src, valid = _nn_case(dev, 256, 256, 256)
+    before = tchamfer.KERNEL.launches
+    got = ops.nn_distance(tgt, src, valid2=valid)
+    torch.cuda.synchronize()
+    assert tchamfer.KERNEL.launches == before + 2
+    want = ops.nn_distance(tgt, src, valid2=valid, impl="plain")
+    assert tchamfer.KERNEL.launches == before + 2
+    for x, y in zip(got, want, strict=True):
+        _equal(x, y)
+
+
+def test_train_step_kernel_path_matches_plain_path(dev):
+    """One GSPN training step at full width on the slice's batch: the loss
+    and its terms within rtol 1e-5 / atol 1e-6 (the kernels are bitwise,
+    the rest is the same PyTorch), the gradients as
+    ``bench_slice.assert_grads_close`` holds them (``gather``'s backward
+    adds with atomics in no fixed order)."""
+    bench_slice.float32_matmuls()
+    cfg = bench_slice.train_config()
+    batch = bench_slice.train_batch(dev)
+    model = bench_slice.seeded_gspn(cfg, dev)
+    _, pmodel = bench_slice.plain_gspn(cfg, model)
+    eps = torch.randn((4, 64, cfg.latent_dim), generator=torch.Generator().manual_seed(1)).to(dev)
+    step = tsteps.make_train_step(tsteps.make_gspn_loss_fn(64, 256))
+    runs = []
+    for m in (model, pmodel):
+        before = ops.launch_counts()
+        state = tsteps.TrainState(m, tsteps.make_optimizer(m, 1e-3))
+        metrics = step(state, batch, z_eps=eps)
+        torch.cuda.synchronize()
+        launched = {k: c - before[k] for k, c in ops.launch_counts().items() if c != before[k]}
+        runs.append((metrics, {k: p.grad for k, p in m.named_parameters()}, launched))
+    (got, grads, launched), (want, pgrads, plain_launched) = runs
+    assert launched == {"fps": 1, "ball_group": 1, "nn_argmin": 2} and not plain_launched
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=1e-6)
+    bench_slice.assert_grads_close(grads, pgrads)

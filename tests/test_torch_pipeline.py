@@ -129,7 +129,7 @@ def test_cpu_calls_launch_no_kernel():
             model, t(z["in/xyz"]), t(z["in/valid"]), generator=torch.Generator().manual_seed(0)
         )
         assert out.masks.shape == (2, cfg.num_seeds, 128)
-    assert set(ops.launch_counts()) == set(ops.KERNELS) and len(ops.KERNELS) == 12
+    assert set(ops.launch_counts()) == set(ops.KERNELS) and len(ops.KERNELS) == 13
     assert all(c == 0 for c in ops.launch_counts().values()), ops.launch_counts()
 
 
@@ -209,11 +209,22 @@ def test_unknown_group_select_raises_value_error(stage):
 def test_not_ported_messages_quote_roadmap_titles():
     """Each not-ported message names its ROADMAP.md entry by a title that is
     in ROADMAP.md (numbers move when the queues are renumbered)."""
+    from gspn_tpu_torch.train import steps as tsteps
+    from gspn_tpu_torch.train import train_gspn as ttrain
+    from tests.test_torch_train import UNPORTED_FLAGS
+
     messages = []
     for knob in _UNPORTED_KNOBS:
         with pytest.raises(NotImplementedError) as err:
             tpl.make_inference_fn(_knobbed(knob))
         messages.append(str(err.value))
+    for flags in UNPORTED_FLAGS:  # the trainer's flags
+        with pytest.raises(NotImplementedError) as err:
+            ttrain.check_ported(ttrain.parse_args(flags))
+        messages.append(str(err.value))
+    with pytest.raises(NotImplementedError) as err:
+        tsteps.make_gspn_loss_fn(8, 16, seed_method="random")
+    messages.append(str(err.value))
     roadmap = (REPO / "ROADMAP.md").read_text()
     for msg in messages:
         titles = re.findall(r'"([^"]+)"', msg.split("ROADMAP.md", 1)[1])
