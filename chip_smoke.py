@@ -10,15 +10,20 @@ line or a few:
 1. device: the card's name and power limit, CUDA and nvcc versions;
 2. build: compiles the hand-written kernels (``gspn_tpu_torch/csrc``), one
    ``nvcc`` per source, all at once;
-3. kernels: each of the thirteen kernels against its plain PyTorch version at
-   the slice's shapes, bitwise (integer outputs equal, floats bit for
+3. kernels: each of the fifteen kernels against its plain PyTorch version at
+   the slices' shapes, bitwise (integer outputs equal, floats bit for
    bit), with the wrapper's and the plain version's times from CUDA events
-   over as many launches, the kernel's own device time from
+   over as many launches (a plain version slower than 20 ms a call over
+   ``PLAIN_SLOW_ITERS``), the kernel's own device time from
    ``torch.profiler``, the least time the card could take for the same
    work (``bound_ms``: the larger of the bytes over 3.35 TB/s and the
    operations over 33.5 T/s, counted from this run's inputs; see
    ``_bound``), and the time of one PyTorch call computing the same
    function where there is one (``library_ms``; never called by the port);
+   the exact FPS beyond one block (``fps_cluster``) at the whole scene,
+   4 x 16384, 2 x 14273 with an all-invalid row and 131072 points, then
+   at every cluster size that holds each row; NMS up to 4096 boxes; the
+   gather backward (``index_add``) at slice (G)'s chamfer and FP4's shapes;
    strided selection must differ from first-K at SA1;
 4. slices, seeded weights on the bench's scenes (``gspn_tpu_torch.utils.
    bench_slice``). Each runs its kernel path, with every launch count set to
@@ -41,30 +46,38 @@ line or a few:
    centres from the shared FPS pass, launch counts set to 0 just before:
    strided crops and SA1, and first-K SA1, each equal to the matching ball
    group's indices and counts;
+   (H) ``scannet_pipeline(fps_segments=1)``, the exact greedy FPS, at both
+   shapes: one ``fps_cluster`` launch per whole-scene request; and on the
+   CPU's plain path a scene of 16384 points (the card's side on the cluster
+   kernel);
 5. slice (G), GSPN stage-1 training (``bench_slice.train_config()`` =
    ``GSPNConfig()`` at full width, B=4 x N=4096, 64 FPS seeds, 256 GT
-   points per seed, Adam at 1e-3), outside ``torch.inference_mode``: one
-   warm-up step and ``TRAIN_STEPS`` timed steps with the same noise each
-   step, launch counts set to 0 just before (exactly fps and ball_group
-   once and nn_argmin twice a step), then the plain path (a GSPN built from
-   the plain config with the same initial weights), which launches
-   nothing. Step 1's loss and terms within rtol 1e-5 / atol 1e-6, its
-   gradients as ``bench_slice.assert_grads_close`` holds them (norm-wise
-   within 1e-4; the Dense biases that feed a BatchNorm, whose true
-   gradient is 0, within an atol scaled by their layer), later losses
-   within ``LATER_LOSS_RTOL``, every loss finite, every running mean moved
-   off 0;
-   step 1 on the CPU's plain path on a small batch (B=1 x N=1024, 16
-   seeds, GT 64) within rtol 1e-4 of the card's; and ``train_gspn.main``
-   at its defaults on the card for 3 steps, with 3 finite JSONL lines and
-   a checkpoint;
+   points per seed, Adam at 1e-3), outside ``torch.inference_mode``: first
+   one step under ``torch.use_deterministic_algorithms(True,
+   warn_only=True)`` on a model of its own, printing what PyTorch warns
+   about; then one warm-up step and ``TRAIN_STEPS`` timed steps with the
+   same noise each step, launch counts set to 0 just before (exactly fps,
+   ball_group and the gather backward's index_add once and nn_argmin twice
+   a step), a second kernel-path run from the same weights that must be
+   bitwise equal (losses, parameters, running statistics), then the plain
+   path (a GSPN built from the plain config with the same initial
+   weights), which launches nothing and must train the same model bit for
+   bit (step 1's loss, terms and gradients, every later loss, the
+   parameters and running statistics at the end), every loss finite,
+   every running mean moved off 0; step 1 on the CPU's plain path on a
+   small batch (B=1 x N=1024, 16 seeds, GT 64) within rtol 1e-4 of the
+   card's; ``train_gspn.main`` at its defaults on the card for 3 steps,
+   with 3 finite JSONL lines and a checkpoint; 4 steps straight against 2
+   steps, a checkpoint and ``--resume`` for 2 more, bitwise; and
+   ``--num-points 16384`` (exact FPS on the cluster kernel) for 3 steps;
 6. a JSON line of kernel results (``launches`` from the first slice that
    launches the kernel, named in ``slice``: (A) for the first-K path's,
    (B) for mask_project_boxed, (E) for the strided groups, (F) for the
-   ball queries, (G) for nn_argmin; ``launches_by_slice`` for each slice's
-   own count;
-   ``device_events``, the profiler's events under ``device_ms``), the
-   card's name and power limit, and last ``{"ok": true, "device": {...}}``.
+   ball queries, (H) for fps_cluster, (G) for nn_argmin and index_add;
+   ``launches_by_slice`` for each slice's own count; ``device_events``,
+   the profiler's events under ``device_ms``; ``ms_by_cluster_size`` for
+   fps_cluster), the card's name and power limit, and last ``{"ok": true,
+   "device": {...}}``.
 
 Any failure raises; no phase's error is caught. Imports nothing of JAX.
 """
@@ -85,16 +98,18 @@ FLAGSHIP, WHOLE_SCENE = "B8xN8192", "B1xN65536"  # keys of bench_slice.SHAPES
 REQUESTS = 20  # slice (A): timed requests per shape and path, after one warm-up
 VARIANT_REQUESTS = 3  # slices (B)-(E)
 TRAIN_STEPS = 10  # slice (G): timed training steps per path, after one warm-up
-LATER_LOSS_RTOL = 5e-3  # slice (G): kernel path vs plain path after step 1
 KERNEL_ITERS = 20  # timed launches per kernel and per plain version
+PLAIN_SLOW_ITERS = 3  # timed calls of a plain version or library call slower than 20 ms
 PROFILER_WINDOWS = 3  # tries at a profiler window that records the kernel
 FIELDS = ("masks", "valid", "classes", "scores", "boxes")  # of InstancePredictions
 PATH_KERNELS = {"fps", "ball_group", "box_group", "three_nn", "interp_mm", "nms"}
+FPS_ROWS_N = 131072  # the cluster FPS's reach: twice the whole scene
 STRIDED = {"ball_group": "ball_group_strided", "box_group": "box_group_strided"}
 # the kernel's symbols in the profiler's (demangled) device events; template
 # arguments of group_scan_kernel: <box, strided, coordinates>
 DEVICE_SYMBOLS = {
-    "fps": ("fps_kernel",), "ball_group": ("group_scan_kernel<false, false, true>",),
+    "fps": ("fps_kernel",), "fps_cluster": ("fps_cluster_kernel",),
+    "ball_group": ("group_scan_kernel<false, false, true>",),
     "ball_group_strided": ("group_scan_kernel<false, true, true>",),
     "box_group": ("group_scan_kernel<true, false, true>",),
     "box_group_strided": ("group_scan_kernel<true, true, true>",),
@@ -103,7 +118,7 @@ DEVICE_SYMBOLS = {
     "three_nn": ("three_nn_kernel",), "interp_mm": ("interp_mm_kernel",),
     "mask_project": ("mask_project_kernel<false>",),
     "mask_project_boxed": ("mask_project_kernel<true>",), "nms": ("nms_kernel",),
-    "nn_argmin": ("nn_argmin_kernel",),
+    "nn_argmin": ("nn_argmin_kernel",), "index_add": ("index_add_kernel",),
 }
 SLICE_KERNELS = {  # what each slice's kernel path launches; the others stay at 0
     "A": PATH_KERNELS | {"mask_project"},
@@ -112,9 +127,12 @@ SLICE_KERNELS = {  # what each slice's kernel path launches; the others stay at 
     "D": PATH_KERNELS,
     "E": {STRIDED.get(k, k) for k in PATH_KERNELS} | {"mask_project"},
     "F": {"fps", "ball_query", "ball_query_strided"},
-    "G": {"fps", "ball_group", "nn_argmin"},
+    "H": PATH_KERNELS | {"mask_project", "fps_cluster"},
+    "G": {"fps", "ball_group", "nn_argmin", "index_add"},
 }
-G_PER_STEP = {"fps": 1, "ball_group": 1, "nn_argmin": 2}  # slice (G) launches per step
+# slice (G) launches per step: index_add is the chamfer's gather backward
+# into the generated points
+G_PER_STEP = {"fps": 1, "ball_group": 1, "nn_argmin": 2, "index_add": 1}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 # H100 SXM float32 outside the tensor cores, one instruction per lane and
 # clock: 132 SMs x 128 lanes x 1.98 GHz. The published 67 TFLOP/s counts an
@@ -215,6 +233,11 @@ def _flatten(outs):
     return [t for o in outs for t in _flatten(o)]
 
 
+def _first(out):
+    """A kernel's first output where it returns several (three_nn: dist)."""
+    return out[0] if isinstance(out, tuple) else out
+
+
 def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
@@ -264,7 +287,9 @@ def _chamfer_case(dev, ops, bench_slice, gen):
 
 def check_kernels(dev, ops, bench_slice):
     """Phase 3. Returns the JSON entries (time at each kernel's main shape)."""
+    from gspn_tpu_torch.data import synthetic
     from gspn_tpu_torch.models.rpointnet import roi_grid_points
+    from gspn_tpu_torch.ops import fps as tfps
     from gspn_tpu_torch.ops.mask_project import (
         ROI_BLOCK_BOXED, TILE_N_BOXED, boxed_layout, tile_relevance,
     )
@@ -311,11 +336,34 @@ def check_kernels(dev, ops, bench_slice):
           f"flagship, {ws_rel_share:.4f} whole scene")
     nms_scores = torch.rand((B, 64), generator=gen).to(dev)
     chain_boxes, chain_scores = _chain_nms_case(dev, B, 64, 32, gen)
+    nms2k, nms4k = _chain_nms_case(dev, 1, 2048, 128, gen), _chain_nms_case(dev, 1, 4096, 128, gen)
     pred, gt, gt_valid = _chamfer_case(dev, ops, bench_slice, gen)
     tie_src = torch.rand((16, 2048, 3), generator=gen) * 4
     tie_src = torch.cat([tie_src, tie_src], dim=1).to(dev)  # source j + 2048 repeats j
     tie_tgt = (torch.rand((16, 4096, 3), generator=gen) * 4).to(dev)
     tie_valid = (torch.rand((16, 4096), generator=gen) > 0.2).to(dev)
+    # exact FPS beyond one block: 4 x 16384 training scenes; 2 x 14273 with
+    # an all-invalid row; one row of FPS_ROWS_N points, 10 % padding
+    t16 = bench_slice.train_batch(dev, n=16384)
+    odd = ops.gather_point(ws, torch.arange(2 * 14273, device=dev)[None] % WS_N).reshape(
+        2, 14273, 3)
+    odd_valid = torch.ones((2, 14273), dtype=torch.bool, device=dev)
+    odd_valid[0, -1427:] = False
+    odd_valid[1] = False
+    big = torch.from_numpy(synthetic.scene_batch(
+        np.random.default_rng(0), 1, n_points=FPS_ROWS_N, max_instances=24, extent=8.0)["xyz"]
+    ).to(dev)
+    big_valid = torch.ones((1, FPS_ROWS_N), dtype=torch.bool, device=dev)
+    big_valid[:, -FPS_ROWS_N // 10:] = False
+    # the gather backward at slice (G)'s chamfer (GT -> pred indices into
+    # the generated points), at FP4's interpolation backward, and with 512
+    # positions on every index
+    chamfer_idx = ops.nn_argmin(gt, pred)
+    chamfer_grad = torch.randn(pred.shape, generator=gen).to(dev)
+    fp4_idx = fp4[1].reshape(B, N * 3)
+    fp4_grad = torch.randn((B, N * 3, 128), generator=gen).to(dev)
+    crowd_idx = torch.randint(0, 8, (16, 4096), generator=gen, dtype=torch.int32).to(dev)
+    crowd_grad = torch.randn((16, 4096, 64), generator=gen).to(dev)
 
     # work(plain outputs) -> (bytes, float32 operations) that these inputs
     # need; see _bound
@@ -358,6 +406,9 @@ def check_kernels(dev, ops, bench_slice):
     def nms_work(bx, sc):  # a pair: IoU (~19 operations) and the compare
         return lambda out: (_nbytes(bx, sc, out), bx.shape[0] * bx.shape[1] ** 2 * 20)
 
+    def add_work(src, idx):  # an add a source element
+        return lambda out: (_nbytes(src, idx, out), src.numel())
+
     def sparse_interp(args):
         """One ``torch.sparse.mm`` of a block-diagonal (B*N, B*M) weight
         matrix (three entries a row) with the (B*M, C) source rows: the
@@ -386,6 +437,20 @@ def check_kernels(dev, ops, bench_slice):
                  128, wsx.reshape(8, WS_N // 8, 3), wsvv.reshape(8, WS_N // 8),
                  impl=impl),
              fps_work(wsx.reshape(8, WS_N // 8, 3), wsvv.reshape(8, WS_N // 8), 128)),
+        ],
+        "fps_cluster": [
+            (f"exact, whole scene: 1 x {WS_N} pts (10 % padding), 1024 picks",
+             lambda impl: ops.farthest_point_sample(1024, ws, wsv, impl=impl),
+             fps_work(ws, wsv, 1024)),
+            ("exact, train_gspn --num-points 16384: 4 x 16384 pts, 64 picks",
+             lambda impl: ops.farthest_point_sample(64, t16["xyz"], t16["valid"], impl=impl),
+             fps_work(t16["xyz"], t16["valid"], 64)),
+            ("2 x 14273 pts (one row all invalid), 256 picks",
+             lambda impl: ops.farthest_point_sample(256, odd, odd_valid, impl=impl),
+             fps_work(odd, odd_valid, 256)),
+            (f"1 x {FPS_ROWS_N} pts (10 % padding), 256 picks",
+             lambda impl: ops.farthest_point_sample(256, big, big_valid, impl=impl),
+             fps_work(big, big_valid, 256)),
         ],
         "ball_group": [
             (f"sa1: {B}x1024 queries, r 0.1, K 32",
@@ -506,6 +571,21 @@ def check_kernels(dev, ops, bench_slice):
             (f"{B}x64 boxes with a suppression chain 32 deep",
              lambda impl: ops.nms_3d_batched(chain_boxes, chain_scores, 0.25, impl=impl),
              nms_work(chain_boxes, chain_scores)),
+            ("1x2048 boxes with a suppression chain 128 deep",
+             lambda impl: ops.nms_3d_batched(*nms2k, 0.25, impl=impl), nms_work(*nms2k)),
+            ("1x4096 boxes with a suppression chain 128 deep",
+             lambda impl: ops.nms_3d_batched(*nms4k, 0.25, impl=impl), nms_work(*nms4k)),
+        ],
+        "index_add": [
+            ("chamfer backward: 256 rows x 256 GT -> pred positions, C 3",
+             lambda impl: ops.index_add_rows(chamfer_grad, chamfer_idx, 256, impl=impl),
+             add_work(chamfer_grad, chamfer_idx)),
+            (f"FP4 backward: {B} x {N}x3 positions -> 1024, C 128",
+             lambda impl: ops.index_add_rows(fp4_grad, fp4_idx, 1024, impl=impl),
+             add_work(fp4_grad, fp4_idx)),
+            ("16 x 4096 positions -> 8 (512 on each), C 64",
+             lambda impl: ops.index_add_rows(crowd_grad, crowd_idx, 8, impl=impl),
+             add_work(crowd_grad, crowd_idx)),
         ],
     }
     def cdist_argmin(tgt, src):
@@ -516,6 +596,11 @@ def check_kernels(dev, ops, bench_slice):
     def max_abs_diff(got, want):
         return (got - want).abs().max().item()
 
+    def max_rel_diff(got, want):
+        """Max |got - want| over the largest |want|: sums of many terms in
+        another order differ by rounding that grows with the sum."""
+        return max_abs_diff(got, want) / want.abs().max().item()
+
     def sqdist_gap(tgt, src):
         """Max gap between the squared distances of the library's and the
         kernel's picks: the square root can merge near-ties, so the indices
@@ -525,21 +610,74 @@ def check_kernels(dev, ops, bench_slice):
             return max_abs_diff(*d)
         return gap
 
+    def cdist_topk(tgt, src):
+        """One ``torch.cdist`` (explicit differences) and its ``topk(3)``:
+        three_nn's function, distances not squared."""
+        return lambda: torch.cdist(
+            tgt, src, compute_mode="donot_use_mm_for_euclid_dist").topk(3, largest=False)
+
+    def topk_gap(got, want):
+        """Max gap between the kernel's squared distances and the squares
+        of the library's (the square root can merge near-ties)."""
+        return max_abs_diff(got.values.square(), want)
+
+    def cdist_project(pts, samp, lg):
+        """One ``torch.cdist`` over every (RoI, point, sample) triple and its
+        ``argmin``, then the nearest sample's logit: the dense 1-NN
+        projection (the points are repeated per RoI here, untimed)."""
+        b, r, s_, _ = samp.shape
+        rep = pts[:, None].expand(b, r, *pts.shape[1:]).reshape(b * r, pts.shape[1], 3)
+        flat_s, flat_l = samp.reshape(b * r, s_, 3), lg.reshape(b * r, s_)
+
+        def call():
+            near = torch.cdist(rep, flat_s,
+                               compute_mode="donot_use_mm_for_euclid_dist").argmin(-1)
+            return torch.gather(flat_l, 1, near).reshape(b, r, -1), near
+        return call
+
+    def project_gap(pts, samp):
+        """Max gap between the squared distance to the library's nearest
+        sample and the least one (the square root can merge near-ties, and
+        then the logits differ where the distances do not)."""
+        b, r, s_, _ = samp.shape
+        rep = pts[:, None].expand(b, r, *pts.shape[1:]).reshape(b * r, pts.shape[1], 3)
+
+        def gap(got, want):
+            d2 = ops.pairwise_sqdist(rep, samp.reshape(b * r, s_, 3))
+            picked = torch.gather(d2, -1, got[1][..., None])[..., 0]
+            return max_abs_diff(picked, d2.min(-1).values)
+        return gap
+
+    def index_add_library(src, idx, n_out):
+        """One ``index_add_`` over the batch-offset rows (the library's
+        order of adds is not fixed)."""
+        b, m, c = src.shape
+        flat = (idx.long() + (torch.arange(b, device=src.device) * n_out)[:, None]).reshape(-1)
+        rows = src.reshape(b * m, c)
+        return lambda: torch.zeros((b * n_out, c), device=src.device).index_add_(
+            0, flat, rows).reshape(b, n_out, c)
+
     # name -> (case index, one PyTorch call on that case's inputs, its gap to
     # the kernel's output, the largest gap allowed)
     library = {
         "interp_mm": (0, sparse_interp(fp4), max_abs_diff, 1e-4),
         "nn_argmin": (1, cdist_argmin(gt, pred), sqdist_gap(gt, pred), 1e-6),
+        "three_nn": (0, cdist_topk(xyz, sa1), topk_gap, 1e-5),
+        "mask_project": (0, cdist_project(xyz, roi_xyz, logits), project_gap(xyz, roi_xyz), 1e-6),
+        "index_add": (0, index_add_library(chamfer_grad, chamfer_idx, 256), max_rel_diff, 1e-5),
     }
     entries = []
     for name, shapes in cases.items():
         k = ops.KERNELS[name]
         main = None
         for label, fn, work in shapes:
-            want = fn("plain")
+            first_ms, want = _host_ms(lambda fn=fn: fn("plain"))
             err = _max_abs_err(_flatten(fn("cuda")), _flatten(want))
             ms = _cuda_ms(lambda fn=fn: fn("cuda"), KERNEL_ITERS)
-            plain_ms = _cuda_ms(lambda fn=fn: fn("plain"), KERNEL_ITERS)
+            # a plain version of ~1000 dependent small launches (exact FPS at
+            # the whole scene) is timed over fewer calls
+            plain_ms = _cuda_ms(lambda fn=fn: fn("plain"),
+                                KERNEL_ITERS if first_ms < 20 else PLAIN_SLOW_ITERS)
             dev_ms, events = _device_ms(lambda fn=fn: fn("cuda"), KERNEL_ITERS,
                                         DEVICE_SYMBOLS[name])
             bound_ms, bound_by = _bound(*work(want))
@@ -553,10 +691,11 @@ def check_kernels(dev, ops, bench_slice):
         library_ms = None
         if name in library:
             case, lib_fn, lib_gap, lib_tol = library[name]
-            lib_err = lib_gap(lib_fn(), shapes[case][1]("cuda"))
+            first_ms, lib_out = _host_ms(lib_fn)
+            lib_err = lib_gap(lib_out, _first(shapes[case][1]("cuda")))
             if lib_err > lib_tol:
                 raise AssertionError(f"{name}: the library call differs by {lib_err}")
-            library_ms = _cuda_ms(lib_fn, KERNEL_ITERS)
+            library_ms = _cuda_ms(lib_fn, KERNEL_ITERS if first_ms < 20 else PLAIN_SLOW_ITERS)
             print(f"kernel {name} [{shapes[case][0]}]: library call {library_ms:.4f} ms "
                   f"(max abs diff {lib_err:.2e})")
         entries.append({
@@ -568,6 +707,28 @@ def check_kernels(dev, ops, bench_slice):
             "library_ms": library_ms,
         })
 
+    # the cluster FPS at every cluster size that holds the row, kernel only
+    # (bitwise the plain version each time); fps_cluster_size's pick marked
+    sweep = {}
+    for label, pts, pvalid, npoint in (
+            (f"1 x {WS_N}, 1024 picks", ws, wsv, 1024),
+            ("4 x 16384, 64 picks", t16["xyz"], t16["valid"], 64),
+            ("2 x 14273, 256 picks", odd, odd_valid, 256)):
+        want = ops.farthest_point_sample(npoint, pts, pvalid, impl="plain")
+        times = {}
+        for cs in tfps.FPS_CLUSTER_SIZES[1:]:
+            if -(-pts.shape[1] // cs) > tfps.FPS_MAX_N:
+                continue
+            run = lambda cs=cs: tfps._fps_cuda(pts, npoint, pvalid, cluster=cs)  # noqa: E731
+            _max_abs_err([run()], [want])
+            times[cs] = _cuda_ms(run, KERNEL_ITERS)
+        sweep[label] = times
+        pick = tfps.fps_cluster_size(pts.shape[1])
+        print(f"fps_cluster sweep [{label}]: ms by cluster size (CUDA events, bitwise the plain "
+              f"version at each) " + ", ".join(f"{cs}: {ms:.4f}{' (picked)' * (cs == pick)}"
+                                                for cs, ms in times.items()))
+    next(e for e in entries if e["name"] == "fps_cluster")["ms_by_cluster_size"] = sweep
+
     first = ops.query_ball_group_multi((0.1,), (32,), xyz, sa1, valid)[0][0]
     strided = ops.query_ball_group_multi((0.1,), (32,), xyz, sa1, valid, select="strided")[0][0]
     rows = (first != strided).any(dim=-1).sum().item()
@@ -575,6 +736,22 @@ def check_kernels(dev, ops, bench_slice):
         raise AssertionError("sa1: strided selection equals first-K")
     print(f"sa1: strided selection differs from first-K in {rows} of {B * 1024} balls")
     return entries
+
+
+def _cpu_reference(name, infer, model, cpu_model, sx, sv, seps, dev) -> None:
+    """A second reference: the CPU's plain path (the one the CPU tests hold
+    against JAX) on a small scene; the MLPs' matmul sums differ between CPU
+    and GPU, so masks may flip at a logit's threshold: allow 1e-3 of
+    them."""
+    gpu = infer(model, sx.to(dev), sv.to(dev), z_eps=seps.to(dev))
+    cpu = infer(cpu_model, sx, sv, z_eps=seps)
+    flips = (gpu.masks.cpu() != cpu.masks).float().mean().item()
+    if flips > 1e-3 or not torch.equal(gpu.valid.cpu(), cpu.valid):
+        raise AssertionError(f"({name}) GPU vs CPU on a small scene: mask flips {flips}, "
+                             f"valid equal {torch.equal(gpu.valid.cpu(), cpu.valid)}")
+    torch.testing.assert_close(gpu.boxes.cpu(), cpu.boxes, rtol=1e-4, atol=1e-4)
+    print(f"slice ({name}) B=1 x N={sx.shape[1]}: GPU kernel path vs CPU plain path: valid "
+          f"equal, mask flips {flips}, boxes within 1e-4")
 
 
 def _timed_requests(infer, model, req, n_requests):
@@ -733,10 +910,22 @@ def run_slices(dev, ops, bench_slice, card):
             print(f"slice (E) {shape}: mask entries that differ from (A)'s: {moved:.6f}")
         runs["F"] = run_entry_points(ops, scfg, reqs)
 
-        # a second reference: the CPU's plain path (the one the CPU tests hold
-        # against JAX) on a small scene; the MLPs' matmul sums differ between
-        # CPU and GPU, so masks may flip at a logit's threshold: allow 1e-3
-        # of them
+        # (H) the exact greedy FPS (scannet_pipeline(fps_segments=1)): at the
+        # whole scene one 1024-pick chain over 65536 points on the cluster
+        # kernel a request, at the flagship eight 8192-point rows on fps
+        ecfg = bench_slice.variant_config("exact")
+        emodel = bench_slice.rebuilt_model(ecfg, model)
+        exact, eplain, runs["H"] = run_slice("H", ops, bench_slice, ecfg, emodel, reqs,
+                                             VARIANT_REQUESTS)
+        if runs["H"]["fps_cluster"] != VARIANT_REQUESTS + 1:
+            raise AssertionError(f"(H): {runs['H']['fps_cluster']} fps_cluster launches, "
+                                 f"expected one per whole-scene request")
+        for shape in reqs:
+            points = reqs[shape][0].shape[0] * reqs[shape][0].shape[1]
+            for path, (times, _) in (("kernel", exact[shape]), ("plain", eplain[shape])):
+                print(f"slice (H) {shape} {path} path: {_spread(times)}, "
+                      f"{points / statistics.median(times) * 1e3:.0f} points/s [{card}]")
+
         _phase("cpu reference")
         infer = make_inference_fn(cfg)
         sb = synthetic.scene_batch(np.random.default_rng(0), 1, n_points=2048,
@@ -744,15 +933,18 @@ def run_slices(dev, ops, bench_slice, card):
         sx, sv = torch.from_numpy(sb["xyz"]), torch.from_numpy(sb["valid"])
         seps = torch.randn((1, cfg.num_seeds, cfg.gspn.latent_dim),
                            generator=torch.Generator().manual_seed(3))
-        gpu = infer(model, sx.to(dev), sv.to(dev), z_eps=seps.to(dev))
-        cpu = infer(bench_slice.seeded_model(cfg, torch.device("cpu")), sx, sv, z_eps=seps)
-        flips = (gpu.masks.cpu() != cpu.masks).float().mean().item()
-        if flips > 1e-3 or not torch.equal(gpu.valid.cpu(), cpu.valid):
-            raise AssertionError(f"GPU vs CPU on a small scene: mask flips {flips}, "
-                                 f"valid equal {torch.equal(gpu.valid.cpu(), cpu.valid)}")
-        torch.testing.assert_close(gpu.boxes.cpu(), cpu.boxes, rtol=1e-4, atol=1e-4)
-        print(f"slice (A) B=1 x N=2048: GPU kernel path vs CPU plain path: valid equal, "
-              f"mask flips {flips}, boxes within 1e-4")
+        cpu_model = bench_slice.seeded_model(cfg, torch.device("cpu"))
+        _cpu_reference("A", infer, model, cpu_model, sx, sv, seps, dev)
+        # (H) on a scene above one block's FPS row (14,272 points), so the
+        # card's side runs the cluster kernel
+        sb = synthetic.scene_batch(np.random.default_rng(0), 1, n_points=16384,
+                                   max_instances=4, extent=2.0)
+        before = ops.launch_counts()["fps_cluster"]
+        _cpu_reference("H", make_inference_fn(ecfg), emodel,
+                       bench_slice.rebuilt_model(ecfg, cpu_model),
+                       torch.from_numpy(sb["xyz"]), torch.from_numpy(sb["valid"]), seps, dev)
+        if ops.launch_counts()["fps_cluster"] != before + 1:
+            raise AssertionError("(H) B=1 x N=16384: the card did not run fps_cluster")
 
     for shape, (times, _) in kernel.items():
         points = reqs[shape][0].shape[0] * reqs[shape][0].shape[1]
@@ -803,6 +995,7 @@ def run_training(dev, ops, bench_slice, card):
     _, pmodel = bench_slice.plain_gspn(cfg, model)  # same initial weights
     eps = torch.randn((bench_slice.TRAIN_BATCH, bench_slice.TRAIN_SEEDS, cfg.latent_dim),
                       generator=torch.Generator().manual_seed(1)).to(dev)
+    _deterministic_mode_diagnostic(bench_slice, cfg, batch, eps)
     ops.reset_launch_counts()
     first, grads, losses, times = _train_steps(bench_slice, model, batch, eps, TRAIN_STEPS)
     counts = ops.launch_counts()
@@ -811,31 +1004,42 @@ def run_training(dev, ops, bench_slice, card):
     got = {k: c for k, c in counts.items() if c}
     if got != want:
         raise AssertionError(f"slice (G) launched {got}, expected {want}")
+    # a second kernel-path run from the same weights: bitwise the first
+    again = bench_slice.seeded_gspn(cfg, dev)
+    _, _, losses2, _ = _train_steps(bench_slice, again, batch, eps, TRAIN_STEPS)
+    _assert_same_training("two kernel-path runs", model, again, losses, losses2)
+    print(f"slice (G): a second kernel-path run of 1 + {TRAIN_STEPS} steps from the same "
+          "weights: losses, parameters and running statistics bitwise equal")
+    rerun = ops.launch_counts()
     pfirst, pgrads, plosses, ptimes = _train_steps(bench_slice, pmodel, batch, eps, TRAIN_STEPS)
-    if ops.launch_counts() != counts:
+    if ops.launch_counts() != rerun:
         raise AssertionError("slice (G): the plain path launched kernels")
 
     for name, ls in (("kernel", losses), ("plain", plosses)):
         if not torch.isfinite(ls).all():
             raise AssertionError(f"slice (G) {name} path: non-finite losses {ls.tolist()}")
-    for k in first:
-        torch.testing.assert_close(first[k], pfirst[k], rtol=1e-5, atol=1e-6)
-    bench_slice.assert_grads_close(grads, pgrads)
-    # each run's gradients carry atomics' rounding, which Adam (dividing by
-    # sqrt(v)) and the steps after it amplify: the paths drift apart by up
-    # to 7.6e-4 relative over 11 steps (PERF.md, PR 5), so later losses are
-    # held to LATER_LOSS_RTOL, above rtol 1e-3
+    # every kernel is bitwise its plain version and every sum of a step is
+    # taken in a fixed order, so the two paths train the same model bit for
+    # bit: step 1's loss, terms and gradients, every later loss, and the
+    # parameters and running statistics at the end
     gaps = ((losses - plosses).abs() / plosses.abs()).tolist()
     print(f"slice (G): kernel path vs plain path, relative loss gap per step "
           f"{[f'{g:.2e}' for g in gaps]}")
-    torch.testing.assert_close(losses, plosses, rtol=LATER_LOSS_RTOL, atol=0.0)
+    for k in first:
+        if not torch.equal(first[k], pfirst[k]):
+            raise AssertionError(f"slice (G): step 1 {k} {first[k].item()} vs {pfirst[k].item()}")
+    differ = [k for k in grads if not torch.equal(grads[k], pgrads[k])]
+    if differ:
+        raise AssertionError(f"slice (G): step-1 gradients differ in {differ[:3]}")
+    _assert_same_training("kernel path vs plain path", model, pmodel, losses, plosses)
     still = [k for k, m in model.named_modules()
              if isinstance(m, MaskedBatchNorm) and not m.mean.any()]
     if still:
         raise AssertionError(f"slice (G): running means still 0 in {still}")
     print(f"slice (G): step 1 loss {first['loss'].item():.6f} "
           f"({', '.join(f'{k} {v.item():.6f}' for k, v in first.items() if k != 'loss')}), "
-          f"kernel == plain within the tolerances; losses {[round(x, 4) for x in losses.tolist()]}")
+          f"kernel path == plain path bitwise (losses, step-1 gradients, parameters); "
+          f"losses {[round(x, 4) for x in losses.tolist()]}")
     for name, ts in (("kernel", times), ("plain", ptimes)):
         med = statistics.median(ts)
         print(f"slice (G) {name} path: median {med:.3f} ms/step (min {min(ts):.3f}, max "
@@ -867,7 +1071,85 @@ def run_training(dev, ops, bench_slice, card):
             raise AssertionError("train_gspn: no checkpoint at step 3")
     print(f"slice (G) train_gspn.main at its defaults: 3 steps, 3 finite metric lines, "
           f"checkpoint ckpt_3.pt; last loss {lines[-1]['loss']:.4f}")
+
+    _phase("slice (G) train_gspn --resume")
+    with tempfile.TemporaryDirectory() as tmp:
+        run = ["--ckpt-every", "1", "--log-every", "1"]
+        straight = train_gspn.main(run + ["--steps", "4", "--log-dir", f"{tmp}/a"])
+        train_gspn.main(run + ["--steps", "2", "--log-dir", f"{tmp}/b"])
+        resumed = train_gspn.main(run + ["--steps", "4", "--resume", "--log-dir", f"{tmp}/b"])
+        la, lb = (json.loads(x)["loss"] for x in pathlib.Path(tmp, "a", "train.jsonl")
+                  .read_text().splitlines()), (json.loads(x)["loss"] for x in pathlib.Path(
+                      tmp, "b", "train.jsonl").read_text().splitlines())
+        la, lb = torch.tensor(list(la)), torch.tensor(list(lb))
+        _assert_same_training("train_gspn 4 steps vs 2 + --resume 2", straight.model,
+                              resumed.model, la, lb)
+        oa, ob = (st.optimizer.state_dict()["state"] for st in (straight, resumed))
+        # a restored Adam keeps its step count where the checkpoint load put it
+        if not all(torch.equal(oa[i][k].cpu(), ob[i][k].cpu()) for i in oa for k in oa[i]):
+            raise AssertionError("train_gspn --resume: Adam moments differ")
+    print(f"slice (G) train_gspn: 4 steps straight == 2 steps, a checkpoint and --resume "
+          f"for 2 (parameters, running statistics, Adam moments, losses bitwise); "
+          f"losses {la.tolist()}")
+
+    _phase("slice (G) train_gspn --num-points 16384")
+    before = ops.launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        state = train_gspn.main(["--num-points", "16384", "--steps", "3", "--log-every", "1",
+                                 "--ckpt-every", "3", "--log-dir", tmp])
+        lines = [json.loads(x) for x in pathlib.Path(tmp, "train.jsonl").read_text().splitlines()]
+        if state.step != 3 or len(lines) != 3 or not all(
+                np.isfinite(v) for rec in lines for v in rec.values()):
+            raise AssertionError(f"train_gspn --num-points 16384: step {state.step}, "
+                                 f"metrics {lines}")
+        if not pathlib.Path(tmp, "ckpt", "ckpt_3.pt").exists():
+            raise AssertionError("train_gspn --num-points 16384: no checkpoint at step 3")
+    cluster = ops.launch_counts()["fps_cluster"] - before["fps_cluster"]
+    if cluster != 3:
+        raise AssertionError(f"train_gspn --num-points 16384: {cluster} fps_cluster launches")
+    print(f"slice (G) train_gspn --num-points 16384 (exact FPS, --fps-segments 1): 3 steps, "
+          f"3 finite metric lines, checkpoint ckpt_3.pt, fps_cluster once a step; last loss "
+          f"{lines[-1]['loss']:.4f}")
     return counts
+
+
+def _assert_same_training(what, model, other, losses, other_losses) -> None:
+    """Raise unless two training runs gave bitwise-equal losses, parameters
+    and buffers (BatchNorm running statistics)."""
+    if not torch.equal(losses, other_losses):
+        raise AssertionError(f"{what}: losses differ: {losses.tolist()} vs "
+                             f"{other_losses.tolist()}")
+    a, b = model.state_dict(), other.state_dict()
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    if differ:
+        raise AssertionError(f"{what}: {len(differ)} tensors differ, e.g. {differ[:3]}")
+
+
+def _deterministic_mode_diagnostic(bench_slice, cfg, batch, eps) -> None:
+    """One kernel-path training step (a model of its own) under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)``, switched
+    off again right after: prints each operation PyTorch warns about (one
+    that has no deterministic implementation on the card)."""
+    import warnings
+
+    from gspn_tpu_torch.train.steps import (
+        TrainState, make_gspn_loss_fn, make_optimizer, make_train_step,
+    )
+
+    model = bench_slice.seeded_gspn(cfg, batch["xyz"].device)
+    step = make_train_step(make_gspn_loss_fn(bench_slice.TRAIN_SEEDS, bench_slice.TRAIN_GT))
+    state = TrainState(model, make_optimizer(model, 1e-3))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            step(state, batch, z_eps=eps)
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    found = sorted({str(w.message).strip().splitlines()[0][:200] for w in caught})
+    print(f"slice (G) deterministic-mode diagnostic, one step: {len(found)} warnings: "
+          f"{json.dumps(found)}")
 
 
 def main() -> None:
@@ -900,6 +1182,12 @@ def main() -> None:
         e["launches"] = runs[e["slice"]][e["name"]]
         e["launches_by_slice"] = {s: c[e["name"]] for s, c in runs.items()}
     _phase("report")
+    # where the main path loses the most: launches in the kernel's own slice
+    # x (device ms - bound ms) at its first shape
+    lost = {e["name"]: e["launches"] * (e["device_ms"] - e["bound_ms"])
+            for e in entries if e["device_ms"] is not None}
+    print("ms above the bound over each kernel's slice: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in sorted(lost.items(), key=lambda kv: -kv[1])))
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

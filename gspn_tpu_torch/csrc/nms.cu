@@ -5,35 +5,39 @@
 // in order, keep[i] = alive[i]; a kept i clears alive[j] for every later j
 // with iou[i][j] > thresh.
 //
-// On Hopper: one block per scene, one thread per candidate j (R <= 1024),
-// the alive flags in shared memory. Each of the R steps reads alive[i],
-// lets the threads clear their own flag from row i of the IoU matrix (a
-// coalesced read from L2; the whole (R, R) matrix is 16 KB at R = 64), and
-// ends with __syncthreads(). What bounds it is the R dependent steps, each
-// a barrier and an L2 read: latency, not bytes or operations (R*R compares
-// per scene). The threshold arrives as the f32 that the JAX package's
+// On Hopper: one block per scene, the alive flags in dynamic shared memory
+// (R bytes), each thread owning candidates j = tid, tid + blockDim, ... so
+// that a row of the IoU matrix is read coalesced. Each of the R steps reads
+// alive[i], lets every thread clear its own flags from row i (only the
+// owner ever writes a flag), and ends with __syncthreads(): the keep mask
+// is exactly the sequential loop's. What bounds it is the R dependent
+// steps, each a barrier and an L2 read: latency, not bytes or operations
+// (R*R compares per scene). The flags fit shared memory up to ~227k boxes;
+// the (B, R, R) IoU matrix the wrapper builds comes first (the Python
+// wrapper's MAX_R). The threshold arrives as the f32 that the JAX package's
 // weak-typed Python float becomes, and the compare is in f32.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kMaxR = 1024;
-
 __global__ void nms_kernel(const float* __restrict__ iou,
                            const uint8_t* __restrict__ alive_in, int r,
                            float thresh, uint8_t* __restrict__ keep) {
-  __shared__ uint8_t alive[kMaxR];
+  extern __shared__ uint8_t alive[];
   const int b = blockIdx.x;
-  const int j = threadIdx.x;
   const float* m = iou + static_cast<size_t>(b) * r * r;
-  if (j < r) alive[j] = alive_in[static_cast<size_t>(b) * r + j];
+  for (int j = threadIdx.x; j < r; j += blockDim.x)
+    alive[j] = alive_in[static_cast<size_t>(b) * r + j];
   __syncthreads();
   for (int i = 0; i < r; ++i) {
     const uint8_t a = alive[i];
-    if (j == 0) keep[static_cast<size_t>(b) * r + i] = a;
-    if (a && j > i && j < r && m[static_cast<size_t>(i) * r + j] > thresh)
-      alive[j] = 0;
+    if (threadIdx.x == 0) keep[static_cast<size_t>(b) * r + i] = a;
+    if (a) {
+      const float* row = m + static_cast<size_t>(i) * r;
+      for (int j = threadIdx.x; j < r; j += blockDim.x)
+        if (j > i && row[j] > thresh) alive[j] = 0;
+    }
     __syncthreads();
   }
 }
@@ -42,8 +46,12 @@ __global__ void nms_kernel(const float* __restrict__ iou,
 
 extern "C" int gspn_nms(const float* iou, const uint8_t* alive, int nb, int r,
                         float thresh, uint8_t* keep, cudaStream_t stream) {
-  if (r < 1 || r > kMaxR) return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = (r + 31) / 32 * 32;
-  if (nb > 0) nms_kernel<<<nb, threads, 0, stream>>>(iou, alive, r, thresh, keep);
+  if (r < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      nms_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, r);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int threads = (r + 31) / 32 * 32;
+  if (threads > 1024) threads = 1024;
+  if (nb > 0) nms_kernel<<<nb, threads, r, stream>>>(iou, alive, r, thresh, keep);
   return static_cast<int>(cudaGetLastError());
 }

@@ -146,7 +146,7 @@ class GSPN(nn.Module):
         instances (training), draw the latent from the recognition
         network's posterior instead of the prior."""
         cfg = self.config
-        seed_xyz = ops.gather_point(xyz, seed_idx)  # (B, S, 3)
+        seed_xyz = ops.gather_point(xyz, seed_idx, impl=cfg.ops_impl)  # (B, S, 3)
         per_scale = ops.query_ball_group_multi(
             cfg.context_radii, cfg.context_nsample, xyz, seed_xyz, valid,
             impl=cfg.ops_impl, select=cfg.group_select,

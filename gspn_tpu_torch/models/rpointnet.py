@@ -227,8 +227,8 @@ class RPointNet(nn.Module):
             idx, canon, roi_valid, _ = point_roi_align(
                 xyz, boxes, cfg.roi_samples, valid, impl=cfg.ops_impl, select=cfg.group_select
             )
-            roi_feats = ops.group_point(feat, idx)
-            roi_xyz = ops.group_point(xyz, idx)
+            roi_feats = ops.group_point(feat, idx, impl=cfg.ops_impl)
+            roi_xyz = ops.group_point(xyz, idx, impl=cfg.ops_impl)
         cls_logits, box_deltas, mask_logits = self.heads(canon, roi_feats)
         cls_logits = torch.where(roi_valid[..., None], cls_logits, torch.zeros_like(cls_logits))
         mask_logits = torch.where(

@@ -37,12 +37,12 @@ def sample_and_group(
             segments=ops.eligible_fps_segments(fps_segments, npoint, xyz.shape[1]),
             segment_mode=fps_segment_mode,
         )
-    new_xyz = ops.gather_point(xyz, fps_idx)
+    new_xyz = ops.gather_point(xyz, fps_idx, impl=impl)
     ((idx, pts_cnt, grouped_xyz),) = ops.query_ball_group_multi(
         (radius,), (nsample,), xyz, new_xyz, valid, impl=impl, select=select
     )
     if points is not None:
-        new_points = torch.cat([grouped_xyz, ops.group_point(points, idx)], dim=-1)
+        new_points = torch.cat([grouped_xyz, ops.group_point(points, idx, impl=impl)], dim=-1)
     else:
         new_points = grouped_xyz
     return new_xyz, new_points, idx, grouped_xyz, pts_cnt

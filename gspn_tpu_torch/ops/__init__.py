@@ -5,7 +5,8 @@ Ops with a hand-written Hopper kernel (``farthest_point_sample``,
 or "strided", ``query_ball_point(_multi)``, ``three_nn``,
 ``three_interpolate_mm``, ``nearest_sample_logit``,
 ``nearest_sample_logit_boxed``, ``nms_3d(_batched)``, ``nn_argmin`` under
-``nn_distance``) take
+``nn_distance``, and ``index_add_rows``, the deterministic backward of
+``gather_point`` / ``group_point``) take
 ``impl="auto|cuda|plain"`` (see ``ops/common.py``); each kernel counts its
 launches in ``KERNELS[name].launches``.
 """
@@ -26,7 +27,7 @@ from gspn_tpu_torch.ops.fps import (
     shared_eligible_fps_segments,
     spatial_sorted_view,
 )
-from gspn_tpu_torch.ops.grouping import gather_point, group_point
+from gspn_tpu_torch.ops.grouping import gather_point, group_point, index_add_rows
 from gspn_tpu_torch.ops.interpolate import (
     three_interpolate,
     three_interpolate_mm,
@@ -52,6 +53,7 @@ __all__ = [
     "farthest_point_sample",
     "gather_point",
     "group_point",
+    "index_add_rows",
     "launch_counts",
     "masked_sqdist",
     "morton_codes",

@@ -32,7 +32,7 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
 SOURCES = (
     "fps.cu", "ball_group.cu", "box_group.cu", "ball_query.cu", "three_nn.cu",
-    "interp_mm.cu", "mask_project.cu", "nms.cu", "chamfer.cu",
+    "interp_mm.cu", "mask_project.cu", "nms.cu", "chamfer.cu", "index_add.cu",
 )
 HEADERS = ("common.cuh", "group_scan.cuh")
 NVCC_FLAGS = (
@@ -109,6 +109,8 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()[0]))
     lib.gspn_error_string.argtypes = [_int]
     lib.gspn_error_string.restype = ctypes.c_char_p
+    lib.gspn_fps_cluster_occupancy.argtypes = [_int, _int, ctypes.POINTER(_int)]
+    lib.gspn_fps_cluster_occupancy.restype = _int
     for k in KERNELS.values():
         fn = getattr(lib, k.symbol)
         fn.argtypes = list(k.argtypes) + [_ptr]  # trailing cudaStream_t
@@ -150,6 +152,12 @@ KERNELS: dict[str, CudaKernel] = {
             # xyz, valid, rows, n, npoint, out
             (_ptr, _ptr, _int, _int, _int, _ptr),
             "gspn_tpu/ops/fps.py:80 _fps_kernel",
+        ),
+        CudaKernel(
+            "fps_cluster", "fps.cu", "gspn_fps_cluster",
+            # xyz, valid, rows, n, npoint, cluster size, out
+            (_ptr, _ptr, _int, _int, _int, _int, _ptr),
+            "gspn_tpu/ops/fps.py:80 _fps_kernel (rows beyond one block's shared memory)",
         ),
         CudaKernel(
             "ball_group", "ball_group.cu", "gspn_ball_group",
@@ -224,6 +232,12 @@ KERNELS: dict[str, CudaKernel] = {
             # xyz1, xyz2, valid2, b, n, m, idx
             (_ptr, _ptr, _ptr, _int, _int, _int, _ptr),
             "gspn_tpu/ops/chamfer.py:44 _nn_kernel",
+        ),
+        CudaKernel(
+            "index_add", "index_add.cu", "gspn_index_add",
+            # src, sorted idx, permutation (i64), b, m, n, c, out
+            (_ptr, _ptr, _ptr, _int, _int, _int, _int, _ptr),
+            "none (a repair kernel: gather_point's deterministic backward)",
         ),
     )
 }

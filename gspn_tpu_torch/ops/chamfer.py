@@ -6,7 +6,8 @@ masked distance matrix and ``argmin``) on detached inputs, and the
 distances are recomputed as a differentiable gather,
 ``((xyz1 - xyz2[idx1])**2).sum(-1)``, so autograd gives the reference's
 analytic gradients (2(x - y) into ``xyz1``, the negated scatter-add into
-``xyz2``) with no custom backward.
+``xyz2``, added in a fixed order by ``gather_point``'s backward) with no
+custom backward.
 """
 
 from __future__ import annotations
@@ -63,8 +64,8 @@ def nn_distance(xyz1, xyz2, valid1=None, valid2=None, *, impl: str = "auto"):
     a, b = xyz1.detach(), xyz2.detach()
     idx1 = nn_argmin(a, b, valid2, impl=impl)
     idx2 = nn_argmin(b, a, valid1, impl=impl)
-    d1 = xyz1 - gather_point(xyz2, idx1)
-    d2 = xyz2 - gather_point(xyz1, idx2)
+    d1 = xyz1 - gather_point(xyz2, idx1, impl=impl)
+    d2 = xyz2 - gather_point(xyz1, idx2, impl=impl)
     dist1 = sqdist_components(d1[..., 0], d1[..., 1], d1[..., 2])
     dist2 = sqdist_components(d2[..., 0], d2[..., 1], d2[..., 2])
     return dist1, idx1, dist2, idx2

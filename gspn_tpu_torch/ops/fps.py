@@ -1,6 +1,7 @@
 """Farthest point sampling: the exact greedy chain (plain PyTorch version and
-CUDA kernel ``csrc/fps.cu``) and the segmented / spatial compositions around
-it.
+CUDA kernels ``csrc/fps.cu``: one block per row, or one thread-block
+cluster per row beyond one block's shared memory) and the segmented /
+spatial compositions around it.
 
 Counterpart of ``gspn_tpu/ops/fps.py``. Greedy: seed with the first valid
 point, then repeatedly pick the point with the largest minimum squared
@@ -10,6 +11,9 @@ never picked while a valid one remains.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from gspn_tpu_torch.ops import _cuda
@@ -18,10 +22,57 @@ from gspn_tpu_torch.ops.morton import morton_codes
 
 _BIG = 1e10
 # a row's coordinates + min-distance buffer (16 B per point) must fit in one
-# block's shared memory (227 KB on Hopper), less static scratch
+# block's shared memory (227 KB on Hopper), less static scratch; a longer
+# row is spread over a cluster of CTAs, each holding a slice this long
 FPS_MAX_N = (232448 - 4096) // 16
+# 2, 4 and 8 are portable cluster sizes; 16 is Hopper's non-portable maximum
+FPS_CLUSTER_SIZES = (1, 2, 4, 8, 16)
+FPS_CLUSTER_MAX_N = FPS_CLUSTER_SIZES[-1] * FPS_MAX_N
+# above one block, 8 CTAs while their slices stay within this many points,
+# else 16: the fastest sizes measured on an H100 (PERF.md, section 6)
+FPS_CLUSTER_SLICE = 4096
 
 KERNEL = _cuda.KERNELS["fps"]
+CLUSTER_KERNEL = _cuda.KERNELS["fps_cluster"]
+
+
+def fps_cluster_size(n: int) -> int:
+    """CTAs that share one row of ``n`` points: 1 (one block, ``fps_kernel``)
+    up to ``FPS_MAX_N``; above it 8 while slices of ``ceil(n / 8)`` points
+    stay within ``FPS_CLUSTER_SLICE``, else 16. A pick costs a cluster
+    barrier whatever the size, so more CTAs with shorter slices were faster
+    on the card up to 8 (2 x 14273 and 4 x 16384 points) and 16 from 65536
+    points. Raises ``ValueError`` above ``FPS_CLUSTER_MAX_N``."""
+    if n <= FPS_MAX_N:
+        return 1
+    if n <= 8 * FPS_CLUSTER_SLICE:
+        return 8
+    if n <= FPS_CLUSTER_MAX_N:
+        return 16
+    raise ValueError(
+        f"the fps kernels hold at most {FPS_CLUSTER_MAX_N} points per row (a cluster "
+        f"of {FPS_CLUSTER_SIZES[-1]} CTAs x {FPS_MAX_N}); got N={n} (use segments>1 "
+        "to cut the scene into chains)"
+    )
+
+
+@functools.cache
+def _check_cluster_resident(device_index: int, n: int, cs: int) -> None:
+    """Raise unless a cluster of ``cs`` CTAs holding a row of ``n`` points
+    can be resident on the device (``cudaOccupancyMaxActiveClusters``),
+    once per shape."""
+    lib = _cuda.library()
+    count = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = lib.gspn_fps_cluster_occupancy(n, cs, ctypes.byref(count))
+    if err != 0:
+        raise RuntimeError(f"fps cluster occupancy query failed: "
+                           f"{lib.gspn_error_string(err).decode()} ({err})")
+    if count.value < 1:
+        raise RuntimeError(
+            f"a cluster of {cs} CTAs with {-(-n // cs) * 16} B of shared memory each "
+            f"(N={n}) cannot be resident on this device (cudaOccupancyMaxActiveClusters = 0)"
+        )
 
 
 def _fps_plain(xyz: torch.Tensor, npoint: int, valid: torch.Tensor | None):
@@ -51,13 +102,14 @@ def _fps_plain(xyz: torch.Tensor, npoint: int, valid: torch.Tensor | None):
     return out.to(torch.int32)
 
 
-def _fps_cuda(xyz: torch.Tensor, npoint: int, valid: torch.Tensor | None):
+def _fps_cuda(xyz: torch.Tensor, npoint: int, valid: torch.Tensor | None,
+              cluster: int | None = None):
+    """The kernels' greedy FPS; ``cluster`` overrides the cluster size
+    :func:`fps_cluster_size` picks (for timing one size against another)."""
     b, n, _ = xyz.shape
-    if n > FPS_MAX_N:
-        raise ValueError(
-            f"fps kernel holds at most {FPS_MAX_N} points per row in shared "
-            f"memory; got N={n} (use segments>1 to cut the scene into chains)"
-        )
+    cs = fps_cluster_size(n) if cluster is None else cluster
+    if cs not in FPS_CLUSTER_SIZES or -(-n // cs) > FPS_MAX_N:
+        raise ValueError(f"cluster size {cs} cannot hold a row of N={n} points")
     xyz = xyz.contiguous()
     _cuda.check_cuda_input("xyz", xyz, torch.float32, (b, n, 3))
     v = None
@@ -65,8 +117,14 @@ def _fps_cuda(xyz: torch.Tensor, npoint: int, valid: torch.Tensor | None):
         v = valid.to(torch.uint8).contiguous()
         _cuda.check_cuda_input("valid", v, torch.uint8, (b, n))
     out = torch.empty((b, npoint), dtype=torch.int32, device=xyz.device)
-    if b and npoint:
+    if not (b and npoint):
+        return out
+    if cs == 1:
         KERNEL.launch(xyz.device, _cuda.ptr(xyz), _cuda.ptr(v), b, n, npoint, _cuda.ptr(out))
+    else:
+        _check_cluster_resident(xyz.device.index, n, cs)
+        CLUSTER_KERNEL.launch(xyz.device, _cuda.ptr(xyz), _cuda.ptr(v), b, n, npoint, cs,
+                              _cuda.ptr(out))
     return out
 
 

@@ -1,24 +1,110 @@
-"""Index-gather ops: ``gather_point`` and ``group_point``.
+"""Index-gather ops: ``gather_point`` and ``group_point``, and their
+deterministic adjoint ``index_add_rows``.
 
 Counterparts of ``gspn_tpu/ops/grouping.py``. Indices are int32 at the
 public surface (as in the JAX package); torch gathers need int64, so they
 are widened here, at the point of use.
+
+The forward is ``torch.gather``, as the JAX package gathers outside any
+Pallas kernel. The backward is :func:`index_add_rows`, which adds each
+output row's incoming rows in ascending source position from +0.0, as the
+CPU's ``scatter_add`` does: on the card ``torch.gather``'s own backward adds
+with atomics in no fixed order, so a training step would not be bitwise
+reproducible. ``impl`` picks the backward's route (``ops/common.py``): the
+CUDA kernel ``csrc/index_add.cu`` or its plain version, bitwise equal.
 """
 
 from __future__ import annotations
 
 import torch
 
+from gspn_tpu_torch.ops import _cuda
+from gspn_tpu_torch.ops.common import resolve_impl
 
-def gather_point(inp: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``(B, N, C), (B, M) int -> (B, M, C)``."""
-    i = idx.long()[..., None].expand(*idx.shape, inp.shape[-1])
-    return torch.gather(inp, -2, i)
+KERNEL = _cuda.KERNELS["index_add"]
 
 
-def group_point(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def _index_add_plain(src: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """Plain PyTorch in the kernel's order: a stable sort of each row's
+    indices, each position's rank within its run, then one add per rank,
+    so every output row sums its terms in ascending position. The
+    positions are grouped by rank once (one host sync), so each add is a
+    slice."""
+    b, m, c = src.shape
+    out = torch.zeros((b, n, c), dtype=src.dtype, device=src.device)
+    if not (b and m):
+        return out
+    sidx, perm = torch.sort(idx.long(), dim=1, stable=True)
+    rank = (torch.arange(m, device=src.device) - torch.searchsorted(sidx, sidx)).reshape(-1)
+    by_rank = torch.sort(rank, stable=True).indices
+    rows = torch.arange(b, device=src.device).repeat_interleave(m)[by_rank]
+    cols = sidx.reshape(-1)[by_rank]
+    terms = torch.gather(src, 1, perm[..., None].expand(b, m, c)).reshape(b * m, c)[by_rank]
+    start = 0
+    for count in torch.bincount(rank).tolist():
+        at = slice(start, start + count)  # at most one position per (row, index)
+        out[rows[at], cols[at]] = out[rows[at], cols[at]] + terms[at]
+        start += count
+    return out
+
+
+def _index_add_cuda(src: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    b, m, c = src.shape
+    if b > 65535:
+        raise ValueError(f"the index_add kernel takes at most 65535 rows, got {b}")
+    src = src.contiguous()
+    _cuda.check_cuda_input("src", src, torch.float32, (b, m, c))
+    sidx, perm = torch.sort(idx.to(torch.int32), dim=1, stable=True)
+    sidx = sidx.contiguous()
+    perm = perm.contiguous()
+    out = torch.empty((b, n, c), dtype=torch.float32, device=src.device)
+    if b and n and c:
+        KERNEL.launch(src.device, _cuda.ptr(src), _cuda.ptr(sidx), _cuda.ptr(perm), b, m, n, c,
+                      _cuda.ptr(out))
+    return out
+
+
+def index_add_rows(src: torch.Tensor, idx: torch.Tensor, n: int, *,
+                   impl: str = "auto") -> torch.Tensor:
+    """``out (B, n, C)`` with ``out[b, idx[b, p]] += src[b, p]`` for ``src
+    (B, M, C)`` and ``idx (B, M)`` in ``[0, n)``: each output row sums its
+    terms in ascending ``p`` from +0.0, so the result is the same on every
+    run and route."""
+    if resolve_impl(impl, src) == "cuda":
+        return _index_add_cuda(src, idx, n)
+    return _index_add_plain(src, idx, n)
+
+
+def _gather_rows(inp: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return torch.gather(inp, -2, idx.long()[..., None].expand(*idx.shape, inp.shape[-1]))
+
+
+class _GatherRows(torch.autograd.Function):
+    """``torch.gather`` of rows forward, :func:`index_add_rows` backward."""
+
+    @staticmethod
+    def forward(ctx, inp, idx, impl):
+        ctx.save_for_backward(idx)
+        ctx.n, ctx.impl = inp.shape[-2], impl
+        return _gather_rows(inp, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return index_add_rows(g, idx, ctx.n, impl=ctx.impl), None, None
+
+
+def gather_point(inp: torch.Tensor, idx: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
+    """``(B, N, C), (B, M) int -> (B, M, C)``; differentiable in ``inp``
+    through the deterministic :func:`index_add_rows`."""
+    if torch.is_grad_enabled() and inp.requires_grad:
+        return _GatherRows.apply(inp, idx, impl)
+    return _gather_rows(inp, idx)  # no graph: skip the autograd.Function's host work
+
+
+def group_point(points: torch.Tensor, idx: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
     """``(B, N, C), (B, M, K) int -> (B, M, K, C)``."""
     b, _, c = points.shape
     m, k = idx.shape[-2:]
-    flat = gather_point(points, idx.reshape(b, m * k))
+    flat = gather_point(points, idx.reshape(b, m * k), impl=impl)
     return flat.reshape(b, m, k, c)

@@ -19,7 +19,7 @@ import torch
 
 from gspn_tpu_torch.ops import _cuda
 from gspn_tpu_torch.ops.common import masked_sqdist, resolve_impl
-from gspn_tpu_torch.ops.grouping import group_point
+from gspn_tpu_torch.ops.grouping import group_point, index_add_rows
 
 KERNEL = _cuda.KERNELS["three_nn"]
 MM_KERNEL = _cuda.KERNELS["interp_mm"]
@@ -122,12 +122,14 @@ def _interp_mm_cuda(points, idx, weight):
 
 class _InterpolateMM(torch.autograd.Function):
     """Forward: the kernel (or its plain version); backward: the exact
-    scatter-add / inner-product pair, plain PyTorch as in the JAX package's
-    ``_mm_bwd`` (gspn_tpu/ops/interpolate.py:431-447)."""
+    scatter-add / inner-product pair of the JAX package's ``_mm_bwd``
+    (gspn_tpu/ops/interpolate.py:431-447), the scatter-add through the
+    deterministic ``index_add_rows`` (in (target, neighbor) order)."""
 
     @staticmethod
     def forward(ctx, points, idx, weight, impl):
         ctx.save_for_backward(points, idx, weight)
+        ctx.impl = impl
         if resolve_impl(impl, points) == "cuda":
             return _interp_mm_cuda(points, idx, weight)
         return three_interpolate(points, idx, weight)
@@ -137,13 +139,10 @@ class _InterpolateMM(torch.autograd.Function):
         points, idx, weight = ctx.saved_tensors
         b, n, _ = idx.shape
         m, c = points.shape[1:]
-        contrib = (weight[..., None] * g[..., None, :]).reshape(b * n * 3, c)
-        offs = torch.arange(b, device=idx.device)[:, None, None] * m
-        flat = (idx.long() + offs).reshape(-1)
-        dpoints = torch.zeros((b * m, c), dtype=g.dtype, device=g.device)
-        dpoints.index_add_(0, flat, contrib)
+        contrib = (weight[..., None] * g[..., None, :]).reshape(b, n * 3, c)
+        dpoints = index_add_rows(contrib, idx.reshape(b, n * 3), m, impl=ctx.impl)
         dweight = (group_point(points, idx) * g[..., None, :]).sum(-1)
-        return dpoints.reshape(b, m, c).to(points.dtype), None, dweight.to(weight.dtype), None
+        return dpoints.to(points.dtype), None, dweight.to(weight.dtype), None
 
 
 def three_interpolate_mm(points, idx, weight, *, impl: str = "auto") -> torch.Tensor:

@@ -7,7 +7,7 @@ IoU matrix, then greedy suppression over the sorted boxes. Boxes are
 ``impl`` picks the suppression:
 
 - ``"cuda"``: the sequential greedy kernel ``csrc/nms.cu`` (the TPU's
-  ``_nms_kernel``); a CPU tensor raises.
+  ``_nms_kernel``), up to ``MAX_R`` boxes a scene; a CPU tensor raises.
 - ``"plain"``: the Jacobi fixpoint loop (:func:`_suppress_jacobi`), on any
   device; it syncs the host every 8 steps.
 - ``"auto"``: as in ``ops/common.py``, the kernel for a CUDA tensor and the
@@ -26,7 +26,11 @@ from gspn_tpu_torch.ops import _cuda
 from gspn_tpu_torch.ops.common import resolve_impl
 
 KERNEL = _cuda.KERNELS["nms"]
-MAX_R = 1024  # csrc/nms.cu kMaxR: one thread per candidate
+# Boxes per scene the kernel route takes. The kernel's alive flags (R bytes
+# of shared memory) would allow ~227k; the (B, R, R) float32 IoU matrix
+# comes first: 4 GiB a scene at R = 32768, and box_iou's intermediates
+# hold about ten such matrices at once, ~43 GB of an 80 GB card.
+MAX_R = 32768
 
 
 def box_volume(boxes: torch.Tensor) -> torch.Tensor:
@@ -69,8 +73,6 @@ def _suppress_jacobi(iou: torch.Tensor, alive: torch.Tensor, iou_thresh: float):
 def _suppress_cuda(iou: torch.Tensor, alive: torch.Tensor, iou_thresh: float):
     """:func:`_suppress_jacobi`'s result from the sequential kernel."""
     b, r, _ = iou.shape
-    if r > MAX_R:
-        raise ValueError(f"the NMS kernel takes at most {MAX_R} boxes per scene, got {r}")
     iou = iou.contiguous()
     a = alive.to(torch.uint8).contiguous()
     _cuda.check_cuda_input("iou", iou, torch.float32, (b, r, r))
@@ -86,6 +88,11 @@ def nms_3d_batched(boxes, scores, iou_thresh: float, valid=None, *, impl: str = 
     """Batched greedy NMS: ``(B,R,6), (B,R) -> keep (B,R)`` bool in the
     original box order; ``valid (B,R)`` boxes only are kept."""
     choice = resolve_impl(impl, boxes)
+    if choice == "cuda" and boxes.shape[-2] > MAX_R:
+        raise ValueError(
+            f"the NMS kernel route takes at most {MAX_R} boxes per scene (its (B, R, R) "
+            f"IoU matrix), got {boxes.shape[-2]}"
+        )
     s = scores if valid is None else torch.where(valid, scores, torch.full_like(scores, -torch.inf))
     order = torch.sort(-s, dim=-1, stable=True).indices  # ties keep input order
     bs = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 6))

@@ -9,10 +9,10 @@ full width, Adam at 1e-3), plus ``--device`` (default ``cuda``; without a
 CUDA device it exits with an error and never falls back to the CPU). Batch
 ``i`` is a pure function of ``(seed, i)`` and step ``i``'s random draws
 (augmentation, then the CVAE noise) come from a generator seeded by
-``(seed, i)``, so ``--resume`` continues the uninterrupted run: bit for bit
-on the CPU; on the card ``gather``'s backward adds with atomics in no fixed
-order, so gradients differ by ulps from run to run. Float32 matrix
-products stay float32 (torch's default, TF32 off). Flags whose code is not
+``(seed, i)``, so ``--resume`` continues the uninterrupted run bit for bit,
+on the CPU and on the card (``gather_point``'s backward adds in a fixed
+order there too). Float32 matrix products stay float32 (torch's default,
+TF32 off). Flags whose code is not
 ported raise ``NotImplementedError`` naming their ``ROADMAP.md`` entry.
 """
 

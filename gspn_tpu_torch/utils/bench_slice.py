@@ -30,26 +30,31 @@ SHAPES = {
 }
 
 
-def slice_config() -> PipelineConfig:
-    """``scannet_pipeline()`` as the JAX package ships it (1-NN masks, FP
-    interpolation "auto"), with only the two thresholds moved.
+def slice_config(**preset) -> PipelineConfig:
+    """``scannet_pipeline(**preset)`` (by default as the JAX package ships
+    it: 1-NN masks, FP interpolation "auto"), with only the two thresholds
+    moved.
 
     Random weights put every score below the preset's 0.05 (fg probability
     ~1/18 x objectness ~0.5) and every mask logit just below 0, which would
     leave every mask empty and a comparison of outputs blind to the mask
     projection: keep all NMS survivors and threshold the masks where those
     logits fall (``mask_thresh=0.49`` is a logit of -0.04)."""
-    return dataclasses.replace(scannet_pipeline(), score_thresh=0.0, mask_thresh=0.49)
+    return dataclasses.replace(scannet_pipeline(**preset), score_thresh=0.0, mask_thresh=0.49)
 
 
-VARIANTS = ("prune", "grid", "3nn", "strided")
+VARIANTS = ("prune", "grid", "3nn", "strided", "exact")
 
 
 def variant_config(name: str) -> PipelineConfig:
     """:func:`slice_config` with one knob of the JAX package set: "prune"
     (``mask_project_prune="auto"``), "grid" (``roi_sample="grid"``), "3nn"
-    (``mask_project="3nn"``) or "strided" (``group_select="strided"`` in both
-    stages). All take the same weights."""
+    (``mask_project="3nn"``), "strided" (``group_select="strided"`` in both
+    stages) or "exact" (``scannet_pipeline(fps_segments=1)``: the exact
+    greedy FPS, the JAX package's reference sampling). All take the same
+    weights."""
+    if name == "exact":
+        return slice_config(fps_segments=1)
     cfg = slice_config()
     if name == "prune":
         return dataclasses.replace(cfg, mask_project_prune="auto")
@@ -161,10 +166,9 @@ _BN_FED_BIAS = re.compile(r"\.dense_\d+\.bias$")
 
 def assert_grads_close(got: dict, want: dict) -> None:
     """Hold one run's gradients (``name -> tensor``) of a training step
-    against another run's. Their sums are taken in no fixed order
-    (``gather``'s backward adds with atomics on the card), which moves the
-    small elements of a large gradient far in relative terms, so each
-    parameter is held norm-wise: ``|got - want| <= 1e-4 |want| + 1e-6``. A
+    against another run's whose sums may be taken in another order (the
+    CPU's against the card's), which moves the small elements of a large
+    gradient far in relative terms, so each parameter is held norm-wise: ``|got - want| <= 1e-4 |want| + 1e-6``. A
     Dense bias that feeds a training-mode BatchNorm (``*.dense_<i>.bias``)
     has a true gradient of 0 (the batch mean removes it): both runs' values
     are rounding noise, held within an atol of 1e-5 x the largest gradient

@@ -20,6 +20,7 @@ from gspn_tpu_torch.ops import ball_query as tquery
 from gspn_tpu_torch.ops import box_group as tbox
 from gspn_tpu_torch.ops import chamfer as tchamfer
 from gspn_tpu_torch.ops import fps as tfps
+from gspn_tpu_torch.ops import grouping as tgroup
 from gspn_tpu_torch.ops import interpolate as tinterp
 from gspn_tpu_torch.ops import mask_project as tmask
 from gspn_tpu_torch.ops import nms as tnms
@@ -60,9 +61,39 @@ def test_fps_kernel(dev, rows, n, npoint, masked):
     _equal(got, ops.farthest_point_sample(npoint, xyz, v, impl="plain"))
 
 
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("rows,n,npoint", [(2, 14273, 64), (1, 65536, 128), (4, 16384, 64),
+                                           (1, 131072, 64)])
+def test_fps_cluster_kernel(dev, rows, n, npoint, masked):
+    """Rows beyond one block's shared memory, on a cluster of CTAs: bitwise
+    the plain version; masked, the last row is all invalid (index 0 on every
+    pick)."""
+    xyz, valid = _scenes(dev, rows, n)
+    v = None
+    if masked:
+        v = valid.clone()
+        v[-1] = False
+    before = tfps.CLUSTER_KERNEL.launches
+    got = ops.farthest_point_sample(npoint, xyz, v, impl="cuda")
+    torch.cuda.synchronize()
+    assert tfps.CLUSTER_KERNEL.launches == before + 1
+    _equal(got, ops.farthest_point_sample(npoint, xyz, v, impl="plain"))
+    if masked:
+        assert not got[-1].any()
+
+
+@pytest.mark.parametrize("cluster", [2, 4, 8, 16])
+def test_fps_cluster_kernel_at_every_cluster_size(dev, cluster):
+    """A row of 20000 points (its slice does not divide evenly) at every
+    cluster size that holds it: bitwise the plain version."""
+    xyz, valid = _scenes(dev, 1, 20000)
+    got = tfps._fps_cuda(xyz, 96, valid, cluster=cluster)
+    _equal(got, ops.farthest_point_sample(96, xyz, valid, impl="plain"))
+
+
 def test_fps_kernel_refuses_rows_beyond_shared_memory(dev):
-    xyz = torch.zeros((1, tfps.FPS_MAX_N + 1, 3), device=dev)
-    with pytest.raises(ValueError, match="shared"):
+    xyz = torch.zeros((1, tfps.FPS_CLUSTER_MAX_N + 1, 3), device=dev)
+    with pytest.raises(ValueError, match=f"at most {tfps.FPS_CLUSTER_MAX_N}"):
         ops.farthest_point_sample(4, xyz, impl="cuda")
 
 
@@ -207,7 +238,7 @@ def _nms_case(dev, b, r, seed=6):
 
 
 @pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("b,r", [(8, 64), (2, 1024), (3, 5)])
+@pytest.mark.parametrize("b,r", [(8, 64), (2, 1024), (3, 5), (2, 1025), (1, 2048)])
 def test_nms_kernel(dev, b, r, masked):
     boxes, scores, valid = _nms_case(dev, b, r)
     v = valid if masked else None
@@ -223,10 +254,10 @@ def test_nms_kernel(dev, b, r, masked):
            got[0])
 
 
-def test_nms_kernel_refuses_more_than_1024_boxes(dev):
-    boxes, scores, _ = _nms_case(dev, 1, 1025)
-    with pytest.raises(ValueError, match="at most 1024"):
-        ops.nms_3d_batched(boxes, scores, 0.25, impl="cuda")
+def test_nms_kernel_refuses_more_than_max_r_boxes(dev):
+    boxes = torch.zeros((1, tnms.MAX_R + 1, 6), device=dev)
+    with pytest.raises(ValueError, match=f"at most {tnms.MAX_R}"):
+        ops.nms_3d_batched(boxes, torch.zeros((1, tnms.MAX_R + 1), device=dev), 0.25)
 
 
 @pytest.mark.parametrize("masked", [False, True])
@@ -355,6 +386,41 @@ def test_nn_argmin_kernel(dev, b, n, m, masked):
         assert not got[0].any()
 
 
+@pytest.mark.parametrize("b,m,n,c", [(256, 256, 256, 3), (8, 24576, 1024, 128),
+                                     (16, 4096, 8, 64), (3, 7, 50, 5)])
+def test_index_add_kernel(dev, b, m, n, c):
+    """Bitwise its plain version and the CPU's scatter_add (ascending
+    positions from +0.0), with many positions on one index and empty rows."""
+    gen = torch.Generator().manual_seed(8)
+    src = torch.randn((b, m, c), generator=gen)
+    idx = torch.randint(0, n, (b, m), generator=gen, dtype=torch.int32)
+    idx[:, ::3] = idx[:, :1]  # a third of the positions on one index
+    before = tgroup.KERNEL.launches
+    got = ops.index_add_rows(src.to(dev), idx.to(dev), n, impl="cuda")
+    torch.cuda.synchronize()
+    assert tgroup.KERNEL.launches == before + 1
+    _equal(got, ops.index_add_rows(src.to(dev), idx.to(dev), n, impl="plain"))
+    want = torch.zeros((b, n, c)).scatter_add_(1, idx.long()[..., None].expand(b, m, c), src)
+    _equal(got.cpu(), want)
+
+
+def test_gather_point_backward_launches_the_kernel(dev):
+    """``gather_point``'s backward on the card is the index_add kernel,
+    bitwise the CPU's gradient."""
+    gen = torch.Generator().manual_seed(9)
+    pts = torch.randn((4, 100, 6), generator=gen)
+    idx = torch.randint(0, 100, (4, 300), generator=gen, dtype=torch.int32)
+    g = torch.randn((4, 300, 6), generator=gen)
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        p = pts.to(d).requires_grad_(True)
+        before = tgroup.KERNEL.launches
+        (ops.gather_point(p, idx.to(d)) * g.to(d)).sum().backward()
+        assert tgroup.KERNEL.launches == before + (d.type == "cuda")
+        grads.append(p.grad.cpu())
+    _equal(*grads)
+
+
 def test_nn_distance_auto_launches_the_kernel(dev):
     tgt, src, valid = _nn_case(dev, 256, 256, 256)
     before = tchamfer.KERNEL.launches
@@ -368,11 +434,10 @@ def test_nn_distance_auto_launches_the_kernel(dev):
 
 
 def test_train_step_kernel_path_matches_plain_path(dev):
-    """One GSPN training step at full width on the slice's batch: the loss
-    and its terms within rtol 1e-5 / atol 1e-6 (the kernels are bitwise,
-    the rest is the same PyTorch), the gradients as
-    ``bench_slice.assert_grads_close`` holds them (``gather``'s backward
-    adds with atomics in no fixed order)."""
+    """One GSPN training step at full width on the slice's batch: the loss,
+    its terms and the gradients bitwise equal (the kernels are bitwise,
+    the rest is the same PyTorch, and every sum is taken in a fixed
+    order)."""
     bench_slice.float32_matmuls()
     cfg = bench_slice.train_config()
     batch = bench_slice.train_batch(dev)
@@ -389,7 +454,33 @@ def test_train_step_kernel_path_matches_plain_path(dev):
         launched = {k: c - before[k] for k, c in ops.launch_counts().items() if c != before[k]}
         runs.append((metrics, {k: p.grad for k, p in m.named_parameters()}, launched))
     (got, grads, launched), (want, pgrads, plain_launched) = runs
-    assert launched == {"fps": 1, "ball_group": 1, "nn_argmin": 2} and not plain_launched
+    assert launched == {"fps": 1, "ball_group": 1, "nn_argmin": 2, "index_add": 1}
+    assert not plain_launched
     for k in want:
-        torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=1e-6)
-    bench_slice.assert_grads_close(grads, pgrads)
+        _equal(got[k], want[k])
+    for k in pgrads:
+        _equal(grads[k], pgrads[k])
+
+
+def test_train_steps_are_bitwise_reproducible(dev):
+    """Two kernel-path runs of three GSPN training steps at full width from
+    the same weights: losses, gradients, parameters and running statistics
+    bitwise equal (every sum is taken in a fixed order)."""
+    bench_slice.float32_matmuls()
+    cfg = bench_slice.train_config()
+    batch = bench_slice.train_batch(dev)
+    eps = torch.randn((4, 64, cfg.latent_dim), generator=torch.Generator().manual_seed(1)).to(dev)
+    step = tsteps.make_train_step(tsteps.make_gspn_loss_fn(64, 256))
+    runs = []
+    for _ in range(2):
+        m = bench_slice.seeded_gspn(cfg, dev)
+        state = tsteps.TrainState(m, tsteps.make_optimizer(m, 1e-3))
+        losses = torch.stack([step(state, batch, z_eps=eps)["loss"] for _ in range(3)])
+        runs.append((losses, {k: p.grad.clone() for k, p in m.named_parameters()},
+                     m.state_dict()))
+    (la, ga, sa), (lb, gb, sb) = runs
+    _equal(la, lb)
+    for k in ga:
+        _equal(ga[k], gb[k])
+    for k in sa:
+        _equal(sa[k], sb[k])

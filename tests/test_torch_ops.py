@@ -19,6 +19,7 @@ from gspn_tpu.ops import interpolate as jinterp
 from gspn_tpu.ops import mask_project as jmask
 from gspn_tpu.ops import nms as jnms
 from gspn_tpu_torch import ops
+from gspn_tpu_torch.ops import fps as tfps
 from gspn_tpu_torch.ops import interpolate as tinterp
 from gspn_tpu_torch.ops.ball_query import strided_target_mask
 from tests import oracles
@@ -54,6 +55,32 @@ def test_fps_exact(rng, masked, grid):
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, oracles.fps_oracle(16, xyz, _mask(valid, masked)))
     assert got.dtype == np.int32
+
+
+def test_fps_exact_beyond_one_block(rng):
+    """Exact greedy FPS over 20,000 points, above one CUDA block's row
+    (``FPS_MAX_N``; the card runs the cluster kernel there), with padding:
+    the plain version's indices equal the JAX package's."""
+    xyz, valid = _cloud(rng, 1, 20000, pad=0.1)
+    assert 20000 > tfps.FPS_MAX_N
+    got = n(ops.farthest_point_sample(64, t(xyz), t(valid)))
+    want = np.asarray(jops.farthest_point_sample(64, jnp.asarray(xyz), valid, impl="xla"))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_fps_cluster_size():
+    """1 CTA up to one block's row, then 8 CTAs up to slices of 4096
+    points, then 16 (the sizes measured fastest); a legible refusal above
+    16 slices."""
+    size = tfps.fps_cluster_size
+    assert tfps.FPS_MAX_N == 14272
+    assert [size(k) for k in (1, 8192, 14272)] == [1, 1, 1]
+    assert [size(k) for k in (14273, 16384, 32768)] == [8, 8, 8]
+    assert [size(k) for k in (32769, 65536, 131072, tfps.FPS_CLUSTER_MAX_N)] == [16] * 4
+    for k in (14273, 32768, 32769, tfps.FPS_CLUSTER_MAX_N):
+        assert -(-k // size(k)) <= tfps.FPS_MAX_N  # every slice fits one CTA
+    with pytest.raises(ValueError, match=f"at most {tfps.FPS_CLUSTER_MAX_N} points"):
+        size(tfps.FPS_CLUSTER_MAX_N + 1)
 
 
 @pytest.mark.parametrize("mode", ["contiguous", "strided", "spatial"])
@@ -476,6 +503,53 @@ def test_gather_and_group_point(rng):
         np.asarray(jops.group_point(jnp.asarray(pts), jnp.asarray(idx3))))
 
 
+def _index_add_oracle(src, idx, n_out):
+    """``out[b, idx[b, p]] += src[b, p]`` one position at a time, in
+    ascending ``p``, in float32 from +0.0."""
+    out = np.zeros((src.shape[0], n_out, src.shape[2]), np.float32)
+    for b in range(src.shape[0]):
+        for p_ in range(src.shape[1]):
+            out[b, idx[b, p_]] = (out[b, idx[b, p_]] + src[b, p_]).astype(np.float32)
+    return out
+
+
+def _repeated_indices(rng, b, m, n_out):
+    idx = rng.integers(0, n_out, (b, m)).astype(np.int32)
+    idx[:, ::3] = idx[:, :1]  # a third of the positions on one index
+    idx[idx == n_out - 1] = 0  # the last row gets nothing
+    return idx
+
+
+def test_index_add_rows_sums_in_ascending_position(rng):
+    """The plain version of the gather backward against the sequential
+    oracle, bitwise, with many positions on one index and an empty row."""
+    src = rng.standard_normal((3, 90, 4)).astype(np.float32)
+    idx = _repeated_indices(rng, 3, 90, 11)
+    got = n(ops.index_add_rows(t(src), t(idx), 11))
+    np.testing.assert_array_equal(got, _index_add_oracle(src, idx, 11))
+    assert not got[:, -1].any()
+
+
+@pytest.mark.parametrize("grouped", [False, True])
+def test_gather_backward_matches_oracle_and_jax(rng, grouped):
+    """``gather_point`` / ``group_point`` gradients: bitwise the ascending-
+    position oracle and ``jax.grad`` of the JAX gathers on the CPU."""
+    pts = rng.standard_normal((2, 20, 5)).astype(np.float32)
+    idx = _repeated_indices(rng, 2, 60, 20)
+    if grouped:
+        idx = idx.reshape(2, 12, 5)
+    g = rng.standard_normal((*idx.shape, 5)).astype(np.float32)
+    tp = t(pts).requires_grad_(True)
+    fwd, jfwd = (ops.group_point, jops.group_point) if grouped else (ops.gather_point,
+                                                                     jops.gather_point)
+    (fwd(tp, t(idx)) * t(g)).sum().backward()
+    want = _index_add_oracle(g.reshape(2, 60, 5), idx.reshape(2, 60), 20)
+    np.testing.assert_array_equal(n(tp.grad), want)
+    jg = jax.grad(lambda p: jnp.sum(jfwd(p, jnp.asarray(idx)) * jnp.asarray(g)))(
+        jnp.asarray(pts))
+    np.testing.assert_array_equal(n(tp.grad), np.asarray(jg))
+
+
 def _boxes(rng, b, r):
     c = rng.uniform(0, 2, (b, r, 3))
     half = rng.uniform(0.1, 0.6, (b, r, 3))
@@ -543,6 +617,15 @@ def test_nms_3d_batched_deep_chain(rng, masked, jax_impl):
         got, n(ops.nms_3d_batched(t(boxes), t(scores), 0.25, _tv(valid, masked))))  # auto
 
 
+def test_nms_3d_batched_beyond_1024_boxes(rng):
+    """1025 boxes (above the 1024 the first NMS kernel took): the plain
+    loop's keep mask equals the JAX package's."""
+    boxes, scores, valid = _nms_case(rng, 1, 1025, chain=40)
+    got = n(ops.nms_3d_batched(t(boxes), t(scores), 0.25, t(valid)))
+    want = np.asarray(jops.nms_3d_batched(jnp.asarray(boxes), jnp.asarray(scores), 0.25, valid))
+    np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.parametrize("masked", [False, True])
 def test_nms_3d(rng, masked):
     boxes, scores, valid = _nms_case(rng, 1, 24, chain=10)
@@ -585,10 +668,12 @@ def test_nms_refuses_unknown_impl():
             (0.1,), (4,), torch.zeros(1, 8, 3), torch.zeros(1, 2, 3), impl="cuda",
             select="strided"),
         lambda: ops.nms_3d_batched(torch.zeros(1, 2, 6), torch.zeros(1, 2), 0.25, impl="cuda"),
+        lambda: ops.index_add_rows(torch.zeros(1, 4, 2), torch.zeros(1, 4, dtype=torch.int32), 3,
+                                   impl="cuda"),
     ],
     ids=["fps", "three_nn", "box_group", "ball_group", "interp_mm", "mask_project",
          "mask_project_boxed", "box_group_strided", "ball_group_strided", "ball_query",
-         "ball_query_strided", "nms"],
+         "ball_query_strided", "nms", "index_add"],
 )
 def test_cuda_impl_refuses_cpu_tensors(call):
     with pytest.raises(ValueError, match="CUDA tensor"):

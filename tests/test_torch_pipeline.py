@@ -129,7 +129,7 @@ def test_cpu_calls_launch_no_kernel():
             model, t(z["in/xyz"]), t(z["in/valid"]), generator=torch.Generator().manual_seed(0)
         )
         assert out.masks.shape == (2, cfg.num_seeds, 128)
-    assert set(ops.launch_counts()) == set(ops.KERNELS) and len(ops.KERNELS) == 13
+    assert set(ops.launch_counts()) == set(ops.KERNELS) and len(ops.KERNELS) == 15
     assert all(c == 0 for c in ops.launch_counts().values()), ops.launch_counts()
 
 
