@@ -19,7 +19,13 @@ line or a few:
    work (``bound_ms``: the larger of the bytes over 3.35 TB/s and the
    operations over 33.5 T/s, counted from this run's inputs; see
    ``_bound``), and the time of one PyTorch call computing the same
-   function where there is one (``library_ms``; never called by the port);
+   function where there is one (``library_ms`` at the first shape that
+   has one, ``library_ms_by_shape`` for each shape timed; never called by
+   the port); the timing helpers are ``gspn_tpu_torch.utils.time_kernels``;
+   ``fps`` and the first-K ``ball_group`` at every shape of the main path
+   (``time_kernels.cases``: the shared pass, the crops and SA1-SA4 of the
+   flagship and of the whole scene, the training step's seeds and crops),
+   then the ball group at every split (warps a query) at each of them;
    the exact FPS beyond one block (``fps_cluster``) at the whole scene,
    4 x 16384, 2 x 14273 with an all-invalid row and 131072 points, then
    at every cluster size that holds each row; NMS up to 4096 boxes; the
@@ -76,7 +82,8 @@ line or a few:
    ball queries, (H) for fps_cluster, (G) for nn_argmin and index_add;
    ``launches_by_slice`` for each slice's own count; ``device_events``,
    the profiler's events under ``device_ms``; ``ms_by_cluster_size`` for
-   fps_cluster), the card's name and power limit, and last ``{"ok": true,
+   fps_cluster, ``ms_by_split`` for ball_group), the "ms above the bound"
+   ranking, the card's name and power limit, and last ``{"ok": true,
    "device": {...}}``.
 
 Any failure raises; no phase's error is caught. Imports nothing of JAX.
@@ -92,6 +99,8 @@ import time
 import numpy as np
 import torch
 
+from gspn_tpu_torch.utils import time_kernels as tk
+
 B, N = 8, 8192  # flagship request: 8 scenes x 8192 points
 WS_N = 65536  # whole-scene request: 1 scene, last 10% of points padding
 FLAGSHIP, WHOLE_SCENE = "B8xN8192", "B1xN65536"  # keys of bench_slice.SHAPES
@@ -100,16 +109,16 @@ VARIANT_REQUESTS = 3  # slices (B)-(E)
 TRAIN_STEPS = 10  # slice (G): timed training steps per path, after one warm-up
 KERNEL_ITERS = 20  # timed launches per kernel and per plain version
 PLAIN_SLOW_ITERS = 3  # timed calls of a plain version or library call slower than 20 ms
-PROFILER_WINDOWS = 3  # tries at a profiler window that records the kernel
 FIELDS = ("masks", "valid", "classes", "scores", "boxes")  # of InstancePredictions
 PATH_KERNELS = {"fps", "ball_group", "box_group", "three_nn", "interp_mm", "nms"}
 FPS_ROWS_N = 131072  # the cluster FPS's reach: twice the whole scene
+BALL_SPLITS = (1, 2, 4, 8, 16)  # warps a query the first-K ball group takes
 STRIDED = {"ball_group": "ball_group_strided", "box_group": "box_group_strided"}
 # the kernel's symbols in the profiler's (demangled) device events; template
 # arguments of group_scan_kernel: <box, strided, coordinates>
 DEVICE_SYMBOLS = {
     "fps": ("fps_kernel",), "fps_cluster": ("fps_cluster_kernel",),
-    "ball_group": ("group_scan_kernel<false, false, true>",),
+    "ball_group": ("ball_group_first_kernel",),
     "ball_group_strided": ("group_scan_kernel<false, true, true>",),
     "box_group": ("group_scan_kernel<true, false, true>",),
     "box_group_strided": ("group_scan_kernel<true, true, true>",),
@@ -155,82 +164,12 @@ def _bound(nbytes: float, ops: float) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def _card() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-
-
-def _cuda_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` launches after a warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def _device_ms(fn, iters: int, symbols: tuple[str, ...]) -> tuple[float | None, int]:
-    """``(mean device ms per launch, events)`` of the kernel (any of
-    ``symbols``) over ``iters`` calls of ``fn`` (one launch each) after a
-    warm-up, from ``torch.profiler``'s device events: the kernel alone,
-    without its wrapper's host work or other device work. The mean is over
-    the ``events`` the profiler recorded, which may be fewer than
-    ``iters``. Now and then a profiler window records no device event at
-    all (seen once in about 240 windows on an H100); the window is then
-    taken again, up to ``PROFILER_WINDOWS`` times, and ``(None, 0)`` means
-    none recorded one (the kernel's launches and outputs are checked apart
-    from this)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(PROFILER_WINDOWS):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        mine = [e for e in device if any(sym in e.name for sym in symbols)]
-        if mine:
-            ms = sum(e.time_range.end - e.time_range.start for e in mine) / 1e3 / len(mine)
-            return ms, len(mine)
-        print(f"profiler: no device event of {symbols} among "
-              f"{sorted({e.name for e in device})}; window taken again")
-    return None, 0
-
-
 def _host_ms(fn) -> tuple[float, object]:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3, out
-
-
-def _max_abs_err(got, want) -> float:
-    """Max |got - want| over matching outputs; raises unless every pair is
-    exactly equal (integers) or bitwise equal (floats)."""
-    err = 0.0
-    for g, w in zip(got, want, strict=True):
-        if g.shape != w.shape or g.dtype != w.dtype:
-            raise AssertionError(f"shape/dtype {g.shape} {g.dtype} vs {w.shape} {w.dtype}")
-        err = max(err, (g.double() - w.double()).abs().max().item() if g.numel() else 0.0)
-        if not torch.equal(g, w):
-            raise AssertionError(f"kernel differs from its plain version (max abs err {err})")
-    return err
-
-
-def _flatten(outs):
-    if isinstance(outs, torch.Tensor):
-        return [outs]
-    return [t for o in outs for t in _flatten(o)]
 
 
 def _first(out):
@@ -320,7 +259,6 @@ def check_kernels(dev, ops, bench_slice):
     seeds, sa1, boxes, roi_xyz, logits, grid = rois(xyz, valid, sidx, sxyz, svalid)
     ws_seeds, ws_sa1, ws_boxes, ws_roi_xyz, ws_logits, ws_grid = rois(ws, wsv, wsidx, wsx, wsvv)
     targets = xyz[:, None].expand(B, 64, N, 3).reshape(B * 64, N, 3)
-
     def fp(tgt, src, c):  # an FP level's interpolation inputs
         dist, idx = ops.three_nn(tgt, src)
         feats = torch.randn((src.shape[0], src.shape[1], c), generator=gen).to(dev)
@@ -379,7 +317,7 @@ def check_kernels(dev, ops, bench_slice):
 
         def work(out):
             tested = q.shape[0] * q.shape[1] * n if strided else _first_k_tested(out, n)
-            return _nbytes(pts, pvalid, q, *_flatten(out)), tested * (8 + nscales)
+            return _nbytes(pts, pvalid, q, *tk.flatten(out)), tested * (8 + nscales)
         return work
 
     def box_work(pts, pvalid, bx, strided):  # a point test: six compares
@@ -391,7 +329,7 @@ def check_kernels(dev, ops, bench_slice):
         return work
 
     def nn_work(tgt, src, svld=None):  # a pair: the distance and a compare
-        return lambda out: (_nbytes(tgt, src, svld, *_flatten(out)),
+        return lambda out: (_nbytes(tgt, src, svld, *tk.flatten(out)),
                             tgt.shape[0] * tgt.shape[1] * src.shape[1] * 9)
 
     def mm_work(args):  # a target channel: three multiplies, two adds
@@ -425,19 +363,10 @@ def check_kernels(dev, ops, bench_slice):
         return lambda: torch.sparse.mm(mat, dense).reshape(b, n, c)
 
     crops = ((0.25, 0.5, 1.0), (32, 64, 128))
+    main_path = tk.cases(ops, bench_slice, dev)  # fps and ball_group at every shape
     cases = {  # name -> [(shape label, fn(impl), work)], main shape first
-        "fps": [
-            (f"{B}x8 chains x {N // 8} pts, 128 picks",
-             lambda impl: ops.farthest_point_sample(
-                 128, sxyz.reshape(B * 8, N // 8, 3), svalid.reshape(B * 8, N // 8),
-                 impl=impl),
-             fps_work(sxyz.reshape(B * 8, N // 8, 3), svalid.reshape(B * 8, N // 8), 128)),
-            (f"1x8 chains x {WS_N // 8} pts, 128 picks (whole scene)",
-             lambda impl: ops.farthest_point_sample(
-                 128, wsx.reshape(8, WS_N // 8, 3), wsvv.reshape(8, WS_N // 8),
-                 impl=impl),
-             fps_work(wsx.reshape(8, WS_N // 8, 3), wsvv.reshape(8, WS_N // 8), 128)),
-        ],
+        "fps": [(label, lambda impl, a=a: tk.call(ops, "fps", a, impl),
+                 fps_work(a[1], a[2], a[0])) for label, a in main_path["fps"]],
         "fps_cluster": [
             (f"exact, whole scene: 1 x {WS_N} pts (10 % padding), 1024 picks",
              lambda impl: ops.farthest_point_sample(1024, ws, wsv, impl=impl),
@@ -452,15 +381,9 @@ def check_kernels(dev, ops, bench_slice):
              lambda impl: ops.farthest_point_sample(256, big, big_valid, impl=impl),
              fps_work(big, big_valid, 256)),
         ],
-        "ball_group": [
-            (f"sa1: {B}x1024 queries, r 0.1, K 32",
-             lambda impl: ops.query_ball_group_multi(
-                 (0.1,), (32,), xyz, sa1, valid, impl=impl),
-             ball_work(xyz, valid, sa1, 1, False)),
-            (f"gspn crops: {B}x64 seeds, r .25/.5/1, K 32/64/128",
-             lambda impl: ops.query_ball_group_multi(*crops, xyz, seeds, valid, impl=impl),
-             ball_work(xyz, valid, seeds, 3, False)),
-        ],
+        "ball_group": [(label, lambda impl, a=a: tk.call(ops, "ball_group", a, impl),
+                        ball_work(a[2], a[4], a[3], len(a[0]), False))
+                       for label, a in main_path["ball_group"]],
         "ball_group_strided": [
             (f"sa1: {B}x1024 queries, r 0.1, K 32",
              lambda impl: ops.query_ball_group_multi(
@@ -610,11 +533,16 @@ def check_kernels(dev, ops, bench_slice):
             return max_abs_diff(*d)
         return gap
 
-    def cdist_topk(tgt, src):
+    def cdist_topk(tgt, src, svalid=None):
         """One ``torch.cdist`` (explicit differences) and its ``topk(3)``:
-        three_nn's function, distances not squared."""
-        return lambda: torch.cdist(
-            tgt, src, compute_mode="donot_use_mm_for_euclid_dist").topk(3, largest=False)
+        three_nn's function, distances not squared; invalid sources are
+        set to +inf first."""
+        def call():
+            d = torch.cdist(tgt, src, compute_mode="donot_use_mm_for_euclid_dist")
+            if svalid is not None:
+                d = d.masked_fill(~svalid[:, None, :], float("inf"))
+            return d.topk(3, largest=False)
+        return call
 
     def topk_gap(got, want):
         """Max gap between the kernel's squared distances and the squares
@@ -657,14 +585,19 @@ def check_kernels(dev, ops, bench_slice):
         return lambda: torch.zeros((b * n_out, c), device=src.device).index_add_(
             0, flat, rows).reshape(b, n_out, c)
 
-    # name -> (case index, one PyTorch call on that case's inputs, its gap to
-    # the kernel's output, the largest gap allowed)
+    # name -> [(case index, one PyTorch call on that case's inputs, its gap
+    # to the kernel's output, the largest gap allowed)]
     library = {
-        "interp_mm": (0, sparse_interp(fp4), max_abs_diff, 1e-4),
-        "nn_argmin": (1, cdist_argmin(gt, pred), sqdist_gap(gt, pred), 1e-6),
-        "three_nn": (0, cdist_topk(xyz, sa1), topk_gap, 1e-5),
-        "mask_project": (0, cdist_project(xyz, roi_xyz, logits), project_gap(xyz, roi_xyz), 1e-6),
-        "index_add": (0, index_add_library(chamfer_grad, chamfer_idx, 256), max_rel_diff, 1e-5),
+        "interp_mm": [(0, sparse_interp(fp4), max_abs_diff, 1e-4)],
+        "nn_argmin": [(1, cdist_argmin(gt, pred), sqdist_gap(gt, pred), 1e-6)],
+        "three_nn": [(0, cdist_topk(xyz, sa1), topk_gap, 1e-5),
+                     (2, cdist_topk(grid, xyz, valid), topk_gap, 1e-5)],
+        "mask_project": [(0, cdist_project(xyz, roi_xyz, logits), project_gap(xyz, roi_xyz),
+                          1e-6)],
+        # the dense projection's function, at the sorted shape
+        "mask_project_boxed": [(0, cdist_project(sxyz, roi_xyz, logits),
+                                project_gap(sxyz, roi_xyz), 1e-6)],
+        "index_add": [(0, index_add_library(chamfer_grad, chamfer_idx, 256), max_rel_diff, 1e-5)],
     }
     entries = []
     for name, shapes in cases.items():
@@ -672,39 +605,41 @@ def check_kernels(dev, ops, bench_slice):
         main = None
         for label, fn, work in shapes:
             first_ms, want = _host_ms(lambda fn=fn: fn("plain"))
-            err = _max_abs_err(_flatten(fn("cuda")), _flatten(want))
-            ms = _cuda_ms(lambda fn=fn: fn("cuda"), KERNEL_ITERS)
+            err = tk.max_abs_err(tk.flatten(fn("cuda")), tk.flatten(want))
+            ms = tk.cuda_ms(lambda fn=fn: fn("cuda"), KERNEL_ITERS)
             # a plain version of ~1000 dependent small launches (exact FPS at
             # the whole scene) is timed over fewer calls
-            plain_ms = _cuda_ms(lambda fn=fn: fn("plain"),
-                                KERNEL_ITERS if first_ms < 20 else PLAIN_SLOW_ITERS)
-            dev_ms, events = _device_ms(lambda fn=fn: fn("cuda"), KERNEL_ITERS,
-                                        DEVICE_SYMBOLS[name])
+            plain_ms = tk.cuda_ms(lambda fn=fn: fn("plain"),
+                                  KERNEL_ITERS if first_ms < 20 else PLAIN_SLOW_ITERS)
+            dev_ms, events = tk.device_ms(lambda fn=fn: fn("cuda"), KERNEL_ITERS,
+                                          DEVICE_SYMBOLS[name])
             bound_ms, bound_by = _bound(*work(want))
-            dev = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+            dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
             print(f"kernel {name} [{label}]: equal to plain (max abs err {err}); "
-                  f"wrapper {ms:.4f} ms (kernel's device time {dev} over "
+                  f"wrapper {ms:.4f} ms (kernel's device time {dev_txt} over "
                   f"{events} of {KERNEL_ITERS} launches), "
                   f"plain {plain_ms:.4f} ms; bound {bound_ms:.5f} ms ({bound_by})")
             if main is None:
                 main = (err, ms, plain_ms, dev_ms, events, bound_ms, bound_by)
-        library_ms = None
-        if name in library:
-            case, lib_fn, lib_gap, lib_tol = library[name]
+        library_ms = {}
+        for case, lib_fn, lib_gap, lib_tol in library.get(name, ()):
             first_ms, lib_out = _host_ms(lib_fn)
             lib_err = lib_gap(lib_out, _first(shapes[case][1]("cuda")))
             if lib_err > lib_tol:
                 raise AssertionError(f"{name}: the library call differs by {lib_err}")
-            library_ms = _cuda_ms(lib_fn, KERNEL_ITERS if first_ms < 20 else PLAIN_SLOW_ITERS)
-            print(f"kernel {name} [{shapes[case][0]}]: library call {library_ms:.4f} ms "
-                  f"(max abs diff {lib_err:.2e})")
+            del lib_out
+            library_ms[shapes[case][0]] = tk.cuda_ms(
+                lib_fn, KERNEL_ITERS if first_ms < 20 else PLAIN_SLOW_ITERS)
+            print(f"kernel {name} [{shapes[case][0]}]: library call "
+                  f"{library_ms[shapes[case][0]]:.4f} ms (max abs diff {lib_err:.2e})")
         entries.append({
             "name": name, "route": "cuda", "source": k.source,
             "replaces": "; ".join(r.split()[0] for r in k.replaces.split("; ")),
             "launches": 0, "max_abs_err": main[0], "ms": main[1], "plain_ms": main[2],
             "device_ms": main[3], "device_events": main[4], "bound_ms": main[5],
             "bound_by": main[6],
-            "library_ms": library_ms,
+            "library_ms": next(iter(library_ms.values()), None),
+            **({"library_ms_by_shape": library_ms} if library_ms else {}),
         })
 
     # the cluster FPS at every cluster size that holds the row, kernel only
@@ -720,14 +655,32 @@ def check_kernels(dev, ops, bench_slice):
             if -(-pts.shape[1] // cs) > tfps.FPS_MAX_N:
                 continue
             run = lambda cs=cs: tfps._fps_cuda(pts, npoint, pvalid, cluster=cs)  # noqa: E731
-            _max_abs_err([run()], [want])
-            times[cs] = _cuda_ms(run, KERNEL_ITERS)
+            tk.max_abs_err([run()], [want])
+            times[cs] = tk.cuda_ms(run, KERNEL_ITERS)
         sweep[label] = times
         pick = tfps.fps_cluster_size(pts.shape[1])
         print(f"fps_cluster sweep [{label}]: ms by cluster size (CUDA events, bitwise the plain "
               f"version at each) " + ", ".join(f"{cs}: {ms:.4f}{' (picked)' * (cs == pick)}"
                                                 for cs, ms in times.items()))
     next(e for e in entries if e["name"] == "fps_cluster")["ms_by_cluster_size"] = sweep
+
+    # the first-K ball group at every split (warps a query) and every shape
+    # of the main path, kernel only (bitwise the plain version each time),
+    # device ms: the wrapper's host work (~0.1 ms) would hide the kernel
+    from gspn_tpu_torch.ops.ball_group import _ball_group_cuda
+
+    splits = {}
+    for label, args in main_path["ball_group"]:
+        want = tk.flatten(ops.query_ball_group_multi(*args, impl="plain"))
+        times = {}
+        for split in BALL_SPLITS:
+            run = lambda split=split: _ball_group_cuda(*args, split=split)  # noqa: E731
+            tk.max_abs_err(tk.flatten(run()), want)
+            times[split] = tk.device_ms(run, KERNEL_ITERS, DEVICE_SYMBOLS["ball_group"])[0]
+        splits[label] = times
+        print(f"ball_group split sweep [{label}]: device ms by warps a query (bitwise the "
+              f"plain version at each) " + ", ".join(f"{sp}: {ms}" for sp, ms in times.items()))
+    next(e for e in entries if e["name"] == "ball_group")["ms_by_split"] = splits
 
     first = ops.query_ball_group_multi((0.1,), (32,), xyz, sa1, valid)[0][0]
     strided = ops.query_ball_group_multi((0.1,), (32,), xyz, sa1, valid, select="strided")[0][0]
@@ -1155,7 +1108,7 @@ def _deterministic_mode_diagnostic(bench_slice, cfg, batch, eps) -> None:
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs an NVIDIA GPU")
-    card = _card()
+    card = tk.card_name()
     from gspn_tpu_torch import ops
     from gspn_tpu_torch.ops import _cuda
     from gspn_tpu_torch.utils import bench_slice

@@ -1,6 +1,6 @@
-// Greedy farthest point sampling: one thread block per row, or one
-// thread-block cluster per row when the row outgrows one block's shared
-// memory.
+// Greedy farthest point sampling: one sub-block of a thread block per row,
+// or one thread-block cluster per row when the row outgrows one block's
+// shared memory.
 //
 // Replaces gspn_tpu/ops/fps.py::_fps_kernel (the Pallas TPU kernel that
 // keeps the per-point min-distance buffer in VMEM and packs rows on
@@ -10,22 +10,41 @@
 // (distance update -> argmax -> next centre), not bytes or FLOPs: a row
 // of N points is 16*N bytes and each step is ~10*N operations.
 //
-// fps_kernel (N <= 14,272): the row's coordinates and its running
-// min-distance buffer live in dynamic shared memory for the whole chain
-// (16 B per point: 128 KB at the segmented pipeline's chains of 8192
-// points), so each step reads no device memory. Each step is one update
-// pass (each thread strides over the row), then a (value, index) argmax
-// with lowest-index ties: warp shuffles, one word per warp through shared
-// memory, and a last warp-level reduce. Rows (scene x chain) are
-// independent blocks, so the segmented pipeline's 8 chains per scene fill
-// 8*B SMs at once.
+// fps_kernel<kPer> (N <= 14,272): a sub-block of T threads per row; thread
+// t holds points t + i*T, i < kPer, and their running minimum in registers
+// (at kPer = 16, above 8192 points, 1024 threads' registers cannot hold the
+// coordinates too: they are read from shared memory, the minimum stays in
+// registers). Every row also keeps its coordinates in dynamic shared
+// memory. A pick is a dependent chain, and at 8192 points the update's
+// instructions fill the SM, so the design shortens both:
+//   - the update of kPer independent points a thread: the distance (8
+//     rounded operations), the minimum, and a compare that keeps the best
+//     (value, slot); slots ascend with the index, so strict > keeps the
+//     lowest. The best point's coordinates are then read from shared
+//     memory, in flight while the warp reduces;
+//   - the warp's argmax in two redux.sync steps on an order-preserving
+//     unsigned key of the value (__reduce_max_sync), then the lowest index
+//     among the lanes at that key (__reduce_min_sync);
+//   - one barrier: each warp's winning lane writes its candidate (key,
+//     index, x, y, z) to a slot double-buffered by the pick's parity, the
+//     sub-block meets at its own named barrier (bar.sync id, T), and every
+//     warp merges the <= 32 candidates by the same rule itself. The
+//     winner's coordinates travel in its candidate: no dependent load of
+//     the next centre.
+// A row of at most 256 points is one warp (no barrier at all), and short
+// rows share a CTA of up to 128 threads, a sub-block each, so the SA
+// levels' rows of 32-128 points are not a CTA each. gspn_fps picks kPer
+// from N: the least power of two that fits the row in one warp up to 256
+// points, 8 up to 8192 (1024 points: 128 threads; 8192: 1024), else 16.
+// Padding slots (j >= N) hold -inf, below an invalid point's -1.
 //
 // fps_cluster_kernel (longer rows, up to 16 x 14,272 points): a cluster of
 // cs CTAs (2, 4, 8 or 16, chosen by the Python wrapper) shares one row.
 // CTA r keeps points [r*S, (r+1)*S), S = ceil(N/cs), and their min-distance
 // buffer in its own shared memory (64 KB a CTA for N = 65536 at cs = 16).
 // Each pick: every CTA updates its slice and reduces its own (value,
-// global index, coordinates) candidate as above, writes it to a slot in its
+// global index, coordinates) candidate (warp shuffles, then one warp over
+// the warps' results through shared memory), writes it to a slot in its
 // shared memory, and meets the others at one cluster barrier; then warp 0
 // of every CTA reads the cs candidates through distributed shared memory
 // (lane r from CTA r), merges them with the same (value, lowest index)
@@ -61,85 +80,152 @@ __device__ __forceinline__ void argmax_merge(float& v, int& i, float ov, int oi)
   }
 }
 
-__global__ void fps_kernel(const float* __restrict__ xyz,
-                           const uint8_t* __restrict__ valid, int n,
-                           int npoint, int* __restrict__ out) {
-  extern __shared__ float smem[];
-  float* sx = smem;
-  float* sy = sx + n;
-  float* sz = sy + n;
-  float* mind = sz + n;
-  __shared__ float red_v[32];
-  __shared__ int red_i[32];
-  __shared__ int s_first;
-  __shared__ int s_next;
+constexpr int kFpsMaxSub = 4;        // rows (sub-blocks) a CTA
+constexpr int kFpsSubThreads = 128;  // short rows share a CTA up to this
 
-  const int row = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
+// A float's order as an unsigned key: larger float, larger key (-inf, the
+// padding, lowest of the values here).
+__device__ __forceinline__ unsigned order_key(float v) {
+  const unsigned u = __float_as_uint(v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// A pick's candidate: key of its value, index, coordinates.
+struct KeyCand {
+  unsigned key;
+  unsigned idx;
+  float x, y, z;
+};
+
+// The warp's argmax, in every lane: the largest key, then the lowest index
+// holding it, with that point's coordinates (indices are unique, so one
+// lane holds the winner).
+__device__ __forceinline__ KeyCand warp_argmax(const KeyCand& c) {
+  const unsigned key = __reduce_max_sync(gspn::kFullMask, c.key);
+  const unsigned idx =
+      __reduce_min_sync(gspn::kFullMask, c.key == key ? c.idx : 0xffffffffu);
+  const int src =
+      __ffs(__ballot_sync(gspn::kFullMask, c.key == key && c.idx == idx)) - 1;
+  return KeyCand{key, idx, __shfl_sync(gspn::kFullMask, c.x, src),
+                 __shfl_sync(gspn::kFullMask, c.y, src),
+                 __shfl_sync(gspn::kFullMask, c.z, src)};
+}
+
+__device__ __forceinline__ void sub_block_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+template <int kPer>
+__global__ void __launch_bounds__(1024)
+    fps_kernel(const float* __restrict__ xyz,
+               const uint8_t* __restrict__ valid, int rows, int n, int npoint,
+               int tpr, int* __restrict__ out) {
+  constexpr bool kRegCoords = kPer <= 8;
+  extern __shared__ float fps_smem[];  // x, y, z of each sub-block's row
+  __shared__ KeyCand cand[kFpsMaxSub][2][32];
+  __shared__ unsigned first_s[kFpsMaxSub][32];
+
+  const int sub = threadIdx.x / tpr;
+  const int t = threadIdx.x - sub * tpr;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int nw = tpr >> 5;
+  const int row = blockIdx.x * (blockDim.x / tpr) + sub;
+  if (row >= rows) return;  // a whole sub-block: no other waits for it
+  const int bar = sub + 1;  // named barrier 0 is __syncthreads
+  const int span = tpr * kPer;  // the row's slots, padding included
   const float* p = xyz + static_cast<size_t>(row) * n * 3;
   const uint8_t* v = valid ? valid + static_cast<size_t>(row) * n : nullptr;
   int* o = out + static_cast<size_t>(row) * npoint;
+  float* sx = fps_smem + sub * 3 * span;
+  float* sy = sx + span;
+  float* sz = sy + span;
 
-  if (tid == 0) s_first = n;
-  __syncthreads();
-  int my_first = n;
-  for (int j = tid; j < n; j += blockDim.x) {
-    sx[j] = p[3 * j];
-    sy[j] = p[3 * j + 1];
-    sz[j] = p[3 * j + 2];
-    const bool ok = v == nullptr || v[j] != 0;
-    mind[j] = ok ? 1e10f : -1.0f;
-    if (ok && j < my_first) my_first = j;
+  float px[kRegCoords ? kPer : 1], py[kRegCoords ? kPer : 1],
+      pz[kRegCoords ? kPer : 1];
+  float md[kPer];
+  unsigned first = 0xffffffffu;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int j = t + i * tpr;
+    float x = 0.f, y = 0.f, z = 0.f;
+    md[i] = -CUDART_INF_F;
+    if (j < n) {
+      x = p[3 * j];
+      y = p[3 * j + 1];
+      z = p[3 * j + 2];
+      const bool ok = v == nullptr || v[j] != 0;
+      md[i] = ok ? 1e10f : -1.0f;
+      if (ok && static_cast<unsigned>(j) < first) first = j;
+    }
+    sx[j] = x;
+    sy[j] = y;
+    sz[j] = z;
+    if constexpr (kRegCoords) {
+      px[i] = x;
+      py[i] = y;
+      pz[i] = z;
+    }
   }
-  if (my_first < n) atomicMin(&s_first, my_first);
-  __syncthreads();
-  int prev = s_first < n ? s_first : 0;
-  if (tid == 0) o[0] = prev;
+  first = __reduce_min_sync(gspn::kFullMask, first);
+  if (nw > 1) {
+    if (lane == 0) first_s[sub][warp] = first;
+    sub_block_sync(bar, tpr);  // also publishes the shared coordinates
+    first = __reduce_min_sync(gspn::kFullMask,
+                              lane < nw ? first_s[sub][lane] : 0xffffffffu);
+  } else {
+    __syncwarp();
+  }
+  const int prev = first < static_cast<unsigned>(n) ? first : 0;
+  if (t == 0) o[0] = prev;
+  float cx = sx[prev], cy = sy[prev], cz = sz[prev];
 
   for (int k = 1; k < npoint; ++k) {
-    const float cx = sx[prev], cy = sy[prev], cz = sz[prev];
+    // this thread's best (value, slot); slots ascend with the index, so
+    // strict > keeps the lowest
     float bv = -CUDART_INF_F;
-    int bi = n;
-    for (int j = tid; j < n; j += blockDim.x) {
-      const float d = gspn::sqdist(sx[j], sy[j], sz[j], cx, cy, cz);
-      const float m = fminf(mind[j], d);
-      mind[j] = m;
-      if (m > bv) {  // j ascends within a thread: strict > keeps the lowest
+    int bs = 0;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      float x, y, z;
+      if constexpr (kRegCoords) {
+        x = px[i];
+        y = py[i];
+        z = pz[i];
+      } else {
+        x = sx[t + i * tpr];
+        y = sy[t + i * tpr];
+        z = sz[t + i * tpr];
+      }
+      const float m = fminf(md[i], gspn::sqdist(x, y, z, cx, cy, cz));
+      md[i] = m;
+      if (m > bv) {
         bv = m;
-        bi = j;
+        bs = i;
       }
     }
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_down_sync(gspn::kFullMask, bv, off);
-      const int oi = __shfl_down_sync(gspn::kFullMask, bi, off);
-      argmax_merge(bv, bi, ov, oi);
+    // its coordinates load while the warp reduces
+    const unsigned j = t + bs * tpr;
+    KeyCand c{order_key(bv), j, sx[j], sy[j], sz[j]};
+    if (nw == 1) {
+      c = warp_argmax(c);
+    } else {
+      // the warp's winner writes its candidate itself
+      const unsigned key = __reduce_max_sync(gspn::kFullMask, c.key);
+      const unsigned idx =
+          __reduce_min_sync(gspn::kFullMask, c.key == key ? j : 0xffffffffu);
+      KeyCand* slot = cand[sub][k & 1];
+      if (c.key == key && j == idx) slot[warp] = c;
+      sub_block_sync(bar, tpr);
+      c = lane < nw ? slot[lane] : KeyCand{0u, 0xffffffffu, 0.f, 0.f, 0.f};
+      c = warp_argmax(c);
     }
-    if (lane == 0) {
-      red_v[warp] = bv;
-      red_i[warp] = bi;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      bv = lane < nwarps ? red_v[lane] : -CUDART_INF_F;
-      bi = lane < nwarps ? red_i[lane] : n;
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_down_sync(gspn::kFullMask, bv, off);
-        const int oi = __shfl_down_sync(gspn::kFullMask, bi, off);
-        argmax_merge(bv, bi, ov, oi);
-      }
-      if (lane == 0) {
-        s_next = bi;
-        o[k] = bi;
-      }
-    }
-    __syncthreads();
-    prev = s_next;  // next written after the first barrier of step k+1
+    if (t == 0) o[k] = static_cast<int>(c.idx);
+    cx = c.x;
+    cy = c.y;
+    cz = c.z;
   }
 }
-
 
 // One pick's candidate of one CTA: the best (value, global index) of its
 // slice and that point's coordinates.
@@ -279,18 +365,45 @@ extern "C" const char* gspn_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+namespace {
+
+template <int kPer>
+cudaError_t launch_fps(const float* xyz, const uint8_t* valid, int rows, int n,
+                       int npoint, int* out, cudaStream_t stream) {
+  const int tpr = ((n + kPer - 1) / kPer + 31) / 32 * 32;  // threads a row
+  int per_cta = kFpsSubThreads / tpr;
+  per_cta = per_cta < 1 ? 1 : (per_cta > kFpsMaxSub ? kFpsMaxSub : per_cta);
+  if (per_cta > rows) per_cta = rows;
+  const size_t smem =
+      static_cast<size_t>(per_cta) * tpr * kPer * 3 * sizeof(float);
+  const cudaError_t err = cudaFuncSetAttribute(
+      fps_kernel<kPer>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  fps_kernel<kPer><<<(rows + per_cta - 1) / per_cta, per_cta * tpr, smem,
+                     stream>>>(xyz, valid, rows, n, npoint, tpr, out);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
 extern "C" int gspn_fps(const float* xyz, const uint8_t* valid, int rows, int n,
                         int npoint, int* out, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(n) * 4 * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      fps_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int threads = ((n + 31) / 32) * 32;
-  if (threads > 1024) threads = 1024;
-  if (threads < 32) threads = 32;
-  fps_kernel<<<rows, threads, smem, stream>>>(xyz, valid, n, npoint, out);
-  return static_cast<int>(cudaGetLastError());
+  if (n < 1 || n > 16 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  // points a thread: one warp a row up to 256 points, 8 up to 8192, then 16
+  const int warp_per = (n + 31) / 32;
+  cudaError_t err;
+  if (warp_per <= 1)
+    err = launch_fps<1>(xyz, valid, rows, n, npoint, out, stream);
+  else if (warp_per <= 2)
+    err = launch_fps<2>(xyz, valid, rows, n, npoint, out, stream);
+  else if (warp_per <= 4)
+    err = launch_fps<4>(xyz, valid, rows, n, npoint, out, stream);
+  else if (n <= 8192)
+    err = launch_fps<8>(xyz, valid, rows, n, npoint, out, stream);
+  else
+    err = launch_fps<16>(xyz, valid, rows, n, npoint, out, stream);
+  return static_cast<int>(err);
 }
 
 namespace {

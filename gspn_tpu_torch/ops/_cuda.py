@@ -161,13 +161,14 @@ KERNELS: dict[str, CudaKernel] = {
         ),
         CudaKernel(
             "ball_group", "ball_group.cu", "gspn_ball_group",
-            # xyz1, valid1, xyz2, b, n, m, nscales, r2s, ks, idx[], cnt[], local[]
-            (_ptr, _ptr, _ptr, _int, _int, _int, _int, _ptr, _ptr, _ptr, _ptr, _ptr),
+            # xyz1, valid1, xyz2, b, n, m, nscales, r2s, ks, idx[], cnt[], local[],
+            # split (warps a query; 0: the kernel's rule)
+            (_ptr, _ptr, _ptr, _int, _int, _int, _int, _ptr, _ptr, _ptr, _ptr, _ptr, _int),
             "gspn_tpu/ops/ball_group.py:83 _fused_kernel",
         ),
         CudaKernel(
             "ball_group_strided", "ball_group.cu", "gspn_ball_group_strided",
-            # as ball_group
+            # as ball_group, without split
             (_ptr, _ptr, _ptr, _int, _int, _int, _int, _ptr, _ptr, _ptr, _ptr, _ptr),
             "gspn_tpu/ops/ball_group.py:318 _fused_kernel_strided",
         ),

@@ -1,10 +1,12 @@
 """Fused multi-radius ball query + group + centre subtract.
 
 Counterpart of ``gspn_tpu/ops/ball_group.py::query_ball_group_multi``. The
-CUDA routes are ``csrc/ball_group.cu``: ``select="first"`` (one warp per
-query, one shared distance for all concentric scales, early exit) and
-``select="strided"`` (a count pass over the whole scene, then the hits of
-rank ``floor(j * total / K)``); the plain route is the ball query plus a
+CUDA routes are ``csrc/ball_group.cu``: ``select="first"`` (the scene
+staged through shared memory in tiles for a CTA of queries, one shared
+distance for all concentric scales, a query's scan split over several
+warps when queries are few, early exit) and ``select="strided"`` (one warp
+per query: a count pass over the whole scene, then the hits of rank
+``floor(j * total / K)``); the plain route is the ball query plus a
 ``group_point`` gather.
 """
 
@@ -37,6 +39,13 @@ def query_ball_group_multi(
     ``valid1 (B,N)`` optional; ``select`` "first" (default) or "strided"."""
     select = check_select(select)
     if resolve_impl(impl, xyz1) == "cuda":
-        kernel = STRIDED_KERNEL if select == "strided" else KERNEL
-        return ball_scan_cuda(kernel, radii, nsamples, xyz1, xyz2, valid1, True)
+        if select == "strided":
+            return ball_scan_cuda(STRIDED_KERNEL, radii, nsamples, xyz1, xyz2, valid1, True)
+        return _ball_group_cuda(radii, nsamples, xyz1, xyz2, valid1)
     return _ball_group_plain(radii, nsamples, xyz1, xyz2, valid1, select)
+
+
+def _ball_group_cuda(radii, nsamples, xyz1, xyz2, valid1=None, split: int = 0):
+    """The first-K kernel at the kernel's own split (warps a query), or at
+    ``split`` (1, 2, 4, 8 or 16) to time one split against another."""
+    return ball_scan_cuda(KERNEL, radii, nsamples, xyz1, xyz2, valid1, True, split)

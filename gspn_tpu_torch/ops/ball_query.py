@@ -87,11 +87,11 @@ def ball_query_plain(radius: float, nsample: int, xyz1, xyz2, valid1=None,
     return finalize(first_k_hits(hit, nsample), cnt, nsample)
 
 
-def ball_scan_cuda(kernel, radii, nsamples, xyz1, xyz2, valid1, with_coords):
-    """Launch one of the warp-per-query ball scans of ``csrc/group_scan.cuh``
-    (``kernel``: ball_group(_strided) with coordinates, ball_query(_strided)
-    without). Returns per scale ``(idx (B,M,K) int32, cnt (B,M) int32[,
-    local (B,M,K,3) f32])``."""
+def ball_scan_cuda(kernel, radii, nsamples, xyz1, xyz2, valid1, with_coords, *extra):
+    """Launch one of the ball scans (``kernel``: ball_group(_strided) with
+    coordinates, ball_query(_strided) without; ``extra`` ints follow the
+    output pointers, as the kernel's C entry point takes them). Returns per
+    scale ``(idx (B,M,K) int32, cnt (B,M) int32[, local (B,M,K,3) f32])``."""
     b, n, _ = xyz1.shape
     m = xyz2.shape[1]
     s = len(radii)
@@ -126,7 +126,7 @@ def ball_scan_cuda(kernel, radii, nsamples, xyz1, xyz2, valid1, with_coords):
         kernel.launch(
             dev, _cuda.ptr(xyz1), _cuda.ptr(v), _cuda.ptr(xyz2), b, n, m, s,
             ctypes.addressof(r2s), ctypes.addressof(ks),
-            *(ctypes.addressof(p) for p in ptrs),
+            *(ctypes.addressof(p) for p in ptrs), *extra,
         )
     return outs
 

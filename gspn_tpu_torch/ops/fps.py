@@ -1,7 +1,7 @@
 """Farthest point sampling: the exact greedy chain (plain PyTorch version and
-CUDA kernels ``csrc/fps.cu``: one block per row, or one thread-block
-cluster per row beyond one block's shared memory) and the segmented /
-spatial compositions around it.
+CUDA kernels ``csrc/fps.cu``: one sub-block of a CTA per row, short rows
+sharing a CTA, or one thread-block cluster per row beyond one block) and
+the segmented / spatial compositions around it.
 
 Counterpart of ``gspn_tpu/ops/fps.py``. Greedy: seed with the first valid
 point, then repeatedly pick the point with the largest minimum squared
@@ -21,9 +21,11 @@ from gspn_tpu_torch.ops.common import resolve_impl, sqdist_components
 from gspn_tpu_torch.ops.morton import morton_codes
 
 _BIG = 1e10
-# a row's coordinates + min-distance buffer (16 B per point) must fit in one
-# block's shared memory (227 KB on Hopper), less static scratch; a longer
-# row is spread over a cluster of CTAs, each holding a slice this long
+# the cluster kernel keeps a slice's coordinates + min-distance buffer (16 B
+# per point) in one block's shared memory (227 KB on Hopper), less static
+# scratch; the single-block kernel takes rows up to this long too (its
+# minimum in registers, 12 B a point of shared memory); a longer row is
+# spread over a cluster of CTAs, each holding a slice this long
 FPS_MAX_N = (232448 - 4096) // 16
 # 2, 4 and 8 are portable cluster sizes; 16 is Hopper's non-portable maximum
 FPS_CLUSTER_SIZES = (1, 2, 4, 8, 16)

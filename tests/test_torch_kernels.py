@@ -62,6 +62,44 @@ def test_fps_kernel(dev, rows, n, npoint, masked):
 
 
 @pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("rows,n,npoint", [
+    (3, 1, 4), (3, 31, 40), (3, 33, 40), (2, 1023, 64), (2, 1025, 64), (2, 8193, 32),
+    (2, 14272, 64),  # each points-a-thread choice and its edges; npoint > n
+    (64, 32, 8), (64, 128, 32), (8, 64, 16), (5, 96, 24),  # short rows share a CTA
+    (8, 4096, 1),  # npoint = 1
+])
+def test_fps_kernel_edges(dev, rows, n, npoint, masked):
+    """Bitwise the plain version at every register layout of the kernel;
+    masked, row 0 keeps one to three valid points (the picks past them
+    follow the plain argmax) and the last row none (index 0 at every
+    pick)."""
+    xyz, valid = _scenes(dev, rows, n, pad_frac=0.0)
+    v = None
+    if masked:
+        v = valid.clone()
+        v[0] = False
+        v[0, n // 2::max(1, n // 3)] = True
+        v[-1] = False
+    before = tfps.KERNEL.launches
+    got = ops.farthest_point_sample(npoint, xyz, v, impl="cuda")
+    torch.cuda.synchronize()
+    assert tfps.KERNEL.launches == before + 1
+    _equal(got, ops.farthest_point_sample(npoint, xyz, v, impl="plain"))
+    if masked:
+        assert not got[-1].any()
+
+
+@pytest.mark.parametrize("n", [32, 1024, 8192])
+def test_fps_kernel_ties(dev, n):
+    """Every point four times over (equal distances everywhere): ties go to
+    the lowest index, bitwise the plain version."""
+    xyz, _ = _scenes(dev, 4, n // 4)
+    xyz = xyz.repeat(1, 4, 1)
+    got = ops.farthest_point_sample(64, xyz, impl="cuda")
+    _equal(got, ops.farthest_point_sample(64, xyz, impl="plain"))
+
+
+@pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("rows,n,npoint", [(2, 14273, 64), (1, 65536, 128), (4, 16384, 64),
                                            (1, 131072, 64)])
 def test_fps_cluster_kernel(dev, rows, n, npoint, masked):
@@ -117,6 +155,94 @@ def test_ball_group_kernel(dev, b, n, radii, ks, m, masked):
     for g, w in zip(got, want, strict=True):
         for x, y in zip(g, w, strict=True):
             _equal(x, y)
+
+
+def _ball_equal(xyz, q, v, radii, ks):
+    """The first-K kernel bitwise the plain version."""
+    before = tball.KERNEL.launches
+    got = ops.query_ball_group_multi(radii, ks, xyz, q, v, impl="cuda")
+    torch.cuda.synchronize()
+    assert tball.KERNEL.launches == before + 1
+    want = ops.query_ball_group_multi(radii, ks, xyz, q, v, impl="plain")
+    for g, w in zip(got, want, strict=True):
+        for x, y in zip(g, w, strict=True):
+            _equal(x, y)
+    return got
+
+
+def _split_queries(split, b):
+    """Queries a scene for which the kernel's rule (``ball_group_split`` in
+    ``csrc/ball_group.cu``) takes ``split`` warps a query over a scene of
+    at least 512 x ``split`` points: B x M = 3072 / split - B lies within
+    4096 / split warps and above half that. One short of a whole CTA, so
+    the last CTA of each scene has an empty query slot."""
+    return 3072 // (split * b) - 1
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize(
+    "b,n,radii,ks,m",
+    [
+        (8, 1024, (0.2,), (32,), 256),  # SA2
+        (8, 256, (0.4,), (32,), 64),  # SA3
+        (8, 64, (0.8,), (32,), 16),  # SA4: one step, tested from device memory
+        (3, 128, (0.5, 1.0), (8, 64), 10),  # the largest such scene
+        (3, 129, (0.5, 1.0), (8, 64), 10),  # the smallest staged one
+        (4, 4096, (0.25, 0.5, 1.0), (64, 128, 256), 64),  # training crops
+        (2, 4096, (0.1, 0.2, 0.4, 0.8), (8, 16, 32, 64), 40),  # 4 scales
+        (3, 8192, (0.3,), (32,), 1),  # M = 1
+        (2, 5000, (0.2, 0.4), (16, 48), 70),  # N not a multiple of 4: plain staging
+        (2, 4100, (0.2, 0.4), (16, 48), 70),  # N % 16 = 4: cp.async only unmasked
+        (1, 65536, (0.1,), (32,), 1024),  # whole-scene SA1: 32 tiles
+        (1, 8192, (0.25, 0.5, 1.0), (32, 64, 128), 64),  # 1 x 64 crops: 16 warps a query
+        (1, 65536, (0.25, 0.5, 1.0), (32, 64, 128), 64),  # whole-scene crops: 16
+    ],
+)
+def test_ball_group_kernel_shapes(dev, b, n, radii, ks, m, masked):
+    xyz, valid = _scenes(dev, b, n)
+    q = _centres(dev, xyz, m) if m > 1 else xyz[:, 5:6].clone()  # M = 1: not empty
+    _ball_equal(xyz, q, valid if masked else None, radii, ks)
+
+
+@pytest.mark.parametrize("split", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("b,n", [(1, 8192), (3, 8192), (8, 8192), (2, 8195), (1, 65536)])
+def test_ball_group_kernel_at_every_split(dev, b, n, split):
+    """A query's scan split over 1-16 warps (``_split_queries``) gives the
+    serial scan's slots: one scene, three and eight scenes (a CTA never
+    crosses a scene), a ragged scene staged without cp.async, a scene of
+    32 tiles."""
+    xyz, valid = _scenes(dev, b, n)
+    _ball_equal(xyz, _centres(dev, xyz, _split_queries(split, b)), valid,
+                (0.25, 0.5, 1.0), (32, 64, 128))
+
+
+@pytest.mark.parametrize("split", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("last", [2047, 2048])
+def test_ball_group_kernel_fills_at_a_tile_edge(dev, split, last):
+    """A ball whose K-th hit is the last point of the first tile (2047) or
+    the first of the second (2048), with hits after it in every tile; the
+    other queries (``_split_queries``) sit about the far points."""
+    gen = torch.Generator().manual_seed(11)
+    n, k = 8192, 32
+    xyz = torch.rand((1, n, 3), generator=gen) * 4 + 2  # all outside the ball
+    hits = torch.cat([torch.randperm(last, generator=gen)[:k - 1], torch.tensor([last])])
+    xyz[0, hits] = torch.rand((k, 3), generator=gen) * 0.1
+    xyz[0, last + 1::97] = torch.rand((len(range(last + 1, n, 97)), 3), generator=gen) * 0.1
+    q = torch.full((1, _split_queries(split, 1), 3), 3.0)
+    q[0, 0] = 0.0
+    got = _ball_equal(xyz.to(dev), q.to(dev), None, (0.5,), (k,))
+    assert got[0][1][0, 0].item() == k and got[0][0][0, 0, -1].item() == last
+
+
+@pytest.mark.parametrize("split", [1, 4, 16])
+def test_ball_group_kernel_duplicated_points(dev, split):
+    """Every point twice (the copy 4096 indices on, two tiles later) and
+    invalid points among them, at ``split`` warps a query."""
+    xyz, valid = _scenes(dev, 2, 4096)
+    xyz, valid = xyz.repeat(1, 2, 1), valid.repeat(1, 2)
+    valid[:, 1::5] = False
+    _ball_equal(xyz, _centres(dev, xyz, _split_queries(split, 2)), valid,
+                (0.25, 0.5, 1.0), (32, 64, 128))
 
 
 _BALL_CASES = [
