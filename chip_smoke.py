@@ -22,10 +22,14 @@ line or a few:
    function where there is one (``library_ms`` at the first shape that
    has one, ``library_ms_by_shape`` for each shape timed; never called by
    the port); the timing helpers are ``gspn_tpu_torch.utils.time_kernels``;
-   ``fps`` and the first-K ``ball_group`` at every shape of the main path
-   (``time_kernels.cases``: the shared pass, the crops and SA1-SA4 of the
-   flagship and of the whole scene, the training step's seeds and crops),
-   then the ball group at every split (warps a query) at each of them;
+   every launch of the main path's kernels in one flagship and one
+   whole-scene request, each at its own shape (``time_kernels.cases``:
+   fps's shared pass and SA2-SA4, the first-K ball group's crops and
+   SA1-SA4, the first-S box group, NMS, three_nn and interp_mm at FP1-FP4,
+   mask_project; also mask_project_boxed on both sorted scenes and the
+   training step's seeds and crops), with each shape's device and bound
+   ms in ``device_ms_by_shape`` / ``bound_ms_by_shape``; then the ball
+   and box groups at every split (warps a query) at each of their shapes;
    the exact FPS beyond one block (``fps_cluster``) at the whole scene,
    4 x 16384, 2 x 14273 with an all-invalid row and 131072 points, then
    at every cluster size that holds each row; NMS up to 4096 boxes; the
@@ -76,15 +80,18 @@ line or a few:
    with 3 finite JSONL lines and a checkpoint; 4 steps straight against 2
    steps, a checkpoint and ``--resume`` for 2 more, bitwise; and
    ``--num-points 16384`` (exact FPS on the cluster kernel) for 3 steps;
-6. a JSON line of kernel results (``launches`` from the first slice that
-   launches the kernel, named in ``slice``: (A) for the first-K path's,
-   (B) for mask_project_boxed, (E) for the strided groups, (F) for the
-   ball queries, (H) for fps_cluster, (G) for nn_argmin and index_add;
-   ``launches_by_slice`` for each slice's own count; ``device_events``,
-   the profiler's events under ``device_ms``; ``ms_by_cluster_size`` for
-   fps_cluster, ``ms_by_split`` for ball_group), the "ms above the bound"
-   ranking, the card's name and power limit, and last ``{"ok": true,
-   "device": {...}}``.
+6. the ranking: for the flagship and for the whole-scene request, each
+   kernel's (device ms - bound ms) summed over every launch of that request
+   at its own shape (the launches must be slice (A)'s, kernel for kernel),
+   then the kernels off the main path by slice; a JSON line of kernel
+   results (``launches`` from the first slice that launches the kernel,
+   named in ``slice``: (A) for the first-K path's, (B) for
+   mask_project_boxed, (E) for the strided groups, (F) for the ball
+   queries, (H) for fps_cluster, (G) for nn_argmin and index_add;
+   ``launches_by_slice`` for each slice's own count; ``device_events``, the
+   profiler's events under ``device_ms``; ``ms_by_cluster_size`` for
+   fps_cluster, ``ms_by_split`` for ball_group and box_group), the card's name and power
+   limit, and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises; no phase's error is caught. Imports nothing of JAX.
 """
@@ -112,21 +119,22 @@ PLAIN_SLOW_ITERS = 3  # timed calls of a plain version or library call slower th
 FIELDS = ("masks", "valid", "classes", "scores", "boxes")  # of InstancePredictions
 PATH_KERNELS = {"fps", "ball_group", "box_group", "three_nn", "interp_mm", "nms"}
 FPS_ROWS_N = 131072  # the cluster FPS's reach: twice the whole scene
-BALL_SPLITS = (1, 2, 4, 8, 16)  # warps a query the first-K ball group takes
+SPLITS = (1, 2, 4, 8, 16)  # warps a query the first-K ball and box groups take
 STRIDED = {"ball_group": "ball_group_strided", "box_group": "box_group_strided"}
 # the kernel's symbols in the profiler's (demangled) device events; template
-# arguments of group_scan_kernel: <box, strided, coordinates>
+# arguments of group_scan_kernel: <box, strided, coordinates>; of
+# group_first_kernel: its predicate, gspn::Ball<scales> or gspn::Box
 DEVICE_SYMBOLS = {
     "fps": ("fps_kernel",), "fps_cluster": ("fps_cluster_kernel",),
-    "ball_group": ("ball_group_first_kernel",),
+    "ball_group": ("group_first_kernel<gspn::Ball",),
     "ball_group_strided": ("group_scan_kernel<false, true, true>",),
-    "box_group": ("group_scan_kernel<true, false, true>",),
+    "box_group": ("group_first_kernel<gspn::Box",),
     "box_group_strided": ("group_scan_kernel<true, true, true>",),
     "ball_query": ("group_scan_kernel<false, false, false>",),
     "ball_query_strided": ("group_scan_kernel<false, true, false>",),
     "three_nn": ("three_nn_kernel",), "interp_mm": ("interp_mm_kernel",),
-    "mask_project": ("mask_project_kernel<false>",),
-    "mask_project_boxed": ("mask_project_kernel<true>",), "nms": ("nms_kernel",),
+    "mask_project": ("nearest_logit_kernel<false>",),
+    "mask_project_boxed": ("nearest_logit_kernel<true>",), "nms": ("nms_kernel",),
     "nn_argmin": ("nn_argmin_kernel",), "index_add": ("index_add_kernel",),
 }
 SLICE_KERNELS = {  # what each slice's kernel path launches; the others stay at 0
@@ -225,7 +233,9 @@ def _chamfer_case(dev, ops, bench_slice, gen):
 
 
 def check_kernels(dev, ops, bench_slice):
-    """Phase 3. Returns the JSON entries (time at each kernel's main shape)."""
+    """Phase 3. Returns ``(the JSON entries, {request: [(kernel, case
+    label)]})``: each kernel's times at its first shape, and every launch
+    of the main path in one flagship and one whole-scene request."""
     from gspn_tpu_torch.data import synthetic
     from gspn_tpu_torch.models.rpointnet import roi_grid_points
     from gspn_tpu_torch.ops import fps as tfps
@@ -233,46 +243,22 @@ def check_kernels(dev, ops, bench_slice):
         ROI_BLOCK_BOXED, TILE_N_BOXED, boxed_layout, tile_relevance,
     )
 
-    xyz, valid = (torch.from_numpy(a).to(dev) for a in bench_slice.scenes(FLAGSHIP))
-    ws, wsv = (torch.from_numpy(a).to(dev) for a in bench_slice.scenes(WHOLE_SCENE))
+    # the main path's inputs (time_kernels.main_path_inputs): scenes, their
+    # sorted views, seeds, SA centres, boxes about the seeds, RoI samples
+    inputs = tk.main_path_inputs(ops, bench_slice, dev)
+    main_path = tk.cases(ops, bench_slice, dev, inputs)
+    requests = {req: [(name, label) for name, items in main_path.items()
+                      for label, _, r in items if r == req] for req in tk.REQUESTS}
+    fl, wsi = inputs[FLAGSHIP], inputs[WHOLE_SCENE]
+    xyz, valid, seeds, sa1, boxes, roi_xyz = (
+        fl["xyz"], fl["valid"], fl["seeds"], fl["sa"][0], fl["boxes"], fl["roi_xyz"])
+    ws, wsv, ws_seeds, ws_sa1, ws_boxes = (
+        wsi["xyz"], wsi["valid"], wsi["seeds"], wsi["sa"][0], wsi["boxes"])
     gen = torch.Generator().manual_seed(0)
-
-    def rois(pts, pvalid, sidx, sxyz, svalid):
-        """The slice's shapes: 64 seeds from 8 spatial FPS chains, 1024 sa1
-        centres, boxes about the seeds, their first 64 in-box points as RoI
-        samples, and grid RoI points."""
-        b = pts.shape[0]
-        seeds = ops.gather_point(pts, torch.gather(sidx, 1, ops.farthest_point_sample(
-            64, sxyz, svalid, segments=8, segment_mode="contiguous").long()))
-        sa1 = ops.gather_point(pts, ops.farthest_point_sample(
-            1024, pts, pvalid, segments=8, segment_mode="spatial"))
-        half = (torch.rand((b, 64, 3), generator=gen) * 0.5 + 0.1).to(dev)
-        boxes = torch.cat([seeds - half, seeds + half], dim=-1)
-        roi_xyz = ops.query_box_group(boxes, 64, pts, pvalid)[2] + (
-            (boxes[..., 0:3] + boxes[..., 3:6]) * 0.5)[..., None, :]
-        logits = (torch.randn((b, 64, 64), generator=gen) * 0.1).to(dev)
-        grid = roi_grid_points(boxes, 64)[0].reshape(b, 64 * 64, 3)
-        return seeds, sa1, boxes, roi_xyz, logits, grid
-
-    sxyz, svalid, sidx = ops.spatial_sorted_view(xyz, valid)
-    wsx, wsvv, wsidx = ops.spatial_sorted_view(ws, wsv)
-    seeds, sa1, boxes, roi_xyz, logits, grid = rois(xyz, valid, sidx, sxyz, svalid)
-    ws_seeds, ws_sa1, ws_boxes, ws_roi_xyz, ws_logits, ws_grid = rois(ws, wsv, wsidx, wsx, wsvv)
+    grid = roi_grid_points(boxes, 64)[0].reshape(B, 64 * 64, 3)
+    ws_grid = roi_grid_points(ws_boxes, 64)[0].reshape(1, 64 * 64, 3)
     targets = xyz[:, None].expand(B, 64, N, 3).reshape(B * 64, N, 3)
-    def fp(tgt, src, c):  # an FP level's interpolation inputs
-        dist, idx = ops.three_nn(tgt, src)
-        feats = torch.randn((src.shape[0], src.shape[1], c), generator=gen).to(dev)
-        return feats, idx, ops.three_interpolate_weights(dist)
-
-    fp4, fp1, ws_fp4 = fp(xyz, sa1, 128), fp(sa1[:, :64], sa1[:, 64:80], 512), fp(ws, ws_sa1, 128)
-    tn, npad, rb, rpad = boxed_layout(N, 64, ROI_BLOCK_BOXED, TILE_N_BOXED)
-    rel = tile_relevance(sxyz, svalid, boxes, tn, npad, rb, rpad)
-    tn, npad, rb, rpad = boxed_layout(WS_N, 64, ROI_BLOCK_BOXED, TILE_N_BOXED)
-    ws_rel = tile_relevance(wsx, wsvv, ws_boxes, tn, npad, rb, rpad)
-    rel_share, ws_rel_share = rel.float().mean().item(), ws_rel.float().mean().item()
-    print(f"mask_project_boxed: relevant (RoI block, tile) share {rel_share:.4f} "
-          f"flagship, {ws_rel_share:.4f} whole scene")
-    nms_scores = torch.rand((B, 64), generator=gen).to(dev)
+    fp4 = main_path["interp_mm"][0][1]  # FP4's interpolation at the flagship
     chain_boxes, chain_scores = _chain_nms_case(dev, B, 64, 32, gen)
     nms2k, nms4k = _chain_nms_case(dev, 1, 2048, 128, gen), _chain_nms_case(dev, 1, 4096, 128, gen)
     pred, gt, gt_valid = _chamfer_case(dev, ops, bench_slice, gen)
@@ -362,11 +348,31 @@ def check_kernels(dev, ops, bench_slice):
         dense = pts.reshape(b * m, c)
         return lambda: torch.sparse.mm(mat, dense).reshape(b, n, c)
 
+    def boxed_work(pts, samp, lg, bx, _, pvalid):  # the relevant tiles' pairs
+        tn, npad, rb, rpad = boxed_layout(pts.shape[1], bx.shape[1], ROI_BLOCK_BOXED,
+                                          TILE_N_BOXED)
+        share = tile_relevance(pts, pvalid, bx, tn, npad, rb, rpad).float().mean().item()
+        print(f"mask_project_boxed: relevant (RoI block, tile) share {share:.4f} at "
+              f"{pts.shape[0]} x {pts.shape[1]} points")
+        return proj_work(pts, samp, lg, share, bx, pvalid)
+
+    main_work = {  # kernel -> work(a main-path case's args)
+        "fps": lambda a: fps_work(a[1], a[2], a[0]),
+        "ball_group": lambda a: ball_work(a[2], a[4], a[3], len(a[0]), False),
+        "box_group": lambda a: box_work(a[2], a[3], a[0], False),
+        "nms": lambda a: nms_work(a[0], a[1]),
+        "three_nn": lambda a: nn_work(*a), "interp_mm": mm_work,
+        "mask_project": lambda a: proj_work(*a), "mask_project_boxed": lambda a: boxed_work(*a),
+    }
+
+    def main_cases(name):  # every main-path launch of the kernel (time_kernels.cases)
+        return [(label, lambda impl, a=a: tk.call(ops, name, a, impl), main_work[name](a))
+                for label, a, _ in main_path[name]]
+
     crops = ((0.25, 0.5, 1.0), (32, 64, 128))
-    main_path = tk.cases(ops, bench_slice, dev)  # fps and ball_group at every shape
+    grid_label = f"grid RoIAlign: {B}x4096 targets <- {N}"
     cases = {  # name -> [(shape label, fn(impl), work)], main shape first
-        "fps": [(label, lambda impl, a=a: tk.call(ops, "fps", a, impl),
-                 fps_work(a[1], a[2], a[0])) for label, a in main_path["fps"]],
+        "fps": main_cases("fps"),
         "fps_cluster": [
             (f"exact, whole scene: 1 x {WS_N} pts (10 % padding), 1024 picks",
              lambda impl: ops.farthest_point_sample(1024, ws, wsv, impl=impl),
@@ -381,9 +387,7 @@ def check_kernels(dev, ops, bench_slice):
              lambda impl: ops.farthest_point_sample(256, big, big_valid, impl=impl),
              fps_work(big, big_valid, 256)),
         ],
-        "ball_group": [(label, lambda impl, a=a: tk.call(ops, "ball_group", a, impl),
-                        ball_work(a[2], a[4], a[3], len(a[0]), False))
-                       for label, a in main_path["ball_group"]],
+        "ball_group": main_cases("ball_group"),
         "ball_group_strided": [
             (f"sa1: {B}x1024 queries, r 0.1, K 32",
              lambda impl: ops.query_ball_group_multi(
@@ -402,11 +406,7 @@ def check_kernels(dev, ops, bench_slice):
                  *crops, ws, ws_seeds, wsv, impl=impl, select="strided"),
              ball_work(ws, wsv, ws_seeds, 3, True)),
         ],
-        "box_group": [
-            (f"{B}x64 RoIs, S 64",
-             lambda impl: ops.query_box_group(boxes, 64, xyz, valid, impl=impl),
-             box_work(xyz, valid, boxes, False)),
-        ],
+        "box_group": main_cases("box_group"),
         "box_group_strided": [
             (f"{B}x64 RoIs, S 64",
              lambda impl: ops.query_box_group(boxes, 64, xyz, valid, impl=impl,
@@ -439,44 +439,19 @@ def check_kernels(dev, ops, bench_slice):
                  *crops, ws, ws_seeds, wsv, impl=impl, select="strided"),
              ball_work(ws, wsv, ws_seeds, 3, True)),
         ],
-        "three_nn": [
-            (f"fp4: {B}x{N} targets <- 1024",
-             lambda impl: ops.three_nn(xyz, sa1, impl=impl), nn_work(xyz, sa1)),
+        "three_nn": main_cases("three_nn") + [
             (f"3nn masks: {B * 64}x{N} targets <- 64",
              lambda impl: ops.three_nn(targets, roi_xyz.reshape(B * 64, 64, 3), impl=impl),
              nn_work(targets, roi_xyz.reshape(B * 64, 64, 3))),
-            (f"grid RoIAlign: {B}x4096 targets <- {N}",
+            (grid_label,
              lambda impl: ops.three_nn(grid, xyz, valid, impl=impl), nn_work(grid, xyz, valid)),
             (f"grid RoIAlign, whole scene: 1x4096 targets <- {WS_N}",
              lambda impl: ops.three_nn(ws_grid, ws, wsv, impl=impl),
              nn_work(ws_grid, ws, wsv)),
         ],
-        "interp_mm": [
-            (f"fp4: {B}x{N} <- 1024, C 128",
-             lambda impl: ops.three_interpolate_mm(*fp4, impl=impl), mm_work(fp4)),
-            (f"fp1: {B}x64 <- 16, C 512",
-             lambda impl: ops.three_interpolate_mm(*fp1, impl=impl), mm_work(fp1)),
-            (f"fp4, whole scene: 1x{WS_N} <- 1024, C 128",
-             lambda impl: ops.three_interpolate_mm(*ws_fp4, impl=impl), mm_work(ws_fp4)),
-        ],
-        "mask_project": [
-            (f"{B}x64 RoIs x {N} pts, S 64",
-             lambda impl: ops.nearest_sample_logit(xyz, roi_xyz, logits, impl=impl),
-             proj_work(xyz, roi_xyz, logits)),
-            (f"1x64 RoIs x {WS_N} pts, S 64 (whole scene)",
-             lambda impl: ops.nearest_sample_logit(ws, ws_roi_xyz, ws_logits, impl=impl),
-             proj_work(ws, ws_roi_xyz, ws_logits)),
-        ],
-        "mask_project_boxed": [
-            (f"Morton-sorted {B}x64 RoIs x {N} pts, S 64",
-             lambda impl: ops.nearest_sample_logit_boxed(
-                 sxyz, roi_xyz, logits, boxes, point_valid=svalid, impl=impl),
-             proj_work(sxyz, roi_xyz, logits, rel_share, boxes, svalid)),
-            (f"Morton-sorted 1x64 RoIs x {WS_N} pts, S 64 (whole scene)",
-             lambda impl: ops.nearest_sample_logit_boxed(
-                 wsx, ws_roi_xyz, ws_logits, ws_boxes, point_valid=wsvv, impl=impl),
-             proj_work(wsx, ws_roi_xyz, ws_logits, ws_rel_share, ws_boxes, wsvv)),
-        ],
+        "interp_mm": main_cases("interp_mm"),
+        "mask_project": main_cases("mask_project"),
+        "mask_project_boxed": main_cases("mask_project_boxed"),
         "nn_argmin": [
             ("chamfer pred -> GT: 256 rows x 256 targets <- 256, GT masked",
              lambda impl: ops.nn_argmin(pred, gt, gt_valid, impl=impl),
@@ -487,10 +462,7 @@ def check_kernels(dev, ops, bench_slice):
              lambda impl: ops.nn_argmin(tie_tgt, tie_src, tie_valid, impl=impl),
              nn_work(tie_tgt, tie_src, tie_valid)),
         ],
-        "nms": [
-            (f"{B}x64 RoI boxes, random scores, IoU 0.25",
-             lambda impl: ops.nms_3d_batched(boxes, nms_scores, 0.25, impl=impl),
-             nms_work(boxes, nms_scores)),
+        "nms": main_cases("nms") + [
             (f"{B}x64 boxes with a suppression chain 32 deep",
              lambda impl: ops.nms_3d_batched(chain_boxes, chain_scores, 0.25, impl=impl),
              nms_work(chain_boxes, chain_scores)),
@@ -585,24 +557,29 @@ def check_kernels(dev, ops, bench_slice):
         return lambda: torch.zeros((b * n_out, c), device=src.device).index_add_(
             0, flat, rows).reshape(b, n_out, c)
 
-    # name -> [(case index, one PyTorch call on that case's inputs, its gap
+    # name -> [(case label, one PyTorch call on that case's inputs, its gap
     # to the kernel's output, the largest gap allowed)]
+    first = {name: main_path[name][0][0] for name in main_path}
     library = {
-        "interp_mm": [(0, sparse_interp(fp4), max_abs_diff, 1e-4)],
-        "nn_argmin": [(1, cdist_argmin(gt, pred), sqdist_gap(gt, pred), 1e-6)],
-        "three_nn": [(0, cdist_topk(xyz, sa1), topk_gap, 1e-5),
-                     (2, cdist_topk(grid, xyz, valid), topk_gap, 1e-5)],
-        "mask_project": [(0, cdist_project(xyz, roi_xyz, logits), project_gap(xyz, roi_xyz),
-                          1e-6)],
+        "interp_mm": [(first["interp_mm"], sparse_interp(fp4), max_abs_diff, 1e-4)],
+        "nn_argmin": [(cases["nn_argmin"][1][0], cdist_argmin(gt, pred), sqdist_gap(gt, pred),
+                       1e-6)],
+        "three_nn": [(first["three_nn"], cdist_topk(xyz, sa1), topk_gap, 1e-5),
+                     (grid_label, cdist_topk(grid, xyz, valid), topk_gap, 1e-5)],
+        "mask_project": [(first["mask_project"], cdist_project(xyz, roi_xyz, fl["logits"]),
+                          project_gap(xyz, roi_xyz), 1e-6)],
         # the dense projection's function, at the sorted shape
-        "mask_project_boxed": [(0, cdist_project(sxyz, roi_xyz, logits),
-                                project_gap(sxyz, roi_xyz), 1e-6)],
-        "index_add": [(0, index_add_library(chamfer_grad, chamfer_idx, 256), max_rel_diff, 1e-5)],
+        "mask_project_boxed": [(first["mask_project_boxed"],
+                                cdist_project(fl["sxyz"], roi_xyz, fl["logits"]),
+                                project_gap(fl["sxyz"], roi_xyz), 1e-6)],
+        "index_add": [(cases["index_add"][0][0], index_add_library(chamfer_grad, chamfer_idx, 256),
+                       max_rel_diff, 1e-5)],
     }
     entries = []
     for name, shapes in cases.items():
         k = ops.KERNELS[name]
         main = None
+        by_shape = {"device_ms_by_shape": {}, "bound_ms_by_shape": {}}
         for label, fn, work in shapes:
             first_ms, want = _host_ms(lambda fn=fn: fn("plain"))
             err = tk.max_abs_err(tk.flatten(fn("cuda")), tk.flatten(want))
@@ -619,19 +596,22 @@ def check_kernels(dev, ops, bench_slice):
                   f"wrapper {ms:.4f} ms (kernel's device time {dev_txt} over "
                   f"{events} of {KERNEL_ITERS} launches), "
                   f"plain {plain_ms:.4f} ms; bound {bound_ms:.5f} ms ({bound_by})")
+            by_shape["device_ms_by_shape"][label] = dev_ms
+            by_shape["bound_ms_by_shape"][label] = bound_ms
             if main is None:
                 main = (err, ms, plain_ms, dev_ms, events, bound_ms, bound_by)
         library_ms = {}
-        for case, lib_fn, lib_gap, lib_tol in library.get(name, ()):
+        fns = {label: fn for label, fn, _ in shapes}
+        for label, lib_fn, lib_gap, lib_tol in library.get(name, ()):
             first_ms, lib_out = _host_ms(lib_fn)
-            lib_err = lib_gap(lib_out, _first(shapes[case][1]("cuda")))
+            lib_err = lib_gap(lib_out, _first(fns[label]("cuda")))
             if lib_err > lib_tol:
                 raise AssertionError(f"{name}: the library call differs by {lib_err}")
             del lib_out
-            library_ms[shapes[case][0]] = tk.cuda_ms(
+            library_ms[label] = tk.cuda_ms(
                 lib_fn, KERNEL_ITERS if first_ms < 20 else PLAIN_SLOW_ITERS)
-            print(f"kernel {name} [{shapes[case][0]}]: library call "
-                  f"{library_ms[shapes[case][0]]:.4f} ms (max abs diff {lib_err:.2e})")
+            print(f"kernel {name} [{label}]: library call "
+                  f"{library_ms[label]:.4f} ms (max abs diff {lib_err:.2e})")
         entries.append({
             "name": name, "route": "cuda", "source": k.source,
             "replaces": "; ".join(r.split()[0] for r in k.replaces.split("; ")),
@@ -639,7 +619,7 @@ def check_kernels(dev, ops, bench_slice):
             "device_ms": main[3], "device_events": main[4], "bound_ms": main[5],
             "bound_by": main[6],
             "library_ms": next(iter(library_ms.values()), None),
-            **({"library_ms_by_shape": library_ms} if library_ms else {}),
+            **({"library_ms_by_shape": library_ms} if library_ms else {}), **by_shape,
         })
 
     # the cluster FPS at every cluster size that holds the row, kernel only
@@ -664,31 +644,38 @@ def check_kernels(dev, ops, bench_slice):
                                                 for cs, ms in times.items()))
     next(e for e in entries if e["name"] == "fps_cluster")["ms_by_cluster_size"] = sweep
 
-    # the first-K ball group at every split (warps a query) and every shape
-    # of the main path, kernel only (bitwise the plain version each time),
-    # device ms: the wrapper's host work (~0.1 ms) would hide the kernel
+    # the first-K ball group and the first-S box group at every split (warps
+    # a query) and every shape of the main path, kernel only (bitwise the
+    # plain version each time), device ms: the wrapper's host work (~0.1 ms)
+    # would hide the kernel
+    from gspn_tpu_torch.ops import box_group as tbox
     from gspn_tpu_torch.ops.ball_group import _ball_group_cuda
 
-    splits = {}
-    for label, args in main_path["ball_group"]:
-        want = tk.flatten(ops.query_ball_group_multi(*args, impl="plain"))
-        times = {}
-        for split in BALL_SPLITS:
-            run = lambda split=split: _ball_group_cuda(*args, split=split)  # noqa: E731
-            tk.max_abs_err(tk.flatten(run()), want)
-            times[split] = tk.device_ms(run, KERNEL_ITERS, DEVICE_SYMBOLS["ball_group"])[0]
-        splits[label] = times
-        print(f"ball_group split sweep [{label}]: device ms by warps a query (bitwise the "
-              f"plain version at each) " + ", ".join(f"{sp}: {ms}" for sp, ms in times.items()))
-    next(e for e in entries if e["name"] == "ball_group")["ms_by_split"] = splits
+    split_runs = {
+        "ball_group": lambda args, split: _ball_group_cuda(*args, split=split),
+        "box_group": lambda args, split: tbox._box_group_cuda(tbox.KERNEL, *args, split),
+    }
+    for name, launch in split_runs.items():
+        splits = {}
+        for label, args, _ in main_path[name]:
+            want = tk.flatten(tk.call(ops, name, args, "plain"))
+            times = {}
+            for split in SPLITS:
+                run = lambda args=args, split=split: launch(args, split)  # noqa: E731
+                tk.max_abs_err(tk.flatten(run()), want)
+                times[split] = tk.device_ms(run, KERNEL_ITERS, DEVICE_SYMBOLS[name])[0]
+            splits[label] = times
+            print(f"{name} split sweep [{label}]: device ms by warps a query (bitwise the "
+                  f"plain version at each) " + ", ".join(f"{sp}: {ms}" for sp, ms in times.items()))
+        next(e for e in entries if e["name"] == name)["ms_by_split"] = splits
 
-    first = ops.query_ball_group_multi((0.1,), (32,), xyz, sa1, valid)[0][0]
+    first_k = ops.query_ball_group_multi((0.1,), (32,), xyz, sa1, valid)[0][0]
     strided = ops.query_ball_group_multi((0.1,), (32,), xyz, sa1, valid, select="strided")[0][0]
-    rows = (first != strided).any(dim=-1).sum().item()
+    rows = (first_k != strided).any(dim=-1).sum().item()
     if not rows:
         raise AssertionError("sa1: strided selection equals first-K")
     print(f"sa1: strided selection differs from first-K in {rows} of {B * 1024} balls")
-    return entries
+    return entries, requests
 
 
 def _cpu_reference(name, infer, model, cpu_model, sx, sv, seps, dev) -> None:
@@ -1105,6 +1092,48 @@ def _deterministic_mode_diagnostic(bench_slice, cfg, batch, eps) -> None:
           f"{json.dumps(found)}")
 
 
+def _print_ranking(entries, requests, runs) -> None:
+    """Where a request loses the most: for the flagship and for the
+    whole-scene request, each kernel's (device ms - bound ms) summed over
+    every launch of that request, each at its own shape. Raises unless the
+    request's launches are slice (A)'s, kernel for kernel. Kernels the main
+    path does not launch follow, by slice: launches a request (or a step, or
+    a pass) of their slice x (device ms - bound ms) at their first shape."""
+    by = {e["name"]: e for e in entries}
+    for name in SLICE_KERNELS["A"]:
+        planned = sum(1 for launches in requests.values() for k, _ in launches if k == name)
+        if runs["A"][name] != planned * (REQUESTS + 1):
+            raise AssertionError(f"{name}: slice (A) launched it {runs['A'][name]} times, the "
+                                 f"ranking counts {planned} a pair of requests")
+    for req, launches in requests.items():
+        lost, missing = {}, []
+        for name, label in launches:
+            dev_ms = by[name]["device_ms_by_shape"][label]
+            if dev_ms is None:
+                missing.append(f"{name} [{label}]")
+                continue
+            lost[name] = lost.get(name, 0.0) + dev_ms - by[name]["bound_ms_by_shape"][label]
+        print(f"ms above the bound per {req} request, each of its {len(launches)} launches at "
+              f"its own shape: " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in sorted(lost.items(), key=lambda kv: -kv[1]))
+              + f"; total {sum(lost.values()):.4f}"
+              + (f"; not measured: {', '.join(missing)}" if missing else ""))
+    per_run = {"B": 2 * (VARIANT_REQUESTS + 1), "C": VARIANT_REQUESTS + 1,
+               "D": VARIANT_REQUESTS + 1, "E": 2 * (VARIANT_REQUESTS + 1), "F": 2,
+               "H": 2 * (VARIANT_REQUESTS + 1), "G": TRAIN_STEPS + 1}
+    off = []
+    for e in entries:
+        if e["name"] in SLICE_KERNELS["A"] or e["device_ms"] is None:
+            continue
+        s = e["slice"]
+        each = e["launches"] / per_run[s]
+        off.append((each * (e["device_ms"] - e["bound_ms"]), e["name"], s, each))
+    print("off the main path, by slice (launches a request, step or pass of the slice x ms above "
+          "the bound at the first shape): " + ", ".join(
+              f"({s}) {name} {each:g} x = {v:.4f}"
+              for v, name, s, each in sorted(off, reverse=True)))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs an NVIDIA GPU")
@@ -1127,7 +1156,7 @@ def main() -> None:
 
     dev = torch.device("cuda", 0)
     _phase("kernels")
-    entries = check_kernels(dev, ops, bench_slice)
+    entries, requests = check_kernels(dev, ops, bench_slice)
     runs = run_slices(dev, ops, bench_slice, card)
     runs["G"] = run_training(dev, ops, bench_slice, card)
     for e in entries:
@@ -1135,12 +1164,7 @@ def main() -> None:
         e["launches"] = runs[e["slice"]][e["name"]]
         e["launches_by_slice"] = {s: c[e["name"]] for s, c in runs.items()}
     _phase("report")
-    # where the main path loses the most: launches in the kernel's own slice
-    # x (device ms - bound ms) at its first shape
-    lost = {e["name"]: e["launches"] * (e["device_ms"] - e["bound_ms"])
-            for e in entries if e["device_ms"] is not None}
-    print("ms above the bound over each kernel's slice: " + ", ".join(
-        f"{k} {v:.1f}" for k, v in sorted(lost.items(), key=lambda kv: -kv[1])))
+    _print_ranking(entries, requests, runs)
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

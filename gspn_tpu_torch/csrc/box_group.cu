@@ -7,14 +7,21 @@
 // (box_group.py, select="strided"): the in-box hits of rank
 // floor(j*total/S).
 //
-// Same warp-per-query scan as the ball group (group_scan.cuh) with the
-// inclusive test lo <= p <= hi per axis and coordinates relative to the box
-// centre (lo + hi) * 0.5. The caller keeps the `k mod cnt` wrap
-// (models/rpointnet.py point_roi_align). What bounds it is how much of the
-// scene a box must scan: first-S stops once it holds S points (a box that
-// holds fewer reads the whole L2-resident scene), strided reads it twice.
+// First-S runs group_first_kernel<Box> (group_first.cuh), the first-K ball
+// group's scan with the inclusive test lo <= p <= hi per axis: a CTA holds
+// boxes of one scene and stages the scene through shared memory in
+// cp.async tiles, float4 points with NaN x where invalid (lo <= NaN is
+// false), a box's scan split over 1-16 warps (8 at the flagship's 8 x 64
+// boxes over 8192 points, 16 at the whole scene's 1 x 64 over 65536), and
+// the scan stops once every box of the CTA holds S. Strided runs the
+// warp-per-query scan of group_scan.cuh, reading the scene twice. Both
+// write coordinates relative to the box centre (lo + hi) * 0.5, rounded as
+// the plain version rounds it. The caller keeps the `k mod cnt` wrap
+// (models/rpointnet.py point_roi_align). What bounds both is how much of
+// the scene a box must test: a box that holds fewer than S points tests
+// all of it.
 
-#include "group_scan.cuh"
+#include "group_first.cuh"
 
 namespace {
 
@@ -31,12 +38,15 @@ gspn::GroupOut box_out(int s, int* idx, int* cnt, float* local) {
 
 }  // namespace
 
+// split: warps a box, 0 for group_first_split's choice (another value only
+// to time one split against another).
 extern "C" int gspn_box_group(const float* xyz1, const uint8_t* valid1,
                               const float* boxes, int nb, int n, int r, int s,
-                              int* idx, int* cnt, float* local,
+                              int* idx, int* cnt, float* local, int split,
                               cudaStream_t stream) {
-  return gspn::launch_group_scan<true, false, true>(
-      xyz1, valid1, boxes, nb, n, r, box_out(s, idx, cnt, local), stream);
+  return gspn::launch_group_first<gspn::Box>(
+      xyz1, valid1, boxes, nb, n, r, split, box_out(s, idx, cnt, local),
+      stream);
 }
 
 extern "C" int gspn_box_group_strided(const float* xyz1,

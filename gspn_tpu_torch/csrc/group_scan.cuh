@@ -1,5 +1,6 @@
-// Grouping scan shared by the ball-group, box-group and ball-query kernels:
-// first-K or strided selection, with or without local coordinates.
+// Grouping scan shared by the strided ball and box groups and the ball
+// queries: first-K or strided selection, with or without local coordinates.
+// (The first-K ball group and the first-S box group run group_first.cuh.)
 //
 // One warp per query (a ball centre, or an RoI box). The warp scans the
 // scene's points in index order, 32 at a time; lane l tests point base+l.

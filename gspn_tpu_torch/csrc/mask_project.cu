@@ -9,14 +9,41 @@
 //
 // What bounds it on the card: the pair count, B*R*N*S distance evaluations
 // (about 268 M per request at 8 x 64 RoIs x 8192 points x 64 samples, and
-// at 1 x 64 x 65536 x 64), against B*R*N*4 bytes of output. Design: one
-// thread per scene point, a block stages the samples of kRB RoIs in shared
-// memory (x, y, z, logit as a float4 and the validity byte, kSChunk at a
-// time), every thread runs over them from shared memory (broadcast reads)
-// keeping (dmin, best logit) per RoI in registers, and writes kRB coalesced
-// rows of out[b, r, :]. Both kernels share this tile routine; the boxed one
-// reads its relevance words first and skips the pruned (RoI, tile) pairs,
-// and a block with nothing relevant writes the fill and returns.
+// at 1 x 64 x 65536 x 64), each a squared distance and an update of the
+// running (nearest distance, logit), against B*R*N*4 bytes of output. So
+// the design spends as few instructions a pair as it can:
+//   - A CTA projects the kRB RoIs of one scene onto kSpan = kThreads x kPts
+//     scene points. A thread holds kPts points in registers (p0 + k *
+//     kThreads, so a warp's stores are coalesced) and reads each sample
+//     staged in shared memory (x, y, z, logit key as a broadcast float4)
+//     once for its kPts points.
+//   - The running (nearest distance, largest logit at it) is one 64-bit key
+//     a (RoI, point), the distance's bits above the logit's key (its bits
+//     in an unsigned order, complemented): distances are >= 0, so their
+//     bits order as the floats do, and the least key is the nearest sample
+//     and, among equally near ones, the largest logit. The update is one
+//     64-bit unsigned min (two compares, two selects), 12 instructions a
+//     pair with the distance, against 14 for a float compare-and-select
+//     (d < dmin, d == dmin, max, two selects, min), which measured slower
+//     (PERF.md section 6).
+//   - Validity is folded into the coordinates: an invalid sample is staged
+//     with NaN x, so its distance is NaN, whose bits lie above +inf's: its
+//     key never wins. Each RoI's staged samples are padded with NaN samples
+//     to a multiple of kSUnroll, so the inner loop runs unguarded.
+//   - The 3e10 contract: the least key is a reduction whose order does not
+//     matter, so the invalid samples, which all sit at 3e10 with no logit,
+//     are one item (3e10, -1e10) applied at the end: a per-RoI flag set
+//     while staging says the RoI has one, and then a point whose nearest
+//     valid sample lies beyond 3e10 gets -1e10; at exactly 3e10 the tie
+//     keeps the valid logit (logits are assumed above -1e10).
+//   - Grid (N / kSpan, R / kRB, B): 4096 CTAs of 4 warps at both main-path
+//     shapes; 59 registers a thread let 8 CTAs (32 warps) share a SM.
+//     Fewer RoIs a CTA and more resident warps measured faster than
+//     more RoIs and points a thread (PERF.md section 6).
+// Both kernels share this routine. The boxed one first reads the relevance
+// word of each of its (RoI, point) pairs, writes the -1e10 fill for the
+// irrelevant ones, skips a RoI none of its points is relevant to, and a
+// CTA with nothing relevant writes the fill and returns.
 //
 // Contract (mask_project.py nearest_sample_logit): an invalid sample sits
 // at distance 3e10 and gives no logit; on equal distances the largest
@@ -28,92 +55,144 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // scene points per block
-constexpr int kRB = 8;         // RoIs per block
+constexpr int kThreads = 128;  // threads a CTA
+constexpr int kPts = 4;        // scene points a thread
+constexpr int kSpan = kThreads * kPts;  // scene points a CTA
+constexpr int kRB = 2;         // RoIs a CTA
 constexpr int kSChunk = 64;    // samples of each RoI staged at a time
+constexpr int kSUnroll = 8;    // staged samples are padded to a multiple
 constexpr float kNeg = -1e10f;
 constexpr float kInvalidD2 = 3e10f;
 
+// A logit's key: the less, the larger the logit (the bits turned into an
+// unsigned order, then complemented); key_logit inverts it.
+__device__ __forceinline__ unsigned logit_key(float w) {
+  const unsigned u = __float_as_uint(w);
+  return ~((u & 0x80000000u) ? ~u : (u | 0x80000000u));
+}
+__device__ __forceinline__ float key_logit(unsigned key) {
+  const unsigned o = ~key;
+  return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
+}
+
 template <bool kBoxed>
-__global__ void __launch_bounds__(kThreads)
-    mask_project_kernel(const float* __restrict__ xyz,
-                        const float* __restrict__ sampled,
-                        const float* __restrict__ logits,
-                        const uint8_t* __restrict__ svalid,
-                        const int* __restrict__ rel, int rb, int tn, int nrb,
-                        int ntiles, int n, int r, int s,
-                        float* __restrict__ out) {
-  __shared__ float4 samp[kRB][kSChunk];  // x, y, z, logit
-  __shared__ uint8_t sval[kRB][kSChunk];
+__global__ void __launch_bounds__(kThreads, 8)
+    nearest_logit_kernel(const float* __restrict__ xyz,
+                         const float* __restrict__ sampled,
+                         const float* __restrict__ logits,
+                         const uint8_t* __restrict__ svalid,
+                         const int* __restrict__ rel, int rb, int tn, int nrb,
+                         int ntiles, int n, int r, int s,
+                         float* __restrict__ out) {
+  __shared__ float4 samp[kRB][kSChunk];  // x (NaN where invalid), y, z, logit key
+  __shared__ int has_invalid[kRB];
   const int b = blockIdx.z;
   const int r0 = blockIdx.y * kRB;
   const int nr = r - r0 < kRB ? r - r0 : kRB;
-  const int p = blockIdx.x * kThreads + threadIdx.x;
-  const bool active = p < n;
-  float* orow = out + (static_cast<size_t>(b) * r + r0) * n + p;
+  const int p0 = blockIdx.x * kSpan + threadIdx.x;
+  float* orow = out + (static_cast<size_t>(b) * r + r0) * n;
 
-  unsigned live = (1u << nr) - 1;  // the RoIs this thread projects
-  if (kBoxed) {
-    live = 0;
-    if (active) {
-      const int* row = rel + static_cast<size_t>(b) * nrb * ntiles + p / tn;
-      for (int q = 0; q < nr; ++q)
-        if (row[static_cast<size_t>((r0 + q) / rb) * ntiles]) live |= 1u << q;
-    }
-    if (!__syncthreads_or(live != 0)) {
-      if (active)
-        for (int q = 0; q < nr; ++q) orow[static_cast<size_t>(q) * n] = kNeg;
-      return;
-    }
-  }
-
-  float px = 0.0f, py = 0.0f, pz = 0.0f;
-  if (active) {
-    const float* pt = xyz + (static_cast<size_t>(b) * n + p) * 3;
-    px = pt[0];
-    py = pt[1];
-    pz = pt[2];
-  }
-  float dmin[kRB], best[kRB];
+  // bit q * kPts + k: point k of this thread is projected for RoI q
+  unsigned live = 0;
 #pragma unroll
   for (int q = 0; q < kRB; ++q) {
-    dmin[q] = CUDART_INF_F;
-    best[q] = kNeg;
+#pragma unroll
+    for (int k = 0; k < kPts; ++k) {
+      const int p = p0 + k * kThreads;
+      if (q >= nr || p >= n) continue;
+      if (kBoxed &&
+          !rel[(static_cast<size_t>(b) * nrb + (r0 + q) / rb) * ntiles + p / tn])
+        continue;
+      live |= 1u << (q * kPts + k);
+    }
   }
+  if (kBoxed && !__syncthreads_or(live != 0)) {
+    for (int q = 0; q < nr; ++q)
+#pragma unroll
+      for (int k = 0; k < kPts; ++k) {
+        const int p = p0 + k * kThreads;
+        if (p < n) orow[static_cast<size_t>(q) * n + p] = kNeg;
+      }
+    return;
+  }
+
+  float px[kPts], py[kPts], pz[kPts];
+#pragma unroll
+  for (int k = 0; k < kPts; ++k) {
+    const int p = p0 + k * kThreads;
+    px[k] = py[k] = pz[k] = 0.0f;
+    if (p < n) {
+      const float* pt = xyz + (static_cast<size_t>(b) * n + p) * 3;
+      px[k] = pt[0];
+      py[k] = pt[1];
+      pz[k] = pt[2];
+    }
+  }
+  // (distance bits << 32 | logit key): the least is the nearest sample and,
+  // among equally near ones, the largest logit
+  unsigned long long kmin[kRB][kPts];
+#pragma unroll
+  for (int q = 0; q < kRB; ++q)
+#pragma unroll
+    for (int k = 0; k < kPts; ++k)
+      kmin[q][k] = (static_cast<unsigned long long>(__float_as_uint(CUDART_INF_F)) << 32) |
+                   logit_key(kNeg);
+  if (threadIdx.x < kRB) has_invalid[threadIdx.x] = 0;
+
   for (int s0 = 0; s0 < s; s0 += kSChunk) {
     const int len = s - s0 < kSChunk ? s - s0 : kSChunk;
-    __syncthreads();
+    const int steps = (len + kSUnroll - 1) / kSUnroll * kSUnroll;
+    __syncthreads();  // the last chunk is read; the flags are zeroed
     for (int e = threadIdx.x; e < kRB * kSChunk; e += kThreads) {
       const int q = e / kSChunk, u = e % kSChunk;
-      if (q < nr && u < len) {
+      if (q >= nr || u >= steps) continue;
+      float4 t = make_float4(CUDART_NAN_F, 0.0f, 0.0f, 0.0f);
+      if (u < len) {
         const size_t o = (static_cast<size_t>(b) * r + r0 + q) * s + s0 + u;
-        samp[q][u] = make_float4(sampled[3 * o], sampled[3 * o + 1],
-                                 sampled[3 * o + 2], logits[o]);
-        sval[q][u] = svalid[o];
+        const bool ok = svalid[o] != 0;
+        t = make_float4(ok ? sampled[3 * o] : CUDART_NAN_F, sampled[3 * o + 1],
+                        sampled[3 * o + 2], __uint_as_float(logit_key(logits[o])));
+        if (!ok) has_invalid[q] = 1;
       }
+      samp[q][u] = t;
     }
     __syncthreads();
-    if (!active) continue;
 #pragma unroll
     for (int q = 0; q < kRB; ++q) {
-      if (!((live >> q) & 1u)) continue;
-      for (int u = 0; u < len; ++u) {
-        const float4 t = samp[q][u];
-        const bool v = sval[q][u] != 0;
-        const float d = v ? gspn::sqdist(px, py, pz, t.x, t.y, t.z) : kInvalidD2;
-        if (d < dmin[q]) {
-          dmin[q] = d;
-          best[q] = v ? t.w : kNeg;
-        } else if (d == dmin[q] && v) {
-          best[q] = fmaxf(best[q], t.w);
+      if (q >= nr) break;
+      if (((live >> (q * kPts)) & ((1u << kPts) - 1u)) == 0) continue;
+      for (int u0 = 0; u0 < steps; u0 += kSUnroll) {
+#pragma unroll
+        for (int u = u0; u < u0 + kSUnroll; ++u) {
+          const float4 t = samp[q][u];
+#pragma unroll
+          for (int k = 0; k < kPts; ++k) {
+            const float d = gspn::sqdist(px[k], py[k], pz[k], t.x, t.y, t.z);
+            const unsigned long long key =
+                (static_cast<unsigned long long>(__float_as_uint(d)) << 32) |
+                __float_as_uint(t.w);
+            kmin[q][k] = key < kmin[q][k] ? key : kmin[q][k];
+          }
         }
       }
     }
   }
-  if (active) {
+  __syncthreads();  // the flags, also when there is no sample
+
 #pragma unroll
-    for (int q = 0; q < kRB; ++q)
-      if (q < nr) orow[static_cast<size_t>(q) * n] = ((live >> q) & 1u) ? best[q] : kNeg;
+  for (int q = 0; q < kRB; ++q) {
+    if (q >= nr) break;
+    const bool invalid = has_invalid[q] != 0;
+#pragma unroll
+    for (int k = 0; k < kPts; ++k) {
+      const int p = p0 + k * kThreads;
+      if (p >= n) continue;
+      const bool beyond =
+          invalid && __uint_as_float(static_cast<unsigned>(kmin[q][k] >> 32)) > kInvalidD2;
+      orow[static_cast<size_t>(q) * n + p] = ((live >> (q * kPts + k)) & 1u) && !beyond
+                                                 ? key_logit(static_cast<unsigned>(kmin[q][k]))
+                                                 : kNeg;
+    }
   }
 }
 
@@ -121,14 +200,14 @@ int launch(bool boxed, const float* xyz, const float* sampled,
            const float* logits, const uint8_t* svalid, int nb, int n, int r,
            int s, const int* rel, int rb, int tn, int nrb, int ntiles,
            float* out, cudaStream_t stream) {
-  const dim3 grid((n + kThreads - 1) / kThreads, (r + kRB - 1) / kRB, nb);
+  const dim3 grid((n + kSpan - 1) / kSpan, (r + kRB - 1) / kRB, nb);
   if (grid.y > 65535 || grid.z > 65535) return static_cast<int>(cudaErrorInvalidValue);
   if (grid.x > 0 && grid.y > 0 && grid.z > 0) {
     if (boxed)
-      mask_project_kernel<true><<<grid, kThreads, 0, stream>>>(
+      nearest_logit_kernel<true><<<grid, kThreads, 0, stream>>>(
           xyz, sampled, logits, svalid, rel, rb, tn, nrb, ntiles, n, r, s, out);
     else
-      mask_project_kernel<false><<<grid, kThreads, 0, stream>>>(
+      nearest_logit_kernel<false><<<grid, kThreads, 0, stream>>>(
           xyz, sampled, logits, svalid, nullptr, 1, 1, 0, 0, n, r, s, out);
   }
   return static_cast<int>(cudaGetLastError());

@@ -34,7 +34,7 @@ SOURCES = (
     "fps.cu", "ball_group.cu", "box_group.cu", "ball_query.cu", "three_nn.cu",
     "interp_mm.cu", "mask_project.cu", "nms.cu", "chamfer.cu", "index_add.cu",
 )
-HEADERS = ("common.cuh", "group_scan.cuh")
+HEADERS = ("common.cuh", "group_scan.cuh", "group_first.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -174,13 +174,14 @@ KERNELS: dict[str, CudaKernel] = {
         ),
         CudaKernel(
             "box_group", "box_group.cu", "gspn_box_group",
-            # xyz1, valid1, boxes, b, n, r, s, idx, cnt, local
-            (_ptr, _ptr, _ptr, _int, _int, _int, _int, _ptr, _ptr, _ptr),
+            # xyz1, valid1, boxes, b, n, r, s, idx, cnt, local,
+            # split (warps a box; 0: the kernel's rule)
+            (_ptr, _ptr, _ptr, _int, _int, _int, _int, _ptr, _ptr, _ptr, _int),
             "gspn_tpu/ops/box_group.py:38 _box_kernel",
         ),
         CudaKernel(
             "box_group_strided", "box_group.cu", "gspn_box_group_strided",
-            # as box_group
+            # as box_group, without split
             (_ptr, _ptr, _ptr, _int, _int, _int, _int, _ptr, _ptr, _ptr),
             "gspn_tpu/ops/ball_group.py:318 _fused_kernel_strided (pred=\"box\")",
         ),

@@ -48,7 +48,9 @@ def _box_group_plain(boxes, s, xyz1, valid1, select):
     return idx, cnt, local
 
 
-def _box_group_cuda(kernel, boxes, s, xyz1, valid1):
+def _box_group_cuda(kernel, boxes, s, xyz1, valid1, *extra):
+    """Launch ``kernel``; ``extra``: the first-S kernel's split (warps a
+    box, 0 for the kernel's rule)."""
     b, n, _ = xyz1.shape
     r = boxes.shape[1]
     xyz1 = xyz1.contiguous()
@@ -66,7 +68,7 @@ def _box_group_cuda(kernel, boxes, s, xyz1, valid1):
     if b and r:
         kernel.launch(
             dev, _cuda.ptr(xyz1), _cuda.ptr(v), _cuda.ptr(boxes), b, n, r, int(s),
-            _cuda.ptr(idx), _cuda.ptr(cnt), _cuda.ptr(local),
+            _cuda.ptr(idx), _cuda.ptr(cnt), _cuda.ptr(local), *extra,
         )
     return idx, cnt, local
 
@@ -78,6 +80,7 @@ def query_box_group(boxes, s: int, xyz1, valid1=None, *, impl: str = "auto", sel
     or "strided"."""
     select = check_select(select)
     if resolve_impl(impl, xyz1) == "cuda":
-        kernel = STRIDED_KERNEL if select == "strided" else KERNEL
-        return _box_group_cuda(kernel, boxes, s, xyz1, valid1)
+        if select == "strided":
+            return _box_group_cuda(STRIDED_KERNEL, boxes, s, xyz1, valid1)
+        return _box_group_cuda(KERNEL, boxes, s, xyz1, valid1, 0)
     return _box_group_plain(boxes, s, xyz1, valid1, select)

@@ -1,19 +1,22 @@
-"""Timing of the hand-written kernels on the card, and the fps and first-K
-ball group cases at every shape the main path gives them.
+"""Timing of the hand-written kernels on the card, and every launch of the
+main path's kernels in a flagship and a whole-scene request.
 
-    python gspn_tpu_torch/utils/time_kernels.py [--tree DIR]
+    python gspn_tpu_torch/utils/time_kernels.py [--tree DIR] [--kernels a,b]
 
 ``chip_smoke.py``'s kernel phase times every kernel with ``cuda_ms`` and
 ``device_ms``, holds it against its plain version with ``max_abs_err``,
-and takes its fps and ball_group shapes from ``cases``. Run as a script,
-this module times fps and ball_group alone at those shapes, importing
-``gspn_tpu_torch`` from ``--tree DIR`` (another checkout, for example the
-parent commit unpacked with ``git archive``), so that two versions of the
-kernels compare on one card in one call: run it for the parent, the
-change, the change and the parent in turn. Each line gives the kernel's
-device time and the wrapper's, each over 20 launches after a warm-up, with
-the card's name and power limit; every kernel output is first held bitwise
-against the plain version. Needs a CUDA device.
+and takes the main path's shapes from ``cases``: fps, ball_group,
+box_group, nms, three_nn, interp_mm and mask_project at each launch of
+one flagship and one whole-scene request (and mask_project_boxed at both
+sorted scenes). Run as a script, this module times those cases alone
+(``--kernels`` picks some kernels), importing ``gspn_tpu_torch`` from
+``--tree DIR`` (another checkout, for example the parent commit unpacked
+with ``git archive``), so that two versions of the kernels compare on one
+card in one call: run it for the parent, the change, the change and the
+parent in turn. Each line gives the kernel's device time and the
+wrapper's, each over 20 launches after a warm-up, with the card's name and
+power limit; every kernel output is first held bitwise against the plain
+version. Needs a CUDA device.
 
 Nothing here imports ``gspn_tpu_torch`` at module level: the script's
 ``--tree`` decides which one it times.
@@ -32,11 +35,17 @@ import torch
 REPO = pathlib.Path(__file__).resolve().parents[2]
 ITERS = 20  # timed launches a case
 PROFILER_WINDOWS = 3  # tries at a profiler window that records the kernel
-# the kernels' device symbols, before (group_scan_kernel) and after their
-# redesign, so that either tree's kernels are found
+# the kernels' device symbols, before and after their redesigns, so that
+# either tree's kernels are found
 SYMBOLS = {
     "fps": ("fps_kernel",),
-    "ball_group": ("ball_group_first_kernel", "group_scan_kernel<false, false, true>"),
+    "ball_group": ("group_first_kernel<gspn::Ball", "ball_group_first_kernel",
+                   "group_scan_kernel<false, false, true>"),
+    "box_group": ("group_first_kernel<gspn::Box", "group_scan_kernel<true, false, true>"),
+    "nms": ("nms_kernel",), "three_nn": ("three_nn_kernel",),
+    "interp_mm": ("interp_mm_kernel",),
+    "mask_project": ("nearest_logit_kernel<false>", "mask_project_kernel<false>"),
+    "mask_project_boxed": ("nearest_logit_kernel<true>", "mask_project_kernel<true>"),
 }
 
 
@@ -113,60 +122,129 @@ def flatten(outs) -> list:
     return [t for o in outs for t in flatten(o)]
 
 
+# each kernel's entry point in ``gspn_tpu_torch.ops``
+ENTRY_POINTS = {
+    "fps": "farthest_point_sample", "ball_group": "query_ball_group_multi",
+    "box_group": "query_box_group", "nms": "nms_3d_batched", "three_nn": "three_nn",
+    "interp_mm": "three_interpolate_mm", "mask_project": "nearest_sample_logit",
+    "mask_project_boxed": "nearest_sample_logit_boxed",
+}
+REQUESTS = ("B8xN8192", "B1xN65536")  # bench_slice.SHAPES: flagship, whole scene
+ROIS, ROI_SAMPLES = 64, 64  # seeds (RoIs) a scene, in-box samples a RoI
+
+
 def call(ops, name: str, args, impl: str):
-    """The entry point of ``name`` ("fps" or "ball_group") on a case's
-    ``args``."""
-    if name == "fps":
-        return ops.farthest_point_sample(*args, impl=impl)
-    return ops.query_ball_group_multi(*args, impl=impl)
+    """The entry point of kernel ``name`` (a key of ``ENTRY_POINTS``) on a
+    case's ``args``."""
+    return getattr(ops, ENTRY_POINTS[name])(*args, impl=impl)
 
 
-def cases(ops, bench_slice, dev) -> dict:
-    """``{"fps": [(label, (npoint, xyz, valid))], "ball_group": [(label,
-    (radii, ks, xyz, centres, valid))]}`` at the main path's shapes, the
-    flagship's first (the shared FPS pass, SA1): the shared pass, crops
-    and SA1-SA4 of the flagship and of the whole scene (``bench_slice``'s
-    scenes), and the training step's seeds and crops."""
-    out = {"fps": [], "ball_group": []}
-    for shape in ("B8xN8192", "B1xN65536"):
+def main_path_inputs(ops, bench_slice, dev) -> dict:
+    """``{request: dict}`` for the flagship and the whole-scene request
+    (``bench_slice``'s scenes): the scene (``xyz``, ``valid``), its
+    Morton-sorted view (``sxyz``, ``svalid``), the 64 ``seeds`` of 8
+    spatial FPS chains, the SA centres of every level (``sa``: SA1-SA4,
+    each level's FPS as the backbone runs it), ``boxes`` about the seeds
+    with half-sizes in [0.1, 0.6), their first 64 in-box points as RoI
+    samples (``roi_xyz``), random mask ``logits`` and NMS ``scores``, and
+    the generator ``gen`` (a fixed seed) that drew them."""
+    gen = torch.Generator().manual_seed(0)
+    out = {}
+    for shape in REQUESTS:
         xyz, valid = (torch.from_numpy(a).to(dev) for a in bench_slice.scenes(shape))
-        b, n = xyz.shape[:2]
-        tag = "" if b > 1 else ", whole scene"
+        b = xyz.shape[0]
         sxyz, svalid, sidx = ops.spatial_sorted_view(xyz, valid)
         seeds = ops.gather_point(xyz, torch.gather(sidx, 1, ops.farthest_point_sample(
-            64, sxyz, svalid, segments=8, segment_mode="contiguous").long()))
+            ROIS, sxyz, svalid, segments=8, segment_mode="contiguous").long()))
         sa = [ops.gather_point(xyz, ops.farthest_point_sample(
             1024, xyz, valid, segments=8, segment_mode="spatial"))]
-        out["fps"].append((f"shared pass: {b * 8} chains x {n // 8} pts, 128 picks{tag}",
-                           (128, sxyz.reshape(b * 8, n // 8, 3), svalid.reshape(b * 8, n // 8))))
-        out["ball_group"] += [
-            (f"sa1: {b}x1024 q over {n}, r 0.1, K 32{tag}", ((0.1,), (32,), xyz, sa[0], valid)),
-            (f"gspn crops: {b}x64 seeds, r .25/.5/1, K 32/64/128{tag}",
-             ((0.25, 0.5, 1.0), (32, 64, 128), xyz, seeds, valid)),
-        ]
-        for npoint, r in ((256, 0.2), (64, 0.4), (16, 0.8)):
+        for npoint in (256, 64, 16):
             src = sa[-1]
+            segs = ops.eligible_fps_segments(8, npoint, src.shape[1])
+            sa.append(ops.gather_point(src, ops.farthest_point_sample(
+                npoint, src, segments=segs, segment_mode="spatial")))
+        half = (torch.rand((b, ROIS, 3), generator=gen) * 0.5 + 0.1).to(dev)
+        boxes = torch.cat([seeds - half, seeds + half], dim=-1)
+        roi_xyz = ops.query_box_group(boxes, ROI_SAMPLES, xyz, valid)[2] + (
+            (boxes[..., 0:3] + boxes[..., 3:6]) * 0.5)[..., None, :]
+        logits = (torch.randn((b, ROIS, ROI_SAMPLES), generator=gen) * 0.1).to(dev)
+        scores = torch.rand((b, ROIS), generator=gen).to(dev)
+        out[shape] = dict(xyz=xyz, valid=valid, sxyz=sxyz, svalid=svalid, seeds=seeds, sa=sa,
+                          boxes=boxes, roi_xyz=roi_xyz, logits=logits, scores=scores, gen=gen)
+    return out
+
+
+def cases(ops, bench_slice, dev, inputs=None) -> dict:
+    """``{kernel: [(label, args, request)]}``: every launch of the main
+    path's kernels in one flagship and one whole-scene request, at its own
+    shape, each tagged with its ``request`` (a key of ``REQUESTS``), and the
+    training step's fps and ball-group launches (``request`` None); the
+    first case of each kernel is its flagship shape that ``chip_smoke.py``
+    reports. fps: the shared pass and SA2-SA4; ball_group: SA1, the crops,
+    SA2-SA4; box_group, nms, mask_project: once a request; three_nn and
+    interp_mm: FP4, FP1-FP3. ``mask_project_boxed`` (slice (B), not the
+    main path) at both scenes' Morton-sorted view. ``inputs``:
+    ``main_path_inputs``' result, made here if None."""
+    inputs = inputs or main_path_inputs(ops, bench_slice, dev)
+    out = {name: [] for name in ENTRY_POINTS}
+    for shape in REQUESTS:
+        x = inputs[shape]
+        xyz, valid, sxyz, svalid, sa = x["xyz"], x["valid"], x["sxyz"], x["svalid"], x["sa"]
+        b, n = xyz.shape[:2]
+        tag = "" if b > 1 else ", whole scene"
+
+        def add(name, label, args, req=shape):
+            out[name].append((label + tag, args, req))
+
+        add("fps", f"shared pass: {b * 8} chains x {n // 8} pts, 128 picks",
+            (128, sxyz.reshape(b * 8, n // 8, 3), svalid.reshape(b * 8, n // 8)))
+        add("ball_group", f"sa1: {b}x1024 q over {n}, r 0.1, K 32",
+            ((0.1,), (32,), xyz, sa[0], valid))
+        add("ball_group", f"gspn crops: {b}x64 seeds, r .25/.5/1, K 32/64/128",
+            ((0.25, 0.5, 1.0), (32, 64, 128), xyz, x["seeds"], valid))
+        for lvl, r in ((1, 0.2), (2, 0.4), (3, 0.8)):
+            src, npoint = sa[lvl - 1], sa[lvl].shape[1]
             segs = ops.eligible_fps_segments(8, npoint, src.shape[1])
             chains = ops.spatial_sorted_view(src, None)[0] if segs > 1 else src
             chains = chains.reshape(b * segs, src.shape[1] // segs, 3)
-            sa.append(ops.gather_point(src, ops.farthest_point_sample(
-                npoint, src, segments=segs, segment_mode="spatial")))
-            lvl = len(sa)
-            out["fps"].append((f"sa{lvl}: {chains.shape[0]} x {chains.shape[1]} pts, "
-                               f"{npoint // segs} picks{tag}", (npoint // segs, chains, None)))
-            out["ball_group"].append((f"sa{lvl}: {b}x{npoint} q over {src.shape[1]}, r {r}, "
-                                      f"K 32{tag}", ((r,), (32,), src, sa[-1], None)))
+            add("fps", f"sa{lvl + 1}: {chains.shape[0]} x {chains.shape[1]} pts, "
+                f"{npoint // segs} picks", (npoint // segs, chains, None))
+            add("ball_group", f"sa{lvl + 1}: {b}x{npoint} q over {src.shape[1]}, r {r}, K 32",
+                ((r,), (32,), src, sa[lvl], None))
+        add("box_group", f"{b}x{ROIS} RoIs over {n}, S {ROI_SAMPLES}",
+            (x["boxes"], ROI_SAMPLES, xyz, valid))
+        add("nms", f"{b}x{ROIS} RoI boxes, random scores, IoU 0.25",
+            (x["boxes"], x["scores"], 0.25))
+        # FP level i interpolates SA level 4-i+1's features onto level
+        # 4-i's points (level 0: the scene); C: the source level's channels
+        levels = [xyz] + sa
+        for fp, c in ((4, 128), (1, 512), (2, 256), (3, 256)):
+            tgt, src = levels[4 - fp], levels[5 - fp]
+            dist, idx = ops.three_nn(tgt, src)
+            feats = torch.randn((b, src.shape[1], c), generator=x["gen"]).to(dev)
+            pair = f"{b}x{tgt.shape[1]} <- {src.shape[1]}"
+            add("three_nn", f"fp{fp}: {pair}", (tgt, src, None))
+            add("interp_mm", f"fp{fp}: {pair}, C {c}",
+                (feats, idx, ops.three_interpolate_weights(dist)))
+        add("mask_project", f"{b}x{ROIS} RoIs x {n} pts, S {ROI_SAMPLES}",
+            (xyz, x["roi_xyz"], x["logits"]))
+        add("mask_project_boxed", f"Morton-sorted {b}x{ROIS} RoIs x {n} pts, S {ROI_SAMPLES}",
+            (sxyz, x["roi_xyz"], x["logits"], x["boxes"], None, svalid), None)
     tb = bench_slice.train_batch(dev)
     tseeds = ops.gather_point(tb["xyz"], ops.farthest_point_sample(64, tb["xyz"], tb["valid"]))
-    out["fps"].append(("training seeds: 4 x 4096 pts, 64 picks", (64, tb["xyz"], tb["valid"])))
+    out["fps"].append(("training seeds: 4 x 4096 pts, 64 picks",
+                       (64, tb["xyz"], tb["valid"]), None))
     out["ball_group"].append(("training crops: 4x64 seeds over 4096, K 64/128/256",
-                              ((0.25, 0.5, 1.0), (64, 128, 256), tb["xyz"], tseeds, tb["valid"])))
+                              ((0.25, 0.5, 1.0), (64, 128, 256), tb["xyz"], tseeds, tb["valid"]),
+                              None))
     return out
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=str(REPO), help="checkout whose gspn_tpu_torch is timed")
+    ap.add_argument("--kernels", default=",".join(SYMBOLS),
+                    help="comma-separated kernels to time (default: all)")
     args = ap.parse_args(argv)
     tree = os.path.abspath(args.tree)
     sys.path[:0] = [tree]
@@ -179,8 +257,11 @@ def main(argv=None) -> None:
         raise SystemExit(f"time_kernels: imported {ops.__file__}, not from {tree}")
     card = card_name()
     bench_slice.float32_matmuls()
+    names = args.kernels.split(",")
     for name, items in cases(ops, bench_slice, torch.device("cuda", 0)).items():
-        for label, a in items:
+        if name not in names:
+            continue
+        for label, a, _ in items:
             fn = lambda impl, a=a, name=name: call(ops, name, a, impl)  # noqa: E731
             max_abs_err(flatten(fn("cuda")), flatten(fn("plain")))
             dev_ms, events = device_ms(lambda fn=fn: fn("cuda"), ITERS, SYMBOLS[name])

@@ -171,8 +171,8 @@ def _ball_equal(xyz, q, v, radii, ks):
 
 
 def _split_queries(split, b):
-    """Queries a scene for which the kernel's rule (``ball_group_split`` in
-    ``csrc/ball_group.cu``) takes ``split`` warps a query over a scene of
+    """Queries a scene for which the kernel's rule (``group_first_split`` in
+    ``csrc/group_first.cuh``) takes ``split`` warps a query over a scene of
     at least 512 x ``split`` points: B x M = 3072 / split - B lies within
     4096 / split warps and above half that. One short of a whole CTA, so
     the last CTA of each scene has an empty query slot."""
@@ -304,26 +304,63 @@ def test_ball_query_kernel(dev, b, n, radii, ks, m, masked, select):
         _equal(x, y)
 
 
-def _rois(dev, xyz, r, seed=2):
+def _rois(dev, xyz, r, seed=2, kind="random"):
+    """Boxes about scene points: "random" half-sizes up to 0.5 (the first
+    two near-empty, which exercises padding and empty rows), "small" ones
+    (half 0.02: fewer than S points, so the scan reads the whole scene) or
+    "empty" ones, moved off the scene."""
     b, n, _ = xyz.shape
     gen = torch.Generator().manual_seed(seed)
     c = xyz[:, torch.randperm(n, generator=gen)[:r].to(dev)]
     half = torch.rand((b, r, 3), generator=gen).to(dev) * 0.5
-    half[:, :2] = 1e-4  # near-empty boxes exercise padding and empty rows
+    half[:, :2] = 1e-4
+    if kind == "small":
+        half[:] = 0.02
+    if kind == "empty":
+        c = c + 100.0
     return torch.cat([c - half, c + half], dim=-1)
 
 
-@pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("b,n,r,s", [(8, 8192, 64, 64), (2, 100, 5, 8)])
-def test_box_group_kernel(dev, b, n, r, s, masked):
-    xyz, valid = _scenes(dev, b, n)
-    boxes = _rois(dev, xyz, r)
-    v = valid if masked else None
-    got = ops.query_box_group(boxes, s, xyz, v, impl="cuda")
-    want = ops.query_box_group(boxes, s, xyz, v, impl="plain")
+def _box_equal(boxes, s, xyz, v):
+    """The first-S kernel, launched by "auto" on a CUDA tensor, bitwise the
+    plain version."""
+    before = tbox.KERNEL.launches
+    got = ops.query_box_group(boxes, s, xyz, v)
     torch.cuda.synchronize()
+    assert tbox.KERNEL.launches == before + 1
+    want = ops.query_box_group(boxes, s, xyz, v, impl="plain")
     for x, y in zip(got, want, strict=True):
         _equal(x, y)
+    return got
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("b,n,r,s,kind", [
+    (8, 8192, 64, 64, "random"),  # the flagship's RoIs: 8 warps a box
+    (2, 100, 5, 8, "random"),
+    (1, 65536, 64, 64, "random"),  # the whole scene's: 16 warps a box
+    (2, 8192, 64, 64, "small"),  # fewer than S points a box: the whole scene scanned
+    (2, 8192, 20, 64, "empty"),  # index 0, point 0 minus the centre
+    (2, 5000, 40, 64, "random"),  # N not a multiple of 4: plain staging
+    (2, 4100, 40, 64, "random"),  # N % 16 = 4: cp.async only unmasked
+])
+def test_box_group_kernel(dev, b, n, r, s, kind, masked):
+    xyz, valid = _scenes(dev, b, n)
+    got = _box_equal(_rois(dev, xyz, r, kind=kind), s, xyz, valid if masked else None)
+    if kind == "small":
+        assert (got[1] < s).all() and got[1].any()
+    if kind == "empty":
+        assert not got[1].any() and not got[0].any()
+
+
+@pytest.mark.parametrize("split", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("b,n", [(1, 8192), (3, 8195), (1, 65536)])
+def test_box_group_kernel_at_every_split(dev, b, n, split):
+    """A box's scan split over 1-16 warps (``_split_queries``: the box count
+    the kernel's rule maps to ``split``) gives the serial scan's slots: one
+    scene, three ragged ones staged without cp.async, a scene of 32 tiles."""
+    xyz, valid = _scenes(dev, b, n)
+    _box_equal(_rois(dev, xyz, _split_queries(split, b)), 64, xyz, valid)
 
 
 @pytest.mark.parametrize("masked", [False, True])
@@ -430,9 +467,20 @@ def test_interp_mm_kernel(dev, b, n, m, c):
     _equal(got, ops.three_interpolate(pts, idx, w))
 
 
-def _projection(dev, b, n, r, s, seed=5):
+# sample offsets from the origin at a squared distance below, exactly at
+# and above 3e10 in float32, with every product and sum exact: 64 x (a, b,
+# c) with a^2 + b^2 + c^2 = 7324218, 7324219 and 7324221
+_FAR = ((173120.0, 4288.0, 3328.0), (172992.0, 8256.0, 2368.0), (173056.0, 6848.0, 2176.0))
+
+
+def _projection(dev, b, n, r, s, seed=5, far=False):
     """Scenes, RoI samples about scene points on a 1 cm grid (equal
-    distances), duplicated sample coordinates with other logits, boxes."""
+    distances), duplicated sample coordinates with other logits, RoI 0
+    with no valid sample, boxes. ``far``: scene point 0 at the origin and
+    every RoI's samples about 2e5 away, the first invalid and the second
+    at ``_FAR[q % 3]`` from the origin (the others beyond 3e10), so that
+    the 3e10 an invalid sample sits at decides the nearest valid sample's
+    logit there; the boxes about the origin."""
     xyz, valid = _scenes(dev, b, n, seed=seed)
     xyz = torch.round(xyz * 100) / 100
     gen = torch.Generator().manual_seed(seed)
@@ -443,37 +491,63 @@ def _projection(dev, b, n, r, s, seed=5):
     svalid = (torch.rand((b, r, s), generator=gen) > 0.2).to(dev)
     svalid[:, 0] = False  # a RoI with no valid sample
     half = (torch.rand((b, r, 3), generator=gen) * 0.5 + 0.1).to(dev)
-    boxes = torch.cat([samp[:, :, 0] - half, samp[:, :, 0] + half], dim=-1)
+    centre = samp[:, :, 0]
+    if far:
+        xyz[:, 0] = 0.0
+        samp = samp + torch.tensor([1.8e5, 0.0, 0.0], device=dev)  # all beyond 3e10
+        samp[:, :, 1] = torch.tensor(_FAR, device=dev).repeat(r // 3 + 1, 1)[:r]
+        svalid[:, 1:, 0] = False
+        svalid[:, 1:, 1] = True
+        centre = torch.zeros_like(centre)
+    boxes = torch.cat([centre - half, centre + half], dim=-1)
     return xyz, valid, samp, logits, svalid, boxes
 
 
+# (B, N, R, S, far): the main path's shapes; N, R and S off the kernel's
+# blocks (512 points and 2 RoIs a CTA; samples staged 64 at a time, padded
+# to 8); samples about 3e10 from a scene point
+_PROJECTION_CASES = [
+    (8, 8192, 64, 64, False), (1, 65536, 64, 64, False), (2, 300, 5, 70, False),
+    (3, 1000, 13, 67, False), (1, 513, 9, 5, False), (2, 2048, 24, 64, True),
+    (1, 1000, 13, 130, True),
+]
+
+
 @pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("b,n,r,s", [(8, 8192, 64, 64), (1, 65536, 64, 64), (2, 300, 5, 70)])
-def test_mask_project_kernel(dev, b, n, r, s, masked):
-    xyz, _, samp, logits, svalid, _ = _projection(dev, b, n, r, s)
+@pytest.mark.parametrize("b,n,r,s,far", _PROJECTION_CASES)
+def test_mask_project_kernel(dev, b, n, r, s, far, masked):
+    """Bitwise its plain version: ties, a RoI with no valid sample, ragged
+    blocks; ``far`` and masked: below, at and beyond 3e10 at the origin."""
+    xyz, _, samp, logits, svalid, _ = _projection(dev, b, n, r, s, far=far)
     v = svalid if masked else None
     before = tmask.KERNEL.launches
-    got = ops.nearest_sample_logit(xyz, samp, logits, v, impl="cuda")
+    got = ops.nearest_sample_logit(xyz, samp, logits, v)  # "auto": the kernel
     want = ops.nearest_sample_logit(xyz, samp, logits, v, impl="plain")
     torch.cuda.synchronize()
     assert tmask.KERNEL.launches == before + 1
     _equal(got, want)
+    if far and masked:  # at the origin, RoIs 1, 2, 3: the valid sample at, beyond, below 3e10
+        _equal(got[:, [1, 3], 0], logits[:, [1, 3], 1])
+        assert (got[:, 2, 0] == tmask.NEG).all()
+        assert (got[:, 0] == tmask.NEG).all()
 
 
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize(
-    "b,n,r,s,tiling",
-    [(8, 8192, 64, 64, {}), (1, 65536, 64, 64, {}), (2, 300, 13, 6, dict(roi_block=8, tile_n=128))],
+    "b,n,r,s,far,tiling",
+    [case + ({},) for case in _PROJECTION_CASES]
+    + [(2, 300, 13, 6, False, dict(roi_block=8, tile_n=128)),
+       (2, 1000, 13, 130, True, dict(roi_block=8, tile_n=128))],
 )
-def test_mask_project_boxed_kernel(dev, b, n, r, s, tiling, masked):
+def test_mask_project_boxed_kernel(dev, b, n, r, s, far, tiling, masked):
     """On the Morton-sorted scenes, as the pipeline calls it: bitwise the
     plain version everywhere, the fill included, and the dense logit at
     every valid point inside a box."""
-    xyz, valid, samp, logits, svalid, boxes = _projection(dev, b, n, r, s)
+    xyz, valid, samp, logits, svalid, boxes = _projection(dev, b, n, r, s, far=far)
     sxyz, svld, _ = ops.spatial_sorted_view(xyz, valid if masked else None)
     v = svalid if masked else None
     before = tmask.BOXED_KERNEL.launches
-    got = ops.nearest_sample_logit_boxed(sxyz, samp, logits, boxes, v, svld, impl="cuda", **tiling)
+    got = ops.nearest_sample_logit_boxed(sxyz, samp, logits, boxes, v, svld, **tiling)
     want = ops.nearest_sample_logit_boxed(sxyz, samp, logits, boxes, v, svld, impl="plain",
                                           **tiling)
     torch.cuda.synchronize()
@@ -481,6 +555,7 @@ def test_mask_project_boxed_kernel(dev, b, n, r, s, tiling, masked):
     _equal(got, want)
     dense = ops.nearest_sample_logit(sxyz, samp, logits, v, impl="plain")
     inside = ops.box_contains(boxes, sxyz, svld)
+    assert inside.any()
     _equal(got[inside], dense[inside])
 
 

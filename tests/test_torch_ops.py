@@ -257,6 +257,28 @@ def test_query_box_group(rng, masked):
     np.testing.assert_array_equal(n(got[1]), oc)
 
 
+@pytest.mark.parametrize("case", ["empty", "fewer_than_s"])
+def test_query_box_group_sparse_boxes(rng, case):
+    """Boxes the first-S scan cannot fill, against JAX bitwise: empty boxes
+    (index 0, count 0, point 0 minus the box centre) and boxes holding 1 to
+    S - 1 points (the scan reads the whole scene; replicate-first padding)."""
+    xyz, valid = _cloud(rng, 2, 96, grid=True)
+    c = xyz[:, :6]
+    if case == "empty":
+        c = c + 50.0
+    half = np.full((2, 6, 3), 0.25 if case == "fewer_than_s" else 0.5, np.float32)
+    boxes = np.concatenate([c - half, c + half], axis=-1)
+    got = ops.query_box_group(t(boxes), 8, t(xyz), t(valid))
+    want = jops.query_box_group(jnp.asarray(boxes), 8, jnp.asarray(xyz), valid, impl="xla")
+    for g, w in zip(got, want, strict=True):
+        np.testing.assert_array_equal(n(g), np.asarray(w))
+    cnt = n(got[1])
+    if case == "empty":
+        assert not cnt.any() and not n(got[0]).any()
+    else:
+        assert (cnt < 8).all() and cnt.any()
+
+
 @pytest.mark.parametrize("jax_impl", ["xla", "pallas"])
 @pytest.mark.parametrize("masked", [False, True])
 def test_query_box_group_strided(rng, masked, jax_impl):
@@ -452,6 +474,54 @@ def test_nearest_sample_logit(rng, impl, masked):
     np.testing.assert_array_equal(got, np.asarray(want))
     if masked:
         assert (got[:, 0] == -1e10).all()  # no valid sample
+
+
+# sample offsets from the origin at a squared distance below, exactly at
+# and above float32(3e10), every product and sum exact: 64 x (a, b, c) with
+# a^2 + b^2 + c^2 = 7324218, 7324219 and 7324221
+_FAR = np.array([[173120, 4288, 3328], [172992, 8256, 2368], [173056, 6848, 2176]],
+                np.float32)
+
+
+def _contract_case(rng, case):
+    """``(xyz, samp, logits, svalid, want at scene point 0)``. "beyond_3e10":
+    RoI q holds an invalid sample and valid ones, the nearest to point 0 (the
+    origin) below, at and beyond 3e10 (q = 0, 1, 2), the others farther;
+    points at multiples of 64 keep every distance to that nearest exact. "ties": samples at
+    equal distances from point 0 (the six face neighbours at 0.5, one
+    repeated) with different logits, and an invalid copy with the largest."""
+    xyz = np.zeros((1, 8, 3), np.float32)
+    xyz[0, 1:, 0] = np.arange(1, 8) * 64.0
+    logits = rng.standard_normal((1, 3, 8)).astype(np.float32)
+    svalid = np.ones((1, 3, 8), bool)
+    if case == "beyond_3e10":
+        samp = np.tile(_FAR[:, None] + np.float32(1.8e5) * np.eye(3, dtype=np.float32)[0],
+                       (1, 1, 8, 1)).reshape(1, 3, 8, 3)
+        samp[0, :, 2:] += np.arange(6, dtype=np.float32)[:, None] * 64.0
+        samp[0, :, 1] = _FAR
+        svalid[0, :, 0] = False
+        want = np.array([logits[0, 0, 1], logits[0, 1, 1], -1e10], np.float32)
+        return xyz, samp, logits, svalid, want
+    face = np.concatenate([np.eye(3), -np.eye(3)]).astype(np.float32) * 0.5
+    samp = np.tile(face[None, None, [0, 1, 2, 3, 4, 5, 0, 3]], (1, 3, 1, 1))
+    logits[0, :, 7] = 5.0  # the repeat of sample 3, invalid in RoI 0
+    svalid[0, 0, 7] = False
+    want = np.array([logits[0, 0, :7].max(), 5.0, 5.0], np.float32)
+    return xyz, samp, logits, svalid, want
+
+
+@pytest.mark.parametrize("case", ["beyond_3e10", "ties"])
+def test_nearest_sample_logit_contract(rng, case):
+    """The contract the card kernel keeps bitwise, against JAX: an invalid
+    sample sits at exactly 3e10 (a valid one there ties with it and gives
+    its logit, one beyond gives -1e10); on equal distances the largest
+    valid logit wins."""
+    xyz, samp, logits, svalid, want = _contract_case(rng, case)
+    got = n(ops.nearest_sample_logit(t(xyz), t(samp), t(logits), t(svalid)))
+    jgot = jops.nearest_sample_logit(jnp.asarray(xyz), jnp.asarray(samp), jnp.asarray(logits),
+                                     jnp.asarray(svalid), impl="xla")
+    np.testing.assert_array_equal(got, np.asarray(jgot))
+    np.testing.assert_array_equal(got[0, :, 0], want)
 
 
 @pytest.mark.parametrize("layout", ["random", "sorted"])
