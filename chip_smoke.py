@@ -30,6 +30,9 @@ line or a few:
    training step's seeds and crops), with each shape's device and bound
    ms in ``device_ms_by_shape`` / ``bound_ms_by_shape``; then the ball
    and box groups at every split (warps a query) at each of their shapes;
+   three_nn at every (targets a thread, source slices, sources a group)
+   plan at each of its shapes; NMS's device operations a call (one) and wrapper ms at the
+   main path's shapes;
    the exact FPS beyond one block (``fps_cluster``) at the whole scene,
    4 x 16384, 2 x 14273 with an all-invalid row and 131072 points, then
    at every cluster size that holds each row; NMS up to 4096 boxes; the
@@ -90,7 +93,8 @@ line or a few:
    queries, (H) for fps_cluster, (G) for nn_argmin and index_add;
    ``launches_by_slice`` for each slice's own count; ``device_events``, the
    profiler's events under ``device_ms``; ``ms_by_cluster_size`` for
-   fps_cluster, ``ms_by_split`` for ball_group and box_group), the card's name and power
+   fps_cluster, ``ms_by_split`` for ball_group and box_group, ``ms_by_plan``
+   for three_nn, ``device_ops_per_call`` for nms), the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises; no phase's error is caught. Imports nothing of JAX.
@@ -98,6 +102,7 @@ Any failure raises; no phase's error is caught. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import itertools
 import json
 import statistics
 import subprocess
@@ -120,6 +125,8 @@ FIELDS = ("masks", "valid", "classes", "scores", "boxes")  # of InstancePredicti
 PATH_KERNELS = {"fps", "ball_group", "box_group", "three_nn", "interp_mm", "nms"}
 FPS_ROWS_N = 131072  # the cluster FPS's reach: twice the whole scene
 SPLITS = (1, 2, 4, 8, 16)  # warps a query the first-K ball and box groups take
+# three_nn: targets a thread, source slices, sources a group
+NN_PER, NN_SPLITS, NN_GROUPS = (1, 2, 4), (1, 2, 4, 8, 16, 32), (1, 32)
 STRIDED = {"ball_group": "ball_group_strided", "box_group": "box_group_strided"}
 # the kernel's symbols in the profiler's (demangled) device events; template
 # arguments of group_scan_kernel: <box, strided, coordinates>; of
@@ -261,6 +268,7 @@ def check_kernels(dev, ops, bench_slice):
     fp4 = main_path["interp_mm"][0][1]  # FP4's interpolation at the flagship
     chain_boxes, chain_scores = _chain_nms_case(dev, B, 64, 32, gen)
     nms2k, nms4k = _chain_nms_case(dev, 1, 2048, 128, gen), _chain_nms_case(dev, 1, 4096, 128, gen)
+    nms1k = _chain_nms_case(dev, 1, 1024, 128, gen)
     pred, gt, gt_valid = _chamfer_case(dev, ops, bench_slice, gen)
     tie_src = torch.rand((16, 2048, 3), generator=gen) * 4
     tie_src = torch.cat([tie_src, tie_src], dim=1).to(dev)  # source j + 2048 repeats j
@@ -371,6 +379,11 @@ def check_kernels(dev, ops, bench_slice):
 
     crops = ((0.25, 0.5, 1.0), (32, 64, 128))
     grid_label = f"grid RoIAlign: {B}x4096 targets <- {N}"
+    nn_extra = [  # three_nn off the main path: (D)'s masks, (C)'s grid RoIs
+        (f"3nn masks: {B * 64}x{N} targets <- 64", (targets, roi_xyz.reshape(B * 64, 64, 3), None)),
+        (grid_label, (grid, xyz, valid)),
+        (f"grid RoIAlign, whole scene: 1x4096 targets <- {WS_N}", (ws_grid, ws, wsv)),
+    ]
     cases = {  # name -> [(shape label, fn(impl), work)], main shape first
         "fps": main_cases("fps"),
         "fps_cluster": [
@@ -440,15 +453,8 @@ def check_kernels(dev, ops, bench_slice):
              ball_work(ws, wsv, ws_seeds, 3, True)),
         ],
         "three_nn": main_cases("three_nn") + [
-            (f"3nn masks: {B * 64}x{N} targets <- 64",
-             lambda impl: ops.three_nn(targets, roi_xyz.reshape(B * 64, 64, 3), impl=impl),
-             nn_work(targets, roi_xyz.reshape(B * 64, 64, 3))),
-            (grid_label,
-             lambda impl: ops.three_nn(grid, xyz, valid, impl=impl), nn_work(grid, xyz, valid)),
-            (f"grid RoIAlign, whole scene: 1x4096 targets <- {WS_N}",
-             lambda impl: ops.three_nn(ws_grid, ws, wsv, impl=impl),
-             nn_work(ws_grid, ws, wsv)),
-        ],
+            (label, lambda impl, a=a: ops.three_nn(*a, impl=impl), nn_work(*a))
+            for label, a in nn_extra],
         "interp_mm": main_cases("interp_mm"),
         "mask_project": main_cases("mask_project"),
         "mask_project_boxed": main_cases("mask_project_boxed"),
@@ -466,6 +472,8 @@ def check_kernels(dev, ops, bench_slice):
             (f"{B}x64 boxes with a suppression chain 32 deep",
              lambda impl: ops.nms_3d_batched(chain_boxes, chain_scores, 0.25, impl=impl),
              nms_work(chain_boxes, chain_scores)),
+            ("1x1024 boxes with a suppression chain 128 deep (ranked in the kernel)",
+             lambda impl: ops.nms_3d_batched(*nms1k, 0.25, impl=impl), nms_work(*nms1k)),
             ("1x2048 boxes with a suppression chain 128 deep",
              lambda impl: ops.nms_3d_batched(*nms2k, 0.25, impl=impl), nms_work(*nms2k)),
             ("1x4096 boxes with a suppression chain 128 deep",
@@ -668,6 +676,41 @@ def check_kernels(dev, ops, bench_slice):
             print(f"{name} split sweep [{label}]: device ms by warps a query (bitwise the "
                   f"plain version at each) " + ", ".join(f"{sp}: {ms}" for sp, ms in times.items()))
         next(e for e in entries if e["name"] == name)["ms_by_split"] = splits
+
+    # three_nn at every (targets a thread, source slices, group) at each of
+    # its shapes, kernel only (bitwise the plain version each time), device
+    # ms; three_nn_plan's pick marked
+    from gspn_tpu_torch.ops import interpolate as tinterp
+
+    plans = {}
+    for label, args in [(label, a) for label, a, _ in main_path["three_nn"]] + nn_extra:
+        want = tk.flatten(ops.three_nn(*args, impl="plain"))
+        pick = "x".join(map(str, tinterp.three_nn_plan(args[0].shape[0], args[0].shape[1],
+                                                       args[1].shape[1])))
+        times = {}
+        for plan in itertools.product(NN_PER, NN_SPLITS, NN_GROUPS):
+            run = lambda args=args, plan=plan: (  # noqa: E731
+                tinterp._three_nn_cuda(*args, plan=plan))
+            tk.max_abs_err(tk.flatten(run()), want)
+            times["x".join(map(str, plan))] = tk.device_ms(run, KERNEL_ITERS,
+                                                           DEVICE_SYMBOLS["three_nn"])[0]
+        plans[label] = times
+        print(f"three_nn plan sweep [{label}]: device ms by targets a thread x source slices "
+              "x sources a group (bitwise the plain version at each) " + ", ".join(
+                  f"{plan}: {ms}{' (picked)' * (plan == pick)}" for plan, ms in times.items()))
+    next(e for e in entries if e["name"] == "three_nn")["ms_by_plan"] = plans
+
+    # NMS at the main path's shapes: the whole of nms_3d_batched must be one
+    # device operation (its kernel) a call
+    per_call = {}
+    for label, a, _ in main_path["nms"]:
+        call = lambda a=a: tk.call(ops, "nms", a, "cuda")  # noqa: E731
+        per_call[label] = tk.device_launches(call, KERNEL_ITERS)
+        print(f"nms [{label}]: wrapper {tk.cuda_ms(call, KERNEL_ITERS):.4f} ms, "
+              f"{per_call[label]:g} device operations a call (torch.profiler)")
+        if per_call[label] != 1:
+            raise AssertionError(f"nms [{label}]: {per_call[label]} device operations a call")
+    next(e for e in entries if e["name"] == "nms")["device_ops_per_call"] = per_call
 
     first_k = ops.query_ball_group_multi((0.1,), (32,), xyz, sa1, valid)[0][0]
     strided = ops.query_ball_group_multi((0.1,), (32,), xyz, sa1, valid, select="strided")[0][0]

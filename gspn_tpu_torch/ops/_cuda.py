@@ -199,8 +199,9 @@ KERNELS: dict[str, CudaKernel] = {
         ),
         CudaKernel(
             "three_nn", "three_nn.cu", "gspn_three_nn",
-            # xyz1, xyz2, valid2, b, n, m, dist, idx
-            (_ptr, _ptr, _ptr, _int, _int, _int, _ptr, _ptr),
+            # xyz1, xyz2, valid2, b, n, m, targets a thread, source slices,
+            # sources a group, dist, idx
+            (_ptr, _ptr, _ptr, _int, _int, _int, _int, _int, _int, _ptr, _ptr),
             "gspn_tpu/ops/interpolate.py:38 _three_nn_kernel (M <= 2048); "
             "gspn_tpu/ops/interpolate.py:132 _three_nn_tiled_kernel (M > 2048)",
         ),
@@ -225,8 +226,9 @@ KERNELS: dict[str, CudaKernel] = {
         ),
         CudaKernel(
             "nms", "nms.cu", "gspn_nms",
-            # iou, alive, b, r, thresh (f32), keep
-            (_ptr, _ptr, _int, _int, ctypes.c_float, _ptr),
+            # boxes, scores, valid, order (i64 or null), b, r, thresh (f32),
+            # mask and counter (scratch above one CTA's boxes, or null), keep
+            (_ptr, _ptr, _ptr, _ptr, _int, _int, ctypes.c_float, _ptr, _ptr, _ptr),
             "gspn_tpu/ops/nms.py:83 _nms_kernel",
         ),
         CudaKernel(
@@ -256,6 +258,13 @@ def launch_counts() -> dict[str, int]:
 
 def ptr(t: torch.Tensor | None) -> int:
     return 0 if t is None else int(t.data_ptr())
+
+
+def flag_bytes(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous bool mask as the kernels' one byte a flag, without a
+    copy (``view``; a bool is one byte, 0 or 1); other dtypes are cast."""
+    t = t.contiguous()
+    return t.view(torch.uint8) if t.dtype == torch.bool else t.to(torch.uint8)
 
 
 def check_cuda_input(name: str, t: torch.Tensor, dtype, shape) -> None:

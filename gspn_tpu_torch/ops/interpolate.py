@@ -2,9 +2,10 @@
 
 Counterpart of ``gspn_tpu/ops/interpolate.py``:
 
-- ``three_nn``: CUDA route ``csrc/three_nn.cu`` at every source count (it
-  streams sources through shared memory with a running top-3, the
-  algorithm of both TPU kernels, single-shot and tiled-M); plain route the
+- ``three_nn``: CUDA route ``csrc/three_nn.cu`` at every source count (a
+  running top-3 over sources staged through shared memory, the algorithm
+  of both TPU kernels, single-shot and tiled-M; ``three_nn_plan`` picks the
+  targets a thread, the source slices and the group size); plain route the
   XLA ``top_k`` branch, taken over chunks of targets at large sizes.
 - ``three_interpolate_weights`` / ``three_interpolate``: the exact,
   neighbor-ordered interpolation.
@@ -26,6 +27,39 @@ MM_KERNEL = _cuda.KERNELS["interp_mm"]
 
 # (target, source) distances one plain chunk holds: 256 MB of float32
 _PLAIN_PAIRS = 1 << 26
+# three_nn_plan, fitted to every (targets a thread, slices, group) timed at
+# the main path's and the grid RoIs' shapes on an H100 (PERF.md, section 6): 4
+# targets a thread from THREE_NN_PER4_TARGETS targets, else 1; slices while
+# the warps stay under THREE_NN_FULL_WARPS (~4 on each of the card's 528
+# schedulers) or each slice keeps THREE_NN_LONG_SLICE sources, never below
+# THREE_NN_MIN_SLICE sources a slice; groups of 32 sources where a slice
+# keeps THREE_NN_GROUP32_SLICE, else each source inserted as it comes
+THREE_NN_PER4_TARGETS = 1 << 19
+THREE_NN_FULL_WARPS = 2048
+THREE_NN_MAX_SPLIT = 32
+THREE_NN_MIN_SLICE = 32
+THREE_NN_LONG_SLICE = 2048
+THREE_NN_GROUP32_SLICE = 512
+
+
+def three_nn_plan(b: int, n: int, m: int) -> tuple[int, int, int]:
+    """``(targets a thread, source slices, sources a group)`` for the kernel
+    at ``b`` scenes of ``n`` targets and ``m`` sources. More targets a
+    thread share each source load but insert more often (a warp inserts
+    whenever one of its targets does); more slices fill the card when
+    targets are few, but each slice starts its top 3 afresh (more
+    insertions) and the slices' lists are merged by (distance, index) at
+    the end; a group of 32 sources compared before inserting wastes less
+    where a slice is long, and a group of 1 where it is short."""
+    targets = b * n
+    per = 4 if targets >= THREE_NN_PER4_TARGETS else 1
+    warps = -(-targets // (32 * per))
+    split = 1
+    while (split < THREE_NN_MAX_SPLIT and m // (split * 2) >= THREE_NN_MIN_SLICE
+           and (warps * split < THREE_NN_FULL_WARPS
+                or m // (split * 2) >= THREE_NN_LONG_SLICE)):
+        split *= 2
+    return per, split, 32 if m // split >= THREE_NN_GROUP32_SLICE else 1
 
 
 def _three_nn_dense(xyz1, xyz2, valid2):
@@ -54,7 +88,10 @@ def _three_nn_plain(xyz1, xyz2, valid2):
     return torch.cat([p[0] for p in parts], 1), torch.cat([p[1] for p in parts], 1)
 
 
-def _three_nn_cuda(xyz1, xyz2, valid2):
+def _three_nn_cuda(xyz1, xyz2, valid2, plan=None):
+    """The kernel at ``three_nn_plan``'s choice, or at ``plan`` = (targets
+    a thread, source slices, sources a group) to time one against
+    another."""
     b, n, _ = xyz1.shape
     m = xyz2.shape[1]
     xyz1 = xyz1.contiguous()
@@ -63,14 +100,15 @@ def _three_nn_cuda(xyz1, xyz2, valid2):
     _cuda.check_cuda_input("xyz2", xyz2, torch.float32, (b, m, 3))
     v = None
     if valid2 is not None:
-        v = valid2.to(torch.uint8).contiguous()
+        v = _cuda.flag_bytes(valid2)
         _cuda.check_cuda_input("valid2", v, torch.uint8, (b, m))
+    per, split, group = plan or three_nn_plan(b, n, m)
     dist = torch.empty((b, n, 3), dtype=torch.float32, device=xyz1.device)
     idx = torch.empty((b, n, 3), dtype=torch.int32, device=xyz1.device)
     if b and n:
         KERNEL.launch(
-            xyz1.device, _cuda.ptr(xyz1), _cuda.ptr(xyz2), _cuda.ptr(v), b, n, m,
-            _cuda.ptr(dist), _cuda.ptr(idx),
+            xyz1.device, _cuda.ptr(xyz1), _cuda.ptr(xyz2), _cuda.ptr(v), b, n, m, per, split,
+            group, _cuda.ptr(dist), _cuda.ptr(idx),
         )
     return dist, idx
 

@@ -6,16 +6,18 @@ IoU matrix, then greedy suppression over the sorted boxes. Boxes are
 
 ``impl`` picks the suppression:
 
-- ``"cuda"``: the sequential greedy kernel ``csrc/nms.cu`` (the TPU's
-  ``_nms_kernel``), up to ``MAX_R`` boxes a scene; a CPU tensor raises.
+- ``"cuda"``: one launch of ``csrc/nms.cu`` (the TPU's ``_nms_kernel``),
+  which ranks the scores, computes the IoU as a suppression bitmask and
+  sweeps it greedily, up to ``MAX_R`` boxes a scene; above ``SORT_MAX``
+  boxes the scores are sorted here first. A CPU tensor raises.
 - ``"plain"``: the Jacobi fixpoint loop (:func:`_suppress_jacobi`), on any
   device; it syncs the host every 8 steps.
 - ``"auto"``: as in ``ops/common.py``, the kernel for a CUDA tensor and the
   Jacobi loop for a CPU tensor (the JAX package's ``auto`` is its XLA loop
   on every device; the two give the same keep mask).
 
-The sort, the gather and :func:`box_iou` run in PyTorch on either route, as
-the JAX package runs them in XLA.
+On the plain route the sort, the gather and :func:`box_iou` run in PyTorch,
+as the JAX package runs them in XLA; the kernel reproduces them bitwise.
 """
 
 from __future__ import annotations
@@ -26,11 +28,13 @@ from gspn_tpu_torch.ops import _cuda
 from gspn_tpu_torch.ops.common import resolve_impl
 
 KERNEL = _cuda.KERNELS["nms"]
-# Boxes per scene the kernel route takes. The kernel's alive flags (R bytes
-# of shared memory) would allow ~227k; the (B, R, R) float32 IoU matrix
-# comes first: 4 GiB a scene at R = 32768, and box_iou's intermediates
-# hold about ten such matrices at once, ~43 GB of an 80 GB card.
+# Boxes per scene the kernel route takes: the kernel keeps the sweep's
+# suppressed bits of MAX_R boxes in shared memory (4 KB), and the mask
+# above ONE_CTA_R boxes is a device buffer of R * ceil(R / 64) words,
+# 128 MiB a scene at R = 32768.
 MAX_R = 32768
+SORT_MAX = 1024  # boxes the kernel ranks itself; above, torch.sort here
+ONE_CTA_R = 128  # boxes one CTA takes with its mask in shared memory
 
 
 def box_volume(boxes: torch.Tensor) -> torch.Tensor:
@@ -70,18 +74,38 @@ def _suppress_jacobi(iou: torch.Tensor, alive: torch.Tensor, iou_thresh: float):
     return keep
 
 
-def _suppress_cuda(iou: torch.Tensor, alive: torch.Tensor, iou_thresh: float):
-    """:func:`_suppress_jacobi`'s result from the sequential kernel."""
-    b, r, _ = iou.shape
-    iou = iou.contiguous()
-    a = alive.to(torch.uint8).contiguous()
-    _cuda.check_cuda_input("iou", iou, torch.float32, (b, r, r))
-    _cuda.check_cuda_input("alive", a, torch.uint8, (b, r))
-    keep = torch.empty((b, r), dtype=torch.uint8, device=iou.device)
+def _nms_cuda(boxes, scores, valid, iou_thresh: float):
+    """:func:`nms_3d_batched`'s keep mask from one kernel launch (and, above
+    ``SORT_MAX`` boxes, the score sort before it; above ``ONE_CTA_R``, a
+    zeroed count of finished CTAs a scene)."""
+    b, r = scores.shape
+    dev = boxes.device
+    boxes = boxes.contiguous()
+    scores = scores.contiguous()
+    _cuda.check_cuda_input("boxes", boxes, torch.float32, (b, r, 6))
+    _cuda.check_cuda_input("scores", scores, torch.float32, (b, r))
+    v = None
+    if valid is not None:
+        v = _cuda.flag_bytes(valid)
+        _cuda.check_cuda_input("valid", v, torch.uint8, (b, r))
+    order = mask = counter = None
+    if r > SORT_MAX:
+        order = _score_order(scores, valid).contiguous()
+    if r > ONE_CTA_R:
+        mask = torch.empty((b, r, -(-r // 64)), dtype=torch.int64, device=dev)
+        counter = torch.zeros((b,), dtype=torch.int32, device=dev)
+    keep = torch.empty((b, r), dtype=torch.bool, device=dev)
     if b and r:
-        KERNEL.launch(iou.device, _cuda.ptr(iou), _cuda.ptr(a), b, r, float(iou_thresh),
+        KERNEL.launch(dev, _cuda.ptr(boxes), _cuda.ptr(scores), _cuda.ptr(v), _cuda.ptr(order),
+                      b, r, float(iou_thresh), _cuda.ptr(mask), _cuda.ptr(counter),
                       _cuda.ptr(keep))
-    return keep.bool()
+    return keep
+
+
+def _score_order(scores, valid):
+    """The stable descending score order, invalid boxes at -inf (NaN last)."""
+    s = scores if valid is None else torch.where(valid, scores, torch.full_like(scores, -torch.inf))
+    return torch.sort(-s, dim=-1, stable=True).indices  # ties keep input order
 
 
 def nms_3d_batched(boxes, scores, iou_thresh: float, valid=None, *, impl: str = "auto"):
@@ -90,22 +114,19 @@ def nms_3d_batched(boxes, scores, iou_thresh: float, valid=None, *, impl: str = 
     choice = resolve_impl(impl, boxes)
     if choice == "cuda" and boxes.shape[-2] > MAX_R:
         raise ValueError(
-            f"the NMS kernel route takes at most {MAX_R} boxes per scene (its (B, R, R) "
-            f"IoU matrix), got {boxes.shape[-2]}"
+            f"the NMS kernel route takes at most {MAX_R} boxes per scene (the sweep's "
+            f"suppressed bits in shared memory), got {boxes.shape[-2]}"
         )
-    s = scores if valid is None else torch.where(valid, scores, torch.full_like(scores, -torch.inf))
-    order = torch.sort(-s, dim=-1, stable=True).indices  # ties keep input order
+    if choice == "cuda":
+        return _nms_cuda(boxes, scores, valid, iou_thresh)
+    order = _score_order(scores, valid)
     bs = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 6))
     alive = (
         torch.ones_like(scores, dtype=torch.bool)
         if valid is None
         else torch.gather(valid, 1, order)
     )
-    iou = box_iou(bs, bs)
-    if choice == "cuda":
-        keep_sorted = _suppress_cuda(iou, alive, iou_thresh)
-    else:
-        keep_sorted = _suppress_jacobi(iou, alive, iou_thresh)
+    keep_sorted = _suppress_jacobi(box_iou(bs, bs), alive, iou_thresh)
     return torch.zeros_like(keep_sorted).scatter(1, order, keep_sorted)
 
 

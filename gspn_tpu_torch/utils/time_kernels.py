@@ -71,27 +71,45 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int, symbols: tuple[str, ...]) -> tuple[float | None, int]:
-    """``(mean device ms per launch, events)`` of the kernel (any of
-    ``symbols``) over ``iters`` calls of ``fn`` (one launch each) after a
-    warm-up, from ``torch.profiler``'s device events: the kernel alone,
-    without its wrapper's host work or other device work. The mean is over
-    the ``events`` the profiler recorded, which may be fewer than
-    ``iters``. Now and then a profiler window records no device event at
-    all (seen once in about 240 windows on an H100); the window is then
-    taken again, up to ``PROFILER_WINDOWS`` times, and ``(None, 0)`` means
-    none recorded one (the kernel's launches and outputs are checked apart
-    from this)."""
+def _device_events(fn, iters: int):
+    """The device events of one profiler window over ``iters`` calls of
+    ``fn``, after a warm-up call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_launches(fn, iters: int) -> float:
+    """Device operations (kernels, copies, fills) a call of ``fn`` makes,
+    from ``torch.profiler`` over ``iters`` calls; a window with no device
+    event at all is taken again, up to ``PROFILER_WINDOWS`` times."""
     for _ in range(PROFILER_WINDOWS):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        events = _device_events(fn, iters)
+        if events:
+            return len(events) / iters
+    return 0.0
+
+
+def device_ms(fn, iters: int, symbols: tuple[str, ...]) -> tuple[float | None, int]:
+    """``(mean device ms per call, events)`` of the kernel (any of
+    ``symbols``) over ``iters`` calls of ``fn`` after a warm-up, from
+    ``torch.profiler``'s device events: the kernel alone, without its
+    wrapper's host work or other device work. Every wrapper of this
+    repository launches its kernel once a call, so an event is a call. The
+    mean is over the ``events`` the profiler recorded, which may be fewer
+    than ``iters``. Now and then a profiler window records no device event
+    at all (seen once in about 240 windows on an H100); the window is then
+    taken again, up to ``PROFILER_WINDOWS`` times, and ``(None, 0)`` means
+    none recorded one (the kernel's launches and outputs are checked apart
+    from this)."""
+    for _ in range(PROFILER_WINDOWS):
+        device = _device_events(fn, iters)
         mine = [e for e in device if any(sym in e.name for sym in symbols)]
         if mine:
             ms = sum(e.time_range.end - e.time_range.start for e in mine) / 1e3 / len(mine)

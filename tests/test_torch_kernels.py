@@ -400,9 +400,15 @@ def _nms_case(dev, b, r, seed=6):
     return boxes.to(dev), scores.to(dev), valid.to(dev)
 
 
+# R: one box; a few; the main path's 64; one CTA's last (ONE_CTA_R) and
+# the first above it (mask in a device buffer); the kernel's own ranking's
+# last (SORT_MAX) and the first sorted by the wrapper; 2048 and 4096
 @pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("b,r", [(8, 64), (2, 1024), (3, 5), (2, 1025), (1, 2048)])
+@pytest.mark.parametrize("b,r", [(1, 1), (3, 5), (8, 64), (2, 128), (2, 129), (2, 1024),
+                                 (2, 1025), (1, 2048), (1, 4096)])
 def test_nms_kernel(dev, b, r, masked):
+    """Bitwise the plain route; at R = 64 the whole of ``nms_3d_batched`` is
+    one device kernel (``torch.profiler``) besides one registry launch."""
     boxes, scores, valid = _nms_case(dev, b, r)
     v = valid if masked else None
     before = tnms.KERNEL.launches
@@ -415,6 +421,41 @@ def test_nms_kernel(dev, b, r, masked):
     assert tnms.KERNEL.launches == before + 2
     _equal(ops.nms_3d(boxes[0], scores[0], 0.25, None if v is None else v[0], impl="cuda"),
            got[0])
+    if r == 64:
+        from gspn_tpu_torch.utils.time_kernels import device_launches
+
+        assert device_launches(lambda: ops.nms_3d_batched(boxes, scores, 0.25, v), 5) == 1.0
+
+
+@pytest.mark.parametrize("r", [64, 300, 1100])
+@pytest.mark.parametrize("kind", ["ties", "nan", "signed_zero", "all_invalid"])
+def test_nms_kernel_score_order(dev, kind, r):
+    """The kernel's order is ``torch.sort(-s, stable=True)``'s: tied scores
+    keep input order, a NaN score sorts last (after the invalid boxes), -0
+    and 0 tie; an all-invalid scene keeps nothing. Bitwise the plain route,
+    with boxes that overlap heavily so that the order decides."""
+    gen = torch.Generator().manual_seed(9)
+    c = torch.rand((2, r, 3), generator=gen) * 1.5
+    half = torch.rand((2, r, 3), generator=gen) * 0.4 + 0.3
+    boxes = torch.cat([c - half, c + half], dim=-1).to(dev)
+    scores = torch.rand((2, r), generator=gen)
+    valid = torch.rand((2, r), generator=gen) > 0.2
+    if kind == "ties":
+        scores = (scores * 4).floor() / 4  # four distinct values
+    elif kind == "nan":
+        scores[:, ::3] = float("nan")
+        scores[:, 1::7] = -float("nan")
+    elif kind == "signed_zero":
+        scores[:, ::2] = 0.0
+        scores[:, 1::4] = -0.0
+    else:
+        valid[:] = False
+    scores, valid = scores.to(dev), valid.to(dev)
+    for v in (None, valid):
+        got = ops.nms_3d_batched(boxes, scores, 0.25, v, impl="cuda")
+        _equal(got, ops.nms_3d_batched(boxes, scores, 0.25, v, impl="plain"))
+    if kind == "all_invalid":
+        assert not got.any()
 
 
 def test_nms_kernel_refuses_more_than_max_r_boxes(dev):
@@ -442,6 +483,53 @@ def test_three_nn_kernel(dev, b, n, m, masked):
     assert tinterp.KERNEL.launches == before + 1
     for a, w in zip(got, want, strict=True):
         _equal(a, w)
+
+
+# three_nn_plan's edges: targets where T goes 1 -> 4 (524288) and where
+# 2048 warps fill the card (65536: one slice; 65504: two); sources where a
+# slice would keep fewer than 32 (S doubles at 64, 128, ...), at a tile's
+# and a group's edge (512 sources for CTAs of 256 threads, groups of 32)
+# and where long slices split further (4096 sources a slice)
+@pytest.mark.parametrize("b,n,m", [(1, 65504, 300), (1, 65536, 300), (2, 8191, 511),
+                                   (2, 8192, 512), (1, 16383, 513), (1, 524287, 64),
+                                   (2, 262144, 65), (4, 100, 63), (4, 100, 64), (3, 500, 33),
+                                   (1, 64, 4097), (1, 100, 131072)])
+def test_three_nn_kernel_plan_edges(dev, b, n, m):
+    gen = torch.Generator().manual_seed(5)
+    tgt = (torch.rand((b, n, 3), generator=gen) * 4).to(dev)
+    src = (torch.rand((b, m, 3), generator=gen) * 4).to(dev)
+    svalid = (torch.rand((b, m), generator=gen) > 0.3).to(dev)
+    for v in (None, svalid):
+        for a, w in zip(ops.three_nn(tgt, src, v, impl="cuda"),
+                        ops.three_nn(tgt, src, v, impl="plain"), strict=True):
+            _equal(a, w)
+
+
+@pytest.mark.parametrize("group", [1, 32])
+@pytest.mark.parametrize("per", [1, 2, 4])
+@pytest.mark.parametrize("split", [1, 2, 4, 8, 16, 32])
+def test_three_nn_kernel_at_every_plan(dev, per, split, group):
+    """Every (targets a thread, slices, group) forced: bitwise the plain version,
+    with each source repeated half the range later, so that equal
+    distances fall in different slices (the lower index must win), and a
+    scene with fewer than 3 valid sources (two, then none)."""
+    gen = torch.Generator().manual_seed(6)
+    b, n, h = 3, 700, 1100
+    tgt = (torch.rand((b, n, 3), generator=gen) * 4).to(dev)
+    half = torch.rand((b, h, 3), generator=gen) * 4
+    src = torch.cat([half, half], dim=1).to(dev)  # source j + h repeats j
+    svalid = torch.rand((b, 2 * h), generator=gen) > 0.3
+    svalid[1] = False
+    svalid[1, [5, 2 * h - 5]] = True
+    svalid[2] = False
+    svalid = svalid.to(dev)
+    for v in (None, svalid):
+        got = tinterp._three_nn_cuda(tgt, src, v, plan=(per, split, group))
+        want = ops.three_nn(tgt, src, v, impl="plain")
+        for a, w in zip(got, want, strict=True):
+            _equal(a, w)
+        if v is None:  # the nearest source, then its repeat
+            _equal(got[1][..., 1], got[1][..., 0] + h)
 
 
 @pytest.mark.parametrize(

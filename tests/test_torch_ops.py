@@ -369,6 +369,67 @@ def test_three_nn_fewer_than_three_valid_sources(rng):
     np.testing.assert_array_equal(n(idx), np.asarray(ji))
 
 
+@pytest.mark.parametrize("b,n,m", [
+    (8, 8192, 1024), (1, 65536, 1024), (8, 1024, 256), (8, 256, 64), (8, 64, 16),
+    (512, 8192, 64), (8, 4096, 8192), (1, 4096, 65536), (1, 1, 3), (3, 100, 5000),
+])
+def test_three_nn_plan(b, n, m):
+    """The kernel's (targets a thread, source slices, group): T in {1, 2,
+    4}, S a power of 2 in [1, 32], a group of 1 or 32 sources that divides
+    a slice's chunk of a tile, a slice keeps at least THREE_NN_MIN_SLICE
+    sources when S > 1, and the kernel's layout of the sources over the
+    slices (a tile of 2 sources a thread, each slice its own chunk of every
+    tile) covers every source exactly once."""
+    per, split, group = tinterp.three_nn_plan(b, n, m)
+    assert per in (1, 2, 4)
+    assert split in (1, 2, 4, 8, 16, 32)
+    assert group in (1, 32)
+    assert split == 1 or m // split >= tinterp.THREE_NN_MIN_SLICE
+    q = min(max(8 // split, 1), -(-n // (32 * per)))  # target warps a CTA
+    tile = 2 * 32 * q * split
+    chunk = tile // split
+    assert chunk % group == 0
+    seen = np.zeros(m, int)
+    for s in range(split):
+        for base in range(0, m, tile):
+            seen[base + s * chunk:min(base + (s + 1) * chunk, m)] += 1
+    np.testing.assert_array_equal(seen, 1)
+
+
+def test_three_nn_plan_main_path_picks():
+    """The picks measured fastest at the main path's and the grid RoIs'
+    shapes (PERF.md): FP4, FP3, FP2, 3nn masks, grid RoIs."""
+    plan = tinterp.three_nn_plan
+    assert [plan(8, 8192, 1024), plan(1, 65536, 1024), plan(8, 1024, 256), plan(8, 256, 64),
+            plan(512, 8192, 64), plan(8, 4096, 8192), plan(1, 4096, 65536)] == [
+        (1, 1, 32), (1, 1, 32), (1, 8, 1), (1, 2, 1), (4, 1, 1), (1, 4, 32), (1, 32, 32)]
+
+
+# (sources, offset of each source's copy): the copy lands in another slice
+# of the kernel's layout, or across a tile edge (512 or 1024 sources)
+@pytest.mark.parametrize("m,offset", [(300, 150), (1100, 512), (2304, 1024), (700, 64)])
+def test_three_nn_ties_across_slices_match_jax(rng, m, offset):
+    """Sources repeated ``offset`` later (equal distances in two slices or
+    tiles): the lower index first, as JAX's three_nn (its XLA route, and the
+    TPU kernel in interpret mode) and the oracle give; with fewer than 3
+    valid sources in one scene."""
+    tgt, _ = _cloud(rng, 2, 40)
+    src, svalid = _cloud(rng, 2, m, grid=True, pad=0.3)
+    src[:, offset:] = src[:, :m - offset]
+    svalid[1] = False
+    svalid[1, [3, m - 2]] = True
+    for valid in (None, svalid):
+        dist, idx = ops.three_nn(t(tgt), t(src), None if valid is None else t(valid))
+        args = (jnp.asarray(tgt), jnp.asarray(src), valid)
+        xd, xi = jops.three_nn(*args, impl="xla")
+        np.testing.assert_array_equal(n(idx), np.asarray(xi))
+        np.testing.assert_array_equal(n(dist), np.asarray(xd))
+        _, pi = jops.three_nn(*args, impl="pallas")
+        np.testing.assert_array_equal(n(idx), np.asarray(pi))
+        od, oi = oracles.three_nn_oracle(tgt, src, valid)
+        np.testing.assert_array_equal(n(idx), oi)
+
+
 def test_three_interpolate(rng):
     pts = rng.normal(size=(2, 24, 5)).astype(np.float32)
     dist = rng.uniform(0, 1, (2, 40, 3)).astype(np.float32)
@@ -646,6 +707,39 @@ def test_nms_3d_batched(rng, masked):
         np.testing.assert_array_equal(
             got[bi], oracles.nms_oracle(
                 boxes[bi], scores[bi], 0.25, valid[bi] if masked else None))
+
+
+@pytest.mark.parametrize("kind", ["ties", "nan", "signed_zero", "all_invalid"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_nms_3d_batched_score_order_matches_jax(rng, kind, masked):
+    """The order the CUDA kernel ranks by, held on the plain route against
+    the JAX package's ``nms_3d_batched`` (XLA): tied scores keep input
+    order, a NaN score (either sign) sorts last, after the invalid boxes,
+    -0 and 0 tie, and an all-invalid scene keeps nothing (unmasked: every
+    score -inf, all tied). The boxes overlap
+    heavily, so that the order decides the keep mask."""
+    c = rng.uniform(0, 1.5, (3, 40, 3))
+    half = rng.uniform(0.3, 0.7, (3, 40, 3))
+    boxes = np.concatenate([c - half, c + half], axis=-1).astype(np.float32)
+    scores = rng.uniform(0, 1, (3, 40)).astype(np.float32)
+    valid = rng.uniform(size=(3, 40)) > 0.2
+    if kind == "ties":
+        scores = np.floor(scores * 4) / 4
+    elif kind == "nan":
+        scores[:, ::3] = np.nan
+        scores[:, 1::7] = -np.nan
+    elif kind == "signed_zero":
+        scores[:, ::2] = 0.0
+        scores[:, 1::4] = -0.0
+    else:  # every box invalid; unmasked, every score at -inf (tied)
+        valid[:] = False
+        scores[:] = -np.inf
+    got = n(ops.nms_3d_batched(t(boxes), t(scores), 0.25, _tv(valid, masked)))
+    want = np.asarray(jops.nms_3d_batched(
+        jnp.asarray(boxes), jnp.asarray(scores), 0.25, _mask(valid, masked), impl="xla"))
+    np.testing.assert_array_equal(got, want)
+    if kind == "all_invalid" and masked:
+        assert not got.any()
 
 
 def _nms_case(rng, b, r, chain):
