@@ -22,20 +22,23 @@ line or a few:
    function where there is one (``library_ms`` at the first shape that
    has one, ``library_ms_by_shape`` for each shape timed; never called by
    the port); the timing helpers are ``gspn_tpu_torch.utils.time_kernels``;
-   every launch of the main path's kernels in one flagship and one
-   whole-scene request, each at its own shape (``time_kernels.cases``:
-   fps's shared pass and SA2-SA4, the first-K ball group's crops and
-   SA1-SA4, the first-S box group, NMS, three_nn and interp_mm at FP1-FP4,
+   every kernel launch in one flagship and one whole-scene request of the
+   ranked slices (A), (E) and (H), each at its own shape
+   (``time_kernels.cases``: fps's shared pass and SA2-SA4, segmented in
+   (A) and (E) and whole rows in (H), fps_cluster at (H)'s whole scene,
+   the ball groups' crops and SA1-SA4 and the box group, first-K in (A)
+   and (H) and strided in (E), NMS, three_nn and interp_mm at FP1-FP4,
    mask_project; also mask_project_boxed on both sorted scenes and the
    training step's seeds and crops), with each shape's device and bound
    ms in ``device_ms_by_shape`` / ``bound_ms_by_shape``; then the ball
-   and box groups at every split (warps a query) at each of their shapes;
-   three_nn at every (targets a thread, source slices, sources a group)
-   plan at each of its shapes; NMS's device operations a call (one) and wrapper ms at the
-   main path's shapes;
-   the exact FPS beyond one block (``fps_cluster``) at the whole scene,
-   4 x 16384, 2 x 14273 with an all-invalid row and 131072 points, then
-   at every cluster size that holds each row; NMS up to 4096 boxes; the
+   and box groups, first-K and strided, at every split (warps a query) at
+   each of their shapes, the strided groups' pick marked; three_nn at
+   every (targets a thread, source slices, sources a group) plan at each
+   of its shapes; NMS's device operations a call (one) and wrapper ms at
+   the main path's shapes; the exact FPS beyond one block
+   (``fps_cluster``) also at 4 x 16384, 2 x 14273 with an all-invalid row
+   and 131072 points, and at every cluster size that holds each of those
+   rows and the whole scene's; NMS up to 4096 boxes; the
    gather backward (``index_add``) at slice (G)'s chamfer and FP4's shapes;
    strided selection must differ from first-K at SA1;
 4. slices, seeded weights on the bench's scenes (``gspn_tpu_torch.utils.
@@ -83,17 +86,18 @@ line or a few:
    with 3 finite JSONL lines and a checkpoint; 4 steps straight against 2
    steps, a checkpoint and ``--resume`` for 2 more, bitwise; and
    ``--num-points 16384`` (exact FPS on the cluster kernel) for 3 steps;
-6. the ranking: for the flagship and for the whole-scene request, each
-   kernel's (device ms - bound ms) summed over every launch of that request
-   at its own shape (the launches must be slice (A)'s, kernel for kernel),
-   then the kernels off the main path by slice; a JSON line of kernel
+6. the ranking: for the flagship and the whole-scene request of slices
+   (A), (E) and (H), each kernel's (device ms - bound ms) summed over every
+   launch of that request at its own shape (the launches must be the
+   slice's, kernel for kernel), then the kernels no ranked request
+   launches, by slice; a JSON line of kernel
    results (``launches`` from the first slice that launches the kernel,
    named in ``slice``: (A) for the first-K path's, (B) for
    mask_project_boxed, (E) for the strided groups, (F) for the ball
    queries, (H) for fps_cluster, (G) for nn_argmin and index_add;
    ``launches_by_slice`` for each slice's own count; ``device_events``, the
    profiler's events under ``device_ms``; ``ms_by_cluster_size`` for
-   fps_cluster, ``ms_by_split`` for ball_group and box_group, ``ms_by_plan``
+   fps_cluster, ``ms_by_split`` for the ball and box groups, ``ms_by_plan``
    for three_nn, ``device_ops_per_call`` for nms), the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
@@ -124,21 +128,21 @@ PLAIN_SLOW_ITERS = 3  # timed calls of a plain version or library call slower th
 FIELDS = ("masks", "valid", "classes", "scores", "boxes")  # of InstancePredictions
 PATH_KERNELS = {"fps", "ball_group", "box_group", "three_nn", "interp_mm", "nms"}
 FPS_ROWS_N = 131072  # the cluster FPS's reach: twice the whole scene
-SPLITS = (1, 2, 4, 8, 16)  # warps a query the first-K ball and box groups take
+SPLITS = (1, 2, 4, 8, 16)  # warps a query the ball and box groups take
 # three_nn: targets a thread, source slices, sources a group
 NN_PER, NN_SPLITS, NN_GROUPS = (1, 2, 4), (1, 2, 4, 8, 16, 32), (1, 32)
 STRIDED = {"ball_group": "ball_group_strided", "box_group": "box_group_strided"}
-# the kernel's symbols in the profiler's (demangled) device events; template
-# arguments of group_scan_kernel: <box, strided, coordinates>; of
-# group_first_kernel: its predicate, gspn::Ball<scales> or gspn::Box
+# the kernel's symbols in the profiler's (demangled) device events; the
+# template argument of group_scan_kernel: <strided>; of group_first_kernel
+# and group_strided_kernel: the predicate, gspn::Ball<scales> or gspn::Box
 DEVICE_SYMBOLS = {
     "fps": ("fps_kernel",), "fps_cluster": ("fps_cluster_kernel",),
     "ball_group": ("group_first_kernel<gspn::Ball",),
-    "ball_group_strided": ("group_scan_kernel<false, true, true>",),
+    "ball_group_strided": ("group_strided_kernel<gspn::Ball",),
     "box_group": ("group_first_kernel<gspn::Box",),
-    "box_group_strided": ("group_scan_kernel<true, true, true>",),
-    "ball_query": ("group_scan_kernel<false, false, false>",),
-    "ball_query_strided": ("group_scan_kernel<false, true, false>",),
+    "box_group_strided": ("group_strided_kernel<gspn::Box",),
+    "ball_query": ("group_scan_kernel<false>",),
+    "ball_query_strided": ("group_scan_kernel<true>",),
     "three_nn": ("three_nn_kernel",), "interp_mm": ("interp_mm_kernel",),
     "mask_project": ("nearest_logit_kernel<false>",),
     "mask_project_boxed": ("nearest_logit_kernel<true>",), "nms": ("nms_kernel",),
@@ -254,13 +258,15 @@ def check_kernels(dev, ops, bench_slice):
     # sorted views, seeds, SA centres, boxes about the seeds, RoI samples
     inputs = tk.main_path_inputs(ops, bench_slice, dev)
     main_path = tk.cases(ops, bench_slice, dev, inputs)
-    requests = {req: [(name, label) for name, items in main_path.items()
-                      for label, _, r in items if r == req] for req in tk.REQUESTS}
+    requests = {tk.request_key(s, shape): [] for s in tk.RANKED for shape in tk.REQUESTS}
+    for name, items in main_path.items():
+        for label, _, reqs in items:
+            for req in reqs:
+                requests[req].append((name, label))
     fl, wsi = inputs[FLAGSHIP], inputs[WHOLE_SCENE]
     xyz, valid, seeds, sa1, boxes, roi_xyz = (
         fl["xyz"], fl["valid"], fl["seeds"], fl["sa"][0], fl["boxes"], fl["roi_xyz"])
-    ws, wsv, ws_seeds, ws_sa1, ws_boxes = (
-        wsi["xyz"], wsi["valid"], wsi["seeds"], wsi["sa"][0], wsi["boxes"])
+    ws, wsv, ws_seeds, ws_boxes = wsi["xyz"], wsi["valid"], wsi["seeds"], wsi["boxes"]
     gen = torch.Generator().manual_seed(0)
     grid = roi_grid_points(boxes, 64)[0].reshape(B, 64 * 64, 3)
     ws_grid = roi_grid_points(ws_boxes, 64)[0].reshape(1, 64 * 64, 3)
@@ -364,16 +370,19 @@ def check_kernels(dev, ops, bench_slice):
               f"{pts.shape[0]} x {pts.shape[1]} points")
         return proj_work(pts, samp, lg, share, bx, pvalid)
 
-    main_work = {  # kernel -> work(a main-path case's args)
+    main_work = {  # kernel -> work(a ranked case's args)
         "fps": lambda a: fps_work(a[1], a[2], a[0]),
+        "fps_cluster": lambda a: fps_work(a[1], a[2], a[0]),
         "ball_group": lambda a: ball_work(a[2], a[4], a[3], len(a[0]), False),
+        "ball_group_strided": lambda a: ball_work(a[2], a[4], a[3], len(a[0]), True),
         "box_group": lambda a: box_work(a[2], a[3], a[0], False),
+        "box_group_strided": lambda a: box_work(a[2], a[3], a[0], True),
         "nms": lambda a: nms_work(a[0], a[1]),
         "three_nn": lambda a: nn_work(*a), "interp_mm": mm_work,
         "mask_project": lambda a: proj_work(*a), "mask_project_boxed": lambda a: boxed_work(*a),
     }
 
-    def main_cases(name):  # every main-path launch of the kernel (time_kernels.cases)
+    def main_cases(name):  # every ranked launch of the kernel (time_kernels.cases)
         return [(label, lambda impl, a=a: tk.call(ops, name, a, impl), main_work[name](a))
                 for label, a, _ in main_path[name]]
 
@@ -386,10 +395,7 @@ def check_kernels(dev, ops, bench_slice):
     ]
     cases = {  # name -> [(shape label, fn(impl), work)], main shape first
         "fps": main_cases("fps"),
-        "fps_cluster": [
-            (f"exact, whole scene: 1 x {WS_N} pts (10 % padding), 1024 picks",
-             lambda impl: ops.farthest_point_sample(1024, ws, wsv, impl=impl),
-             fps_work(ws, wsv, 1024)),
+        "fps_cluster": main_cases("fps_cluster") + [
             ("exact, train_gspn --num-points 16384: 4 x 16384 pts, 64 picks",
              lambda impl: ops.farthest_point_sample(64, t16["xyz"], t16["valid"], impl=impl),
              fps_work(t16["xyz"], t16["valid"], 64)),
@@ -401,35 +407,9 @@ def check_kernels(dev, ops, bench_slice):
              fps_work(big, big_valid, 256)),
         ],
         "ball_group": main_cases("ball_group"),
-        "ball_group_strided": [
-            (f"sa1: {B}x1024 queries, r 0.1, K 32",
-             lambda impl: ops.query_ball_group_multi(
-                 (0.1,), (32,), xyz, sa1, valid, impl=impl, select="strided"),
-             ball_work(xyz, valid, sa1, 1, True)),
-            (f"gspn crops: {B}x64 seeds, r .25/.5/1, K 32/64/128",
-             lambda impl: ops.query_ball_group_multi(
-                 *crops, xyz, seeds, valid, impl=impl, select="strided"),
-             ball_work(xyz, valid, seeds, 3, True)),
-            (f"sa1, whole scene: 1x1024 queries x {WS_N} pts, r 0.1, K 32",
-             lambda impl: ops.query_ball_group_multi(
-                 (0.1,), (32,), ws, ws_sa1, wsv, impl=impl, select="strided"),
-             ball_work(ws, wsv, ws_sa1, 1, True)),
-            (f"gspn crops, whole scene: 1x64 seeds x {WS_N} pts",
-             lambda impl: ops.query_ball_group_multi(
-                 *crops, ws, ws_seeds, wsv, impl=impl, select="strided"),
-             ball_work(ws, wsv, ws_seeds, 3, True)),
-        ],
+        "ball_group_strided": main_cases("ball_group_strided"),
         "box_group": main_cases("box_group"),
-        "box_group_strided": [
-            (f"{B}x64 RoIs, S 64",
-             lambda impl: ops.query_box_group(boxes, 64, xyz, valid, impl=impl,
-                                              select="strided"),
-             box_work(xyz, valid, boxes, True)),
-            (f"whole scene: 1x64 RoIs x {WS_N} pts, S 64",
-             lambda impl: ops.query_box_group(ws_boxes, 64, ws, wsv, impl=impl,
-                                              select="strided"),
-             box_work(ws, wsv, ws_boxes, True)),
-        ],
+        "box_group_strided": main_cases("box_group_strided"),
         "ball_query": [
             (f"sa1: {B}x1024 queries, r 0.1, K 32",
              lambda impl: ops.query_ball_point(0.1, 32, xyz, sa1, valid, impl=impl),
@@ -636,7 +616,8 @@ def check_kernels(dev, ops, bench_slice):
     for label, pts, pvalid, npoint in (
             (f"1 x {WS_N}, 1024 picks", ws, wsv, 1024),
             ("4 x 16384, 64 picks", t16["xyz"], t16["valid"], 64),
-            ("2 x 14273, 256 picks", odd, odd_valid, 256)):
+            ("2 x 14273, 256 picks", odd, odd_valid, 256),
+            (f"1 x {FPS_ROWS_N}, 256 picks", big, big_valid, 256)):
         want = ops.farthest_point_sample(npoint, pts, pvalid, impl="plain")
         times = {}
         for cs in tfps.FPS_CLUSTER_SIZES[1:]:
@@ -652,29 +633,45 @@ def check_kernels(dev, ops, bench_slice):
                                                 for cs, ms in times.items()))
     next(e for e in entries if e["name"] == "fps_cluster")["ms_by_cluster_size"] = sweep
 
-    # the first-K ball group and the first-S box group at every split (warps
-    # a query) and every shape of the main path, kernel only (bitwise the
-    # plain version each time), device ms: the wrapper's host work (~0.1 ms)
-    # would hide the kernel
+    # the ball and box groups, first-K and strided, at every split (warps a
+    # query; and the strided groups' direct mode, "direct") and every ranked
+    # shape, kernel only (bitwise the plain version each time), device ms:
+    # the wrapper's host work (~0.1 ms) would hide the kernel; the strided
+    # groups' pick (ops.ball_query.strided_split) marked
+    from gspn_tpu_torch.ops import ball_query as tquery
     from gspn_tpu_torch.ops import box_group as tbox
-    from gspn_tpu_torch.ops.ball_group import _ball_group_cuda
+    from gspn_tpu_torch.ops.ball_group import _ball_group_cuda, _ball_group_strided_cuda
+
+    def strided_plan(split):
+        return (1, True) if split == "direct" else (split, False)
 
     split_runs = {
         "ball_group": lambda args, split: _ball_group_cuda(*args, split=split),
         "box_group": lambda args, split: tbox._box_group_cuda(tbox.KERNEL, *args, split),
+        "ball_group_strided": lambda args, split: _ball_group_strided_cuda(
+            *args, plan=strided_plan(split)),
+        "box_group_strided": lambda args, split: tbox._box_group_strided_cuda(
+            *args, plan=strided_plan(split)),
     }
     for name, launch in split_runs.items():
         splits = {}
+        strided = name in STRIDED.values()
         for label, args, _ in main_path[name]:
             want = tk.flatten(tk.call(ops, name, args, "plain"))
+            pts, q = args[2], (args[3] if name.startswith("ball") else args[0])
+            pick = None
+            if strided:
+                split, direct = tquery.strided_split(q.shape[0] * q.shape[1], pts.shape[1])
+                pick = "direct" if direct else split
             times = {}
-            for split in SPLITS:
+            for split in SPLITS + ("direct",) * strided:
                 run = lambda args=args, split=split: launch(args, split)  # noqa: E731
                 tk.max_abs_err(tk.flatten(run()), want)
                 times[split] = tk.device_ms(run, KERNEL_ITERS, DEVICE_SYMBOLS[name])[0]
             splits[label] = times
             print(f"{name} split sweep [{label}]: device ms by warps a query (bitwise the "
-                  f"plain version at each) " + ", ".join(f"{sp}: {ms}" for sp, ms in times.items()))
+                  f"plain version at each) " + ", ".join(
+                      f"{sp}: {ms}{' (picked)' * (sp == pick)}" for sp, ms in times.items()))
         next(e for e in entries if e["name"] == name)["ms_by_split"] = splits
 
     # three_nn at every (targets a thread, source slices, group) at each of
@@ -1136,43 +1133,53 @@ def _deterministic_mode_diagnostic(bench_slice, cfg, batch, eps) -> None:
 
 
 def _print_ranking(entries, requests, runs) -> None:
-    """Where a request loses the most: for the flagship and for the
-    whole-scene request, each kernel's (device ms - bound ms) summed over
-    every launch of that request, each at its own shape. Raises unless the
-    request's launches are slice (A)'s, kernel for kernel. Kernels the main
-    path does not launch follow, by slice: launches a request (or a step, or
-    a pass) of their slice x (device ms - bound ms) at their first shape."""
+    """Where a request loses the most: for each request of the ranked
+    slices ((A), (E), (H): ``requests`` keyed by ``time_kernels.request_key``),
+    each kernel's (device ms - bound ms) summed over every launch of that
+    request, each at its own shape. Raises unless each slice's launches are
+    its two requests' taken as often as the slice ran each, kernel for
+    kernel. Kernels no ranked request launches follow, by slice: launches a
+    request (or a step, or a pass) of their slice x (device ms - bound ms)
+    at their first shape."""
     by = {e["name"]: e for e in entries}
-    for name in SLICE_KERNELS["A"]:
-        planned = sum(1 for launches in requests.values() for k, _ in launches if k == name)
-        if runs["A"][name] != planned * (REQUESTS + 1):
-            raise AssertionError(f"{name}: slice (A) launched it {runs['A'][name]} times, the "
-                                 f"ranking counts {planned} a pair of requests")
-    for req, launches in requests.items():
-        lost, missing = {}, []
-        for name, label in launches:
-            dev_ms = by[name]["device_ms_by_shape"][label]
-            if dev_ms is None:
-                missing.append(f"{name} [{label}]")
-                continue
-            lost[name] = lost.get(name, 0.0) + dev_ms - by[name]["bound_ms_by_shape"][label]
-        print(f"ms above the bound per {req} request, each of its {len(launches)} launches at "
-              f"its own shape: " + ", ".join(
-                  f"{k} {v:.4f}" for k, v in sorted(lost.items(), key=lambda kv: -kv[1]))
-              + f"; total {sum(lost.values()):.4f}"
-              + (f"; not measured: {', '.join(missing)}" if missing else ""))
-    per_run = {"B": 2 * (VARIANT_REQUESTS + 1), "C": VARIANT_REQUESTS + 1,
-               "D": VARIANT_REQUESTS + 1, "E": 2 * (VARIANT_REQUESTS + 1), "F": 2,
-               "H": 2 * (VARIANT_REQUESTS + 1), "G": TRAIN_STEPS + 1}
+    per_run = {"A": REQUESTS + 1, "B": 2 * (VARIANT_REQUESTS + 1), "C": VARIANT_REQUESTS + 1,
+               "D": VARIANT_REQUESTS + 1, "E": VARIANT_REQUESTS + 1, "F": 2,
+               "H": VARIANT_REQUESTS + 1, "G": TRAIN_STEPS + 1}  # (A), (E), (H): a shape
+    slices = sorted({req.split(")")[0][1:] for req in requests})
+    for s in slices:
+        mine = {req: launches for req, launches in requests.items() if req.startswith(f"({s}) ")}
+        planned = {}
+        for launches in mine.values():
+            for name, _ in launches:
+                planned[name] = planned.get(name, 0) + 1
+        for name in SLICE_KERNELS[s] | set(planned):
+            if runs[s][name] != planned.get(name, 0) * per_run[s]:
+                raise AssertionError(f"{name}: slice ({s}) launched it {runs[s][name]} times, "
+                                     f"the ranking counts {planned.get(name, 0)} a pair of "
+                                     "requests")
+        for req, launches in mine.items():
+            lost, missing = {}, []
+            for name, label in launches:
+                dev_ms = by[name]["device_ms_by_shape"][label]
+                if dev_ms is None:
+                    missing.append(f"{name} [{label}]")
+                    continue
+                lost[name] = lost.get(name, 0.0) + dev_ms - by[name]["bound_ms_by_shape"][label]
+            print(f"ms above the bound per {req} request, each of its {len(launches)} launches "
+                  f"at its own shape: " + ", ".join(
+                      f"{k} {v:.4f}" for k, v in sorted(lost.items(), key=lambda kv: -kv[1]))
+                  + f"; total {sum(lost.values()):.4f}"
+                  + (f"; not measured: {', '.join(missing)}" if missing else ""))
+    ranked = {name for launches in requests.values() for name, _ in launches}
     off = []
     for e in entries:
-        if e["name"] in SLICE_KERNELS["A"] or e["device_ms"] is None:
+        if e["name"] in ranked or e["device_ms"] is None:
             continue
         s = e["slice"]
         each = e["launches"] / per_run[s]
         off.append((each * (e["device_ms"] - e["bound_ms"]), e["name"], s, each))
-    print("off the main path, by slice (launches a request, step or pass of the slice x ms above "
-          "the bound at the first shape): " + ", ".join(
+    print("off the ranked slices, by slice (launches a request, step or pass of the slice x ms "
+          "above the bound at the first shape): " + ", ".join(
               f"({s}) {name} {each:g} x = {v:.4f}"
               for v, name, s, each in sorted(off, reverse=True)))
 

@@ -7,9 +7,9 @@
 // prefix sum, the hits of rank floor(j*total/K) (select="strided"); here
 // each selection has its own entry point, as the ball group's have.
 //
-// On Hopper it is the ball-group warp-per-query scan (group_scan.cuh)
-// without the coordinate writes: first-K exits once every scale is full,
-// strided counts over the whole scene and then ranks up to its last target.
+// On Hopper it is the warp-per-query scan of group_scan.cuh, indices only:
+// first-K exits once every scale is full, strided counts over the whole
+// scene and then ranks up to its last target.
 // What bounds it is reading the L2-resident scene (a prefix, or all of it
 // and then up to the last target); its writes are 4*K bytes per query and
 // scale.
@@ -25,8 +25,8 @@ extern "C" int gspn_ball_query(const float* xyz1, const uint8_t* valid1,
   const int err =
       gspn::ball_group_out(nscales, r2s, ks, idx, cnt, nullptr, &out);
   if (err) return err;
-  return gspn::launch_group_scan<false, false, false>(xyz1, valid1, xyz2, nb,
-                                                      n, m, out, stream);
+  return gspn::launch_group_scan<false>(xyz1, valid1, xyz2, nb, n, m, out,
+                                         stream);
 }
 
 extern "C" int gspn_ball_query_strided(const float* xyz1,
@@ -39,6 +39,6 @@ extern "C" int gspn_ball_query_strided(const float* xyz1,
   const int err =
       gspn::ball_group_out(nscales, r2s, ks, idx, cnt, nullptr, &out);
   if (err) return err;
-  return gspn::launch_group_scan<false, true, false>(xyz1, valid1, xyz2, nb,
-                                                     n, m, out, stream);
+  return gspn::launch_group_scan<true>(xyz1, valid1, xyz2, nb, n, m, out,
+                                        stream);
 }

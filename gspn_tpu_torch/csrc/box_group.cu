@@ -13,15 +13,16 @@
 // cp.async tiles, float4 points with NaN x where invalid (lo <= NaN is
 // false), a box's scan split over 1-16 warps (8 at the flagship's 8 x 64
 // boxes over 8192 points, 16 at the whole scene's 1 x 64 over 65536), and
-// the scan stops once every box of the CTA holds S. Strided runs the
-// warp-per-query scan of group_scan.cuh, reading the scene twice. Both
-// write coordinates relative to the box centre (lo + hi) * 0.5, rounded as
+// the scan stops once every box of the CTA holds S. Strided runs
+// group_strided_kernel<Box> (group_strided.cuh), the strided ball group's
+// kernel with the box predicate: each point tested once, the ballots kept,
+// the ranks read from them. Both write coordinates relative to the box centre (lo + hi) * 0.5, rounded as
 // the plain version rounds it. The caller keeps the `k mod cnt` wrap
 // (models/rpointnet.py point_roi_align). What bounds both is how much of
 // the scene a box must test: a box that holds fewer than S points tests
-// all of it.
+// all of it (a strided box always does).
 
-#include "group_first.cuh"
+#include "group_strided.cuh"
 
 namespace {
 
@@ -49,11 +50,14 @@ extern "C" int gspn_box_group(const float* xyz1, const uint8_t* valid1,
       stream);
 }
 
+// split, direct and ballots: as gspn_ball_group_strided's, one scale.
 extern "C" int gspn_box_group_strided(const float* xyz1,
                                       const uint8_t* valid1,
                                       const float* boxes, int nb, int n,
                                       int r, int s, int* idx, int* cnt,
-                                      float* local, cudaStream_t stream) {
-  return gspn::launch_group_scan<true, true, true>(
-      xyz1, valid1, boxes, nb, n, r, box_out(s, idx, cnt, local), stream);
+                                      float* local, int split, int direct,
+                                      unsigned* ballots, cudaStream_t stream) {
+  return gspn::launch_group_strided<gspn::Box>(
+      xyz1, valid1, boxes, nb, n, r, split, direct, ballots,
+      box_out(s, idx, cnt, local), stream);
 }

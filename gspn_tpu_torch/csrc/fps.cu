@@ -38,32 +38,41 @@
 // points, 8 up to 8192 (1024 points: 128 threads; 8192: 1024), else 16.
 // Padding slots (j >= N) hold -inf, below an invalid point's -1.
 //
-// fps_cluster_kernel (longer rows, up to 16 x 14,272 points): a cluster of
-// cs CTAs (2, 4, 8 or 16, chosen by the Python wrapper) shares one row.
-// CTA r keeps points [r*S, (r+1)*S), S = ceil(N/cs), and their min-distance
-// buffer in its own shared memory (64 KB a CTA for N = 65536 at cs = 16).
-// Each pick: every CTA updates its slice and reduces its own (value,
-// global index, coordinates) candidate (warp shuffles, then one warp over
-// the warps' results through shared memory), writes it to a slot in its
-// shared memory, and meets the others at one cluster barrier; then warp 0
-// of every CTA reads the cs candidates through distributed shared memory
-// (lane r from CTA r), merges them with the same (value, lowest index)
-// rule and hands the result to its CTA through shared memory, so every CTA
-// picks the same next centre. (Every warp merging on its own, with no
-// block barrier, costs 32*cs*cs remote reads a pick of the same few words,
-// and was slower the larger the cluster.) The next centre's
-// coordinates travel in the winning candidate, read in the same DSMEM
-// round as its value: no further dependent load of the owner's shared
-// memory or of device memory. The slot is double-buffered by the pick's
-// parity: a CTA writes slot k&1 only after the barrier of pick k-1, which
-// every CTA reaches only after it has read the slots of pick k-2. A
-// CTA's candidate starts at (-inf, N), below any point's value (-1 for an
-// invalid one), so a CTA whose slice ends before S never wins.
+// fps_cluster_kernel<kPer> (longer rows, up to 16 x 14,272 points): a
+// cluster of cs CTAs (2, 4, 8 or 16, chosen by the Python wrapper) shares
+// one row. CTA r holds points [r*S, (r+1)*S), S = ceil(N/cs), as
+// fps_kernel<kPer> holds a row: kPer points a thread and their running
+// minimum in registers (the coordinates in shared memory too, and only
+// there at kPer = 16), kPer the least power of two that fits the slice in
+// 1024 threads (4 at 65536 points over 16 CTAs). A pick is fps_kernel's
+// pick within the CTA (the update, redux.sync argmax, one named barrier,
+// every warp merging the warps' candidates itself), then across the
+// cluster by push, not pull: lanes 0..cs-1 of warp 0 each store the CTA's
+// candidate (key, global index, coordinates) into slot [k & 1][rank] of
+// one CTA's shared memory (itself included) with st.async, which completes
+// 20 bytes on that CTA's mbarrier [k & 1]; every thread waits on its own
+// CTA's mbarrier phase (thread 0 posts the cs * 20 bytes expected), then
+// every warp merges the cs local slots with redux.sync, so every CTA picks
+// the same next centre with no remote read and no cluster barrier on a
+// pick's path.
+// Double buffering for push: a CTA writes pick k+2 into a peer's slot
+// (and mbarrier) k & 1 only after it has received that peer's pick k+1
+// candidate, which the peer sends only after its named barrier of pick
+// k+1, which each of its warps reaches only after it has waited for and
+// merged pick k: so the slot is read and the mbarrier's phase of pick k is
+// complete before pick k+2's bytes arrive (they may arrive before the
+// peer's thread 0 posts pick k+2's expected bytes: the transaction count
+// goes below 0 and the phase cannot complete without that arrival). A
+// cluster barrier after the mbarriers' initialisation comes before any
+// push, and one before exit keeps every CTA's shared memory alive until
+// no peer can still store into it. A CTA's candidate starts at (-inf,
+// its first slot), below any point's value (-1 for an invalid one), so a
+// CTA whose slice ends before S never wins.
 //
 // Contract (fps.py:_fps_single_xla): invalid points start at -1 and are
 // never picked while a valid one remains; the first pick is the first
-// valid point (0 if none); ties go to the lowest index. Both kernels are
-// bitwise the plain PyTorch version.
+// valid point of the whole row (0 if none); ties go to the lowest index.
+// Both kernels are bitwise the plain PyTorch version.
 
 #include <cooperative_groups.h>
 
@@ -73,15 +82,10 @@ namespace {
 
 namespace cg = cooperative_groups;
 
-__device__ __forceinline__ void argmax_merge(float& v, int& i, float ov, int oi) {
-  if (ov > v || (ov == v && oi < i)) {
-    v = ov;
-    i = oi;
-  }
-}
-
 constexpr int kFpsMaxSub = 4;        // rows (sub-blocks) a CTA
 constexpr int kFpsSubThreads = 128;  // short rows share a CTA up to this
+constexpr int kFpsMaxClusterSize = 16;
+constexpr unsigned kPushBytes = 20;  // a pushed candidate: 5 words
 
 // A float's order as an unsigned key: larger float, larger key (-inf, the
 // padding, lowest of the values here).
@@ -96,6 +100,18 @@ struct KeyCand {
   unsigned idx;
   float x, y, z;
 };
+
+// The cluster's slot of one CTA's candidate, 16-byte aligned for st.async.
+struct __align__(16) PushSlot {
+  unsigned key, idx;
+  float x, y, z;
+  unsigned pad[3];
+};
+
+// A candidate below every other: what a lane without one merges.
+__device__ __forceinline__ KeyCand no_cand() {
+  return KeyCand{0u, 0xffffffffu, 0.f, 0.f, 0.f};
+}
 
 // The warp's argmax, in every lane: the largest key, then the lowest index
 // holding it, with that point's coordinates (indices are unique, so one
@@ -115,74 +131,76 @@ __device__ __forceinline__ void sub_block_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
 
+// The argmax of a sub-block of nw warps (named barrier `bar`), in every
+// warp: each warp's winning lane writes its candidate to slot[warp], the
+// sub-block meets at its barrier, and every warp merges the <= 32
+// candidates by the same rule itself. `slot` is double-buffered by the
+// pick's parity: a warp writes it again two picks on, after a barrier that
+// every warp reaches only after reading it.
+__device__ __forceinline__ KeyCand block_argmax(KeyCand c, KeyCand* slot,
+                                                int nw, int warp, int lane,
+                                                int bar, int threads) {
+  if (nw == 1) return warp_argmax(c);
+  const unsigned key = __reduce_max_sync(gspn::kFullMask, c.key);
+  const unsigned idx =
+      __reduce_min_sync(gspn::kFullMask, c.key == key ? c.idx : 0xffffffffu);
+  if (c.key == key && c.idx == idx) slot[warp] = c;
+  sub_block_sync(bar, threads);
+  return warp_argmax(lane < nw ? slot[lane] : no_cand());
+}
+
+// A thread's points of a row (or of a cluster CTA's slice): t + i * tpr,
+// i < kPer, and their running minimum distance, in registers (at kPer = 16
+// the coordinates only in shared memory, sx/sy/sz, where every point's
+// also are, for the winner's coordinates).
 template <int kPer>
-__global__ void __launch_bounds__(1024)
-    fps_kernel(const float* __restrict__ xyz,
-               const uint8_t* __restrict__ valid, int rows, int n, int npoint,
-               int tpr, int* __restrict__ out) {
-  constexpr bool kRegCoords = kPer <= 8;
-  extern __shared__ float fps_smem[];  // x, y, z of each sub-block's row
-  __shared__ KeyCand cand[kFpsMaxSub][2][32];
-  __shared__ unsigned first_s[kFpsMaxSub][32];
-
-  const int sub = threadIdx.x / tpr;
-  const int t = threadIdx.x - sub * tpr;
-  const int lane = t & 31;
-  const int warp = t >> 5;
-  const int nw = tpr >> 5;
-  const int row = blockIdx.x * (blockDim.x / tpr) + sub;
-  if (row >= rows) return;  // a whole sub-block: no other waits for it
-  const int bar = sub + 1;  // named barrier 0 is __syncthreads
-  const int span = tpr * kPer;  // the row's slots, padding included
-  const float* p = xyz + static_cast<size_t>(row) * n * 3;
-  const uint8_t* v = valid ? valid + static_cast<size_t>(row) * n : nullptr;
-  int* o = out + static_cast<size_t>(row) * npoint;
-  float* sx = fps_smem + sub * 3 * span;
-  float* sy = sx + span;
-  float* sz = sy + span;
-
+struct RowPoints {
+  static constexpr bool kRegCoords = kPer <= 8;
   float px[kRegCoords ? kPer : 1], py[kRegCoords ? kPer : 1],
       pz[kRegCoords ? kPer : 1];
   float md[kPer];
-  unsigned first = 0xffffffffu;
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int j = t + i * tpr;
-    float x = 0.f, y = 0.f, z = 0.f;
-    md[i] = -CUDART_INF_F;
-    if (j < n) {
-      x = p[3 * j];
-      y = p[3 * j + 1];
-      z = p[3 * j + 2];
-      const bool ok = v == nullptr || v[j] != 0;
-      md[i] = ok ? 1e10f : -1.0f;
-      if (ok && static_cast<unsigned>(j) < first) first = j;
-    }
-    sx[j] = x;
-    sy[j] = y;
-    sz[j] = z;
-    if constexpr (kRegCoords) {
-      px[i] = x;
-      py[i] = y;
-      pz[i] = z;
-    }
-  }
-  first = __reduce_min_sync(gspn::kFullMask, first);
-  if (nw > 1) {
-    if (lane == 0) first_s[sub][warp] = first;
-    sub_block_sync(bar, tpr);  // also publishes the shared coordinates
-    first = __reduce_min_sync(gspn::kFullMask,
-                              lane < nw ? first_s[sub][lane] : 0xffffffffu);
-  } else {
-    __syncwarp();
-  }
-  const int prev = first < static_cast<unsigned>(n) ? first : 0;
-  if (t == 0) o[0] = prev;
-  float cx = sx[prev], cy = sy[prev], cz = sz[prev];
 
-  for (int k = 1; k < npoint; ++k) {
-    // this thread's best (value, slot); slots ascend with the index, so
-    // strict > keeps the lowest
+  // Load the cnt points at p (validity at v, or null) into the registers
+  // and sx/sy/sz (zeros past cnt, whose minimum is -inf); returns the
+  // thread's first valid index, `base` + slot, or 0xffffffff.
+  __device__ __forceinline__ unsigned load(const float* p, const uint8_t* v,
+                                           int cnt, unsigned base, float* sx,
+                                           float* sy, float* sz, int t,
+                                           int tpr) {
+    unsigned first = 0xffffffffu;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int j = t + i * tpr;
+      float x = 0.f, y = 0.f, z = 0.f;
+      md[i] = -CUDART_INF_F;
+      if (j < cnt) {
+        x = p[3 * j];
+        y = p[3 * j + 1];
+        z = p[3 * j + 2];
+        const bool ok = v == nullptr || v[j] != 0;
+        md[i] = ok ? 1e10f : -1.0f;
+        if (ok && base + j < first) first = base + j;
+      }
+      sx[j] = x;
+      sy[j] = y;
+      sz[j] = z;
+      if constexpr (kRegCoords) {
+        px[i] = x;
+        py[i] = y;
+        pz[i] = z;
+      }
+    }
+    return first;
+  }
+
+  // Update the minima against the centre c and return the thread's best
+  // (value, index base + slot, coordinates); slots ascend with the index,
+  // so strict > keeps the lowest. The coordinates load from shared memory
+  // while the caller's warp reduces.
+  __device__ __forceinline__ KeyCand update(const float* sx, const float* sy,
+                                            const float* sz, int t, int tpr,
+                                            float cx, float cy, float cz,
+                                            unsigned base) {
     float bv = -CUDART_INF_F;
     int bs = 0;
 #pragma unroll
@@ -204,22 +222,55 @@ __global__ void __launch_bounds__(1024)
         bs = i;
       }
     }
-    // its coordinates load while the warp reduces
     const unsigned j = t + bs * tpr;
-    KeyCand c{order_key(bv), j, sx[j], sy[j], sz[j]};
-    if (nw == 1) {
-      c = warp_argmax(c);
-    } else {
-      // the warp's winner writes its candidate itself
-      const unsigned key = __reduce_max_sync(gspn::kFullMask, c.key);
-      const unsigned idx =
-          __reduce_min_sync(gspn::kFullMask, c.key == key ? j : 0xffffffffu);
-      KeyCand* slot = cand[sub][k & 1];
-      if (c.key == key && j == idx) slot[warp] = c;
-      sub_block_sync(bar, tpr);
-      c = lane < nw ? slot[lane] : KeyCand{0u, 0xffffffffu, 0.f, 0.f, 0.f};
-      c = warp_argmax(c);
-    }
+    return KeyCand{order_key(bv), base + j, sx[j], sy[j], sz[j]};
+  }
+};
+
+template <int kPer>
+__global__ void __launch_bounds__(1024)
+    fps_kernel(const float* __restrict__ xyz,
+               const uint8_t* __restrict__ valid, int rows, int n, int npoint,
+               int tpr, int* __restrict__ out) {
+  extern __shared__ float fps_smem[];  // x, y, z of each sub-block's row
+  __shared__ KeyCand cand[kFpsMaxSub][2][32];
+  __shared__ unsigned first_s[kFpsMaxSub][32];
+
+  const int sub = threadIdx.x / tpr;
+  const int t = threadIdx.x - sub * tpr;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int nw = tpr >> 5;
+  const int row = blockIdx.x * (blockDim.x / tpr) + sub;
+  if (row >= rows) return;  // a whole sub-block: no other waits for it
+  const int bar = sub + 1;  // named barrier 0 is __syncthreads
+  const int span = tpr * kPer;  // the row's slots, padding included
+  const float* p = xyz + static_cast<size_t>(row) * n * 3;
+  const uint8_t* v = valid ? valid + static_cast<size_t>(row) * n : nullptr;
+  int* o = out + static_cast<size_t>(row) * npoint;
+  float* sx = fps_smem + sub * 3 * span;
+  float* sy = sx + span;
+  float* sz = sy + span;
+
+  RowPoints<kPer> pts;
+  unsigned first = pts.load(p, v, n, 0u, sx, sy, sz, t, tpr);
+  first = __reduce_min_sync(gspn::kFullMask, first);
+  if (nw > 1) {
+    if (lane == 0) first_s[sub][warp] = first;
+    sub_block_sync(bar, tpr);  // also publishes the shared coordinates
+    first = __reduce_min_sync(gspn::kFullMask,
+                              lane < nw ? first_s[sub][lane] : 0xffffffffu);
+  } else {
+    __syncwarp();
+  }
+  const int prev = first < static_cast<unsigned>(n) ? first : 0;
+  if (t == 0) o[0] = prev;
+  float cx = sx[prev], cy = sy[prev], cz = sz[prev];
+
+  for (int k = 1; k < npoint; ++k) {
+    const KeyCand c =
+        block_argmax(pts.update(sx, sy, sz, t, tpr, cx, cy, cz, 0u),
+                     cand[sub][k & 1], nw, warp, lane, bar, tpr);
     if (t == 0) o[k] = static_cast<int>(c.idx);
     cx = c.x;
     cy = c.y;
@@ -227,136 +278,148 @@ __global__ void __launch_bounds__(1024)
   }
 }
 
-// One pick's candidate of one CTA: the best (value, global index) of its
-// slice and that point's coordinates.
-struct Candidate {
-  float v;
-  int i;
-  float x, y, z;
-};
-
-// Argmax over the cs candidates of slot `slot` of every CTA of the
-// cluster, by one warp (lane r reads CTA r's slot); the result is in
-// lane 0.
-__device__ __forceinline__ Candidate merge_cluster(cg::cluster_group& cluster,
-                                                   Candidate* slot, int cs,
-                                                   int n, int lane) {
-  Candidate c{-CUDART_INF_F, n, 0.f, 0.f, 0.f};
-  if (lane < cs) c = *cluster.map_shared_rank(slot, lane);
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_down_sync(gspn::kFullMask, c.v, off);
-    const int oi = __shfl_down_sync(gspn::kFullMask, c.i, off);
-    const float ox = __shfl_down_sync(gspn::kFullMask, c.x, off);
-    const float oy = __shfl_down_sync(gspn::kFullMask, c.y, off);
-    const float oz = __shfl_down_sync(gspn::kFullMask, c.z, off);
-    if (ov > c.v || (ov == c.v && oi < c.i)) c = Candidate{ov, oi, ox, oy, oz};
-  }
-  return c;
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
+// The same shared-memory address in cluster CTA `rank`.
+__device__ __forceinline__ unsigned cluster_addr(unsigned addr,
+                                                 unsigned rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+
+// Store c into the slot at cluster address `dst`, completing kPushBytes
+// on the mbarrier at cluster address `bar` (both in the same CTA).
+__device__ __forceinline__ void push(unsigned dst, unsigned bar,
+                                     const KeyCand& c) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 "
+      "[%0], {%1, %2, %3, %4}, [%5];" ::"r"(dst),
+      "r"(c.key), "r"(c.idx), "r"(__float_as_uint(c.x)),
+      "r"(__float_as_uint(c.y)), "r"(bar)
+      : "memory");
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 "
+      "[%0], %1, [%2];" ::"r"(dst + 16),
+      "r"(__float_as_uint(c.z)), "r"(bar)
+      : "memory");
+}
+
+// Wait until the phase of parity `parity` of the local mbarrier completes.
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+template <int kPer>
 __global__ void __launch_bounds__(1024, 1)
     fps_cluster_kernel(const float* __restrict__ xyz,
                        const uint8_t* __restrict__ valid, int n, int slice,
                        int npoint, int* __restrict__ out) {
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = static_cast<int>(cluster.num_blocks());
-  const int rank = static_cast<int>(cluster.block_rank());
-  extern __shared__ float smem[];
-  float* sx = smem;
-  float* sy = sx + slice;
-  float* sz = sy + slice;
-  float* mind = sz + slice;
-  __shared__ float red_v[32];
-  __shared__ int red_i[32];
-  __shared__ int s_first;
-  __shared__ Candidate cand[2];
-  __shared__ Candidate s_best;
+  const unsigned rank = cluster.block_rank();
+  extern __shared__ float fps_smem[];  // x, y, z of the slice's slots
+  __shared__ KeyCand cand[2][32];
+  __shared__ PushSlot slots[2][kFpsMaxClusterSize];
+  __shared__ __align__(8) unsigned long long mbar[2];
+  __shared__ unsigned first_s[32];
+  __shared__ unsigned s_first;
 
+  const int tpr = blockDim.x;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int nw = tpr >> 5;
+  const int span = tpr * kPer;
   const int row = blockIdx.x / cs;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int lo = rank * slice;
-  const int cnt = max(0, min(n - lo, slice));  // this CTA's points
+  const unsigned lo = rank * slice;
+  const int cnt = max(0, min(n - static_cast<int>(lo), slice));
   const float* p = xyz + static_cast<size_t>(row) * n * 3;
   const uint8_t* v = valid ? valid + static_cast<size_t>(row) * n : nullptr;
   int* o = out + static_cast<size_t>(row) * npoint;
+  float* sx = fps_smem;
+  float* sy = sx + span;
+  float* sz = sy + span;
 
-  if (tid == 0) s_first = n;
-  __syncthreads();
-  int my_first = n;
-  for (int j = tid; j < cnt; j += blockDim.x) {
-    const int g = lo + j;
-    sx[j] = p[3 * g];
-    sy[j] = p[3 * g + 1];
-    sz[j] = p[3 * g + 2];
-    const bool ok = v == nullptr || v[g] != 0;
-    mind[j] = ok ? 1e10f : -1.0f;
-    if (ok && g < my_first) my_first = g;
+  RowPoints<kPer> pts;
+  unsigned first = pts.load(p + 3 * static_cast<size_t>(lo),
+                            v ? v + lo : nullptr, cnt, lo, sx, sy, sz, t, tpr);
+  first = __reduce_min_sync(gspn::kFullMask, first);
+  if (lane == 0) first_s[warp] = first;
+  if (t == 0) {
+    for (int b = 0; b < 2; ++b)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
+                       smem_u32(&mbar[b]))
+                   : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  if (my_first < n) atomicMin(&s_first, my_first);
-  cluster.sync();  // every CTA has started and published its first valid point
+  __syncthreads();
+  if (t == 0) {
+    unsigned f = 0xffffffffu;
+    for (int w = 0; w < nw; ++w) f = min(f, first_s[w]);
+    s_first = f;
+  }
+  // every CTA has published its first valid point and initialised its
+  // mbarriers before any peer reads the one or pushes to the others
+  cluster.sync();
 
   // the cluster-wide first valid point: the least of the CTAs' s_first
-  int first = lane < cs ? *cluster.map_shared_rank(&s_first, lane) : n;
-  for (int off = 16; off > 0; off >>= 1)
-    first = min(first, __shfl_down_sync(gspn::kFullMask, first, off));
-  first = __shfl_sync(gspn::kFullMask, first, 0);
-  first = first < n ? first : 0;
-  float cx = p[3 * first], cy = p[3 * first + 1], cz = p[3 * first + 2];
-  if (rank == 0 && tid == 0) o[0] = first;
+  first = __reduce_min_sync(
+      gspn::kFullMask,
+      lane < cs ? *cluster.map_shared_rank(&s_first, lane) : 0xffffffffu);
+  const int prev = first < static_cast<unsigned>(n) ? first : 0;
+  float cx = p[3 * prev], cy = p[3 * prev + 1], cz = p[3 * prev + 2];
+  if (rank == 0 && t == 0) o[0] = prev;
+
+  // lane r of warp 0 pushes to CTA r: its slot and mbarrier of parity 0;
+  // parity 1's lie sizeof(PushSlot) * kFpsMaxClusterSize and 8 bytes on
+  const unsigned own_bar = smem_u32(&mbar[0]);
+  unsigned dst = 0, dst_bar = 0;
+  if (warp == 0 && lane < cs) {
+    dst = cluster_addr(smem_u32(&slots[0][rank]), lane);
+    dst_bar = cluster_addr(own_bar, lane);
+  }
 
   for (int k = 1; k < npoint; ++k) {
-    float bv = -CUDART_INF_F;
-    int bi = n;
-    for (int j = tid; j < cnt; j += blockDim.x) {
-      const float d = gspn::sqdist(sx[j], sy[j], sz[j], cx, cy, cz);
-      const float m = fminf(mind[j], d);
-      mind[j] = m;
-      if (m > bv) {  // j ascends within a thread: strict > keeps the lowest
-        bv = m;
-        bi = lo + j;
-      }
-    }
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_down_sync(gspn::kFullMask, bv, off);
-      const int oi = __shfl_down_sync(gspn::kFullMask, bi, off);
-      argmax_merge(bv, bi, ov, oi);
-    }
-    if (lane == 0) {
-      red_v[warp] = bv;
-      red_i[warp] = bi;
-    }
-    __syncthreads();
-    Candidate* slot = &cand[k & 1];
-    if (warp == 0) {
-      bv = lane < nwarps ? red_v[lane] : -CUDART_INF_F;
-      bi = lane < nwarps ? red_i[lane] : n;
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_down_sync(gspn::kFullMask, bv, off);
-        const int oi = __shfl_down_sync(gspn::kFullMask, bi, off);
-        argmax_merge(bv, bi, ov, oi);
-      }
-      if (lane == 0) {
-        const int l = bi < n ? bi - lo : 0;
-        *slot = Candidate{bv, bi, sx[l], sy[l], sz[l]};
-      }
-    }
-    cluster.sync();  // every CTA's candidate of pick k is in its slot
-    if (warp == 0) {
-      const Candidate best = merge_cluster(cluster, slot, cs, n, lane);
-      if (lane == 0) {
-        s_best = best;
-        if (rank == 0) o[k] = best.i;
-      }
-    }
-    __syncthreads();
-    cx = s_best.x;
-    cy = s_best.y;
-    cz = s_best.z;
+    const int b = k & 1;
+    if (t == 0)
+      asm volatile(
+          "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+              own_bar + 8 * b),
+          "r"(kPushBytes * cs)
+          : "memory");
+    const KeyCand c =
+        block_argmax(pts.update(sx, sy, sz, t, tpr, cx, cy, cz, lo), cand[b],
+                     nw, warp, lane, 1, tpr);
+    if (warp == 0 && lane < cs)
+      push(dst + b * sizeof(PushSlot) * kFpsMaxClusterSize, dst_bar + 8 * b,
+           c);
+    // mbarrier b's (k - 1) / 2-th phase: pick k's cs candidates
+    mbar_wait(own_bar + 8 * b, ((k - 1) >> 1) & 1);
+    const KeyCand best = warp_argmax(
+        lane < cs ? KeyCand{slots[b][lane].key, slots[b][lane].idx,
+                            slots[b][lane].x, slots[b][lane].y,
+                            slots[b][lane].z}
+                  : no_cand());
+    if (rank == 0 && t == 0) o[k] = static_cast<int>(best.idx);
+    cx = best.x;
+    cy = best.y;
+    cz = best.z;
   }
-  cluster.sync();  // no CTA exits while another may still read its slots
+  cluster.sync();  // no CTA exits while a peer may still push to it
 }
 
 }  // namespace
@@ -408,36 +471,73 @@ extern "C" int gspn_fps(const float* xyz, const uint8_t* valid, int rows, int n,
 
 namespace {
 
-// Shared memory a cluster CTA needs for a slice of `slice` points, and the
-// launch configuration of a cluster of `cs` CTAs per row (the attributes
-// for the slice's dynamic shared memory and, above 8, a non-portable
-// cluster size are set first).
-cudaError_t cluster_config(int rows, int n, int cs, cudaStream_t stream,
-                           cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
-                           int* slice) {
-  *slice = (n + cs - 1) / cs;
-  const size_t smem = static_cast<size_t>(*slice) * 4 * sizeof(float);
+// Launch fps_cluster_kernel<kPer> over rows of n points, a cluster of cs
+// CTAs a row, each of ceil(ceil(n / cs) / kPer) threads rounded up to a
+// warp; or, when max_clusters is not null, only ask how many such clusters
+// can be resident at once (0: the cluster cannot run).
+template <int kPer>
+cudaError_t cluster_launch(const float* xyz, const uint8_t* valid, int rows,
+                           int n, int npoint, int cs, int* out,
+                           cudaStream_t stream, int* max_clusters) {
+  const int slice = (n + cs - 1) / cs;
+  const int threads = ((slice + kPer - 1) / kPer + 31) / 32 * 32;
+  const size_t smem =
+      static_cast<size_t>(threads) * kPer * 3 * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      fps_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fps_cluster_kernel<kPer>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   if (cs > 8) {
-    err = cudaFuncSetAttribute(fps_cluster_kernel,
-                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    err = cudaFuncSetAttribute(fps_cluster_kernel<kPer>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
     if (err != cudaSuccess) return err;
   }
-  *cfg = cudaLaunchConfig_t{};
-  cfg->gridDim = dim3(static_cast<unsigned>(rows * cs));
-  cfg->blockDim = dim3(1024);
-  cfg->dynamicSmemBytes = smem;
-  cfg->stream = stream;
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(static_cast<unsigned>(rows * cs));
+  cfg.blockDim = dim3(static_cast<unsigned>(threads));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = static_cast<unsigned>(cs);
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
-  cfg->attrs = attr;
-  cfg->numAttrs = 1;
-  return cudaSuccess;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (max_clusters)
+    return cudaOccupancyMaxActiveClusters(max_clusters,
+                                          fps_cluster_kernel<kPer>, &cfg);
+  err = cudaLaunchKernelEx(&cfg, fps_cluster_kernel<kPer>, xyz, valid, n,
+                           slice, npoint, out);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// cluster_launch at the points a thread that fit a slice of
+// ceil(n / cs) points in 1024 threads: the least power of two.
+cudaError_t cluster_dispatch(const float* xyz, const uint8_t* valid, int rows,
+                             int n, int npoint, int cs, int* out,
+                             cudaStream_t stream, int* max_clusters) {
+  if (cs < 2 || cs > kFpsMaxClusterSize || (cs & (cs - 1)) != 0 || n < 1)
+    return cudaErrorInvalidValue;
+  const int slice = (n + cs - 1) / cs;
+  if (slice <= 1024)
+    return cluster_launch<1>(xyz, valid, rows, n, npoint, cs, out, stream,
+                             max_clusters);
+  if (slice <= 2048)
+    return cluster_launch<2>(xyz, valid, rows, n, npoint, cs, out, stream,
+                             max_clusters);
+  if (slice <= 4096)
+    return cluster_launch<4>(xyz, valid, rows, n, npoint, cs, out, stream,
+                             max_clusters);
+  if (slice <= 8192)
+    return cluster_launch<8>(xyz, valid, rows, n, npoint, cs, out, stream,
+                             max_clusters);
+  if (slice <= 16384)
+    return cluster_launch<16>(xyz, valid, rows, n, npoint, cs, out, stream,
+                              max_clusters);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -445,27 +545,14 @@ cudaError_t cluster_config(int rows, int n, int cs, cudaStream_t stream,
 // How many clusters of `cs` CTAs, each holding a slice of a row of `n`
 // points, can be resident at once (0: the cluster cannot run).
 extern "C" int gspn_fps_cluster_occupancy(int n, int cs, int* max_clusters) {
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr[1];
-  int slice = 0;
-  cudaError_t err = cluster_config(1, n, cs, nullptr, &cfg, attr, &slice);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(
-      cudaOccupancyMaxActiveClusters(max_clusters, fps_cluster_kernel, &cfg));
+  *max_clusters = 0;
+  return static_cast<int>(cluster_dispatch(nullptr, nullptr, 1, n, 1, cs,
+                                           nullptr, nullptr, max_clusters));
 }
 
 extern "C" int gspn_fps_cluster(const float* xyz, const uint8_t* valid, int rows,
                                 int n, int npoint, int cs, int* out,
                                 cudaStream_t stream) {
-  if (cs < 2 || cs > 16 || (cs & (cs - 1)) != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr[1];
-  int slice = 0;
-  cudaError_t err = cluster_config(rows, n, cs, stream, &cfg, attr, &slice);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaLaunchKernelEx(&cfg, fps_cluster_kernel, xyz, valid, n, slice,
-                           npoint, out);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cluster_dispatch(xyz, valid, rows, n, npoint, cs,
+                                           out, stream, nullptr));
 }

@@ -1,7 +1,9 @@
 // First-K grouping over a scene staged through shared memory, shared by the
 // first-K ball group (ball_group.cu) and the first-S box group
-// (box_group.cu). A predicate type says what a hit is and where the local
-// frame's origin lies:
+// (box_group.cu); its predicates, scene staging (SceneTiles,
+// for_each_tile) and padding (write_padding) also serve the strided groups
+// (group_strided.cuh). A predicate type says what a hit is and where the
+// local frame's origin lies:
 //   Ball<kScales>: up to kMaxScales concentric balls about a centre (query
 //     (B, M, 3)), hit in scale s when d2 < r2[s] strictly, d2 by
 //     gspn::sqdist in the plain order, one distance for every scale;
@@ -61,16 +63,17 @@ constexpr int kTargetWarps = 4096; // ~32 resident warps on each of 132 SMs
 constexpr int kMinWarpPoints = 512; // a split warp's share of the scene
 constexpr int kTileGroups = kTile / 32;
 
-// dynamic shared memory, in this order
+// dynamic shared memory, in this order: the staged scene (SceneTiles),
+// then each kernel's own
 constexpr size_t kRawXyzBytes = 2 * kTile * 3 * sizeof(float);
 constexpr size_t kRawValidBytes = 2 * kTile;
 constexpr size_t kPointBytes = kTile * sizeof(float4);
+constexpr size_t kStagingBytes = kRawXyzBytes + kRawValidBytes + kPointBytes;
 constexpr size_t kBallotBytes =
     (kCtaWarps / 2) * kMaxScales * kTileGroups * sizeof(unsigned);
 constexpr size_t kWarpCountBytes = kCtaWarps * kMaxScales * sizeof(int);
-constexpr size_t kGroupFirstSmemBytes = kRawXyzBytes + kRawValidBytes +
-                                        kPointBytes + kBallotBytes +
-                                        kWarpCountBytes;
+constexpr size_t kGroupFirstSmemBytes =
+    kStagingBytes + kBallotBytes + kWarpCountBytes;
 
 // kScales concentric balls about a centre; one distance for every scale.
 template <int kScales_>
@@ -160,6 +163,128 @@ __device__ __forceinline__ bool all_full(const int* cnt, const GroupOut& out) {
   return full;
 }
 
+// A scene staged through shared memory tile by tile: the raw (x, y, z)
+// floats and validity bytes of tile t+1 copied (cp.async where `async`,
+// else plain loads) while tile t is read, each tile turned once into float4
+// points whose x is NaN where the point is invalid, NaN points padding it
+// to whole steps (32 * kGroups points), so scans load unguarded.
+struct SceneTiles {
+  float* raw_xyz;      // two buffers of kTile rows
+  uint8_t* raw_valid;  // two buffers of kTile bytes
+  float4* pts4;        // the current tile
+  const float* pts;    // the scene in device memory
+  const uint8_t* v;    // its validity, or null
+  int n;
+  int async;  // rows 16-byte aligned for cp.async
+
+  __device__ SceneTiles(unsigned char* smem, const float* pts_,
+                        const uint8_t* v_, int n_, int async_)
+      : raw_xyz(reinterpret_cast<float*>(smem)),
+        raw_valid(smem + kRawXyzBytes),
+        pts4(reinterpret_cast<float4*>(smem + kRawXyzBytes + kRawValidBytes)),
+        pts(pts_),
+        v(v_),
+        n(n_),
+        async(async_) {}
+
+  // issue the copies of the tile at t0 into buffer buf
+  __device__ __forceinline__ void stage(int buf, int t0) const {
+    const int tn = min(kTile, n - t0);
+    float* dx = raw_xyz + buf * kTile * 3;
+    uint8_t* dv = raw_valid + buf * kTile;
+    if (async) {  // tn * 3 and (with validity) tn are multiples of 16 B
+      for (int c = threadIdx.x; c < tn * 3 / 4; c += blockDim.x)
+        cp_async16(dx + 4 * c, pts + 3 * static_cast<size_t>(t0) + 4 * c);
+      if (v)
+        for (int c = threadIdx.x; c < tn / 16; c += blockDim.x)
+          cp_async16(dv + 16 * c, v + t0 + 16 * c);
+    } else {
+      for (int i = threadIdx.x; i < tn * 3; i += blockDim.x)
+        dx[i] = pts[3 * static_cast<size_t>(t0) + i];
+      if (v)
+        for (int i = threadIdx.x; i < tn; i += blockDim.x) dv[i] = v[t0 + i];
+    }
+  }
+
+  // buffer buf, a tile of tn points, as float4 points in pts4
+  __device__ __forceinline__ void convert(int buf, int tn) const {
+    constexpr int kStep = 32 * kGroups;
+    const int tn_pad = (tn + kStep - 1) / kStep * kStep;
+    for (int i = threadIdx.x; i < tn_pad; i += blockDim.x) {
+      const float* r = raw_xyz + buf * kTile * 3 + 3 * i;
+      const bool ok =
+          i < tn && (v == nullptr || raw_valid[buf * kTile + i] != 0);
+      pts4[i] = i < tn ? make_float4(ok ? r[0] : CUDART_NAN_F, r[1], r[2], 0.f)
+                       : make_float4(CUDART_NAN_F, 0.f, 0.f, 0.f);
+    }
+  }
+};
+
+// Every thread of the CTA calls it: the scene's tiles in order, each in
+// pts4 while scan(t0, tn) reads it (tile t+1's copies in flight); stops
+// after the first tile for which every thread's scan returned true.
+template <class Scan>
+__device__ __forceinline__ void for_each_tile(const SceneTiles& st,
+                                              Scan&& scan) {
+  const int ntiles = (st.n + kTile - 1) / kTile;
+  st.stage(0, 0);
+  cp_async_commit();
+  for (int t = 0; t < ntiles; ++t) {
+    const int buf = t & 1;
+    const int t0 = t * kTile;
+    const int tn = min(kTile, st.n - t0);
+    if (t + 1 < ntiles) st.stage(buf ^ 1, t0 + kTile);
+    cp_async_commit();
+    cp_async_wait<1>();  // this thread's copies of tile t have landed
+    __syncthreads();     // everyone's have
+    st.convert(buf, tn);
+    __syncthreads();
+    // the barrier also keeps tile t's buffers until every warp is past them
+    if (__syncthreads_and(scan(t0, tn))) break;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// The tail of a query's row in each scale: slots from min(hits, K) on
+// repeat the first hit (first[s], recorded by put_hit); an empty row takes
+// index 0 and point 0 minus the origin. The query's `split` warps share
+// the slots; its part 0 writes the capped count.
+template <int kScales>
+__device__ __forceinline__ void write_padding(const GroupOut& out, int q,
+                                              const int* hits,
+                                              const FirstHit* first,
+                                              const float* pts, float ox,
+                                              float oy, float oz, int part,
+                                              int split, int lane) {
+#pragma unroll
+  for (int s = 0; s < kScales; ++s) {
+    const int k = out.k[s];
+    const int c = hits[s] < k ? hits[s] : k;
+    const size_t o0 = static_cast<size_t>(q) * k;
+    int fill = 0;
+    float fx, fy, fz;
+    if (c > 0) {
+      fill = first[s].idx;
+      fx = first[s].x;
+      fy = first[s].y;
+      fz = first[s].z;
+    } else {
+      fx = __fsub_rn(pts[0], ox);
+      fy = __fsub_rn(pts[1], oy);
+      fz = __fsub_rn(pts[2], oz);
+    }
+    for (int slot = c + part * 32 + lane; slot < k; slot += 32 * split) {
+      const size_t o = o0 + slot;
+      out.idx[s][o] = fill;
+      out.local[s][3 * o] = fx;
+      out.local[s][3 * o + 1] = fy;
+      out.local[s][3 * o + 2] = fz;
+    }
+    if (part == 0 && lane == 0) out.cnt[s][q] = c;
+  }
+}
+
 // grid: nb * ctas_per_scene CTAs of kCtaWarps warps (kDirectWarps when
 // `direct`); CTA c serves scene c / ctas_per_scene, queries from
 // (c % ctas_per_scene) * (warps / split), `split` warps each. `async`: the
@@ -175,14 +300,9 @@ __global__ void __launch_bounds__(kCtaWarps * 32)
                        GroupOut out) {
   constexpr int kScales = Pred::kScales;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* raw_xyz = reinterpret_cast<float*>(smem);
-  uint8_t* raw_valid = smem + kRawXyzBytes;
-  float4* pts4 =
-      reinterpret_cast<float4*>(smem + kRawXyzBytes + kRawValidBytes);
-  unsigned* ballots = reinterpret_cast<unsigned*>(
-      smem + kRawXyzBytes + kRawValidBytes + kPointBytes);
-  int* warp_cnt = reinterpret_cast<int*>(smem + kRawXyzBytes + kRawValidBytes +
-                                         kPointBytes + kBallotBytes);
+  unsigned* ballots = reinterpret_cast<unsigned*>(smem + kStagingBytes);
+  int* warp_cnt =
+      reinterpret_cast<int*>(smem + kStagingBytes + kBallotBytes);
   __shared__ FirstHit first_hits[kCtaWarps * kMaxScales];
 
   const int b = blockIdx.x / ctas_per_scene;
@@ -207,24 +327,6 @@ __global__ void __launch_bounds__(kCtaWarps * 32)
 #pragma unroll
   for (int s = 0; s < kMaxScales; ++s) cnt[s] = 0;
   bool done = !has_q;
-
-  auto stage = [&](int buf, int t0) {
-    const int tn = min(kTile, n - t0);
-    float* dx = raw_xyz + buf * kTile * 3;
-    uint8_t* dv = raw_valid + buf * kTile;
-    if (async) {  // tn * 3 and (with validity) tn are multiples of 16 B
-      for (int c = threadIdx.x; c < tn * 3 / 4; c += blockDim.x)
-        cp_async16(dx + 4 * c, pts + 3 * static_cast<size_t>(t0) + 4 * c);
-      if (v)
-        for (int c = threadIdx.x; c < tn / 16; c += blockDim.x)
-          cp_async16(dv + 16 * c, v + t0 + 16 * c);
-    } else {
-      for (int i = threadIdx.x; i < tn * 3; i += blockDim.x)
-        dx[i] = pts[3 * static_cast<size_t>(t0) + i];
-      if (v)
-        for (int i = threadIdx.x; i < tn; i += blockDim.x) dv[i] = v[t0 + i];
-    }
-  };
 
   // one warp a query: test kGroups points a lane (j0 + 32 g + lane, NaN x
   // where invalid or past the scene) and rank every hit as it is found
@@ -275,30 +377,9 @@ __global__ void __launch_bounds__(kCtaWarps * 32)
     }
     __syncwarp();  // the warp's FirstHit records
   } else {
-    const int ntiles = (n + kTile - 1) / kTile;
-    stage(0, 0);
-    cp_async_commit();
-    for (int t = 0; t < ntiles; ++t) {
-      const int buf = t & 1;
-      const int t0 = t * kTile;
-      const int tn = min(kTile, n - t0);
-      if (t + 1 < ntiles) stage(buf ^ 1, t0 + kTile);
-      cp_async_commit();
-      cp_async_wait<1>();  // this thread's copies of tile t have landed
-      __syncthreads();     // everyone's have
-      // NaN points pad the tile to whole steps: the scans load unguarded
-      constexpr int kStep = 32 * kGroups;
-      const int tn_pad = (tn + kStep - 1) / kStep * kStep;
-      for (int i = threadIdx.x; i < tn_pad; i += blockDim.x) {
-        const float* r = raw_xyz + buf * kTile * 3 + 3 * i;
-        const bool ok =
-            i < tn && (v == nullptr || raw_valid[buf * kTile + i] != 0);
-        pts4[i] = i < tn
-                      ? make_float4(ok ? r[0] : CUDART_NAN_F, r[1], r[2], 0.f)
-                      : make_float4(CUDART_NAN_F, 0.f, 0.f, 0.f);
-      }
-      __syncthreads();
-
+    const SceneTiles st(smem, pts, v, n, async);
+    const float4* pts4 = st.pts4;
+    for_each_tile(st, [&](int t0, int tn) {
       if (split == 1) {
         for (int base = 0; base < tn && !done; base += 32 * kGroups) {
           float4 p[kGroups];
@@ -306,107 +387,78 @@ __global__ void __launch_bounds__(kCtaWarps * 32)
           for (int g = 0; g < kGroups; ++g) p[g] = pts4[base + 32 * g + lane];
           first_k_step(p, t0 + base);
         }
-      } else {
-        // `split` warps a query: count, prefix over the warps, then rank
-        const int lo = part * range;  // this warp's points of the tile
-        unsigned* bal_q = ballots + slot_q * kMaxScales * kTileGroups;
-        int mine[kMaxScales];
+        return done;
+      }
+      // `split` warps a query: count, prefix over the warps, then rank
+      const int lo = part * range;  // this warp's points of the tile
+      unsigned* bal_q = ballots + slot_q * kMaxScales * kTileGroups;
+      int mine[kMaxScales];
 #pragma unroll
-        for (int s = 0; s < kMaxScales; ++s) mine[s] = 0;
-        if (!done) {
-          for (int base = lo; base < lo + range && base < tn;
-               base += 32 * kGroups) {
-            bool hit[kGroups][kScales];
+      for (int s = 0; s < kMaxScales; ++s) mine[s] = 0;
+      if (!done) {
+        for (int base = lo; base < lo + range && base < tn;
+             base += 32 * kGroups) {
+          bool hit[kGroups][kScales];
 #pragma unroll
-            for (int g = 0; g < kGroups; ++g)
-              pred.test(pts4[base + 32 * g + lane], out, hit[g]);
+          for (int g = 0; g < kGroups; ++g)
+            pred.test(pts4[base + 32 * g + lane], out, hit[g]);
 #pragma unroll
-            for (int g = 0; g < kGroups; ++g) {
-#pragma unroll
-              for (int s = 0; s < kScales; ++s) {
-                const unsigned bal = __ballot_sync(kFullMask, hit[g][s]);
-                if (lane == 0) bal_q[s * kTileGroups + base / 32 + g] = bal;
-                mine[s] += __popc(bal);
-              }
-            }
-          }
-          if (lane == 0) {
-#pragma unroll
-            for (int s = 0; s < kMaxScales; ++s)
-              warp_cnt[warp * kMaxScales + s] = mine[s];
-          }
-        }
-        __syncthreads();
-        if (!done) {
-          int rank0[kMaxScales];  // rank of this warp's first hit
-          int total[kMaxScales];  // the query's hits in this tile
-          bool write = false;
-#pragma unroll
-          for (int s = 0; s < kScales; ++s) {
-            rank0[s] = cnt[s];
-            total[s] = 0;
-            for (int w = 0; w < split; ++w) {
-              const int c = warp_cnt[(slot_q * split + w) * kMaxScales + s];
-              if (w < part) rank0[s] += c;
-              total[s] += c;
-            }
-            if (mine[s] > 0 && rank0[s] < out.k[s]) write = true;
-          }
-          for (int base = lo; write && base < lo + range && base < tn;
-               base += 32) {
-            const int g = base / 32;
-            const int i = base + lane;
+          for (int g = 0; g < kGroups; ++g) {
 #pragma unroll
             for (int s = 0; s < kScales; ++s) {
-              const unsigned bal = bal_q[s * kTileGroups + g];
-              if (bal == 0 || rank0[s] >= out.k[s]) continue;
-              const int rank = rank0[s] + __popc(bal & below);
-              if (((bal >> lane) & 1u) && rank < out.k[s])
-                put_hit(out, s, q, rank, t0 + i, pts4[i], ox, oy, oz, first);
-              rank0[s] += __popc(bal);
+              const unsigned bal = __ballot_sync(kFullMask, hit[g][s]);
+              if (lane == 0) bal_q[s * kTileGroups + base / 32 + g] = bal;
+              mine[s] += __popc(bal);
             }
           }
+        }
+        if (lane == 0) {
 #pragma unroll
-          for (int s = 0; s < kScales; ++s) cnt[s] += total[s];
-          done = all_full<kScales>(cnt, out);
+          for (int s = 0; s < kMaxScales; ++s)
+            warp_cnt[warp * kMaxScales + s] = mine[s];
         }
       }
-      // every query full: load no further tile. The barrier also keeps
-      // tile t's buffers until every warp is past them.
-      if (__syncthreads_and(done)) break;
-    }
-    cp_async_wait<0>();
-    __syncthreads();  // every query's FirstHit records are written
+      __syncthreads();
+      if (!done) {
+        int rank0[kMaxScales];  // rank of this warp's first hit
+        int total[kMaxScales];  // the query's hits in this tile
+        bool write = false;
+#pragma unroll
+        for (int s = 0; s < kScales; ++s) {
+          rank0[s] = cnt[s];
+          total[s] = 0;
+          for (int w = 0; w < split; ++w) {
+            const int c = warp_cnt[(slot_q * split + w) * kMaxScales + s];
+            if (w < part) rank0[s] += c;
+            total[s] += c;
+          }
+          if (mine[s] > 0 && rank0[s] < out.k[s]) write = true;
+        }
+        for (int base = lo; write && base < lo + range && base < tn;
+             base += 32) {
+          const int g = base / 32;
+          const int i = base + lane;
+#pragma unroll
+          for (int s = 0; s < kScales; ++s) {
+            const unsigned bal = bal_q[s * kTileGroups + g];
+            if (bal == 0 || rank0[s] >= out.k[s]) continue;
+            const int rank = rank0[s] + __popc(bal & below);
+            if (((bal >> lane) & 1u) && rank < out.k[s])
+              put_hit(out, s, q, rank, t0 + i, pts4[i], ox, oy, oz, first);
+            rank0[s] += __popc(bal);
+          }
+        }
+#pragma unroll
+        for (int s = 0; s < kScales; ++s) cnt[s] += total[s];
+        done = all_full<kScales>(cnt, out);
+      }
+      return done;  // every query full: load no further tile
+    });
   }
 
   if (!has_q) return;
-#pragma unroll
-  for (int s = 0; s < kScales; ++s) {
-    const int k = out.k[s];
-    const int c = cnt[s] < k ? cnt[s] : k;
-    const size_t o0 = static_cast<size_t>(q) * k;
-    // padding repeats the first hit; an empty row takes point 0
-    int fill = 0;
-    float fx, fy, fz;
-    if (c > 0) {
-      fill = first[s].idx;
-      fx = first[s].x;
-      fy = first[s].y;
-      fz = first[s].z;
-    } else {
-      fx = __fsub_rn(pts[0], ox);
-      fy = __fsub_rn(pts[1], oy);
-      fz = __fsub_rn(pts[2], oz);
-    }
-    for (int slot = c + part * 32 + lane; slot < k; slot += 32 * split) {
-      const size_t o = o0 + slot;
-      out.idx[s][o] = fill;
-      out.local[s][3 * o] = fx;
-      out.local[s][3 * o + 1] = fy;
-      out.local[s][3 * o + 2] = fz;
-    }
-    if (part == 0 && lane == 0) out.cnt[s][q] = c;
-  }
+  write_padding<kScales>(out, q, cnt, first, pts, ox, oy, oz, part, split,
+                         lane);
 }
 
 // Warps a query (1, 2, 4, 8 or 16) for nq queries over n points a scene:

@@ -1,13 +1,13 @@
-// Grouping scan shared by the strided ball and box groups and the ball
-// queries: first-K or strided selection, with or without local coordinates.
-// (The first-K ball group and the first-S box group run group_first.cuh.)
+// The ball queries' scan (first-K or strided selection, indices and
+// counts only; ball_query.cu), and the output record of every grouping
+// kernel (GroupOut). The ball and box groups run group_first.cuh and
+// group_strided.cuh.
 //
-// One warp per query (a ball centre, or an RoI box). The warp scans the
-// scene's points in index order, 32 at a time; lane l tests point base+l.
-// Per scale, __ballot_sync collects the hits of the 32 points and each
-// hitting lane takes rank cnt + popc(ballot & lanes below it), so ranks
-// follow ascending index order: exactly the reference's serial first-come
-// scan.
+// One warp per query (a ball centre). The warp scans the scene's points in
+// index order, 32 at a time; lane l tests point base+l. Per scale,
+// __ballot_sync collects the hits of the 32 points and each hitting lane
+// takes rank cnt + popc(ballot & lanes below it), so ranks follow
+// ascending index order: exactly the reference's serial first-come scan.
 //
 // First-K (kStrided=false): rank r < K fills slot r. The scan stops once
 // every scale holds K hits (the counterpart of the CUDA reference's
@@ -25,11 +25,9 @@
 // bits; it equals the JAX package's int32 arithmetic wherever that does not
 // overflow (N <= 65,536 with K <= 256 does not).
 //
-// A slot gets the point's index and, with kCoords, its coordinates minus
-// the query's origin. Afterwards slots past the capped count repeat the
-// first hit (replicate-first padding; in strided mode rank 0 is always
-// slot 0); an empty row gets index 0 and point 0's coordinates minus the
-// origin.
+// A slot gets the point's index. Afterwards slots past the capped count
+// repeat the first hit (replicate-first padding; in strided mode rank 0 is
+// always slot 0); an empty row gets index 0.
 //
 // What bounds it on the card: reading the scene. A first-K query that finds
 // K hits early reads only a prefix; one whose ball is sparse, and every
@@ -37,9 +35,8 @@
 // validity bytes), strided twice. The hit tests and slot arithmetic are a
 // few instructions per point. All queries of a scene read the same points,
 // so those reads hit L2 (a 65,536-point scene is 0.8 MB) rather than device
-// memory. With one warp per query a strided launch over few queries (64
-// GSPN seeds per scene) holds few warps per SM; splitting one query's scan
-// across warps is later work.
+// memory. With one warp per query a launch over few queries (64 GSPN seeds
+// per scene) holds few warps per SM.
 
 #pragma once
 
@@ -55,7 +52,7 @@ struct GroupOut {
   float r2[kMaxScales];
   int* idx[kMaxScales];    // (B, M, k) int32
   int* cnt[kMaxScales];    // (B, M) int32, capped at k
-  float* local[kMaxScales];  // (B, M, k, 3) f32; unused without kCoords
+  float* local[kMaxScales];  // (B, M, k, 3) f32; the ball and box groups'
 };
 
 // The slot of the hit of rank r under strided selection, or -1 when that
@@ -67,11 +64,9 @@ __device__ __forceinline__ int strided_slot(int r, int total, int k) {
   return (j * total < rk + k && j < k) ? static_cast<int>(j) : -1;
 }
 
-// kBox=false: query = (B, M, 3) ball centres, hit = d2 < r2[s] (strict),
-//             origin = the centre.
-// kBox=true:  query = (B, M, 6) boxes [lo, hi], hit = lo <= p <= hi
-//             (inclusive, one scale), origin = (lo + hi) * 0.5.
-template <bool kBox, bool kStrided, bool kCoords>
+// query = (B, M, 3) ball centres, hit = d2 < r2[s] (strict); writes (idx,
+// cnt) per scale.
+template <bool kStrided>
 __global__ void group_scan_kernel(const float* __restrict__ xyz,
                                   const uint8_t* __restrict__ valid,
                                   const float* __restrict__ query, int nb,
@@ -82,21 +77,8 @@ __global__ void group_scan_kernel(const float* __restrict__ xyz,
   const int b = q / m;
   const float* pts = xyz + static_cast<size_t>(b) * n * 3;
   const uint8_t* v = valid ? valid + static_cast<size_t>(b) * n : nullptr;
-
-  float ox, oy, oz;                  // origin of the local frame
-  float lx = 0, ly = 0, lz = 0;      // box lo
-  float hx = 0, hy = 0, hz = 0;      // box hi
-  if (kBox) {
-    const float* bx = query + static_cast<size_t>(q) * 6;
-    lx = bx[0]; ly = bx[1]; lz = bx[2];
-    hx = bx[3]; hy = bx[4]; hz = bx[5];
-    ox = __fmul_rn(__fadd_rn(lx, hx), 0.5f);
-    oy = __fmul_rn(__fadd_rn(ly, hy), 0.5f);
-    oz = __fmul_rn(__fadd_rn(lz, hz), 0.5f);
-  } else {
-    const float* c = query + static_cast<size_t>(q) * 3;
-    ox = c[0]; oy = c[1]; oz = c[2];
-  }
+  const float* c = query + static_cast<size_t>(q) * 3;
+  const float ox = c[0], oy = c[1], oz = c[2];
 
   int cnt[kMaxScales];    // hits ranked so far
   int first[kMaxScales];  // index of the first hit
@@ -117,19 +99,13 @@ __global__ void group_scan_kernel(const float* __restrict__ xyz,
       bool ok = false;
       float d2 = 0;
       if (j < n) {
-        const float px = pts[3 * j], py = pts[3 * j + 1], pz = pts[3 * j + 2];
         ok = v == nullptr || v[j] != 0;
-        if (kBox)
-          ok = ok && px >= lx && px <= hx && py >= ly && py <= hy &&
-               pz >= lz && pz <= hz;
-        else
-          d2 = sqdist(ox, oy, oz, px, py, pz);
+        d2 = sqdist(ox, oy, oz, pts[3 * j], pts[3 * j + 1], pts[3 * j + 2]);
       }
 #pragma unroll
       for (int s = 0; s < kMaxScales; ++s) {
         if (s >= out.nscales) break;
-        const bool hit = kBox ? ok : (ok && d2 < out.r2[s]);
-        total[s] += __popc(__ballot_sync(kFullMask, hit));
+        total[s] += __popc(__ballot_sync(kFullMask, ok && d2 < out.r2[s]));
       }
     }
 #pragma unroll
@@ -152,41 +128,25 @@ __global__ void group_scan_kernel(const float* __restrict__ xyz,
     if (done) break;
 
     const int j = base + lane;
-    float px = 0, py = 0, pz = 0;
     bool ok = false;
-    if (j < n) {
-      px = pts[3 * j];
-      py = pts[3 * j + 1];
-      pz = pts[3 * j + 2];
-      ok = v == nullptr || v[j] != 0;
-    }
     float d2 = 0;
-    if (kBox) {
-      ok = ok && px >= lx && px <= hx && py >= ly && py <= hy && pz >= lz &&
-           pz <= hz;
-    } else {
-      d2 = sqdist(ox, oy, oz, px, py, pz);
+    if (j < n) {
+      ok = v == nullptr || v[j] != 0;
+      d2 = sqdist(ox, oy, oz, pts[3 * j], pts[3 * j + 1], pts[3 * j + 2]);
     }
 #pragma unroll
     for (int s = 0; s < kMaxScales; ++s) {
       if (s >= out.nscales) break;
-      const bool hit = kBox ? ok : (ok && d2 < out.r2[s]);
+      const bool hit = ok && d2 < out.r2[s];
       const unsigned bal = __ballot_sync(kFullMask, hit);
       if (bal == 0) continue;
-      const int c = cnt[s];
-      if (c == 0) first[s] = base + __ffs(bal) - 1;
-      const int rank = c + __popc(bal & below);
+      const int c0 = cnt[s];
+      if (c0 == 0) first[s] = base + __ffs(bal) - 1;
+      const int rank = c0 + __popc(bal & below);
       const int slot = kStrided ? strided_slot(rank, total[s], out.k[s]) : rank;
-      if (hit && slot >= 0 && slot < out.k[s]) {
-        const size_t o = static_cast<size_t>(q) * out.k[s] + slot;
-        out.idx[s][o] = j;
-        if (kCoords) {
-          out.local[s][3 * o] = __fsub_rn(px, ox);
-          out.local[s][3 * o + 1] = __fsub_rn(py, oy);
-          out.local[s][3 * o + 2] = __fsub_rn(pz, oz);
-        }
-      }
-      cnt[s] = c + __popc(bal);
+      if (hit && slot >= 0 && slot < out.k[s])
+        out.idx[s][static_cast<size_t>(q) * out.k[s] + slot] = j;
+      cnt[s] = c0 + __popc(bal);
     }
   }
 
@@ -198,26 +158,13 @@ __global__ void group_scan_kernel(const float* __restrict__ xyz,
     const int c = hits < k ? hits : k;
     // padding repeats the first hit; an empty row takes point 0
     const int fill = c > 0 ? first[s] : 0;
-    float fx = 0, fy = 0, fz = 0;
-    if (kCoords) {
-      fx = __fsub_rn(pts[3 * fill], ox);
-      fy = __fsub_rn(pts[3 * fill + 1], oy);
-      fz = __fsub_rn(pts[3 * fill + 2], oz);
-    }
-    for (int slot = c + lane; slot < k; slot += 32) {
-      const size_t o = static_cast<size_t>(q) * k + slot;
-      out.idx[s][o] = fill;
-      if (kCoords) {
-        out.local[s][3 * o] = fx;
-        out.local[s][3 * o + 1] = fy;
-        out.local[s][3 * o + 2] = fz;
-      }
-    }
+    for (int slot = c + lane; slot < k; slot += 32)
+      out.idx[s][static_cast<size_t>(q) * k + slot] = fill;
     if (lane == 0) out.cnt[s][q] = c;
   }
 }
 
-template <bool kBox, bool kStrided, bool kCoords>
+template <bool kStrided>
 int launch_group_scan(const float* xyz, const uint8_t* valid,
                       const float* query, int nb, int n, int m,
                       const GroupOut& out, cudaStream_t stream) {
@@ -226,9 +173,8 @@ int launch_group_scan(const float* xyz, const uint8_t* valid,
   const int blocks =
       static_cast<int>((warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
   if (blocks > 0)
-    group_scan_kernel<kBox, kStrided, kCoords>
-        <<<blocks, 32 * kWarpsPerBlock, 0, stream>>>(xyz, valid, query, nb,
-                                                      n, m, out);
+    group_scan_kernel<kStrided><<<blocks, 32 * kWarpsPerBlock, 0, stream>>>(
+        xyz, valid, query, nb, n, m, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -34,7 +34,7 @@ SOURCES = (
     "fps.cu", "ball_group.cu", "box_group.cu", "ball_query.cu", "three_nn.cu",
     "interp_mm.cu", "mask_project.cu", "nms.cu", "chamfer.cu", "index_add.cu",
 )
-HEADERS = ("common.cuh", "group_scan.cuh", "group_first.cuh")
+HEADERS = ("common.cuh", "group_scan.cuh", "group_first.cuh", "group_strided.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -168,8 +168,11 @@ KERNELS: dict[str, CudaKernel] = {
         ),
         CudaKernel(
             "ball_group_strided", "ball_group.cu", "gspn_ball_group_strided",
-            # as ball_group, without split
-            (_ptr, _ptr, _ptr, _int, _int, _int, _int, _ptr, _ptr, _ptr, _ptr, _ptr),
+            # as ball_group, then direct (a warp a query, no staging) and
+            # ballots (scratch words, or null for shared memory); split,
+            # direct and ballots from ball_query.strided_plan
+            (_ptr, _ptr, _ptr, _int, _int, _int, _int, _ptr, _ptr, _ptr, _ptr, _ptr, _int, _int,
+             _ptr),
             "gspn_tpu/ops/ball_group.py:318 _fused_kernel_strided",
         ),
         CudaKernel(
@@ -181,8 +184,8 @@ KERNELS: dict[str, CudaKernel] = {
         ),
         CudaKernel(
             "box_group_strided", "box_group.cu", "gspn_box_group_strided",
-            # as box_group, without split
-            (_ptr, _ptr, _ptr, _int, _int, _int, _int, _ptr, _ptr, _ptr),
+            # as box_group, then direct and ballots, as ball_group_strided's
+            (_ptr, _ptr, _ptr, _int, _int, _int, _int, _ptr, _ptr, _ptr, _int, _int, _ptr),
             "gspn_tpu/ops/ball_group.py:318 _fused_kernel_strided (pred=\"box\")",
         ),
         CudaKernel(

@@ -4,16 +4,18 @@ Counterpart of ``gspn_tpu/ops/ball_group.py::query_ball_group_multi``. The
 CUDA routes are ``csrc/ball_group.cu``: ``select="first"`` (the scene
 staged through shared memory in tiles for a CTA of queries, one shared
 distance for all concentric scales, a query's scan split over several
-warps when queries are few, early exit) and ``select="strided"`` (one warp
-per query: a count pass over the whole scene, then the hits of rank
-``floor(j * total / K)``); the plain route is the ball query plus a
-``group_point`` gather.
+warps when queries are few, early exit) and ``select="strided"`` (the same
+staging and split, each point tested once and its ballot kept, then the
+hits of rank ``floor(j * total / K)`` read from the ballots); the plain
+route is the ball query plus a ``group_point`` gather.
 """
 
 from __future__ import annotations
 
 from gspn_tpu_torch.ops import _cuda
-from gspn_tpu_torch.ops.ball_query import ball_query_plain, ball_scan_cuda, check_select
+from gspn_tpu_torch.ops.ball_query import (
+    ball_query_plain, ball_scan_cuda, check_select, strided_plan,
+)
 from gspn_tpu_torch.ops.common import resolve_impl
 from gspn_tpu_torch.ops.grouping import group_point
 
@@ -40,7 +42,7 @@ def query_ball_group_multi(
     select = check_select(select)
     if resolve_impl(impl, xyz1) == "cuda":
         if select == "strided":
-            return ball_scan_cuda(STRIDED_KERNEL, radii, nsamples, xyz1, xyz2, valid1, True)
+            return _ball_group_strided_cuda(radii, nsamples, xyz1, xyz2, valid1)
         return _ball_group_cuda(radii, nsamples, xyz1, xyz2, valid1)
     return _ball_group_plain(radii, nsamples, xyz1, xyz2, valid1, select)
 
@@ -49,3 +51,12 @@ def _ball_group_cuda(radii, nsamples, xyz1, xyz2, valid1=None, split: int = 0):
     """The first-K kernel at the kernel's own split (warps a query), or at
     ``split`` (1, 2, 4, 8 or 16) to time one split against another."""
     return ball_scan_cuda(KERNEL, radii, nsamples, xyz1, xyz2, valid1, True, split)
+
+
+def _ball_group_strided_cuda(radii, nsamples, xyz1, xyz2, valid1=None, plan=None):
+    """The strided kernel at :func:`strided_plan`'s plan, or at ``plan`` =
+    (split, direct) to time one plan against another."""
+    split, direct, ballots = strided_plan(xyz2.shape[0] * xyz2.shape[1], len(radii),
+                                          xyz1.shape[1], xyz1.device, plan)
+    return ball_scan_cuda(STRIDED_KERNEL, radii, nsamples, xyz1, xyz2, valid1, True, split,
+                          int(direct), _cuda.ptr(ballots))

@@ -11,8 +11,9 @@ past the count repeat the first hit; an empty query gets index 0 and count
 
 ``query_ball_point(_multi)`` take ``impl="auto|cuda|plain"``: the CUDA
 route is the index-only scan ``csrc/ball_query.cu``, one kernel per
-selection; the fused ball group (``ops/ball_group.py``) shares the scan and
-:func:`ball_scan_cuda`.
+selection; the fused ball group (``ops/ball_group.py``) shares
+:func:`ball_scan_cuda`, and the strided ball and box groups share
+:func:`strided_plan`.
 """
 
 from __future__ import annotations
@@ -27,6 +28,26 @@ from gspn_tpu_torch.ops.common import f32_scalar, pairwise_sqdist, resolve_impl
 KERNEL = _cuda.KERNELS["ball_query"]
 STRIDED_KERNEL = _cuda.KERNELS["ball_query_strided"]
 MAX_SCALES = 4  # csrc/group_scan.cuh kMaxScales
+# the strided groups' kernel (csrc/group_strided.cuh): warps a CTA
+# (kCtaWarps; kDirectWarps when direct), points a tile (kTile) and a step
+# (32 * kGroups)
+STRIDED_CTA_WARPS = 16
+STRIDED_DIRECT_WARPS = 4
+STRIDED_TILE = 2048
+STRIDED_STEP = 128
+STRIDED_SPLITS = (1, 2, 4, 8, 16)
+# strided_plan's rule, fitted to every plan timed at the strided groups'
+# shapes on an H100 (PERF.md, section 6): a warp a query reading the scene
+# from device memory (direct) up to STRIDED_DIRECT_POINTS points a scene;
+# else the scene staged for a CTA, no split below a tile, then the warps a
+# query doubled while the launch stays within STRIDED_TARGET_WARPS warps
+# and each warp keeps STRIDED_MIN_WARP_POINTS of the scene. A CTA keeps its
+# ballots in shared memory up to STRIDED_SMEM_BALLOTS bytes (two staged
+# CTAs an SM), else in a scratch buffer.
+STRIDED_DIRECT_POINTS = 1024
+STRIDED_TARGET_WARPS = 2048
+STRIDED_MIN_WARP_POINTS = 512
+STRIDED_SMEM_BALLOTS = 24 * 1024
 
 
 def check_select(select: str | None) -> str:
@@ -85,6 +106,43 @@ def ball_query_plain(radius: float, nsample: int, xyz1, xyz2, valid1=None,
     if check_select(select) == "strided":
         hit = strided_target_mask(hit, nsample)
     return finalize(first_k_hits(hit, nsample), cnt, nsample)
+
+
+def strided_words(n: int) -> int:
+    """Ballot words a query and scale over ``n`` points: one bit a point,
+    in whole steps (``csrc/group_strided.cuh`` strided_words)."""
+    return -(-n // STRIDED_STEP) * (STRIDED_STEP // 32)
+
+
+def strided_split(nq: int, n: int) -> tuple[int, bool]:
+    """``(warps a query, direct)`` of the strided groups' kernel for ``nq``
+    queries over scenes of ``n`` points (see ``STRIDED_DIRECT_POINTS``)."""
+    if n <= STRIDED_DIRECT_POINTS:
+        return 1, True
+    split = 1
+    if n < STRIDED_TILE:
+        return split, False
+    while (split < STRIDED_SPLITS[-1] and nq * split * 2 <= STRIDED_TARGET_WARPS
+           and n // (split * 2) >= STRIDED_MIN_WARP_POINTS):
+        split *= 2
+    return split, False
+
+
+def strided_plan(nq: int, nscales: int, n: int, device, plan=None):
+    """``(split, direct, ballots)`` for the strided groups' kernel: warps a
+    query and direct mode (:func:`strided_split`'s, or ``plan`` = (split,
+    direct) to time one against another) and the kernel's ballot scratch,
+    an int32 ``(nq, nscales, strided_words(n))`` tensor, or None where a
+    CTA's ballots fit ``STRIDED_SMEM_BALLOTS`` of shared memory."""
+    split, direct = plan or strided_split(nq, n)
+    if split not in STRIDED_SPLITS or (direct and split != 1):
+        raise ValueError(f"a strided plan is a split in {STRIDED_SPLITS}, or direct at split 1; "
+                         f"got {(split, direct)}")
+    words = strided_words(n)
+    warps = STRIDED_DIRECT_WARPS if direct else STRIDED_CTA_WARPS
+    if warps // split * nscales * words * 4 <= STRIDED_SMEM_BALLOTS:
+        return split, direct, None
+    return split, direct, torch.empty((nq, nscales, words), dtype=torch.int32, device=device)
 
 
 def ball_scan_cuda(kernel, radii, nsamples, xyz1, xyz2, valid1, with_coords, *extra):

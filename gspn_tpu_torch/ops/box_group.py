@@ -5,7 +5,8 @@ Counterpart of ``gspn_tpu/ops/box_group.py::query_box_group``: the first
 ``select="first"``) or, once a box holds ``total > s`` points, those of
 rank ``floor(j * total / s)`` (``select="strided"``); replicate-first
 padding, count capped at ``s``, empty rows read index 0; coordinates
-relative to the box centre. The CUDA routes are ``csrc/box_group.cu``.
+relative to the box centre. The CUDA routes are ``csrc/box_group.cu``
+(first-S, and strided at ``ball_query.strided_plan``'s plan).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from gspn_tpu_torch.ops.ball_query import (
     check_select,
     finalize,
     first_k_hits,
+    strided_plan,
     strided_target_mask,
 )
 from gspn_tpu_torch.ops.common import resolve_impl
@@ -50,7 +52,8 @@ def _box_group_plain(boxes, s, xyz1, valid1, select):
 
 def _box_group_cuda(kernel, boxes, s, xyz1, valid1, *extra):
     """Launch ``kernel``; ``extra``: the first-S kernel's split (warps a
-    box, 0 for the kernel's rule)."""
+    box, 0 for the kernel's rule), or the strided kernel's split, direct
+    flag and ballots (:func:`_box_group_strided_cuda`)."""
     b, n, _ = xyz1.shape
     r = boxes.shape[1]
     xyz1 = xyz1.contiguous()
@@ -81,6 +84,15 @@ def query_box_group(boxes, s: int, xyz1, valid1=None, *, impl: str = "auto", sel
     select = check_select(select)
     if resolve_impl(impl, xyz1) == "cuda":
         if select == "strided":
-            return _box_group_cuda(STRIDED_KERNEL, boxes, s, xyz1, valid1)
+            return _box_group_strided_cuda(boxes, s, xyz1, valid1)
         return _box_group_cuda(KERNEL, boxes, s, xyz1, valid1, 0)
     return _box_group_plain(boxes, s, xyz1, valid1, select)
+
+
+def _box_group_strided_cuda(boxes, s, xyz1, valid1=None, plan=None):
+    """The strided kernel at :func:`strided_plan`'s plan, or at ``plan`` =
+    (split, direct) to time one plan against another."""
+    split, direct, ballots = strided_plan(boxes.shape[0] * boxes.shape[1], 1, xyz1.shape[1],
+                                          xyz1.device, plan)
+    return _box_group_cuda(STRIDED_KERNEL, boxes, s, xyz1, valid1, split, int(direct),
+                           _cuda.ptr(ballots))

@@ -21,11 +21,11 @@ from gspn_tpu_torch.ops.common import resolve_impl, sqdist_components
 from gspn_tpu_torch.ops.morton import morton_codes
 
 _BIG = 1e10
-# the cluster kernel keeps a slice's coordinates + min-distance buffer (16 B
-# per point) in one block's shared memory (227 KB on Hopper), less static
-# scratch; the single-block kernel takes rows up to this long too (its
-# minimum in registers, 12 B a point of shared memory); a longer row is
-# spread over a cluster of CTAs, each holding a slice this long
+# the longest row (or cluster CTA's slice) one block holds: both kernels
+# keep the minimum in registers and the coordinates in shared memory (12 B
+# a point of Hopper's 227 KB a block); this bound, set when the cluster
+# kernel kept 16 B a point, is kept so that no row it took is refused; a
+# longer row is spread over a cluster of CTAs, each holding a slice this long
 FPS_MAX_N = (232448 - 4096) // 16
 # 2, 4 and 8 are portable cluster sizes; 16 is Hopper's non-portable maximum
 FPS_CLUSTER_SIZES = (1, 2, 4, 8, 16)
@@ -72,8 +72,8 @@ def _check_cluster_resident(device_index: int, n: int, cs: int) -> None:
                            f"{lib.gspn_error_string(err).decode()} ({err})")
     if count.value < 1:
         raise RuntimeError(
-            f"a cluster of {cs} CTAs with {-(-n // cs) * 16} B of shared memory each "
-            f"(N={n}) cannot be resident on this device (cudaOccupancyMaxActiveClusters = 0)"
+            f"a cluster of {cs} CTAs holding {-(-n // cs)} points each (N={n}) cannot be "
+            "resident on this device (cudaOccupancyMaxActiveClusters = 0)"
         )
 
 

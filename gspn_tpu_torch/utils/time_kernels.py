@@ -5,10 +5,14 @@ main path's kernels in a flagship and a whole-scene request.
 
 ``chip_smoke.py``'s kernel phase times every kernel with ``cuda_ms`` and
 ``device_ms``, holds it against its plain version with ``max_abs_err``,
-and takes the main path's shapes from ``cases``: fps, ball_group,
-box_group, nms, three_nn, interp_mm and mask_project at each launch of
-one flagship and one whole-scene request (and mask_project_boxed at both
-sorted scenes). Run as a script, this module times those cases alone
+and takes the ranked slices' shapes from ``cases``: every kernel launch
+of one flagship and one whole-scene request of slices (A) (the main
+path: fps, ball_group, box_group, nms, three_nn, interp_mm and
+mask_project), (E) (strided selection: ball_group_strided and
+box_group_strided in place of the first-K groups) and (H) (the exact FPS:
+fps over whole rows, fps_cluster at the whole scene), each at its own
+shape (and mask_project_boxed at both sorted scenes). Run as a script,
+this module times those cases alone
 (``--kernels`` picks some kernels), importing ``gspn_tpu_torch`` from
 ``--tree DIR`` (another checkout, for example the parent commit unpacked
 with ``git archive``), so that two versions of the kernels compare on one
@@ -38,10 +42,13 @@ PROFILER_WINDOWS = 3  # tries at a profiler window that records the kernel
 # the kernels' device symbols, before and after their redesigns, so that
 # either tree's kernels are found
 SYMBOLS = {
-    "fps": ("fps_kernel",),
+    "fps": ("fps_kernel",), "fps_cluster": ("fps_cluster_kernel",),
     "ball_group": ("group_first_kernel<gspn::Ball", "ball_group_first_kernel",
                    "group_scan_kernel<false, false, true>"),
+    "ball_group_strided": ("group_strided_kernel<gspn::Ball",
+                           "group_scan_kernel<false, true, true>"),
     "box_group": ("group_first_kernel<gspn::Box", "group_scan_kernel<true, false, true>"),
+    "box_group_strided": ("group_strided_kernel<gspn::Box", "group_scan_kernel<true, true, true>"),
     "nms": ("nms_kernel",), "three_nn": ("three_nn_kernel",),
     "interp_mm": ("interp_mm_kernel",),
     "mask_project": ("nearest_logit_kernel<false>", "mask_project_kernel<false>"),
@@ -140,21 +147,32 @@ def flatten(outs) -> list:
     return [t for o in outs for t in flatten(o)]
 
 
-# each kernel's entry point in ``gspn_tpu_torch.ops``
+# each kernel's entry point in ``gspn_tpu_torch.ops``, and its keywords
 ENTRY_POINTS = {
-    "fps": "farthest_point_sample", "ball_group": "query_ball_group_multi",
-    "box_group": "query_box_group", "nms": "nms_3d_batched", "three_nn": "three_nn",
+    "fps": "farthest_point_sample", "fps_cluster": "farthest_point_sample",
+    "ball_group": "query_ball_group_multi", "ball_group_strided": "query_ball_group_multi",
+    "box_group": "query_box_group", "box_group_strided": "query_box_group",
+    "nms": "nms_3d_batched", "three_nn": "three_nn",
     "interp_mm": "three_interpolate_mm", "mask_project": "nearest_sample_logit",
     "mask_project_boxed": "nearest_sample_logit_boxed",
 }
+KEYWORDS = {"ball_group_strided": {"select": "strided"}, "box_group_strided": {"select": "strided"}}
 REQUESTS = ("B8xN8192", "B1xN65536")  # bench_slice.SHAPES: flagship, whole scene
+# the slices whose requests are ranked launch by launch (chip_smoke.py): the
+# main path (A), strided selection (E), the exact FPS (H)
+RANKED = ("A", "E", "H")
 ROIS, ROI_SAMPLES = 64, 64  # seeds (RoIs) a scene, in-box samples a RoI
+
+
+def request_key(slice_name: str, shape: str) -> str:
+    """The key of one request of a ranked slice: ``"(A) B8xN8192"``."""
+    return f"({slice_name}) {shape}"
 
 
 def call(ops, name: str, args, impl: str):
     """The entry point of kernel ``name`` (a key of ``ENTRY_POINTS``) on a
     case's ``args``."""
-    return getattr(ops, ENTRY_POINTS[name])(*args, impl=impl)
+    return getattr(ops, ENTRY_POINTS[name])(*args, impl=impl, **KEYWORDS.get(name, {}))
 
 
 def main_path_inputs(ops, bench_slice, dev) -> dict:
@@ -193,15 +211,19 @@ def main_path_inputs(ops, bench_slice, dev) -> dict:
 
 
 def cases(ops, bench_slice, dev, inputs=None) -> dict:
-    """``{kernel: [(label, args, request)]}``: every launch of the main
-    path's kernels in one flagship and one whole-scene request, at its own
-    shape, each tagged with its ``request`` (a key of ``REQUESTS``), and the
-    training step's fps and ball-group launches (``request`` None); the
-    first case of each kernel is its flagship shape that ``chip_smoke.py``
-    reports. fps: the shared pass and SA2-SA4; ball_group: SA1, the crops,
-    SA2-SA4; box_group, nms, mask_project: once a request; three_nn and
-    interp_mm: FP4, FP1-FP3. ``mask_project_boxed`` (slice (B), not the
-    main path) at both scenes' Morton-sorted view. ``inputs``:
+    """``{kernel: [(label, args, requests)]}``: every launch of the ranked
+    slices' kernels in one flagship and one whole-scene request, at its own
+    shape, each tagged with the ``requests`` (keys of ``request_key``) that
+    make it, and the training step's fps and ball-group launches
+    (``requests`` empty); the first case of each kernel is its flagship
+    shape that ``chip_smoke.py`` reports. (A) and (E): fps's shared pass
+    (eight spatial chains) and SA2-SA4; (A) and (H) the first-K ball group
+    at SA1, the crops and SA2-SA4 and the first-S box group, (E) the
+    strided ones at the same shapes; (H): fps over whole rows (the shared
+    pass of 1024 picks at the flagship, on fps_cluster at the whole scene,
+    and SA2-SA4); all three: nms, mask_project once a request, three_nn
+    and interp_mm at FP4, FP1-FP3. ``mask_project_boxed`` (slice (B),
+    not ranked) at both scenes' Morton-sorted view. ``inputs``:
     ``main_path_inputs``' result, made here if None."""
     inputs = inputs or main_path_inputs(ops, bench_slice, dev)
     out = {name: [] for name in ENTRY_POINTS}
@@ -211,26 +233,36 @@ def cases(ops, bench_slice, dev, inputs=None) -> dict:
         b, n = xyz.shape[:2]
         tag = "" if b > 1 else ", whole scene"
 
-        def add(name, label, args, req=shape):
-            out[name].append((label + tag, args, req))
+        def add(name, label, args, slices="AEH"):
+            out[name].append((label + tag, args, tuple(request_key(s, shape) for s in slices)))
+
+        def add_group(name, label, args):  # (A) and (H) first-K, (E) strided
+            add(name, label, args, "AH")
+            add(f"{name}_strided", label, args, "E")
 
         add("fps", f"shared pass: {b * 8} chains x {n // 8} pts, 128 picks",
-            (128, sxyz.reshape(b * 8, n // 8, 3), svalid.reshape(b * 8, n // 8)))
-        add("ball_group", f"sa1: {b}x1024 q over {n}, r 0.1, K 32",
-            ((0.1,), (32,), xyz, sa[0], valid))
-        add("ball_group", f"gspn crops: {b}x64 seeds, r .25/.5/1, K 32/64/128",
-            ((0.25, 0.5, 1.0), (32, 64, 128), xyz, x["seeds"], valid))
+            (128, sxyz.reshape(b * 8, n // 8, 3), svalid.reshape(b * 8, n // 8)), "AE")
+        add("fps" if n <= 8192 else "fps_cluster",
+            f"exact shared pass: {b} x {n} pts, 1024 picks", (1024, xyz, valid), "H")
+        add_group("ball_group", f"sa1: {b}x1024 q over {n}, r 0.1, K 32",
+                  ((0.1,), (32,), xyz, sa[0], valid))
+        add_group("ball_group", f"gspn crops: {b}x64 seeds, r .25/.5/1, K 32/64/128",
+                  ((0.25, 0.5, 1.0), (32, 64, 128), xyz, x["seeds"], valid))
         for lvl, r in ((1, 0.2), (2, 0.4), (3, 0.8)):
             src, npoint = sa[lvl - 1], sa[lvl].shape[1]
             segs = ops.eligible_fps_segments(8, npoint, src.shape[1])
             chains = ops.spatial_sorted_view(src, None)[0] if segs > 1 else src
             chains = chains.reshape(b * segs, src.shape[1] // segs, 3)
             add("fps", f"sa{lvl + 1}: {chains.shape[0]} x {chains.shape[1]} pts, "
-                f"{npoint // segs} picks", (npoint // segs, chains, None))
-            add("ball_group", f"sa{lvl + 1}: {b}x{npoint} q over {src.shape[1]}, r {r}, K 32",
-                ((r,), (32,), src, sa[lvl], None))
-        add("box_group", f"{b}x{ROIS} RoIs over {n}, S {ROI_SAMPLES}",
-            (x["boxes"], ROI_SAMPLES, xyz, valid))
+                f"{npoint // segs} picks", (npoint // segs, chains, None),
+                "AE" if segs > 1 else "AEH")
+            if segs > 1:  # (H) samples the level in one chain
+                add("fps", f"exact sa{lvl + 1}: {b} x {src.shape[1]} pts, {npoint} picks",
+                    (npoint, src, None), "H")
+            add_group("ball_group", f"sa{lvl + 1}: {b}x{npoint} q over {src.shape[1]}, "
+                      f"r {r}, K 32", ((r,), (32,), src, sa[lvl], None))
+        add_group("box_group", f"{b}x{ROIS} RoIs over {n}, S {ROI_SAMPLES}",
+                  (x["boxes"], ROI_SAMPLES, xyz, valid))
         add("nms", f"{b}x{ROIS} RoI boxes, random scores, IoU 0.25",
             (x["boxes"], x["scores"], 0.25))
         # FP level i interpolates SA level 4-i+1's features onto level
@@ -247,14 +279,14 @@ def cases(ops, bench_slice, dev, inputs=None) -> dict:
         add("mask_project", f"{b}x{ROIS} RoIs x {n} pts, S {ROI_SAMPLES}",
             (xyz, x["roi_xyz"], x["logits"]))
         add("mask_project_boxed", f"Morton-sorted {b}x{ROIS} RoIs x {n} pts, S {ROI_SAMPLES}",
-            (sxyz, x["roi_xyz"], x["logits"], x["boxes"], None, svalid), None)
+            (sxyz, x["roi_xyz"], x["logits"], x["boxes"], None, svalid), "")
     tb = bench_slice.train_batch(dev)
     tseeds = ops.gather_point(tb["xyz"], ops.farthest_point_sample(64, tb["xyz"], tb["valid"]))
     out["fps"].append(("training seeds: 4 x 4096 pts, 64 picks",
-                       (64, tb["xyz"], tb["valid"]), None))
+                       (64, tb["xyz"], tb["valid"]), ()))
     out["ball_group"].append(("training crops: 4x64 seeds over 4096, K 64/128/256",
                               ((0.25, 0.5, 1.0), (64, 128, 256), tb["xyz"], tseeds, tb["valid"]),
-                              None))
+                              ()))
     return out
 
 

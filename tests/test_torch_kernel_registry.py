@@ -74,41 +74,76 @@ def test_time_kernels_finds_the_current_symbols(name):
     assert callable(getattr(ops, time_kernels.ENTRY_POINTS[name]))
 
 
-def _ranking_inputs(a_launches):
-    """Two kernels of the main path at two shapes each, and one off it."""
-    requests = {"B8xN8192": [("fps", "f1"), ("fps", "f2"), ("nms", "n1")],
-                "B1xN65536": [("fps", "f3"), ("fps", "f4"), ("nms", "n2")]}
+def _ranking_inputs(a_launches, h_launches):
+    """Two kernels of slice (A) at two shapes each, two of slice (H) (one
+    shared with (A)), and one off the ranked slices."""
+    requests = {"(A) B8xN8192": [("fps", "f1"), ("fps", "f2"), ("nms", "n1")],
+                "(A) B1xN65536": [("fps", "f3"), ("fps", "f4"), ("nms", "n2")],
+                "(H) B8xN8192": [("fps", "f1"), ("nms", "n1")],
+                "(H) B1xN65536": [("fps_cluster", "c1"), ("nms", "n2")]}
     entries = [
         {"name": "fps", "device_ms_by_shape": {"f1": 1.0, "f2": 0.5, "f3": 2.0, "f4": None},
          "bound_ms_by_shape": {"f1": 0.25, "f2": 0.25, "f3": 0.5, "f4": 0.1}},
         {"name": "nms", "device_ms_by_shape": {"n1": 0.125, "n2": 0.25},
          "bound_ms_by_shape": {"n1": 0.0, "n2": 0.0}},
-        {"name": "fps_cluster", "slice": "H", "launches": 4, "device_ms": 2.5,
-         "bound_ms": 0.5},
+        {"name": "fps_cluster", "device_ms_by_shape": {"c1": 2.5},
+         "bound_ms_by_shape": {"c1": 0.5}},
+        {"name": "index_add", "slice": "G", "launches": chip_smoke.TRAIN_STEPS + 1,
+         "device_ms": 0.75, "bound_ms": 0.5},
     ]
-    runs = {"A": {name: 0 for name in chip_smoke.SLICE_KERNELS["A"]}}
-    runs["A"].update(a_launches)
+    runs = {"A": a_launches, "H": h_launches}
     return entries, requests, runs
 
 
-@pytest.mark.parametrize("short", [False, True], ids=["as_slice_a", "a_launch_short"])
+@pytest.mark.parametrize("short", ["", "A", "H"],
+                         ids=["as_slice_a", "a_launch_short", "h_launch_short"])
 def test_ranking_charges_each_launch_at_its_own_shape(capsys, monkeypatch, short):
     """``chip_smoke``'s ranking sums (device - bound) over each request's
-    launches at their own shapes, names the launches it could not time, and
-    refuses a launch plan that is not slice (A)'s."""
-    monkeypatch.setattr(chip_smoke, "SLICE_KERNELS", {"A": {"fps", "nms"}})
-    per_pair = chip_smoke.REQUESTS + 1
+    launches at their own shapes, for every ranked slice's requests, names
+    the launches it could not time, ranks the kernels no ranked request
+    launches by slice, and refuses a launch plan that is not the slice's."""
+    monkeypatch.setattr(chip_smoke, "SLICE_KERNELS",
+                        {"A": {"fps", "nms"}, "H": {"fps", "fps_cluster", "nms"}})
+    per_a, per_h = chip_smoke.REQUESTS + 1, chip_smoke.VARIANT_REQUESTS + 1
     entries, requests, runs = _ranking_inputs(
-        {"fps": 4 * per_pair - short, "nms": 2 * per_pair})
+        {"fps": 4 * per_a - (short == "A"), "nms": 2 * per_a},
+        {"fps": per_h, "fps_cluster": per_h - (short == "H"), "nms": 2 * per_h})
     if short:
-        with pytest.raises(AssertionError, match="fps: slice \\(A\\) launched it"):
+        name = "fps" if short == "A" else "fps_cluster"
+        with pytest.raises(AssertionError, match=f"{name}: slice \\({short}\\) launched it"):
             chip_smoke._print_ranking(entries, requests, runs)
         return
     chip_smoke._print_ranking(entries, requests, runs)
     out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("ms above the bound per (A) B8xN8192 request, each of its 3")
     assert out[0].endswith("fps 1.0000, nms 0.1250; total 1.1250")
     assert "fps 1.5000, nms 0.2500; total 1.7500; not measured: fps [f4]" in out[1]
-    assert out[2].endswith("(H) fps_cluster 0.5 x = 1.0000")
+    assert out[2].endswith("fps 0.7500, nms 0.1250; total 0.8750")
+    assert out[3].endswith("fps_cluster 2.0000, nms 0.2500; total 2.2500")
+    assert out[4].endswith("(G) index_add 1 x = 0.2500")
+
+
+def test_strided_plan_constants_match_the_kernel():
+    """The strided groups' wrapper sizes the kernel's ballot scratch and
+    shared memory from the kernel's tile, step and CTA sizes: they must be
+    the sources' (a smaller scratch than the kernel writes would corrupt
+    memory)."""
+    from gspn_tpu_torch.ops import ball_query as tquery
+
+    text = (_cuda.CSRC / "group_first.cuh").read_text()
+
+    def const(name):
+        m = re.search(r"constexpr int " + name + r" = (\d+);", text)
+        assert m, name
+        return int(m.group(1))
+
+    assert tquery.STRIDED_TILE == const("kTile")
+    assert tquery.STRIDED_CTA_WARPS == const("kCtaWarps")
+    assert tquery.STRIDED_DIRECT_WARPS == const("kDirectWarps")
+    assert tquery.STRIDED_STEP == 32 * const("kGroups")
+    assert tquery.STRIDED_SPLITS[-1] == const("kMaxSplit")
+    assert "return (n + kStep - 1) / kStep * kGroups;" in (
+        _cuda.CSRC / "group_strided.cuh").read_text()
 
 
 def test_profile_slice_names_global_functions():

@@ -129,6 +129,24 @@ def test_fps_cluster_kernel_at_every_cluster_size(dev, cluster):
     _equal(got, ops.farthest_point_sample(96, xyz, valid, impl="plain"))
 
 
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("cluster", [2, 4, 8, 16])
+def test_fps_cluster_kernel_ties_across_ctas(dev, cluster, masked):
+    """A row of 20000 points whose second half repeats the first (point j +
+    10000 is point j): every distance ties with one in another CTA's slice,
+    and the lower index must win at every cluster size, as in the plain
+    version."""
+    xyz, valid = _scenes(dev, 1, 10000, pad_frac=0.0)
+    xyz = xyz.repeat(1, 2, 1)
+    v = valid.repeat(1, 2) if masked else None
+    before = tfps.CLUSTER_KERNEL.launches
+    got = tfps._fps_cuda(xyz, 96, v, cluster=cluster)
+    torch.cuda.synchronize()
+    assert tfps.CLUSTER_KERNEL.launches == before + 1
+    _equal(got, ops.farthest_point_sample(96, xyz, v, impl="plain"))
+    assert (got < 10000).all()
+
+
 def test_fps_kernel_refuses_rows_beyond_shared_memory(dev):
     xyz = torch.zeros((1, tfps.FPS_CLUSTER_MAX_N + 1, 3), device=dev)
     with pytest.raises(ValueError, match=f"at most {tfps.FPS_CLUSTER_MAX_N}"):
@@ -260,24 +278,127 @@ def _centres(dev, xyz, m):
     return q
 
 
-@pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("b,n,radii,ks,m", _BALL_CASES)
-def test_ball_group_strided_kernel(dev, b, n, radii, ks, m, masked):
-    """Bitwise its plain version; where a ball overflows K, not first-K."""
-    xyz, valid = _scenes(dev, b, n)
-    q = _centres(dev, xyz, m)
-    v = valid if masked else None
+# the strided groups' plans: the wrapper's (None), each split with the
+# scene staged, and direct (a warp a query, no staging)
+_STRIDED_PLANS = [None, (1, False), (2, False), (4, False), (8, False), (16, False), (1, True)]
+_PLAN_IDS = ["auto", "s1", "s2", "s4", "s8", "s16", "direct"]
+
+
+def _ball_strided(xyz, q, v, radii, ks, plan):
+    """The strided ball group's kernel at ``plan`` (None: through the entry
+    point), bitwise the plain version; asserts one launch."""
     before = tball.STRIDED_KERNEL.launches
-    got = ops.query_ball_group_multi(radii, ks, xyz, q, v, impl="cuda", select="strided")
+    if plan is None:
+        got = ops.query_ball_group_multi(radii, ks, xyz, q, v, impl="cuda", select="strided")
+    else:
+        got = tball._ball_group_strided_cuda(radii, ks, xyz, q, v, plan=plan)
     torch.cuda.synchronize()
     assert tball.STRIDED_KERNEL.launches == before + 1
     want = ops.query_ball_group_multi(radii, ks, xyz, q, v, impl="plain", select="strided")
-    first = ops.query_ball_group_multi(radii, ks, xyz, q, v, impl="cuda")
     for g, w in zip(got, want, strict=True):
         for x, y in zip(g, w, strict=True):
             _equal(x, y)
+    return got
+
+
+@pytest.mark.parametrize("plan", _STRIDED_PLANS, ids=_PLAN_IDS)
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("b,n,radii,ks,m", _BALL_CASES)
+def test_ball_group_strided_kernel(dev, b, n, radii, ks, m, masked, plan):
+    """Bitwise its plain version at every plan; where a ball overflows K,
+    not first-K."""
+    xyz, valid = _scenes(dev, b, n)
+    q = _centres(dev, xyz, m)
+    v = valid if masked else None
+    got = _ball_strided(xyz, q, v, radii, ks, plan)
+    first = ops.query_ball_group_multi(radii, ks, xyz, q, v, impl="cuda")
     if n > 1000:
         assert any(not torch.equal(g[0], f[0]) for g, f in zip(got, first, strict=True))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize(
+    "b,n,radii,ks,m",
+    [
+        (8, 1024, (0.2,), (32,), 256),  # SA2
+        (8, 256, (0.4,), (32,), 64),  # SA3
+        (8, 64, (0.8,), (32,), 16),  # SA4
+        (3, 128, (0.5, 1.0), (8, 64), 10),  # a scene of one 128-point step
+        (3, 129, (0.5, 1.0), (8, 64), 10),  # one point into a second step
+        (2, 4096, (0.1, 0.2, 0.4, 0.8), (8, 16, 32, 64), 40),  # 4 scales
+        (3, 8192, (0.3,), (32,), 1),  # M = 1
+        (2, 5000, (0.2, 0.4), (16, 48), 70),  # N not a multiple of 4: plain staging
+        (2, 4100, (0.2, 0.4), (16, 48), 70),  # N % 16 = 4: cp.async only unmasked
+        (1, 65536, (1.0,), (128,), 64),  # whole-scene r 1.0: total >> K
+    ],
+)
+def test_ball_group_strided_kernel_shapes(dev, b, n, radii, ks, m, masked):
+    """The entry point's plan at the SA levels' shapes and the edges of the
+    staging, bitwise the plain version."""
+    xyz, valid = _scenes(dev, b, n)
+    q = _centres(dev, xyz, m) if m > 1 else xyz[:, 5:6].clone()
+    got = _ball_strided(xyz, q, valid if masked else None, radii, ks, None)
+    if n == 65536:
+        assert (got[0][1][0, :-1] == 128).all()  # every ball but the empty one full
+
+
+def _planted(dev, n, positions, seed=12):
+    """A scene of ``n`` points far from every query (in [50, 54)^3) but for
+    query i's hits at ``positions[i]``, within 0.1 of its centre (20 i, 0,
+    0). Returns ``(xyz (1, n, 3), centres (1, Q, 3), boxes (1, Q, 6))``:
+    balls of radius 0.5 and boxes of half-size 0.25 about the centres hold
+    exactly those points."""
+    gen = torch.Generator().manual_seed(seed)
+    xyz = torch.rand((1, n, 3), generator=gen) * 4 + 50
+    centres = torch.zeros((1, len(positions), 3))
+    centres[0, :, 0] = torch.arange(len(positions), dtype=torch.float32) * 20
+    for i, pos in enumerate(positions):
+        pos = torch.as_tensor(pos, dtype=torch.long)
+        xyz[0, pos] = centres[0, i] + (torch.rand((len(pos), 3), generator=gen) - 0.5) * 0.2
+    boxes = torch.cat([centres - 0.25, centres + 0.25], dim=-1)
+    return xyz.to(dev), centres.to(dev), boxes.to(dev)
+
+
+def _planted_positions(n, k, seed=13):
+    """Disjoint hit positions a query: a run of 3K across the first tile
+    edge (2048; mid-scene in a shorter scene), the points next to every
+    later tile edge and the first and last point, then K - 1, K, K + 1,
+    2K + 1 and up to 40 K positions spread over the rest, and none."""
+    mid = 2048 if n > 2048 + 2 * k else n // 2
+    run = list(range(mid - k, mid + 2 * k))
+    edges = sorted({e + d for e in range(4096, n, 2048) for d in (-2, -1, 0, 1)} | {0, n - 1})
+    taken = set(run) | set(edges)
+    rest = [j for j in torch.randperm(n, generator=torch.Generator().manual_seed(seed)).tolist()
+            if j not in taken]
+    out = [torch.tensor(run), torch.tensor(edges)]
+    for c in (k - 1, k, k + 1, 2 * k + 1, min(40 * k, len(rest) // 2)):
+        out.append(torch.tensor(sorted(rest[:c])))
+        rest = rest[c:]
+    return out + [torch.tensor([], dtype=torch.long)]
+
+
+@pytest.mark.parametrize("plan", _STRIDED_PLANS, ids=_PLAN_IDS)
+@pytest.mark.parametrize("n", [8192, 4100])
+def test_ball_group_strided_kernel_planted_totals(dev, n, plan):
+    """Balls holding hits across tile edges (2048, 4096, ...) and exactly
+    K - 1, K, K + 1, 2K + 1 and 40 K points, and none: bitwise the plain
+    version at every plan, each count min(total, K)."""
+    k = 32
+    pos = _planted_positions(n, k)
+    xyz, centres, _ = _planted(dev, n, pos)
+    got = _ball_strided(xyz, centres, None, (0.5,), (k,), plan)
+    want_cnt = torch.tensor([min(len(p), k) for p in pos], dtype=torch.int32, device=dev)
+    _equal(got[0][1][0], want_cnt)
+
+
+@pytest.mark.parametrize("plan", _STRIDED_PLANS, ids=_PLAN_IDS)
+def test_ball_group_strided_kernel_duplicated_points(dev, plan):
+    """Every point twice (the copy 4096 indices on, two tiles later) and
+    invalid points among them, at every plan."""
+    xyz, valid = _scenes(dev, 2, 4096)
+    xyz, valid = xyz.repeat(1, 2, 1), valid.repeat(1, 2)
+    valid[:, 1::5] = False
+    _ball_strided(xyz, _centres(dev, xyz, 40), valid, (0.25, 0.5, 1.0), (32, 64, 128), plan)
 
 
 @pytest.mark.parametrize("select", ["first", "strided"])
@@ -363,21 +484,47 @@ def test_box_group_kernel_at_every_split(dev, b, n, split):
     _box_equal(_rois(dev, xyz, _split_queries(split, b)), 64, xyz, valid)
 
 
-@pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("b,n,r,s", [(8, 8192, 64, 64), (1, 65536, 64, 64), (2, 100, 5, 8)])
-def test_box_group_strided_kernel(dev, b, n, r, s, masked):
-    xyz, valid = _scenes(dev, b, n)
-    boxes = _rois(dev, xyz, r)
-    v = valid if masked else None
+def _box_strided(boxes, s, xyz, v, plan):
+    """The strided box group's kernel at ``plan`` (None: through the entry
+    point), bitwise the plain version; asserts one launch."""
     before = tbox.STRIDED_KERNEL.launches
-    got = ops.query_box_group(boxes, s, xyz, v, impl="cuda", select="strided")
+    if plan is None:
+        got = ops.query_box_group(boxes, s, xyz, v, impl="cuda", select="strided")
+    else:
+        got = tbox._box_group_strided_cuda(boxes, s, xyz, v, plan=plan)
     torch.cuda.synchronize()
     assert tbox.STRIDED_KERNEL.launches == before + 1
     want = ops.query_box_group(boxes, s, xyz, v, impl="plain", select="strided")
     for x, y in zip(got, want, strict=True):
         _equal(x, y)
+    return got
+
+
+@pytest.mark.parametrize("plan", _STRIDED_PLANS, ids=_PLAN_IDS)
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("b,n,r,s", [(8, 8192, 64, 64), (1, 65536, 64, 64), (2, 100, 5, 8)])
+def test_box_group_strided_kernel(dev, b, n, r, s, masked, plan):
+    xyz, valid = _scenes(dev, b, n)
+    boxes = _rois(dev, xyz, r)
+    v = valid if masked else None
+    got = _box_strided(boxes, s, xyz, v, plan)
     if n > 1000:
         assert not torch.equal(got[0], ops.query_box_group(boxes, s, xyz, v, impl="cuda")[0])
+
+
+@pytest.mark.parametrize("plan", _STRIDED_PLANS, ids=_PLAN_IDS)
+@pytest.mark.parametrize("n", [8192, 4100, 128])
+def test_box_group_strided_kernel_planted_totals(dev, n, plan):
+    """Boxes holding hits across tile edges and exactly S - 1, S, S + 1,
+    2S + 1 and up to 40 S points, and none, at every plan (also in a scene
+    of one 128-point step); then the scene with every point twice."""
+    s = 32 if n > 128 else 8
+    pos = _planted_positions(n, s)
+    xyz, _, boxes = _planted(dev, n, pos)
+    got = _box_strided(boxes, s, xyz, None, plan)
+    want_cnt = torch.tensor([min(len(p), s) for p in pos], dtype=torch.int32, device=dev)
+    _equal(got[1][0], want_cnt)
+    _box_strided(boxes, s, xyz.repeat(1, 2, 1), None, plan)
 
 
 def _nms_case(dev, b, r, seed=6):

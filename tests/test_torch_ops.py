@@ -19,6 +19,7 @@ from gspn_tpu.ops import interpolate as jinterp
 from gspn_tpu.ops import mask_project as jmask
 from gspn_tpu.ops import nms as jnms
 from gspn_tpu_torch import ops
+from gspn_tpu_torch.ops import ball_query as tquery
 from gspn_tpu_torch.ops import fps as tfps
 from gspn_tpu_torch.ops import interpolate as tinterp
 from gspn_tpu_torch.ops.ball_query import strided_target_mask
@@ -70,8 +71,9 @@ def test_fps_exact_beyond_one_block(rng):
 
 def test_fps_cluster_size():
     """1 CTA up to one block's row, then 8 CTAs up to slices of 4096
-    points, then 16 (the sizes measured fastest); a legible refusal above
-    16 slices."""
+    points, then 16 (the sizes measured fastest for both cluster kernels:
+    4 x 16384 points fastest at 8, 1 x 65536 at 16, 2 x 14273 level at 8
+    and 16); a legible refusal above 16 slices."""
     size = tfps.fps_cluster_size
     assert tfps.FPS_MAX_N == 14272
     assert [size(k) for k in (1, 8192, 14272)] == [1, 1, 1]
@@ -81,6 +83,47 @@ def test_fps_cluster_size():
         assert -(-k // size(k)) <= tfps.FPS_MAX_N  # every slice fits one CTA
     with pytest.raises(ValueError, match=f"at most {tfps.FPS_CLUSTER_MAX_N} points"):
         size(tfps.FPS_CLUSTER_MAX_N + 1)
+
+
+@pytest.mark.parametrize("nq,nscales,n", [
+    (8192, 1, 8192), (512, 3, 8192), (2048, 1, 1024), (512, 1, 256), (128, 1, 64),
+    (1024, 1, 65536), (64, 3, 65536), (512, 1, 8192), (64, 1, 65536), (256, 3, 4096),
+    (1, 1, 1), (40, 4, 4096), (3, 2, 5000), (7, 2, 100), (30, 1, 131072),
+])
+def test_strided_plan(nq, nscales, n):
+    """The strided groups' plan: direct (split 1) exactly up to
+    STRIDED_DIRECT_POINTS points, else a power-of-two split in [1, 16] that
+    keeps the launch within STRIDED_TARGET_WARPS warps (or is 1) and each
+    warp's share of a tile at least a step; the ballots in shared memory
+    exactly when a CTA's fit STRIDED_SMEM_BALLOTS, else a scratch of one
+    word a 32 points (whole steps) a query and scale."""
+    split, direct, ballots = tquery.strided_plan(nq, nscales, n, torch.device("cpu"))
+    assert direct == (n <= tquery.STRIDED_DIRECT_POINTS)
+    assert split in tquery.STRIDED_SPLITS and (split == 1 or not direct)
+    assert split == 1 or (nq * split <= tquery.STRIDED_TARGET_WARPS
+                          and tquery.STRIDED_TILE // split >= tquery.STRIDED_STEP)
+    words = tquery.strided_words(n)
+    assert words * 32 >= n and words % (tquery.STRIDED_STEP // 32) == 0
+    assert words * 32 - n < tquery.STRIDED_STEP
+    warps = tquery.STRIDED_DIRECT_WARPS if direct else tquery.STRIDED_CTA_WARPS
+    fits = warps // split * nscales * words * 4 <= tquery.STRIDED_SMEM_BALLOTS
+    assert (ballots is None) == fits
+    if not fits:
+        assert ballots.shape == (nq, nscales, words) and ballots.dtype == torch.int32
+    with pytest.raises(ValueError, match="a strided plan"):
+        tquery.strided_plan(nq, nscales, n, torch.device("cpu"), plan=(2, True))
+
+
+def test_strided_plan_main_path_picks():
+    """The plans measured fastest at slice (E)'s shapes (PERF.md): SA1,
+    crops, SA2-SA4 and the boxes of the flagship (8 scenes x 8192 points)
+    and of the whole scene (1 x 65536)."""
+    split = tquery.strided_split
+    assert [split(8 * 1024, 8192), split(8 * 64, 8192), split(8 * 256, 1024),
+            split(8 * 64, 256), split(8 * 16, 64)] == [
+        (1, False), (4, False), (1, True), (1, True), (1, True)]
+    assert [split(1024, 65536), split(64, 65536), split(256, 1024), split(64, 256),
+            split(16, 64)] == [(2, False), (16, False), (1, True), (1, True), (1, True)]
 
 
 @pytest.mark.parametrize("mode", ["contiguous", "strided", "spatial"])
