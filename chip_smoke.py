@@ -13,8 +13,9 @@ line or a few:
 3. kernels: each of the fifteen kernels against its plain PyTorch version at
    the slices' shapes, bitwise (integer outputs equal, floats bit for
    bit), with the wrapper's and the plain version's times from CUDA events
-   over as many launches (a plain version slower than 20 ms a call over
-   ``PLAIN_SLOW_ITERS``), the kernel's own device time from
+   over as many launches, the median of three windows (a plain version
+   slower than 20 ms a call over ``PLAIN_SLOW_ITERS``), the kernel's own
+   device time from
    ``torch.profiler``, the least time the card could take for the same
    work (``bound_ms``: the larger of the bytes over 3.35 TB/s and the
    operations over 33.5 T/s, counted from this run's inputs; see
@@ -23,23 +24,27 @@ line or a few:
    has one, ``library_ms_by_shape`` for each shape timed; never called by
    the port); the timing helpers are ``gspn_tpu_torch.utils.time_kernels``;
    every kernel launch in one flagship and one whole-scene request of the
-   ranked slices (A), (E) and (H), each at its own shape
-   (``time_kernels.cases``: fps's shared pass and SA2-SA4, segmented in
-   (A) and (E) and whole rows in (H), fps_cluster at (H)'s whole scene,
-   the ball groups' crops and SA1-SA4 and the box group, first-K in (A)
-   and (H) and strided in (E), NMS, three_nn and interp_mm at FP1-FP4,
-   mask_project; also mask_project_boxed on both sorted scenes and the
-   training step's seeds and crops), with each shape's device and bound
-   ms in ``device_ms_by_shape`` / ``bound_ms_by_shape``; then the ball
+   ranked slices (A), (B), (E) and (H), one pass of (F) at each shape and
+   one training step of (G), each at its own shape (``time_kernels.cases``:
+   fps's shared pass and SA2-SA4, segmented in (A), (B), (E) and whole
+   rows in (H), fps_cluster at (H)'s whole scene, the ball groups' crops
+   and SA1-SA4 and the box group, first-K in (A), (B), (H) and strided in
+   (E), NMS, three_nn and interp_mm at FP1-FP4, mask_project, and
+   mask_project_boxed on the sorted scenes in (B); (F)'s strided ball
+   queries at SA1 and the crops and first-K at SA1; (G)'s seeds, crops,
+   both chamfer argmins and the gather backward ``index_add``), with each
+   shape's device and bound ms in ``device_ms_by_shape`` /
+   ``bound_ms_by_shape``, and index_add also at stage 2's FP4 and RoIAlign
+   backward, SA1's grouping backward and 512 positions an index; each (F) ball query's device ms
+   beside the ball group's at the same shape; then the ball
    and box groups, first-K and strided, at every split (warps a query) at
    each of their shapes, the strided groups' pick marked; three_nn at
    every (targets a thread, source slices, sources a group) plan at each
-   of its shapes; NMS's device operations a call (one) and wrapper ms at
-   the main path's shapes; the exact FPS beyond one block
+   of its shapes; NMS's and index_add's device operations a call (one)
+   and wrapper ms at their ranked shapes; the exact FPS beyond one block
    (``fps_cluster``) also at 4 x 16384, 2 x 14273 with an all-invalid row
    and 131072 points, and at every cluster size that holds each of those
-   rows and the whole scene's; NMS up to 4096 boxes; the
-   gather backward (``index_add``) at slice (G)'s chamfer and FP4's shapes;
+   rows and the whole scene's; NMS up to 4096 boxes;
    strided selection must differ from first-K at SA1;
 4. slices, seeded weights on the bench's scenes (``gspn_tpu_torch.utils.
    bench_slice``). Each runs its kernel path, with every launch count set to
@@ -87,10 +92,11 @@ line or a few:
    steps, a checkpoint and ``--resume`` for 2 more, bitwise; and
    ``--num-points 16384`` (exact FPS on the cluster kernel) for 3 steps;
 6. the ranking: for the flagship and the whole-scene request of slices
-   (A), (E) and (H), each kernel's (device ms - bound ms) summed over every
-   launch of that request at its own shape (the launches must be the
-   slice's, kernel for kernel), then the kernels no ranked request
-   launches, by slice; a JSON line of kernel
+   (A), (B), (E) and (H), a pass of (F) at each shape and a step of (G),
+   each kernel's (device ms - bound ms) summed over every launch of that
+   request at its own shape (the launches must be the slice's, kernel for
+   kernel), then the kernels no ranked request launches (none since all
+   fifteen are ranked), by slice; a JSON line of kernel
    results (``launches`` from the first slice that launches the kernel,
    named in ``slice``: (A) for the first-K path's, (B) for
    mask_project_boxed, (E) for the strided groups, (F) for the ball
@@ -133,16 +139,17 @@ SPLITS = (1, 2, 4, 8, 16)  # warps a query the ball and box groups take
 NN_PER, NN_SPLITS, NN_GROUPS = (1, 2, 4), (1, 2, 4, 8, 16, 32), (1, 32)
 STRIDED = {"ball_group": "ball_group_strided", "box_group": "box_group_strided"}
 # the kernel's symbols in the profiler's (demangled) device events; the
-# template argument of group_scan_kernel: <strided>; of group_first_kernel
-# and group_strided_kernel: the predicate, gspn::Ball<scales> or gspn::Box
+# template arguments of group_first_kernel and group_strided_kernel: the
+# predicate (gspn::Ball<scales> or gspn::Box) and whether it writes
+# coordinates (true: the ball and box groups; false: the ball queries)
 DEVICE_SYMBOLS = {
     "fps": ("fps_kernel",), "fps_cluster": ("fps_cluster_kernel",),
-    "ball_group": ("group_first_kernel<gspn::Ball",),
-    "ball_group_strided": ("group_strided_kernel<gspn::Ball",),
+    "ball_group": tk.BALL_SCANS["group_first_kernel", "true"],
+    "ball_group_strided": tk.BALL_SCANS["group_strided_kernel", "true"],
     "box_group": ("group_first_kernel<gspn::Box",),
     "box_group_strided": ("group_strided_kernel<gspn::Box",),
-    "ball_query": ("group_scan_kernel<false>",),
-    "ball_query_strided": ("group_scan_kernel<true>",),
+    "ball_query": tk.BALL_SCANS["group_first_kernel", "false"],
+    "ball_query_strided": tk.BALL_SCANS["group_strided_kernel", "false"],
     "three_nn": ("three_nn_kernel",), "interp_mm": ("interp_mm_kernel",),
     "mask_project": ("nearest_logit_kernel<false>",),
     "mask_project_boxed": ("nearest_logit_kernel<true>",), "nms": ("nms_kernel",),
@@ -226,27 +233,10 @@ def _chain_nms_case(dev, b: int, r: int, chain: int, gen):
     return torch.cat([c - half, c + half], dim=-1).to(dev), scores.to(dev)
 
 
-def _chamfer_case(dev, ops, bench_slice, gen):
-    """The training step's chamfer inputs, flattened over (scene, seed):
-    the GT instances ``gather_seed_instances`` pairs with the 64 FPS seeds
-    of ``bench_slice.train_batch`` (256 points each, with their real
-    validity) and as many predicted points drawn about each seed."""
-    from gspn_tpu_torch.data.instances import gather_seed_instances
-
-    tb = bench_slice.train_batch(dev)
-    seeds = ops.farthest_point_sample(bench_slice.TRAIN_SEEDS, tb["xyz"], tb["valid"])
-    gt, gt_valid, _, _ = gather_seed_instances(tb["xyz"], tb["inst_label"], seeds,
-                                               bench_slice.TRAIN_GT)
-    b, s, g, _ = gt.shape
-    noise = (torch.randn((b, s, g, 3), generator=gen) * 0.3).to(dev)
-    pred = ops.gather_point(tb["xyz"], seeds)[:, :, None, :] + noise
-    return pred.reshape(b * s, g, 3), gt.reshape(b * s, g, 3), gt_valid.reshape(b * s, g)
-
-
 def check_kernels(dev, ops, bench_slice):
     """Phase 3. Returns ``(the JSON entries, {request: [(kernel, case
     label)]})``: each kernel's times at its first shape, and every launch
-    of the main path in one flagship and one whole-scene request."""
+    of the ranked slices' requests (``time_kernels.ranked_keys``)."""
     from gspn_tpu_torch.data import synthetic
     from gspn_tpu_torch.models.rpointnet import roi_grid_points
     from gspn_tpu_torch.ops import fps as tfps
@@ -258,24 +248,24 @@ def check_kernels(dev, ops, bench_slice):
     # sorted views, seeds, SA centres, boxes about the seeds, RoI samples
     inputs = tk.main_path_inputs(ops, bench_slice, dev)
     main_path = tk.cases(ops, bench_slice, dev, inputs)
-    requests = {tk.request_key(s, shape): [] for s in tk.RANKED for shape in tk.REQUESTS}
+    requests = {key: [] for key in tk.ranked_keys()}
     for name, items in main_path.items():
         for label, _, reqs in items:
             for req in reqs:
                 requests[req].append((name, label))
     fl, wsi = inputs[FLAGSHIP], inputs[WHOLE_SCENE]
-    xyz, valid, seeds, sa1, boxes, roi_xyz = (
-        fl["xyz"], fl["valid"], fl["seeds"], fl["sa"][0], fl["boxes"], fl["roi_xyz"])
-    ws, wsv, ws_seeds, ws_boxes = wsi["xyz"], wsi["valid"], wsi["seeds"], wsi["boxes"]
+    xyz, valid, sa1, boxes, roi_xyz = (
+        fl["xyz"], fl["valid"], fl["sa"][0], fl["boxes"], fl["roi_xyz"])
+    ws, wsv, ws_boxes = wsi["xyz"], wsi["valid"], wsi["boxes"]
     gen = torch.Generator().manual_seed(0)
     grid = roi_grid_points(boxes, 64)[0].reshape(B, 64 * 64, 3)
     ws_grid = roi_grid_points(ws_boxes, 64)[0].reshape(1, 64 * 64, 3)
     targets = xyz[:, None].expand(B, 64, N, 3).reshape(B * 64, N, 3)
     fp4 = main_path["interp_mm"][0][1]  # FP4's interpolation at the flagship
+    gt, pred = main_path["nn_argmin"][1][1][:2]  # the chamfer's GT -> pred
     chain_boxes, chain_scores = _chain_nms_case(dev, B, 64, 32, gen)
     nms2k, nms4k = _chain_nms_case(dev, 1, 2048, 128, gen), _chain_nms_case(dev, 1, 4096, 128, gen)
     nms1k = _chain_nms_case(dev, 1, 1024, 128, gen)
-    pred, gt, gt_valid = _chamfer_case(dev, ops, bench_slice, gen)
     tie_src = torch.rand((16, 2048, 3), generator=gen) * 4
     tie_src = torch.cat([tie_src, tie_src], dim=1).to(dev)  # source j + 2048 repeats j
     tie_tgt = (torch.rand((16, 4096, 3), generator=gen) * 4).to(dev)
@@ -293,15 +283,6 @@ def check_kernels(dev, ops, bench_slice):
     ).to(dev)
     big_valid = torch.ones((1, FPS_ROWS_N), dtype=torch.bool, device=dev)
     big_valid[:, -FPS_ROWS_N // 10:] = False
-    # the gather backward at slice (G)'s chamfer (GT -> pred indices into
-    # the generated points), at FP4's interpolation backward, and with 512
-    # positions on every index
-    chamfer_idx = ops.nn_argmin(gt, pred)
-    chamfer_grad = torch.randn(pred.shape, generator=gen).to(dev)
-    fp4_idx = fp4[1].reshape(B, N * 3)
-    fp4_grad = torch.randn((B, N * 3, 128), generator=gen).to(dev)
-    crowd_idx = torch.randint(0, 8, (16, 4096), generator=gen, dtype=torch.int32).to(dev)
-    crowd_grad = torch.randn((16, 4096, 64), generator=gen).to(dev)
 
     # work(plain outputs) -> (bytes, float32 operations) that these inputs
     # need; see _bound
@@ -375,18 +356,20 @@ def check_kernels(dev, ops, bench_slice):
         "fps_cluster": lambda a: fps_work(a[1], a[2], a[0]),
         "ball_group": lambda a: ball_work(a[2], a[4], a[3], len(a[0]), False),
         "ball_group_strided": lambda a: ball_work(a[2], a[4], a[3], len(a[0]), True),
+        "ball_query": lambda a: ball_work(a[2], a[4], a[3], len(a[0]), False),
+        "ball_query_strided": lambda a: ball_work(a[2], a[4], a[3], len(a[0]), True),
         "box_group": lambda a: box_work(a[2], a[3], a[0], False),
         "box_group_strided": lambda a: box_work(a[2], a[3], a[0], True),
         "nms": lambda a: nms_work(a[0], a[1]),
         "three_nn": lambda a: nn_work(*a), "interp_mm": mm_work,
         "mask_project": lambda a: proj_work(*a), "mask_project_boxed": lambda a: boxed_work(*a),
+        "nn_argmin": lambda a: nn_work(*a), "index_add": lambda a: add_work(*a[:2]),
     }
 
     def main_cases(name):  # every ranked launch of the kernel (time_kernels.cases)
         return [(label, lambda impl, a=a: tk.call(ops, name, a, impl), main_work[name](a))
                 for label, a, _ in main_path[name]]
 
-    crops = ((0.25, 0.5, 1.0), (32, 64, 128))
     grid_label = f"grid RoIAlign: {B}x4096 targets <- {N}"
     nn_extra = [  # three_nn off the main path: (D)'s masks, (C)'s grid RoIs
         (f"3nn masks: {B * 64}x{N} targets <- 64", (targets, roi_xyz.reshape(B * 64, 64, 3), None)),
@@ -410,40 +393,15 @@ def check_kernels(dev, ops, bench_slice):
         "ball_group_strided": main_cases("ball_group_strided"),
         "box_group": main_cases("box_group"),
         "box_group_strided": main_cases("box_group_strided"),
-        "ball_query": [
-            (f"sa1: {B}x1024 queries, r 0.1, K 32",
-             lambda impl: ops.query_ball_point(0.1, 32, xyz, sa1, valid, impl=impl),
-             lambda out: ball_work(xyz, valid, sa1, 1, False)([out])),
-            (f"gspn crops: {B}x64 seeds, r .25/.5/1, K 32/64/128",
-             lambda impl: ops.query_ball_point_multi(*crops, xyz, seeds, valid, impl=impl),
-             ball_work(xyz, valid, seeds, 3, False)),
-        ],
-        "ball_query_strided": [
-            (f"sa1: {B}x1024 queries, r 0.1, K 32",
-             lambda impl: ops.query_ball_point(0.1, 32, xyz, sa1, valid, impl=impl,
-                                               select="strided"),
-             lambda out: ball_work(xyz, valid, sa1, 1, True)([out])),
-            (f"gspn crops: {B}x64 seeds, r .25/.5/1, K 32/64/128",
-             lambda impl: ops.query_ball_point_multi(
-                 *crops, xyz, seeds, valid, impl=impl, select="strided"),
-             ball_work(xyz, valid, seeds, 3, True)),
-            (f"gspn crops, whole scene: 1x64 seeds x {WS_N} pts",
-             lambda impl: ops.query_ball_point_multi(
-                 *crops, ws, ws_seeds, wsv, impl=impl, select="strided"),
-             ball_work(ws, wsv, ws_seeds, 3, True)),
-        ],
+        "ball_query": main_cases("ball_query"),
+        "ball_query_strided": main_cases("ball_query_strided"),
         "three_nn": main_cases("three_nn") + [
             (label, lambda impl, a=a: ops.three_nn(*a, impl=impl), nn_work(*a))
             for label, a in nn_extra],
         "interp_mm": main_cases("interp_mm"),
         "mask_project": main_cases("mask_project"),
         "mask_project_boxed": main_cases("mask_project_boxed"),
-        "nn_argmin": [
-            ("chamfer pred -> GT: 256 rows x 256 targets <- 256, GT masked",
-             lambda impl: ops.nn_argmin(pred, gt, gt_valid, impl=impl),
-             nn_work(pred, gt, gt_valid)),
-            ("chamfer GT -> pred: 256 rows x 256 <- 256",
-             lambda impl: ops.nn_argmin(gt, pred, impl=impl), nn_work(gt, pred)),
+        "nn_argmin": main_cases("nn_argmin") + [
             ("16 rows x 4096 <- 4096, each source twice (ties), masked",
              lambda impl: ops.nn_argmin(tie_tgt, tie_src, tie_valid, impl=impl),
              nn_work(tie_tgt, tie_src, tie_valid)),
@@ -459,17 +417,7 @@ def check_kernels(dev, ops, bench_slice):
             ("1x4096 boxes with a suppression chain 128 deep",
              lambda impl: ops.nms_3d_batched(*nms4k, 0.25, impl=impl), nms_work(*nms4k)),
         ],
-        "index_add": [
-            ("chamfer backward: 256 rows x 256 GT -> pred positions, C 3",
-             lambda impl: ops.index_add_rows(chamfer_grad, chamfer_idx, 256, impl=impl),
-             add_work(chamfer_grad, chamfer_idx)),
-            (f"FP4 backward: {B} x {N}x3 positions -> 1024, C 128",
-             lambda impl: ops.index_add_rows(fp4_grad, fp4_idx, 1024, impl=impl),
-             add_work(fp4_grad, fp4_idx)),
-            ("16 x 4096 positions -> 8 (512 on each), C 64",
-             lambda impl: ops.index_add_rows(crowd_grad, crowd_idx, 8, impl=impl),
-             add_work(crowd_grad, crowd_idx)),
-        ],
+        "index_add": main_cases("index_add"),
     }
     def cdist_argmin(tgt, src):
         """One ``torch.cdist`` (explicit differences, no matmul expansion)
@@ -550,8 +498,8 @@ def check_kernels(dev, ops, bench_slice):
     first = {name: main_path[name][0][0] for name in main_path}
     library = {
         "interp_mm": [(first["interp_mm"], sparse_interp(fp4), max_abs_diff, 1e-4)],
-        "nn_argmin": [(cases["nn_argmin"][1][0], cdist_argmin(gt, pred), sqdist_gap(gt, pred),
-                       1e-6)],
+        "nn_argmin": [(main_path["nn_argmin"][1][0], cdist_argmin(gt, pred),
+                       sqdist_gap(gt, pred), 1e-6)],
         "three_nn": [(first["three_nn"], cdist_topk(xyz, sa1), topk_gap, 1e-5),
                      (grid_label, cdist_topk(grid, xyz, valid), topk_gap, 1e-5)],
         "mask_project": [(first["mask_project"], cdist_project(xyz, roi_xyz, fl["logits"]),
@@ -560,7 +508,7 @@ def check_kernels(dev, ops, bench_slice):
         "mask_project_boxed": [(first["mask_project_boxed"],
                                 cdist_project(fl["sxyz"], roi_xyz, fl["logits"]),
                                 project_gap(fl["sxyz"], roi_xyz), 1e-6)],
-        "index_add": [(cases["index_add"][0][0], index_add_library(chamfer_grad, chamfer_idx, 256),
+        "index_add": [(first["index_add"], index_add_library(*main_path["index_add"][0][1]),
                        max_rel_diff, 1e-5)],
     }
     entries = []
@@ -697,17 +645,31 @@ def check_kernels(dev, ops, bench_slice):
                   f"{plan}: {ms}{' (picked)' * (plan == pick)}" for plan, ms in times.items()))
     next(e for e in entries if e["name"] == "three_nn")["ms_by_plan"] = plans
 
-    # NMS at the main path's shapes: the whole of nms_3d_batched must be one
-    # device operation (its kernel) a call
-    per_call = {}
-    for label, a, _ in main_path["nms"]:
-        call = lambda a=a: tk.call(ops, "nms", a, "cuda")  # noqa: E731
-        per_call[label] = tk.device_launches(call, KERNEL_ITERS)
-        print(f"nms [{label}]: wrapper {tk.cuda_ms(call, KERNEL_ITERS):.4f} ms, "
-              f"{per_call[label]:g} device operations a call (torch.profiler)")
-        if per_call[label] != 1:
-            raise AssertionError(f"nms [{label}]: {per_call[label]} device operations a call")
-    next(e for e in entries if e["name"] == "nms")["device_ops_per_call"] = per_call
+    # NMS and index_add at their ranked shapes: the whole of nms_3d_batched
+    # and of index_add_rows must be one device operation (the kernel) a call
+    for name in ("nms", "index_add"):
+        per_call = {}
+        for label, a, reqs in main_path[name]:
+            if not reqs:
+                continue
+            call = lambda a=a, name=name: tk.call(ops, name, a, "cuda")  # noqa: E731
+            per_call[label] = tk.device_launches(call, KERNEL_ITERS)
+            print(f"{name} [{label}]: wrapper {tk.cuda_ms(call, KERNEL_ITERS):.4f} ms, "
+                  f"{per_call[label]:g} device operations a call (torch.profiler)")
+            if per_call[label] != 1:
+                raise AssertionError(f"{name} [{label}]: {per_call[label]} device operations "
+                                     "a call")
+        next(e for e in entries if e["name"] == name)["device_ops_per_call"] = per_call
+
+    # each (F) ball query beside the ball group at the same shape and plan:
+    # the same kernel without the coordinate stores
+    by = {e["name"]: e for e in entries}
+    for query, group in (("ball_query", "ball_group"), ("ball_query_strided",
+                                                        "ball_group_strided")):
+        for label, q_ms in by[query]["device_ms_by_shape"].items():
+            g_ms = by[group]["device_ms_by_shape"][label]
+            ratio = "not measured" if None in (q_ms, g_ms) else f"{q_ms / g_ms:.3f}"
+            print(f"{query} [{label}]: device {q_ms} ms, {group} {g_ms} ms, ratio {ratio}")
 
     first_k = ops.query_ball_group_multi((0.1,), (32,), xyz, sa1, valid)[0][0]
     strided = ops.query_ball_group_multi((0.1,), (32,), xyz, sa1, valid, select="strided")[0][0]
@@ -1134,17 +1096,20 @@ def _deterministic_mode_diagnostic(bench_slice, cfg, batch, eps) -> None:
 
 def _print_ranking(entries, requests, runs) -> None:
     """Where a request loses the most: for each request of the ranked
-    slices ((A), (E), (H): ``requests`` keyed by ``time_kernels.request_key``),
-    each kernel's (device ms - bound ms) summed over every launch of that
-    request, each at its own shape. Raises unless each slice's launches are
-    its two requests' taken as often as the slice ran each, kernel for
-    kernel. Kernels no ranked request launches follow, by slice: launches a
-    request (or a step, or a pass) of their slice x (device ms - bound ms)
-    at their first shape."""
+    slices (a request of (A), (B), (E), (H), a pass of (F), a step of (G):
+    ``requests`` keyed by ``time_kernels.request_key``), each kernel's
+    (device ms - bound ms) summed over every launch of that request, each at
+    its own shape. Raises unless each slice's launches are its requests'
+    taken as often as the slice ran each, kernel for kernel. Kernels no
+    ranked request launches follow, by slice: launches a request (or a
+    step, or a pass) of their slice x (device ms - bound ms) at their first
+    shape."""
     by = {e["name"]: e for e in entries}
-    per_run = {"A": REQUESTS + 1, "B": 2 * (VARIANT_REQUESTS + 1), "C": VARIANT_REQUESTS + 1,
-               "D": VARIANT_REQUESTS + 1, "E": VARIANT_REQUESTS + 1, "F": 2,
-               "H": VARIANT_REQUESTS + 1, "G": TRAIN_STEPS + 1}  # (A), (E), (H): a shape
+    # runs of each request of a slice: (A), (B), (E), (H) at each shape, (F)
+    # a pass at each shape, (G) a step; (C) and (D) one shape
+    per_run = {"A": REQUESTS + 1, "B": VARIANT_REQUESTS + 1, "C": VARIANT_REQUESTS + 1,
+               "D": VARIANT_REQUESTS + 1, "E": VARIANT_REQUESTS + 1, "F": 1,
+               "H": VARIANT_REQUESTS + 1, "G": TRAIN_STEPS + 1}
     slices = sorted({req.split(")")[0][1:] for req in requests})
     for s in slices:
         mine = {req: launches for req, launches in requests.items() if req.startswith(f"({s}) ")}
@@ -1155,8 +1120,8 @@ def _print_ranking(entries, requests, runs) -> None:
         for name in SLICE_KERNELS[s] | set(planned):
             if runs[s][name] != planned.get(name, 0) * per_run[s]:
                 raise AssertionError(f"{name}: slice ({s}) launched it {runs[s][name]} times, "
-                                     f"the ranking counts {planned.get(name, 0)} a pair of "
-                                     "requests")
+                                     f"the ranking counts {planned.get(name, 0)} a run of "
+                                     "its requests")
         for req, launches in mine.items():
             lost, missing = {}, []
             for name, label in launches:
@@ -1165,7 +1130,8 @@ def _print_ranking(entries, requests, runs) -> None:
                     missing.append(f"{name} [{label}]")
                     continue
                 lost[name] = lost.get(name, 0.0) + dev_ms - by[name]["bound_ms_by_shape"][label]
-            print(f"ms above the bound per {req} request, each of its {len(launches)} launches "
+            unit = {"F": "pass", "G": "step"}.get(s, "request")
+            print(f"ms above the bound per {req} {unit}, each of its {len(launches)} launches "
                   f"at its own shape: " + ", ".join(
                       f"{k} {v:.4f}" for k, v in sorted(lost.items(), key=lambda kv: -kv[1]))
                   + f"; total {sum(lost.values()):.4f}"
@@ -1179,9 +1145,9 @@ def _print_ranking(entries, requests, runs) -> None:
         each = e["launches"] / per_run[s]
         off.append((each * (e["device_ms"] - e["bound_ms"]), e["name"], s, each))
     print("off the ranked slices, by slice (launches a request, step or pass of the slice x ms "
-          "above the bound at the first shape): " + ", ".join(
+          "above the bound at the first shape): " + (", ".join(
               f"({s}) {name} {each:g} x = {v:.4f}"
-              for v, name, s, each in sorted(off, reverse=True)))
+              for v, name, s, each in sorted(off, reverse=True)) or "none"))
 
 
 def main() -> None:

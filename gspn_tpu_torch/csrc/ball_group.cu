@@ -7,13 +7,14 @@
 // gspn_tpu/ops/ball_group.py::_fused_kernel_strided (select="strided"), its
 // two-phase form: a count pass, then the hits of rank floor(j*total/K).
 //
-// First-K runs group_first_kernel<Ball<nscales>> (group_first.cuh, shared
-// with the first-S box group): the scene staged through shared memory in
-// cp.async tiles for a CTA of queries of one scene, float4 points with NaN
-// x where invalid, a query split over 1-16 warps when queries are few, and
-// an early exit once every query is full. Strided runs
-// group_strided_kernel<Ball<nscales>> (group_strided.cuh, shared with the
-// strided box group): the same staging and split, each point tested once
+// First-K runs group_first_kernel<Ball<nscales>, true> (group_first.cuh,
+// shared with the first-S box group and, without coordinates, the ball
+// query): the scene staged through shared memory in cp.async tiles for a
+// CTA of queries of one scene, float4 points with NaN x where invalid, a
+// query split over 1-16 warps when queries are few, and an early exit once
+// every query is full. Strided runs group_strided_kernel<Ball<nscales>,
+// true> (group_strided.cuh, shared with the strided box group and the
+// strided ball query): the same staging and split, each point tested once
 // with its ballots kept, then the ranks read from the ballots. What bounds
 // both: the point tests; most SA1 balls (r 0.1) do not fill K before the
 // scene ends, and a strided query tests all of it. The contract is the
@@ -36,20 +37,10 @@ extern "C" int gspn_ball_group(const float* xyz1, const uint8_t* valid1,
   gspn::GroupOut out;
   const int err = gspn::ball_group_out(nscales, r2s, ks, idx, cnt, local, &out);
   if (err) return err;
-  switch (nscales) {
-    case 1:
-      return gspn::launch_group_first<gspn::Ball<1>>(xyz1, valid1, xyz2, nb, n,
-                                                     m, split, out, stream);
-    case 2:
-      return gspn::launch_group_first<gspn::Ball<2>>(xyz1, valid1, xyz2, nb, n,
-                                                     m, split, out, stream);
-    case 3:
-      return gspn::launch_group_first<gspn::Ball<3>>(xyz1, valid1, xyz2, nb, n,
-                                                     m, split, out, stream);
-    default:
-      return gspn::launch_group_first<gspn::Ball<4>>(xyz1, valid1, xyz2, nb, n,
-                                                     m, split, out, stream);
-  }
+  return gspn::with_scales(nscales, [&](auto s) {
+    return gspn::launch_group_first<gspn::Ball<decltype(s)::value>, true>(
+        xyz1, valid1, xyz2, nb, n, m, split, out, stream);
+  });
 }
 
 // split: warps a query (1, 2, 4, 8 or 16); direct: a warp a query reading
@@ -68,18 +59,8 @@ extern "C" int gspn_ball_group_strided(const float* xyz1,
   gspn::GroupOut out;
   const int err = gspn::ball_group_out(nscales, r2s, ks, idx, cnt, local, &out);
   if (err) return err;
-  switch (nscales) {
-    case 1:
-      return gspn::launch_group_strided<gspn::Ball<1>>(
-          xyz1, valid1, xyz2, nb, n, m, split, direct, ballots, out, stream);
-    case 2:
-      return gspn::launch_group_strided<gspn::Ball<2>>(
-          xyz1, valid1, xyz2, nb, n, m, split, direct, ballots, out, stream);
-    case 3:
-      return gspn::launch_group_strided<gspn::Ball<3>>(
-          xyz1, valid1, xyz2, nb, n, m, split, direct, ballots, out, stream);
-    default:
-      return gspn::launch_group_strided<gspn::Ball<4>>(
-          xyz1, valid1, xyz2, nb, n, m, split, direct, ballots, out, stream);
-  }
+  return gspn::with_scales(nscales, [&](auto s) {
+    return gspn::launch_group_strided<gspn::Ball<decltype(s)::value>, true>(
+        xyz1, valid1, xyz2, nb, n, m, split, direct, ballots, out, stream);
+  });
 }

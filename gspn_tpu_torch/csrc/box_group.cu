@@ -7,14 +7,14 @@
 // (box_group.py, select="strided"): the in-box hits of rank
 // floor(j*total/S).
 //
-// First-S runs group_first_kernel<Box> (group_first.cuh), the first-K ball
+// First-S runs group_first_kernel<Box, true> (group_first.cuh), the first-K ball
 // group's scan with the inclusive test lo <= p <= hi per axis: a CTA holds
 // boxes of one scene and stages the scene through shared memory in
 // cp.async tiles, float4 points with NaN x where invalid (lo <= NaN is
 // false), a box's scan split over 1-16 warps (8 at the flagship's 8 x 64
 // boxes over 8192 points, 16 at the whole scene's 1 x 64 over 65536), and
 // the scan stops once every box of the CTA holds S. Strided runs
-// group_strided_kernel<Box> (group_strided.cuh), the strided ball group's
+// group_strided_kernel<Box, true> (group_strided.cuh), the strided ball group's
 // kernel with the box predicate: each point tested once, the ballots kept,
 // the ranks read from them. Both write coordinates relative to the box centre (lo + hi) * 0.5, rounded as
 // the plain version rounds it. The caller keeps the `k mod cnt` wrap
@@ -45,7 +45,7 @@ extern "C" int gspn_box_group(const float* xyz1, const uint8_t* valid1,
                               const float* boxes, int nb, int n, int r, int s,
                               int* idx, int* cnt, float* local, int split,
                               cudaStream_t stream) {
-  return gspn::launch_group_first<gspn::Box>(
+  return gspn::launch_group_first<gspn::Box, true>(
       xyz1, valid1, boxes, nb, n, r, split, box_out(s, idx, cnt, local),
       stream);
 }
@@ -57,7 +57,7 @@ extern "C" int gspn_box_group_strided(const float* xyz1,
                                       int r, int s, int* idx, int* cnt,
                                       float* local, int split, int direct,
                                       unsigned* ballots, cudaStream_t stream) {
-  return gspn::launch_group_strided<gspn::Box>(
+  return gspn::launch_group_strided<gspn::Box, true>(
       xyz1, valid1, boxes, nb, n, r, split, direct, ballots,
       box_out(s, idx, cnt, local), stream);
 }

@@ -1,9 +1,13 @@
 // First-K grouping over a scene staged through shared memory, shared by the
-// first-K ball group (ball_group.cu) and the first-S box group
-// (box_group.cu); its predicates, scene staging (SceneTiles,
-// for_each_tile) and padding (write_padding) also serve the strided groups
-// (group_strided.cuh). A predicate type says what a hit is and where the
-// local frame's origin lies:
+// first-K ball group (ball_group.cu), the first-K ball query (ball_query.cu)
+// and the first-S box group (box_group.cu); its predicates, scene staging
+// (SceneTiles, for_each_tile) and padding (write_padding) also serve the
+// strided groups and the strided ball query (group_strided.cuh), and its
+// GroupOut is every grouping kernel's output record. kCoords (a template
+// argument, so part of the kernel's symbol) says whether a hit writes its
+// local coordinates (the groups) or only its index and the count (the ball
+// query: group_first_kernel<Ball<n>, false>). A predicate type says what a
+// hit is and where the local frame's origin lies:
 //   Ball<kScales>: up to kMaxScales concentric balls about a centre (query
 //     (B, M, 3)), hit in scale s when d2 < r2[s] strictly, d2 by
 //     gspn::sqdist in the plain order, one distance for every scale;
@@ -35,7 +39,8 @@
 //     every scale (the reference's early exit).
 // The contract is the reference's: local = p - origin with __fsub_rn,
 // padding repeats the first hit (kept in shared memory when it is found),
-// an empty row takes index 0 and point 0 minus the origin, cnt capped at K.
+// an empty row takes index 0 and point 0 minus the origin, cnt capped at K;
+// without kCoords the same indices and counts.
 //
 // The split rule (group_first_split), measured on an H100 by timing every
 // split at the ball group's main-path shapes (chip_smoke.py's split sweep,
@@ -50,9 +55,55 @@
 
 #pragma once
 
-#include "group_scan.cuh"
+#include <type_traits>
+
+#include "common.cuh"
 
 namespace gspn {
+
+constexpr int kMaxScales = 4;
+
+// The grouping kernels' outputs, per scale.
+struct GroupOut {
+  int nscales;
+  int k[kMaxScales];
+  float r2[kMaxScales];
+  int* idx[kMaxScales];      // (B, M, k) int32
+  int* cnt[kMaxScales];      // (B, M) int32, capped at k
+  float* local[kMaxScales];  // (B, M, k, 3) f32; null for the ball query
+};
+
+// GroupOut for the ball scans from the C entry points' per-scale arrays
+// (local null for the ball query).
+inline int ball_group_out(int nscales, const float* r2s, const int* ks,
+                          int* const* idx, int* const* cnt,
+                          float* const* local, GroupOut* out) {
+  if (nscales < 1 || nscales > kMaxScales)
+    return static_cast<int>(cudaErrorInvalidValue);
+  *out = GroupOut{};
+  out->nscales = nscales;
+  for (int s = 0; s < nscales; ++s) {
+    out->k[s] = ks[s];
+    out->r2[s] = r2s[s];
+    out->idx[s] = idx[s];
+    out->cnt[s] = cnt[s];
+    out->local[s] = local ? local[s] : nullptr;
+  }
+  return 0;
+}
+
+// f(std::integral_constant<int, nscales>{}): an entry point's scale count
+// as a template argument (1..kMaxScales).
+template <class F>
+int with_scales(int nscales, F&& f) {
+  switch (nscales) {
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 3: return f(std::integral_constant<int, 3>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
 
 constexpr int kTile = 2048;        // points a tile
 constexpr int kCtaWarps = 16;      // warps a CTA: (16 / split) queries
@@ -139,19 +190,24 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
-// Write a hit of rank `slot` < K: its index and local coordinates (rank 0
-// also to the query's FirstHit record `first`).
+// Write a hit of rank `slot` < K: its index and, with kCoords, its local
+// coordinates (rank 0 also to the query's FirstHit record `first`).
+template <bool kCoords>
 __device__ __forceinline__ void put_hit(const GroupOut& out, int s, int q,
                                         int slot, int j, float4 p, float ox,
                                         float oy, float oz, FirstHit* first) {
   const size_t o = static_cast<size_t>(q) * out.k[s] + slot;
-  const FirstHit h{j, __fsub_rn(p.x, ox), __fsub_rn(p.y, oy),
-                   __fsub_rn(p.z, oz)};
-  out.idx[s][o] = h.idx;
-  out.local[s][3 * o] = h.x;
-  out.local[s][3 * o + 1] = h.y;
-  out.local[s][3 * o + 2] = h.z;
-  if (slot == 0) first[s] = h;
+  out.idx[s][o] = j;
+  if constexpr (kCoords) {
+    const FirstHit h{j, __fsub_rn(p.x, ox), __fsub_rn(p.y, oy),
+                     __fsub_rn(p.z, oz)};
+    out.local[s][3 * o] = h.x;
+    out.local[s][3 * o + 1] = h.y;
+    out.local[s][3 * o + 2] = h.z;
+    if (slot == 0) first[s] = h;
+  } else {
+    if (slot == 0) first[s].idx = j;
+  }
 }
 
 template <int kScales>
@@ -248,9 +304,10 @@ __device__ __forceinline__ void for_each_tile(const SceneTiles& st,
 
 // The tail of a query's row in each scale: slots from min(hits, K) on
 // repeat the first hit (first[s], recorded by put_hit); an empty row takes
-// index 0 and point 0 minus the origin. The query's `split` warps share
-// the slots; its part 0 writes the capped count.
-template <int kScales>
+// index 0 and point 0 minus the origin (coordinates with kCoords only).
+// The query's `split` warps share the slots; its part 0 writes the capped
+// count.
+template <int kScales, bool kCoords>
 __device__ __forceinline__ void write_padding(const GroupOut& out, int q,
                                               const int* hits,
                                               const FirstHit* first,
@@ -262,24 +319,27 @@ __device__ __forceinline__ void write_padding(const GroupOut& out, int q,
     const int k = out.k[s];
     const int c = hits[s] < k ? hits[s] : k;
     const size_t o0 = static_cast<size_t>(q) * k;
-    int fill = 0;
-    float fx, fy, fz;
-    if (c > 0) {
-      fill = first[s].idx;
-      fx = first[s].x;
-      fy = first[s].y;
-      fz = first[s].z;
-    } else {
-      fx = __fsub_rn(pts[0], ox);
-      fy = __fsub_rn(pts[1], oy);
-      fz = __fsub_rn(pts[2], oz);
+    const int fill = c > 0 ? first[s].idx : 0;
+    float fx = 0.f, fy = 0.f, fz = 0.f;
+    if constexpr (kCoords) {
+      if (c > 0) {
+        fx = first[s].x;
+        fy = first[s].y;
+        fz = first[s].z;
+      } else {
+        fx = __fsub_rn(pts[0], ox);
+        fy = __fsub_rn(pts[1], oy);
+        fz = __fsub_rn(pts[2], oz);
+      }
     }
     for (int slot = c + part * 32 + lane; slot < k; slot += 32 * split) {
       const size_t o = o0 + slot;
       out.idx[s][o] = fill;
-      out.local[s][3 * o] = fx;
-      out.local[s][3 * o + 1] = fy;
-      out.local[s][3 * o + 2] = fz;
+      if constexpr (kCoords) {
+        out.local[s][3 * o] = fx;
+        out.local[s][3 * o + 1] = fy;
+        out.local[s][3 * o + 2] = fz;
+      }
     }
     if (part == 0 && lane == 0) out.cnt[s][q] = c;
   }
@@ -290,8 +350,9 @@ __device__ __forceinline__ void write_padding(const GroupOut& out, int q,
 // (c % ctas_per_scene) * (warps / split), `split` warps each. `async`: the
 // scene's rows are 16-byte aligned for cp.async (else the tile is staged by
 // plain loads). `direct`: a scene of one step, tested from device memory
-// (no dynamic shared memory). Pred::kScales: out.nscales.
-template <class Pred>
+// (no dynamic shared memory). Pred::kScales: out.nscales. kCoords: write
+// the local coordinates too (out.local), else only idx and cnt.
+template <class Pred, bool kCoords>
 __global__ void __launch_bounds__(kCtaWarps * 32)
     group_first_kernel(const float* __restrict__ xyz,
                        const uint8_t* __restrict__ valid,
@@ -351,8 +412,8 @@ __global__ void __launch_bounds__(kCtaWarps * 32)
         const unsigned bs = bal[g][s];
         const int rank = cnt[s] + __popc(bs & below);
         if (((bs >> lane) & 1u) && rank < out.k[s])
-          put_hit(out, s, q, rank, j0 + 32 * g + lane, p[g], ox, oy, oz,
-                  first);
+          put_hit<kCoords>(out, s, q, rank, j0 + 32 * g + lane, p[g], ox,
+                           oy, oz, first);
         cnt[s] += __popc(bs);
       }
     }
@@ -444,7 +505,8 @@ __global__ void __launch_bounds__(kCtaWarps * 32)
             if (bal == 0 || rank0[s] >= out.k[s]) continue;
             const int rank = rank0[s] + __popc(bal & below);
             if (((bal >> lane) & 1u) && rank < out.k[s])
-              put_hit(out, s, q, rank, t0 + i, pts4[i], ox, oy, oz, first);
+              put_hit<kCoords>(out, s, q, rank, t0 + i, pts4[i], ox, oy, oz,
+                               first);
             rank0[s] += __popc(bal);
           }
         }
@@ -457,8 +519,8 @@ __global__ void __launch_bounds__(kCtaWarps * 32)
   }
 
   if (!has_q) return;
-  write_padding<kScales>(out, q, cnt, first, pts, ox, oy, oz, part, split,
-                         lane);
+  write_padding<kScales, kCoords>(out, q, cnt, first, pts, ox, oy, oz, part,
+                                  split, lane);
 }
 
 // Warps a query (1, 2, 4, 8 or 16) for nq queries over n points a scene:
@@ -473,10 +535,10 @@ inline int group_first_split(long long nq, int n) {
   return split;
 }
 
-// Launch group_first_kernel<Pred> over nb scenes of n points and m queries
-// a scene; split: warps a query, 0 for group_first_split's choice (another
-// value only to time one split against another).
-template <class Pred>
+// Launch group_first_kernel<Pred, kCoords> over nb scenes of n points and m
+// queries a scene; split: warps a query, 0 for group_first_split's choice
+// (another value only to time one split against another).
+template <class Pred, bool kCoords>
 int launch_group_first(const float* xyz, const uint8_t* valid,
                        const float* query, int nb, int n, int m, int split,
                        const GroupOut& out, cudaStream_t stream) {
@@ -498,10 +560,11 @@ int launch_group_first(const float* xyz, const uint8_t* valid,
       (valid == nullptr ||
        (reinterpret_cast<uintptr_t>(valid) % 16 == 0 && n % 16 == 0));
   const cudaError_t e = cudaFuncSetAttribute(
-      group_first_kernel<Pred>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      group_first_kernel<Pred, kCoords>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kGroupFirstSmemBytes));
   if (e != cudaSuccess) return static_cast<int>(e);
-  group_first_kernel<Pred>
+  group_first_kernel<Pred, kCoords>
       <<<static_cast<unsigned>(grid), warps * 32,
          direct ? 0 : kGroupFirstSmemBytes, stream>>>(
           xyz, valid, query, n, m, split, ctas_per_scene, async, direct, out);

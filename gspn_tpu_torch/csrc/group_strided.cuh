@@ -1,6 +1,8 @@
 // Strided grouping, each point tested once, shared by the strided ball
-// group (ball_group.cu) and the strided box group (box_group.cu), over the
-// predicate types of group_first.cuh (Ball<n>, Box).
+// group (ball_group.cu), the strided ball query (ball_query.cu: kCoords
+// false, indices and counts only) and the strided box group
+// (box_group.cu), over the predicate types of group_first.cuh (Ball<n>,
+// Box).
 //
 // The contract (gspn_tpu/ops/ball_query.py _strided_target_mask): with
 // `total` hits in a scale (uncapped), slot j < min(total, K) holds the hit
@@ -83,8 +85,9 @@ inline int strided_words(int n) {
 // from (c % ctas_per_scene) * (warps / split), `split` warps each.
 // `ballots`: (nb * m, kScales, words) words, or null for the CTA's
 // ballots in dynamic shared memory (after the staging and the warp counts
-// unless `direct`).
-template <class Pred>
+// unless `direct`). kCoords: write the local coordinates too (out.local),
+// else only idx and cnt.
+template <class Pred, bool kCoords>
 __global__ void __launch_bounds__(kCtaWarps * 32, 2)
     group_strided_kernel(const float* __restrict__ xyz,
                          const uint8_t* __restrict__ valid,
@@ -227,7 +230,7 @@ __global__ void __launch_bounds__(kCtaWarps * 32, 2)
           }
         }
         const int i = 32 * g + static_cast<int>(__fns(word, 0, r - before + 1));
-        put_hit(out, s, q, static_cast<int>(j), i,
+        put_hit<kCoords>(out, s, q, static_cast<int>(j), i,
                 make_float4(pts[3 * i], pts[3 * i + 1], pts[3 * i + 2], 0.f),
                 ox, oy, oz, first);
       }
@@ -273,7 +276,7 @@ __global__ void __launch_bounds__(kCtaWarps * 32, 2)
           if (j < j1) {
             const int i = 32 * (base + l) +
                           static_cast<int>(__fns(wl, 0, t - before + 1));
-            put_hit(out, s, q, static_cast<int>(j), i,
+            put_hit<kCoords>(out, s, q, static_cast<int>(j), i,
                     make_float4(pts[3 * i], pts[3 * i + 1], pts[3 * i + 2],
                                 0.f),
                     ox, oy, oz, first);
@@ -289,15 +292,15 @@ __global__ void __launch_bounds__(kCtaWarps * 32, 2)
   else
     __syncwarp();
   if (!has_q) return;
-  write_padding<kScales>(out, q, total, first, pts, ox, oy, oz, part, split,
-                         lane);
+  write_padding<kScales, kCoords>(out, q, total, first, pts, ox, oy, oz, part,
+                                  split, lane);
 }
 
-// Launch group_strided_kernel<Pred> over nb scenes of n points and m
+// Launch group_strided_kernel<Pred, kCoords> over nb scenes of n points and m
 // queries a scene at `split` warps a query (1, 2, 4, 8 or 16) or `direct`
 // (split 1), the ballots in `ballots` ((nb * m, Pred::kScales,
 // strided_words(n)) words) or, when it is null, in shared memory.
-template <class Pred>
+template <class Pred, bool kCoords>
 int launch_group_strided(const float* xyz, const uint8_t* valid,
                          const float* query, int nb, int n, int m, int split,
                          int direct, unsigned* ballots, const GroupOut& out,
@@ -324,10 +327,10 @@ int launch_group_strided(const float* xyz, const uint8_t* valid,
       (valid == nullptr ||
        (reinterpret_cast<uintptr_t>(valid) % 16 == 0 && n % 16 == 0));
   const cudaError_t e = cudaFuncSetAttribute(
-      group_strided_kernel<Pred>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      group_strided_kernel<Pred, kCoords>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  group_strided_kernel<Pred>
+  group_strided_kernel<Pred, kCoords>
       <<<static_cast<unsigned>(grid), warps * 32, smem, stream>>>(
           xyz, valid, query, n, m, split, direct, ctas_per_scene, async,
           words, ballots, out);

@@ -34,7 +34,7 @@ SOURCES = (
     "fps.cu", "ball_group.cu", "box_group.cu", "ball_query.cu", "three_nn.cu",
     "interp_mm.cu", "mask_project.cu", "nms.cu", "chamfer.cu", "index_add.cu",
 )
-HEADERS = ("common.cuh", "group_scan.cuh", "group_first.cuh", "group_strided.cuh")
+HEADERS = ("common.cuh", "group_first.cuh", "group_strided.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -133,11 +133,19 @@ class CudaKernel:
     def launch(self, device: torch.device, *args) -> None:
         """Call the C entry point on ``device``'s current stream. Pointers
         are passed as ``int(tensor.data_ptr())`` (or 0 for null). Raises
-        with CUDA's message when the launch is refused."""
+        with CUDA's message when the launch is refused. A short kernel's
+        call takes as long as its host work, so the stream is read raw (no
+        Stream object) and the device switched only when it is not the
+        current one."""
         lib = library()
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            err = getattr(lib, self.symbol)(*args, stream)
+        fn = getattr(lib, self.symbol)
+        current = torch.cuda.current_device()
+        index = current if device.index is None else device.index
+        if index == current:
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+        else:
+            with torch.cuda.device(index):
+                err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
         if err != 0:
             msg = lib.gspn_error_string(err).decode()
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch: {msg} ({err})")
@@ -190,14 +198,15 @@ KERNELS: dict[str, CudaKernel] = {
         ),
         CudaKernel(
             "ball_query", "ball_query.cu", "gspn_ball_query",
-            # xyz1, valid1, xyz2, b, n, m, nscales, r2s, ks, idx[], cnt[]
-            (_ptr, _ptr, _ptr, _int, _int, _int, _int, _ptr, _ptr, _ptr, _ptr),
+            # xyz1, valid1, xyz2, b, n, m, nscales, r2s, ks, idx[], cnt[],
+            # split (warps a query; 0: the kernel's rule)
+            (_ptr, _ptr, _ptr, _int, _int, _int, _int, _ptr, _ptr, _ptr, _ptr, _int),
             "gspn_tpu/ops/ball_query.py:117 _ball_query_multi_kernel",
         ),
         CudaKernel(
             "ball_query_strided", "ball_query.cu", "gspn_ball_query_strided",
-            # as ball_query
-            (_ptr, _ptr, _ptr, _int, _int, _int, _int, _ptr, _ptr, _ptr, _ptr),
+            # as ball_query, then direct and ballots, as ball_group_strided's
+            (_ptr, _ptr, _ptr, _int, _int, _int, _int, _ptr, _ptr, _ptr, _ptr, _int, _int, _ptr),
             "gspn_tpu/ops/ball_query.py:117 _ball_query_multi_kernel (select=\"strided\")",
         ),
         CudaKernel(
@@ -242,8 +251,8 @@ KERNELS: dict[str, CudaKernel] = {
         ),
         CudaKernel(
             "index_add", "index_add.cu", "gspn_index_add",
-            # src, sorted idx, permutation (i64), b, m, n, c, out
-            (_ptr, _ptr, _ptr, _int, _int, _int, _int, _ptr),
+            # src, idx, b, m, n, c, bins, tile_c (grouping.index_add_plan), out
+            (_ptr, _ptr, _int, _int, _int, _int, _int, _int, _ptr),
             "none (a repair kernel: gather_point's deterministic backward)",
         ),
     )

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 from gspn_tpu_torch.ops import _cuda
 from gspn_tpu_torch.ops.ball_query import (
-    ball_query_plain, ball_scan_cuda, check_select, strided_plan,
+    ball_query_plain, ball_scan_cuda, check_select, strided_scan_cuda,
 )
 from gspn_tpu_torch.ops.common import resolve_impl
 from gspn_tpu_torch.ops.grouping import group_point
@@ -54,9 +54,6 @@ def _ball_group_cuda(radii, nsamples, xyz1, xyz2, valid1=None, split: int = 0):
 
 
 def _ball_group_strided_cuda(radii, nsamples, xyz1, xyz2, valid1=None, plan=None):
-    """The strided kernel at :func:`strided_plan`'s plan, or at ``plan`` =
+    """The strided kernel at ``strided_plan``'s plan, or at ``plan`` =
     (split, direct) to time one plan against another."""
-    split, direct, ballots = strided_plan(xyz2.shape[0] * xyz2.shape[1], len(radii),
-                                          xyz1.shape[1], xyz1.device, plan)
-    return ball_scan_cuda(STRIDED_KERNEL, radii, nsamples, xyz1, xyz2, valid1, True, split,
-                          int(direct), _cuda.ptr(ballots))
+    return strided_scan_cuda(STRIDED_KERNEL, radii, nsamples, xyz1, xyz2, valid1, True, plan)

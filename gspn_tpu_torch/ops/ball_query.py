@@ -10,9 +10,11 @@ past the count repeat the first hit; an empty query gets index 0 and count
 0; the count is capped at ``nsample`` either way.
 
 ``query_ball_point(_multi)`` take ``impl="auto|cuda|plain"``: the CUDA
-route is the index-only scan ``csrc/ball_query.cu``, one kernel per
-selection; the fused ball group (``ops/ball_group.py``) shares
-:func:`ball_scan_cuda`, and the strided ball and box groups share
+route is ``csrc/ball_query.cu``, the ball group's kernels without their
+coordinate stores, one entry point per selection, at the ball group's plan
+(the first-K kernel's own split rule; :func:`strided_plan` for strided);
+the fused ball group (``ops/ball_group.py``) shares :func:`ball_scan_cuda`
+and :func:`strided_scan_cuda`, and the strided box group
 :func:`strided_plan`.
 """
 
@@ -27,7 +29,7 @@ from gspn_tpu_torch.ops.common import f32_scalar, pairwise_sqdist, resolve_impl
 
 KERNEL = _cuda.KERNELS["ball_query"]
 STRIDED_KERNEL = _cuda.KERNELS["ball_query_strided"]
-MAX_SCALES = 4  # csrc/group_scan.cuh kMaxScales
+MAX_SCALES = 4  # csrc/group_first.cuh kMaxScales
 # the strided groups' kernel (csrc/group_strided.cuh): warps a CTA
 # (kCtaWarps; kDirectWarps when direct), points a tile (kTile) and a step
 # (32 * kGroups)
@@ -147,9 +149,10 @@ def strided_plan(nq: int, nscales: int, n: int, device, plan=None):
 
 def ball_scan_cuda(kernel, radii, nsamples, xyz1, xyz2, valid1, with_coords, *extra):
     """Launch one of the ball scans (``kernel``: ball_group(_strided) with
-    coordinates, ball_query(_strided) without; ``extra`` ints follow the
-    output pointers, as the kernel's C entry point takes them). Returns per
-    scale ``(idx (B,M,K) int32, cnt (B,M) int32[, local (B,M,K,3) f32])``."""
+    coordinates, ball_query(_strided) without; ``extra``, the plan, follows
+    the output pointers, as the kernel's C entry point takes it: the split
+    for first-K, or :func:`strided_scan_cuda`'s). Returns per scale ``(idx
+    (B,M,K) int32, cnt (B,M) int32[, local (B,M,K,3) f32])``."""
     b, n, _ = xyz1.shape
     m = xyz2.shape[1]
     s = len(radii)
@@ -162,7 +165,7 @@ def ball_scan_cuda(kernel, radii, nsamples, xyz1, xyz2, valid1, with_coords, *ex
     _cuda.check_cuda_input("xyz2", xyz2, torch.float32, (b, m, 3))
     v = None
     if valid1 is not None:
-        v = valid1.to(torch.uint8).contiguous()
+        v = _cuda.flag_bytes(valid1)
         _cuda.check_cuda_input("valid1", v, torch.uint8, (b, n))
     dev = xyz1.device
     outs = [
@@ -189,6 +192,22 @@ def ball_scan_cuda(kernel, radii, nsamples, xyz1, xyz2, valid1, with_coords, *ex
     return outs
 
 
+def strided_scan_cuda(kernel, radii, nsamples, xyz1, xyz2, valid1, with_coords, plan=None):
+    """A strided ball scan (``kernel``: ball_group_strided or
+    ball_query_strided) at :func:`strided_plan`'s plan, or at ``plan`` =
+    (split, direct) to time one plan against another."""
+    split, direct, ballots = strided_plan(xyz2.shape[0] * xyz2.shape[1], len(radii),
+                                          xyz1.shape[1], xyz1.device, plan)
+    return ball_scan_cuda(kernel, radii, nsamples, xyz1, xyz2, valid1, with_coords, split,
+                          int(direct), _cuda.ptr(ballots))
+
+
+def _ball_query_cuda(radii, nsamples, xyz1, xyz2, valid1=None, split: int = 0):
+    """The first-K query at the kernel's own split (warps a query), or at
+    ``split`` (1, 2, 4, 8 or 16) to time one split against another."""
+    return ball_scan_cuda(KERNEL, radii, nsamples, xyz1, xyz2, valid1, False, split)
+
+
 def query_ball_point_multi(
     radii, nsamples, xyz1, xyz2, valid1=None, *, impl: str = "auto", select=None
 ):
@@ -196,8 +215,9 @@ def query_ball_point_multi(
     int32, cnt (B,M) int32)``, each as :func:`query_ball_point`."""
     select = check_select(select)
     if resolve_impl(impl, xyz1) == "cuda":
-        kernel = STRIDED_KERNEL if select == "strided" else KERNEL
-        return ball_scan_cuda(kernel, radii, nsamples, xyz1, xyz2, valid1, False)
+        if select == "strided":
+            return strided_scan_cuda(STRIDED_KERNEL, radii, nsamples, xyz1, xyz2, valid1, False)
+        return _ball_query_cuda(radii, nsamples, xyz1, xyz2, valid1)
     return [
         ball_query_plain(r, k, xyz1, xyz2, valid1, select)
         for r, k in zip(radii, nsamples, strict=True)

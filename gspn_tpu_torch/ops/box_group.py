@@ -62,7 +62,7 @@ def _box_group_cuda(kernel, boxes, s, xyz1, valid1, *extra):
     _cuda.check_cuda_input("boxes", boxes, torch.float32, (b, r, 6))
     v = None
     if valid1 is not None:
-        v = valid1.to(torch.uint8).contiguous()
+        v = _cuda.flag_bytes(valid1)
         _cuda.check_cuda_input("valid1", v, torch.uint8, (b, n))
     dev = xyz1.device
     idx = torch.empty((b, r, s), dtype=torch.int32, device=dev)

@@ -36,7 +36,7 @@ def _argmin_cuda(a, b, b_valid):
     _cuda.check_cuda_input("xyz2", b, torch.float32, (bsz, m, 3))
     v = None
     if b_valid is not None:
-        v = b_valid.to(torch.uint8).contiguous()
+        v = _cuda.flag_bytes(b_valid)
         _cuda.check_cuda_input("valid2", v, torch.uint8, (bsz, m))
     idx = torch.empty((bsz, n), dtype=torch.int32, device=a.device)
     if bsz and n:

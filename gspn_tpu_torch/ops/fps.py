@@ -116,7 +116,7 @@ def _fps_cuda(xyz: torch.Tensor, npoint: int, valid: torch.Tensor | None,
     _cuda.check_cuda_input("xyz", xyz, torch.float32, (b, n, 3))
     v = None
     if valid is not None:
-        v = valid.to(torch.uint8).contiguous()
+        v = _cuda.flag_bytes(valid)
         _cuda.check_cuda_input("valid", v, torch.uint8, (b, n))
     out = torch.empty((b, npoint), dtype=torch.int32, device=xyz.device)
     if not (b and npoint):

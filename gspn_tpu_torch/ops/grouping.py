@@ -11,10 +11,14 @@ output row's incoming rows in ascending source position from +0.0, as the
 CPU's ``scatter_add`` does: on the card ``torch.gather``'s own backward adds
 with atomics in no fixed order, so a training step would not be bitwise
 reproducible. ``impl`` picks the backward's route (``ops/common.py``): the
-CUDA kernel ``csrc/index_add.cu`` or its plain version, bitwise equal.
+CUDA kernel ``csrc/index_add.cu`` (one launch: a stable counting sort of
+each list of kept positions and the sums, in the kernel, at
+:func:`index_add_plan`'s tiling) or its plain version, bitwise equal.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -22,6 +26,13 @@ from gspn_tpu_torch.ops import _cuda
 from gspn_tpu_torch.ops.common import resolve_impl
 
 KERNEL = _cuda.KERNELS["index_add"]
+# the kernel's limits (csrc/index_add.cu): output rows a CTA (kMaxBins), a
+# CTA's running sums (kAccFloats)
+INDEX_ADD_MAX_BINS = 256
+INDEX_ADD_ACC_FLOATS = 8192
+# index_add_plan narrows the row tiles while a launch has fewer CTAs than
+# this (two a streaming multiprocessor on an H100's 132, rounded)
+INDEX_ADD_TARGET_CTAS = 256
 
 
 def _index_add_plain(src: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -48,19 +59,40 @@ def _index_add_plain(src: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tens
     return out
 
 
-def _index_add_cuda(src: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+@functools.lru_cache(maxsize=256)
+def index_add_plan(b: int, n: int, c: int) -> tuple[int, int]:
+    """``(bins, tile_c)`` of the index_add kernel for ``src (b, m, c)`` into
+    ``n`` rows: a CTA's channels (all C up to ``INDEX_ADD_ACC_FLOATS``)
+    and its output rows (as many as its sums hold, up to
+    ``INDEX_ADD_MAX_BINS``), halved while the launch has fewer than
+    ``INDEX_ADD_TARGET_CTAS`` CTAs and a batch row's CTAs stay within C:
+    each CTA reads the batch row's M indices, so the index bytes read stay
+    within the source's."""
+    tile_c = max(1, min(c, INDEX_ADD_ACC_FLOATS))
+    bins = max(1, min(n, INDEX_ADD_MAX_BINS, INDEX_ADD_ACC_FLOATS // tile_c))
+    ctas = lambda bins: -(-n // bins) * -(-c // tile_c)  # noqa: E731 (a batch row's)
+    while bins > 1 and b * ctas(bins) < INDEX_ADD_TARGET_CTAS and ctas(bins // 2) <= c:
+        bins //= 2
+    return bins, tile_c
+
+
+def _index_add_cuda(src: torch.Tensor, idx: torch.Tensor, n: int, plan=None) -> torch.Tensor:
+    """The kernel at :func:`index_add_plan`'s plan, or at ``plan`` =
+    (bins, tile_c) to time or test another tiling."""
     b, m, c = src.shape
     if b > 65535:
         raise ValueError(f"the index_add kernel takes at most 65535 rows, got {b}")
     src = src.contiguous()
-    _cuda.check_cuda_input("src", src, torch.float32, (b, m, c))
-    sidx, perm = torch.sort(idx.to(torch.int32), dim=1, stable=True)
-    sidx = sidx.contiguous()
-    perm = perm.contiguous()
-    out = torch.empty((b, n, c), dtype=torch.float32, device=src.device)
+    _cuda.check_cuda_input("src", src, torch.float32, src.shape)
+    if idx.dtype != torch.int32:
+        idx = idx.to(torch.int32)
+    idx = idx.contiguous()
+    _cuda.check_cuda_input("idx", idx, torch.int32, (b, m))
+    out = src.new_empty((b, n, c))
     if b and n and c:
-        KERNEL.launch(src.device, _cuda.ptr(src), _cuda.ptr(sidx), _cuda.ptr(perm), b, m, n, c,
-                      _cuda.ptr(out))
+        bins, tile_c = plan or index_add_plan(b, n, c)
+        KERNEL.launch(src.device, src.data_ptr(), idx.data_ptr(), b, m, n, c, bins, tile_c,
+                      out.data_ptr())
     return out
 
 

@@ -65,7 +65,7 @@ def _launch(kernel, xyz, sampled, logits, svalid, rel=None, rb=1, tn=1):
     xyz = xyz.contiguous()
     sampled = sampled.contiguous()
     logits = logits.contiguous()
-    v = svalid.to(torch.uint8).contiguous()
+    v = _cuda.flag_bytes(svalid)
     _cuda.check_cuda_input("xyz", xyz, torch.float32, (b, n, 3))
     _cuda.check_cuda_input("sampled", sampled, torch.float32, (b, r, s, 3))
     _cuda.check_cuda_input("logits", logits, torch.float32, (b, r, s))

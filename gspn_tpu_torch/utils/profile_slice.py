@@ -31,8 +31,8 @@ from gspn_tpu_torch.utils.profiling import busy_us, device_kernels
 
 HAND_WRITTEN = (  # symbols in the profiler's demangled device events
     "fps_kernel", "fps_cluster_kernel", "group_first_kernel", "group_strided_kernel",
-    "group_scan_kernel", "three_nn_kernel", "interp_mm_kernel", "nearest_logit_kernel",
-    "nms_kernel", "nn_argmin_kernel",
+    "three_nn_kernel", "interp_mm_kernel", "nearest_logit_kernel", "nms_kernel",
+    "nn_argmin_kernel", "index_add_kernel",
 )
 ITERS = 5
 

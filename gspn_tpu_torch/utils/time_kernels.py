@@ -1,5 +1,6 @@
 """Timing of the hand-written kernels on the card, and every launch of the
-main path's kernels in a flagship and a whole-scene request.
+ranked slices' kernels: a flagship and a whole-scene request, a pass of
+the ball-query entry points, a training step.
 
     python gspn_tpu_torch/utils/time_kernels.py [--tree DIR] [--kernels a,b]
 
@@ -8,17 +9,25 @@ main path's kernels in a flagship and a whole-scene request.
 and takes the ranked slices' shapes from ``cases``: every kernel launch
 of one flagship and one whole-scene request of slices (A) (the main
 path: fps, ball_group, box_group, nms, three_nn, interp_mm and
+mask_project), (B) (mask_project_boxed on the sorted view in place of
 mask_project), (E) (strided selection: ball_group_strided and
 box_group_strided in place of the first-K groups) and (H) (the exact FPS:
-fps over whole rows, fps_cluster at the whole scene), each at its own
-shape (and mask_project_boxed at both sorted scenes). Run as a script,
+fps over whole rows, fps_cluster at the whole scene), of one pass of (F)
+at each shape (the shared FPS pass, then ball_query_strided at SA1 and the
+crops and ball_query at SA1), and of one training step of (G) (the seeds'
+fps, the crops' ball_group, nn_argmin both ways and index_add, the
+chamfer's gather backward), each at its own shape; also index_add at
+stage 2's shapes (FP4's interpolation backward and the RoIAlign gather's,
+both scenes), at SA1's grouping gather (both scenes) and with 512
+positions on each index. Run as a script,
 this module times those cases alone
 (``--kernels`` picks some kernels), importing ``gspn_tpu_torch`` from
 ``--tree DIR`` (another checkout, for example the parent commit unpacked
 with ``git archive``), so that two versions of the kernels compare on one
 card in one call: run it for the parent, the change, the change and the
-parent in turn. Each line gives the kernel's device time and the
-wrapper's, each over 20 launches after a warm-up, with the card's name and
+parent in turn. Each line gives the kernel's device time (20 launches
+after a warm-up) and the wrapper's (the median of three windows of 20),
+with the card's name and
 power limit; every kernel output is first held bitwise against the plain
 version. Needs a CUDA device.
 
@@ -31,6 +40,7 @@ from __future__ import annotations
 import argparse
 import os
 import pathlib
+import statistics
 import subprocess
 import sys
 
@@ -38,21 +48,34 @@ import torch
 
 REPO = pathlib.Path(__file__).resolve().parents[2]
 ITERS = 20  # timed launches a case
-PROFILER_WINDOWS = 3  # tries at a profiler window that records the kernel
+CUDA_WINDOWS = 3  # cuda_ms's windows of timed launches
+PROFILER_WINDOWS = 5  # tries at a profiler window that kept its closing spin
+SPIN_KERNEL, SPIN_CYCLES = "spin_kernel", 1000  # a window's brackets (torch.cuda._sleep)
 # the kernels' device symbols, before and after their redesigns, so that
 # either tree's kernels are found
+# the ball scans' kernels at 1-4 scales with coordinates (the ball groups) and
+# without (the ball queries): group_first_kernel<gspn::Ball<1>, true>, ...
+BALL_SCANS = {
+    (name, coords): tuple(f"{name}<gspn::Ball<{s}>, {coords}>" for s in range(1, 5))
+    for name in ("group_first_kernel", "group_strided_kernel") for coords in ("true", "false")
+}
 SYMBOLS = {
     "fps": ("fps_kernel",), "fps_cluster": ("fps_cluster_kernel",),
-    "ball_group": ("group_first_kernel<gspn::Ball", "ball_group_first_kernel",
-                   "group_scan_kernel<false, false, true>"),
-    "ball_group_strided": ("group_strided_kernel<gspn::Ball",
-                           "group_scan_kernel<false, true, true>"),
+    "ball_group": BALL_SCANS["group_first_kernel", "true"] + (
+        "group_first_kernel<gspn::Ball", "ball_group_first_kernel",
+        "group_scan_kernel<false, false, true>"),
+    "ball_group_strided": BALL_SCANS["group_strided_kernel", "true"] + (
+        "group_strided_kernel<gspn::Ball", "group_scan_kernel<false, true, true>"),
     "box_group": ("group_first_kernel<gspn::Box", "group_scan_kernel<true, false, true>"),
     "box_group_strided": ("group_strided_kernel<gspn::Box", "group_scan_kernel<true, true, true>"),
+    "ball_query": BALL_SCANS["group_first_kernel", "false"] + ("group_scan_kernel<false>",),
+    "ball_query_strided": BALL_SCANS["group_strided_kernel", "false"] + (
+        "group_scan_kernel<true>",),
     "nms": ("nms_kernel",), "three_nn": ("three_nn_kernel",),
     "interp_mm": ("interp_mm_kernel",),
     "mask_project": ("nearest_logit_kernel<false>", "mask_project_kernel<false>"),
     "mask_project_boxed": ("nearest_logit_kernel<true>", "mask_project_kernel<true>"),
+    "nn_argmin": ("nn_argmin_kernel",), "index_add": ("index_add_kernel",),
 }
 
 
@@ -65,42 +88,64 @@ def card_name() -> str:
 
 
 def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` launches after a warm-up."""
+    """Device time of ``fn`` a call by CUDA events: the median over
+    ``CUDA_WINDOWS`` windows of the mean over ``iters`` calls each, after a
+    warm-up. A call whose host work outlasts its kernel is timed by the
+    host, which the machine shares: the median keeps a window that other
+    work interrupted from setting the figure."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    windows = []
+    for _ in range(CUDA_WINDOWS):
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        windows.append(start.elapsed_time(end) / iters)
+    return statistics.median(windows)
 
 
 def _device_events(fn, iters: int):
-    """The device events of one profiler window over ``iters`` calls of
-    ``fn``, after a warm-up call."""
+    """The device events of a profiler window over ``iters`` calls of
+    ``fn``, after a warm-up call. CUPTI loses records now and then (on an
+    H100: the window's first kernel, whose launch asks for its first
+    activity buffer, in about one window in 400, and in every window once
+    a process has run long kernels; every kernel from some point on; or a
+    whole window). So the window opens with a short spin kernel of its own
+    (``torch.cuda._sleep``), which takes the first of those losses, and
+    closes with another, whose record shows that the window's tail was
+    kept; both are left out of the events. A window without its closing
+    spin is taken again, up to ``PROFILER_WINDOWS`` times, and the last one
+    is returned, with a printed line, if none kept it."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    for _ in range(PROFILER_WINDOWS):
+        fn()
         torch.cuda.synchronize()
-    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(SPIN_CYCLES)
+            for _ in range(iters):
+                fn()
+            torch.cuda._sleep(SPIN_CYCLES)
+            torch.cuda.synchronize()
+        device = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        mine = [e for e in device if SPIN_KERNEL not in e.name]
+        if device and SPIN_KERNEL in device[-1].name:
+            return mine
+    print(f"profiler: none of {PROFILER_WINDOWS} windows kept its closing spin; "
+          f"{len(mine)} events over {iters} calls")
+    return mine
 
 
 def device_launches(fn, iters: int) -> float:
     """Device operations (kernels, copies, fills) a call of ``fn`` makes,
-    from ``torch.profiler`` over ``iters`` calls; a window with no device
-    event at all is taken again, up to ``PROFILER_WINDOWS`` times."""
-    for _ in range(PROFILER_WINDOWS):
-        events = _device_events(fn, iters)
-        if events:
-            return len(events) / iters
-    return 0.0
+    from ``torch.profiler`` over ``iters`` calls."""
+    return len(_device_events(fn, iters)) / iters
 
 
 def device_ms(fn, iters: int, symbols: tuple[str, ...]) -> tuple[float | None, int]:
@@ -108,22 +153,15 @@ def device_ms(fn, iters: int, symbols: tuple[str, ...]) -> tuple[float | None, i
     ``symbols``) over ``iters`` calls of ``fn`` after a warm-up, from
     ``torch.profiler``'s device events: the kernel alone, without its
     wrapper's host work or other device work. Every wrapper of this
-    repository launches its kernel once a call, so an event is a call. The
-    mean is over the ``events`` the profiler recorded, which may be fewer
-    than ``iters``. Now and then a profiler window records no device event
-    at all (seen once in about 240 windows on an H100); the window is then
-    taken again, up to ``PROFILER_WINDOWS`` times, and ``(None, 0)`` means
-    none recorded one (the kernel's launches and outputs are checked apart
-    from this)."""
-    for _ in range(PROFILER_WINDOWS):
-        device = _device_events(fn, iters)
-        mine = [e for e in device if any(sym in e.name for sym in symbols)]
-        if mine:
-            ms = sum(e.time_range.end - e.time_range.start for e in mine) / 1e3 / len(mine)
-            return ms, len(mine)
-        print(f"profiler: no device event of {symbols} among "
-              f"{sorted({e.name for e in device})}; window taken again")
-    return None, 0
+    repository launches its kernel once a call, so an event is a call.
+    ``(None, 0)`` means no window recorded the kernel (its launches and
+    outputs are checked apart from this)."""
+    device = _device_events(fn, iters)
+    mine = [e for e in device if any(sym in e.name for sym in symbols)]
+    if not mine:
+        print(f"profiler: no device event of {symbols} among {sorted({e.name for e in device})}")
+        return None, 0
+    return sum(e.time_range.end - e.time_range.start for e in mine) / 1e3 / len(mine), len(mine)
 
 
 def max_abs_err(got, want) -> float:
@@ -152,21 +190,52 @@ ENTRY_POINTS = {
     "fps": "farthest_point_sample", "fps_cluster": "farthest_point_sample",
     "ball_group": "query_ball_group_multi", "ball_group_strided": "query_ball_group_multi",
     "box_group": "query_box_group", "box_group_strided": "query_box_group",
+    "ball_query": "query_ball_point_multi", "ball_query_strided": "query_ball_point_multi",
     "nms": "nms_3d_batched", "three_nn": "three_nn",
     "interp_mm": "three_interpolate_mm", "mask_project": "nearest_sample_logit",
     "mask_project_boxed": "nearest_sample_logit_boxed",
+    "nn_argmin": "nn_argmin", "index_add": "index_add_rows",
 }
-KEYWORDS = {"ball_group_strided": {"select": "strided"}, "box_group_strided": {"select": "strided"}}
+KEYWORDS = {name: {"select": "strided"}
+            for name in ("ball_group_strided", "box_group_strided", "ball_query_strided")}
 REQUESTS = ("B8xN8192", "B1xN65536")  # bench_slice.SHAPES: flagship, whole scene
-# the slices whose requests are ranked launch by launch (chip_smoke.py): the
-# main path (A), strided selection (E), the exact FPS (H)
-RANKED = ("A", "E", "H")
+TRAIN_SHAPE = "B4xN4096"  # slice (G)'s batch: bench_slice.TRAIN_BATCH x TRAIN_POINTS
+# the slices ranked launch by launch (chip_smoke.py): the main path (A),
+# its box-pruned projection (B), strided selection (E), the exact FPS (H)
+# a request each; the ball-query entry points (F) a pass at each shape;
+# training (G) a step
+RANKED = ("A", "B", "E", "F", "G", "H")
 ROIS, ROI_SAMPLES = 64, 64  # seeds (RoIs) a scene, in-box samples a RoI
+CROPS = ((0.25, 0.5, 1.0), (32, 64, 128))  # GSPN context crops: radii, K
 
 
 def request_key(slice_name: str, shape: str) -> str:
-    """The key of one request of a ranked slice: ``"(A) B8xN8192"``."""
+    """The key of one request (a pass, a step) of a ranked slice: ``"(A)
+    B8xN8192"``."""
     return f"({slice_name}) {shape}"
+
+
+def ranked_keys() -> list[str]:
+    """Every ranked slice's request keys: both request shapes, (G)'s batch."""
+    return [request_key(s, shape) for s in RANKED
+            for shape in ((TRAIN_SHAPE,) if s == "G" else REQUESTS)]
+
+
+def chamfer_inputs(ops, bench_slice, dev, gen):
+    """The training step's chamfer inputs, flattened over (scene, seed):
+    the GT instances ``gather_seed_instances`` pairs with the 64 FPS seeds
+    of ``bench_slice.train_batch`` (256 points each, with their real
+    validity) and as many predicted points drawn about each seed."""
+    from gspn_tpu_torch.data.instances import gather_seed_instances
+
+    tb = bench_slice.train_batch(dev)
+    seeds = ops.farthest_point_sample(bench_slice.TRAIN_SEEDS, tb["xyz"], tb["valid"])
+    gt, gt_valid, _, _ = gather_seed_instances(tb["xyz"], tb["inst_label"], seeds,
+                                               bench_slice.TRAIN_GT)
+    b, s, g, _ = gt.shape
+    noise = (torch.randn((b, s, g, 3), generator=gen) * 0.3).to(dev)
+    pred = ops.gather_point(tb["xyz"], seeds)[:, :, None, :] + noise
+    return pred.reshape(b * s, g, 3), gt.reshape(b * s, g, 3), gt_valid.reshape(b * s, g)
 
 
 def call(ops, name: str, args, impl: str):
@@ -212,42 +281,55 @@ def main_path_inputs(ops, bench_slice, dev) -> dict:
 
 def cases(ops, bench_slice, dev, inputs=None) -> dict:
     """``{kernel: [(label, args, requests)]}``: every launch of the ranked
-    slices' kernels in one flagship and one whole-scene request, at its own
-    shape, each tagged with the ``requests`` (keys of ``request_key``) that
-    make it, and the training step's fps and ball-group launches
-    (``requests`` empty); the first case of each kernel is its flagship
-    shape that ``chip_smoke.py`` reports. (A) and (E): fps's shared pass
-    (eight spatial chains) and SA2-SA4; (A) and (H) the first-K ball group
-    at SA1, the crops and SA2-SA4 and the first-S box group, (E) the
-    strided ones at the same shapes; (H): fps over whole rows (the shared
-    pass of 1024 picks at the flagship, on fps_cluster at the whole scene,
-    and SA2-SA4); all three: nms, mask_project once a request, three_nn
-    and interp_mm at FP4, FP1-FP3. ``mask_project_boxed`` (slice (B),
-    not ranked) at both scenes' Morton-sorted view. ``inputs``:
-    ``main_path_inputs``' result, made here if None."""
+    slices' kernels in one flagship and one whole-scene request (a pass of
+    (F) at each shape, a step of (G)), at its own shape, each tagged with
+    the ``requests`` (keys of ``request_key``) that make it; the first case
+    of each kernel is the shape ``chip_smoke.py`` reports. (A), (B) and
+    (E): fps's shared pass (eight spatial chains, also (F)'s) and SA2-SA4;
+    (A), (B) and (H) the first-K ball group at SA1, the crops and SA2-SA4
+    and the first-S box group, (E) the strided ones at the same shapes;
+    (H): fps over whole rows (the shared pass of 1024 picks at the
+    flagship, on fps_cluster at the whole scene, and SA2-SA4); (A), (B),
+    (E), (H): nms, three_nn and interp_mm at FP4, FP1-FP3; mask_project
+    once a request of (A), (E), (H), mask_project_boxed on the
+    Morton-sorted view in (B); (F): ball_query_strided at SA1 and the
+    crops, ball_query at SA1, with the ball groups' labels; (G): the seeds'
+    fps, the crops' ball_group, nn_argmin pred -> GT (masked) and GT ->
+    pred, index_add at the chamfer's gather backward. Untagged: index_add
+    at stage 2's FP4 interpolation backward (8 x 24576 positions into 1024
+    rows, 1 x 196608 into 1024) and RoIAlign gather backward (8 x 4096
+    into 8192, 1 x 4096 into 65536), at SA1's grouping (8 x 32768 into
+    8192, 1 x 32768 into 65536) and with 512 positions on each of 8
+    indices. ``inputs``: ``main_path_inputs``'
+    result, made here if None."""
     inputs = inputs or main_path_inputs(ops, bench_slice, dev)
     out = {name: [] for name in ENTRY_POINTS}
+    gen = torch.Generator().manual_seed(1)
     for shape in REQUESTS:
         x = inputs[shape]
         xyz, valid, sxyz, svalid, sa = x["xyz"], x["valid"], x["sxyz"], x["svalid"], x["sa"]
         b, n = xyz.shape[:2]
         tag = "" if b > 1 else ", whole scene"
 
-        def add(name, label, args, slices="AEH"):
+        def add(name, label, args, slices="ABEH"):
             out[name].append((label + tag, args, tuple(request_key(s, shape) for s in slices)))
 
-        def add_group(name, label, args):  # (A) and (H) first-K, (E) strided
-            add(name, label, args, "AH")
+        def add_group(name, label, args):  # (A), (B), (H) first-K, (E) strided
+            add(name, label, args, "ABH")
             add(f"{name}_strided", label, args, "E")
 
         add("fps", f"shared pass: {b * 8} chains x {n // 8} pts, 128 picks",
-            (128, sxyz.reshape(b * 8, n // 8, 3), svalid.reshape(b * 8, n // 8)), "AE")
+            (128, sxyz.reshape(b * 8, n // 8, 3), svalid.reshape(b * 8, n // 8)), "ABEF")
         add("fps" if n <= 8192 else "fps_cluster",
             f"exact shared pass: {b} x {n} pts, 1024 picks", (1024, xyz, valid), "H")
-        add_group("ball_group", f"sa1: {b}x1024 q over {n}, r 0.1, K 32",
-                  ((0.1,), (32,), xyz, sa[0], valid))
-        add_group("ball_group", f"gspn crops: {b}x64 seeds, r .25/.5/1, K 32/64/128",
-                  ((0.25, 0.5, 1.0), (32, 64, 128), xyz, x["seeds"], valid))
+        sa1 = (f"sa1: {b}x1024 q over {n}, r 0.1, K 32", ((0.1,), (32,), xyz, sa[0], valid))
+        crops = (f"gspn crops: {b}x64 seeds, r .25/.5/1, K 32/64/128",
+                 (*CROPS, xyz, x["seeds"], valid))
+        add_group("ball_group", *sa1)
+        add_group("ball_group", *crops)
+        add("ball_query", *sa1, "F")
+        add("ball_query_strided", *sa1, "F")
+        add("ball_query_strided", *crops, "F")
         for lvl, r in ((1, 0.2), (2, 0.4), (3, 0.8)):
             src, npoint = sa[lvl - 1], sa[lvl].shape[1]
             segs = ops.eligible_fps_segments(8, npoint, src.shape[1])
@@ -255,7 +337,7 @@ def cases(ops, bench_slice, dev, inputs=None) -> dict:
             chains = chains.reshape(b * segs, src.shape[1] // segs, 3)
             add("fps", f"sa{lvl + 1}: {chains.shape[0]} x {chains.shape[1]} pts, "
                 f"{npoint // segs} picks", (npoint // segs, chains, None),
-                "AE" if segs > 1 else "AEH")
+                "ABE" if segs > 1 else "ABEH")
             if segs > 1:  # (H) samples the level in one chain
                 add("fps", f"exact sa{lvl + 1}: {b} x {src.shape[1]} pts, {npoint} picks",
                     (npoint, src, None), "H")
@@ -276,17 +358,46 @@ def cases(ops, bench_slice, dev, inputs=None) -> dict:
             add("three_nn", f"fp{fp}: {pair}", (tgt, src, None))
             add("interp_mm", f"fp{fp}: {pair}, C {c}",
                 (feats, idx, ops.three_interpolate_weights(dist)))
+            if fp == 4:  # stage 2: its backward into the SA1 features
+                grad = torch.randn((b, tgt.shape[1] * 3, c), generator=gen).to(dev)
+                add("index_add", f"stage 2 FP4 backward: {b} x {tgt.shape[1]}x3 positions -> "
+                    f"{src.shape[1]}, C {c}", (grad, idx.reshape(b, -1), src.shape[1]), "")
         add("mask_project", f"{b}x{ROIS} RoIs x {n} pts, S {ROI_SAMPLES}",
-            (xyz, x["roi_xyz"], x["logits"]))
+            (xyz, x["roi_xyz"], x["logits"]), "AEH")
         add("mask_project_boxed", f"Morton-sorted {b}x{ROIS} RoIs x {n} pts, S {ROI_SAMPLES}",
-            (sxyz, x["roi_xyz"], x["logits"], x["boxes"], None, svalid), "")
+            (sxyz, x["roi_xyz"], x["logits"], x["boxes"], None, svalid), "B")
+        # stage 2's RoIAlign gathers C 128 scene features at the RoIs' samples
+        roi_idx = ops.query_box_group(x["boxes"], ROI_SAMPLES, xyz, valid)[0]
+        grad = torch.randn((b, ROIS * ROI_SAMPLES, 128), generator=gen).to(dev)
+        add("index_add", f"stage 2 RoIAlign backward: {b} x {ROIS}x{ROI_SAMPLES} positions -> "
+            f"{n}, C 128", (grad, roi_idx.reshape(b, -1), n), "")
+        # a row gather's backward at SA1's grouping: K 32 of the scene's points
+        # about each of 1024 centres, C 64 (many positions into many rows)
+        sa1_idx = ops.query_ball_group_multi((0.1,), (32,), xyz, sa[0], valid)[0][0]
+        grad = torch.randn((b, sa1_idx.shape[1] * 32, 64), generator=gen).to(dev)
+        add("index_add", f"SA1 grouping backward: {b} x 1024x32 positions -> {n}, C 64",
+            (grad, sa1_idx.reshape(b, -1), n), "")
+
+    # (G): one training step
+    def add_step(name, label, args):
+        out[name].append((label, args, (request_key("G", TRAIN_SHAPE),)))
+
     tb = bench_slice.train_batch(dev)
     tseeds = ops.gather_point(tb["xyz"], ops.farthest_point_sample(64, tb["xyz"], tb["valid"]))
-    out["fps"].append(("training seeds: 4 x 4096 pts, 64 picks",
-                       (64, tb["xyz"], tb["valid"]), ()))
-    out["ball_group"].append(("training crops: 4x64 seeds over 4096, K 64/128/256",
-                              ((0.25, 0.5, 1.0), (64, 128, 256), tb["xyz"], tseeds, tb["valid"]),
-                              ()))
+    add_step("fps", "training seeds: 4 x 4096 pts, 64 picks", (64, tb["xyz"], tb["valid"]))
+    add_step("ball_group", "training crops: 4x64 seeds over 4096, K 64/128/256",
+             ((0.25, 0.5, 1.0), (64, 128, 256), tb["xyz"], tseeds, tb["valid"]))
+    pred, gt, gt_valid = chamfer_inputs(ops, bench_slice, dev, gen)
+    add_step("nn_argmin", "chamfer pred -> GT: 256 rows x 256 targets <- 256, GT masked",
+             (pred, gt, gt_valid))
+    add_step("nn_argmin", "chamfer GT -> pred: 256 rows x 256 <- 256", (gt, pred, None))
+    grad = torch.randn(pred.shape, generator=gen).to(dev)
+    add_step("index_add", "chamfer backward: 256 rows x 256 GT -> pred positions, C 3",
+             (grad, ops.nn_argmin(gt, pred), pred.shape[1]))
+    out["index_add"].sort(key=lambda case: not case[2])  # the step's case first
+    crowd = torch.randint(0, 8, (16, 4096), generator=gen, dtype=torch.int32).to(dev)
+    out["index_add"].append(("16 x 4096 positions -> 8 (512 on each), C 64",
+                             (torch.randn((16, 4096, 64), generator=gen).to(dev), crowd, 8), ()))
     return out
 
 

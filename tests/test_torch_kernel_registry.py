@@ -74,11 +74,13 @@ def test_time_kernels_finds_the_current_symbols(name):
     assert callable(getattr(ops, time_kernels.ENTRY_POINTS[name]))
 
 
-def _ranking_inputs(a_launches, h_launches):
+def _ranking_inputs(a_launches, g_launches, h_launches):
     """Two kernels of slice (A) at two shapes each, two of slice (H) (one
-    shared with (A)), and one off the ranked slices."""
+    shared with (A)), two of a training step (G) (one launched twice at two
+    shapes), and one off the ranked slices."""
     requests = {"(A) B8xN8192": [("fps", "f1"), ("fps", "f2"), ("nms", "n1")],
                 "(A) B1xN65536": [("fps", "f3"), ("fps", "f4"), ("nms", "n2")],
+                "(G) B4xN4096": [("index_add", "i1"), ("nn_argmin", "m1"), ("nn_argmin", "m2")],
                 "(H) B8xN8192": [("fps", "f1"), ("nms", "n1")],
                 "(H) B1xN65536": [("fps_cluster", "c1"), ("nms", "n2")]}
     entries = [
@@ -88,28 +90,36 @@ def _ranking_inputs(a_launches, h_launches):
          "bound_ms_by_shape": {"n1": 0.0, "n2": 0.0}},
         {"name": "fps_cluster", "device_ms_by_shape": {"c1": 2.5},
          "bound_ms_by_shape": {"c1": 0.5}},
-        {"name": "index_add", "slice": "G", "launches": chip_smoke.TRAIN_STEPS + 1,
-         "device_ms": 0.75, "bound_ms": 0.5},
+        {"name": "index_add", "device_ms_by_shape": {"i1": 0.75},
+         "bound_ms_by_shape": {"i1": 0.5}},
+        {"name": "nn_argmin", "device_ms_by_shape": {"m1": 0.125, "m2": 0.5},
+         "bound_ms_by_shape": {"m1": 0.0, "m2": 0.25}},
+        {"name": "three_nn", "slice": "C", "launches": chip_smoke.VARIANT_REQUESTS + 1,
+         "device_ms": 0.125, "bound_ms": 0.0625},
     ]
-    runs = {"A": a_launches, "H": h_launches}
+    runs = {"A": a_launches, "G": g_launches, "H": h_launches}
     return entries, requests, runs
 
 
-@pytest.mark.parametrize("short", ["", "A", "H"],
-                         ids=["as_slice_a", "a_launch_short", "h_launch_short"])
+@pytest.mark.parametrize("short", ["", "A", "G", "H"],
+                         ids=["as_slice_a", "a_launch_short", "g_launch_short", "h_launch_short"])
 def test_ranking_charges_each_launch_at_its_own_shape(capsys, monkeypatch, short):
     """``chip_smoke``'s ranking sums (device - bound) over each request's
-    launches at their own shapes, for every ranked slice's requests, names
-    the launches it could not time, ranks the kernels no ranked request
-    launches by slice, and refuses a launch plan that is not the slice's."""
+    (or training step's) launches at their own shapes, for every ranked
+    slice's requests, names the launches it could not time, ranks the
+    kernels no ranked request launches by slice, and refuses a launch plan
+    that is not the slice's."""
     monkeypatch.setattr(chip_smoke, "SLICE_KERNELS",
-                        {"A": {"fps", "nms"}, "H": {"fps", "fps_cluster", "nms"}})
+                        {"A": {"fps", "nms"}, "G": {"index_add", "nn_argmin"},
+                         "H": {"fps", "fps_cluster", "nms"}})
     per_a, per_h = chip_smoke.REQUESTS + 1, chip_smoke.VARIANT_REQUESTS + 1
+    per_g = chip_smoke.TRAIN_STEPS + 1
     entries, requests, runs = _ranking_inputs(
         {"fps": 4 * per_a - (short == "A"), "nms": 2 * per_a},
+        {"index_add": per_g - (short == "G"), "nn_argmin": 2 * per_g},
         {"fps": per_h, "fps_cluster": per_h - (short == "H"), "nms": 2 * per_h})
     if short:
-        name = "fps" if short == "A" else "fps_cluster"
+        name = {"A": "fps", "G": "index_add", "H": "fps_cluster"}[short]
         with pytest.raises(AssertionError, match=f"{name}: slice \\({short}\\) launched it"):
             chip_smoke._print_ranking(entries, requests, runs)
         return
@@ -118,9 +128,18 @@ def test_ranking_charges_each_launch_at_its_own_shape(capsys, monkeypatch, short
     assert out[0].startswith("ms above the bound per (A) B8xN8192 request, each of its 3")
     assert out[0].endswith("fps 1.0000, nms 0.1250; total 1.1250")
     assert "fps 1.5000, nms 0.2500; total 1.7500; not measured: fps [f4]" in out[1]
-    assert out[2].endswith("fps 0.7500, nms 0.1250; total 0.8750")
-    assert out[3].endswith("fps_cluster 2.0000, nms 0.2500; total 2.2500")
-    assert out[4].endswith("(G) index_add 1 x = 0.2500")
+    assert out[2].startswith("ms above the bound per (G) B4xN4096 step, each of its 3")
+    assert out[2].endswith("nn_argmin 0.3750, index_add 0.2500; total 0.6250")
+    assert out[3].endswith("fps 0.7500, nms 0.1250; total 0.8750")
+    assert out[4].endswith("fps_cluster 2.0000, nms 0.2500; total 2.2500")
+    assert out[5].endswith("(C) three_nn 1 x = 0.0625")
+
+
+def test_ranking_names_every_ranked_request():
+    """``time_kernels.ranked_keys``: both request shapes of (A), (B), (E),
+    (F) and (H), and (G)'s training batch."""
+    both = [f"({s}) {shape}" for s in "ABEFH" for shape in ("B8xN8192", "B1xN65536")]
+    assert time_kernels.ranked_keys() == both[:8] + ["(G) B4xN4096"] + both[8:]
 
 
 def test_strided_plan_constants_match_the_kernel():
@@ -144,6 +163,22 @@ def test_strided_plan_constants_match_the_kernel():
     assert tquery.STRIDED_SPLITS[-1] == const("kMaxSplit")
     assert "return (n + kStep - 1) / kStep * kGroups;" in (
         _cuda.CSRC / "group_strided.cuh").read_text()
+
+
+def test_index_add_plan_constants_match_the_kernel():
+    """``index_add_plan`` sizes the kernel's tiles from its limits: they
+    must be the source's (the kernel refuses a plan beyond them)."""
+    from gspn_tpu_torch.ops import grouping as tgroup
+
+    text = (_cuda.CSRC / "index_add.cu").read_text()
+
+    def const(name):
+        m = re.search(r"constexpr int " + name + r" = (\d+);", text)
+        assert m, name
+        return int(m.group(1))
+
+    assert tgroup.INDEX_ADD_MAX_BINS == const("kMaxBins")
+    assert tgroup.INDEX_ADD_ACC_FLOATS == const("kAccFloats")
 
 
 def test_profile_slice_names_global_functions():

@@ -403,7 +403,11 @@ def test_ball_group_strided_kernel_duplicated_points(dev, plan):
 
 @pytest.mark.parametrize("select", ["first", "strided"])
 @pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("b,n,radii,ks,m", _BALL_CASES)
+@pytest.mark.parametrize("b,n,radii,ks,m", _BALL_CASES + [
+    (1, 65536, (0.1,), (32,), 1024),  # whole-scene SA1
+    (8, 1024, (0.2,), (32,), 256),  # SA2: strided at the direct plan's limit
+    (8, 64, (0.8,), (32,), 16),  # SA4: one step, first-K from device memory too
+])
 def test_ball_query_kernel(dev, b, n, radii, ks, m, masked, select):
     """Bitwise its plain version and the ball group's indices and counts."""
     xyz, valid = _scenes(dev, b, n)
@@ -423,6 +427,35 @@ def test_ball_query_kernel(dev, b, n, radii, ks, m, masked, select):
     single = ops.query_ball_point(radii[0], ks[0], xyz, q, v, impl="cuda", select=select)
     for x, y in zip(single, got[0], strict=True):
         _equal(x, y)
+
+
+@pytest.mark.parametrize("plan", [("first", s) for s in (1, 2, 4, 8, 16)]
+                         + [("strided", p) for p in _STRIDED_PLANS[1:]],
+                         ids=[f"first_s{s}" for s in (1, 2, 4, 8, 16)]
+                         + [f"strided_{i}" for i in _PLAN_IDS[1:]])
+@pytest.mark.parametrize("b,n,m", [(8, 8192, 64), (2, 8195, 70), (2, 4100, 40)])
+def test_ball_query_kernel_at_the_ball_groups_plan(dev, b, n, m, plan):
+    """The ball query and the ball group launched at the same plan (a
+    first-K split, or a strided split or direct) give the same indices and
+    counts, bitwise the plain version's: the same kernel with and without
+    its coordinate stores."""
+    xyz, valid = _scenes(dev, b, n)
+    q = _centres(dev, xyz, m)
+    radii, ks = (0.25, 0.5, 1.0), (32, 64, 128)
+    select, p = plan
+    if select == "first":
+        got = tquery._ball_query_cuda(radii, ks, xyz, q, valid, split=p)
+        grouped = tball._ball_group_cuda(radii, ks, xyz, q, valid, split=p)
+    else:
+        got = tquery.strided_scan_cuda(tquery.STRIDED_KERNEL, radii, ks, xyz, q, valid, False,
+                                       plan=p)
+        grouped = tball._ball_group_strided_cuda(radii, ks, xyz, q, valid, plan=p)
+    torch.cuda.synchronize()
+    want = ops.query_ball_point_multi(radii, ks, xyz, q, valid, impl="plain", select=select)
+    for g, f, w in zip(got, grouped, want, strict=True):
+        for x, y, z in zip(g, f[:2], w, strict=True):
+            _equal(x, y)
+            _equal(x, z)
 
 
 def _rois(dev, xyz, r, seed=2, kind="random"):
@@ -822,22 +855,95 @@ def test_nn_argmin_kernel(dev, b, n, m, masked):
         assert not got[0].any()
 
 
-@pytest.mark.parametrize("b,m,n,c", [(256, 256, 256, 3), (8, 24576, 1024, 128),
-                                     (16, 4096, 8, 64), (3, 7, 50, 5)])
-def test_index_add_kernel(dev, b, m, n, c):
-    """Bitwise its plain version and the CPU's scatter_add (ascending
-    positions from +0.0), with many positions on one index and empty rows."""
+def _index_add_case(b, m, n, c, layout="third"):
+    """``(src, idx)`` on the CPU: "third" puts a third of the positions on
+    one index (the rest random, rows left empty), "one" every position,
+    "sparse" every 100,000th position in the first 256 rows and the rest
+    above them."""
     gen = torch.Generator().manual_seed(8)
     src = torch.randn((b, m, c), generator=gen)
     idx = torch.randint(0, n, (b, m), generator=gen, dtype=torch.int32)
-    idx[:, ::3] = idx[:, :1]  # a third of the positions on one index
+    if layout == "one":
+        idx[:] = n - 1
+    elif layout == "sparse":
+        idx = torch.randint(256, n, (b, m), generator=gen, dtype=torch.int32)
+        idx[:, ::100_000] = torch.randint(0, 256, (b, -(-m // 100_000)), generator=gen,
+                                          dtype=torch.int32)
+    else:
+        idx[:, ::3] = idx[:, :1]
+    return src, idx
+
+
+def _index_add_equal(dev, src, idx, n, plan=None):
+    """The kernel (at ``plan``, or the wrapper's) in one launch, bitwise
+    its plain version and the CPU's scatter_add (ascending positions from
+    +0.0)."""
+    b, m, c = src.shape
     before = tgroup.KERNEL.launches
-    got = ops.index_add_rows(src.to(dev), idx.to(dev), n, impl="cuda")
+    if plan is None:
+        got = ops.index_add_rows(src.to(dev), idx.to(dev), n, impl="cuda")
+    else:
+        got = tgroup._index_add_cuda(src.to(dev), idx.to(dev), n, plan=plan)
     torch.cuda.synchronize()
     assert tgroup.KERNEL.launches == before + 1
     _equal(got, ops.index_add_rows(src.to(dev), idx.to(dev), n, impl="plain"))
     want = torch.zeros((b, n, c)).scatter_add_(1, idx.long()[..., None].expand(b, m, c), src)
     _equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("b,m,n,c,layout", [
+    (256, 256, 256, 3, "third"),  # (G)'s chamfer backward: one row tile
+    (8, 24576, 1024, 128, "third"),  # stage 2 FP4: 32 row tiles, 3 steps
+    (16, 4096, 8, 64, "third"),  # 512 positions on each index
+    (3, 7, 50, 5, "third"),
+    (1, 4096, 70000, 8, "third"),  # n beyond one CTA's rows: 274 row tiles
+    (3, 1001, 300, 7, "third"),  # M not a multiple of 32 (nor of 4: scalar index loads)
+    (2, 3000, 40, 12, "one"),  # a row of all one index: one chain of 3000 adds
+    (1, 65536, 1024, 3, "third"),  # B = 1, M = 65536: 8 steps
+    (4, 0, 16, 4, "third"),  # M = 0: zeros, written by the kernel
+    # the first CTA's rows take one position in 100,000: a short list over
+    # more than 2^23 positions (a kept position's offset bits), sorted
+    # before its offsets overflow
+    (1, 9_000_000, 4096, 1, "sparse"),
+])
+def test_index_add_kernel(dev, b, m, n, c, layout):
+    """Bitwise its plain version and the CPU's scatter_add at the wrapper's
+    plan, with many positions on one index and empty rows."""
+    _index_add_equal(dev, *_index_add_case(b, m, n, c, layout), n)
+
+
+@pytest.mark.parametrize("b,m,n,c,plan", [
+    (3, 9000, 300, 16, (16, 16)),  # 2 steps, 19 row tiles
+    (1, 80000, 64, 4, (8, 4)),  # 10 steps: lists sorted before the row ends
+    (2, 3000, 50, 16, (7, 8)),  # channel tiles of 8 (float4 loads), ragged rows
+    (2, 3000, 50, 10, (5, 4)),  # channel tiles of 4 but C % 4 != 0 (scalar loads)
+    (2, 1001, 50, 12, (1, 12)),  # one row a CTA
+    (2, 2048, 600, 3, (256, 3)),  # the most rows a CTA
+    (1, 4096, 8, 8192, (1, 8192)),  # the most sums a CTA
+    (1, 20000, 4, 4, (4, 4)),  # every position in the CTA's rows: full lists
+])
+def test_index_add_kernel_at_any_plan(dev, b, m, n, c, plan):
+    """The kernel's tilings: row tiles that do not divide n, channel tiles
+    with vector or scalar loads, several steps and lists, the plan's
+    limits."""
+    _index_add_equal(dev, *_index_add_case(b, m, n, c), n, plan=plan)
+
+
+def test_index_add_kernel_refuses_plans_beyond_its_limits(dev):
+    src, idx = (t.to(dev) for t in _index_add_case(2, 64, 8, 4))
+    for plan in ((257, 1), (0, 4), (8, 2048), (1, 8193)):
+        with pytest.raises(RuntimeError, match="index_add failed to launch"):
+            tgroup._index_add_cuda(src, idx, 8, plan=plan)
+
+
+@pytest.mark.parametrize("b,m,n,c", [(256, 256, 256, 3), (8, 24576, 1024, 128)])
+def test_index_add_kernel_is_one_device_operation(dev, b, m, n, c):
+    """``index_add_rows`` on the card is its kernel alone: no sort, cast or
+    zero fill (``torch.profiler``'s device events a call)."""
+    from gspn_tpu_torch.utils.time_kernels import device_launches
+
+    src, idx = (t.to(dev) for t in _index_add_case(b, m, n, c))
+    assert device_launches(lambda: ops.index_add_rows(src, idx, n), 5) == 1.0
 
 
 def test_gather_point_backward_launches_the_kernel(dev):

@@ -220,6 +220,28 @@ def test_query_ball_point_multi(rng, masked, select, jax_impl):
 
 
 @pytest.mark.parametrize("select", ["first", "strided"])
+@pytest.mark.parametrize("b,npts,radii,ks,m", [
+    (2, 300, (0.25, 0.5, 1.0), (4, 8, 16), 6),  # the GSPN crops' three scales
+    (2, 300, (0.1,), (8,), 40),  # SA1: one small ball a centre
+    (3, 64, (0.8,), (8,), 5),  # a scene of one step (the direct plan's)
+    (1, 129, (0.3, 0.6), (8, 24), 7),  # one point past the first step
+])
+def test_query_ball_point_multi_at_the_entry_points_shapes(rng, b, npts, radii, ks, m, select):
+    """Small analogues of slice (F)'s ball queries: against the JAX op
+    (its XLA path), and equal to the ball group's indices and counts."""
+    xyz, valid = _cloud(rng, b, npts)
+    q = np.concatenate([xyz[:, 1:m], np.full((b, 1, 3), 50.0, np.float32)], axis=1)
+    got = ops.query_ball_point_multi(radii, ks, t(xyz), t(q), t(valid), select=select)
+    want = jops.query_ball_point_multi(radii, ks, jnp.asarray(xyz), jnp.asarray(q), valid,
+                                       impl="xla", select=select)
+    grouped = ops.query_ball_group_multi(radii, ks, t(xyz), t(q), t(valid), select=select)
+    for (gi, gc), (wi, wc), (fi, fc, _) in zip(got, want, grouped, strict=True):
+        np.testing.assert_array_equal(n(gi), np.asarray(wi))
+        np.testing.assert_array_equal(n(gc), np.asarray(wc))
+        assert torch.equal(gi, fi) and torch.equal(gc, fc)
+
+
+@pytest.mark.parametrize("select", ["first", "strided"])
 @pytest.mark.parametrize("masked", [False, True])
 def test_query_ball_point(rng, masked, select):
     xyz, valid, q = _overflowing_balls(rng)
