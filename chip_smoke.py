@@ -21,18 +21,23 @@ line or a few:
    operations over 33.5 T/s, counted from this run's inputs; see
    ``_bound``), and the time of one PyTorch call computing the same
    function where there is one (``library_ms`` at the first shape that
-   has one, ``library_ms_by_shape`` for each shape timed; never called by
-   the port); the timing helpers are ``gspn_tpu_torch.utils.time_kernels``;
+   has one, ``library_ms_by_shape`` for each shape and call timed; never
+   called by the port); the timing helpers are ``gspn_tpu_torch.utils.time_kernels``;
    every kernel launch in one flagship and one whole-scene request of the
    ranked slices (A), (B), (E) and (H), one pass of (F) at each shape and
    one training step of (G), each at its own shape (``time_kernels.cases``:
    fps's shared pass and SA2-SA4, segmented in (A), (B), (E) and whole
    rows in (H), fps_cluster at (H)'s whole scene, the ball groups' crops
    and SA1-SA4 and the box group, first-K in (A), (B), (H) and strided in
-   (E), NMS, three_nn and interp_mm at FP1-FP4, mask_project, and
-   mask_project_boxed on the sorted scenes in (B); (F)'s strided ball
-   queries at SA1 and the crops and first-K at SA1; (G)'s seeds, crops,
-   both chamfer argmins and the gather backward ``index_add``), with each
+   (E), NMS, three_nn and interp_mm at FP1-FP4 (``three_interpolate_fp``:
+   the weights from the distances and, at FP1-FP3, the skip concat in the
+   launch), mask_project, and mask_project_boxed on the sorted scenes in
+   (B); (F)'s strided ball queries at SA1 and the crops and first-K at
+   SA1; (G)'s seeds, crops, both chamfer argmins in one launch
+   (``nn_argmin_pair``) and the gather backward ``index_add``), and the
+   other form of two kernels (interp_mm from weights,
+   ``three_interpolate_mm``, at FP4 and FP1; nn_argmin one way, and both
+   ways at 16 rows x 4096 with ties), with each
    shape's device and bound ms in ``device_ms_by_shape`` /
    ``bound_ms_by_shape``, and index_add also at stage 2's FP4 and RoIAlign
    backward, SA1's grouping backward and 512 positions an index; each (F) ball query's device ms
@@ -40,8 +45,11 @@ line or a few:
    and box groups, first-K and strided, at every split (warps a query) at
    each of their shapes, the strided groups' pick marked; three_nn at
    every (targets a thread, source slices, sources a group) plan at each
-   of its shapes; NMS's and index_add's device operations a call (one)
-   and wrapper ms at their ranked shapes; the exact FPS beyond one block
+   of its shapes; interp_mm at every (rows, slices, stage) plan at each of
+   its shapes and nn_argmin both ways at every cluster size at 16 rows x
+   4096; NMS's, index_add's, the FP interpolation's and the
+   chamfer argmins' device operations a call (one) and wrapper ms at
+   their ranked shapes; the exact FPS beyond one block
    (``fps_cluster``) also at 4 x 16384, 2 x 14273 with an all-invalid row
    and 131072 points, and at every cluster size that holds each of those
    rows and the whole scene's; NMS up to 4096 boxes;
@@ -78,8 +86,8 @@ line or a few:
    warn_only=True)`` on a model of its own, printing what PyTorch warns
    about; then one warm-up step and ``TRAIN_STEPS`` timed steps with the
    same noise each step, launch counts set to 0 just before (exactly fps,
-   ball_group and the gather backward's index_add once and nn_argmin twice
-   a step), a second kernel-path run from the same weights that must be
+   ball_group, nn_argmin (both ways) and the gather backward's index_add
+   once a step), a second kernel-path run from the same weights that must be
    bitwise equal (losses, parameters, running statistics), then the plain
    path (a GSPN built from the plain config with the same initial
    weights), which launches nothing and must train the same model bit for
@@ -103,8 +111,9 @@ line or a few:
    queries, (H) for fps_cluster, (G) for nn_argmin and index_add;
    ``launches_by_slice`` for each slice's own count; ``device_events``, the
    profiler's events under ``device_ms``; ``ms_by_cluster_size`` for
-   fps_cluster, ``ms_by_split`` for the ball and box groups, ``ms_by_plan``
-   for three_nn, ``device_ops_per_call`` for nms), the card's name and power
+   fps_cluster and nn_argmin, ``ms_by_split`` for the ball and box groups,
+   ``ms_by_plan`` for three_nn and interp_mm, ``device_ops_per_call`` for
+   nms, index_add, interp_mm and nn_argmin), the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises; no phase's error is caught. Imports nothing of JAX.
@@ -137,6 +146,10 @@ FPS_ROWS_N = 131072  # the cluster FPS's reach: twice the whole scene
 SPLITS = (1, 2, 4, 8, 16)  # warps a query the ball and box groups take
 # three_nn: targets a thread, source slices, sources a group
 NN_PER, NN_SPLITS, NN_GROUPS = (1, 2, 4), (1, 2, 4, 8, 16, 32), (1, 32)
+# the FP interpolation: rows a task and slices (direct), rows a chunk
+# (staged); the two-way argmin: CTAs a row
+FP_ROWS, FP_SLICES, FP_CHUNKS = (1, 2, 4, 8), (1, 2, 3, 4, 6), (512, 1024, 2048)
+NN_CLUSTERS = (1, 2, 4, 8, 16)
 STRIDED = {"ball_group": "ball_group_strided", "box_group": "box_group_strided"}
 # the kernel's symbols in the profiler's (demangled) device events; the
 # template arguments of group_first_kernel and group_strided_kernel: the
@@ -165,9 +178,10 @@ SLICE_KERNELS = {  # what each slice's kernel path launches; the others stay at 
     "H": PATH_KERNELS | {"mask_project", "fps_cluster"},
     "G": {"fps", "ball_group", "nn_argmin", "index_add"},
 }
-# slice (G) launches per step: index_add is the chamfer's gather backward
-# into the generated points
-G_PER_STEP = {"fps": 1, "ball_group": 1, "nn_argmin": 2, "index_add": 1}
+# slice (G) launches per step: nn_argmin gives the chamfer's argmins both
+# ways in one launch; index_add is the chamfer's gather backward into the
+# generated points
+G_PER_STEP = {"fps": 1, "ball_group": 1, "nn_argmin": 1, "index_add": 1}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 # H100 SXM float32 outside the tensor cores, one instruction per lane and
 # clock: 132 SMs x 128 lanes x 1.98 GHz. The published 67 TFLOP/s counts an
@@ -261,8 +275,11 @@ def check_kernels(dev, ops, bench_slice):
     grid = roi_grid_points(boxes, 64)[0].reshape(B, 64 * 64, 3)
     ws_grid = roi_grid_points(ws_boxes, 64)[0].reshape(1, 64 * 64, 3)
     targets = xyz[:, None].expand(B, 64, N, 3).reshape(B * 64, N, 3)
-    fp4 = main_path["interp_mm"][0][1]  # FP4's interpolation at the flagship
-    gt, pred = main_path["nn_argmin"][1][1][:2]  # the chamfer's GT -> pred
+    # FP4's and FP1's interpolation at the flagship: sources, indices,
+    # distances, skip rows; the weights the distances give
+    fp4, fp1 = main_path["interp_mm"][0][1], main_path["interp_mm"][1][1]
+    fp4_w, fp1_w = (ops.three_interpolate_weights(a[2]) for a in (fp4, fp1))
+    pred, gt, _, gt_valid = main_path["nn_argmin"][0][1]  # the chamfer's both ways
     chain_boxes, chain_scores = _chain_nms_case(dev, B, 64, 32, gen)
     nms2k, nms4k = _chain_nms_case(dev, 1, 2048, 128, gen), _chain_nms_case(dev, 1, 4096, 128, gen)
     nms1k = _chain_nms_case(dev, 1, 1024, 128, gen)
@@ -270,6 +287,7 @@ def check_kernels(dev, ops, bench_slice):
     tie_src = torch.cat([tie_src, tie_src], dim=1).to(dev)  # source j + 2048 repeats j
     tie_tgt = (torch.rand((16, 4096, 3), generator=gen) * 4).to(dev)
     tie_valid = (torch.rand((16, 4096), generator=gen) > 0.2).to(dev)
+    tie_valid1 = (torch.rand((16, 4096), generator=gen) > 0.2).to(dev)
     # exact FPS beyond one block: 4 x 16384 training scenes; 2 x 14273 with
     # an all-invalid row; one row of FPS_ROWS_N points, 10 % padding
     t16 = bench_slice.train_batch(dev, n=16384)
@@ -313,9 +331,18 @@ def check_kernels(dev, ops, bench_slice):
         return lambda out: (_nbytes(tgt, src, svld, *tk.flatten(out)),
                             tgt.shape[0] * tgt.shape[1] * src.shape[1] * 9)
 
-    def mm_work(args):  # a target channel: three multiplies, two adds
-        pts, idx, _ = args
-        return lambda out: (_nbytes(*args, out), idx.shape[0] * idx.shape[1] * pts.shape[2] * 5)
+    def pair_work(tgt, src, tvld, svld):  # a pair: the distance and a compare each way
+        return lambda out: (_nbytes(tgt, src, tvld, svld, *out),
+                            tgt.shape[0] * tgt.shape[1] * src.shape[1] * 10)
+
+    def mm_work(args):
+        """An interpolated channel: three multiplies, two adds; from the
+        distances, a row's weights too (three compares, three divisions,
+        two adds, three divisions); the skip rows are read and written."""
+        pts, idx = args[:2]
+        rows = idx.shape[0] * idx.shape[1]
+        weights = 11 * rows if len(args) == 4 else 0
+        return lambda out: (_nbytes(*args, out), rows * pts.shape[2] * 5 + weights)
 
     def proj_work(pts, samp, lg, share=1.0, *extra):  # a (point, sample) pair
         b, r, s_, _ = samp.shape
@@ -363,12 +390,15 @@ def check_kernels(dev, ops, bench_slice):
         "nms": lambda a: nms_work(a[0], a[1]),
         "three_nn": lambda a: nn_work(*a), "interp_mm": mm_work,
         "mask_project": lambda a: proj_work(*a), "mask_project_boxed": lambda a: boxed_work(*a),
-        "nn_argmin": lambda a: nn_work(*a), "index_add": lambda a: add_work(*a[:2]),
+        "nn_argmin": lambda a: pair_work(*a), "index_add": lambda a: add_work(*a[:2]),
     }
 
     def main_cases(name):  # every ranked launch of the kernel (time_kernels.cases)
         return [(label, lambda impl, a=a: tk.call(ops, name, a, impl), main_work[name](a))
                 for label, a, _ in main_path[name]]
+
+    def first_label(name, i=0):
+        return main_path[name][i][0]
 
     grid_label = f"grid RoIAlign: {B}x4096 targets <- {N}"
     nn_extra = [  # three_nn off the main path: (D)'s masks, (C)'s grid RoIs
@@ -398,11 +428,24 @@ def check_kernels(dev, ops, bench_slice):
         "three_nn": main_cases("three_nn") + [
             (label, lambda impl, a=a: ops.three_nn(*a, impl=impl), nn_work(*a))
             for label, a in nn_extra],
-        "interp_mm": main_cases("interp_mm"),
+        # the FP levels from the distances (FP1-FP3 with their skip rows),
+        # then the form that takes weights (three_interpolate_mm)
+        "interp_mm": main_cases("interp_mm") + [
+            (f"weights form: {label}", lambda impl, a=a, w=w: ops.three_interpolate_mm(
+                a[0], a[1], w, impl=impl), mm_work((a[0], a[1], w)))
+            for label, a, w in ((first_label("interp_mm", 0), fp4, fp4_w),
+                                (first_label("interp_mm", 1).split(" + ")[0], fp1, fp1_w))],
         "mask_project": main_cases("mask_project"),
         "mask_project_boxed": main_cases("mask_project_boxed"),
+        # both ways (nn_argmin_pair), then one way (nn_argmin)
         "nn_argmin": main_cases("nn_argmin") + [
-            ("16 rows x 4096 <- 4096, each source twice (ties), masked",
+            ("16 rows x 4096 <-> 4096 both ways, each source twice (ties), masked both ways",
+             lambda impl: ops.nn_argmin_pair(tie_tgt, tie_src, tie_valid1, tie_valid, impl=impl),
+             pair_work(tie_tgt, tie_src, tie_valid1, tie_valid)),
+            ("one way: chamfer pred -> GT, 256 rows x 256 <- 256, GT masked",
+             lambda impl: ops.nn_argmin(pred, gt, gt_valid, impl=impl),
+             nn_work(pred, gt, gt_valid)),
+            ("one way: 16 rows x 4096 <- 4096, each source twice (ties), masked",
              lambda impl: ops.nn_argmin(tie_tgt, tie_src, tie_valid, impl=impl),
              nn_work(tie_tgt, tie_src, tie_valid)),
         ],
@@ -419,10 +462,28 @@ def check_kernels(dev, ops, bench_slice):
         ],
         "index_add": main_cases("index_add"),
     }
-    def cdist_argmin(tgt, src):
-        """One ``torch.cdist`` (explicit differences, no matmul expansion)
-        and its argmin: the nearest source by distance, not squared."""
-        return lambda: torch.cdist(tgt, src, compute_mode="donot_use_mm_for_euclid_dist").argmin(-1)
+    def cdist_pair(tgt, src, svalid, mode):
+        """One ``torch.cdist`` (``mode``: explicit differences, or the
+        matmul expansion ``|a|^2 - 2ab + |b|^2``) and its two argmins: each
+        source's nearest target, and each target's nearest valid source
+        (invalid sources set to +inf): the nearest by distance, not
+        squared."""
+        def call():
+            d = torch.cdist(tgt, src, compute_mode=mode)
+            cols = d.argmin(-2)
+            return d.masked_fill(~svalid[:, None, :], float("inf")).argmin(-1), cols
+        return call
+
+    def embedding_bag_interp(pts, idx, w):
+        """One ``F.embedding_bag`` (mode "sum", ``per_sample_weights``) over
+        the flattened batch: each target row a bag of its three source rows
+        (the batch offsets are added here, untimed)."""
+        b, n, _ = idx.shape
+        m, c = pts.shape[1:]
+        flat = (idx.long() + (torch.arange(b, device=dev) * m)[:, None, None]).reshape(b * n, 3)
+        table, weights = pts.reshape(b * m, c), w.reshape(b * n, 3)
+        return lambda: torch.nn.functional.embedding_bag(
+            flat, table, mode="sum", per_sample_weights=weights).reshape(b, n, c)
 
     def max_abs_diff(got, want):
         return (got - want).abs().max().item()
@@ -434,12 +495,18 @@ def check_kernels(dev, ops, bench_slice):
 
     def sqdist_gap(tgt, src):
         """Max gap between the squared distances of the library's and the
-        kernel's picks: the square root can merge near-ties, so the indices
-        may differ where the distances do not."""
+        kernel's picks: the square root can merge near-ties (and the matmul
+        expansion round them apart), so the indices may differ where the
+        distances do not."""
         def gap(got, want):
             d = [(tgt - ops.gather_point(src, i)).square().sum(-1) for i in (got, want)]
             return max_abs_diff(*d)
         return gap
+
+    def pair_gap(tgt, src):
+        """``sqdist_gap`` each way."""
+        rows, cols = sqdist_gap(tgt, src), sqdist_gap(src, tgt)
+        return lambda got, want: max(rows(got[0], want[0]), cols(got[1], want[1]))
 
     def cdist_topk(tgt, src, svalid=None):
         """One ``torch.cdist`` (explicit differences) and its ``topk(3)``:
@@ -455,7 +522,7 @@ def check_kernels(dev, ops, bench_slice):
     def topk_gap(got, want):
         """Max gap between the kernel's squared distances and the squares
         of the library's (the square root can merge near-ties)."""
-        return max_abs_diff(got.values.square(), want)
+        return max_abs_diff(got.values.square(), _first(want))
 
     def cdist_project(pts, samp, lg):
         """One ``torch.cdist`` over every (RoI, point, sample) triple and its
@@ -493,23 +560,35 @@ def check_kernels(dev, ops, bench_slice):
         return lambda: torch.zeros((b * n_out, c), device=src.device).index_add_(
             0, flat, rows).reshape(b, n_out, c)
 
-    # name -> [(case label, one PyTorch call on that case's inputs, its gap
-    # to the kernel's output, the largest gap allowed)]
+    # name -> [(case label, the library call's name, one PyTorch call on
+    # that case's inputs, its gap to the kernel's output, the largest gap
+    # allowed)]; the first is the kernel's library_ms. The matmul expansion
+    # loses ~1e-6 of |a|^2 + |b|^2 (scene coordinates up to a few metres)
+    # to cancellation, so its picks may be 1e-3 apart in squared distance
     first = {name: main_path[name][0][0] for name in main_path}
     library = {
-        "interp_mm": [(first["interp_mm"], sparse_interp(fp4), max_abs_diff, 1e-4)],
-        "nn_argmin": [(main_path["nn_argmin"][1][0], cdist_argmin(gt, pred),
-                       sqdist_gap(gt, pred), 1e-6)],
-        "three_nn": [(first["three_nn"], cdist_topk(xyz, sa1), topk_gap, 1e-5),
-                     (grid_label, cdist_topk(grid, xyz, valid), topk_gap, 1e-5)],
-        "mask_project": [(first["mask_project"], cdist_project(xyz, roi_xyz, fl["logits"]),
+        "interp_mm": [(first["interp_mm"], "torch.sparse.mm", sparse_interp(
+            (fp4[0], fp4[1], fp4_w)), max_abs_diff, 1e-4),
+                      (first["interp_mm"], "F.embedding_bag", embedding_bag_interp(
+                          fp4[0], fp4[1], fp4_w), max_abs_diff, 1e-4)],
+        "nn_argmin": [(first["nn_argmin"], "torch.cdist, explicit differences", cdist_pair(
+            pred, gt, gt_valid, "donot_use_mm_for_euclid_dist"), pair_gap(pred, gt), 1e-6),
+                      (first["nn_argmin"], "torch.cdist, matmul expansion", cdist_pair(
+                          pred, gt, gt_valid, "use_mm_for_euclid_dist"), pair_gap(pred, gt),
+                       1e-3)],
+        "three_nn": [(first["three_nn"], "torch.cdist + topk", cdist_topk(xyz, sa1), topk_gap,
+                      1e-5),
+                     (grid_label, "torch.cdist + topk", cdist_topk(grid, xyz, valid), topk_gap,
+                      1e-5)],
+        "mask_project": [(first["mask_project"], "torch.cdist + argmin + gather",
+                          cdist_project(xyz, roi_xyz, fl["logits"]),
                           project_gap(xyz, roi_xyz), 1e-6)],
         # the dense projection's function, at the sorted shape
-        "mask_project_boxed": [(first["mask_project_boxed"],
+        "mask_project_boxed": [(first["mask_project_boxed"], "torch.cdist + argmin + gather",
                                 cdist_project(fl["sxyz"], roi_xyz, fl["logits"]),
                                 project_gap(fl["sxyz"], roi_xyz), 1e-6)],
-        "index_add": [(first["index_add"], index_add_library(*main_path["index_add"][0][1]),
-                       max_rel_diff, 1e-5)],
+        "index_add": [(first["index_add"], "index_add_",
+                       index_add_library(*main_path["index_add"][0][1]), max_rel_diff, 1e-5)],
     }
     entries = []
     for name, shapes in cases.items():
@@ -538,16 +617,17 @@ def check_kernels(dev, ops, bench_slice):
                 main = (err, ms, plain_ms, dev_ms, events, bound_ms, bound_by)
         library_ms = {}
         fns = {label: fn for label, fn, _ in shapes}
-        for label, lib_fn, lib_gap, lib_tol in library.get(name, ()):
+        for label, lib_name, lib_fn, lib_gap, lib_tol in library.get(name, ()):
             first_ms, lib_out = _host_ms(lib_fn)
-            lib_err = lib_gap(lib_out, _first(fns[label]("cuda")))
+            lib_err = lib_gap(lib_out, fns[label]("cuda"))
             if lib_err > lib_tol:
-                raise AssertionError(f"{name}: the library call differs by {lib_err}")
+                raise AssertionError(f"{name}: {lib_name} differs by {lib_err}")
             del lib_out
-            library_ms[label] = tk.cuda_ms(
+            key = f"{label}: {lib_name}"
+            library_ms[key] = tk.cuda_ms(
                 lib_fn, KERNEL_ITERS if first_ms < 20 else PLAIN_SLOW_ITERS)
-            print(f"kernel {name} [{label}]: library call "
-                  f"{library_ms[label]:.4f} ms (max abs diff {lib_err:.2e})")
+            print(f"kernel {name} [{label}]: library call {lib_name} "
+                  f"{library_ms[key]:.4f} ms (max abs diff {lib_err:.2e})")
         entries.append({
             "name": name, "route": "cuda", "source": k.source,
             "replaces": "; ".join(r.split()[0] for r in k.replaces.split("; ")),
@@ -645,9 +725,59 @@ def check_kernels(dev, ops, bench_slice):
                   f"{plan}: {ms}{' (picked)' * (plan == pick)}" for plan, ms in times.items()))
     next(e for e in entries if e["name"] == "three_nn")["ms_by_plan"] = plans
 
-    # NMS and index_add at their ranked shapes: the whole of nms_3d_batched
-    # and of index_add_rows must be one device operation (the kernel) a call
-    for name in ("nms", "index_add"):
+    # the FP interpolation at every (rows, slices, stage) at each ranked
+    # shape (direct: rows a task x slices; staged, where the shape allows
+    # it: rows a chunk x slices of 16 or 32 channels), kernel only (bitwise
+    # the plain version each time), device ms; interp_mm_plan's pick marked
+    plans = {}
+    for label, args, _ in main_path["interp_mm"]:
+        pts, idx, _, skip = args
+        b, n, m, c = idx.shape[0], idx.shape[1], pts.shape[1], pts.shape[2]
+        c1 = 0 if skip is None else skip.shape[-1]
+        want = tk.flatten(ops.three_interpolate_fp(*args, impl="plain"))
+        picked = tinterp.interp_mm_plan(b, n, m, c, c1)
+        pick = "x".join(map(str, picked))
+        candidates = list(itertools.product(FP_ROWS, FP_SLICES, (0,)))
+        if c1 == 0:
+            candidates += [(chunk, c // st, st) for st in (16, 32) for chunk in FP_CHUNKS
+                           if c % st == 0 and m * st * 4 + chunk * 32 <= tinterp.INTERP_MM_SMEM]
+        candidates += [picked] * (picked not in candidates)
+        times = {}
+        for plan in candidates:
+            run = lambda args=args, plan=plan: tinterp._interp_mm_cuda(  # noqa: E731
+                *args[:3], args[3], from_dist=True, plan=plan)
+            tk.max_abs_err(tk.flatten(run()), want)
+            times["x".join(map(str, plan))] = tk.device_ms(run, KERNEL_ITERS,
+                                                           DEVICE_SYMBOLS["interp_mm"])[0]
+        plans[label] = times
+        print(f"interp_mm plan sweep [{label}]: device ms by rows x slices x stage (bitwise the "
+              "plain version at each) " + ", ".join(
+                  f"{plan}: {ms}{' (picked)' * (plan == pick)}" for plan, ms in times.items()))
+    next(e for e in entries if e["name"] == "interp_mm")["ms_by_plan"] = plans
+
+    # the two-way argmin at every cluster size at 16 rows x 4096, kernel
+    # only (bitwise the plain version each time), device ms; the plan's
+    # pick marked
+    from gspn_tpu_torch.ops import chamfer as tchamfer
+
+    want = tk.flatten(ops.nn_argmin_pair(tie_tgt, tie_src, tie_valid1, tie_valid, impl="plain"))
+    pick = tchamfer.nn_argmin_plan(tie_tgt.shape[1])
+    times = {}
+    for cluster in NN_CLUSTERS:
+        run = lambda cluster=cluster: tchamfer._argmin_cuda(  # noqa: E731
+            tie_tgt, tie_src, tie_valid1, tie_valid, both=True, cluster=cluster)
+        tk.max_abs_err(tk.flatten(run()), want)
+        times[cluster] = tk.device_ms(run, KERNEL_ITERS, DEVICE_SYMBOLS["nn_argmin"])[0]
+    print("nn_argmin cluster sweep [16 rows x 4096 <-> 4096 both ways]: device ms by CTAs a row "
+          "(bitwise the plain version at each) " + ", ".join(
+              f"{cs}: {ms}{' (picked)' * (cs == pick)}" for cs, ms in times.items()))
+    next(e for e in entries if e["name"] == "nn_argmin")["ms_by_cluster_size"] = times
+
+    # NMS, index_add, the FP interpolation and the chamfer argmins at their
+    # ranked shapes: the whole of nms_3d_batched, index_add_rows,
+    # three_interpolate_fp (with and without the skip rows) and
+    # nn_argmin_pair must be one device operation (the kernel) a call
+    for name in ("nms", "index_add", "interp_mm", "nn_argmin"):
         per_call = {}
         for label, a, reqs in main_path[name]:
             if not reqs:

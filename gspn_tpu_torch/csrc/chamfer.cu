@@ -1,87 +1,393 @@
-// Nearest valid source per target: the argmin behind the chamfer loss.
+// Nearest valid source per target, in one direction or both: the argmins
+// behind the chamfer loss.
 //
 // Replaces gspn_tpu/ops/chamfer.py::_nn_kernel (called through
 // _argmin_pallas), the Pallas kernel that lays a tile of targets along
 // sublanes and the whole padded source row along lanes, builds the
 // (targets x sources) squared-distance tile in VMEM and reduces it with one
-// argmin.
+// argmin. The JAX package calls it twice for the chamfer loss, once each
+// way; here one launch gives both.
 //
-// Contract (ops/common.py masked_sqdist + argmin): d2 = dx*dx + dy*dy +
-// dz*dz in that order with round-to-nearest intrinsics, an invalid source
-// counts as 1e10, and the index is the lowest one among equal minima, so a
-// target whose sources are all padded gets index 0 (argmin over a row of
-// 1e10s). Bitwise equal to the plain PyTorch version.
+// Contract (ops/common.py masked_sqdist + argmin, ops/chamfer.py
+// nn_argmin_pair): d2 = dx*dx + dy*dy + dz*dz in that order with
+// round-to-nearest intrinsics (d(a, b) is bitwise d(b, a): b - a is exactly
+// -(a - b)). Row direction: idx1[i] is the nearest source of target i, an
+// invalid source (valid2 false) counting as 1e10. Column direction:
+// idx2[j] is the nearest target of source j, an invalid target (valid1
+// false) counting as 1e10. Ties go to the lowest index in both, so a row
+// whose candidates are all invalid gets index 0. Bitwise equal to the plain
+// PyTorch version.
 //
-// What bounds it on the card: the N*M distance evaluations (9 float32
-// operations and a compare each, no FMA); inputs and outputs are a few
-// bytes per point. At the training step's shapes (256 rows x 256 targets x
-// 256 sources, twice a step) the operations bound is ~0.0045 ms per launch
-// (0.009 ms a step) at 33.5 T float32 operations/s, the H100's lanes
-// without FMA. Design: one thread per target scans the sources
-// in index order and keeps (best, index), replacing them only on a strict
-// <; the block stages the row's sources through shared memory in tiles of
-// kTile, so each source is read from device memory once per block and
-// broadcast to the block's kThreads targets. At 256 rows x 256 targets the
-// grid is 512 blocks of 128 threads: every SM gets work, and the launch is
-// latency-bound (each thread's 256-step dependent scan), not starved.
+// What bounds it on the card: the N*M distance evaluations, 8 float32
+// operations each (no FMA), and one compare a direction; inputs and outputs
+// are a few bytes a point. At the training step's shapes (256 rows x 256
+// targets x 256 sources) the operations bound is ~0.0050 ms for both ways
+// at 33.5 T float32 operations/s, the H100's lanes without FMA. Design:
+// - A CTA takes 256 targets (a pass) of one row, staged once in shared
+//   memory as float4 (x, y, z, invalid flag), and sweeps all its sources,
+//   staged 256 at a time the same way, double-buffered. Lane p holds
+//   targets 8p..8p+7 in registers; warp q takes the tile's sources
+//   32q..32q+31, so a source read is one broadcast LDS.128 for eight
+//   distances, and the lanes of a warp meet the same source flag (a
+//   uniform branch, no select a pair).
+// - Each distance is computed once and reduced twice: into the target's
+//   running (distance, index) in registers (strict <, sources in index
+//   order), and by fminf along the thread's eight targets into a column
+//   value that goes to shared memory (one instruction a pair, no index).
+//   After the tile, a thread a source finds the first lane holding the
+//   least value, then the first of that lane's targets at it by computing
+//   its eight distances again: the lowest index at the minimum, as the
+//   plain argmin has it.
+// - A row of up to 256 targets is one CTA, which writes both directions'
+//   results itself. Longer rows are split over a thread-block cluster of
+//   up to 16 CTAs (non-portable above 8; 16 x 4096 rows fill the card with
+//   256 CTAs); each CTA writes its column partials of every source to a
+//   scratch (every entry is written before it is read, so nothing needs
+//   initialising), and after one cluster barrier a pass each CTA merges its
+//   share of the sources over the cluster's partials in rank (target)
+//   order. Rows longer than 16 x 256 targets take several passes; the
+//   running column minimum stays in the scratch, read and written by the
+//   same thread. One launch, no atomics: the result does not depend on the
+//   order CTAs run in.
+// - At the end of a pass, the warps' row partials (each over its own
+//   slices of the source tiles) are merged by (distance, index).
+// The one-direction form (idx2 null) is the same kernel without the column
+// work (kCols false), a CTA a 256-target tile, no cluster.
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kTile = 2048;  // 26 KB of shared memory per block
+constexpr int kLanes = 32;                 // a lane a group of targets
+constexpr int kWarps = 8;                  // a warp a slice of each source tile
+constexpr int kThreads = kLanes * kWarps;  // 256
+constexpr int kPer = 8;                    // targets a thread
+constexpr int kTargets = kLanes * kPer;    // 256 targets a CTA and pass
+constexpr int kSources = kThreads;         // 256 sources a tile, one staged a thread
+constexpr int kSlice = kSources / kWarps;  // 32 sources a warp's slice of a tile
+constexpr int kMaxCluster = 16;
+constexpr int kColPad = kSources + 1;  // column partials [lane][source], padded
+constexpr int kRowPad = kLanes * (kPer + 1);  // row partials [warp][lane * 9 + r]
 
-__global__ void nn_argmin_kernel(const float* __restrict__ xyz1,
-                                 const float* __restrict__ xyz2,
-                                 const uint8_t* __restrict__ valid2, int n,
-                                 int m, int* __restrict__ idx) {
-  __shared__ float sx[kTile];
-  __shared__ float sy[kTile];
-  __shared__ float sz[kTile];
-  __shared__ uint8_t sv[kTile];
-  const int b = blockIdx.y;
-  const int t = blockIdx.x * kThreads + threadIdx.x;
-  const bool active = t < n;
-  const float* tgt = xyz1 + (static_cast<size_t>(b) * n + (active ? t : 0)) * 3;
-  const float tx = tgt[0], ty = tgt[1], tz = tgt[2];
+template <bool kCols>
+struct Shared {
+  float4 src[2][kSources];  // (x, y, z, 1 where valid2 is false)
+  float4 tgt[kTargets];     // (x, y, z, 1 where valid1 is false), swizzled
+  // column partials' values [lane][source of the tile]; at a pass's end the
+  // row partials' distances [warp][lane * 9 + r]
+  float part[kCols ? kLanes * kColPad : kWarps * kRowPad];
+  int row_i[kWarps * kRowPad];
+};
+
+// Target t's slot: lane p's eight targets 8p..8p+7 land in distinct bank
+// groups for the eight lanes a 16-byte load serves at once.
+__device__ __forceinline__ int tslot(int t) { return t ^ ((t >> 3) & 7); }
+
+// (best, index) <- (d, j) when d < best: sources arrive in index order, so
+// a tie keeps the earlier one.
+__device__ __forceinline__ void take_min(float d, int j, float& best, int& bi) {
+  if (d < best) {
+    best = d;
+    bi = j;
+  }
+}
+
+// One source (index j, uniform across the warp) against the thread's kPer
+// targets: the targets' running row minima, and the least column distance
+// over these targets (fminf passes over a padded target's NaN). kInvalid:
+// the source is padded for the row direction (its row candidate is exactly
+// 1e10).
+template <bool kCols, bool kValid1, bool kInvalid>
+__device__ __forceinline__ float scan_source(const float4 p, int j,
+                                             const float (&tx)[kPer],
+                                             const float (&ty)[kPer],
+                                             const float (&tz)[kPer],
+                                             unsigned inv1, float (&rb)[kPer],
+                                             int (&ri)[kPer]) {
+  float cb = CUDART_NAN_F;
+#pragma unroll
+  for (int r = 0; r < kPer; ++r) {
+    const float d = gspn::sqdist(tx[r], ty[r], tz[r], p.x, p.y, p.z);
+    take_min(kInvalid ? 1e10f : d, j, rb[r], ri[r]);
+    if constexpr (kCols)
+      cb = fminf(cb, kValid1 && ((inv1 >> r) & 1u) ? 1e10f : d);
+  }
+  return cb;
+}
+
+// Grid (CTAs a row, batch rows); with kCols and more than one CTA a row (or
+// more than one pass) the x extent is one cluster. A target past n and a
+// source past m have NaN coordinates: their distances are NaN and win no
+// compare. part_d / part_i: each CTA's column partials, [pass parity][batch
+// row][rank][source]; run_d: the running column minimum across passes.
+template <bool kCols, bool kValid1, bool kValid2>
+__global__ void __launch_bounds__(kThreads) nn_argmin_kernel(
+    const float* __restrict__ xyz1, const float* __restrict__ xyz2,
+    const uint8_t* __restrict__ valid1, const uint8_t* __restrict__ valid2,
+    int n, int m, int passes, int* __restrict__ idx1, int* __restrict__ idx2,
+    float* __restrict__ part_d, int* __restrict__ part_i, float* __restrict__ run_d) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Shared<kCols>& sh = *reinterpret_cast<Shared<kCols>*>(smem_raw);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b = blockIdx.y, nb = gridDim.y;
+  const float* tgt = xyz1 + static_cast<size_t>(b) * n * 3;
   const float* src = xyz2 + static_cast<size_t>(b) * m * 3;
-  const uint8_t* v = valid2 ? valid2 + static_cast<size_t>(b) * m : nullptr;
+  const uint8_t* v1 = kValid1 ? valid1 + static_cast<size_t>(b) * n : nullptr;
+  const uint8_t* v2 = kValid2 ? valid2 + static_cast<size_t>(b) * m : nullptr;
+  const int tiles = (m + kSources - 1) / kSources;
+  const int cs = static_cast<int>(gridDim.x);
+  const int rank = static_cast<int>(blockIdx.x);
+  // one CTA and one pass a row: the CTA's column result is the row's
+  const bool direct = cs == 1 && passes == 1;
 
-  float best = CUDART_INF_F;
-  int best_j = 0;
-  for (int base = 0; base < m; base += kTile) {
-    const int len = m - base < kTile ? m - base : kTile;
-    __syncthreads();  // the previous tile has been read by every thread
-    for (int u = threadIdx.x; u < len; u += kThreads) {
-      const int j = base + u;
-      sx[u] = src[3 * j];
-      sy[u] = src[3 * j + 1];
-      sz[u] = src[3 * j + 2];
-      sv[u] = v == nullptr ? 1 : v[j];
+  auto fetch = [&](int j) {
+    return j < m ? make_float4(src[3 * j], src[3 * j + 1], src[3 * j + 2],
+                               kValid2 && !v2[j] ? 1.f : 0.f)
+                 : make_float4(CUDART_NAN_F, CUDART_NAN_F, CUDART_NAN_F, 0.f);
+  };
+
+  for (int pass = 0; pass < passes; ++pass) {
+    const int t_base = (pass * cs + rank) * kTargets;
+    {  // stage the pass's targets and the first source tile, a point a thread
+      const int t = t_base + tid;
+      sh.tgt[tslot(tid)] =
+          t < n ? make_float4(tgt[3 * t], tgt[3 * t + 1], tgt[3 * t + 2],
+                              kValid1 && !v1[t] ? 1.f : 0.f)
+                : make_float4(CUDART_NAN_F, CUDART_NAN_F, CUDART_NAN_F, 0.f);
+      sh.src[0][tid] = fetch(tid);
     }
     __syncthreads();
-    if (!active) continue;
-    for (int u = 0; u < len; ++u) {
-      const float d = sv[u] ? gspn::sqdist(tx, ty, tz, sx[u], sy[u], sz[u]) : 1e10f;
-      if (d < best) {
-        best = d;
-        best_j = base + u;
+    float tx[kPer], ty[kPer], tz[kPer], rb[kPer];
+    int ri[kPer];
+    unsigned inv1 = 0;  // bit r: target 8 lane + r is invalid (valid1 false)
+#pragma unroll
+    for (int r = 0; r < kPer; ++r) {
+      const float4 q = sh.tgt[tslot(lane * kPer + r)];
+      tx[r] = q.x;
+      ty[r] = q.y;
+      tz[r] = q.z;
+      if (kValid1 && q.w != 0.f) inv1 |= 1u << r;
+      rb[r] = CUDART_INF_F;
+      ri[r] = warp * kSlice;  // the first source this thread meets
+    }
+    const size_t slot = ((static_cast<size_t>(pass & 1) * nb + b) * cs + rank) * m;
+
+    for (int k = 0; k < tiles; ++k) {
+      const int base = k * kSources;
+      const bool more = k + 1 < tiles;
+      float4 pre;
+      if (more) pre = fetch(base + kSources + tid);
+      const float4* cur = sh.src[k & 1];
+      const int j0 = base + warp * kSlice;
+      const int len = min(kSlice, m - j0);  // the warp's sources below m
+#pragma unroll 2
+      for (int s = 0; s < len; ++s) {
+        const float4 p = cur[warp * kSlice + s];
+        float cb;
+        if (kValid2 && p.w != 0.f)
+          cb = scan_source<kCols, kValid1, true>(p, j0 + s, tx, ty, tz, inv1, rb, ri);
+        else
+          cb = scan_source<kCols, kValid1, false>(p, j0 + s, tx, ty, tz, inv1, rb, ri);
+        if constexpr (kCols) sh.part[lane * kColPad + warp * kSlice + s] = cb;
+      }
+      if (more) sh.src[(k + 1) & 1][tid] = pre;
+      __syncthreads();
+      const int j = base + tid;
+      if (kCols && j < m) {
+        // the CTA's column result of source j: the first lane holding the
+        // least distance (four runs of eight lanes, then the runs in
+        // order), then the first of that lane's targets at it (targets
+        // ascend with the lane, then within it)
+        float dq[4];
+        int lq[4];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          dq[g] = CUDART_INF_F;
+          lq[g] = -1;
+#pragma unroll
+          for (int l = 8 * g; l < 8 * g + 8; ++l) {
+            const float dl = sh.part[l * kColPad + tid];
+            if (dl < dq[g]) {
+              dq[g] = dl;
+              lq[g] = l;
+            }
+          }
+        }
+        float d = dq[0];
+        int bl = lq[0];
+#pragma unroll
+        for (int g = 1; g < 4; ++g) {
+          if (dq[g] < d) {
+            d = dq[g];
+            bl = lq[g];
+          }
+        }
+        int i = t_base;  // every distance +inf (or NaN): the first target
+        if (bl >= 0) {
+          const float4 p = cur[tid];
+          for (int r = kPer - 1; r >= 0; --r) {
+            const float4 q = sh.tgt[tslot(bl * kPer + r)];
+            const float dc = kValid1 && q.w != 0.f
+                                 ? 1e10f
+                                 : gspn::sqdist(q.x, q.y, q.z, p.x, p.y, p.z);
+            if (dc == d) i = t_base + bl * kPer + r;
+          }
+        }
+        if (direct) {
+          idx2[static_cast<size_t>(b) * m + j] = i;
+        } else {
+          part_d[slot + j] = d;
+          part_i[slot + j] = i;
+        }
+      }
+      if constexpr (kCols) __syncthreads();  // the partials are rewritten next tile
+    }
+
+    if (kCols && !direct) {
+      // the cluster's partials are written: each CTA merges its share of
+      // the sources, the cluster's CTAs in rank (target) order, then the
+      // earlier passes' running minimum (a source's owner is the same
+      // thread every pass, so it reads what it wrote). The partials of the
+      // next pass go to the other parity, and the pass after that writes
+      // this one only past the next barrier, which follows these reads.
+      cg::this_cluster().sync();
+      const size_t row = (static_cast<size_t>(pass & 1) * nb + b) * cs * m;
+      for (int j = rank * m / cs + tid; j < (rank + 1) * m / cs; j += kThreads) {
+        float bd = __ldcg(part_d + row + j);
+        int bi = __ldcg(part_i + row + j);
+        for (int r = 1; r < cs; ++r) {
+          const float dr = __ldcg(part_d + row + static_cast<size_t>(r) * m + j);
+          if (dr < bd) {
+            bd = dr;
+            bi = __ldcg(part_i + row + static_cast<size_t>(r) * m + j);
+          }
+        }
+        const size_t at = static_cast<size_t>(b) * m + j;
+        if (pass > 0) {
+          const float dp = run_d[at];
+          if (!(bd < dp)) {
+            bd = dp;
+            bi = idx2[at];
+          }
+        }
+        idx2[at] = bi;
+        if (pass + 1 < passes) run_d[at] = bd;
       }
     }
+
+    // the row results of the pass's targets: the warps' partials (each over
+    // its slices of the tiles) merged by (distance, index)
+#pragma unroll
+    for (int r = 0; r < kPer; ++r) {
+      sh.part[warp * kRowPad + lane * (kPer + 1) + r] = rb[r];
+      sh.row_i[warp * kRowPad + lane * (kPer + 1) + r] = ri[r];
+    }
+    __syncthreads();
+    const int at = tid / kPer * (kPer + 1) + tid % kPer;
+    float d = sh.part[at];
+    int i = sh.row_i[at];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) {
+      const float dw = sh.part[w * kRowPad + at];
+      const int iw = sh.row_i[w * kRowPad + at];
+      if (dw < d || (dw == d && iw < i)) {
+        d = dw;
+        i = iw;
+      }
+    }
+    if (t_base + tid < n) idx1[static_cast<size_t>(b) * n + t_base + tid] = i;
+    __syncthreads();  // the staged points and the partials are reused
   }
-  if (active) idx[static_cast<size_t>(b) * n + t] = best_j;
+}
+
+// A refused call's error is also the runtime's last error: clear it, so that
+// the next launch's check does not report it again.
+cudaError_t refused(cudaError_t err) {
+  cudaGetLastError();
+  return err;
+}
+
+template <bool kCols, bool kValid1, bool kValid2>
+cudaError_t launch(const float* xyz1, const float* xyz2, const uint8_t* valid1,
+                   const uint8_t* valid2, int nb, int n, int m, int cluster,
+                   int* idx1, int* idx2, float* scratch, cudaStream_t stream) {
+  auto kernel = nn_argmin_kernel<kCols, kValid1, kValid2>;
+  const size_t smem = sizeof(Shared<kCols>);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return refused(err);
+  const int tiles = (n + kTargets - 1) / kTargets;
+  const int passes = kCols ? (tiles + cluster - 1) / cluster : 1;
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(static_cast<unsigned>(kCols ? cluster : tiles),
+                     static_cast<unsigned>(nb));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  if (kCols && cluster > 8) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return refused(err);
+  }
+  if (kCols && (cluster > 1 || passes > 1)) {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = static_cast<unsigned>(cluster);
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+  // scratch: part_d, part_i ([2][nb][cluster][m] each), run_d ([nb][m])
+  const size_t parts = 2 * static_cast<size_t>(nb) * cluster * m;
+  float* part_d = scratch;
+  int* part_i = scratch ? reinterpret_cast<int*>(scratch + parts) : nullptr;
+  float* run_d = scratch ? scratch + 2 * parts : nullptr;
+  err = cudaLaunchKernelEx(&cfg, kernel, xyz1, xyz2, valid1, valid2, n, m,
+                           passes, idx1, idx2, part_d, part_i, run_d);
+  if (err != cudaSuccess) return refused(err);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
+// idx1 (nb, n): each xyz1 target's nearest valid xyz2 source; idx2 (nb, m),
+// or null for the row direction alone: each source's nearest valid target.
+// cluster: CTAs a row (1-16, a power of two; ops/chamfer.py nn_argmin_plan), read
+// only with idx2; scratch: (4 * cluster + 1) * nb * m floats when a row
+// takes more than one CTA or pass (cluster > 1 or n > 256), else unused.
 extern "C" int gspn_nn_argmin(const float* xyz1, const float* xyz2,
-                              const uint8_t* valid2, int nb, int n, int m,
-                              int* idx, cudaStream_t stream) {
-  if (nb > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((n + kThreads - 1) / kThreads, nb);
-  if (grid.x > 0 && nb > 0 && m > 0)
-    nn_argmin_kernel<<<grid, kThreads, 0, stream>>>(xyz1, xyz2, valid2, n, m,
-                                                    idx);
-  return static_cast<int>(cudaGetLastError());
+                              const uint8_t* valid1, const uint8_t* valid2,
+                              int nb, int n, int m, int cluster, int* idx1,
+                              int* idx2, float* scratch, cudaStream_t stream) {
+  if (nb > 65535 || nb < 0 || n < 0 || m < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (nb == 0 || n == 0 || m == 0) return static_cast<int>(cudaGetLastError());
+  cudaError_t err;
+  if (idx2 == nullptr) {
+    err = valid2 ? launch<false, false, true>(xyz1, xyz2, nullptr, valid2, nb, n, m, 1,
+                                              idx1, nullptr, nullptr, stream)
+                 : launch<false, false, false>(xyz1, xyz2, nullptr, nullptr, nb, n, m,
+                                               1, idx1, nullptr, nullptr, stream);
+    return static_cast<int>(err);
+  }
+  const int tiles = (n + kTargets - 1) / kTargets;
+  if (cluster < 1 || cluster > kMaxCluster || (cluster & (cluster - 1)) != 0 ||
+      ((cluster > 1 || tiles > 1) && scratch == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (valid1 && valid2)
+    err = launch<true, true, true>(xyz1, xyz2, valid1, valid2, nb, n, m, cluster, idx1,
+                                   idx2, scratch, stream);
+  else if (valid1)
+    err = launch<true, true, false>(xyz1, xyz2, valid1, nullptr, nb, n, m, cluster, idx1,
+                                    idx2, scratch, stream);
+  else if (valid2)
+    err = launch<true, false, true>(xyz1, xyz2, nullptr, valid2, nb, n, m, cluster, idx1,
+                                    idx2, scratch, stream);
+  else
+    err = launch<true, false, false>(xyz1, xyz2, nullptr, nullptr, nb, n, m, cluster,
+                                     idx1, idx2, scratch, stream);
+  return static_cast<int>(err);
 }

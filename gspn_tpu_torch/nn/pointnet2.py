@@ -95,9 +95,10 @@ class PointNetFPModule(nn.Module):
     ``interp`` picks the interpolation, as in the JAX package:
 
     - "exact": the neighbor-ordered gather and weighted sum;
-    - "mm": ``ops.three_interpolate_mm``, the TPU's matmul kernel's
-      counterpart, which launches the ``interp_mm`` kernel on the card and
-      gives the same bits as "exact";
+    - "mm": ``ops.three_interpolate_fp``, the TPU's matmul kernel's
+      counterpart with the weights and the skip concat folded in, which
+      launches the ``interp_mm`` kernel once on the card and gives the
+      same bits as "exact";
     - "auto": "mm" when ``ops_impl`` resolves to the CUDA kernels for the
       input, "exact" otherwise (as the JAX "auto" takes "mm" only on the
       Pallas path)."""
@@ -118,15 +119,14 @@ class PointNetFPModule(nn.Module):
         or None; ``xyz2 (B,M,3)`` sources with ``points2 (B,M,C2)`` ->
         ``(B,N,mlp[-1])``."""
         dist, idx = ops.three_nn(xyz1, xyz2, valid2, impl=self.ops_impl)
-        weight = ops.three_interpolate_weights(dist)
         use_mm = self.interp == "mm" or (
             self.interp == "auto" and ops.resolve_impl(self.ops_impl, xyz1) == "cuda"
         )
         if use_mm:
-            interp = ops.three_interpolate_mm(points2, idx, weight, impl=self.ops_impl)
+            feats = ops.three_interpolate_fp(points2, idx, dist, points1, impl=self.ops_impl)
         else:
-            interp = ops.three_interpolate(points2, idx, weight)
-        feats = interp if points1 is None else torch.cat([interp, points1], dim=-1)
+            interp = ops.three_interpolate(points2, idx, ops.three_interpolate_weights(dist))
+            feats = interp if points1 is None else torch.cat([interp, points1], dim=-1)
         out = self.mlp(feats)
         if valid1 is not None:
             out = torch.where(valid1[..., None], out, torch.zeros_like(out))

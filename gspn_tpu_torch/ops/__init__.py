@@ -3,9 +3,10 @@
 Ops with a hand-written Hopper kernel (``farthest_point_sample``,
 ``query_ball_group_multi`` and ``query_box_group`` with ``select`` "first"
 or "strided", ``query_ball_point(_multi)``, ``three_nn``,
-``three_interpolate_mm``, ``nearest_sample_logit``,
-``nearest_sample_logit_boxed``, ``nms_3d(_batched)``, ``nn_argmin`` under
-``nn_distance``, and ``index_add_rows``, the deterministic backward of
+``three_interpolate_mm`` and ``three_interpolate_fp``,
+``nearest_sample_logit``, ``nearest_sample_logit_boxed``,
+``nms_3d(_batched)``, ``nn_argmin`` and ``nn_argmin_pair`` (under
+``nn_distance``), and ``index_add_rows``, the deterministic backward of
 ``gather_point`` / ``group_point``) take
 ``impl="auto|cuda|plain"`` (see ``ops/common.py``); each kernel counts its
 launches in ``KERNELS[name].launches``.
@@ -19,7 +20,7 @@ from gspn_tpu_torch.ops.ball_query import (
     query_ball_point_multi,
 )
 from gspn_tpu_torch.ops.box_group import box_contains, query_box_group
-from gspn_tpu_torch.ops.chamfer import chamfer_loss, nn_argmin, nn_distance
+from gspn_tpu_torch.ops.chamfer import chamfer_loss, nn_argmin, nn_argmin_pair, nn_distance
 from gspn_tpu_torch.ops.common import masked_sqdist, pairwise_sqdist, resolve_impl, round_up
 from gspn_tpu_torch.ops.fps import (
     eligible_fps_segments,
@@ -30,6 +31,7 @@ from gspn_tpu_torch.ops.fps import (
 from gspn_tpu_torch.ops.grouping import gather_point, group_point, index_add_rows
 from gspn_tpu_torch.ops.interpolate import (
     three_interpolate,
+    three_interpolate_fp,
     three_interpolate_mm,
     three_interpolate_weights,
     three_nn,
@@ -60,6 +62,7 @@ __all__ = [
     "nearest_sample_logit",
     "nearest_sample_logit_boxed",
     "nn_argmin",
+    "nn_argmin_pair",
     "nn_distance",
     "nms_3d",
     "nms_3d_batched",
@@ -75,6 +78,7 @@ __all__ = [
     "spatial_order",
     "spatial_sorted_view",
     "three_interpolate",
+    "three_interpolate_fp",
     "three_interpolate_mm",
     "three_interpolate_weights",
     "three_nn",

@@ -219,8 +219,11 @@ KERNELS: dict[str, CudaKernel] = {
         ),
         CudaKernel(
             "interp_mm", "interp_mm.cu", "gspn_interp_mm",
-            # points, idx, weight, b, n, m, c, out
-            (_ptr, _ptr, _ptr, _int, _int, _int, _int, _ptr),
+            # points, idx, weights or distances, from_dist, skip (or null),
+            # b, n, m, c, c1 (skip channels), rows, slices and stage
+            # (interpolate.interp_mm_plan), out
+            (_ptr, _ptr, _ptr, _int, _ptr, _int, _int, _int, _int, _int, _int, _int, _int,
+             _ptr),
             "gspn_tpu/ops/interpolate.py:347 _interp_mm_kernel",
         ),
         CudaKernel(
@@ -245,8 +248,10 @@ KERNELS: dict[str, CudaKernel] = {
         ),
         CudaKernel(
             "nn_argmin", "chamfer.cu", "gspn_nn_argmin",
-            # xyz1, xyz2, valid2, b, n, m, idx
-            (_ptr, _ptr, _ptr, _int, _int, _int, _ptr),
+            # xyz1, xyz2, valid1, valid2, b, n, m, cluster (chamfer.nn_argmin_plan),
+            # idx1, idx2 (or null: one direction), scratch (rows over several
+            # CTAs or passes)
+            (_ptr, _ptr, _ptr, _ptr, _int, _int, _int, _int, _ptr, _ptr, _ptr),
             "gspn_tpu/ops/chamfer.py:44 _nn_kernel",
         ),
         CudaKernel(

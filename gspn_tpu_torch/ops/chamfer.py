@@ -1,8 +1,9 @@
 """Bidirectional nearest-neighbour (chamfer) distance: ``nn_distance``.
 
 Counterpart of ``gspn_tpu/ops/chamfer.py``. The argmin indices come from a
-non-differentiable search (CUDA route ``csrc/chamfer.cu``, plain route a
-masked distance matrix and ``argmin``) on detached inputs, and the
+non-differentiable search on detached inputs (``nn_argmin_pair``: CUDA
+route ``csrc/chamfer.cu``, both directions in one launch; plain route a
+masked distance matrix and ``argmin`` each way), and the
 distances are recomputed as a differentiable gather,
 ``((xyz1 - xyz2[idx1])**2).sum(-1)``, so autograd gives the reference's
 analytic gradients (2(x - y) into ``xyz1``, the negated scatter-add into
@@ -21,27 +22,58 @@ from gspn_tpu_torch.ops.grouping import gather_point
 KERNEL = _cuda.KERNELS["nn_argmin"]
 
 
+# nn_argmin_plan: the kernel's targets a CTA and pass and its largest
+# cluster (csrc/chamfer.cu kTargets, kMaxCluster)
+NN_ARGMIN_TARGETS = 256
+NN_ARGMIN_MAX_CLUSTER = 16
+
+
+def nn_argmin_plan(n: int) -> int:
+    """The two-way kernel's CTAs a row (one cluster) for rows of ``n``
+    targets: a CTA takes 256 targets a pass, so the least power of two
+    that holds the row's 256-target tiles, at most 16; a row of more tiles
+    than that takes several passes."""
+    tiles = -(-n // NN_ARGMIN_TARGETS)
+    cluster = 1
+    while cluster < min(tiles, NN_ARGMIN_MAX_CLUSTER):
+        cluster *= 2
+    return cluster
+
+
 def _argmin_plain(a, b, b_valid):
     """Masked squared distances, first-occurrence argmin: padded sources
     count as 1e10, ties go to the lowest index."""
     return masked_sqdist(a, b, b_valid).argmin(dim=-1).to(torch.int32)
 
 
-def _argmin_cuda(a, b, b_valid):
+def _argmin_cuda(a, b, a_valid, b_valid, both: bool, cluster=None):
+    """The kernel: ``a``'s nearest ``b`` and, when ``both``, ``b``'s nearest
+    ``a``, in one launch (at ``cluster`` CTAs a row, or
+    ``nn_argmin_plan``'s)."""
     bsz, n, _ = a.shape
     m = b.shape[1]
     a = a.contiguous()
     b = b.contiguous()
     _cuda.check_cuda_input("xyz1", a, torch.float32, (bsz, n, 3))
     _cuda.check_cuda_input("xyz2", b, torch.float32, (bsz, m, 3))
-    v = None
-    if b_valid is not None:
-        v = _cuda.flag_bytes(b_valid)
-        _cuda.check_cuda_input("valid2", v, torch.uint8, (bsz, m))
-    idx = torch.empty((bsz, n), dtype=torch.int32, device=a.device)
-    if bsz and n:
-        KERNEL.launch(a.device, _cuda.ptr(a), _cuda.ptr(b), _cuda.ptr(v), bsz, n, m, _cuda.ptr(idx))
-    return idx
+    flags = []
+    for name, v, size in (("valid1", a_valid if both else None, n), ("valid2", b_valid, m)):
+        if v is not None:
+            v = _cuda.flag_bytes(v)
+            _cuda.check_cuda_input(name, v, torch.uint8, (bsz, size))
+        flags.append(v)
+    idx1 = torch.empty((bsz, n), dtype=torch.int32, device=a.device)
+    idx2 = torch.empty((bsz, m), dtype=torch.int32, device=a.device) if both else None
+    cluster = cluster or nn_argmin_plan(n)
+    # a row over several CTAs or passes: the CTAs' column partials (two
+    # parities) and the running column minimum, in one scratch
+    scratch = (torch.empty((4 * cluster + 1) * bsz * m, dtype=torch.float32, device=a.device)
+               if both and (cluster > 1 or n > NN_ARGMIN_TARGETS) else None)
+    if bsz and n and m:
+        KERNEL.launch(a.device, _cuda.ptr(a), _cuda.ptr(b), _cuda.ptr(flags[0]),
+                      _cuda.ptr(flags[1]), bsz, n, m, cluster, _cuda.ptr(idx1), _cuda.ptr(idx2),
+                      _cuda.ptr(scratch))
+    return (idx1, idx2) if both else idx1
 
 
 def nn_argmin(xyz1, xyz2, valid2=None, *, impl: str = "auto") -> torch.Tensor:
@@ -52,8 +84,20 @@ def nn_argmin(xyz1, xyz2, valid2=None, *, impl: str = "auto") -> torch.Tensor:
     if xyz2.shape[1] == 0:
         raise ValueError("nn_argmin needs at least one source point")
     if resolve_impl(impl, xyz1) == "cuda":
-        return _argmin_cuda(xyz1, xyz2, valid2)
+        return _argmin_cuda(xyz1, xyz2, None, valid2, both=False)
     return _argmin_plain(xyz1, xyz2, valid2)
+
+
+def nn_argmin_pair(xyz1, xyz2, valid1=None, valid2=None, *, impl: str = "auto"):
+    """Both chamfer argmins, ``(idx1 (B,N), idx2 (B,M))`` int32: exactly
+    ``(nn_argmin(xyz1, xyz2, valid2), nn_argmin(xyz2, xyz1, valid1))``, on
+    the card in one launch that computes each pair's distance once. Not
+    differentiable."""
+    if xyz1.shape[1] == 0 or xyz2.shape[1] == 0:
+        raise ValueError("nn_argmin_pair needs at least one point on each side")
+    if resolve_impl(impl, xyz1) == "cuda":
+        return _argmin_cuda(xyz1, xyz2, valid1, valid2, both=True)
+    return _argmin_plain(xyz1, xyz2, valid2), _argmin_plain(xyz2, xyz1, valid1)
 
 
 def nn_distance(xyz1, xyz2, valid1=None, valid2=None, *, impl: str = "auto"):
@@ -61,9 +105,7 @@ def nn_distance(xyz1, xyz2, valid1=None, valid2=None, *, impl: str = "auto"):
     idx1 (B,N) int32, dist2 (B,M), idx2 (B,M) int32)``. Distances are
     differentiable in both point sets, indices are not. Rows whose own
     point is padded still get values; mask them at the loss."""
-    a, b = xyz1.detach(), xyz2.detach()
-    idx1 = nn_argmin(a, b, valid2, impl=impl)
-    idx2 = nn_argmin(b, a, valid1, impl=impl)
+    idx1, idx2 = nn_argmin_pair(xyz1.detach(), xyz2.detach(), valid1, valid2, impl=impl)
     d1 = xyz1 - gather_point(xyz2, idx1, impl=impl)
     d2 = xyz2 - gather_point(xyz1, idx2, impl=impl)
     dist1 = sqdist_components(d1[..., 0], d1[..., 1], d1[..., 2])

@@ -9,9 +9,12 @@ Counterpart of ``gspn_tpu/ops/interpolate.py``:
   XLA ``top_k`` branch, taken over chunks of targets at large sizes.
 - ``three_interpolate_weights`` / ``three_interpolate``: the exact,
   neighbor-ordered interpolation.
-- ``three_interpolate_mm``: the FP modules' interpolation on the kernel
-  path (the TPU's MXU kernel), the same neighbor-ordered sum; CUDA route
+- ``three_interpolate_mm``: the interpolation on the kernel path (the
+  TPU's MXU kernel), the same neighbor-ordered sum; CUDA route
   ``csrc/interp_mm.cu``.
+- ``three_interpolate_fp``: the FP modules' kernel path, the weights, the
+  interpolation and the skip concat in one launch of the same kernel
+  (``interp_mm_plan`` picks its tiling).
 """
 
 from __future__ import annotations
@@ -140,29 +143,95 @@ def three_interpolate(points, idx, weight) -> torch.Tensor:
     return g[:, :, 0] * w[:, :, 0] + g[:, :, 1] * w[:, :, 1] + g[:, :, 2] * w[:, :, 2]
 
 
-def _interp_mm_cuda(points, idx, weight):
+# interp_mm_plan: the warp tasks that keep the card busiest (fitted to every
+# (rows, slices) timed at the FP levels' shapes on an H100; PERF.md, section
+# 6) and the most rows a warp's task takes (csrc/interp_mm.cu kMaxRows);
+# a slice of an output row is a multiple of INTERP_MM_SLICE floats. The
+# staged form: slices of INTERP_MM_STAGE channels, chunks of at most
+# INTERP_MM_MAX_CHUNK rows (kMaxChunk), a CTA an SM, within a CTA's shared
+# memory; taken from INTERP_MM_STAGE_ROWS target rows a scene
+INTERP_MM_TASKS = 2048
+INTERP_MM_MAX_ROWS = 8
+INTERP_MM_SLICE = 128
+INTERP_MM_SMS = 132
+INTERP_MM_STAGE = 32
+INTERP_MM_MAX_CHUNK = 2048
+INTERP_MM_STAGE_ROWS = 4096
+INTERP_MM_SMEM = 232448
+
+
+def interp_mm_plan(b: int, n: int, m: int, c: int, c1: int = 0,
+                   aligned: bool = True) -> tuple[int, int, int]:
+    """``(rows, slices, stage)`` for the kernel over ``b`` scenes of ``n``
+    target rows, ``m`` sources of ``c`` channels and ``c1`` skip channels.
+
+    - Staged (``stage`` 32): many rows a scene, no skip, ``c`` a multiple of
+      32 and 16-byte aligned sources (``aligned``): a CTA a (scene, slice of
+      32 channels, chunk of ``rows`` target rows) stages the scene's slice
+      of sources in shared memory, so each source row is read from L2 once
+      a CTA rather than three times a target (FP4: 8 x 8192 rows, 4
+      slices, 4 chunks of 2048 rows, 128 CTAs).
+    - Direct (``stage`` 0): a warp a task of ``rows`` target rows (1-8) and
+      one of ``slices`` slices of their output columns, about 2048 tasks:
+      few rows are cut into slices (FP1: 512 rows of 768 in 4), many rows
+      grouped so that a warp's one load of indices and distances serves up
+      to 8 (FP3: 8192 rows in tasks of 4)."""
+    if c1 == 0 and aligned and c % INTERP_MM_STAGE == 0 and n >= INTERP_MM_STAGE_ROWS:
+        slices = c // INTERP_MM_STAGE
+        chunks = max(1, INTERP_MM_SMS // (b * slices))
+        chunk = min(-(-n // chunks), INTERP_MM_MAX_CHUNK)
+        if m * INTERP_MM_STAGE * 4 + chunk * 32 <= INTERP_MM_SMEM:
+            return chunk, slices, INTERP_MM_STAGE
+    rows, width = b * n, c + c1
+    chunks = max(1, -(-width // INTERP_MM_SLICE))
+    slices = min(chunks, max(1, -(-INTERP_MM_TASKS // max(rows, 1))))
+    per = min(INTERP_MM_MAX_ROWS, max(1, rows * slices // INTERP_MM_TASKS))
+    return per, slices, 0
+
+
+def _interp_mm_cuda(points, idx, wd, skip=None, *, from_dist=False, plan=None):
+    """The kernel: ``wd`` holds the weights, or three_nn's squared distances
+    when ``from_dist``; ``skip (B,N,C1)`` rows follow the interpolated
+    channels; at ``interp_mm_plan``'s choice or at ``plan``."""
     b, m, c = points.shape
     n = idx.shape[1]
     points = points.contiguous()
     idx = idx.to(torch.int32).contiguous()
-    weight = weight.contiguous()
+    wd = wd.contiguous()
     _cuda.check_cuda_input("points", points, torch.float32, (b, m, c))
     _cuda.check_cuda_input("idx", idx, torch.int32, (b, n, 3))
-    _cuda.check_cuda_input("weight", weight, torch.float32, (b, n, 3))
-    out = torch.empty((b, n, c), dtype=torch.float32, device=points.device)
-    if b and n and c:
+    _cuda.check_cuda_input("dist" if from_dist else "weight", wd, torch.float32, (b, n, 3))
+    c1 = 0
+    if skip is not None:
+        skip = skip.contiguous()
+        c1 = skip.shape[-1]
+        _cuda.check_cuda_input("points1", skip, torch.float32, (b, n, c1))
+    out = torch.empty((b, n, c + c1), dtype=torch.float32, device=points.device)
+    rows, slices, stage = plan or interp_mm_plan(b, n, m, c, c1, points.data_ptr() % 16 == 0)
+    if b and n and c + c1:
         MM_KERNEL.launch(
-            points.device, _cuda.ptr(points), _cuda.ptr(idx), _cuda.ptr(weight), b, n, m, c,
-            _cuda.ptr(out),
+            points.device, _cuda.ptr(points), _cuda.ptr(idx), _cuda.ptr(wd), int(from_dist),
+            _cuda.ptr(skip), b, n, m, c, c1, rows, slices, stage, _cuda.ptr(out),
         )
     return out
 
 
+def _interp_grads(points, idx, weight, g, impl):
+    """The exact scatter-add / inner-product pair of the JAX package's
+    ``_mm_bwd`` (gspn_tpu/ops/interpolate.py:431-447): ``(dpoints,
+    dweight)``, the scatter-add through the deterministic
+    ``index_add_rows`` (in (target, neighbor) order)."""
+    b, n, _ = idx.shape
+    m, c = points.shape[1:]
+    contrib = (weight[..., None] * g[..., None, :]).reshape(b, n * 3, c)
+    dpoints = index_add_rows(contrib, idx.reshape(b, n * 3), m, impl=impl)
+    dweight = (group_point(points, idx) * g[..., None, :]).sum(-1)
+    return dpoints.to(points.dtype), dweight.to(weight.dtype)
+
+
 class _InterpolateMM(torch.autograd.Function):
-    """Forward: the kernel (or its plain version); backward: the exact
-    scatter-add / inner-product pair of the JAX package's ``_mm_bwd``
-    (gspn_tpu/ops/interpolate.py:431-447), the scatter-add through the
-    deterministic ``index_add_rows`` (in (target, neighbor) order)."""
+    """Forward: the kernel (or its plain version); backward:
+    ``_interp_grads``."""
 
     @staticmethod
     def forward(ctx, points, idx, weight, impl):
@@ -175,12 +244,8 @@ class _InterpolateMM(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         points, idx, weight = ctx.saved_tensors
-        b, n, _ = idx.shape
-        m, c = points.shape[1:]
-        contrib = (weight[..., None] * g[..., None, :]).reshape(b, n * 3, c)
-        dpoints = index_add_rows(contrib, idx.reshape(b, n * 3), m, impl=ctx.impl)
-        dweight = (group_point(points, idx) * g[..., None, :]).sum(-1)
-        return dpoints.to(points.dtype), None, dweight.to(weight.dtype), None
+        dpoints, dweight = _interp_grads(points, idx, weight, g, ctx.impl)
+        return dpoints, None, dweight, None
 
 
 def three_interpolate_mm(points, idx, weight, *, impl: str = "auto") -> torch.Tensor:
@@ -192,3 +257,51 @@ def three_interpolate_mm(points, idx, weight, *, impl: str = "auto") -> torch.Te
     result. ``idx`` must lie in ``[0, M)``. Differentiable in ``points``
     and ``weight``."""
     return _InterpolateMM.apply(points, idx, weight, impl)
+
+
+def _interpolate_fp_plain(points2, idx, dist, points1):
+    out = three_interpolate(points2, idx, three_interpolate_weights(dist))
+    return out if points1 is None else torch.cat([out, points1], dim=-1)
+
+
+class _InterpolateFP(torch.autograd.Function):
+    """Forward: the kernel from the distances (or its plain version);
+    backward: the weights recomputed from ``dist`` under autograd,
+    ``_interp_grads`` on the interpolated columns' gradient, the weights'
+    gradient taken back into ``dist``, and the skip columns' gradient
+    passed to ``points1``: bitwise autograd through the composite."""
+
+    @staticmethod
+    def forward(ctx, points2, idx, dist, points1, impl):
+        ctx.save_for_backward(points2, idx, dist)
+        ctx.impl = impl
+        if resolve_impl(impl, points2) == "cuda":
+            return _interp_mm_cuda(points2, idx, dist, points1, from_dist=True)
+        return _interpolate_fp_plain(points2, idx, dist, points1)
+
+    @staticmethod
+    def backward(ctx, g):
+        points2, idx, dist = ctx.saved_tensors
+        c2 = points2.shape[-1]
+        with torch.enable_grad():
+            d = dist.detach().requires_grad_(True)
+            weight = three_interpolate_weights(d)
+        dpoints, dweight = _interp_grads(points2, idx, weight.detach(), g[..., :c2], ctx.impl)
+        ddist = None
+        if ctx.needs_input_grad[2]:
+            (ddist,) = torch.autograd.grad(weight, d, dweight)
+        dskip = g[..., c2:] if ctx.needs_input_grad[3] else None
+        return dpoints, None, ddist, dskip, None
+
+
+def three_interpolate_fp(points2, idx, dist, points1=None, *, impl: str = "auto"):
+    """An FP module's interpolation and skip concat in one: ``points2
+    (B,M,C2)`` sources, ``idx (B,N,3)`` and ``dist (B,N,3)`` from
+    :func:`three_nn`, ``points1 (B,N,C1)`` skip features or None -> ``(B,
+    N, C2 [+ C1])``, bitwise ``torch.cat([three_interpolate(points2, idx,
+    three_interpolate_weights(dist)), points1], -1)``. On the card one
+    launch of the ``interp_mm`` kernel computes the weights, the
+    neighbor-ordered sum and the concat. Differentiable in ``points2``,
+    ``dist`` and ``points1``, with the composite's gradients bit for bit.
+    ``idx`` must lie in ``[0, M)``."""
+    return _InterpolateFP.apply(points2, idx, dist, points1, impl)

@@ -15,8 +15,8 @@ box_group_strided in place of the first-K groups) and (H) (the exact FPS:
 fps over whole rows, fps_cluster at the whole scene), of one pass of (F)
 at each shape (the shared FPS pass, then ball_query_strided at SA1 and the
 crops and ball_query at SA1), and of one training step of (G) (the seeds'
-fps, the crops' ball_group, nn_argmin both ways and index_add, the
-chamfer's gather backward), each at its own shape; also index_add at
+fps, the crops' ball_group, nn_argmin both ways in one launch and
+index_add, the chamfer's gather backward), each at its own shape; also index_add at
 stage 2's shapes (FP4's interpolation backward and the RoIAlign gather's,
 both scenes), at SA1's grouping gather (both scenes) and with 512
 positions on each index. Run as a script,
@@ -25,11 +25,15 @@ this module times those cases alone
 ``--tree DIR`` (another checkout, for example the parent commit unpacked
 with ``git archive``), so that two versions of the kernels compare on one
 card in one call: run it for the parent, the change, the change and the
-parent in turn. Each line gives the kernel's device time (20 launches
-after a warm-up) and the wrapper's (the median of three windows of 20),
-with the card's name and
-power limit; every kernel output is first held bitwise against the plain
-version. Needs a CUDA device.
+parent in turn. Each line gives the kernel's device time (20 calls after
+a warm-up), all the device work of a call and its device operations (a
+tree whose entry point launches more than the kernel, such as the
+parent's two one-way argmins or its interpolation's weights and concat
+before ``nn_argmin_pair`` and ``three_interpolate_fp``, is timed through
+that composite: ``FALLBACKS``), and the wrapper's time (the median of
+three windows of 20), with the card's name and power limit; every kernel
+output is first held bitwise against the plain version. Needs a CUDA
+device.
 
 Nothing here imports ``gspn_tpu_torch`` at module level: the script's
 ``--tree`` decides which one it times.
@@ -148,6 +152,24 @@ def device_launches(fn, iters: int) -> float:
     return len(_device_events(fn, iters)) / iters
 
 
+def _span_ms(events) -> float:
+    return sum(e.time_range.end - e.time_range.start for e in events) / 1e3
+
+
+def device_profile(fn, iters: int, symbols: tuple[str, ...]):
+    """One profiler window over ``iters`` calls of ``fn`` after a warm-up:
+    ``(the kernel's mean device ms an event, its events, all device ms a
+    call, device operations a call)``, the kernel being any of
+    ``symbols``; its ms is None (with a printed line) when no window
+    recorded it."""
+    device = _device_events(fn, iters)
+    mine = [e for e in device if any(sym in e.name for sym in symbols)]
+    if not mine:
+        print(f"profiler: no device event of {symbols} among {sorted({e.name for e in device})}")
+    kernel_ms = _span_ms(mine) / len(mine) if mine else None
+    return kernel_ms, len(mine), _span_ms(device) / iters, len(device) / iters
+
+
 def device_ms(fn, iters: int, symbols: tuple[str, ...]) -> tuple[float | None, int]:
     """``(mean device ms per call, events)`` of the kernel (any of
     ``symbols``) over ``iters`` calls of ``fn`` after a warm-up, from
@@ -156,12 +178,7 @@ def device_ms(fn, iters: int, symbols: tuple[str, ...]) -> tuple[float | None, i
     repository launches its kernel once a call, so an event is a call.
     ``(None, 0)`` means no window recorded the kernel (its launches and
     outputs are checked apart from this)."""
-    device = _device_events(fn, iters)
-    mine = [e for e in device if any(sym in e.name for sym in symbols)]
-    if not mine:
-        print(f"profiler: no device event of {symbols} among {sorted({e.name for e in device})}")
-        return None, 0
-    return sum(e.time_range.end - e.time_range.start for e in mine) / 1e3 / len(mine), len(mine)
+    return device_profile(fn, iters, symbols)[:2]
 
 
 def max_abs_err(got, want) -> float:
@@ -192,9 +209,9 @@ ENTRY_POINTS = {
     "box_group": "query_box_group", "box_group_strided": "query_box_group",
     "ball_query": "query_ball_point_multi", "ball_query_strided": "query_ball_point_multi",
     "nms": "nms_3d_batched", "three_nn": "three_nn",
-    "interp_mm": "three_interpolate_mm", "mask_project": "nearest_sample_logit",
+    "interp_mm": "three_interpolate_fp", "mask_project": "nearest_sample_logit",
     "mask_project_boxed": "nearest_sample_logit_boxed",
-    "nn_argmin": "nn_argmin", "index_add": "index_add_rows",
+    "nn_argmin": "nn_argmin_pair", "index_add": "index_add_rows",
 }
 KEYWORDS = {name: {"select": "strided"}
             for name in ("ball_group_strided", "box_group_strided", "ball_query_strided")}
@@ -238,10 +255,28 @@ def chamfer_inputs(ops, bench_slice, dev, gen):
     return pred.reshape(b * s, g, 3), gt.reshape(b * s, g, 3), gt_valid.reshape(b * s, g)
 
 
+def _pair_of_argmins(ops, xyz1, xyz2, valid1, valid2, *, impl):
+    return (ops.nn_argmin(xyz1, xyz2, valid2, impl=impl),
+            ops.nn_argmin(xyz2, xyz1, valid1, impl=impl))
+
+
+def _fp_composite(ops, points2, idx, dist, points1, *, impl):
+    out = ops.three_interpolate_mm(points2, idx, ops.three_interpolate_weights(dist), impl=impl)
+    return out if points1 is None else torch.cat([out, points1], dim=-1)
+
+
+# what a tree older than an entry point runs in its place: the chamfer's two
+# one-way argmins, the FP module's weights, interpolation and concat
+FALLBACKS = {"nn_argmin_pair": _pair_of_argmins, "three_interpolate_fp": _fp_composite}
+
+
 def call(ops, name: str, args, impl: str):
     """The entry point of kernel ``name`` (a key of ``ENTRY_POINTS``) on a
-    case's ``args``."""
-    return getattr(ops, ENTRY_POINTS[name])(*args, impl=impl, **KEYWORDS.get(name, {}))
+    case's ``args``, or its ``FALLBACKS`` composite in a tree without it."""
+    entry = ENTRY_POINTS[name]
+    if not hasattr(ops, entry):
+        return FALLBACKS[entry](ops, *args, impl=impl)
+    return getattr(ops, entry)(*args, impl=impl, **KEYWORDS.get(name, {}))
 
 
 def main_path_inputs(ops, bench_slice, dev) -> dict:
@@ -290,12 +325,13 @@ def cases(ops, bench_slice, dev, inputs=None) -> dict:
     and the first-S box group, (E) the strided ones at the same shapes;
     (H): fps over whole rows (the shared pass of 1024 picks at the
     flagship, on fps_cluster at the whole scene, and SA2-SA4); (A), (B),
-    (E), (H): nms, three_nn and interp_mm at FP4, FP1-FP3; mask_project
+    (E), (H): nms, three_nn and interp_mm (from the distances, with the
+    skip concat at FP1-FP3) at FP4, FP1-FP3; mask_project
     once a request of (A), (E), (H), mask_project_boxed on the
     Morton-sorted view in (B); (F): ball_query_strided at SA1 and the
     crops, ball_query at SA1, with the ball groups' labels; (G): the seeds'
-    fps, the crops' ball_group, nn_argmin pred -> GT (masked) and GT ->
-    pred, index_add at the chamfer's gather backward. Untagged: index_add
+    fps, the crops' ball_group, nn_argmin both ways in one launch (pred ->
+    GT masked, GT -> pred), index_add at the chamfer's gather backward. Untagged: index_add
     at stage 2's FP4 interpolation backward (8 x 24576 positions into 1024
     rows, 1 x 196608 into 1024) and RoIAlign gather backward (8 x 4096
     into 8192, 1 x 4096 into 65536), at SA1's grouping (8 x 32768 into
@@ -348,16 +384,20 @@ def cases(ops, bench_slice, dev, inputs=None) -> dict:
         add("nms", f"{b}x{ROIS} RoI boxes, random scores, IoU 0.25",
             (x["boxes"], x["scores"], 0.25))
         # FP level i interpolates SA level 4-i+1's features onto level
-        # 4-i's points (level 0: the scene); C: the source level's channels
+        # 4-i's points (level 0: the scene) and appends level 4-i's own
+        # features (none at the scene); C: the source level's channels, C1
+        # the target level's
         levels = [xyz] + sa
-        for fp, c in ((4, 128), (1, 512), (2, 256), (3, 256)):
+        for fp, c, c1 in ((4, 128, 0), (1, 512, 256), (2, 256, 128), (3, 256, 64)):
             tgt, src = levels[4 - fp], levels[5 - fp]
             dist, idx = ops.three_nn(tgt, src)
             feats = torch.randn((b, src.shape[1], c), generator=x["gen"]).to(dev)
+            skip = (torch.randn((b, tgt.shape[1], c1), generator=x["gen"]).to(dev)
+                    if c1 else None)
             pair = f"{b}x{tgt.shape[1]} <- {src.shape[1]}"
             add("three_nn", f"fp{fp}: {pair}", (tgt, src, None))
-            add("interp_mm", f"fp{fp}: {pair}, C {c}",
-                (feats, idx, ops.three_interpolate_weights(dist)))
+            add("interp_mm", f"fp{fp}: {pair}, C {c}" + (f" + skip {c1}" if c1 else ""),
+                (feats, idx, dist, skip))
             if fp == 4:  # stage 2: its backward into the SA1 features
                 grad = torch.randn((b, tgt.shape[1] * 3, c), generator=gen).to(dev)
                 add("index_add", f"stage 2 FP4 backward: {b} x {tgt.shape[1]}x3 positions -> "
@@ -388,9 +428,8 @@ def cases(ops, bench_slice, dev, inputs=None) -> dict:
     add_step("ball_group", "training crops: 4x64 seeds over 4096, K 64/128/256",
              ((0.25, 0.5, 1.0), (64, 128, 256), tb["xyz"], tseeds, tb["valid"]))
     pred, gt, gt_valid = chamfer_inputs(ops, bench_slice, dev, gen)
-    add_step("nn_argmin", "chamfer pred -> GT: 256 rows x 256 targets <- 256, GT masked",
-             (pred, gt, gt_valid))
-    add_step("nn_argmin", "chamfer GT -> pred: 256 rows x 256 <- 256", (gt, pred, None))
+    add_step("nn_argmin", "chamfer pred <-> GT: 256 rows x 256 <- 256 both ways, GT masked",
+             (pred, gt, None, gt_valid))
     grad = torch.randn(pred.shape, generator=gen).to(dev)
     add_step("index_add", "chamfer backward: 256 rows x 256 GT -> pred positions, C 3",
              (grad, ops.nn_argmin(gt, pred), pred.shape[1]))
@@ -425,10 +464,12 @@ def main(argv=None) -> None:
         for label, a, _ in items:
             fn = lambda impl, a=a, name=name: call(ops, name, a, impl)  # noqa: E731
             max_abs_err(flatten(fn("cuda")), flatten(fn("plain")))
-            dev_ms, events = device_ms(lambda fn=fn: fn("cuda"), ITERS, SYMBOLS[name])
+            dev_ms, events, call_ms, call_ops = device_profile(lambda fn=fn: fn("cuda"), ITERS,
+                                                               SYMBOLS[name])
             ms = cuda_ms(lambda fn=fn: fn("cuda"), ITERS)
             print(f"time {name} [{label}] tree {args.tree}: device {dev_ms} ms over {events} "
-                  f"events, wrapper {ms:.4f} ms; bitwise plain [{card}]", flush=True)
+                  f"events; a call: {call_ms:.4f} ms of device work in {call_ops:g} operations; "
+                  f"wrapper {ms:.4f} ms; bitwise plain [{card}]", flush=True)
 
 
 if __name__ == "__main__":

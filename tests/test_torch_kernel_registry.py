@@ -76,11 +76,12 @@ def test_time_kernels_finds_the_current_symbols(name):
 
 def _ranking_inputs(a_launches, g_launches, h_launches):
     """Two kernels of slice (A) at two shapes each, two of slice (H) (one
-    shared with (A)), two of a training step (G) (one launched twice at two
-    shapes), and one off the ranked slices."""
+    shared with (A)), two of a training step (G) (each launched once, the
+    chamfer's argmins both ways in one launch), and one off the ranked
+    slices."""
     requests = {"(A) B8xN8192": [("fps", "f1"), ("fps", "f2"), ("nms", "n1")],
                 "(A) B1xN65536": [("fps", "f3"), ("fps", "f4"), ("nms", "n2")],
-                "(G) B4xN4096": [("index_add", "i1"), ("nn_argmin", "m1"), ("nn_argmin", "m2")],
+                "(G) B4xN4096": [("index_add", "i1"), ("nn_argmin", "m1")],
                 "(H) B8xN8192": [("fps", "f1"), ("nms", "n1")],
                 "(H) B1xN65536": [("fps_cluster", "c1"), ("nms", "n2")]}
     entries = [
@@ -92,8 +93,8 @@ def _ranking_inputs(a_launches, g_launches, h_launches):
          "bound_ms_by_shape": {"c1": 0.5}},
         {"name": "index_add", "device_ms_by_shape": {"i1": 0.75},
          "bound_ms_by_shape": {"i1": 0.5}},
-        {"name": "nn_argmin", "device_ms_by_shape": {"m1": 0.125, "m2": 0.5},
-         "bound_ms_by_shape": {"m1": 0.0, "m2": 0.25}},
+        {"name": "nn_argmin", "device_ms_by_shape": {"m1": 0.5},
+         "bound_ms_by_shape": {"m1": 0.125}},
         {"name": "three_nn", "slice": "C", "launches": chip_smoke.VARIANT_REQUESTS + 1,
          "device_ms": 0.125, "bound_ms": 0.0625},
     ]
@@ -116,7 +117,7 @@ def test_ranking_charges_each_launch_at_its_own_shape(capsys, monkeypatch, short
     per_g = chip_smoke.TRAIN_STEPS + 1
     entries, requests, runs = _ranking_inputs(
         {"fps": 4 * per_a - (short == "A"), "nms": 2 * per_a},
-        {"index_add": per_g - (short == "G"), "nn_argmin": 2 * per_g},
+        {"index_add": per_g - (short == "G"), "nn_argmin": per_g},
         {"fps": per_h, "fps_cluster": per_h - (short == "H"), "nms": 2 * per_h})
     if short:
         name = {"A": "fps", "G": "index_add", "H": "fps_cluster"}[short]
@@ -128,7 +129,7 @@ def test_ranking_charges_each_launch_at_its_own_shape(capsys, monkeypatch, short
     assert out[0].startswith("ms above the bound per (A) B8xN8192 request, each of its 3")
     assert out[0].endswith("fps 1.0000, nms 0.1250; total 1.1250")
     assert "fps 1.5000, nms 0.2500; total 1.7500; not measured: fps [f4]" in out[1]
-    assert out[2].startswith("ms above the bound per (G) B4xN4096 step, each of its 3")
+    assert out[2].startswith("ms above the bound per (G) B4xN4096 step, each of its 2")
     assert out[2].endswith("nn_argmin 0.3750, index_add 0.2500; total 0.6250")
     assert out[3].endswith("fps 0.7500, nms 0.1250; total 0.8750")
     assert out[4].endswith("fps_cluster 2.0000, nms 0.2500; total 2.2500")
@@ -179,6 +180,36 @@ def test_index_add_plan_constants_match_the_kernel():
 
     assert tgroup.INDEX_ADD_MAX_BINS == const("kMaxBins")
     assert tgroup.INDEX_ADD_ACC_FLOATS == const("kAccFloats")
+
+
+def _constant(source: str, name: str) -> int:
+    m = re.search(r"constexpr int " + name + r" = (\d+);",
+                  (_cuda.CSRC / source).read_text())
+    assert m, name
+    return int(m.group(1))
+
+
+def test_nn_argmin_plan_constants_match_the_kernel():
+    """``nn_argmin_plan`` sizes the scratch and the cluster from the
+    kernel's targets a CTA and its largest cluster: they must be the
+    source's (a pass count below the kernel's would leave the scratch
+    unallocated; the kernel refuses a larger cluster)."""
+    from gspn_tpu_torch.ops import chamfer as tchamfer
+
+    assert "constexpr int kTargets = kLanes * kPer;" in (_cuda.CSRC / "chamfer.cu").read_text()
+    assert tchamfer.NN_ARGMIN_TARGETS == (_constant("chamfer.cu", "kLanes")
+                                          * _constant("chamfer.cu", "kPer"))
+    assert tchamfer.NN_ARGMIN_MAX_CLUSTER == _constant("chamfer.cu", "kMaxCluster")
+
+
+def test_interp_mm_plan_constants_match_the_kernel():
+    """``interp_mm_plan`` keeps the rows a task and a staged chunk within
+    the kernel's limits and slices in the kernel's unit."""
+    from gspn_tpu_torch.ops import interpolate as tinterp
+
+    assert tinterp.INTERP_MM_MAX_ROWS == _constant("interp_mm.cu", "kMaxRows")
+    assert tinterp.INTERP_MM_SLICE == _constant("interp_mm.cu", "kSliceUnit")
+    assert tinterp.INTERP_MM_MAX_CHUNK == _constant("interp_mm.cu", "kMaxChunk")
 
 
 def test_profile_slice_names_global_functions():

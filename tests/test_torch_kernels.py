@@ -712,20 +712,27 @@ def test_three_nn_kernel_at_every_plan(dev, per, split, group):
             _equal(got[1][..., 1], got[1][..., 0] + h)
 
 
-@pytest.mark.parametrize(
-    "b,n,m,c",
-    [(8, 8192, 1024, 128), (8, 64, 16, 512), (1, 65536, 1024, 128), (2, 100, 5, 7),
-     (1, 4096, 2100, 1000)],  # the last above the TPU kernel's 8 MB source block
-)
-def test_interp_mm_kernel(dev, b, n, m, c):
-    gen = torch.Generator().manual_seed(4)
-    pts = torch.randn((b, m, c), generator=gen).to(dev)
+def _interp_idx(gen, b, n, m):
     idx = torch.randint(0, m, (b, n, 3), generator=gen, dtype=torch.int32)
     idx[:, ::7, 1] = idx[:, ::7, 0]  # repeated sources
     idx[:, ::11, 2] = idx[:, ::11, 0]
     idx[:, ::13, :] = idx[:, ::13, :1]
+    return idx
+
+
+@pytest.mark.parametrize(
+    "b,n,m,c",
+    [(8, 8192, 1024, 128), (8, 64, 16, 512), (1, 65536, 1024, 128), (2, 100, 5, 7),
+     (3, 77, 9, 130),  # C not a multiple of 4 beyond one warp's columns
+     (1, 4096, 2100, 1000)],  # the last above the TPU kernel's 8 MB source block
+)
+def test_interp_mm_kernel(dev, b, n, m, c):
+    """The weights form (``three_interpolate_mm``): bitwise its plain
+    version and the exact interpolation, one launch."""
+    gen = torch.Generator().manual_seed(4)
+    pts = torch.randn((b, m, c), generator=gen).to(dev)
+    idx = _interp_idx(gen, b, n, m).to(dev)
     w = torch.rand((b, n, 3), generator=gen).to(dev)
-    idx = idx.to(dev)
     before = tinterp.MM_KERNEL.launches
     got = ops.three_interpolate_mm(pts, idx, w, impl="cuda")
     want = ops.three_interpolate_mm(pts, idx, w, impl="plain")
@@ -733,6 +740,133 @@ def test_interp_mm_kernel(dev, b, n, m, c):
     assert tinterp.MM_KERNEL.launches == before + 1
     _equal(got, want)
     _equal(got, ops.three_interpolate(pts, idx, w))
+
+
+def _fp_case(dev, b, n, m, c2, c1, seed=4, skip_offset=0):
+    """Sources, indices (repeats included), three_nn-like squared
+    distances with zeros and values below eps, and skip rows (or None);
+    ``skip_offset`` floats shift the skip rows off a 16-byte boundary."""
+    gen = torch.Generator().manual_seed(seed)
+    pts = torch.randn((b, m, c2), generator=gen).to(dev)
+    idx = _interp_idx(gen, b, n, m).to(dev)
+    dist = torch.rand((b, n, 3), generator=gen).sort(dim=-1).values
+    dist[:, ::5, 0] = 0.0
+    dist[:, ::9, :2] = 1e-12
+    dist = dist.to(dev)
+    skip = None
+    if c1:
+        flat = torch.randn(b * n * c1 + skip_offset, generator=gen).to(dev)
+        skip = flat[skip_offset:].view(b, n, c1)
+    return pts, idx, dist, skip
+
+
+def _fp_equal(dev, pts, idx, dist, skip, plan=None):
+    before = tinterp.MM_KERNEL.launches
+    if plan is None:
+        got = ops.three_interpolate_fp(pts, idx, dist, skip, impl="cuda")
+    else:
+        got = tinterp._interp_mm_cuda(pts, idx, dist, skip, from_dist=True, plan=plan)
+    torch.cuda.synchronize()
+    assert tinterp.MM_KERNEL.launches == before + 1
+    want = ops.three_interpolate_fp(pts, idx, dist, skip, impl="plain")
+    _equal(got, want)
+    composite = ops.three_interpolate(pts, idx, ops.three_interpolate_weights(dist))
+    _equal(got, composite if skip is None else torch.cat([composite, skip], dim=-1))
+
+
+@pytest.mark.parametrize(
+    "b,n,m,c2,c1",
+    [(8, 64, 16, 512, 256), (8, 256, 64, 256, 128), (8, 1024, 256, 256, 64),  # FP1-FP3
+     (8, 8192, 1024, 128, 0), (1, 65536, 1024, 128, 0), (1, 64, 16, 512, 256),  # FP4, scene
+     (2, 100, 5, 7, 3),  # C2 and C1 not multiples of 4: scalar loads
+     (2, 50, 10, 8, 5),  # vector interpolation, scalar skip
+     (3, 37, 11, 130, 0), (2, 1001, 40, 12, 300)],  # ragged rows and slices
+)
+def test_interp_fp_kernel(dev, b, n, m, c2, c1):
+    """``three_interpolate_fp``: the weights from the distances, the
+    interpolation and the skip concat in one launch, bitwise its plain
+    version and the composite it replaces."""
+    _fp_equal(dev, *_fp_case(dev, b, n, m, c2, c1))
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_interp_fp_kernel_unaligned_skip(dev, offset):
+    """Skip rows off a 16-byte boundary (a contiguous view at an odd
+    offset) take scalar loads; the interpolation keeps its vector path."""
+    _fp_equal(dev, *_fp_case(dev, 8, 64, 16, 512, 256, skip_offset=offset))
+
+
+@pytest.mark.parametrize("plan", [(1, 1, 0), (8, 1, 0), (3, 2, 0), (1, 6, 0), (5, 100, 0),
+                                  (8, 7, 0)])
+def test_interp_fp_kernel_at_any_plan(dev, plan):
+    """The direct form: rows a task 1-8 (ragged last task) and 1 to more
+    slices than the row has chunks."""
+    _fp_equal(dev, *_fp_case(dev, 2, 333, 40, 260, 132), plan=plan)
+
+
+@pytest.mark.parametrize("plan", [(2048, 3, 32), (512, 3, 32), (1000, 6, 16), (7, 3, 32),
+                                  (2048, 6, 16)])
+def test_interp_fp_kernel_staged_at_any_plan(dev, plan):
+    """The staged form: chunks of 7 to 2048 rows (a ragged last chunk),
+    slices of 16 or 32 channels, 1500 sources in shared memory at 16."""
+    _fp_equal(dev, *_fp_case(dev, 2, 5000, 1500 if plan[2] == 16 else 700, 96, 0), plan=plan)
+
+
+def test_interp_fp_kernel_refuses_plans_beyond_its_limits(dev):
+    args = _fp_case(dev, 1, 8, 4, 8, 0)
+    big = _fp_case(dev, 1, 64, 4096, 64, 0)  # 4096 x 32 floats: beyond shared memory
+    for a, plan in ((args, (0, 1, 0)), (args, (9, 1, 0)), (args, (1, 0, 0)),
+                    (args, (16, 1, 32)),  # C not a multiple of the stage
+                    (args, (16, 1, 8)), (big, (2049, 2, 32)), (big, (64, 2, 32))):
+        with pytest.raises(RuntimeError, match="interp_mm failed to launch"):
+            tinterp._interp_mm_cuda(*a, from_dist=True, plan=plan)
+    skip = _fp_case(dev, 1, 64, 8, 64, 4)
+    with pytest.raises(RuntimeError, match="interp_mm failed to launch"):
+        tinterp._interp_mm_cuda(*skip, from_dist=True, plan=(64, 2, 32))  # skip rows
+
+
+def test_interp_fp_kernel_nan_distance(dev):
+    """A NaN distance passes the clamp (as ``torch.clamp`` lets it): its
+    row is NaN in both versions, every other row bitwise."""
+    pts, idx, dist, skip = _fp_case(dev, 2, 40, 8, 16, 4)
+    dist[0, 3, 1] = float("nan")
+    got = ops.three_interpolate_fp(pts, idx, dist, skip, impl="cuda")
+    want = ops.three_interpolate_fp(pts, idx, dist, skip, impl="plain")
+    assert torch.equal(got.isnan(), want.isnan()) and got[0, 3, :16].isnan().all()
+    keep = ~want.isnan()
+    _equal(got[keep], want[keep])
+
+
+@pytest.mark.parametrize("c1", [0, 256], ids=["no_skip", "skip"])
+def test_interp_fp_is_one_device_operation(dev, c1):
+    """``three_interpolate_fp`` on the card is its kernel alone: no weight
+    arithmetic, cast or concat (``torch.profiler``'s device events a
+    call)."""
+    from gspn_tpu_torch.utils.time_kernels import device_launches
+
+    args = _fp_case(dev, 8, 64, 16, 512, c1)
+    assert device_launches(lambda: ops.three_interpolate_fp(*args), 5) == 1.0
+
+
+@pytest.mark.parametrize("c1", [0, 64], ids=["no_skip", "skip"])
+def test_interp_fp_backward(dev, c1):
+    """The fused backward (the weights recomputed from the distances, the
+    index_add kernel) bitwise the plain route's, in ``points2``, ``dist``
+    and ``points1``."""
+    pts, idx, dist, skip = _fp_case(dev, 8, 1024, 256, 256, c1)
+    gen = torch.Generator().manual_seed(5)
+    gout = torch.randn((8, 1024, 256 + c1), generator=gen).to(dev)
+    grads = []
+    for impl in ("cuda", "plain"):
+        leaves = [pts.clone().requires_grad_(True), dist.clone().requires_grad_(True)]
+        if skip is not None:
+            leaves.append(skip.clone().requires_grad_(True))
+        out = ops.three_interpolate_fp(leaves[0], idx, leaves[1],
+                                       leaves[2] if skip is not None else None, impl=impl)
+        (out * gout).sum().backward()
+        grads.append([x.grad for x in leaves])
+    for got, want in zip(*grads, strict=True):
+        _equal(got, want)
 
 
 # sample offsets from the origin at a squared distance below, exactly at
@@ -840,10 +974,12 @@ def _nn_case(dev, b, n, m, seed=7):
 
 
 @pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("b,n,m", [(256, 256, 256), (16, 4096, 4096), (3, 100, 7), (2, 5, 3000)])
+@pytest.mark.parametrize("b,n,m", [(256, 256, 256), (16, 4096, 4096), (3, 100, 7), (2, 5, 3000),
+                                   (2, 600, 300)])  # N over several CTAs, not a multiple of 256
 def test_nn_argmin_kernel(dev, b, n, m, masked):
-    """Bitwise its plain version (the chamfer step's 256 x 256 <- 256, a
-    tiled 4096 sources, ragged sizes); a fully padded row gets index 0."""
+    """The one-direction form: bitwise its plain version (the chamfer step's
+    256 x 256 <- 256, 4096 sources over 16 tiles, ragged sizes); a fully
+    padded row gets index 0."""
     tgt, src, valid = _nn_case(dev, b, n, m)
     v = valid if masked else None
     before = tchamfer.KERNEL.launches
@@ -853,6 +989,69 @@ def test_nn_argmin_kernel(dev, b, n, m, masked):
     _equal(got, ops.nn_argmin(tgt, src, v, impl="plain"))
     if masked:
         assert not got[0].any()
+
+
+def _pair_equal(dev, b, n, m, mask1, mask2, cluster=None):
+    """The two-way kernel in one launch, bitwise the plain version each way;
+    masked, a row whose candidates are all invalid gets index 0 each way
+    (sources of scene 0, targets of scene 1)."""
+    tgt, src, valid2 = _nn_case(dev, b, n, m)
+    gen = torch.Generator().manual_seed(11)
+    valid1 = (torch.rand((b, n), generator=gen) > 0.3).to(dev)
+    valid1[min(1, b - 1)] = False
+    v1, v2 = (valid1 if mask1 else None), (valid2 if mask2 else None)
+    before = tchamfer.KERNEL.launches
+    if cluster is None:
+        got = ops.nn_argmin_pair(tgt, src, v1, v2, impl="cuda")
+    else:
+        got = tchamfer._argmin_cuda(tgt, src, v1, v2, both=True, cluster=cluster)
+    torch.cuda.synchronize()
+    assert tchamfer.KERNEL.launches == before + 1
+    want = ops.nn_argmin_pair(tgt, src, v1, v2, impl="plain")
+    for g, w in zip(got, want, strict=True):
+        _equal(g, w)
+    if mask2:
+        assert not got[0][0].any()
+    if mask1:
+        assert not got[1][min(1, b - 1)].any()
+
+
+@pytest.mark.parametrize("mask2", [False, True])
+@pytest.mark.parametrize("mask1", [False, True])
+@pytest.mark.parametrize("b,n,m", [
+    (256, 256, 256),  # slice (G)'s chamfer: a CTA a row
+    (16, 4096, 4096),  # ties, 16 tiles of sources, a cluster of 16
+    (3, 100, 7), (2, 5, 3000), (1, 300, 5000),
+    (4, 600, 1000),  # a cluster of 4, the last CTA's targets past N
+    (2, 2500, 300),  # 10 target tiles: a cluster of 16, 6 CTAs without targets
+    (1, 4500, 600),  # 18 target tiles: 2 passes, the second only partly filled
+])
+def test_nn_argmin_pair_kernel(dev, b, n, m, mask1, mask2):
+    _pair_equal(dev, b, n, m, mask1, mask2)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+def test_nn_argmin_pair_kernel_at_every_cluster_size(dev, cluster):
+    """1100 targets (5 tiles) at every cluster size: 5, 3, 2, 1 and 1
+    passes, the column minima carried across passes."""
+    _pair_equal(dev, 3, 1100, 700, True, True, cluster=cluster)
+
+
+def test_nn_argmin_pair_kernel_refuses_bad_clusters(dev):
+    tgt, src, _ = _nn_case(dev, 1, 600, 50)
+    for cluster in (3, 32):
+        with pytest.raises(RuntimeError, match="nn_argmin failed to launch"):
+            tchamfer._argmin_cuda(tgt, src, None, None, both=True, cluster=cluster)
+
+
+@pytest.mark.parametrize("b,n,m", [(256, 256, 256), (16, 4096, 4096)])
+def test_nn_argmin_pair_is_one_device_operation(dev, b, n, m):
+    """Both chamfer argmins are the kernel alone, one launch, no fill of
+    the outputs or the scratch (``torch.profiler``'s device events)."""
+    from gspn_tpu_torch.utils.time_kernels import device_launches
+
+    tgt, src, valid = _nn_case(dev, b, n, m)
+    assert device_launches(lambda: ops.nn_argmin_pair(tgt, src, None, valid), 5) == 1.0
 
 
 def _index_add_case(b, m, n, c, layout="third"):
@@ -968,9 +1167,9 @@ def test_nn_distance_auto_launches_the_kernel(dev):
     before = tchamfer.KERNEL.launches
     got = ops.nn_distance(tgt, src, valid2=valid)
     torch.cuda.synchronize()
-    assert tchamfer.KERNEL.launches == before + 2
+    assert tchamfer.KERNEL.launches == before + 1  # both argmins in one launch
     want = ops.nn_distance(tgt, src, valid2=valid, impl="plain")
-    assert tchamfer.KERNEL.launches == before + 2
+    assert tchamfer.KERNEL.launches == before + 1
     for x, y in zip(got, want, strict=True):
         _equal(x, y)
 
@@ -996,7 +1195,7 @@ def test_train_step_kernel_path_matches_plain_path(dev):
         launched = {k: c - before[k] for k, c in ops.launch_counts().items() if c != before[k]}
         runs.append((metrics, {k: p.grad for k, p in m.named_parameters()}, launched))
     (got, grads, launched), (want, pgrads, plain_launched) = runs
-    assert launched == {"fps": 1, "ball_group": 1, "nn_argmin": 2, "index_add": 1}
+    assert launched == {"fps": 1, "ball_group": 1, "nn_argmin": 1, "index_add": 1}
     assert not plain_launched
     for k in want:
         _equal(got[k], want[k])

@@ -162,6 +162,30 @@ def test_fp_module_interp(rng, masked, interp):
         tpn.PointNetFPModule(10, (16, 8), interp="fast")
 
 
+@pytest.mark.parametrize("with_skip", [False, True])
+def test_fp_module_mm_equals_exact(rng, with_skip):
+    """``interp="mm"`` (``three_interpolate_fp``: weights, interpolation and
+    skip concat in one call) gives the exact path's output and feature
+    gradients bit for bit on the CPU."""
+    xyz1, valid1 = _cloud(rng, 2, 96)
+    xyz2, valid2 = _cloud(rng, 2, 24, pad=0.3)
+    p1 = rng.normal(size=(2, 96, 4)).astype(np.float32) if with_skip else None
+    p2 = rng.normal(size=(2, 24, 6)).astype(np.float32)
+    tm = tpn.PointNetFPModule(6 + (4 if with_skip else 0), (16, 8), interp="exact")
+    runs = []
+    for interp in ("mm", "exact"):
+        tm.interp = interp
+        f1 = None if p1 is None else t(p1).requires_grad_(True)
+        f2 = t(p2).requires_grad_(True)
+        out = tm(t(xyz1), t(xyz2), f1, f2, t(valid1), t(valid2))
+        out.square().sum().backward()
+        runs.append((out, f2.grad, None if f1 is None else f1.grad))
+    for got, want in zip(*runs, strict=True):
+        assert (got is None) == (want is None)
+        if got is not None:
+            assert torch.equal(got, want)
+
+
 def test_convert_rejects_unknown_leaves():
     with pytest.raises(ValueError, match="unknown Flax leaf"):
         flax_to_state_dict({"params": {"dense_0": {"gamma": np.zeros(3)}}})

@@ -572,6 +572,119 @@ def test_three_interpolate_mm_large_source_block_equals_jax(rng):
                                                             jnp.asarray(w))))
 
 
+def _fp_case(rng, b, m, nt, c2, c1):
+    """Sources, three_nn's (squared) distances and indices from JAX's XLA
+    path with a zero and a tiny distance (clamped to eps), and skip
+    features or None."""
+    pts = rng.standard_normal((b, m, c2)).astype(np.float32)
+    xyz1 = rng.uniform(0, 2, (b, nt, 3)).astype(np.float32)
+    xyz2 = rng.uniform(0, 2, (b, m, 3)).astype(np.float32)
+    xyz1[0, 0] = xyz2[0, 5]  # distance 0
+    xyz1[0, 1] = xyz2[0, 6] + np.float32(1e-6)  # a distance below eps
+    dist, idx = jops.three_nn(jnp.asarray(xyz1), jnp.asarray(xyz2), impl="xla")
+    skip = rng.standard_normal((b, nt, c1)).astype(np.float32) if c1 else None
+    return pts, np.array(idx), np.array(dist), skip
+
+
+@pytest.mark.parametrize("skip", [0, 12], ids=["no_skip", "skip"])
+@pytest.mark.parametrize("shape", [(2, 150, 200, 40), (1, jinterp._IMC + 300, 64, 8)],
+                         ids=["small", "chunked_sources"])
+def test_three_interpolate_fp_matches_jax(rng, shape, skip):
+    """The plain version is bitwise JAX ``three_interpolate(points, idx,
+    three_interpolate_weights(dist))`` with ``jnp.concatenate`` of the skip
+    (the exact interpolation), and within 2 ulp of the terms' magnitude of
+    JAX ``three_interpolate_mm`` (the TPU kernel in interpret mode, which
+    sums the three terms in source order)."""
+    pts, idx, dist, p1 = _fp_case(rng, *shape, skip)
+    got = n(ops.three_interpolate_fp(t(pts), t(idx), t(dist), None if p1 is None else t(p1)))
+    jw = jops.three_interpolate_weights(jnp.asarray(dist))
+    exact = np.asarray(jops.three_interpolate(jnp.asarray(pts), jnp.asarray(idx), jw))
+    mm = np.asarray(jops.three_interpolate_mm(jnp.asarray(pts), jnp.asarray(idx), jw))
+    want = exact if p1 is None else np.asarray(jnp.concatenate([exact, p1], axis=-1))
+    np.testing.assert_array_equal(got, want)
+    c2 = pts.shape[-1]
+    g = np.take_along_axis(pts[:, None], idx[..., None].astype(np.int64), axis=2)
+    mag = (np.abs(g) * np.asarray(jw)[..., None]).sum(axis=2, dtype=np.float32)
+    assert (np.abs(got[..., :c2] - mm) <= 2 * np.spacing(mag)).all()
+
+
+@pytest.mark.parametrize("skip", [0, 7], ids=["no_skip", "skip"])
+@pytest.mark.parametrize("dist_grad", [False, True])
+def test_three_interpolate_fp_gradients_equal_the_composite(rng, skip, dist_grad):
+    """Its ``autograd.Function``'s gradients in ``points2``, ``dist`` and
+    ``points1`` on the CPU route are bitwise autograd's through the
+    composite the FP module ran before (``three_interpolate_mm`` of
+    ``three_interpolate_weights(dist)``, then the concat), sources picked
+    several times."""
+    pts, idx, dist, p1 = _fp_case(rng, 2, 30, 50, 6, skip)
+    idx[:, :10, 1] = idx[:, :10, 0]  # a repeated source
+    gout = rng.standard_normal((2, 50, 6 + skip)).astype(np.float32)
+
+    def grads(fused):
+        leaves = [t(pts).requires_grad_(True), t(dist).requires_grad_(dist_grad)]
+        if p1 is not None:
+            leaves.append(t(p1).requires_grad_(True))
+        pp, dd, ss = leaves[0], leaves[1], (leaves[2] if p1 is not None else None)
+        if fused:
+            out = ops.three_interpolate_fp(pp, t(idx), dd, ss)
+        else:
+            out = ops.three_interpolate_mm(pp, t(idx), ops.three_interpolate_weights(dd))
+            out = out if ss is None else torch.cat([out, ss], dim=-1)
+        (torch.sin(out) * t(gout)).sum().backward()
+        return out, [x.grad for x in leaves]
+
+    (out, got), (ref, want) = grads(True), grads(False)
+    assert torch.equal(out, ref)
+    for g, w in zip(got, want, strict=True):
+        assert (g is None) == (w is None)
+        if g is not None:
+            assert torch.equal(g, w)
+    assert (got[1] is not None) == dist_grad
+
+
+@pytest.mark.parametrize("b,n,m,c,c1", [
+    (8, 64, 16, 512, 256), (8, 256, 64, 256, 128), (8, 1024, 256, 256, 64),  # FP1-FP3
+    (8, 8192, 1024, 128, 0), (1, 65536, 1024, 128, 0),  # FP4, both scenes
+    (1, 64, 16, 512, 256), (1, 5, 3, 5, 0), (3, 1000, 7, 1000, 0),
+    (2, 10**5, 4096, 128, 0),  # sources beyond a CTA's shared memory
+    (1, 10**6, 8, 64, 0), (4, 8192, 1024, 130, 0)])
+def test_interp_mm_plan(b, n, m, c, c1):
+    """Staged only without skip rows, with C a multiple of 32 and many rows
+    a scene, within the kernel's chunk and a CTA's shared memory, a CTA an
+    SM at most; otherwise rows a task within the kernel's 1-8 and slices of
+    whole 128-float chunks, none beyond the row, grouping rows only where
+    slicing is not needed."""
+    rows, slices, stage = tinterp.interp_mm_plan(b, n, m, c, c1)
+    if stage:
+        assert stage == tinterp.INTERP_MM_STAGE and c1 == 0 and c % stage == 0
+        assert slices == c // stage and 1 <= rows <= tinterp.INTERP_MM_MAX_CHUNK
+        assert m * stage * 4 + rows * 32 <= tinterp.INTERP_MM_SMEM
+        chunks = -(-n // rows)
+        assert b * slices * chunks <= tinterp.INTERP_MM_SMS or rows == tinterp.INTERP_MM_MAX_CHUNK
+        return
+    assert 1 <= rows <= tinterp.INTERP_MM_MAX_ROWS
+    assert 1 <= slices <= -(-(c + c1) // tinterp.INTERP_MM_SLICE)
+    assert rows == 1 or slices == 1
+    assert tinterp.interp_mm_plan(b, n, m, c, c1, aligned=False)[2] == 0
+
+
+def test_interp_mm_plan_main_path_picks():
+    """FP4 staged (4 slices of 32 channels; 4 chunks of 2048 rows at the
+    flagship, 33 at the whole scene: 128 and 132 CTAs); FP1-FP3, with
+    their skip rows, direct, at the plans timed fastest or within 0.0001
+    ms of it on an H100 (FP1 in 4 slices, FP2 whole rows, FP3 4 rows a
+    task; the whole scene's in 6, 3 and 2 slices)."""
+    plan = tinterp.interp_mm_plan
+    assert plan(8, 8192, 1024, 128) == (2048, 4, 32)
+    assert plan(1, 65536, 1024, 128) == (1986, 4, 32)
+    assert plan(8, 64, 16, 512, 256) == (1, 4, 0)
+    assert plan(8, 256, 64, 256, 128) == (1, 1, 0)
+    assert plan(8, 1024, 256, 256, 64) == (4, 1, 0)
+    assert plan(1, 64, 16, 512, 256) == (1, 6, 0)
+    assert plan(1, 256, 64, 256, 128) == (1, 3, 0)
+    assert plan(1, 1024, 256, 256, 64) == (1, 2, 0)
+
+
 def _proj_case(rng, b=2, npts=300, r=10, s=6, masked=True):
     """Points and samples on a coarse grid (equal distances), duplicate
     sample coordinates with different logits (the tie rule), a RoI whose
@@ -899,10 +1012,14 @@ def test_nms_refuses_unknown_impl():
         lambda: ops.nms_3d_batched(torch.zeros(1, 2, 6), torch.zeros(1, 2), 0.25, impl="cuda"),
         lambda: ops.index_add_rows(torch.zeros(1, 4, 2), torch.zeros(1, 4, dtype=torch.int32), 3,
                                    impl="cuda"),
+        lambda: ops.three_interpolate_fp(
+            torch.zeros(1, 4, 2), torch.zeros(1, 8, 3, dtype=torch.int32), torch.zeros(1, 8, 3),
+            torch.zeros(1, 8, 5), impl="cuda"),
+        lambda: ops.nn_argmin_pair(torch.zeros(1, 8, 3), torch.zeros(1, 4, 3), impl="cuda"),
     ],
     ids=["fps", "three_nn", "box_group", "ball_group", "interp_mm", "mask_project",
          "mask_project_boxed", "box_group_strided", "ball_group_strided", "ball_query",
-         "ball_query_strided", "nms", "index_add"],
+         "ball_query_strided", "nms", "index_add", "interp_fp", "nn_argmin_pair"],
 )
 def test_cuda_impl_refuses_cpu_tensors(call):
     with pytest.raises(ValueError, match="CUDA tensor"):

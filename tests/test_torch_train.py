@@ -190,6 +190,65 @@ def test_chamfer_loss_matches_jax(rng, masked):
     np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
 
 
+@pytest.mark.parametrize("jimpl", ["xla", "pallas"])
+@pytest.mark.parametrize("mask2", [False, True])
+@pytest.mark.parametrize("mask1", [False, True])
+def test_nn_argmin_pair_matches_two_argmins_and_jax(rng, mask1, mask2, jimpl):
+    """``nn_argmin_pair``'s plain version is bitwise two ``nn_argmin`` calls,
+    and equal to JAX's argmin (``_argmin_xla``, and ``_argmin_pallas``, the
+    TPU kernel in interpret mode) in both directions: N != M, duplicated
+    sources and targets (ties to the lower index), each mask None or
+    masked, with a row whose candidates are all invalid each way."""
+    xyz1, xyz2, valid1, valid2 = _nn_inputs(rng)
+    xyz1[:, 20:30] = xyz1[:, :10]  # targets 20-29 repeat 0-9: column ties
+    valid1[0] = False  # scene 0: every target invalid for the column direction
+    v1, v2 = (valid1 if mask1 else None), (valid2 if mask2 else None)
+    tv1, tv2 = (None if v is None else t(v) for v in (v1, v2))
+    got = ops.nn_argmin_pair(t(xyz1), t(xyz2), tv1, tv2)
+    want = (ops.nn_argmin(t(xyz1), t(xyz2), tv2), ops.nn_argmin(t(xyz2), t(xyz1), tv1))
+    for g, w in zip(got, want, strict=True):
+        assert g.dtype == torch.int32 and g.shape == w.shape
+        assert torch.equal(g, w)
+
+    def jargmin(a, b, bv):
+        a, b, bv = jnp.asarray(a), jnp.asarray(b), None if bv is None else jnp.asarray(bv)
+        if jimpl == "pallas":
+            return jchamfer._argmin_pallas(a, b, bv, True)
+        return jchamfer._argmin_xla(a, b, bv)
+
+    np.testing.assert_array_equal(n(got[0]), np.asarray(jargmin(xyz1, xyz2, v2)))
+    np.testing.assert_array_equal(n(got[1]), np.asarray(jargmin(xyz2, xyz1, v1)))
+    if mask2:
+        assert not got[0][1].any()
+    if mask1:
+        assert not got[1][0].any()
+
+
+def test_nn_argmin_plan():
+    """One CTA a row up to 256 targets; a cluster of the least power of two
+    that holds the row's 256-target tiles, at most 16; passes beyond."""
+    from gspn_tpu_torch.ops.chamfer import nn_argmin_plan
+
+    assert nn_argmin_plan(1) == 1
+    assert nn_argmin_plan(256) == 1  # slice (G)'s chamfer rows
+    assert nn_argmin_plan(257) == 2
+    assert nn_argmin_plan(600) == 4
+    assert nn_argmin_plan(2048) == 8
+    assert nn_argmin_plan(4096) == 16  # the tie case of 16 rows x 4096
+    assert nn_argmin_plan(65536) == 16  # 16 passes
+
+
+def test_nn_argmin_pair_cuda_refuses_a_cpu_tensor():
+    a = torch.zeros(1, 4, 3)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ops.nn_argmin_pair(a, a, impl="cuda")
+
+
+def test_nn_argmin_pair_refuses_empty_point_sets():
+    with pytest.raises(ValueError, match="at least one point"):
+        ops.nn_argmin_pair(torch.zeros(1, 0, 3), torch.zeros(1, 4, 3))
+
+
 def test_nn_argmin_cuda_refuses_a_cpu_tensor():
     a = torch.zeros(1, 4, 3)
     with pytest.raises(ValueError):
