@@ -46,8 +46,8 @@ line or a few:
    each of their shapes, the strided groups' pick marked; three_nn at
    every (targets a thread, source slices, sources a group) plan at each
    of its shapes; interp_mm at every (rows, slices, stage) plan at each of
-   its shapes and nn_argmin both ways at every cluster size at 16 rows x
-   4096; NMS's, index_add's, the FP interpolation's and the
+   its shapes and nn_argmin both ways at every count of CTAs a row at 16
+   rows x 4096; NMS's, index_add's, the FP interpolation's and the
    chamfer argmins' device operations a call (one) and wrapper ms at
    their ranked shapes; the exact FPS beyond one block
    (``fps_cluster``) also at 4 x 16384, 2 x 14273 with an all-invalid row
@@ -111,7 +111,8 @@ line or a few:
    queries, (H) for fps_cluster, (G) for nn_argmin and index_add;
    ``launches_by_slice`` for each slice's own count; ``device_events``, the
    profiler's events under ``device_ms``; ``ms_by_cluster_size`` for
-   fps_cluster and nn_argmin, ``ms_by_split`` for the ball and box groups,
+   fps_cluster, ``ms_by_ctas`` for nn_argmin, ``ms_by_split`` for the ball
+   and box groups,
    ``ms_by_plan`` for three_nn and interp_mm, ``device_ops_per_call`` for
    nms, index_add, interp_mm and nn_argmin), the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
@@ -149,7 +150,7 @@ NN_PER, NN_SPLITS, NN_GROUPS = (1, 2, 4), (1, 2, 4, 8, 16, 32), (1, 32)
 # the FP interpolation: rows a task and slices (direct), rows a chunk
 # (staged); the two-way argmin: CTAs a row
 FP_ROWS, FP_SLICES, FP_CHUNKS = (1, 2, 4, 8), (1, 2, 3, 4, 6), (512, 1024, 2048)
-NN_CLUSTERS = (1, 2, 4, 8, 16)
+NN_CTAS = (1, 2, 4, 8, 12, 16)
 STRIDED = {"ball_group": "ball_group_strided", "box_group": "box_group_strided"}
 # the kernel's symbols in the profiler's (demangled) device events; the
 # template arguments of group_first_kernel and group_strided_kernel: the
@@ -727,7 +728,7 @@ def check_kernels(dev, ops, bench_slice):
 
     # the FP interpolation at every (rows, slices, stage) at each ranked
     # shape (direct: rows a task x slices; staged, where the shape allows
-    # it: rows a chunk x slices of 16 or 32 channels), kernel only (bitwise
+    # it: rows a chunk x slices of 32 channels), kernel only (bitwise
     # the plain version each time), device ms; interp_mm_plan's pick marked
     plans = {}
     for label, args, _ in main_path["interp_mm"]:
@@ -739,7 +740,8 @@ def check_kernels(dev, ops, bench_slice):
         pick = "x".join(map(str, picked))
         candidates = list(itertools.product(FP_ROWS, FP_SLICES, (0,)))
         if c1 == 0:
-            candidates += [(chunk, c // st, st) for st in (16, 32) for chunk in FP_CHUNKS
+            st = tinterp.INTERP_MM_STAGE
+            candidates += [(chunk, c // st, st) for chunk in FP_CHUNKS
                            if c % st == 0 and m * st * 4 + chunk * 32 <= tinterp.INTERP_MM_SMEM]
         candidates += [picked] * (picked not in candidates)
         times = {}
@@ -755,7 +757,7 @@ def check_kernels(dev, ops, bench_slice):
                   f"{plan}: {ms}{' (picked)' * (plan == pick)}" for plan, ms in times.items()))
     next(e for e in entries if e["name"] == "interp_mm")["ms_by_plan"] = plans
 
-    # the two-way argmin at every cluster size at 16 rows x 4096, kernel
+    # the two-way argmin at every count of CTAs a row at 16 rows x 4096, kernel
     # only (bitwise the plain version each time), device ms; the plan's
     # pick marked
     from gspn_tpu_torch.ops import chamfer as tchamfer
@@ -763,15 +765,15 @@ def check_kernels(dev, ops, bench_slice):
     want = tk.flatten(ops.nn_argmin_pair(tie_tgt, tie_src, tie_valid1, tie_valid, impl="plain"))
     pick = tchamfer.nn_argmin_plan(tie_tgt.shape[1])
     times = {}
-    for cluster in NN_CLUSTERS:
-        run = lambda cluster=cluster: tchamfer._argmin_cuda(  # noqa: E731
-            tie_tgt, tie_src, tie_valid1, tie_valid, both=True, cluster=cluster)
+    for ctas in NN_CTAS:
+        run = lambda ctas=ctas: tchamfer._argmin_cuda(  # noqa: E731
+            tie_tgt, tie_src, tie_valid1, tie_valid, both=True, ctas=ctas)
         tk.max_abs_err(tk.flatten(run()), want)
-        times[cluster] = tk.device_ms(run, KERNEL_ITERS, DEVICE_SYMBOLS["nn_argmin"])[0]
-    print("nn_argmin cluster sweep [16 rows x 4096 <-> 4096 both ways]: device ms by CTAs a row "
+        times[ctas] = tk.device_ms(run, KERNEL_ITERS, DEVICE_SYMBOLS["nn_argmin"])[0]
+    print("nn_argmin CTA sweep [16 rows x 4096 <-> 4096 both ways]: device ms by CTAs a row "
           "(bitwise the plain version at each) " + ", ".join(
               f"{cs}: {ms}{' (picked)' * (cs == pick)}" for cs, ms in times.items()))
-    next(e for e in entries if e["name"] == "nn_argmin")["ms_by_cluster_size"] = times
+    next(e for e in entries if e["name"] == "nn_argmin")["ms_by_ctas"] = times
 
     # NMS, index_add, the FP interpolation and the chamfer argmins at their
     # ranked shapes: the whole of nms_3d_batched, index_add_rows,

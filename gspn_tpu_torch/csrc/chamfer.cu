@@ -39,26 +39,22 @@
 //   its eight distances again: the lowest index at the minimum, as the
 //   plain argmin has it.
 // - A row of up to 256 targets is one CTA, which writes both directions'
-//   results itself. Longer rows are split over a thread-block cluster of
-//   up to 16 CTAs (non-portable above 8; 16 x 4096 rows fill the card with
-//   256 CTAs); each CTA writes its column partials of every source to a
-//   scratch (every entry is written before it is read, so nothing needs
-//   initialising), and after one cluster barrier a pass each CTA merges its
-//   share of the sources over the cluster's partials in rank (target)
-//   order. Rows longer than 16 x 256 targets take several passes; the
-//   running column minimum stays in the scratch, read and written by the
-//   same thread. One launch, no atomics: the result does not depend on the
-//   order CTAs run in.
+//   results itself. Longer rows are split over up to 16 CTAs (16 x 4096
+//   rows fill the card with 256 CTAs), each taking a run of consecutive
+//   256-target tiles, one a pass. A CTA keeps the column partial of every
+//   source over its passes in its slot of a scratch (written at its first
+//   pass, so nothing needs initialising; a later pass replaces it only when
+//   strictly closer, read and written by the same thread). The row's last
+//   CTA to finish, found by a per-row count that it resets, merges the
+//   slots in rank (target) order. No cluster: the CTAs are scheduled as
+//   freely as the one-way form's, and the result does not depend on the
+//   order they run in.
 // - At the end of a pass, the warps' row partials (each over its own
 //   slices of the source tiles) are merged by (distance, index).
 // The one-direction form (idx2 null) is the same kernel without the column
-// work (kCols false), a CTA a 256-target tile, no cluster.
-
-#include <cooperative_groups.h>
+// work (kCols false), a CTA a 256-target tile.
 
 #include "common.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -69,7 +65,7 @@ constexpr int kPer = 8;                    // targets a thread
 constexpr int kTargets = kLanes * kPer;    // 256 targets a CTA and pass
 constexpr int kSources = kThreads;         // 256 sources a tile, one staged a thread
 constexpr int kSlice = kSources / kWarps;  // 32 sources a warp's slice of a tile
-constexpr int kMaxCluster = 16;
+constexpr int kMaxSplit = 16;              // most CTAs a row, two-way
 constexpr int kColPad = kSources + 1;  // column partials [lane][source], padded
 constexpr int kRowPad = kLanes * (kPer + 1);  // row partials [warp][lane * 9 + r]
 
@@ -119,30 +115,35 @@ __device__ __forceinline__ float scan_source(const float4 p, int j,
   return cb;
 }
 
-// Grid (CTAs a row, batch rows); with kCols and more than one CTA a row (or
-// more than one pass) the x extent is one cluster. A target past n and a
+// Grid (CTAs a row, batch rows): CTA rank takes the row's target tiles
+// [rank * tiles / CTAs, (rank + 1) * tiles / CTAs). A target past n and a
 // source past m have NaN coordinates: their distances are NaN and win no
-// compare. part_d / part_i: each CTA's column partials, [pass parity][batch
-// row][rank][source]; run_d: the running column minimum across passes.
+// compare. part_d / part_i: each CTA's column partials over its passes,
+// [batch row][rank][source]; done: a count a batch row, zero between
+// launches.
 template <bool kCols, bool kValid1, bool kValid2>
 __global__ void __launch_bounds__(kThreads) nn_argmin_kernel(
     const float* __restrict__ xyz1, const float* __restrict__ xyz2,
     const uint8_t* __restrict__ valid1, const uint8_t* __restrict__ valid2,
-    int n, int m, int passes, int* __restrict__ idx1, int* __restrict__ idx2,
-    float* __restrict__ part_d, int* __restrict__ part_i, float* __restrict__ run_d) {
+    int n, int m, int* __restrict__ idx1, int* __restrict__ idx2,
+    float* __restrict__ part_d, int* __restrict__ part_i, unsigned* __restrict__ done) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Shared<kCols>& sh = *reinterpret_cast<Shared<kCols>*>(smem_raw);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int b = blockIdx.y, nb = gridDim.y;
+  const int b = blockIdx.y;
   const float* tgt = xyz1 + static_cast<size_t>(b) * n * 3;
   const float* src = xyz2 + static_cast<size_t>(b) * m * 3;
   const uint8_t* v1 = kValid1 ? valid1 + static_cast<size_t>(b) * n : nullptr;
   const uint8_t* v2 = kValid2 ? valid2 + static_cast<size_t>(b) * m : nullptr;
   const int tiles = (m + kSources - 1) / kSources;
+  const long t_tiles = (static_cast<long>(n) + kTargets - 1) / kTargets;
   const int cs = static_cast<int>(gridDim.x);
   const int rank = static_cast<int>(blockIdx.x);
+  const int t_lo = static_cast<int>(rank * t_tiles / cs);
+  const int t_hi = static_cast<int>((rank + 1) * t_tiles / cs);
   // one CTA and one pass a row: the CTA's column result is the row's
-  const bool direct = cs == 1 && passes == 1;
+  const bool direct = t_tiles == 1;
+  const size_t slot = (static_cast<size_t>(b) * cs + rank) * m;
 
   auto fetch = [&](int j) {
     return j < m ? make_float4(src[3 * j], src[3 * j + 1], src[3 * j + 2],
@@ -150,8 +151,8 @@ __global__ void __launch_bounds__(kThreads) nn_argmin_kernel(
                  : make_float4(CUDART_NAN_F, CUDART_NAN_F, CUDART_NAN_F, 0.f);
   };
 
-  for (int pass = 0; pass < passes; ++pass) {
-    const int t_base = (pass * cs + rank) * kTargets;
+  for (int pass = t_lo; pass < t_hi; ++pass) {
+    const int t_base = pass * kTargets;
     {  // stage the pass's targets and the first source tile, a point a thread
       const int t = t_base + tid;
       sh.tgt[tslot(tid)] =
@@ -174,7 +175,6 @@ __global__ void __launch_bounds__(kThreads) nn_argmin_kernel(
       rb[r] = CUDART_INF_F;
       ri[r] = warp * kSlice;  // the first source this thread meets
     }
-    const size_t slot = ((static_cast<size_t>(pass & 1) * nb + b) * cs + rank) * m;
 
     for (int k = 0; k < tiles; ++k) {
       const int base = k * kSources;
@@ -239,44 +239,12 @@ __global__ void __launch_bounds__(kThreads) nn_argmin_kernel(
         }
         if (direct) {
           idx2[static_cast<size_t>(b) * m + j] = i;
-        } else {
+        } else if (pass == t_lo || d < part_d[slot + j]) {
           part_d[slot + j] = d;
           part_i[slot + j] = i;
         }
       }
       if constexpr (kCols) __syncthreads();  // the partials are rewritten next tile
-    }
-
-    if (kCols && !direct) {
-      // the cluster's partials are written: each CTA merges its share of
-      // the sources, the cluster's CTAs in rank (target) order, then the
-      // earlier passes' running minimum (a source's owner is the same
-      // thread every pass, so it reads what it wrote). The partials of the
-      // next pass go to the other parity, and the pass after that writes
-      // this one only past the next barrier, which follows these reads.
-      cg::this_cluster().sync();
-      const size_t row = (static_cast<size_t>(pass & 1) * nb + b) * cs * m;
-      for (int j = rank * m / cs + tid; j < (rank + 1) * m / cs; j += kThreads) {
-        float bd = __ldcg(part_d + row + j);
-        int bi = __ldcg(part_i + row + j);
-        for (int r = 1; r < cs; ++r) {
-          const float dr = __ldcg(part_d + row + static_cast<size_t>(r) * m + j);
-          if (dr < bd) {
-            bd = dr;
-            bi = __ldcg(part_i + row + static_cast<size_t>(r) * m + j);
-          }
-        }
-        const size_t at = static_cast<size_t>(b) * m + j;
-        if (pass > 0) {
-          const float dp = run_d[at];
-          if (!(bd < dp)) {
-            bd = dp;
-            bi = idx2[at];
-          }
-        }
-        idx2[at] = bi;
-        if (pass + 1 < passes) run_d[at] = bd;
-      }
     }
 
     // the row results of the pass's targets: the warps' partials (each over
@@ -302,6 +270,50 @@ __global__ void __launch_bounds__(kThreads) nn_argmin_kernel(
     if (t_base + tid < n) idx1[static_cast<size_t>(b) * n + t_base + tid] = i;
     __syncthreads();  // the staged points and the partials are reused
   }
+
+  if (kCols && !direct) {
+    // the row's last CTA to finish merges the CTAs' slots, in rank (target)
+    // order, and resets the row's count for the next launch
+    __shared__ bool last;
+    __threadfence();  // this CTA's slot is visible before it is counted
+    __syncthreads();
+    if (tid == 0) last = atomicAdd(done + b, 1u) == static_cast<unsigned>(cs - 1);
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    // a thread two sources at a time, every slot's distance loaded before
+    // any is compared, then the one index: two round trips to L2 a pair of
+    // sources, not one a slot
+    const float* pd = part_d + static_cast<size_t>(b) * cs * m;
+    const int* pi = part_i + static_cast<size_t>(b) * cs * m;
+    for (int j0 = tid; j0 < m; j0 += 2 * kThreads) {
+      float dv[2][kMaxSplit];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int j = j0 + u * kThreads;
+#pragma unroll
+        for (int r = 0; r < kMaxSplit; ++r)
+          dv[u][r] = r < cs && j < m ? __ldcg(pd + static_cast<size_t>(r) * m + j)
+                                     : CUDART_INF_F;
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int j = j0 + u * kThreads;
+        float bd = dv[u][0];
+        int br = 0;
+#pragma unroll
+        for (int r = 1; r < kMaxSplit; ++r) {
+          if (dv[u][r] < bd) {
+            bd = dv[u][r];
+            br = r;
+          }
+        }
+        if (j < m)
+          idx2[static_cast<size_t>(b) * m + j] = __ldcg(pi + static_cast<size_t>(br) * m + j);
+      }
+    }
+    if (tid == 0) done[b] = 0;
+  }
 }
 
 // A refused call's error is also the runtime's last error: clear it, so that
@@ -313,42 +325,19 @@ cudaError_t refused(cudaError_t err) {
 
 template <bool kCols, bool kValid1, bool kValid2>
 cudaError_t launch(const float* xyz1, const float* xyz2, const uint8_t* valid1,
-                   const uint8_t* valid2, int nb, int n, int m, int cluster,
-                   int* idx1, int* idx2, float* scratch, cudaStream_t stream) {
+                   const uint8_t* valid2, int nb, int n, int m, int ctas, int* idx1,
+                   int* idx2, float* scratch, unsigned* done, cudaStream_t stream) {
   auto kernel = nn_argmin_kernel<kCols, kValid1, kValid2>;
   const size_t smem = sizeof(Shared<kCols>);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return refused(err);
-  const int tiles = (n + kTargets - 1) / kTargets;
-  const int passes = kCols ? (tiles + cluster - 1) / cluster : 1;
-  cudaLaunchConfig_t cfg{};
-  cfg.gridDim = dim3(static_cast<unsigned>(kCols ? cluster : tiles),
-                     static_cast<unsigned>(nb));
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  if (kCols && cluster > 8) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return refused(err);
-  }
-  if (kCols && (cluster > 1 || passes > 1)) {
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = static_cast<unsigned>(cluster);
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-  }
-  // scratch: part_d, part_i ([2][nb][cluster][m] each), run_d ([nb][m])
-  const size_t parts = 2 * static_cast<size_t>(nb) * cluster * m;
+  // scratch: part_d, part_i ([nb][ctas][m] each)
+  const size_t parts = static_cast<size_t>(nb) * ctas * m;
   float* part_d = scratch;
   int* part_i = scratch ? reinterpret_cast<int*>(scratch + parts) : nullptr;
-  float* run_d = scratch ? scratch + 2 * parts : nullptr;
-  err = cudaLaunchKernelEx(&cfg, kernel, xyz1, xyz2, valid1, valid2, n, m,
-                           passes, idx1, idx2, part_d, part_i, run_d);
-  if (err != cudaSuccess) return refused(err);
+  kernel<<<dim3(static_cast<unsigned>(ctas), static_cast<unsigned>(nb)), kThreads, smem,
+           stream>>>(xyz1, xyz2, valid1, valid2, n, m, idx1, idx2, part_d, part_i, done);
   return cudaGetLastError();
 }
 
@@ -356,38 +345,43 @@ cudaError_t launch(const float* xyz1, const float* xyz2, const uint8_t* valid1,
 
 // idx1 (nb, n): each xyz1 target's nearest valid xyz2 source; idx2 (nb, m),
 // or null for the row direction alone: each source's nearest valid target.
-// cluster: CTAs a row (1-16, a power of two; ops/chamfer.py nn_argmin_plan), read
-// only with idx2; scratch: (4 * cluster + 1) * nb * m floats when a row
-// takes more than one CTA or pass (cluster > 1 or n > 256), else unused.
+// ctas: CTAs a row (1-16; ops/chamfer.py nn_argmin_plan, at most the row's
+// 256-target tiles), read only with idx2. When a row takes more than one
+// tile, scratch: 2 * ctas * nb * m floats, and done: nb counts, zero (the
+// kernel leaves them zero). Else both are unused.
 extern "C" int gspn_nn_argmin(const float* xyz1, const float* xyz2,
                               const uint8_t* valid1, const uint8_t* valid2,
-                              int nb, int n, int m, int cluster, int* idx1,
-                              int* idx2, float* scratch, cudaStream_t stream) {
+                              int nb, int n, int m, int ctas, int* idx1,
+                              int* idx2, float* scratch, unsigned* done,
+                              cudaStream_t stream) {
   if (nb > 65535 || nb < 0 || n < 0 || m < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (nb == 0 || n == 0 || m == 0) return static_cast<int>(cudaGetLastError());
+  const long tiles = (static_cast<long>(n) + kTargets - 1) / kTargets;
   cudaError_t err;
   if (idx2 == nullptr) {
-    err = valid2 ? launch<false, false, true>(xyz1, xyz2, nullptr, valid2, nb, n, m, 1,
-                                              idx1, nullptr, nullptr, stream)
+    if (tiles > 0x7fffffffL) return static_cast<int>(cudaErrorInvalidValue);
+    err = valid2 ? launch<false, false, true>(xyz1, xyz2, nullptr, valid2, nb, n, m,
+                                              static_cast<int>(tiles), idx1, nullptr,
+                                              nullptr, nullptr, stream)
                  : launch<false, false, false>(xyz1, xyz2, nullptr, nullptr, nb, n, m,
-                                               1, idx1, nullptr, nullptr, stream);
+                                               static_cast<int>(tiles), idx1, nullptr,
+                                               nullptr, nullptr, stream);
     return static_cast<int>(err);
   }
-  const int tiles = (n + kTargets - 1) / kTargets;
-  if (cluster < 1 || cluster > kMaxCluster || (cluster & (cluster - 1)) != 0 ||
-      ((cluster > 1 || tiles > 1) && scratch == nullptr))
+  if (ctas < 1 || ctas > kMaxSplit || ctas > tiles ||
+      (tiles > 1 && (scratch == nullptr || done == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (valid1 && valid2)
-    err = launch<true, true, true>(xyz1, xyz2, valid1, valid2, nb, n, m, cluster, idx1,
-                                   idx2, scratch, stream);
+    err = launch<true, true, true>(xyz1, xyz2, valid1, valid2, nb, n, m, ctas, idx1, idx2,
+                                   scratch, done, stream);
   else if (valid1)
-    err = launch<true, true, false>(xyz1, xyz2, valid1, nullptr, nb, n, m, cluster, idx1,
-                                    idx2, scratch, stream);
+    err = launch<true, true, false>(xyz1, xyz2, valid1, nullptr, nb, n, m, ctas, idx1, idx2,
+                                    scratch, done, stream);
   else if (valid2)
-    err = launch<true, false, true>(xyz1, xyz2, nullptr, valid2, nb, n, m, cluster, idx1,
-                                    idx2, scratch, stream);
+    err = launch<true, false, true>(xyz1, xyz2, nullptr, valid2, nb, n, m, ctas, idx1, idx2,
+                                    scratch, done, stream);
   else
-    err = launch<true, false, false>(xyz1, xyz2, nullptr, nullptr, nb, n, m, cluster,
-                                     idx1, idx2, scratch, stream);
+    err = launch<true, false, false>(xyz1, xyz2, nullptr, nullptr, nb, n, m, ctas, idx1,
+                                     idx2, scratch, done, stream);
   return static_cast<int>(err);
 }

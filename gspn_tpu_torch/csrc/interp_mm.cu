@@ -138,20 +138,21 @@ __global__ void __launch_bounds__(kWarps * 32) interp_mm_kernel(
 constexpr int kStageThreads = 512;
 constexpr int kMaxChunk = 2048;  // rows a staged CTA: 4 a thread for the weights
 
-// Staged form (no skip; C a multiple of kW): CTA (scene, slice of kW
-// channels, chunk of up to kMaxChunk target rows) copies the scene's
+constexpr int kStage = 32;  // channels a staged slice
+
+// Staged form (no skip; C a multiple of kStage): CTA (scene, slice of
+// kStage channels, chunk of up to kMaxChunk target rows) copies the scene's
 // sources' slice into shared memory by cp.async and, while it is in flight,
 // computes its rows' weights from the distances (a thread a row, every
-// load issued first) and keeps them beside the rows' indices; then kW / 4
-// lanes a row, a float4 each, gather from shared memory and stream the
-// row's slice out. The sources are read from L2 once a CTA instead of
-// three times a target.
-template <int kW>
+// load issued first) and keeps them beside the rows' indices; then 8 lanes
+// a row, a float4 each, gather from shared memory and stream the row's
+// slice out. The sources are read from L2 once a CTA instead of three
+// times a target.
 __global__ void __launch_bounds__(kStageThreads) interp_mm_kernel_staged(
     const float* __restrict__ points, const int* __restrict__ idx,
     const float* __restrict__ wd, bool from_dist, int n, int m, int c,
     int chunk, float* __restrict__ out) {
-  constexpr int kVec = kW / 4;      // float4s a row's slice, lanes a row
+  constexpr int kVec = kStage / 4;  // float4s a row's slice, lanes a row
   constexpr int kRows = 32 / kVec;  // rows a warp step
   constexpr int kPerThread = kMaxChunk / kStageThreads;
   extern __shared__ float4 smem4[];
@@ -160,13 +161,13 @@ __global__ void __launch_bounds__(kStageThreads) interp_mm_kernel_staged(
   float4* w_s = smem4 + static_cast<size_t>(m) * kVec + chunk;  // [chunk]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int chunks = (n + chunk - 1) / chunk;
-  const int slices = c / kW;
+  const int slices = c / kStage;
   const int q = blockIdx.x % chunks;
   const int sl = (blockIdx.x / chunks) % slices;
   const int b = blockIdx.x / (chunks * slices);
   const int r_lo = q * chunk, r_hi = min(n, r_lo + chunk);
 
-  const float* pb = points + static_cast<size_t>(b) * m * c + sl * kW;
+  const float* pb = points + static_cast<size_t>(b) * m * c + sl * kStage;
   for (int e = tid; e < m * kVec; e += kStageThreads) {
     const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(src_s + e));
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
@@ -209,7 +210,7 @@ __global__ void __launch_bounds__(kStageThreads) interp_mm_kernel_staged(
   __syncthreads();
 
   const int g = lane / kVec, v = lane % kVec;
-  float* ob = out + static_cast<size_t>(b) * n * c + sl * kW + 4 * v;
+  float* ob = out + static_cast<size_t>(b) * n * c + sl * kStage + 4 * v;
 #pragma unroll 2
   for (int r = r_lo + warp * kRows + g; r < r_hi; r += kStageThreads / 32 * kRows) {
     const int4 ii = idx_s[r - r_lo];
@@ -234,18 +235,17 @@ cudaError_t refused(cudaError_t err) {
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-template <int kW>
 cudaError_t launch_staged(const float* points, const int* idx, const float* wd,
                           bool from_dist, int nb, int n, int m, int c, int chunk,
                           float* out, cudaStream_t stream) {
-  const size_t smem = (static_cast<size_t>(m) * kW / 4 + 2 * static_cast<size_t>(chunk)) * 16;
-  const long blocks = static_cast<long>(nb) * (c / kW) * ((n + chunk - 1) / chunk);
+  const size_t smem = (static_cast<size_t>(m) * kStage / 4 + 2 * static_cast<size_t>(chunk)) * 16;
+  const long blocks = static_cast<long>(nb) * (c / kStage) * ((n + chunk - 1) / chunk);
   if (blocks > 0x7fffffffL) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(interp_mm_kernel_staged<kW>,
+  cudaError_t err = cudaFuncSetAttribute(interp_mm_kernel_staged,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return refused(err);
-  interp_mm_kernel_staged<kW><<<static_cast<unsigned>(blocks), kStageThreads, smem, stream>>>(
+  interp_mm_kernel_staged<<<static_cast<unsigned>(blocks), kStageThreads, smem, stream>>>(
       points, idx, wd, from_dist, n, m, c, chunk, out);
   return cudaGetLastError();
 }
@@ -256,9 +256,9 @@ cudaError_t launch_staged(const float* points, const int* idx, const float* wd,
 // skip: (nb, n, c1) rows copied after the c interpolated channels (c1 = 0:
 // none); out: (nb, n, c + c1). The plan (interpolate.py interp_mm_plan):
 // stage 0, per_task rows a warp's task (1-8) and the output row in
-// `slices` slices; or stage 16 or 32, the staged form over slices of that
-// many channels and chunks of per_task rows (no skip, c a multiple of the
-// stage, 16-byte aligned rows, the slice and chunk within shared memory).
+// `slices` slices; or stage 32, the staged form over slices of 32 channels
+// and chunks of per_task rows (no skip, c a multiple of 32, 16-byte aligned
+// rows, the slice and chunk within shared memory).
 extern "C" int gspn_interp_mm(const float* points, const int* idx,
                               const float* wd, int from_dist, const float* skip,
                               int nb, int n, int m, int c, int c1, int per_task,
@@ -269,15 +269,12 @@ extern "C" int gspn_interp_mm(const float* points, const int* idx,
   const long rows = static_cast<long>(nb) * n;
   const int ctot = c + c1;
   if (stage != 0) {
-    if ((stage != 16 && stage != 32) || c1 != 0 || c % stage != 0 || per_task > kMaxChunk ||
+    if (stage != kStage || c1 != 0 || c % kStage != 0 || per_task > kMaxChunk ||
         !aligned16(points) || !aligned16(out))
       return static_cast<int>(cudaErrorInvalidValue);
     if (rows == 0 || c == 0) return static_cast<int>(cudaGetLastError());
-    return static_cast<int>(
-        stage == 16 ? launch_staged<16>(points, idx, wd, from_dist != 0, nb, n, m, c, per_task,
-                                        out, stream)
-                    : launch_staged<32>(points, idx, wd, from_dist != 0, nb, n, m, c, per_task,
-                                        out, stream));
+    return static_cast<int>(launch_staged(points, idx, wd, from_dist != 0, nb, n, m, c,
+                                          per_task, out, stream));
   }
   if (per_task > kMaxRows) return static_cast<int>(cudaErrorInvalidValue);
   if (rows == 0 || ctot == 0) return static_cast<int>(cudaGetLastError());

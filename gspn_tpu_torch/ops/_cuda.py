@@ -248,10 +248,10 @@ KERNELS: dict[str, CudaKernel] = {
         ),
         CudaKernel(
             "nn_argmin", "chamfer.cu", "gspn_nn_argmin",
-            # xyz1, xyz2, valid1, valid2, b, n, m, cluster (chamfer.nn_argmin_plan),
-            # idx1, idx2 (or null: one direction), scratch (rows over several
-            # CTAs or passes)
-            (_ptr, _ptr, _ptr, _ptr, _int, _int, _int, _int, _ptr, _ptr, _ptr),
+            # xyz1, xyz2, valid1, valid2, b, n, m, CTAs a row
+            # (chamfer.nn_argmin_plan), idx1, idx2 (or null: one direction),
+            # scratch and per-row counts (rows of more than one tile)
+            (_ptr, _ptr, _ptr, _ptr, _int, _int, _int, _int, _ptr, _ptr, _ptr, _ptr),
             "gspn_tpu/ops/chamfer.py:44 _nn_kernel",
         ),
         CudaKernel(

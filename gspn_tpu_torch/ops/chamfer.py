@@ -22,22 +22,32 @@ from gspn_tpu_torch.ops.grouping import gather_point
 KERNEL = _cuda.KERNELS["nn_argmin"]
 
 
-# nn_argmin_plan: the kernel's targets a CTA and pass and its largest
-# cluster (csrc/chamfer.cu kTargets, kMaxCluster)
+# nn_argmin_plan: the kernel's targets a CTA and pass and its most CTAs a
+# row (csrc/chamfer.cu kTargets, kMaxSplit)
 NN_ARGMIN_TARGETS = 256
-NN_ARGMIN_MAX_CLUSTER = 16
+NN_ARGMIN_MAX_SPLIT = 16
 
 
 def nn_argmin_plan(n: int) -> int:
-    """The two-way kernel's CTAs a row (one cluster) for rows of ``n``
-    targets: a CTA takes 256 targets a pass, so the least power of two
-    that holds the row's 256-target tiles, at most 16; a row of more tiles
-    than that takes several passes."""
-    tiles = -(-n // NN_ARGMIN_TARGETS)
-    cluster = 1
-    while cluster < min(tiles, NN_ARGMIN_MAX_CLUSTER):
-        cluster *= 2
-    return cluster
+    """The two-way kernel's CTAs a row for rows of ``n`` targets: a CTA
+    takes 256 targets a pass, so a CTA a 256-target tile, at most 16; a
+    row of more tiles than that takes several passes a CTA."""
+    return max(1, min(-(-n // NN_ARGMIN_TARGETS), NN_ARGMIN_MAX_SPLIT))
+
+
+# the two-way kernel's per-row counts: zeroed once a (device, stream) and
+# left zero by every launch, so that a call needs no fill (one device
+# operation); a stream of its own each, so that launches on two streams do
+# not share them
+_DONE: dict = {}
+
+
+def _done_counts(device, rows: int) -> torch.Tensor:
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    buf = _DONE.get(key)
+    if buf is None or buf.numel() < rows:
+        buf = _DONE[key] = torch.zeros(max(rows, 256), dtype=torch.int32, device=device)
+    return buf
 
 
 def _argmin_plain(a, b, b_valid):
@@ -46,9 +56,9 @@ def _argmin_plain(a, b, b_valid):
     return masked_sqdist(a, b, b_valid).argmin(dim=-1).to(torch.int32)
 
 
-def _argmin_cuda(a, b, a_valid, b_valid, both: bool, cluster=None):
+def _argmin_cuda(a, b, a_valid, b_valid, both: bool, ctas=None):
     """The kernel: ``a``'s nearest ``b`` and, when ``both``, ``b``'s nearest
-    ``a``, in one launch (at ``cluster`` CTAs a row, or
+    ``a``, in one launch (at ``ctas`` CTAs a row, or
     ``nn_argmin_plan``'s)."""
     bsz, n, _ = a.shape
     m = b.shape[1]
@@ -64,15 +74,17 @@ def _argmin_cuda(a, b, a_valid, b_valid, both: bool, cluster=None):
         flags.append(v)
     idx1 = torch.empty((bsz, n), dtype=torch.int32, device=a.device)
     idx2 = torch.empty((bsz, m), dtype=torch.int32, device=a.device) if both else None
-    cluster = cluster or nn_argmin_plan(n)
-    # a row over several CTAs or passes: the CTAs' column partials (two
-    # parities) and the running column minimum, in one scratch
-    scratch = (torch.empty((4 * cluster + 1) * bsz * m, dtype=torch.float32, device=a.device)
-               if both and (cluster > 1 or n > NN_ARGMIN_TARGETS) else None)
+    ctas = nn_argmin_plan(n) if ctas is None else ctas
+    # a row over several tiles: each CTA's column partials (distance and
+    # index) in one scratch, and the row's count of finished CTAs
+    scratch = done = None
+    if both and n > NN_ARGMIN_TARGETS:
+        scratch = torch.empty(2 * ctas * bsz * m, dtype=torch.float32, device=a.device)
+        done = _done_counts(a.device, bsz)
     if bsz and n and m:
         KERNEL.launch(a.device, _cuda.ptr(a), _cuda.ptr(b), _cuda.ptr(flags[0]),
-                      _cuda.ptr(flags[1]), bsz, n, m, cluster, _cuda.ptr(idx1), _cuda.ptr(idx2),
-                      _cuda.ptr(scratch))
+                      _cuda.ptr(flags[1]), bsz, n, m, ctas, _cuda.ptr(idx1), _cuda.ptr(idx2),
+                      _cuda.ptr(scratch), _cuda.ptr(done))
     return (idx1, idx2) if both else idx1
 
 

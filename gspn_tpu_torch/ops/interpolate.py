@@ -221,12 +221,19 @@ def _interp_grads(points, idx, weight, g, impl):
     ``_mm_bwd`` (gspn_tpu/ops/interpolate.py:431-447): ``(dpoints,
     dweight)``, the scatter-add through the deterministic
     ``index_add_rows`` (in (target, neighbor) order)."""
-    b, n, _ = idx.shape
-    m, c = points.shape[1:]
-    contrib = (weight[..., None] * g[..., None, :]).reshape(b, n * 3, c)
-    dpoints = index_add_rows(contrib, idx.reshape(b, n * 3), m, impl=impl)
-    dweight = (group_point(points, idx) * g[..., None, :]).sum(-1)
+    dpoints = _interp_dpoints(idx, weight, g, points.shape[1], impl)
+    dweight = _interp_dweight(points, idx, g)
     return dpoints.to(points.dtype), dweight.to(weight.dtype)
+
+
+def _interp_dpoints(idx, weight, g, m, impl):
+    b, n, _ = idx.shape
+    contrib = (weight[..., None] * g[..., None, :]).reshape(b, n * 3, g.shape[-1])
+    return index_add_rows(contrib, idx.reshape(b, n * 3), m, impl=impl)
+
+
+def _interp_dweight(points, idx, g):
+    return (group_point(points, idx) * g[..., None, :]).sum(-1)
 
 
 class _InterpolateMM(torch.autograd.Function):
@@ -283,12 +290,17 @@ class _InterpolateFP(torch.autograd.Function):
     def backward(ctx, g):
         points2, idx, dist = ctx.saved_tensors
         c2 = points2.shape[-1]
-        with torch.enable_grad():
-            d = dist.detach().requires_grad_(True)
-            weight = three_interpolate_weights(d)
-        dpoints, dweight = _interp_grads(points2, idx, weight.detach(), g[..., :c2], ctx.impl)
-        ddist = None
+        g2 = g[..., :c2]
+        dpoints = ddist = None
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[2]:
+            with torch.enable_grad():
+                d = dist.detach().requires_grad_(True)
+                weight = three_interpolate_weights(d)
+        if ctx.needs_input_grad[0]:
+            dpoints = _interp_dpoints(idx, weight.detach(), g2, points2.shape[1], ctx.impl)
+            dpoints = dpoints.to(points2.dtype)
         if ctx.needs_input_grad[2]:
+            dweight = _interp_dweight(points2, idx, g2).to(weight.dtype)
             (ddist,) = torch.autograd.grad(weight, d, dweight)
         dskip = g[..., c2:] if ctx.needs_input_grad[3] else None
         return dpoints, None, ddist, dskip, None

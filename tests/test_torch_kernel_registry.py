@@ -190,16 +190,16 @@ def _constant(source: str, name: str) -> int:
 
 
 def test_nn_argmin_plan_constants_match_the_kernel():
-    """``nn_argmin_plan`` sizes the scratch and the cluster from the
-    kernel's targets a CTA and its largest cluster: they must be the
-    source's (a pass count below the kernel's would leave the scratch
-    unallocated; the kernel refuses a larger cluster)."""
+    """``nn_argmin_plan`` sizes the scratch and the CTAs a row from the
+    kernel's targets a CTA and its most CTAs a row: they must be the
+    source's (a tile count below the kernel's would leave the scratch
+    unallocated; the kernel refuses more CTAs a row)."""
     from gspn_tpu_torch.ops import chamfer as tchamfer
 
     assert "constexpr int kTargets = kLanes * kPer;" in (_cuda.CSRC / "chamfer.cu").read_text()
     assert tchamfer.NN_ARGMIN_TARGETS == (_constant("chamfer.cu", "kLanes")
                                           * _constant("chamfer.cu", "kPer"))
-    assert tchamfer.NN_ARGMIN_MAX_CLUSTER == _constant("chamfer.cu", "kMaxCluster")
+    assert tchamfer.NN_ARGMIN_MAX_SPLIT == _constant("chamfer.cu", "kMaxSplit")
 
 
 def test_interp_mm_plan_constants_match_the_kernel():

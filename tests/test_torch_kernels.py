@@ -804,20 +804,24 @@ def test_interp_fp_kernel_at_any_plan(dev, plan):
     _fp_equal(dev, *_fp_case(dev, 2, 333, 40, 260, 132), plan=plan)
 
 
-@pytest.mark.parametrize("plan", [(2048, 3, 32), (512, 3, 32), (1000, 6, 16), (7, 3, 32),
-                                  (2048, 6, 16)])
-def test_interp_fp_kernel_staged_at_any_plan(dev, plan):
+@pytest.mark.parametrize("plan,m", [((2048, 3, 32), 700), ((512, 3, 32), 700),
+                                    ((1000, 3, 32), 1500), ((7, 3, 32), 700),
+                                    ((1264, 3, 32), 1500)])
+def test_interp_fp_kernel_staged_at_any_plan(dev, plan, m):
     """The staged form: chunks of 7 to 2048 rows (a ragged last chunk),
-    slices of 16 or 32 channels, 1500 sources in shared memory at 16."""
-    _fp_equal(dev, *_fp_case(dev, 2, 5000, 1500 if plan[2] == 16 else 700, 96, 0), plan=plan)
+    slices of 32 channels, up to 1500 sources and 1264 rows, the most that
+    fit in shared memory beside them."""
+    _fp_equal(dev, *_fp_case(dev, 2, 5000, m, 96, 0), plan=plan)
 
 
 def test_interp_fp_kernel_refuses_plans_beyond_its_limits(dev):
     args = _fp_case(dev, 1, 8, 4, 8, 0)
+    args32 = _fp_case(dev, 1, 8, 4, 32, 0)
     big = _fp_case(dev, 1, 64, 4096, 64, 0)  # 4096 x 32 floats: beyond shared memory
     for a, plan in ((args, (0, 1, 0)), (args, (9, 1, 0)), (args, (1, 0, 0)),
                     (args, (16, 1, 32)),  # C not a multiple of the stage
-                    (args, (16, 1, 8)), (big, (2049, 2, 32)), (big, (64, 2, 32))):
+                    (args, (16, 1, 8)), (args32, (16, 2, 16)),  # the stage is 32 channels
+                    (big, (2049, 2, 32)), (big, (64, 2, 32))):
         with pytest.raises(RuntimeError, match="interp_mm failed to launch"):
             tinterp._interp_mm_cuda(*a, from_dist=True, plan=plan)
     skip = _fp_case(dev, 1, 64, 8, 64, 4)
@@ -991,7 +995,7 @@ def test_nn_argmin_kernel(dev, b, n, m, masked):
         assert not got[0].any()
 
 
-def _pair_equal(dev, b, n, m, mask1, mask2, cluster=None):
+def _pair_equal(dev, b, n, m, mask1, mask2, ctas=None):
     """The two-way kernel in one launch, bitwise the plain version each way;
     masked, a row whose candidates are all invalid gets index 0 each way
     (sources of scene 0, targets of scene 1)."""
@@ -1001,10 +1005,10 @@ def _pair_equal(dev, b, n, m, mask1, mask2, cluster=None):
     valid1[min(1, b - 1)] = False
     v1, v2 = (valid1 if mask1 else None), (valid2 if mask2 else None)
     before = tchamfer.KERNEL.launches
-    if cluster is None:
+    if ctas is None:
         got = ops.nn_argmin_pair(tgt, src, v1, v2, impl="cuda")
     else:
-        got = tchamfer._argmin_cuda(tgt, src, v1, v2, both=True, cluster=cluster)
+        got = tchamfer._argmin_cuda(tgt, src, v1, v2, both=True, ctas=ctas)
     torch.cuda.synchronize()
     assert tchamfer.KERNEL.launches == before + 1
     want = ops.nn_argmin_pair(tgt, src, v1, v2, impl="plain")
@@ -1020,28 +1024,45 @@ def _pair_equal(dev, b, n, m, mask1, mask2, cluster=None):
 @pytest.mark.parametrize("mask1", [False, True])
 @pytest.mark.parametrize("b,n,m", [
     (256, 256, 256),  # slice (G)'s chamfer: a CTA a row
-    (16, 4096, 4096),  # ties, 16 tiles of sources, a cluster of 16
+    (16, 4096, 4096),  # ties, 16 tiles of sources, 16 CTAs a row
     (3, 100, 7), (2, 5, 3000), (1, 300, 5000),
-    (4, 600, 1000),  # a cluster of 4, the last CTA's targets past N
-    (2, 2500, 300),  # 10 target tiles: a cluster of 16, 6 CTAs without targets
-    (1, 4500, 600),  # 18 target tiles: 2 passes, the second only partly filled
+    (4, 600, 1000),  # 3 CTAs a row, the last CTA's targets past N
+    (2, 2500, 300),  # 10 target tiles, 10 CTAs a row
+    (1, 4500, 600),  # 18 target tiles: 16 CTAs, two of 2 passes, the last partly filled
 ])
 def test_nn_argmin_pair_kernel(dev, b, n, m, mask1, mask2):
     _pair_equal(dev, b, n, m, mask1, mask2)
 
 
-@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
-def test_nn_argmin_pair_kernel_at_every_cluster_size(dev, cluster):
-    """1100 targets (5 tiles) at every cluster size: 5, 3, 2, 1 and 1
-    passes, the column minima carried across passes."""
-    _pair_equal(dev, 3, 1100, 700, True, True, cluster=cluster)
+@pytest.mark.parametrize("ctas", [1, 2, 3, 4, 5])
+def test_nn_argmin_pair_kernel_at_every_cluster_size(dev, ctas):
+    """1100 targets (5 tiles) at every count of CTAs a row: 5 passes, 3
+    and 2, 2 and 1, one CTA of 2 passes, and a tile a CTA; the column
+    minima carried across a CTA's passes."""
+    _pair_equal(dev, 3, 1100, 700, True, True, ctas=ctas)
 
 
 def test_nn_argmin_pair_kernel_refuses_bad_clusters(dev):
+    """No CTA a row, more than 16, or more than the row's tiles."""
     tgt, src, _ = _nn_case(dev, 1, 600, 50)
-    for cluster in (3, 32):
+    for ctas in (0, 4, 17):
         with pytest.raises(RuntimeError, match="nn_argmin failed to launch"):
-            tchamfer._argmin_cuda(tgt, src, None, None, both=True, cluster=cluster)
+            tchamfer._argmin_cuda(tgt, src, None, None, both=True, ctas=ctas)
+    big, _, _ = _nn_case(dev, 1, 5000, 50)
+    with pytest.raises(RuntimeError, match="nn_argmin failed to launch"):
+        tchamfer._argmin_cuda(big, src, None, None, both=True, ctas=17)
+
+
+def test_nn_argmin_pair_kernel_leaves_its_counts_zero(dev):
+    """Every launch of rows over several CTAs leaves the rows' counts zero,
+    so the calls after it stay right, on the same stream and on another."""
+    for mask1 in (True, False, True):
+        _pair_equal(dev, 4, 1100, 700, mask1, True)
+    with torch.cuda.stream(torch.cuda.Stream()):
+        _pair_equal(dev, 4, 1100, 700, False, False)
+    torch.cuda.synchronize()
+    assert len(tchamfer._DONE) >= 2
+    assert not any(counts.any() for counts in tchamfer._DONE.values())
 
 
 @pytest.mark.parametrize("b,n,m", [(256, 256, 256), (16, 4096, 4096)])

@@ -642,6 +642,35 @@ def test_three_interpolate_fp_gradients_equal_the_composite(rng, skip, dist_grad
     assert (got[1] is not None) == dist_grad
 
 
+@pytest.mark.parametrize("skip", [0, 7], ids=["no_skip", "skip"])
+def test_three_interpolate_fp_gradient_without_points2(rng, monkeypatch, skip):
+    """With ``points2`` needing no gradient the backward builds no source
+    gradient (no scatter-add), and the gradients in ``dist`` and
+    ``points1`` are still bitwise the composite's."""
+    pts, idx, dist, p1 = _fp_case(rng, 2, 30, 50, 6, skip)
+    gout = t(rng.standard_normal((2, 50, 6 + skip)).astype(np.float32))
+
+    def grads(fused):
+        dd = t(dist).requires_grad_(True)
+        ss = None if p1 is None else t(p1).requires_grad_(True)
+        if fused:
+            out = ops.three_interpolate_fp(t(pts), t(idx), dd, ss)
+        else:
+            out = ops.three_interpolate_mm(t(pts), t(idx), ops.three_interpolate_weights(dd))
+            out = out if ss is None else torch.cat([out, ss], dim=-1)
+        (torch.sin(out) * gout).sum().backward()
+        return [dd.grad] + ([] if ss is None else [ss.grad])
+
+    want = grads(False)
+
+    def no_scatter(*args, **kwargs):
+        raise AssertionError("index_add_rows called for a points2 needing no gradient")
+
+    monkeypatch.setattr(tinterp, "index_add_rows", no_scatter)
+    for g, w in zip(grads(True), want, strict=True):
+        assert torch.equal(g, w)
+
+
 @pytest.mark.parametrize("b,n,m,c,c1", [
     (8, 64, 16, 512, 256), (8, 256, 64, 256, 128), (8, 1024, 256, 256, 64),  # FP1-FP3
     (8, 8192, 1024, 128, 0), (1, 65536, 1024, 128, 0),  # FP4, both scenes

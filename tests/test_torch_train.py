@@ -225,14 +225,14 @@ def test_nn_argmin_pair_matches_two_argmins_and_jax(rng, mask1, mask2, jimpl):
 
 
 def test_nn_argmin_plan():
-    """One CTA a row up to 256 targets; a cluster of the least power of two
-    that holds the row's 256-target tiles, at most 16; passes beyond."""
+    """One CTA a row up to 256 targets; a CTA a 256-target tile, at most
+    16; passes beyond."""
     from gspn_tpu_torch.ops.chamfer import nn_argmin_plan
 
     assert nn_argmin_plan(1) == 1
     assert nn_argmin_plan(256) == 1  # slice (G)'s chamfer rows
     assert nn_argmin_plan(257) == 2
-    assert nn_argmin_plan(600) == 4
+    assert nn_argmin_plan(600) == 3
     assert nn_argmin_plan(2048) == 8
     assert nn_argmin_plan(4096) == 16  # the tie case of 16 rows x 4096
     assert nn_argmin_plan(65536) == 16  # 16 passes
