@@ -39,14 +39,15 @@ line or a few:
    ``three_interpolate_mm``, at FP4 and FP1; nn_argmin one way, and both
    ways at 16 rows x 4096 with ties), with each
    shape's device and bound ms in ``device_ms_by_shape`` /
-   ``bound_ms_by_shape``, and index_add also at stage 2's FP4 and RoIAlign
-   backward, SA1's grouping backward and 512 positions an index; each (F) ball query's device ms
-   beside the ball group's at the same shape; then the ball
-   and box groups, first-K and strided, at every split (warps a query) at
-   each of their shapes, the strided groups' pick marked; three_nn at
-   every (targets a thread, source slices, sources a group) plan at each
-   of its shapes; interp_mm at every (rows, slices, stage) plan at each of
-   its shapes and nn_argmin both ways at every count of CTAs a row at 16
+   ``bound_ms_by_shape``, every launch of one stage-2 training step of (I)
+   at its own shape (``time_kernels.stage2_launches``), and index_add also
+   with 512 positions an index; each (F) ball query's device ms
+   beside the ball group's at the same shape; then, at each of their
+   shapes but (I)'s, the ball
+   and box groups, first-K and strided, at every split (warps a query),
+   the strided groups' pick marked; three_nn at
+   every (targets a thread, source slices, sources a group) plan; interp_mm
+   at every (rows, slices, stage) plan; and nn_argmin both ways at every count of CTAs a row at 16
    rows x 4096; NMS's, index_add's, the FP interpolation's and the
    chamfer argmins' device operations a call (one) and wrapper ms at
    their ranked shapes; the exact FPS beyond one block
@@ -126,12 +127,14 @@ import itertools
 import json
 import statistics
 import subprocess
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from gspn_tpu_torch.utils import time_kernels as tk
+from gspn_tpu_torch.utils.bench_slice import STAGE2_PER_STEP as I_PER_STEP  # slice (I)
 
 B, N = 8, 8192  # flagship request: 8 scenes x 8192 points
 WS_N = 65536  # whole-scene request: 1 scene, last 10% of points padding
@@ -178,6 +181,7 @@ SLICE_KERNELS = {  # what each slice's kernel path launches; the others stay at 
     "F": {"fps", "ball_query", "ball_query_strided"},
     "H": PATH_KERNELS | {"mask_project", "fps_cluster"},
     "G": {"fps", "ball_group", "nn_argmin", "index_add"},
+    "I": set(I_PER_STEP),
 }
 # slice (G) launches per step: nn_argmin gives the chamfer's argmins both
 # ways in one launch; index_add is the chamfer's gather backward into the
@@ -400,6 +404,10 @@ def check_kernels(dev, ops, bench_slice):
 
     def first_label(name, i=0):
         return main_path[name][i][0]
+
+    def swept(name):  # the cases the plan sweeps take: all but (I)'s step
+        return [c for c in main_path[name]
+                if not (c[2] and all(r.startswith("(I) ") for r in c[2]))]
 
     grid_label = f"grid RoIAlign: {B}x4096 targets <- {N}"
     nn_extra = [  # three_nn off the main path: (D)'s masks, (C)'s grid RoIs
@@ -685,7 +693,7 @@ def check_kernels(dev, ops, bench_slice):
     for name, launch in split_runs.items():
         splits = {}
         strided = name in STRIDED.values()
-        for label, args, _ in main_path[name]:
+        for label, args, _ in swept(name):
             want = tk.flatten(tk.call(ops, name, args, "plain"))
             pts, q = args[2], (args[3] if name.startswith("ball") else args[0])
             pick = None
@@ -709,7 +717,7 @@ def check_kernels(dev, ops, bench_slice):
     from gspn_tpu_torch.ops import interpolate as tinterp
 
     plans = {}
-    for label, args in [(label, a) for label, a, _ in main_path["three_nn"]] + nn_extra:
+    for label, args in [(label, a) for label, a, _ in swept("three_nn")] + nn_extra:
         want = tk.flatten(ops.three_nn(*args, impl="plain"))
         pick = "x".join(map(str, tinterp.three_nn_plan(args[0].shape[0], args[0].shape[1],
                                                        args[1].shape[1])))
@@ -731,7 +739,7 @@ def check_kernels(dev, ops, bench_slice):
     # it: rows a chunk x slices of 32 channels), kernel only (bitwise
     # the plain version each time), device ms; interp_mm_plan's pick marked
     plans = {}
-    for label, args, _ in main_path["interp_mm"]:
+    for label, args, _ in swept("interp_mm"):
         pts, idx, _, skip = args
         b, n, m, c = idx.shape[0], idx.shape[1], pts.shape[1], pts.shape[2]
         c1 = 0 if skip is None else skip.shape[-1]
@@ -1051,10 +1059,11 @@ def _train_steps(bench_slice, model, batch, eps, n_steps):
     return first, grads, torch.stack(losses), times
 
 
-def run_training(dev, ops, bench_slice, card):
+def run_training(dev, ops, bench_slice, card, work):
     """Slice (G): GSPN stage-1 training steps on the card, kernel path
-    against plain path, then a CPU reference and the trainer's entry point.
-    Returns the kernel path's launch counts."""
+    against plain path, then a CPU reference and the trainer's entry point,
+    whose run at its defaults leaves its checkpoints under ``work/gspn``
+    for slice (I). Returns the kernel path's launch counts."""
     import pathlib
     import tempfile
 
@@ -1134,15 +1143,15 @@ def run_training(dev, ops, bench_slice, card):
           f"{on_card:.6f}, CPU plain path {on_cpu:.6f} (within rtol 1e-4)")
 
     _phase("slice (G) train_gspn")
-    with tempfile.TemporaryDirectory() as tmp:
-        state = train_gspn.main(["--steps", "3", "--log-every", "1", "--ckpt-every", "3",
-                                 "--log-dir", tmp])
-        lines = [json.loads(x) for x in pathlib.Path(tmp, "train.jsonl").read_text().splitlines()]
-        if state.step != 3 or len(lines) != 3 or not all(
-                np.isfinite(v) for rec in lines for v in rec.values()):
-            raise AssertionError(f"train_gspn: step {state.step}, metrics {lines}")
-        if not pathlib.Path(tmp, "ckpt", "ckpt_3.pt").exists():
-            raise AssertionError("train_gspn: no checkpoint at step 3")
+    tmp = str(pathlib.Path(work, "gspn"))
+    state = train_gspn.main(["--steps", "3", "--log-every", "1", "--ckpt-every", "3",
+                             "--log-dir", tmp])
+    lines = [json.loads(x) for x in pathlib.Path(tmp, "train.jsonl").read_text().splitlines()]
+    if state.step != 3 or len(lines) != 3 or not all(
+            np.isfinite(v) for rec in lines for v in rec.values()):
+        raise AssertionError(f"train_gspn: step {state.step}, metrics {lines}")
+    if not pathlib.Path(tmp, "ckpt", "ckpt_3.pt").exists():
+        raise AssertionError("train_gspn: no checkpoint at step 3")
     print(f"slice (G) train_gspn.main at its defaults: 3 steps, 3 finite metric lines, "
           f"checkpoint ckpt_3.pt; last loss {lines[-1]['loss']:.4f}")
 
@@ -1187,6 +1196,160 @@ def run_training(dev, ops, bench_slice, card):
     return counts
 
 
+def _stage2_steps(bench_slice, model, gmodel, batch, draws, n_steps):
+    """Train the R-PointNet ``model`` over the frozen ``gmodel``'s proposals
+    (Adam at 1e-3, as ``train_rpointnet``'s default) for one warm-up step
+    and ``n_steps`` timed ones on the host clock around a synchronized step,
+    the same batch and noise each step. Returns ``(step 1's metrics, step
+    1's gradients, every step's loss, timed ms)``."""
+    from gspn_tpu_torch.train.steps import (
+        TrainState, make_optimizer, make_rpointnet_loss_fn, make_train_step,
+    )
+
+    step = make_train_step(make_rpointnet_loss_fn(
+        bench_slice.STAGE2_INSTANCES, (gmodel, bench_slice.TRAIN_SEEDS)))
+    state = TrainState(model, make_optimizer(model, 1e-3))
+    first = step(state, batch, **draws)
+    grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+    losses, times = [first["loss"]], []
+    for _ in range(n_steps):
+        ms, m = _host_ms(lambda: step(state, batch, **draws))
+        times.append(ms)
+        losses.append(m["loss"])
+    return first, grads, torch.stack(losses), times
+
+
+def _stage2_draws(gcfg, b: int, seed: int, device) -> dict:
+    """A stage-2 step's noise from ``torch.Generator().manual_seed(seed)``:
+    the GT boxes' jitter, then the frozen GSPN's CVAE noise."""
+    gen = torch.Generator().manual_seed(seed)
+    from gspn_tpu_torch.utils.bench_slice import STAGE2_INSTANCES, TRAIN_SEEDS
+
+    return {"box_noise": torch.randn((b, STAGE2_INSTANCES, 6), generator=gen).to(device),
+            "z_eps": torch.randn((b, TRAIN_SEEDS, gcfg.latent_dim), generator=gen).to(device)}
+
+
+def run_stage2(dev, ops, bench_slice, card, work):
+    """Slice (I): R-PointNet stage-2 training steps on the card over a frozen
+    GSPN's proposals, kernel path against plain path, then a CPU reference
+    and the trainer's entry point (with ``--gspn-ckpt`` on (G)'s checkpoint
+    under ``work/gspn/ckpt``). Returns the kernel path's launch counts."""
+    import pathlib
+
+    from gspn_tpu_torch.nn.layers import MaskedBatchNorm
+    from gspn_tpu_torch.train import train_rpointnet
+    from gspn_tpu_torch.train.steps import make_rpointnet_loss_fn
+
+    _phase("slice (I)")
+    gcfg, rcfg = bench_slice.stage2_configs()
+    batch = bench_slice.train_batch(dev)
+    b, n = batch["xyz"].shape[:2]
+    gmodel = bench_slice.seeded_frozen_gspn(gcfg, dev)
+    _, pgmodel = bench_slice.plain_gspn(gcfg, gmodel)  # same weights, eval mode
+    model = bench_slice.seeded_rpointnet(rcfg, dev)
+    _, pmodel = bench_slice.plain_rpointnet(rcfg, model)  # same initial weights
+    draws = _stage2_draws(gcfg, b, 1, dev)
+    ops.reset_launch_counts()
+    first, grads, losses, times = _stage2_steps(bench_slice, model, gmodel, batch, draws,
+                                                TRAIN_STEPS)
+    counts = ops.launch_counts()
+    print(f"slice (I) launches: {json.dumps(counts)}")
+    want = {k: c * (TRAIN_STEPS + 1) for k, c in I_PER_STEP.items()}
+    got = {k: c for k, c in counts.items() if c}
+    if got != want:
+        raise AssertionError(f"slice (I) launched {got}, expected {want}")
+    again = bench_slice.seeded_rpointnet(rcfg, dev)
+    _, _, losses2, _ = _stage2_steps(bench_slice, again, gmodel, batch, draws, TRAIN_STEPS)
+    _assert_same_training("(I) two kernel-path runs", model, again, losses, losses2)
+    print(f"slice (I): a second kernel-path run of 1 + {TRAIN_STEPS} steps from the same "
+          "weights: losses, parameters and running statistics bitwise equal")
+    rerun = ops.launch_counts()
+    pfirst, pgrads, plosses, ptimes = _stage2_steps(bench_slice, pmodel, pgmodel, batch, draws,
+                                                    TRAIN_STEPS)
+    if ops.launch_counts() != rerun:
+        raise AssertionError("slice (I): the plain path launched kernels")
+    for name, ls in (("kernel", losses), ("plain", plosses)):
+        if not torch.isfinite(ls).all():
+            raise AssertionError(f"slice (I) {name} path: non-finite losses {ls.tolist()}")
+    for k in first:
+        if not torch.equal(first[k], pfirst[k]):
+            raise AssertionError(f"slice (I): step 1 {k} {first[k].item()} vs {pfirst[k].item()}")
+    differ = [k for k in grads if not torch.equal(grads[k], pgrads[k])]
+    if differ:
+        raise AssertionError(f"slice (I): step-1 gradients differ in {differ[:3]}")
+    _assert_same_training("(I) kernel path vs plain path", model, pmodel, losses, plosses)
+    still = [k for k, m in model.named_modules()
+             if isinstance(m, MaskedBatchNorm) and not m.mean.any()]
+    if still:
+        raise AssertionError(f"slice (I): running means still 0 in {still}")
+    if not first["num_fg"].item() > 0:
+        raise AssertionError(f"slice (I): step 1 has no foreground RoI ({first})")
+    print(f"slice (I): step 1 loss {first['loss'].item():.6f} "
+          f"({', '.join(f'{k} {v.item():.6f}' for k, v in first.items() if k != 'loss')}), "
+          f"kernel path == plain path bitwise (losses, step-1 gradients, parameters, running "
+          f"statistics); losses {[round(x, 4) for x in losses.tolist()]}")
+    for name, ts in (("kernel", times), ("plain", ptimes)):
+        med = statistics.median(ts)
+        print(f"slice (I) {name} path: median {med:.3f} ms/step (min {min(ts):.3f}, max "
+              f"{max(ts):.3f}; {len(ts)} steps after a warm-up), "
+              f"{b * n / med * 1e3:.0f} points/s [{card}]")
+
+    _phase("slice (I) cpu reference")
+
+    def small_step_loss(device):
+        sb = bench_slice.train_batch(device, b=1, n=1024)
+        loss_fn = make_rpointnet_loss_fn(bench_slice.STAGE2_INSTANCES, (
+            bench_slice.seeded_frozen_gspn(gcfg, device), bench_slice.TRAIN_SEEDS))
+        total, metrics = loss_fn(bench_slice.seeded_rpointnet(rcfg, device), sb,
+                                 **_stage2_draws(gcfg, 1, 2, device))
+        return total.item(), metrics["num_fg"].item()
+
+    (on_card, fg), (on_cpu, cpu_fg) = small_step_loss(dev), small_step_loss(torch.device("cpu"))
+    if abs(on_card - on_cpu) > 1e-4 * abs(on_cpu) or fg != cpu_fg:
+        raise AssertionError(f"slice (I) B=1 x N=1024: card {on_card} ({fg} fg) vs CPU "
+                             f"{on_cpu} ({cpu_fg} fg)")
+    print(f"slice (I) B=1 x N=1024: step 1 loss card kernel path {on_card:.6f}, CPU plain path "
+          f"{on_cpu:.6f} (within rtol 1e-4), {fg:g} foreground RoIs on both")
+
+    def lines_of(log_dir):
+        return [json.loads(x) for x in pathlib.Path(log_dir, "train.jsonl").read_text()
+                .splitlines()]
+
+    gspn_ckpt = str(pathlib.Path(work, "gspn", "ckpt"))
+    for phase, extra in (("", []), (" --gspn-ckpt", ["--gspn-ckpt", gspn_ckpt])):
+        _phase(f"slice (I) train_rpointnet{phase}")
+        log_dir = str(pathlib.Path(work, f"rpointnet{phase.strip()}"))
+        state = train_rpointnet.main(["--steps", "3", "--log-every", "1", "--ckpt-every", "3",
+                                      "--log-dir", log_dir] + extra)
+        lines = lines_of(log_dir)
+        if state.step != 3 or len(lines) != 3 or not all(
+                np.isfinite(v) for rec in lines for v in rec.values()):
+            raise AssertionError(f"train_rpointnet{phase}: step {state.step}, metrics {lines}")
+        if not pathlib.Path(log_dir, "ckpt", "ckpt_3.pt").exists():
+            raise AssertionError(f"train_rpointnet{phase}: no checkpoint at step 3")
+        print(f"slice (I) train_rpointnet.main{phase or ' at its defaults (GT boxes)'}: 3 steps, "
+              f"3 finite metric lines, checkpoint ckpt_3.pt; losses "
+              f"{[round(r['loss'], 4) for r in lines]}, foreground / background RoIs "
+              f"{[(r['num_fg'], r['num_bg']) for r in lines]}")
+
+    _phase("slice (I) train_rpointnet --resume")
+    run = ["--gspn-ckpt", gspn_ckpt, "--ckpt-every", "1", "--log-every", "1"]
+    straight = train_rpointnet.main(run + ["--steps", "4", "--log-dir", f"{work}/resume_a"])
+    train_rpointnet.main(run + ["--steps", "2", "--log-dir", f"{work}/resume_b"])
+    resumed = train_rpointnet.main(run + ["--steps", "4", "--resume", "--log-dir",
+                                          f"{work}/resume_b"])
+    la, lb = (torch.tensor([r["loss"] for r in lines_of(f"{work}/resume_{x}")]) for x in "ab")
+    _assert_same_training("train_rpointnet 4 steps vs 2 + --resume 2", straight.model,
+                          resumed.model, la, lb)
+    oa, ob = (st.optimizer.state_dict()["state"] for st in (straight, resumed))
+    if not all(torch.equal(oa[i][k].cpu(), ob[i][k].cpu()) for i in oa for k in oa[i]):
+        raise AssertionError("train_rpointnet --resume: Adam moments differ")
+    print(f"slice (I) train_rpointnet --gspn-ckpt: 4 steps straight == 2 steps, a checkpoint and "
+          f"--resume for 2 (parameters, running statistics, Adam moments, losses bitwise); "
+          f"losses {la.tolist()}")
+    return counts
+
+
 def _assert_same_training(what, model, other, losses, other_losses) -> None:
     """Raise unless two training runs gave bitwise-equal losses, parameters
     and buffers (BatchNorm running statistics)."""
@@ -1228,7 +1391,8 @@ def _deterministic_mode_diagnostic(bench_slice, cfg, batch, eps) -> None:
 
 def _print_ranking(entries, requests, runs) -> None:
     """Where a request loses the most: for each request of the ranked
-    slices (a request of (A), (B), (E), (H), a pass of (F), a step of (G):
+    slices (a request of (A), (B), (E), (H), a pass of (F), a step of (G)
+    and of (I):
     ``requests`` keyed by ``time_kernels.request_key``), each kernel's
     (device ms - bound ms) summed over every launch of that request, each at
     its own shape. Raises unless each slice's launches are its requests'
@@ -1241,7 +1405,7 @@ def _print_ranking(entries, requests, runs) -> None:
     # a pass at each shape, (G) a step; (C) and (D) one shape
     per_run = {"A": REQUESTS + 1, "B": VARIANT_REQUESTS + 1, "C": VARIANT_REQUESTS + 1,
                "D": VARIANT_REQUESTS + 1, "E": VARIANT_REQUESTS + 1, "F": 1,
-               "H": VARIANT_REQUESTS + 1, "G": TRAIN_STEPS + 1}
+               "H": VARIANT_REQUESTS + 1, "G": TRAIN_STEPS + 1, "I": TRAIN_STEPS + 1}
     slices = sorted({req.split(")")[0][1:] for req in requests})
     for s in slices:
         mine = {req: launches for req, launches in requests.items() if req.startswith(f"({s}) ")}
@@ -1262,7 +1426,7 @@ def _print_ranking(entries, requests, runs) -> None:
                     missing.append(f"{name} [{label}]")
                     continue
                 lost[name] = lost.get(name, 0.0) + dev_ms - by[name]["bound_ms_by_shape"][label]
-            unit = {"F": "pass", "G": "step"}.get(s, "request")
+            unit = {"F": "pass", "G": "step", "I": "step"}.get(s, "request")
             print(f"ms above the bound per {req} {unit}, each of its {len(launches)} launches "
                   f"at its own shape: " + ", ".join(
                       f"{k} {v:.4f}" for k, v in sorted(lost.items(), key=lambda kv: -kv[1]))
@@ -1306,7 +1470,9 @@ def main() -> None:
     _phase("kernels")
     entries, requests = check_kernels(dev, ops, bench_slice)
     runs = run_slices(dev, ops, bench_slice, card)
-    runs["G"] = run_training(dev, ops, bench_slice, card)
+    with tempfile.TemporaryDirectory() as work:
+        runs["G"] = run_training(dev, ops, bench_slice, card, work)
+        runs["I"] = run_stage2(dev, ops, bench_slice, card, work)
     for e in entries:
         e["slice"] = next(s for s, c in runs.items() if c[e["name"]])
         e["launches"] = runs[e["slice"]][e["name"]]
@@ -1314,6 +1480,7 @@ def main() -> None:
     _phase("report")
     _print_ranking(entries, requests, runs)
     print(json.dumps({"kernels": entries}))
+    print(f"chip_smoke: total {time.perf_counter() - _T0:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -110,7 +110,8 @@ def project_roi_masks(xyz, boxes, roi_xyz, mask_logits, mask_thresh, valid=None,
         targets = xyz[:, None].expand(b, r, n, 3).reshape(b * r, n, 3)
         dist, idx3 = ops.three_nn(targets, roi_xyz.reshape(b * r, s, 3), impl=impl)
         w = ops.three_interpolate_weights(dist)
-        logit = ops.three_interpolate(mask_logits.reshape(b * r, s, 1), idx3, w).reshape(b, r, n)
+        logit = ops.three_interpolate(mask_logits.reshape(b * r, s, 1), idx3, w,
+                                      impl=impl).reshape(b, r, n)
     elif mode == "1nn":
         logit = ops.nearest_sample_logit(xyz, roi_xyz, mask_logits, impl=impl)
     else:

@@ -104,22 +104,50 @@ class PointMLP(nn.Module):
 
 
 class FCLayers(nn.Module):
-    """Fully-connected head: ``Linear + ReLU`` per hidden width, then a linear
-    output ``fc_out`` (no BatchNorm and no dropout, as every GSPN and
-    R-PointNet head the port runs uses it)."""
+    """Fully-connected head: ``Linear + ReLU (+ dropout)`` per hidden width,
+    then a linear output ``fc_out``; no BatchNorm, as every GSPN and
+    R-PointNet head of both packages builds it. ``dropout`` is the rate of
+    :func:`dropout` after each hidden ReLU, in training mode only."""
 
-    def __init__(self, in_dim: int, hidden: Sequence[int], out: int):
+    def __init__(self, in_dim: int, hidden: Sequence[int], out: int, dropout: float = 0.0):
         super().__init__()
         self.n = len(hidden)
+        self.dropout = dropout
         dims = [in_dim, *hidden]
         for i, ch in enumerate(hidden):
             self.add_module(f"fc_{i}", nn.Linear(dims[i], ch))
         self.fc_out = nn.Linear(dims[-1], out)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, keep=None, generator=None) -> torch.Tensor:
+        """``keep``: one bool mask a hidden layer (its output's shape), the
+        elements dropout keeps; without it, training-mode dropout draws them
+        from ``generator``, layer by layer."""
         for i in range(self.n):
             x = torch.relu(getattr(self, f"fc_{i}")(x))
+            if self.dropout > 0.0 and self.training:
+                x = dropout(x, self.dropout, None if keep is None else keep[i], generator)
         return self.fc_out(x)
+
+
+def dropout(x: torch.Tensor, rate: float, keep: torch.Tensor | None = None,
+            generator: torch.Generator | None = None) -> torch.Tensor:
+    """Flax's ``nn.Dropout`` in training: ``where(keep, x / (1 - rate), 0)``
+    with a true division by a device scalar (``F.dropout`` multiplies by
+    ``1 / (1 - rate)``, which rounds differently), zeros at ``rate`` 1.
+    ``keep`` (bool, ``x``'s shape) is drawn from ``generator`` as
+    ``jax.random.bernoulli`` draws it, ``uniform < 1 - rate``, when not
+    given."""
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep_prob = 1.0 - rate
+    if keep is None:
+        if generator is None:
+            raise ValueError("training-mode dropout needs its keep mask or a torch.Generator")
+        u = torch.rand(x.shape, generator=generator, dtype=torch.float32,
+                       device=generator.device).to(x.device)
+        keep = u < keep_prob
+    scaled = x / torch.full((), keep_prob, dtype=x.dtype, device=x.device)
+    return torch.where(keep, scaled, torch.zeros_like(x))
 
 
 def masked_max(x: torch.Tensor, mask: torch.Tensor, dim: int) -> torch.Tensor:

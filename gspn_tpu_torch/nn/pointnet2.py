@@ -125,9 +125,10 @@ class PointNetFPModule(nn.Module):
         if use_mm:
             feats = ops.three_interpolate_fp(points2, idx, dist, points1, impl=self.ops_impl)
         else:
-            interp = ops.three_interpolate(points2, idx, ops.three_interpolate_weights(dist))
+            interp = ops.three_interpolate(points2, idx, ops.three_interpolate_weights(dist),
+                                           impl=self.ops_impl)
             feats = interp if points1 is None else torch.cat([interp, points1], dim=-1)
-        out = self.mlp(feats)
+        out = self.mlp(feats, valid1)
         if valid1 is not None:
             out = torch.where(valid1[..., None], out, torch.zeros_like(out))
         return out

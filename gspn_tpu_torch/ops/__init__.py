@@ -43,6 +43,7 @@ from gspn_tpu_torch.ops.mask_project import (
 )
 from gspn_tpu_torch.ops.morton import morton_codes, spatial_order
 from gspn_tpu_torch.ops.nms import box_iou, box_volume, nms_3d, nms_3d_batched
+from gspn_tpu_torch.ops.sampling import prob_sample, random_prob_sample
 
 __all__ = [
     "KERNELS",
@@ -67,10 +68,12 @@ __all__ = [
     "nms_3d",
     "nms_3d_batched",
     "pairwise_sqdist",
+    "prob_sample",
     "query_ball_group_multi",
     "query_ball_point",
     "query_ball_point_multi",
     "query_box_group",
+    "random_prob_sample",
     "reset_launch_counts",
     "resolve_impl",
     "round_up",

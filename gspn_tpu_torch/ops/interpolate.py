@@ -135,10 +135,13 @@ def three_interpolate_weights(dist: torch.Tensor, eps: float = 1e-10) -> torch.T
     return recip / (recip[..., 0:1] + recip[..., 1:2] + recip[..., 2:3])
 
 
-def three_interpolate(points, idx, weight) -> torch.Tensor:
+def three_interpolate(points, idx, weight, *, impl: str = "auto") -> torch.Tensor:
     """``(B,M,C), (B,N,3) int, (B,N,3) -> (B,N,C)``: the weighted sum over
-    the 3 neighbors in neighbor order (the reference-exact form)."""
-    g = group_point(points, idx)  # (B, N, 3, C)
+    the 3 neighbors in neighbor order (the reference-exact form). ``impl``
+    is the route of the gather's backward (``group_point``): a plain-path
+    caller passes "plain", so its backward launches no kernel on the
+    card."""
+    g = group_point(points, idx, impl=impl)  # (B, N, 3, C)
     w = weight[..., None]
     return g[:, :, 0] * w[:, :, 0] + g[:, :, 1] * w[:, :, 1] + g[:, :, 2] * w[:, :, 2]
 
@@ -246,7 +249,7 @@ class _InterpolateMM(torch.autograd.Function):
         ctx.impl = impl
         if resolve_impl(impl, points) == "cuda":
             return _interp_mm_cuda(points, idx, weight)
-        return three_interpolate(points, idx, weight)
+        return three_interpolate(points, idx, weight, impl=impl)
 
     @staticmethod
     def backward(ctx, g):
@@ -266,8 +269,8 @@ def three_interpolate_mm(points, idx, weight, *, impl: str = "auto") -> torch.Te
     return _InterpolateMM.apply(points, idx, weight, impl)
 
 
-def _interpolate_fp_plain(points2, idx, dist, points1):
-    out = three_interpolate(points2, idx, three_interpolate_weights(dist))
+def _interpolate_fp_plain(points2, idx, dist, points1, impl="plain"):
+    out = three_interpolate(points2, idx, three_interpolate_weights(dist), impl=impl)
     return out if points1 is None else torch.cat([out, points1], dim=-1)
 
 
@@ -284,7 +287,7 @@ class _InterpolateFP(torch.autograd.Function):
         ctx.impl = impl
         if resolve_impl(impl, points2) == "cuda":
             return _interp_mm_cuda(points2, idx, dist, points1, from_dist=True)
-        return _interpolate_fp_plain(points2, idx, dist, points1)
+        return _interpolate_fp_plain(points2, idx, dist, points1, impl)
 
     @staticmethod
     def backward(ctx, g):

@@ -58,3 +58,16 @@ class CheckpointManager:
         state.optimizer.load_state_dict(payload["optimizer"])
         state.step = int(payload["step"])
         return True
+
+
+def latest_model_state(directory: str | pathlib.Path, map_location="cpu") -> dict:
+    """The model state dict of the newest checkpoint under ``directory``
+    (parameters and running statistics only, whatever the optimizer), as
+    stage 2 restores a stage-1 run's weights. ``FileNotFoundError`` when
+    there is none."""
+    path = pathlib.Path(directory)
+    step = CheckpointManager(path).latest_step() if path.is_dir() else None
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint under {directory}")
+    return torch.load(path / f"ckpt_{step}.pt", map_location=map_location,
+                      weights_only=True)["model"]

@@ -59,10 +59,39 @@ TINY_GSPN = GSPNConfig(
 )
 
 
-def parse_args(argv=None):
-    p = argparse.ArgumentParser(description="Train GSPN (stage 1)")
+def add_common_args(p: argparse.ArgumentParser) -> None:
+    """The flags both stage trainers take (``--device`` and those of the JAX
+    package's ``add_common_args``)."""
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' (default) exits when there is no CUDA device")
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--lr-schedule", choices=["constant", "exp", "cosine"], default="constant",
+                   help="'exp' = the reference's staircase exponential decay")
+    p.add_argument("--lr-decay-steps", type=int, default=10000)
+    p.add_argument("--lr-decay-rate", type=float, default=0.7)
+    p.add_argument("--lr-min", type=float, default=1e-5)
+    p.add_argument("--bn-decay", action="store_true",
+                   help="schedule BN momentum toward 0.99 (reference get_bn_decay idiom)")
+    p.add_argument("--bn-decay-steps", type=int, default=10000)
+    p.add_argument("--bn-decay-rate", type=float, default=0.5)
+    p.add_argument("--resume", action="store_true",
+                   help="restore the latest checkpoint under --log-dir and continue the run")
+    p.add_argument("--dtype", choices=["f32", "bf16"], default="f32", help="bf16 is not ported")
+    p.add_argument("--width-mult", type=int, default=1, help="not ported")
+    p.add_argument("--profile-steps", type=int, default=0,
+                   help="torch.profiler trace of this many steps (after one warm-up step) "
+                        "under {log_dir}/trace, with a JSON line of wall and device ms per "
+                        "step and the device's idle share")
+    p.add_argument("--fps-segments", type=int, default=1,
+                   help=">1: segmented parallel-chain FPS approximation where eligible")
+    p.add_argument("--fps-segment-mode", choices=["contiguous", "strided", "spatial"],
+                   default="spatial")
+    p.add_argument("--group-select", choices=["first", "strided"], default="first",
+                   help="context-crop K-selection (must match between training and eval)")
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="Train GSPN (stage 1)")
     p.add_argument("--steps", type=int, default=1000)
     p.add_argument("--batch", type=int, default=4)
     p.add_argument("--num-points", type=int, default=4096)
@@ -91,30 +120,7 @@ def parse_args(argv=None):
     p.add_argument("--no-augment", action="store_true")
     p.add_argument("--preset", choices=["default", "tiny", "object"], default="default",
                    help="tiny = small config for smoke tests / CPU; object is not ported")
-    p.add_argument("--lr", type=float, default=1e-3)
-    p.add_argument("--lr-schedule", choices=["constant", "exp", "cosine"], default="constant",
-                   help="'exp' = the reference's staircase exponential decay")
-    p.add_argument("--lr-decay-steps", type=int, default=10000)
-    p.add_argument("--lr-decay-rate", type=float, default=0.7)
-    p.add_argument("--lr-min", type=float, default=1e-5)
-    p.add_argument("--bn-decay", action="store_true",
-                   help="schedule BN momentum toward 0.99 (reference get_bn_decay idiom)")
-    p.add_argument("--bn-decay-steps", type=int, default=10000)
-    p.add_argument("--bn-decay-rate", type=float, default=0.5)
-    p.add_argument("--resume", action="store_true",
-                   help="restore the latest checkpoint under --log-dir and continue the run")
-    p.add_argument("--dtype", choices=["f32", "bf16"], default="f32", help="bf16 is not ported")
-    p.add_argument("--width-mult", type=int, default=1, help="not ported")
-    p.add_argument("--profile-steps", type=int, default=0,
-                   help="torch.profiler trace of this many steps (after one warm-up step) "
-                        "under {log_dir}/trace, with a JSON line of wall and device ms per "
-                        "step and the device's idle share")
-    p.add_argument("--fps-segments", type=int, default=1,
-                   help=">1: segmented parallel-chain FPS approximation for the seeds")
-    p.add_argument("--fps-segment-mode", choices=["contiguous", "strided", "spatial"],
-                   default="spatial")
-    p.add_argument("--group-select", choices=["first", "strided"], default="first",
-                   help="context-crop K-selection (must match between training and eval)")
+    add_common_args(p)
     return p.parse_args(argv)
 
 
@@ -138,10 +144,10 @@ def check_ported(args) -> None:
             raise not_ported(what, item)
 
 
-def resolve_device(name: str) -> torch.device:
+def resolve_device(name: str, prog: str = "train_gspn") -> torch.device:
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("train_gspn: --device cuda needs a CUDA device and "
+        raise SystemExit(f"{prog}: --device cuda needs a CUDA device and "
                          "torch.cuda.is_available() is false; pass --device cpu to train "
                          "on the CPU")
     return device
@@ -204,9 +210,21 @@ def main(argv=None) -> TrainState:
     print(f"GSPN: {n_params / 1e6:.2f}M params, device={device} ({where}), "
           f"feature_dim={cfg.feature_dim}")
 
+    loss_fn = make_gspn_loss_fn(args.num_seeds, args.gt_size, {"kl_weight": args.kl_weight})
+    return train_loop(args, state, loss_fn, lr_fn, cfg, batches, device)
+
+
+def train_loop(args, state: TrainState, loss_fn, lr_fn, cfg, batches: DeterministicBatches,
+               device) -> TrainState:
+    """Both trainers' loop: ``--resume`` from ``{log_dir}/ckpt``, the config
+    beside it, then steps ``start..args.steps-1`` (step ``i``: batch ``i``
+    augmented, unless ``--no-augment``, and ``loss_fn``'s draws, both from
+    ``step_generator(seed, i)``), metrics JSONL every ``--log-every``, the
+    validation loss on a held-out batch every ``--eval-every``, a checkpoint
+    every ``--ckpt-every`` and at the end, a profiler window of
+    ``--profile-steps``."""
     bn_fn = (bn_momentum_schedule(decay_steps=args.bn_decay_steps,
                                   decay_rate=args.bn_decay_rate) if args.bn_decay else None)
-    loss_fn = make_gspn_loss_fn(args.num_seeds, args.gt_size, {"kl_weight": args.kl_weight})
     step_fn = make_train_step(loss_fn, lr_fn, bn_fn)
 
     ckpt = CheckpointManager(f"{args.log_dir}/ckpt")

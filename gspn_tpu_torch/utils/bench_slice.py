@@ -1,8 +1,10 @@
 """The slices as ``chip_smoke.py``, ``profile_slice`` and the card tests
 drive them, set up in one place so all measure the same program: the
 inference slice's config and its variants, the seeded model, the
-plain-path model and the bench's two request shapes; and the training
-slice's config, batch, seeded GSPN and plain-path GSPN."""
+plain-path model and the bench's two request shapes; the stage-1 training
+slice's config, batch, seeded GSPN and plain-path GSPN; and the stage-2
+training slice's configs, seeded frozen GSPN and R-PointNet and the
+R-PointNet's plain twin."""
 
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from gspn_tpu_torch.models.pipeline import (
     init_pipeline_variables,
 )
 from gspn_tpu_torch.models.presets import scannet_pipeline, set_pipeline_group_select
+from gspn_tpu_torch.models.rpointnet import RPointNet, RPointNetConfig
 from gspn_tpu_torch.nn.layers import glorot_init_
 
 # shape name -> (B, N, scene_batch kwargs, padded tail); bench.py's flagship
@@ -157,6 +160,50 @@ def plain_gspn(cfg: GSPNConfig, model: GSPN) -> tuple[GSPNConfig, GSPN]:
     and mode, on its device)``: the training slice's plain path."""
     pcfg = dataclasses.replace(cfg, ops_impl="plain")
     out = GSPN(pcfg, recognition=model.has_recognition)
+    out.load_state_dict(model.state_dict())
+    return pcfg, out.to(next(model.parameters()).device).train(model.training)
+
+
+# the stage-2 training slice: bench.py's value_train arm (the train batch
+# above, 64 seeds from one shared exact FPS pass with SA1's 1024 centres, GT
+# boxes of up to 16 instances, jittered and mixed in: 80 RoIs a scene)
+STAGE2_INSTANCES = 16
+# its kernel launches per step: fps for the shared pass and SA2-SA4;
+# ball_group for the frozen GSPN's crops and SA1-SA4; box_group for the
+# RoIAlign; three_nn and interp_mm at FP1-FP4; index_add for the backward
+# of SA2-SA4's feature gathers, FP1-FP4's interpolation and the RoIAlign
+STAGE2_PER_STEP = {"fps": 4, "ball_group": 5, "box_group": 1, "three_nn": 4, "interp_mm": 4,
+                   "index_add": 8}
+
+
+def stage2_configs() -> tuple[GSPNConfig, RPointNetConfig]:
+    """``scannet_pipeline(fps_segments=1)``'s GSPN and R-PointNet configs at
+    full width (exact FPS, as the trainers sample)."""
+    cfg = scannet_pipeline(fps_segments=1)
+    return cfg.gspn, cfg.rpointnet
+
+
+def seeded_frozen_gspn(cfg: GSPNConfig, device) -> GSPN:
+    """An inference GSPN in eval mode with glorot weights from
+    ``torch.Generator().manual_seed(1)``: stage 2's frozen proposal net."""
+    model = GSPN(cfg)
+    glorot_init_(model, torch.Generator().manual_seed(1))
+    return model.to(device).eval()
+
+
+def seeded_rpointnet(cfg: RPointNetConfig, device) -> RPointNet:
+    """Training-mode R-PointNet with glorot weights from
+    ``torch.Generator().manual_seed(0)``."""
+    model = RPointNet(cfg)
+    glorot_init_(model, torch.Generator().manual_seed(0))
+    return model.to(device).train()
+
+
+def plain_rpointnet(cfg: RPointNetConfig, model: RPointNet) -> tuple[RPointNetConfig, RPointNet]:
+    """``(cfg on the plain ops, an R-PointNet built from it with model's
+    weights and mode, on its device)``: stage 2's plain path."""
+    pcfg = dataclasses.replace(cfg, ops_impl="plain")
+    out = RPointNet(pcfg)
     out.load_state_dict(model.state_dict())
     return pcfg, out.to(next(model.parameters()).device).train(model.training)
 

@@ -1,6 +1,6 @@
 """Timing of the hand-written kernels on the card, and every launch of the
 ranked slices' kernels: a flagship and a whole-scene request, a pass of
-the ball-query entry points, a training step.
+the ball-query entry points, a stage-1 and a stage-2 training step.
 
     python gspn_tpu_torch/utils/time_kernels.py [--tree DIR] [--kernels a,b]
 
@@ -16,10 +16,12 @@ fps over whole rows, fps_cluster at the whole scene), of one pass of (F)
 at each shape (the shared FPS pass, then ball_query_strided at SA1 and the
 crops and ball_query at SA1), and of one training step of (G) (the seeds'
 fps, the crops' ball_group, nn_argmin both ways in one launch and
-index_add, the chamfer's gather backward), each at its own shape; also index_add at
-stage 2's shapes (FP4's interpolation backward and the RoIAlign gather's,
-both scenes), at SA1's grouping gather (both scenes) and with 512
-positions on each index. Run as a script,
+index_add, the chamfer's gather backward), and of one stage-2 training
+step of (I) (``stage2_launches``: fps's shared pass and SA2-SA4, the
+frozen GSPN's crops and SA1-SA4's ball_group, the RoIAlign box_group,
+three_nn and interp_mm at FP1-FP4, and the backward's eight index_add
+launches), each at its own shape; also index_add with 512 positions on
+each index. Run as a script,
 this module times those cases alone
 (``--kernels`` picks some kernels), importing ``gspn_tpu_torch`` from
 ``--tree DIR`` (another checkout, for example the parent commit unpacked
@@ -216,12 +218,13 @@ ENTRY_POINTS = {
 KEYWORDS = {name: {"select": "strided"}
             for name in ("ball_group_strided", "box_group_strided", "ball_query_strided")}
 REQUESTS = ("B8xN8192", "B1xN65536")  # bench_slice.SHAPES: flagship, whole scene
-TRAIN_SHAPE = "B4xN4096"  # slice (G)'s batch: bench_slice.TRAIN_BATCH x TRAIN_POINTS
+TRAIN_SHAPE = "B4xN4096"  # slices (G) and (I): bench_slice.TRAIN_BATCH x TRAIN_POINTS
+STEP_SLICES = ("G", "I")  # ranked a training step each, at TRAIN_SHAPE
 # the slices ranked launch by launch (chip_smoke.py): the main path (A),
 # its box-pruned projection (B), strided selection (E), the exact FPS (H)
 # a request each; the ball-query entry points (F) a pass at each shape;
-# training (G) a step
-RANKED = ("A", "B", "E", "F", "G", "H")
+# stage-1 (G) and stage-2 (I) training a step
+RANKED = ("A", "B", "E", "F", "G", "H", "I")
 ROIS, ROI_SAMPLES = 64, 64  # seeds (RoIs) a scene, in-box samples a RoI
 CROPS = ((0.25, 0.5, 1.0), (32, 64, 128))  # GSPN context crops: radii, K
 
@@ -233,9 +236,10 @@ def request_key(slice_name: str, shape: str) -> str:
 
 
 def ranked_keys() -> list[str]:
-    """Every ranked slice's request keys: both request shapes, (G)'s batch."""
+    """Every ranked slice's request keys: both request shapes, the training
+    slices' batch."""
     return [request_key(s, shape) for s in RANKED
-            for shape in ((TRAIN_SHAPE,) if s == "G" else REQUESTS)]
+            for shape in ((TRAIN_SHAPE,) if s in STEP_SLICES else REQUESTS)]
 
 
 def chamfer_inputs(ops, bench_slice, dev, gen):
@@ -331,13 +335,10 @@ def cases(ops, bench_slice, dev, inputs=None) -> dict:
     Morton-sorted view in (B); (F): ball_query_strided at SA1 and the
     crops, ball_query at SA1, with the ball groups' labels; (G): the seeds'
     fps, the crops' ball_group, nn_argmin both ways in one launch (pred ->
-    GT masked, GT -> pred), index_add at the chamfer's gather backward. Untagged: index_add
-    at stage 2's FP4 interpolation backward (8 x 24576 positions into 1024
-    rows, 1 x 196608 into 1024) and RoIAlign gather backward (8 x 4096
-    into 8192, 1 x 4096 into 65536), at SA1's grouping (8 x 32768 into
-    8192, 1 x 32768 into 65536) and with 512 positions on each of 8
-    indices. ``inputs``: ``main_path_inputs``'
-    result, made here if None."""
+    GT masked, GT -> pred), index_add at the chamfer's gather backward;
+    (I): ``stage2_launches``. Untagged: index_add with 512 positions on
+    each of 8 indices. ``inputs``: ``main_path_inputs``' result, made here
+    if None."""
     inputs = inputs or main_path_inputs(ops, bench_slice, dev)
     out = {name: [] for name in ENTRY_POINTS}
     gen = torch.Generator().manual_seed(1)
@@ -398,25 +399,10 @@ def cases(ops, bench_slice, dev, inputs=None) -> dict:
             add("three_nn", f"fp{fp}: {pair}", (tgt, src, None))
             add("interp_mm", f"fp{fp}: {pair}, C {c}" + (f" + skip {c1}" if c1 else ""),
                 (feats, idx, dist, skip))
-            if fp == 4:  # stage 2: its backward into the SA1 features
-                grad = torch.randn((b, tgt.shape[1] * 3, c), generator=gen).to(dev)
-                add("index_add", f"stage 2 FP4 backward: {b} x {tgt.shape[1]}x3 positions -> "
-                    f"{src.shape[1]}, C {c}", (grad, idx.reshape(b, -1), src.shape[1]), "")
         add("mask_project", f"{b}x{ROIS} RoIs x {n} pts, S {ROI_SAMPLES}",
             (xyz, x["roi_xyz"], x["logits"]), "AEH")
         add("mask_project_boxed", f"Morton-sorted {b}x{ROIS} RoIs x {n} pts, S {ROI_SAMPLES}",
             (sxyz, x["roi_xyz"], x["logits"], x["boxes"], None, svalid), "B")
-        # stage 2's RoIAlign gathers C 128 scene features at the RoIs' samples
-        roi_idx = ops.query_box_group(x["boxes"], ROI_SAMPLES, xyz, valid)[0]
-        grad = torch.randn((b, ROIS * ROI_SAMPLES, 128), generator=gen).to(dev)
-        add("index_add", f"stage 2 RoIAlign backward: {b} x {ROIS}x{ROI_SAMPLES} positions -> "
-            f"{n}, C 128", (grad, roi_idx.reshape(b, -1), n), "")
-        # a row gather's backward at SA1's grouping: K 32 of the scene's points
-        # about each of 1024 centres, C 64 (many positions into many rows)
-        sa1_idx = ops.query_ball_group_multi((0.1,), (32,), xyz, sa[0], valid)[0][0]
-        grad = torch.randn((b, sa1_idx.shape[1] * 32, 64), generator=gen).to(dev)
-        add("index_add", f"SA1 grouping backward: {b} x 1024x32 positions -> {n}, C 64",
-            (grad, sa1_idx.reshape(b, -1), n), "")
 
     # (G): one training step
     def add_step(name, label, args):
@@ -433,11 +419,98 @@ def cases(ops, bench_slice, dev, inputs=None) -> dict:
     grad = torch.randn(pred.shape, generator=gen).to(dev)
     add_step("index_add", "chamfer backward: 256 rows x 256 GT -> pred positions, C 3",
              (grad, ops.nn_argmin(gt, pred), pred.shape[1]))
-    out["index_add"].sort(key=lambda case: not case[2])  # the step's case first
+    # (I): one stage-2 training step
+    for name, label, args in stage2_launches(ops, bench_slice, dev, gen):
+        out[name].append((label, args, (request_key("I", TRAIN_SHAPE),)))
+    out["index_add"].sort(key=lambda case: not case[2])  # the steps' cases first
     crowd = torch.randint(0, 8, (16, 4096), generator=gen, dtype=torch.int32).to(dev)
     out["index_add"].append(("16 x 4096 positions -> 8 (512 on each), C 64",
                              (torch.randn((16, 4096, 64), generator=gen).to(dev), crowd, 8), ()))
     return out
+
+
+def stage2_launches(ops, bench_slice, dev, gen) -> list:
+    """``[(kernel, label, args)]``: every kernel launch of one stage-2
+    training step (``chip_smoke.py`` slice (I): ``bench_slice``'s stage-2
+    configs on ``train_batch``), at the shapes the step gives it: the shared
+    exact FPS pass (the 64 seeds and SA1's 1024 centres) and SA2-SA4's; the
+    frozen GSPN's crops and SA1-SA4's ball groups; the RoIAlign box group
+    over the seeded frozen GSPN's 64 proposals and the 16 jittered GT boxes
+    a scene; three_nn and interp_mm at FP1-FP4 (features and skip rows
+    random, drawn from ``gen``); and the backward's index_add: SA2-SA4's
+    feature gathers, FP1-FP4's interpolation into their sources and the
+    RoIAlign gather of the backbone's features, each at the step's own
+    indices (gradients random)."""
+    from gspn_tpu_torch.models.gspn import proposal_boxes
+    from gspn_tpu_torch.models.rpointnet import instance_gt_boxes, point_roi_align
+
+    gcfg, rcfg = bench_slice.stage2_configs()
+    tb = bench_slice.train_batch(dev)
+    xyz, valid = tb["xyz"], tb["valid"]
+    b, n = xyz.shape[:2]
+    seeds_n, sa = bench_slice.TRAIN_SEEDS, rcfg.sa_layers
+    rand = lambda *shape: torch.randn(shape, generator=gen).to(dev)  # noqa: E731
+    fps_all = ops.farthest_point_sample(max(seeds_n, sa[0].npoint), xyz, valid)
+    out = [("fps", f"stage 2 shared pass: {b} x {n} pts, {fps_all.shape[1]} picks",
+            (fps_all.shape[1], xyz, valid))]
+    seed_idx = fps_all[:, :seeds_n]
+    radii = "/".join(f"{r:g}" for r in gcfg.context_radii)
+    ks = "/".join(map(str, gcfg.context_nsample))
+    out.append(("ball_group", f"stage 2 frozen GSPN crops: {b}x{seeds_n} seeds over {n}, "
+                f"r {radii}, K {ks}", (gcfg.context_radii, gcfg.context_nsample, xyz,
+                                       ops.gather_point(xyz, seed_idx), valid)))
+    with torch.no_grad():
+        gen_pts = bench_slice.seeded_frozen_gspn(gcfg, dev)(
+            xyz, seed_idx, valid, z_eps=rand(b, seeds_n, gcfg.latent_dim)).generated
+    gt, _, present = instance_gt_boxes(xyz, tb["inst_label"], tb["sem_label"],
+                                       bench_slice.STAGE2_INSTANCES)
+    gt_rois = torch.where(present[..., None], gt + rand(*gt.shape) * 0.05, torch.zeros_like(gt))
+    rois = torch.cat([proposal_boxes(gen_pts, rcfg.box_margin), gt_rois], dim=1)
+    grads = []  # the backward's index_add launches, after the forward's
+    levels, valids, chans = [xyz], [valid], [0]
+    for i, spec in enumerate(sa):
+        src, sv = levels[-1], valids[-1]
+        if i:
+            out.append(("fps", f"stage 2 sa{i + 1}: {b} x {src.shape[1]} pts, {spec.npoint} picks",
+                        (spec.npoint, src, sv)))
+        idx = fps_all[:, :spec.npoint] if i == 0 else ops.farthest_point_sample(
+            spec.npoint, src, sv)
+        centres = ops.gather_point(src, idx)
+        args = ((spec.radius,), (spec.nsample,), src, centres, sv)
+        out.append(("ball_group", f"stage 2 sa{i + 1}: {b}x{spec.npoint} q over {src.shape[1]}, "
+                    f"r {spec.radius}, K {spec.nsample}", args))
+        ((gidx, cnt, _),) = ops.query_ball_group_multi(*args)
+        if i:  # the level's input features are gathered: C of the level below
+            grads.append((f"stage 2 sa{i + 1} grouping backward: {b} x {spec.npoint}x"
+                          f"{spec.nsample} positions -> {src.shape[1]}, C {chans[-1]}",
+                          (rand(b, gidx.shape[1] * spec.nsample, chans[-1]),
+                           gidx.reshape(b, -1), src.shape[1])))
+        levels.append(centres)
+        valids.append(cnt > 0)
+        chans.append(spec.mlp[-1])
+    box_args = (rois, rcfg.roi_samples, xyz, valid)
+    feat_c = chans[-1]
+    for i, mlp in enumerate(rcfg.fp_mlps):
+        lvl = len(sa) - 1 - i  # target level; its source is lvl + 1
+        tgt, src, sv = levels[lvl], levels[lvl + 1], valids[lvl + 1]
+        m, c1 = src.shape[1], chans[lvl]
+        pair = f"{b}x{tgt.shape[1]} <- {m}"
+        dist, nidx = ops.three_nn(tgt, src, sv)
+        out.append(("three_nn", f"stage 2 fp{i + 1}: {pair}", (tgt, src, sv)))
+        out.append(("interp_mm", f"stage 2 fp{i + 1}: {pair}, C {feat_c}"
+                    + (f" + skip {c1}" if c1 else ""),
+                    (rand(b, m, feat_c), nidx, dist, rand(b, tgt.shape[1], c1) if c1 else None)))
+        grads.append((f"stage 2 fp{i + 1} backward: {b} x {tgt.shape[1]}x3 positions -> {m}, "
+                      f"C {feat_c}", (rand(b, tgt.shape[1] * 3, feat_c), nidx.reshape(b, -1), m)))
+        feat_c = mlp[-1]
+    out.append(("box_group", f"stage 2 RoIAlign: {b}x{rois.shape[1]} RoIs over {n}, "
+                f"S {rcfg.roi_samples}", box_args))
+    roi_idx = point_roi_align(xyz, rois, rcfg.roi_samples, valid)[0]
+    grads.append((f"stage 2 RoIAlign backward: {b} x {rois.shape[1]}x{rcfg.roi_samples} "
+                  f"positions -> {n}, C {feat_c}",
+                  (rand(b, roi_idx.shape[1] * rcfg.roi_samples, feat_c),
+                   roi_idx.reshape(b, -1), n)))
+    return out + [("index_add", label, args) for label, args in reversed(grads)]
 
 
 def main(argv=None) -> None:

@@ -61,9 +61,11 @@ def test_index_add_rows_matches_scatter_add_and_jax(rng, case):
 
 @pytest.mark.parametrize("b,m,rows,c,plan", [
     (256, 256, 256, 3, (256, 3)),  # (G) chamfer: one row tile a batch row
-    (8, 24576, 1024, 128, (32, 128)),  # stage 2 FP4: 256 CTAs
+    (8, 24576, 1024, 128, (32, 128)),  # FP4's backward at the flagship's shape: 256 CTAs
     (1, 196608, 1024, 128, (8, 128)),  # the whole scene's FP4: 128 CTAs, index bytes = source's
     (8, 4096, 8192, 128, (64, 128)),  # RoIAlign backward, flagship
+    (4, 5120, 4096, 128, (64, 128)),  # (I)'s RoIAlign backward: 80 RoIs x 64 samples
+    (4, 12288, 1024, 128, (16, 128)),  # (I)'s FP4 backward: 256 CTAs
     (1, 4096, 65536, 128, (64, 128)),  # RoIAlign backward, whole scene
     (16, 4096, 8, 64, (1, 64)),  # 512 positions on each index
     (1, 65536, 1024, 3, (256, 3)),  # C 3: one row tile of 256 rows

@@ -138,9 +138,10 @@ def test_ranking_charges_each_launch_at_its_own_shape(capsys, monkeypatch, short
 
 def test_ranking_names_every_ranked_request():
     """``time_kernels.ranked_keys``: both request shapes of (A), (B), (E),
-    (F) and (H), and (G)'s training batch."""
+    (F) and (H), and the training batch of (G) and (I)."""
     both = [f"({s}) {shape}" for s in "ABEFH" for shape in ("B8xN8192", "B1xN65536")]
-    assert time_kernels.ranked_keys() == both[:8] + ["(G) B4xN4096"] + both[8:]
+    assert time_kernels.ranked_keys() == (both[:8] + ["(G) B4xN4096"] + both[8:]
+                                          + ["(I) B4xN4096"])
 
 
 def test_strided_plan_constants_match_the_kernel():

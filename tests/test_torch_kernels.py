@@ -1113,7 +1113,8 @@ def _index_add_equal(dev, src, idx, n, plan=None):
 
 @pytest.mark.parametrize("b,m,n,c,layout", [
     (256, 256, 256, 3, "third"),  # (G)'s chamfer backward: one row tile
-    (8, 24576, 1024, 128, "third"),  # stage 2 FP4: 32 row tiles, 3 steps
+    (8, 24576, 1024, 128, "third"),  # FP4's backward at the flagship: 32 row tiles, 3 steps
+    (4, 5120, 4096, 128, "third"),  # (I)'s RoIAlign backward
     (16, 4096, 8, 64, "third"),  # 512 positions on each index
     (3, 7, 50, 5, "third"),
     (1, 4096, 70000, 8, "third"),  # n beyond one CTA's rows: 274 row tiles
@@ -1246,3 +1247,87 @@ def test_train_steps_are_bitwise_reproducible(dev):
         _equal(ga[k], gb[k])
     for k in sa:
         _equal(sa[k], sb[k])
+
+
+def _stage2_small(dev):
+    """A small stage-2 step's inputs at full width: B=2 x N=2048 scenes, the
+    frozen GSPN and R-PointNet seeded, their plain twins, and its noise."""
+    bench_slice.float32_matmuls()
+    gcfg, rcfg = bench_slice.stage2_configs()
+    batch = bench_slice.train_batch(dev, b=2, n=2048)
+    gmodel = bench_slice.seeded_frozen_gspn(gcfg, dev)
+    gen = torch.Generator().manual_seed(1)
+    draws = {"box_noise": torch.randn((2, bench_slice.STAGE2_INSTANCES, 6), generator=gen).to(dev),
+             "z_eps": torch.randn((2, 64, gcfg.latent_dim), generator=gen).to(dev)}
+    return gcfg, rcfg, batch, gmodel, draws
+
+
+def _stage2_step(gmodel):
+    return tsteps.make_train_step(tsteps.make_rpointnet_loss_fn(
+        bench_slice.STAGE2_INSTANCES, (gmodel, bench_slice.TRAIN_SEEDS)))
+
+
+def test_stage2_step_kernel_path_matches_plain_path(dev):
+    """One R-PointNet stage-2 step over a frozen GSPN's proposals: the loss,
+    its terms and every gradient bitwise equal to the plain path's (the
+    kernels are bitwise and every gather backward adds in a fixed order),
+    the kernel path's launches one step's, the plain path's none."""
+    gcfg, rcfg, batch, gmodel, draws = _stage2_small(dev)
+    model = bench_slice.seeded_rpointnet(rcfg, dev)
+    _, pmodel = bench_slice.plain_rpointnet(rcfg, model)
+    _, pgmodel = bench_slice.plain_gspn(gcfg, gmodel)
+    runs = []
+    for m, g in ((model, gmodel), (pmodel, pgmodel)):
+        before = ops.launch_counts()
+        state = tsteps.TrainState(m, tsteps.make_optimizer(m, 1e-3))
+        metrics = _stage2_step(g)(state, batch, **draws)
+        torch.cuda.synchronize()
+        launched = {k: c - before[k] for k, c in ops.launch_counts().items() if c != before[k]}
+        runs.append((metrics, {k: p.grad for k, p in m.named_parameters()}, launched))
+    (got, grads, launched), (want, pgrads, plain_launched) = runs
+    assert launched == bench_slice.STAGE2_PER_STEP
+    assert not plain_launched
+    assert got["num_fg"].item() > 0
+    for k in want:
+        _equal(got[k], want[k])
+    for k in pgrads:
+        _equal(grads[k], pgrads[k])
+
+
+def test_stage2_steps_are_bitwise_reproducible(dev):
+    """Two kernel-path runs of three stage-2 steps from the same weights:
+    losses, gradients, parameters and running statistics bitwise equal."""
+    _, rcfg, batch, gmodel, draws = _stage2_small(dev)
+    runs = []
+    for _ in range(2):
+        m = bench_slice.seeded_rpointnet(rcfg, dev)
+        state = tsteps.TrainState(m, tsteps.make_optimizer(m, 1e-3))
+        losses = torch.stack([_stage2_step(gmodel)(state, batch, **draws)["loss"]
+                              for _ in range(3)])
+        runs.append((losses, {k: p.grad.clone() for k, p in m.named_parameters()},
+                     m.state_dict()))
+    (la, ga, sa), (lb, gb, sb) = runs
+    _equal(la, lb)
+    for k in ga:
+        _equal(ga[k], gb[k])
+    for k in sa:
+        _equal(sa[k], sb[k])
+
+
+def test_plain_fp_backward_launches_no_kernel(dev):
+    """A plain FP module's backward on CUDA tensors takes its gather
+    backward on the plain route: no kernel launch (the "exact"
+    interpolation's ``group_point`` gets the module's ``ops_impl``)."""
+    from gspn_tpu_torch.nn.pointnet2 import PointNetFPModule
+
+    gen = torch.Generator().manual_seed(0)
+    fp = PointNetFPModule(64 + 32, (48,), ops_impl="plain").to(dev).train()
+    xyz1 = torch.rand((2, 512, 3), generator=gen).to(dev)
+    xyz2 = torch.rand((2, 128, 3), generator=gen).to(dev)
+    p1 = torch.randn((2, 512, 32), generator=gen).to(dev).requires_grad_()
+    p2 = torch.randn((2, 128, 64), generator=gen).to(dev).requires_grad_()
+    before = ops.launch_counts()
+    fp(xyz1, xyz2, p1, p2).square().sum().backward()
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == before
+    assert p2.grad.abs().sum() > 0

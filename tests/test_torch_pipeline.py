@@ -209,8 +209,9 @@ def test_unknown_group_select_raises_value_error(stage):
 def test_not_ported_messages_quote_roadmap_titles():
     """Each not-ported message names its ROADMAP.md entry by a title that is
     in ROADMAP.md (numbers move when the queues are renumbered)."""
-    from gspn_tpu_torch.train import steps as tsteps
     from gspn_tpu_torch.train import train_gspn as ttrain
+    from gspn_tpu_torch.train import train_rpointnet as ttrain2
+    from tests.test_torch_rpointnet_train import RP_UNPORTED_FLAGS
     from tests.test_torch_train import UNPORTED_FLAGS
 
     messages = []
@@ -222,9 +223,10 @@ def test_not_ported_messages_quote_roadmap_titles():
         with pytest.raises(NotImplementedError) as err:
             ttrain.check_ported(ttrain.parse_args(flags))
         messages.append(str(err.value))
-    with pytest.raises(NotImplementedError) as err:
-        tsteps.make_gspn_loss_fn(8, 16, seed_method="random")
-    messages.append(str(err.value))
+    for flags, _ in RP_UNPORTED_FLAGS:  # the stage-2 trainer's
+        with pytest.raises(NotImplementedError) as err:
+            ttrain2.check_ported(ttrain2.parse_args(flags))
+        messages.append(str(err.value))
     roadmap = (REPO / "ROADMAP.md").read_text()
     for msg in messages:
         titles = re.findall(r'"([^"]+)"', msg.split("ROADMAP.md", 1)[1])

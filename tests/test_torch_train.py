@@ -633,9 +633,42 @@ def test_train_gspn_unported_flags_raise(flags, tmp_path):
         ttrain.main(["--device", "cpu", "--log-dir", str(tmp_path)] + flags)
 
 
-def test_random_seed_method_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tsteps.make_gspn_loss_fn(S, G, seed_method="random")
+def test_random_seed_method_matches_jax(jmodel_vars):
+    """``seed_method="random"`` fed JAX's uniforms (``seed_rng, z_rng =
+    split(rng)``, then ``(B, num_seeds)`` uniforms): the seeds
+    ``prob_sample`` draws over the valid points, the loss, its terms and
+    every gradient against ``jax.value_and_grad``; from a generator the
+    uniforms come first, then the CVAE noise."""
+    jm, v, batch = jmodel_vars
+    rng = jax.random.PRNGKey(31)
+    jloss = jsteps.make_gspn_loss_fn(jm, S, G, seed_method="random")
+    (jtotal, (jmetrics, _)), jgrads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(
+        v["params"], v["batch_stats"], _jbatch(batch), rng)
+    seed_rng, _ = jax.random.split(rng)
+    u = jax.random.uniform(seed_rng, (2, S), jnp.float32)
+    want_seeds = jops.prob_sample(jnp.asarray(batch["valid"], jnp.float32), u)
+    np.testing.assert_array_equal(n(ops.prob_sample(t(batch["valid"]).float(), t(u))),
+                                  np.asarray(want_seeds))
+    assert batch["valid"][np.arange(2)[:, None], np.asarray(want_seeds)].all()
+
+    tm = _port_model(v)
+    loss_fn = tsteps.make_gspn_loss_fn(S, G, seed_method="random")
+    tb = titerator.to_device(batch, "cpu")
+    total, metrics = loss_fn(tm, tb, z_eps=_z_eps(rng), seed_u=t(u))
+    total.backward()
+    for k in jmetrics:
+        np.testing.assert_allclose(float(metrics[k].detach()), float(jmetrics[k]), **FWD,
+                                   err_msg=k)
+    bench_slice.assert_grads_close({k: p.grad for k, p in tm.named_parameters()},
+                                   _grads_by_name(jgrads))
+    gen_loss = [loss_fn(_port_model(v), tb, generator=torch.Generator().manual_seed(2))[0].item()
+                for _ in range(2)]
+    assert gen_loss[0] == gen_loss[1]
+    with pytest.raises(ValueError, match="Generator"):
+        loss_fn(_port_model(v), tb, z_eps=_z_eps(rng))
+
+
+def test_unknown_seed_method_raises():
     with pytest.raises(ValueError, match="fps|random"):
         tsteps.make_gspn_loss_fn(S, G, seed_method="grid")
 
