@@ -100,7 +100,32 @@ line or a few:
    with 3 finite JSONL lines and a checkpoint; 4 steps straight against 2
    steps, a checkpoint and ``--resume`` for 2 more, bitwise; and
    ``--num-points 16384`` (exact FPS on the cluster kernel) for 3 steps;
-6. the ranking: for the flagship and the whole-scene request of slices
+   then slice (I), R-PointNet stage-2 training (``run_stage2``);
+6. slice (J), serving (``run_serving``), after slice (I), in a process of
+   its own (this script with ``--serving WORK``: the kernel phase's long
+   library calls make CUPTI drop device records, and (J) counts device
+   operations): at the flagship and the whole
+   scene, the slice's pipeline exported for ``cuda`` (``torch.export``),
+   written and loaded back (export seconds, artifact bytes), a session
+   from ``session_from_checkpoints`` on checkpoints ``CheckpointManager``
+   wrote of other seeded weights, behind a ``Server`` on a unix socket: a
+   ``Client``'s batches of 8, 3 and 11 flagship scenes and two whole
+   scenes, each answer bitwise the live kernel path's with the same noise
+   and masks neither empty nor full; ``make_streamed_inference_fn`` over
+   T=4 batches bitwise 4 eager calls and a second streamed run (which
+   replays the first run's kept capture), and within the parity tolerances
+   of the plain path, which launches nothing; with the counts set to 0
+   just before, each session's and the first streamed run's capture
+   launches every kernel of an eager request twice (its warm-up and the
+   capture) and a replay none; a replayed request's device operations
+   the exported program's eager call's plus its 3 input copies and 5
+   output clones; host ms a request (median, min-max of ``REQUESTS``
+   after a warm-up) of eager ``infer``, the exported program eagerly,
+   ``InferenceSession.run`` (the replay), ``.predict``, a ``Client`` round
+   trip and a streamed run over T, and the replay's and eager ``infer``'s
+   device busy ms and idle share under ``torch.profiler``; after slice
+   (A), an eager request's launches must equal each of (A)'s;
+7. the ranking: for the flagship and the whole-scene request of slices
    (A), (B), (E) and (H), a pass of (F) at each shape and a step of (G),
    each kernel's (device ms - bound ms) summed over every launch of that
    request at its own shape (the launches must be the slice's, kernel for
@@ -125,8 +150,10 @@ from __future__ import annotations
 
 import itertools
 import json
+import pathlib
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -265,6 +292,7 @@ def check_kernels(dev, ops, bench_slice):
 
     # the main path's inputs (time_kernels.main_path_inputs): scenes, their
     # sorted views, seeds, SA centres, boxes about the seeds, RoI samples
+    _phase("kernels")
     inputs = tk.main_path_inputs(ops, bench_slice, dev)
     main_path = tk.cases(ops, bench_slice, dev, inputs)
     requests = {key: [] for key in tk.ranked_keys()}
@@ -1037,6 +1065,258 @@ def run_slices(dev, ops, bench_slice, card):
     return runs
 
 
+def _serving_checkpoints(cfg, state, work):
+    """``state``'s two stages as the trainers' ``CheckpointManager`` writes
+    them (a GSPN with its recognition network, an R-PointNet, each with its
+    Adam state) under ``work``: ``(gspn_ckpt, rpointnet_ckpt)``."""
+    from gspn_tpu_torch.models.gspn import GSPN
+    from gspn_tpu_torch.models.rpointnet import RPointNet
+    from gspn_tpu_torch.train.checkpoint import CheckpointManager
+    from gspn_tpu_torch.train.steps import TrainState, make_optimizer
+
+    dirs = []
+    for name, stage in (("gspn", GSPN(cfg.gspn, recognition=True)),
+                        ("rpointnet", RPointNet(cfg.rpointnet))):
+        stage.load_state_dict({k[len(name) + 1:]: v for k, v in state.items()
+                               if k.startswith(f"{name}.")}, strict=name != "gspn")
+        path = pathlib.Path(work) / f"serve_{name}" / "ckpt"
+        CheckpointManager(path).save(TrainState(stage, make_optimizer(stage, 1e-3), 1))
+        dirs.append(path)
+    return dirs
+
+
+def _live_answer(infer, model, xyz, valid, seed, batch, noise_shape):
+    """What a session must answer for ``xyz (b, n, 3)`` and ``valid``
+    (numpy), by the live kernel path: chunks of ``batch`` scenes, the last
+    padded with copies of its first scene, chunk ``ci`` with
+    ``chunk_noise(seed, ci)``."""
+    from gspn_tpu_torch.serve.runtime import chunk_noise
+
+    dev = next(model.parameters()).device
+    outs = []
+    for ci, lo in enumerate(range(0, xyz.shape[0], batch)):
+        take = min(batch, xyz.shape[0] - lo)
+        x, v = (torch.from_numpy(np.concatenate([a[lo:lo + take]] + [a[lo:lo + 1]] *
+                                                (batch - take))).to(dev) for a in (xyz, valid))
+        p = infer(model, x, v, z_eps=chunk_noise(seed, ci, noise_shape).to(dev))
+        outs.append({f: getattr(p, f)[:take].cpu().numpy() for f in FIELDS})
+    return {f: np.concatenate([o[f] for o in outs]) for f in FIELDS}
+
+
+def _profile_window(fn, iters: int = 5):
+    """``(wall ms, device busy ms, idle share)`` a call of ``fn`` under
+    ``torch.profiler`` over ``iters`` calls after a warm-up; busy is the
+    union of the device's kernel and copy intervals."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gspn_tpu_torch.utils.profiling import busy_us, device_kernels
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / iters
+    busy = busy_us(device_kernels(prof)) / 1e3 / iters
+    return wall, busy, 1.0 - busy / wall
+
+
+def _times(fn, n: int) -> list[float]:
+    """Host ms of ``n`` synchronized calls of ``fn`` after one warm-up."""
+    fn()
+    return [_host_ms(fn)[0] for _ in range(n)]
+
+
+def _span(times) -> str:
+    return f"{statistics.median(times):.3f} ({min(times):.3f}-{max(times):.3f})"
+
+
+def _device_ops(fn, windows: int = 3) -> int:
+    """Device operations (kernels, copies, fills) of one call of ``fn``: the
+    most over ``windows`` profiler windows of one call each (CUPTI drops a
+    record now and then, never adds one)."""
+    return max(round(tk.device_launches(fn, 1)) for _ in range(windows))
+
+
+def run_serving(dev, ops, bench_slice, card, work):
+    """Slice (J): serving. For the flagship and the whole scene, the slice's
+    pipeline (``bench_slice.slice_config()``) exported for ``cuda``
+    (``serve.export_inference``), written and loaded back, served by
+    ``session_from_checkpoints`` from checkpoints that ``CheckpointManager``
+    wrote of other seeded weights, behind a ``Server`` on a unix socket; a
+    ``Client``'s requests (flagship batches of 8, 3 and 11, two whole-scene
+    requests) bitwise the live kernel path's answers with the same noise;
+    ``make_streamed_inference_fn`` over T=4 batches bitwise 4 eager calls,
+    a second run (replaying the first's kept capture) bitwise the first,
+    and within the parity tolerances of the plain path (eager, no launch);
+    the capture's launches each twice an eager request's (its warm-up and
+    the capture), the replays' none; a
+    replayed request's device operations against the exported program's
+    eager call's; then host ms a request of each way in and the replay's
+    device busy ms and idle share. It runs in a process of its own
+    (``run_serving_process``). Returns ``(the
+    launch counts of the sessions' and the streamed runs' captures, an
+    eager request's launch counts)``; ``main`` holds the latter against
+    (A)'s."""
+    from gspn_tpu_torch.models.pipeline import (
+        PREDICTION_FIELDS, PipelineModel, init_pipeline_variables, make_inference_fn,
+        make_streamed_inference_fn,
+    )
+    from gspn_tpu_torch.serve import Client, Server, export_inference, save_artifact
+    from gspn_tpu_torch.serve import session_from_checkpoints
+
+    cfg = bench_slice.slice_config()
+    infer = make_inference_fn(cfg)
+    trained = init_pipeline_variables(cfg, torch.Generator().manual_seed(1), N)
+    model = PipelineModel(cfg)
+    model.load_state_dict(trained)
+    model = model.to(dev).eval()
+    pcfg, pmodel = bench_slice.plain_model(cfg, model)
+    infer_plain = make_inference_fn(pcfg)
+    gspn_ckpt, rpn_ckpt = _serving_checkpoints(cfg, trained, work)
+    total = {k: 0 for k in ops.launch_counts()}
+    per_request = None
+    with torch.inference_mode():
+        for shape in (FLAGSHIP, WHOLE_SCENE):
+            x, v, e = bench_slice.request(cfg, shape, dev, 1)
+            ops.reset_launch_counts()
+            infer(model, x, v, z_eps=e)
+            if per_request not in (None, ops.launch_counts()):
+                raise AssertionError(f"(J) the two shapes' requests launch {per_request} and "
+                                     f"{ops.launch_counts()}")
+            per_request = ops.launch_counts()
+
+    def counted(what, fn, runs=1):
+        """``fn()`` with the launch counts set to 0 just before and read
+        just after: each kernel of a request twice a run (warm-up and
+        capture), the others none."""
+        ops.reset_launch_counts()
+        out = fn()
+        counts = ops.launch_counts()
+        want = {k: 2 * runs * per_request.get(k, 0) for k in counts}
+        if counts != want:
+            raise AssertionError(f"(J) {what}: launches {counts}, expected {want}")
+        for k, c in counts.items():
+            total[k] += c
+        return out
+
+    for shape in (FLAGSHIP, WHOLE_SCENE):
+        b, n = bench_slice.SHAPES[shape][:2]
+        xyz, valid = bench_slice.scenes(shape)
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            program = export_inference(cfg, model, n, batch_size=b, device=dev)
+            export_s = time.perf_counter() - t0
+            path = save_artifact(pathlib.Path(work) / f"{shape}.gspnt", program, cfg)
+        t0 = time.perf_counter()
+        session = counted(f"{shape} session", lambda: session_from_checkpoints(
+            path, gspn_ckpt, rpn_ckpt, device=dev))
+        print(f"slice (J) {shape}: exported in {export_s:.1f} s, artifact "
+              f"{path.stat().st_size} bytes; session (load, checkpoints, warm-up and capture) "
+              f"in {time.perf_counter() - t0:.1f} s")
+        if shape == FLAGSHIP:
+            more = np.ascontiguousarray(xyz[:3, ::-1])
+            requests = [(xyz, valid, 0), (xyz[:3], valid[:3], 1),
+                        (np.concatenate([xyz, more]), np.concatenate([valid, valid[:3, ::-1]]), 2)]
+        else:
+            requests = [(xyz, valid, 0), (np.ascontiguousarray(xyz[:, ::-1]), valid, 1)]
+        sock = pathlib.Path(work) / "gspn.sock"
+        ops.reset_launch_counts()
+        with Server(session, sock), Client(sock) as client:
+            answers = [client.predict(x, v, seed=s) for x, v, s in requests]
+            if any(ops.launch_counts().values()):
+                raise AssertionError(f"(J) {shape}: a replayed request launched from Python")
+            with torch.inference_mode():
+                for (x, v, s), got in zip(requests, answers, strict=True):
+                    want = _live_answer(infer, model, x, v, s, b, session.noise_shape)
+                    for f in PREDICTION_FIELDS:
+                        if not np.array_equal(got[f], want[f]):
+                            raise AssertionError(f"(J) {shape} batch of {len(x)}: the server's "
+                                                 f"{f} differs from the live kernel path's")
+                    share = got["masks"][got["valid"]].mean() if got["valid"].any() else 0.0
+                    if not 0.0 < share < 1.0:
+                        raise AssertionError(f"(J) {shape}: masks of valid instances hold "
+                                             f"{share} of the points")
+                    print(f"slice (J) {shape}: a client's batch of {len(x)} == the live kernel "
+                          f"path (every output bitwise); {int(got['valid'].sum())} valid "
+                          f"instances, mask share {share:.4f}")
+
+            # streamed: T=4 batches of this shape
+            gen = torch.Generator().manual_seed(4)
+            xs = torch.from_numpy(xyz).to(dev)
+            xyz_s = torch.stack([xs, xs.flip(1), xs * 0.9, xs * 1.1])
+            valid_s = torch.from_numpy(valid).to(dev)[None].expand(4, -1, -1).clone()
+            valid_s[1] = valid_s[1].flip(1)
+            eps_s = torch.randn((4, *session.noise_shape), generator=gen).to(dev)
+            streamed = make_streamed_inference_fn(cfg)
+            with torch.inference_mode():
+                got = counted(f"{shape} streamed", lambda: streamed(model, xyz_s, valid_s, eps_s))
+                again = counted(f"{shape} streamed again (the kept capture)",
+                                lambda: streamed(model, xyz_s, valid_s, eps_s), runs=0)
+                eager = [infer(model, xyz_s[i], valid_s[i], z_eps=eps_s[i]) for i in range(4)]
+                before = ops.launch_counts()
+                plain = [infer_plain(pmodel, xyz_s[i], valid_s[i], z_eps=eps_s[i])
+                         for i in range(4)]
+                if ops.launch_counts() != before:
+                    raise AssertionError(f"(J) {shape}: the plain path launched kernels")
+            for i in range(4):
+                for f in PREDICTION_FIELDS:
+                    g = getattr(got, f)[i]
+                    if not (torch.equal(g, getattr(eager[i], f))
+                            and torch.equal(g, getattr(again, f)[i])):
+                        raise AssertionError(f"(J) {shape} streamed batch {i}: {f} differs "
+                                             "from the eager call or from the second run")
+                for f in ("masks", "valid", "classes"):
+                    if not torch.equal(getattr(got, f)[i], getattr(plain[i], f)):
+                        raise AssertionError(f"(J) {shape} streamed batch {i}: {f} differs "
+                                             "from the plain path")
+                for f in ("scores", "boxes"):
+                    torch.testing.assert_close(getattr(got, f)[i], getattr(plain[i], f),
+                                               rtol=1e-4, atol=1e-5)
+            print(f"slice (J) {shape}: streamed T=4 (one capture, four replays) == 4 eager "
+                  "kernel-path calls and a second streamed run replaying the kept capture "
+                  "(bitwise, no launch), == the plain path "
+                  "(masks, valid, classes; scores, boxes within rtol 1e-4 atol 1e-5)")
+
+            # device operations and times a request
+            x0, v0 = (torch.from_numpy(a).to(dev) for a in (xyz, valid))
+            e0 = eps_s[0]
+            with torch.inference_mode():
+                calls = {
+                    "eager kernel path infer": lambda: infer(model, x0, v0, z_eps=e0),
+                    "exported program, eager": lambda: session.module(session.state, x0, v0, e0),
+                    "session.run (graph replay)": lambda: session.run(x0, v0, e0),
+                }
+                dev_ops = {k: _device_ops(fn) for k, fn in calls.items()}
+                if dev_ops["session.run (graph replay)"] != dev_ops[
+                        "exported program, eager"] + 8:
+                    raise AssertionError(f"(J) {shape}: device operations a request {dev_ops}; "
+                                         "a replay is the program's plus 3 input copies and 5 "
+                                         "output clones")
+                print(f"slice (J) {shape}: device operations a request: "
+                      + ", ".join(f"{k} {v}" for k, v in dev_ops.items()))
+                times = {k: _times(fn, REQUESTS) for k, fn in calls.items()}
+                times["session.predict (numpy in and out)"] = _times(
+                    lambda: session.predict(xyz, valid, seed=0), REQUESTS)
+                times["client round trip"] = _times(
+                    lambda: client.predict(xyz, valid, seed=0), REQUESTS)
+                times["streamed T=4, a batch"] = [t / 4 for t in _times(
+                    lambda: streamed(model, xyz_s, valid_s, eps_s), REQUESTS)]
+                windows = {k: _profile_window(calls[k]) for k in (
+                    "eager kernel path infer", "session.run (graph replay)")}
+            ops.reset_launch_counts()  # the timed eager calls' launches are not (J)'s counts
+            for k, v in times.items():
+                print(f"slice (J) {shape} {k}: median (min-max) {_span(v)} ms a request, "
+                      f"{len(v)} after a warm-up [{card}]")
+            for k, (wall, busy, idle) in windows.items():
+                print(f"slice (J) {shape} {k} under torch.profiler: wall {wall:.3f} ms, device "
+                      f"busy {busy:.3f} ms, idle share {idle:.3f} a request [{card}]")
+        del session
+    return total, per_request
+
+
 def _train_steps(bench_slice, model, batch, eps, n_steps):
     """Train ``model`` (Adam at 1e-3, as ``train_gspn``'s default) for one
     warm-up step and ``n_steps`` timed ones on the host clock around a
@@ -1446,7 +1726,37 @@ def _print_ranking(entries, requests, runs) -> None:
               for v, name, s, each in sorted(off, reverse=True)) or "none"))
 
 
+def run_serving_process(work) -> tuple[dict, dict]:
+    """Slice (J) in a process of its own (this script with ``--serving
+    WORK``), waited for: its profiler windows count device operations
+    exactly only in a process whose CUPTI has not yet dropped records,
+    which the kernel phase's long library calls make it do. Returns
+    ``run_serving``'s result."""
+    _phase("slice (J)")
+    subprocess.run([sys.executable, __file__, "--serving", str(work)], check=True, timeout=600)
+    res = json.loads((pathlib.Path(work) / "serving.json").read_text())
+    return res["captures"], res["per_request"]
+
+
+def _serving_main(work) -> None:
+    """The ``--serving WORK`` process: slice (J), its result in
+    ``WORK/serving.json``."""
+    from gspn_tpu_torch import ops
+    from gspn_tpu_torch.ops import _cuda
+    from gspn_tpu_torch.utils import bench_slice
+
+    bench_slice.float32_matmuls()
+    _cuda.library()
+    captures, per_request = run_serving(torch.device("cuda", 0), ops, bench_slice,
+                                        tk.card_name(), work)
+    (pathlib.Path(work) / "serving.json").write_text(json.dumps(
+        {"captures": captures, "per_request": per_request}))
+
+
 def main() -> None:
+    if sys.argv[1:2] == ["--serving"]:
+        _serving_main(sys.argv[2])
+        return
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs an NVIDIA GPU")
     card = tk.card_name()
@@ -1467,12 +1777,16 @@ def main() -> None:
     print(f"build: {lib.name} in {secs:.1f} s")
 
     dev = torch.device("cuda", 0)
-    _phase("kernels")
     entries, requests = check_kernels(dev, ops, bench_slice)
     runs = run_slices(dev, ops, bench_slice, card)
     with tempfile.TemporaryDirectory() as work:
         runs["G"] = run_training(dev, ops, bench_slice, card, work)
         runs["I"] = run_stage2(dev, ops, bench_slice, card, work)
+        runs["J"], per_request = run_serving_process(work)
+    a_request = {k: c / (2 * (REQUESTS + 1)) for k, c in runs["A"].items()}
+    if a_request != per_request:
+        raise AssertionError(f"(J)'s captures took a request's launches as {per_request}, "
+                             f"(A)'s requests launched {a_request} each")
     for e in entries:
         e["slice"] = next(s for s, c in runs.items() if c[e["name"]])
         e["launches"] = runs[e["slice"]][e["name"]]

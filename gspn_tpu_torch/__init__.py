@@ -11,6 +11,9 @@ card. Its layout mirrors the JAX package, which stays the reference:
   propagation.
 - ``gspn_tpu_torch.models`` — GSPN, R-PointNet, the inference pipeline and
   presets.
+- ``gspn_tpu_torch.serve``  — the exported serving artifact, its session
+  (a CUDA graph a request on the card) and the socket server.
+- ``gspn_tpu_torch.train``  — the two stages' trainers.
 - ``gspn_tpu_torch.data``   — the synthetic scene generator.
 - ``gspn_tpu_torch.convert`` — JAX variables -> state dicts.
 

@@ -5,6 +5,9 @@ and backbone sa1, ``mask_project`` "1nn" (nearest sample) or "3nn"
 (inverse-distance weighted), and ``mask_project_prune="auto"`` (box-pruned
 1-NN projection over the shared pass's Morton-sorted view).
 
+:func:`make_streamed_inference_fn` runs T batches a call: on the card one
+request captured in a CUDA graph and replayed T times.
+
 Weights live in a :class:`PipelineModel` (``gspn`` and ``rpointnet``
 submodules named as the Flax variable trees); its state dict comes from
 :func:`init_pipeline_variables` (seeded) or from JAX variables through
@@ -14,6 +17,8 @@ submodules named as the Flax variable trees); its state dict comes from
 from __future__ import annotations
 
 import dataclasses
+import functools
+import weakref
 
 import torch
 from torch import nn
@@ -29,6 +34,7 @@ from gspn_tpu_torch.models.gspn import (
 )
 from gspn_tpu_torch.models.rpointnet import RPointNet, RPointNetConfig, apply_box_deltas
 from gspn_tpu_torch.nn.layers import glorot_init_
+from gspn_tpu_torch.utils.cuda_graph import GraphedRequest
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +61,9 @@ class InstancePredictions:
     classes: torch.Tensor  # (B, R) int32, 1..C
     boxes: torch.Tensor  # (B, R, 6) refined boxes
     valid: torch.Tensor  # (B, R) bool: survives NMS and the score threshold
+
+
+PREDICTION_FIELDS = tuple(f.name for f in dataclasses.fields(InstancePredictions))
 
 
 def check_supported(cfg: PipelineConfig) -> None:
@@ -221,6 +230,43 @@ def make_inference_fn(cfg: PipelineConfig):
         )
 
     return infer
+
+
+def make_streamed_inference_fn(cfg: PipelineConfig):
+    """Returns ``run(model, xyz_s (T,B,N,3), valid_s (T,B,N), z_eps_s
+    (T,B,num_seeds,latent_dim)) -> InstancePredictions`` with a leading T
+    on every field: exactly T separate :func:`make_inference_fn` calls,
+    batch t with noise ``z_eps_s[t]`` (drawn outside, so no random draw
+    runs inside a graph; the JAX package takes a key a batch).
+
+    On CUDA tensors one request is captured in a CUDA graph
+    (``utils.cuda_graph.GraphedRequest``: a warm-up call, then the
+    capture) and replayed T times, the counterpart of the JAX package's
+    one-dispatch ``lax.scan``; on CPU tensors the calls run in a loop.
+    ``run`` keeps each capture for its model and batch shapes, so a later
+    call of those shapes only copies in and replays. A replay reads the
+    model's parameters and buffers where the capture found them: copy new
+    weights into them (``load_state_dict``) rather than replacing them."""
+    infer = make_inference_fn(cfg)
+    graphs = weakref.WeakKeyDictionary()  # model -> {batch shapes: GraphedRequest}
+
+    def request(model, xyz, valid, z_eps):
+        p = infer(model, xyz, valid, z_eps=z_eps)
+        return tuple(getattr(p, f) for f in PREDICTION_FIELDS)
+
+    def run(model, xyz_s, valid_s, z_eps_s):
+        batches = list(zip(xyz_s, valid_s, z_eps_s, strict=True))
+        if xyz_s.is_cuda:
+            key = tuple((x.shape, x.dtype, x.device) for x in batches[0])
+            captured = graphs.setdefault(model, {})
+            if key not in captured:
+                captured[key] = GraphedRequest(functools.partial(request, model), *batches[0])
+            outs = [captured[key](*batch) for batch in batches]
+        else:
+            outs = [request(model, *batch) for batch in batches]
+        return InstancePredictions(*(torch.stack(field) for field in zip(*outs)))
+
+    return run
 
 
 def init_pipeline_variables(cfg: PipelineConfig, generator: torch.Generator, n: int):

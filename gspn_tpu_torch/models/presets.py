@@ -25,6 +25,19 @@ def set_pipeline_group_select(cfg: PipelineConfig, select: str) -> PipelineConfi
     )
 
 
+def set_pipeline_fps_segments(cfg: PipelineConfig, segments: int,
+                              mode: str = "contiguous") -> PipelineConfig:
+    """The segmented parallel-chain FPS in both stages (the seeds and every
+    eligible backbone SA layer): ``segments`` chains, partitioned
+    "contiguous", "strided" or "spatial" (Morton-sorted inside the op)."""
+    return dataclasses.replace(
+        cfg,
+        gspn=dataclasses.replace(cfg.gspn, fps_segments=segments, fps_segment_mode=mode),
+        rpointnet=dataclasses.replace(cfg.rpointnet, fps_segments=segments,
+                                      fps_segment_mode=mode),
+    )
+
+
 def scannet_pipeline(
     num_seeds: int = 64,
     num_classes: int = 18,

@@ -9,7 +9,10 @@ or "strided", ``query_ball_point(_multi)``, ``three_nn``,
 ``nn_distance``), and ``index_add_rows``, the deterministic backward of
 ``gather_point`` / ``group_point``) take
 ``impl="auto|cuda|plain"`` (see ``ops/common.py``); each kernel counts its
-launches in ``KERNELS[name].launches``.
+launches in ``KERNELS[name].launches``. Each of them calls its kernel (or
+its plain version) through one op of the ``gspn`` namespace
+(``common.gspn_op``), so ``torch.export`` keeps the call as one opaque
+node (``serve/export.py``); eager calls take the same op.
 """
 
 from gspn_tpu_torch.ops._cuda import KERNELS, launch_counts, reset_launch_counts

@@ -12,11 +12,13 @@ route is the ball query plus a ``group_point`` gather.
 
 from __future__ import annotations
 
+import torch
+
 from gspn_tpu_torch.ops import _cuda
 from gspn_tpu_torch.ops.ball_query import (
-    ball_query_plain, ball_scan_cuda, check_select, strided_scan_cuda,
+    ball_query_plain, ball_scan_cuda, check_select, scan_outputs_like, strided_scan_cuda,
 )
-from gspn_tpu_torch.ops.common import resolve_impl
+from gspn_tpu_torch.ops.common import gspn_op, resolve_impl
 from gspn_tpu_torch.ops.grouping import group_point
 
 KERNEL = _cuda.KERNELS["ball_group"]
@@ -39,12 +41,30 @@ def query_ball_group_multi(
     f32)`` where ``local == group_point(xyz1, idx) - xyz2[:, :, None]``
     bit for bit. ``xyz1 (B,N,3)`` dataset, ``xyz2 (B,M,3)`` query centres,
     ``valid1 (B,N)`` optional; ``select`` "first" (default) or "strided"."""
-    select = check_select(select)
+    flat = _ball_group_op(xyz1, xyz2, valid1, [float(r) for r in radii],
+                          [int(k) for k in nsamples], check_select(select), impl)
+    return [tuple(flat[i:i + 3]) for i in range(0, len(flat), 3)]
+
+
+@gspn_op("ball_group")
+def _ball_group_op(xyz1: torch.Tensor, xyz2: torch.Tensor, valid1: torch.Tensor | None,
+                   radii: list[float], nsamples: list[int], select: str,
+                   impl: str) -> list[torch.Tensor]:
+    """:func:`query_ball_group_multi` as one opaque op, its outputs flat:
+    ``[idx, cnt, local]`` a scale."""
     if resolve_impl(impl, xyz1) == "cuda":
         if select == "strided":
-            return _ball_group_strided_cuda(radii, nsamples, xyz1, xyz2, valid1)
-        return _ball_group_cuda(radii, nsamples, xyz1, xyz2, valid1)
-    return _ball_group_plain(radii, nsamples, xyz1, xyz2, valid1, select)
+            outs = _ball_group_strided_cuda(radii, nsamples, xyz1, xyz2, valid1)
+        else:
+            outs = _ball_group_cuda(radii, nsamples, xyz1, xyz2, valid1)
+    else:
+        outs = _ball_group_plain(radii, nsamples, xyz1, xyz2, valid1, select)
+    return [t for out in outs for t in out]
+
+
+@torch.library.register_fake(_ball_group_op)
+def _(xyz1, xyz2, valid1, radii, nsamples, select, impl):
+    return [t for k in nsamples for t in scan_outputs_like(xyz2, k, True)]
 
 
 def _ball_group_cuda(radii, nsamples, xyz1, xyz2, valid1=None, split: int = 0):

@@ -25,7 +25,7 @@ import ctypes
 import torch
 
 from gspn_tpu_torch.ops import _cuda
-from gspn_tpu_torch.ops.common import f32_scalar, pairwise_sqdist, resolve_impl
+from gspn_tpu_torch.ops.common import f32_scalar, gspn_op, pairwise_sqdist, resolve_impl
 
 KERNEL = _cuda.KERNELS["ball_query"]
 STRIDED_KERNEL = _cuda.KERNELS["ball_query_strided"]
@@ -208,20 +208,48 @@ def _ball_query_cuda(radii, nsamples, xyz1, xyz2, valid1=None, split: int = 0):
     return ball_scan_cuda(KERNEL, radii, nsamples, xyz1, xyz2, valid1, False, split)
 
 
+def scan_outputs_like(xyz2: torch.Tensor, k: int, with_coords: bool) -> list[torch.Tensor]:
+    """Empty ``[idx (B,M,k) int32, cnt (B,M) int32[, local (B,M,k,3)
+    f32]]`` for the queries ``xyz2 (B,M,3)``: a scan's outputs at one
+    scale, as the ops' fake versions give them."""
+    b, m = xyz2.shape[:2]
+    out = [xyz2.new_empty((b, m, k), dtype=torch.int32),
+           xyz2.new_empty((b, m), dtype=torch.int32)]
+    if with_coords:
+        out.append(xyz2.new_empty((b, m, k, 3), dtype=torch.float32))
+    return out
+
+
 def query_ball_point_multi(
     radii, nsamples, xyz1, xyz2, valid1=None, *, impl: str = "auto", select=None
 ):
     """Concentric multi-radius ball query: per scale ``(idx (B,M,K_s)
     int32, cnt (B,M) int32)``, each as :func:`query_ball_point`."""
-    select = check_select(select)
+    flat = _ball_query_op(xyz1, xyz2, valid1, [float(r) for r in radii],
+                          [int(k) for k in nsamples], check_select(select), impl)
+    return [tuple(flat[i:i + 2]) for i in range(0, len(flat), 2)]
+
+
+@gspn_op("ball_query")
+def _ball_query_op(xyz1: torch.Tensor, xyz2: torch.Tensor, valid1: torch.Tensor | None,
+                   radii: list[float], nsamples: list[int], select: str,
+                   impl: str) -> list[torch.Tensor]:
+    """:func:`query_ball_point_multi` as one opaque op, its outputs flat:
+    ``[idx, cnt]`` a scale."""
     if resolve_impl(impl, xyz1) == "cuda":
         if select == "strided":
-            return strided_scan_cuda(STRIDED_KERNEL, radii, nsamples, xyz1, xyz2, valid1, False)
-        return _ball_query_cuda(radii, nsamples, xyz1, xyz2, valid1)
-    return [
-        ball_query_plain(r, k, xyz1, xyz2, valid1, select)
-        for r, k in zip(radii, nsamples, strict=True)
-    ]
+            outs = strided_scan_cuda(STRIDED_KERNEL, radii, nsamples, xyz1, xyz2, valid1, False)
+        else:
+            outs = _ball_query_cuda(radii, nsamples, xyz1, xyz2, valid1)
+    else:
+        outs = [ball_query_plain(r, k, xyz1, xyz2, valid1, select)
+                for r, k in zip(radii, nsamples, strict=True)]
+    return [t for out in outs for t in out]
+
+
+@torch.library.register_fake(_ball_query_op)
+def _(xyz1, xyz2, valid1, radii, nsamples, select, impl):
+    return [t for k in nsamples for t in scan_outputs_like(xyz2, k, False)]
 
 
 def query_ball_point(

@@ -18,10 +18,11 @@ from gspn_tpu_torch.ops.ball_query import (
     check_select,
     finalize,
     first_k_hits,
+    scan_outputs_like,
     strided_plan,
     strided_target_mask,
 )
-from gspn_tpu_torch.ops.common import resolve_impl
+from gspn_tpu_torch.ops.common import gspn_op, resolve_impl
 from gspn_tpu_torch.ops.grouping import group_point
 
 KERNEL = _cuda.KERNELS["box_group"]
@@ -81,12 +82,23 @@ def query_box_group(boxes, s: int, xyz1, valid1=None, *, impl: str = "auto", sel
     int32, cnt (B,R) int32, local (B,R,S,3) f32)`` with ``local ==
     xyz1[idx] - (lo + hi) / 2`` bit for bit; ``select`` "first" (default)
     or "strided"."""
-    select = check_select(select)
+    return _box_group_op(boxes, xyz1, valid1, int(s), check_select(select), impl)
+
+
+@gspn_op("box_group")
+def _box_group_op(boxes: torch.Tensor, xyz1: torch.Tensor, valid1: torch.Tensor | None, s: int,
+                  select: str, impl: str) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`query_box_group` as one opaque op."""
     if resolve_impl(impl, xyz1) == "cuda":
         if select == "strided":
             return _box_group_strided_cuda(boxes, s, xyz1, valid1)
         return _box_group_cuda(KERNEL, boxes, s, xyz1, valid1, 0)
     return _box_group_plain(boxes, s, xyz1, valid1, select)
+
+
+@torch.library.register_fake(_box_group_op)
+def _(boxes, xyz1, valid1, s, select, impl):
+    return tuple(scan_outputs_like(boxes, s, True))
 
 
 def _box_group_strided_cuda(boxes, s, xyz1, valid1=None, plan=None):

@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from gspn_tpu_torch.ops import _cuda
-from gspn_tpu_torch.ops.common import masked_sqdist, resolve_impl, sqdist_components
+from gspn_tpu_torch.ops.common import gspn_op, masked_sqdist, resolve_impl, sqdist_components
 from gspn_tpu_torch.ops.grouping import gather_point
 
 KERNEL = _cuda.KERNELS["nn_argmin"]
@@ -95,9 +95,21 @@ def nn_argmin(xyz1, xyz2, valid2=None, *, impl: str = "auto") -> torch.Tensor:
     Not differentiable."""
     if xyz2.shape[1] == 0:
         raise ValueError("nn_argmin needs at least one source point")
+    return _nn_argmin_op(xyz1, xyz2, valid2, impl)
+
+
+@gspn_op("nn_argmin")
+def _nn_argmin_op(xyz1: torch.Tensor, xyz2: torch.Tensor, valid2: torch.Tensor | None,
+                  impl: str) -> torch.Tensor:
+    """:func:`nn_argmin` as one opaque op."""
     if resolve_impl(impl, xyz1) == "cuda":
         return _argmin_cuda(xyz1, xyz2, None, valid2, both=False)
     return _argmin_plain(xyz1, xyz2, valid2)
+
+
+@torch.library.register_fake(_nn_argmin_op)
+def _(xyz1, xyz2, valid2, impl):
+    return xyz1.new_empty(xyz1.shape[:2], dtype=torch.int32)
 
 
 def nn_argmin_pair(xyz1, xyz2, valid1=None, valid2=None, *, impl: str = "auto"):
@@ -107,9 +119,23 @@ def nn_argmin_pair(xyz1, xyz2, valid1=None, valid2=None, *, impl: str = "auto"):
     differentiable."""
     if xyz1.shape[1] == 0 or xyz2.shape[1] == 0:
         raise ValueError("nn_argmin_pair needs at least one point on each side")
+    return _nn_argmin_pair_op(xyz1, xyz2, valid1, valid2, impl)
+
+
+@gspn_op("nn_argmin_pair")
+def _nn_argmin_pair_op(xyz1: torch.Tensor, xyz2: torch.Tensor, valid1: torch.Tensor | None,
+                       valid2: torch.Tensor | None,
+                       impl: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`nn_argmin_pair` as one opaque op."""
     if resolve_impl(impl, xyz1) == "cuda":
         return _argmin_cuda(xyz1, xyz2, valid1, valid2, both=True)
     return _argmin_plain(xyz1, xyz2, valid2), _argmin_plain(xyz2, xyz1, valid1)
+
+
+@torch.library.register_fake(_nn_argmin_pair_op)
+def _(xyz1, xyz2, valid1, valid2, impl):
+    return (xyz1.new_empty(xyz1.shape[:2], dtype=torch.int32),
+            xyz2.new_empty(xyz2.shape[:2], dtype=torch.int32))
 
 
 def nn_distance(xyz1, xyz2, valid1=None, valid2=None, *, impl: str = "auto"):

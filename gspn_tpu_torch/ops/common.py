@@ -9,11 +9,37 @@ the PyTorch counterpart of the JAX package's ``auto|pallas|xla``:
 - ``"cuda"``: the kernel; a CPU tensor raises.
 - ``"plain"``: the plain PyTorch version on any device. It is the reference
   a kernel is held against (tests, ``chip_smoke.py``), never the main path.
+
+Each such op calls its kernel or its plain version through one op of the
+``gspn`` namespace (:func:`gspn_op`), so ``torch.export`` keeps the call
+as one opaque node; eager calls take the same op.
 """
 
 from __future__ import annotations
 
 import torch
+
+LIBRARY = torch.library.Library("gspn", "DEF")
+
+
+def gspn_op(name: str):
+    """Decorator: defines ``gspn::name`` from the function's annotations
+    (``torch.library.infer_schema``; no input is mutated) with the function
+    as its implementation on every device, and returns the op. Register
+    its fake version (the output shapes from the input shapes alone) with
+    ``torch.library.register_fake(op)``.
+
+    The op is defined on a ``torch.library.Library`` rather than through
+    ``torch.library.custom_op``, whose Python wrapper and autograd kernel
+    run on every eager call; an op with a gradient adds its own
+    (``torch.library.register_autograd``)."""
+
+    def define(fn):
+        LIBRARY.define(name + torch.library.infer_schema(fn, mutates_args=()))
+        LIBRARY.impl(name, fn, "CompositeExplicitAutograd")
+        return getattr(torch.ops.gspn, name).default
+
+    return define
 
 
 def round_up(x: int, m: int) -> int:

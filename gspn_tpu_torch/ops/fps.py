@@ -17,7 +17,7 @@ import functools
 import torch
 
 from gspn_tpu_torch.ops import _cuda
-from gspn_tpu_torch.ops.common import resolve_impl, sqdist_components
+from gspn_tpu_torch.ops.common import gspn_op, resolve_impl, sqdist_components
 from gspn_tpu_torch.ops.morton import morton_codes
 
 _BIG = 1e10
@@ -232,6 +232,19 @@ def farthest_point_sample(
         raise ValueError(f"segments must be >= 1, got {segments}")
     if segments > 1:
         return _fps_segmented(npoint, xyz, valid, segments, segment_mode, impl)
+    return _fps_op(xyz, valid, npoint, impl)
+
+
+@gspn_op("fps")
+def _fps_op(xyz: torch.Tensor, valid: torch.Tensor | None, npoint: int,
+            impl: str) -> torch.Tensor:
+    """Exact greedy FPS as one opaque op: the kernels (``fps`` or, above one
+    block's row, ``fps_cluster``) or the plain version's pick loop."""
     if resolve_impl(impl, xyz) == "cuda":
         return _fps_cuda(xyz, npoint, valid)
     return _fps_plain(xyz, npoint, valid)
+
+
+@torch.library.register_fake(_fps_op)
+def _(xyz, valid, npoint, impl):
+    return xyz.new_empty((xyz.shape[0], npoint), dtype=torch.int32)

@@ -23,7 +23,7 @@ import functools
 import torch
 
 from gspn_tpu_torch.ops import _cuda
-from gspn_tpu_torch.ops.common import resolve_impl
+from gspn_tpu_torch.ops.common import gspn_op, resolve_impl
 
 KERNEL = _cuda.KERNELS["index_add"]
 # the kernel's limits (csrc/index_add.cu): output rows a CTA (kMaxBins), a
@@ -102,9 +102,20 @@ def index_add_rows(src: torch.Tensor, idx: torch.Tensor, n: int, *,
     (B, M, C)`` and ``idx (B, M)`` in ``[0, n)``: each output row sums its
     terms in ascending ``p`` from +0.0, so the result is the same on every
     run and route."""
+    return _index_add_op(src, idx, int(n), impl)
+
+
+@gspn_op("index_add_rows")
+def _index_add_op(src: torch.Tensor, idx: torch.Tensor, n: int, impl: str) -> torch.Tensor:
+    """:func:`index_add_rows` as one opaque op."""
     if resolve_impl(impl, src) == "cuda":
         return _index_add_cuda(src, idx, n)
     return _index_add_plain(src, idx, n)
+
+
+@torch.library.register_fake(_index_add_op)
+def _(src, idx, n, impl):
+    return src.new_empty((src.shape[0], n, src.shape[-1]))
 
 
 def _gather_rows(inp: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from gspn_tpu_torch.ops import _cuda
-from gspn_tpu_torch.ops.common import masked_sqdist, resolve_impl
+from gspn_tpu_torch.ops.common import gspn_op, masked_sqdist, resolve_impl
 from gspn_tpu_torch.ops.grouping import group_point, index_add_rows
 
 KERNEL = _cuda.KERNELS["three_nn"]
@@ -123,9 +123,22 @@ def three_nn(xyz1, xyz2, valid2=None, *, impl: str = "auto"):
     distance 1e10."""
     if xyz2.shape[1] < 3:
         raise ValueError(f"three_nn needs at least 3 sources, got M={xyz2.shape[1]}")
+    return _three_nn_op(xyz1, xyz2, valid2, impl)
+
+
+@gspn_op("three_nn")
+def _three_nn_op(xyz1: torch.Tensor, xyz2: torch.Tensor, valid2: torch.Tensor | None,
+                 impl: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`three_nn` as one opaque op."""
     if resolve_impl(impl, xyz1) == "cuda":
         return _three_nn_cuda(xyz1, xyz2, valid2)
     return _three_nn_plain(xyz1, xyz2, valid2)
+
+
+@torch.library.register_fake(_three_nn_op)
+def _(xyz1, xyz2, valid2, impl):
+    shape = (*xyz1.shape[:2], 3)
+    return xyz1.new_empty(shape), xyz1.new_empty(shape, dtype=torch.int32)
 
 
 def three_interpolate_weights(dist: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
@@ -239,23 +252,34 @@ def _interp_dweight(points, idx, g):
     return (group_point(points, idx) * g[..., None, :]).sum(-1)
 
 
-class _InterpolateMM(torch.autograd.Function):
-    """Forward: the kernel (or its plain version); backward:
-    ``_interp_grads``."""
+@gspn_op("three_interpolate_mm")
+def _interp_mm_op(points: torch.Tensor, idx: torch.Tensor, weight: torch.Tensor,
+                  impl: str) -> torch.Tensor:
+    """:func:`three_interpolate_mm` as one opaque op: the kernel (or its
+    plain version); backward ``_interp_grads``."""
+    if resolve_impl(impl, points) == "cuda":
+        return _interp_mm_cuda(points, idx, weight)
+    return three_interpolate(points, idx, weight, impl=impl)
 
-    @staticmethod
-    def forward(ctx, points, idx, weight, impl):
-        ctx.save_for_backward(points, idx, weight)
-        ctx.impl = impl
-        if resolve_impl(impl, points) == "cuda":
-            return _interp_mm_cuda(points, idx, weight)
-        return three_interpolate(points, idx, weight, impl=impl)
 
-    @staticmethod
-    def backward(ctx, g):
-        points, idx, weight = ctx.saved_tensors
-        dpoints, dweight = _interp_grads(points, idx, weight, g, ctx.impl)
-        return dpoints, None, dweight, None
+@torch.library.register_fake(_interp_mm_op)
+def _(points, idx, weight, impl):
+    return points.new_empty((*idx.shape[:2], points.shape[-1]))
+
+
+def _save_inputs(ctx, inputs, output):
+    """Saves the tensors before the op's last argument, ``impl``."""
+    ctx.save_for_backward(*inputs[:-1])
+    ctx.impl = inputs[-1]
+
+
+def _interp_mm_backward(ctx, g):
+    points, idx, weight = ctx.saved_tensors
+    dpoints, dweight = _interp_grads(points, idx, weight, g, ctx.impl)
+    return dpoints, None, dweight, None
+
+
+torch.library.register_autograd(_interp_mm_op, _interp_mm_backward, setup_context=_save_inputs)
 
 
 def three_interpolate_mm(points, idx, weight, *, impl: str = "auto") -> torch.Tensor:
@@ -266,7 +290,7 @@ def three_interpolate_mm(points, idx, weight, *, impl: str = "auto") -> torch.Te
     source block; here every size launches the kernel, with the same
     result. ``idx`` must lie in ``[0, M)``. Differentiable in ``points``
     and ``weight``."""
-    return _InterpolateMM.apply(points, idx, weight, impl)
+    return _interp_mm_op(points, idx, weight, impl)
 
 
 def _interpolate_fp_plain(points2, idx, dist, points1, impl="plain"):
@@ -274,39 +298,46 @@ def _interpolate_fp_plain(points2, idx, dist, points1, impl="plain"):
     return out if points1 is None else torch.cat([out, points1], dim=-1)
 
 
-class _InterpolateFP(torch.autograd.Function):
-    """Forward: the kernel from the distances (or its plain version);
-    backward: the weights recomputed from ``dist`` under autograd,
+@gspn_op("three_interpolate_fp")
+def _interp_fp_op(points2: torch.Tensor, idx: torch.Tensor, dist: torch.Tensor,
+                  points1: torch.Tensor | None, impl: str) -> torch.Tensor:
+    """:func:`three_interpolate_fp` as one opaque op: the kernel from the
+    distances (or its plain version); backward ``_interp_fp_backward``."""
+    if resolve_impl(impl, points2) == "cuda":
+        return _interp_mm_cuda(points2, idx, dist, points1, from_dist=True)
+    return _interpolate_fp_plain(points2, idx, dist, points1, impl)
+
+
+@torch.library.register_fake(_interp_fp_op)
+def _(points2, idx, dist, points1, impl):
+    c1 = 0 if points1 is None else points1.shape[-1]
+    return points2.new_empty((*idx.shape[:2], points2.shape[-1] + c1))
+
+
+def _interp_fp_backward(ctx, g):
+    """The weights recomputed from ``dist`` under autograd,
     ``_interp_grads`` on the interpolated columns' gradient, the weights'
     gradient taken back into ``dist``, and the skip columns' gradient
     passed to ``points1``: bitwise autograd through the composite."""
+    points2, idx, dist, _ = ctx.saved_tensors
+    c2 = points2.shape[-1]
+    g2 = g[..., :c2]
+    dpoints = ddist = None
+    if ctx.needs_input_grad[0] or ctx.needs_input_grad[2]:
+        with torch.enable_grad():
+            d = dist.detach().requires_grad_(True)
+            weight = three_interpolate_weights(d)
+    if ctx.needs_input_grad[0]:
+        dpoints = _interp_dpoints(idx, weight.detach(), g2, points2.shape[1], ctx.impl)
+        dpoints = dpoints.to(points2.dtype)
+    if ctx.needs_input_grad[2]:
+        dweight = _interp_dweight(points2, idx, g2).to(weight.dtype)
+        (ddist,) = torch.autograd.grad(weight, d, dweight)
+    dskip = g[..., c2:] if ctx.needs_input_grad[3] else None
+    return dpoints, None, ddist, dskip, None
 
-    @staticmethod
-    def forward(ctx, points2, idx, dist, points1, impl):
-        ctx.save_for_backward(points2, idx, dist)
-        ctx.impl = impl
-        if resolve_impl(impl, points2) == "cuda":
-            return _interp_mm_cuda(points2, idx, dist, points1, from_dist=True)
-        return _interpolate_fp_plain(points2, idx, dist, points1, impl)
 
-    @staticmethod
-    def backward(ctx, g):
-        points2, idx, dist = ctx.saved_tensors
-        c2 = points2.shape[-1]
-        g2 = g[..., :c2]
-        dpoints = ddist = None
-        if ctx.needs_input_grad[0] or ctx.needs_input_grad[2]:
-            with torch.enable_grad():
-                d = dist.detach().requires_grad_(True)
-                weight = three_interpolate_weights(d)
-        if ctx.needs_input_grad[0]:
-            dpoints = _interp_dpoints(idx, weight.detach(), g2, points2.shape[1], ctx.impl)
-            dpoints = dpoints.to(points2.dtype)
-        if ctx.needs_input_grad[2]:
-            dweight = _interp_dweight(points2, idx, g2).to(weight.dtype)
-            (ddist,) = torch.autograd.grad(weight, d, dweight)
-        dskip = g[..., c2:] if ctx.needs_input_grad[3] else None
-        return dpoints, None, ddist, dskip, None
+torch.library.register_autograd(_interp_fp_op, _interp_fp_backward, setup_context=_save_inputs)
 
 
 def three_interpolate_fp(points2, idx, dist, points1=None, *, impl: str = "auto"):
@@ -319,4 +350,4 @@ def three_interpolate_fp(points2, idx, dist, points1=None, *, impl: str = "auto"
     neighbor-ordered sum and the concat. Differentiable in ``points2``,
     ``dist`` and ``points1``, with the composite's gradients bit for bit.
     ``idx`` must lie in ``[0, M)``."""
-    return _InterpolateFP.apply(points2, idx, dist, points1, impl)
+    return _interp_fp_op(points2, idx, dist, points1, impl)

@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from gspn_tpu_torch.ops import _cuda
-from gspn_tpu_torch.ops.common import resolve_impl, round_up, sqdist_components
+from gspn_tpu_torch.ops.common import gspn_op, resolve_impl, round_up, sqdist_components
 
 KERNEL = _cuda.KERNELS["mask_project"]
 BOXED_KERNEL = _cuda.KERNELS["mask_project_boxed"]
@@ -87,9 +87,21 @@ def nearest_sample_logit(xyz, sampled, logits, sample_valid=None, *, impl: str =
     nearest-sample logit."""
     if sample_valid is None:
         sample_valid = torch.ones(logits.shape, dtype=torch.bool, device=logits.device)
+    return _nearest_logit_op(xyz, sampled, logits, sample_valid, impl)
+
+
+@gspn_op("nearest_sample_logit")
+def _nearest_logit_op(xyz: torch.Tensor, sampled: torch.Tensor, logits: torch.Tensor,
+                      sample_valid: torch.Tensor, impl: str) -> torch.Tensor:
+    """:func:`nearest_sample_logit` as one opaque op."""
     if resolve_impl(impl, xyz) == "cuda":
         return _launch(KERNEL, xyz, sampled, logits, sample_valid)
     return _nearest_logit_plain(xyz, sampled, logits, sample_valid)
+
+
+@torch.library.register_fake(_nearest_logit_op)
+def _(xyz, sampled, logits, sample_valid, impl):
+    return xyz.new_empty((xyz.shape[0], logits.shape[1], xyz.shape[1]))
 
 
 def boxed_layout(n: int, r: int, roi_block: int, tile_n: int) -> tuple[int, int, int, int]:
@@ -143,8 +155,23 @@ def nearest_sample_logit_boxed(
         point_valid = torch.ones((b, n), dtype=torch.bool, device=xyz.device)
     tn, npad, rb, rpad = boxed_layout(n, r, roi_block or ROI_BLOCK_BOXED, tile_n or TILE_N_BOXED)
     rel = tile_relevance(xyz, point_valid, boxes, tn, npad, rb, rpad)
+    return _nearest_logit_boxed_op(xyz, sampled, logits, sample_valid, rel, rb, tn, impl)
+
+
+@gspn_op("nearest_sample_logit_boxed")
+def _nearest_logit_boxed_op(xyz: torch.Tensor, sampled: torch.Tensor, logits: torch.Tensor,
+                            sample_valid: torch.Tensor, rel: torch.Tensor, rb: int, tn: int,
+                            impl: str) -> torch.Tensor:
+    """:func:`nearest_sample_logit_boxed` from its relevance table ``rel``
+    (RoI blocks of ``rb``, scene tiles of ``tn``) as one opaque op."""
     if resolve_impl(impl, xyz) == "cuda":
         return _launch(BOXED_KERNEL, xyz, sampled, logits, sample_valid, rel.contiguous(), rb, tn)
+    r, n = logits.shape[1], xyz.shape[1]
     dense = _nearest_logit_plain(xyz, sampled, logits, sample_valid)
     keep = rel.repeat_interleave(rb, dim=1).repeat_interleave(tn, dim=2)[:, :r, :n]
     return torch.where(keep.bool(), dense, torch.full_like(dense, NEG))
+
+
+@torch.library.register_fake(_nearest_logit_boxed_op)
+def _(xyz, sampled, logits, sample_valid, rel, rb, tn, impl):
+    return xyz.new_empty((xyz.shape[0], logits.shape[1], xyz.shape[1]))

@@ -25,7 +25,7 @@ from __future__ import annotations
 import torch
 
 from gspn_tpu_torch.ops import _cuda
-from gspn_tpu_torch.ops.common import resolve_impl
+from gspn_tpu_torch.ops.common import gspn_op, resolve_impl
 
 KERNEL = _cuda.KERNELS["nms"]
 # Boxes per scene the kernel route takes: the kernel keeps the sweep's
@@ -111,6 +111,14 @@ def _score_order(scores, valid):
 def nms_3d_batched(boxes, scores, iou_thresh: float, valid=None, *, impl: str = "auto"):
     """Batched greedy NMS: ``(B,R,6), (B,R) -> keep (B,R)`` bool in the
     original box order; ``valid (B,R)`` boxes only are kept."""
+    return _nms_op(boxes, scores, valid, float(iou_thresh), impl)
+
+
+@gspn_op("nms_3d_batched")
+def _nms_op(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor | None,
+            iou_thresh: float, impl: str) -> torch.Tensor:
+    """:func:`nms_3d_batched` as one opaque op: the kernel, or the plain
+    version's Jacobi loop, which reads its convergence on the host."""
     choice = resolve_impl(impl, boxes)
     if choice == "cuda" and boxes.shape[-2] > MAX_R:
         raise ValueError(
@@ -128,6 +136,11 @@ def nms_3d_batched(boxes, scores, iou_thresh: float, valid=None, *, impl: str = 
     )
     keep_sorted = _suppress_jacobi(box_iou(bs, bs), alive, iou_thresh)
     return torch.zeros_like(keep_sorted).scatter(1, order, keep_sorted)
+
+
+@torch.library.register_fake(_nms_op)
+def _(boxes, scores, valid, iou_thresh, impl):
+    return scores.new_empty(scores.shape, dtype=torch.bool)
 
 
 def nms_3d(boxes, scores, iou_thresh: float, valid=None, *, impl: str = "auto"):

@@ -1331,3 +1331,156 @@ def test_plain_fp_backward_launches_no_kernel(dev):
     torch.cuda.synchronize()
     assert ops.launch_counts() == before
     assert p2.grad.abs().sum() > 0
+
+
+class _GspnOpCalls(torch.utils._python_dispatch.TorchDispatchMode):
+    """Counts the ``gspn::`` op calls made under it, forward and backward."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func._schema.name
+        if name.startswith("gspn::"):
+            self.calls[name[len("gspn::"):]] = self.calls.get(name[len("gspn::"):], 0) + 1
+        return func(*args, **(kwargs or {}))
+
+
+# the op that launches each kernel of the training slices
+_OP_OF = {"fps": "fps", "ball_group": "ball_group", "box_group": "box_group",
+          "three_nn": "three_nn", "interp_mm": "three_interpolate_fp",
+          "nn_argmin": "nn_argmin_pair", "index_add": "index_add_rows"}
+
+
+@pytest.mark.parametrize("slice_", ["G", "I"])
+def test_training_goes_through_the_registered_ops(dev, slice_):
+    """A stage-1 (G) and a stage-2 (I) training step: each kernel launch is
+    one call of its ``gspn::`` op; the plain path calls the same ops but
+    the FP interpolation's (it takes the exact interpolation) and launches
+    nothing; and the two paths still train bitwise the same (loss, terms,
+    gradients)."""
+    if slice_ == "G":
+        bench_slice.float32_matmuls()
+        cfg = bench_slice.train_config()
+        batch = bench_slice.train_batch(dev)
+        model = bench_slice.seeded_gspn(cfg, dev)
+        _, pmodel = bench_slice.plain_gspn(cfg, model)
+        eps = torch.randn((4, 64, cfg.latent_dim), generator=torch.Generator().manual_seed(1))
+        draws = {"z_eps": eps.to(dev)}
+        step = tsteps.make_train_step(tsteps.make_gspn_loss_fn(64, 256))
+        paths = [(model, step), (pmodel, step)]
+        want_launches = {"fps": 1, "ball_group": 1, "nn_argmin": 1, "index_add": 1}
+    else:
+        gcfg, rcfg, batch, gmodel, draws = _stage2_small(dev)
+        model = bench_slice.seeded_rpointnet(rcfg, dev)
+        _, pmodel = bench_slice.plain_rpointnet(rcfg, model)
+        _, pgmodel = bench_slice.plain_gspn(gcfg, gmodel)
+        paths = [(model, _stage2_step(gmodel)), (pmodel, _stage2_step(pgmodel))]
+        want_launches = bench_slice.STAGE2_PER_STEP
+    runs = []
+    for m, step in paths:
+        before = ops.launch_counts()
+        state = tsteps.TrainState(m, tsteps.make_optimizer(m, 1e-3))
+        with _GspnOpCalls() as calls:
+            metrics = step(state, batch, **draws)
+        torch.cuda.synchronize()
+        launched = {k: c - before[k] for k, c in ops.launch_counts().items() if c != before[k]}
+        runs.append((metrics, {k: p.grad for k, p in m.named_parameters()}, launched,
+                     calls.calls))
+    (got, grads, launched, op_calls), (want, pgrads, plain_launched, plain_calls) = runs
+    assert launched == want_launches and not plain_launched
+    want_ops = {}
+    for k, c in launched.items():
+        want_ops[_OP_OF[k]] = want_ops.get(_OP_OF[k], 0) + c
+    assert op_calls == want_ops
+    assert set(plain_calls) == set(op_calls) - {"three_interpolate_fp"}
+    for k in want:
+        _equal(got[k], want[k])
+    for k in pgrads:
+        _equal(grads[k], pgrads[k])
+
+
+def _tiny_serving_config():
+    """The trainers' ``--preset tiny`` stages at 8 seeds, thresholds inside
+    the seeded weights' logit range."""
+    from gspn_tpu_torch.models.pipeline import PipelineConfig
+    from gspn_tpu_torch.train.train_gspn import TINY_GSPN
+    from gspn_tpu_torch.train.train_rpointnet import tiny_rpointnet
+
+    return PipelineConfig(gspn=TINY_GSPN, rpointnet=tiny_rpointnet(3), num_seeds=8,
+                          score_thresh=0.0, mask_thresh=0.49)
+
+
+@pytest.mark.parametrize("shape", ["tiny", "flagship"])
+def test_streamed_graph_replay_equals_eager(dev, shape):
+    """``make_streamed_inference_fn`` on the card (one request captured in a
+    CUDA graph, replayed T times) against T eager kernel-path calls, bit
+    for bit; the capture launches each kernel of a request once beside its
+    warm-up, and the replays launch nothing from Python. A second call of
+    the same shapes, its batches in the other order, replays the kept
+    capture: no launch, each batch still its eager call's answer."""
+    from gspn_tpu_torch.models import pipeline as tpl
+
+    bench_slice.float32_matmuls()
+    if shape == "tiny":
+        cfg, t_steps = _tiny_serving_config(), 3
+        xyz, valid = _scenes(dev, 2, 512)
+        xyz_s = torch.stack([xyz, xyz.flip(1), xyz * 0.9])
+        valid_s = torch.stack([valid, valid.flip(1), valid])
+    else:
+        cfg, t_steps = bench_slice.slice_config(), 2
+        xyz, valid, _ = bench_slice.request(cfg, "B8xN8192", dev, seed=1)
+        xyz_s, valid_s = torch.stack([xyz, xyz * 0.9]), torch.stack([valid, valid])
+    model = bench_slice.seeded_model(cfg, dev)
+    eps_s = torch.randn((t_steps, xyz_s.shape[1], cfg.num_seeds, cfg.gspn.latent_dim),
+                        generator=torch.Generator().manual_seed(2)).to(dev)
+    infer = tpl.make_inference_fn(cfg)
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        eager = [infer(model, xyz_s[i], valid_s[i], z_eps=eps_s[i]) for i in range(t_steps)]
+        per_request = {k: c // t_steps for k, c in ops.launch_counts().items() if c}
+        run = tpl.make_streamed_inference_fn(cfg)
+        ops.reset_launch_counts()
+        got = run(model, xyz_s, valid_s, eps_s)
+        torch.cuda.synchronize()
+        captured = {k: c for k, c in ops.launch_counts().items() if c}
+        ops.reset_launch_counts()
+        again = run(model, xyz_s.flip(0), valid_s.flip(0), eps_s.flip(0))
+        torch.cuda.synchronize()
+    assert captured == {k: 2 * c for k, c in per_request.items()}
+    assert not any(ops.launch_counts().values())
+    for i in range(t_steps):
+        for f in tpl.PREDICTION_FIELDS:
+            _equal(getattr(got, f)[i], getattr(eager[i], f))
+            _equal(getattr(again, f)[t_steps - 1 - i], getattr(eager[i], f))
+    assert not torch.equal(got.scores[0], got.scores[1])
+
+
+def test_cuda_artifact_serves_bitwise_and_is_refused_on_the_cpu(dev, tmp_path):
+    """A TINY artifact exported for ``cuda``: its session (the program
+    replayed from a CUDA graph) equals the live kernel path with the same
+    noise, and the artifact does not load on the CPU."""
+    from gspn_tpu_torch.models import pipeline as tpl
+    from gspn_tpu_torch.serve import export as sx
+    from gspn_tpu_torch.serve import runtime as srt
+
+    cfg = _tiny_serving_config()
+    model = bench_slice.seeded_model(cfg, dev)
+    path = sx.save_artifact(tmp_path / "tiny.gspnt",
+                            sx.export_inference(cfg, model, 512, batch_size=2, device=dev), cfg)
+    with pytest.raises(ValueError, match=r"exported for \['cuda'\]"):
+        sx.load_artifact(path, "cpu")
+    session = srt.InferenceSession(path, model.state_dict(), device=dev)
+    xyz, valid = _scenes(dev, 3, 512)
+    got = session.predict(xyz.cpu().numpy(), valid.cpu().numpy(), seed=5)
+    infer = tpl.make_inference_fn(cfg)
+    for ci, (lo, hi) in enumerate(((0, 2), (2, 3))):
+        x, v = xyz[lo:hi], valid[lo:hi]
+        if hi - lo < 2:
+            x, v = torch.cat([x, x[:1]]), torch.cat([v, v[:1]])
+        eps = srt.chunk_noise(5, ci, session.noise_shape).to(dev)
+        with torch.inference_mode():
+            want = infer(model, x, v, z_eps=eps)
+        for f in tpl.PREDICTION_FIELDS:
+            np.testing.assert_array_equal(got[f][lo:hi], getattr(want, f)[:hi - lo].cpu().numpy())

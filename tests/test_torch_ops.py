@@ -611,7 +611,7 @@ def test_three_interpolate_fp_matches_jax(rng, shape, skip):
 @pytest.mark.parametrize("skip", [0, 7], ids=["no_skip", "skip"])
 @pytest.mark.parametrize("dist_grad", [False, True])
 def test_three_interpolate_fp_gradients_equal_the_composite(rng, skip, dist_grad):
-    """Its ``autograd.Function``'s gradients in ``points2``, ``dist`` and
+    """Its op's registered gradients in ``points2``, ``dist`` and
     ``points1`` on the CPU route are bitwise autograd's through the
     composite the FP module ran before (``three_interpolate_mm`` of
     ``three_interpolate_weights(dist)``, then the concat), sources picked
@@ -1058,3 +1058,70 @@ def test_cuda_impl_refuses_cpu_tensors(call):
 def test_three_nn_refuses_fewer_than_three_sources():
     with pytest.raises(ValueError, match="at least 3"):
         ops.three_nn(torch.zeros(1, 8, 3), torch.zeros(1, 2, 3))
+
+
+def _op_samples():
+    """One small CPU call of every registered ``gspn::`` op (its plain
+    version)."""
+    from gspn_tpu_torch.ops import mask_project as tmask
+
+    gen = torch.Generator().manual_seed(0)
+    xyz = torch.rand((2, 64, 3), generator=gen)
+    valid = torch.rand((2, 64), generator=gen) > 0.2
+    q = xyz[:, :5] + 0.01
+    lo = torch.rand((2, 6, 3), generator=gen) * 0.6
+    boxes = torch.cat([lo, lo + 0.1 + torch.rand((2, 6, 3), generator=gen) * 0.5], dim=-1)
+    scores = torch.rand((2, 6), generator=gen)
+    idx = torch.randint(0, 7, (2, 10, 3), generator=gen, dtype=torch.int32)
+    sampled = torch.rand((2, 3, 4, 3), generator=gen)
+    logits = torch.randn((2, 3, 4), generator=gen)
+    svalid = torch.rand((2, 3, 4), generator=gen) > 0.2
+    tn, npad, rb, rpad = tmask.boxed_layout(64, 3, 8, 32)
+    rel = tmask.tile_relevance(xyz, valid, boxes[:, :3], tn, npad, rb, rpad)
+    g = torch.ops.gspn
+    return {
+        "fps": (g.fps, (xyz, valid, 8, "plain")),
+        "ball_query": (g.ball_query, (xyz, q, valid, [0.3, 0.6], [4, 8], "strided", "plain")),
+        "ball_group": (g.ball_group, (xyz, q, valid, [0.3, 0.6], [4, 8], "first", "plain")),
+        "box_group": (g.box_group, (boxes, xyz, valid, 8, "first", "plain")),
+        "three_nn": (g.three_nn, (xyz[:, :10], xyz[:, 10:17], valid[:, 10:17], "plain")),
+        "three_interpolate_mm": (g.three_interpolate_mm, (
+            torch.randn((2, 7, 5), generator=gen).requires_grad_(), idx,
+            torch.rand((2, 10, 3), generator=gen).requires_grad_(), "plain")),
+        "three_interpolate_fp": (g.three_interpolate_fp, (
+            torch.randn((2, 7, 5), generator=gen).requires_grad_(), idx,
+            torch.rand((2, 10, 3), generator=gen).requires_grad_(),
+            torch.randn((2, 10, 4), generator=gen).requires_grad_(), "plain")),
+        "nearest_sample_logit": (g.nearest_sample_logit, (xyz, sampled, logits, svalid, "plain")),
+        "nearest_sample_logit_boxed": (g.nearest_sample_logit_boxed, (
+            xyz, sampled, logits, svalid, rel, rb, tn, "plain")),
+        "nms_3d_batched": (g.nms_3d_batched, (boxes, scores, None, 0.25, "plain")),
+        "nn_argmin": (g.nn_argmin, (xyz[:, :10], xyz[:, 10:30], valid[:, 10:30], "plain")),
+        "nn_argmin_pair": (g.nn_argmin_pair, (xyz[:, :10], xyz[:, 10:30], valid[:, :10],
+                                              valid[:, 10:30], "plain")),
+        "index_add_rows": (g.index_add_rows, (torch.randn((2, 9, 4), generator=gen),
+                                              idx.reshape(2, 30)[:, :9], 7, "plain")),
+    }
+
+
+_OPS = ["fps", "ball_query", "ball_group", "box_group", "three_nn", "three_interpolate_mm",
+        "three_interpolate_fp", "nearest_sample_logit", "nearest_sample_logit_boxed",
+        "nms_3d_batched", "nn_argmin", "nn_argmin_pair", "index_add_rows"]
+
+
+@pytest.mark.parametrize("name", _OPS)
+def test_registered_op_passes_opcheck(name):
+    """Every kernel call is an op of the ``gspn`` namespace
+    (``ops.common.gspn_op``, so ``torch.export`` keeps it as one opaque
+    node): its schema, its fake version's shapes and dtypes against the
+    real call's, its outputs not aliasing its inputs, and the FP
+    interpolations' registered backward (their float inputs require
+    gradients) (``torch.library.opcheck``)."""
+    op, args = _op_samples()[name]
+    torch.library.opcheck(op, args)
+
+
+def test_every_kernel_has_a_registered_op():
+    assert sorted(_OPS) == sorted(
+        name for name in dir(torch.ops.gspn) if isinstance(getattr(torch.ops.gspn, name),
+                                                          torch._ops.OpOverloadPacket))

@@ -330,3 +330,84 @@ def test_bench_slice_requests(shape):
     np.testing.assert_array_equal(n(valid), want_valid)
     assert eps.shape == (b, cfg.num_seeds, cfg.gspn.latent_dim)
     assert torch.equal(eps, bench_slice.request(cfg, shape, torch.device("cpu"), seed=1)[2])
+
+
+def _stream(z, t_steps=3):
+    """``(xyz_s, valid_s)`` of ``t_steps`` batches: the fixture's scenes, their
+    points reversed, and scaled by 0.9."""
+    xyz, valid = z["in/xyz"], z["in/valid"]
+    xs = [xyz, xyz[:, ::-1], xyz * np.float32(0.9)][:t_steps]
+    vs = [valid, valid[:, ::-1], valid][:t_steps]
+    return np.ascontiguousarray(np.stack(xs)), np.ascontiguousarray(np.stack(vs))
+
+
+def test_streamed_inference_equals_separate_calls():
+    """``make_streamed_inference_fn`` on T=3 batches (on the CPU a loop) is
+    the T separate ``infer`` calls, bit for bit, batch t with noise t."""
+    z = _load("instance_inference.npz")
+    cfg = pipeline_config(_cases()["spatial_fps"])
+    model = _port_model(cfg, _base_pipeline_variables(z))
+    xyz_s, valid_s = _stream(z)
+    eps_s = torch.randn((3, xyz_s.shape[1], cfg.num_seeds, cfg.gspn.latent_dim),
+                        generator=torch.Generator().manual_seed(0))
+    infer = tpl.make_inference_fn(cfg)
+    with torch.inference_mode():
+        got = tpl.make_streamed_inference_fn(cfg)(model, t(xyz_s), t(valid_s), eps_s)
+        for step in range(3):
+            want = infer(model, t(xyz_s[step]), t(valid_s[step]), z_eps=eps_s[step])
+            for f in tpl.PREDICTION_FIELDS:
+                assert torch.equal(getattr(got, f)[step], getattr(want, f)), (f, step)
+    assert got.masks.shape == (3, xyz_s.shape[1], cfg.num_seeds, xyz_s.shape[2])
+
+
+def test_streamed_inference_matches_jax():
+    """Against the JAX package's ``make_streamed_inference_fn`` (one
+    ``lax.scan``) with the noise its step t draws from ``rngs[t]``."""
+    z = _load("instance_inference.npz")
+    jcfg = _cases()["exact_fps"]
+    variables = _base_pipeline_variables(z)
+    xyz_s, valid_s = _stream(z)
+    rngs = jax.random.split(jax.random.PRNGKey(3), 3)
+    want = jpl.make_streamed_inference_fn(jcfg)(variables, jnp.asarray(xyz_s),
+                                                jnp.asarray(valid_s), rngs)
+    eps_s = np.stack([np.asarray(jax.random.normal(
+        k, (xyz_s.shape[1], jcfg.num_seeds, jcfg.gspn.latent_dim), jnp.float32)) for k in rngs])
+    cfg = pipeline_config(jcfg)
+    with torch.inference_mode():
+        got = tpl.make_streamed_inference_fn(cfg)(_port_model(cfg, variables), t(xyz_s),
+                                                  t(valid_s), t(eps_s))
+    for f in ("masks", "valid", "classes"):
+        np.testing.assert_array_equal(n(getattr(got, f)), np.asarray(getattr(want, f)), f)
+    for f in ("scores", "boxes"):
+        np.testing.assert_allclose(n(getattr(got, f)), np.asarray(getattr(want, f)),
+                                   rtol=1e-4, atol=1e-5, err_msg=f)
+    m = n(got.masks)[n(got.valid)]
+    assert m.any() and not m.all()
+
+
+@pytest.mark.parametrize("fixture", ["instance_inference", "inference_segfps",
+                                     "inference_segfps_spatial"])
+def test_slice_matches_frozen_fixture(fixture):
+    """The port against the frozen outputs ``scripts/make_fixtures.py``
+    wrote (TINY at its own thresholds; the segmented cases at 16 seeds and
+    S=2), on the fixture's weights and scenes with the noise it drew,
+    ``PRNGKey(1)``: masks, valid and classes equal, scores and boxes within
+    the fixtures' tolerances (``tests/test_fixtures.py``)."""
+    base = _load("instance_inference.npz")
+    frozen = _load(f"{fixture}.npz")
+    cfg = pipeline_config(TINY)
+    if fixture != "instance_inference":
+        mode = "spatial" if fixture.endswith("spatial") else "contiguous"
+        cfg = tpresets.set_pipeline_fps_segments(dataclasses.replace(cfg, num_seeds=16), 2, mode)
+    xyz, valid = base["in/xyz"], base["in/valid"]
+    eps = np.asarray(jax.random.normal(
+        jax.random.PRNGKey(1), (xyz.shape[0], cfg.num_seeds, cfg.gspn.latent_dim), jnp.float32))
+    with torch.inference_mode():
+        got = tpl.make_inference_fn(cfg)(_port_model(cfg, _base_pipeline_variables(base)),
+                                         t(xyz), t(valid), z_eps=t(eps))
+    for f in ("masks", "valid", "classes"):
+        np.testing.assert_array_equal(n(getattr(got, f)), frozen[f"out/{f}"], f)
+    for f in ("scores", "boxes"):
+        np.testing.assert_allclose(n(getattr(got, f)), frozen[f"out/{f}"], rtol=1e-4, atol=1e-5,
+                                   err_msg=f)
+    assert frozen["out/valid"].any()
