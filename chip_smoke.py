@@ -125,7 +125,21 @@ line or a few:
    trip and a streamed run over T, and the replay's and eager ``infer``'s
    device busy ms and idle share under ``torch.profiler``; after slice
    (A), an eager request's launches must equal each of (A)'s;
-7. the ranking: for the flagship and the whole-scene request of slices
+7. slice (K), evaluation (``run_eval_slice``), after slice (I), on (G)'s
+   and (I)'s ``train_*`` checkpoints: ``run_eval.main`` at its defaults
+   (16 scenes, B=4 x N=4096, ``--bootstrap 100``, npz dumps) launching
+   exactly (A)'s kernels; at ``--score-thresh 0`` a second run (ScanNet
+   dumps, read back) and ``--artifact`` (a cuda export at the eval's
+   shape) with the live run's summary and dumps bit for bit; the paired
+   ``--ab-fps-segments 1``, ``--ab-sa1-fps-segments 32`` and
+   ``--ab-group-select strided`` arms on the flagship knobs (the JAX
+   eval's summary keys; the sa1 arm one more ``fps`` launch a batch,
+   ``mask_project_boxed`` and the strided groups launched); the eval
+   loop's kernel path against its plain path batch by batch, in both arms
+   of each of those configs and at the defaults, at the eval's mask
+   threshold 0.5; and the eval's points/s, live and from the artifact
+   (median and range of 5 runs of 64 scenes) and on the plain path;
+8. the ranking: for the flagship and the whole-scene request of slices
    (A), (B), (E) and (H), a pass of (F) at each shape and a step of (G),
    each kernel's (device ms - bound ms) summed over every launch of that
    request at its own shape (the launches must be the slice's, kernel for
@@ -209,6 +223,7 @@ SLICE_KERNELS = {  # what each slice's kernel path launches; the others stay at 
     "H": PATH_KERNELS | {"mask_project", "fps_cluster"},
     "G": {"fps", "ball_group", "nn_argmin", "index_add"},
     "I": set(I_PER_STEP),
+    "K": PATH_KERNELS | {"mask_project"},
 }
 # slice (G) launches per step: nn_argmin gives the chamfer's argmins both
 # ways in one launch; index_add is the chamfer's gather backward into the
@@ -1630,6 +1645,228 @@ def run_stage2(dev, ops, bench_slice, card, work):
     return counts
 
 
+# the JAX eval's summary keys with --bootstrap and an --ab-* arm
+EVAL_AB_KEYS = {"scenes", "ap", "ap_50", "ap_25", "points_per_sec", "ap_ci95", "ap_50_ci95",
+                "ap_25_ci95", "ap_armB", "ap_50_armB", "ap_25_armB", "ap_diff", "ap_diff_mean",
+                "ap_50_diff", "ap_50_diff_mean", "ap_25_diff", "ap_25_diff_mean"}
+# the flagship knobs the paired arms run on, and the arms
+EVAL_FLAGSHIP = ["--fps-segments", "8", "--fps-segment-mode", "spatial",
+                 "--mask-project-prune", "auto"]
+EVAL_ARMS = (["--ab-fps-segments", "1"], ["--ab-sa1-fps-segments", "32"],
+             ["--ab-group-select", "strided"])
+# the eval's rate: runs of the loop over this many scenes (batches 2-16 timed)
+EVAL_RATE_SCENES, EVAL_RATE_RUNS = 64, 5
+
+
+def _eval_main(run_eval, argv) -> dict:
+    """``run_eval.main(argv)``: its output printed, its summary line
+    returned."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        run_eval.main(argv)
+    out = buf.getvalue().strip()
+    print("\n".join(f"  run_eval: {line}" for line in out.splitlines()))
+    return json.loads(out.splitlines()[-1])
+
+
+def _rate_aside(summary: dict) -> str:
+    """The summary without its points a second, as JSON (NaN equal to NaN)."""
+    return json.dumps({k: v for k, v in summary.items() if k != "points_per_sec"},
+                      sort_keys=True)
+
+
+def _eval_weights(run_eval, args, dev):
+    """``(cfg, state, z_eps)`` as ``run_eval.main`` builds them from
+    ``args``: the config, the first weights with the checkpoints restored,
+    and the one noise draw every batch takes (on ``dev``)."""
+    from gspn_tpu_torch.models.pipeline import init_pipeline_variables
+    from gspn_tpu_torch.serve.runtime import chunk_noise, restore_checkpoints
+
+    cfg = run_eval.build_config(args)
+    state = init_pipeline_variables(cfg, torch.Generator().manual_seed(args.seed),
+                                    args.num_points)
+    restore_checkpoints(state, args.gspn_ckpt, args.rpointnet_ckpt)
+    z_eps = chunk_noise(args.seed, 0, (args.batch, cfg.num_seeds, cfg.gspn.latent_dim))
+    return cfg, state, z_eps.to(dev)
+
+
+def _eval_paths_agree(run_eval, bench_slice, ops, argv, dev) -> dict:
+    """The evaluation loop on ``argv``'s config, with its ``--ab-*`` arm as
+    ``infer_b`` when it has one, through the kernel path and through the
+    plain path (``bench_slice.plain_config`` of each arm) on the same
+    scenes, weights and noise, every batch's predictions recorded. Raises
+    if the plain path launched a kernel, unless in each arm every batch's
+    masks, valid and classes are equal and its scores and boxes agree
+    within rtol 1e-4 atol 1e-5, and unless each arm's masks of valid
+    instances hold some but not all of the points at the eval's mask
+    threshold. Returns each arm's batches, valid instances and mask share."""
+    args = run_eval.parse_args(argv)
+    cfg, state, z_eps = _eval_weights(run_eval, args, dev)
+    arms = {"A": cfg, "B": run_eval.ab_config(cfg, args)}
+    if arms["B"] is None:
+        del arms["B"]
+    outs = {}
+
+    def recording(c, key):
+        infer = run_eval.live_infer(c, state, dev)
+        outs[key] = []
+
+        def call(xyz, valid, eps):
+            outs[key].append(infer(xyz, valid, eps))
+            return outs[key][-1]
+        return call
+
+    for path, config_of in (("kernel", lambda c: c), ("plain", bench_slice.plain_config)):
+        infers = [recording(config_of(c), (path, arm)) for arm, c in arms.items()]
+        before = ops.launch_counts()
+        run_eval.evaluate(infers[0], run_eval.scene_batches(args)(), z_eps, *infers[1:])
+        if path == "plain" and ops.launch_counts() != before:
+            raise AssertionError(f"slice (K) {argv}: the plain path launched kernels")
+    seen = {}
+    for arm in arms:
+        kernel, plain = outs["kernel", arm], outs["plain", arm]
+        for i, (got, want) in enumerate(zip(kernel, plain, strict=True)):
+            for f in ("masks", "valid", "classes"):
+                if not torch.equal(getattr(got, f), getattr(want, f)):
+                    raise AssertionError(f"slice (K) {argv} arm {arm} batch {i}: kernel and "
+                                         f"plain paths differ in {f}")
+            for f in ("scores", "boxes"):
+                torch.testing.assert_close(getattr(got, f), getattr(want, f), rtol=1e-4,
+                                           atol=1e-5)
+        share = torch.cat([o.masks[o.valid] for o in kernel]).float().mean().item()
+        if not 0.0 < share < 1.0:
+            raise AssertionError(f"slice (K) {argv} arm {arm}: masks of valid instances hold "
+                                 f"{share} of the points at mask_thresh {cfg.mask_thresh}")
+        seen[arm] = {"batches": len(kernel), "valid": sum(int(o.valid.sum()) for o in kernel),
+                     "mask_share": round(share, 4)}
+    return seen
+
+
+def run_eval_slice(dev, ops, bench_slice, card, work):
+    """Slice (K): ``run_eval`` on the card at its defaults (``GSPNConfig()``
+    and ``RPointNetConfig(num_classes=18)``, 64 seeds, 16 scenes of B=4 x
+    N=4096) with the checkpoints (G) and (I) wrote under ``work``: the
+    default run with ``--bootstrap 100`` and npz dumps (the launch counts
+    set to 0 just before: exactly (A)'s kernels grow); at ``--score-thresh
+    0``, where the proposals of these briefly trained weights survive, the
+    live run, a second run with ScanNet dumps (the summary bit for bit, read
+    back as the npz dumps) and ``--artifact`` (an export of the eval's
+    config for cuda at B=4 x N=4096: summary and every dump bit for bit);
+    the paired arms on the flagship knobs; the evaluation loop's kernel path
+    against its plain path, batch by batch, in both arms of each of those
+    configs; and the eval's points/s, live and from the artifact, over
+    ``EVAL_RATE_RUNS`` runs of ``EVAL_RATE_SCENES`` scenes. Returns the
+    default run's launch counts."""
+    from gspn_tpu_torch.eval import run_eval
+    from gspn_tpu_torch.eval.scannet_export import read_scannet_submission
+    from gspn_tpu_torch.serve import export_serving
+
+    _phase("slice (K)")
+    gspn_ckpt = str(pathlib.Path(work, "gspn", "ckpt"))
+    rpn_ckpt = str(pathlib.Path(work, "rpointnet--gspn-ckpt", "ckpt"))
+    ckpts = ["--gspn-ckpt", gspn_ckpt, "--rpointnet-ckpt", rpn_ckpt, "--bootstrap", "100"]
+    ops.reset_launch_counts()
+    live = _eval_main(run_eval, ckpts + ["--dump-dir", f"{work}/eval_npz"])
+    counts = ops.launch_counts()
+    print(f"slice (K) launches: {json.dumps(counts)}")
+    launched = {k for k, c in counts.items() if c}
+    if launched != SLICE_KERNELS["K"]:
+        raise AssertionError(f"slice (K) launched {sorted(launched)}, "
+                             f"expected {sorted(SLICE_KERNELS['K'])}")
+    if len(list(pathlib.Path(work, "eval_npz").glob("*.npz"))) != live["scenes"]:
+        raise AssertionError("slice (K): the default run did not dump every scene")
+
+    _phase("slice (K) --artifact")
+    # the trained 3 + 3 steps score every proposal below the default 0.05: the
+    # runs compared keep them all (an artifact carries the score threshold it
+    # was exported with)
+    keep_all = ckpts + ["--score-thresh", "0"]
+    art = export_serving.main(["--batch", "4", "--num-points", "4096", "--gspn-ckpt", gspn_ckpt,
+                               "--rpointnet-ckpt", rpn_ckpt, "--verify", "--score-thresh", "0",
+                               "--out", f"{work}/eval.gspnt"])
+    live0 = _eval_main(run_eval, keep_all + ["--dump-dir", f"{work}/eval_live"])
+    again = _eval_main(run_eval, keep_all + ["--dump-dir", f"{work}/eval_scannet",
+                                             "--dump-format", "scannet"])
+    served = _eval_main(run_eval, keep_all + ["--artifact", str(art), "--dump-dir",
+                                              f"{work}/eval_served"])
+    if _rate_aside(again) != _rate_aside(live0):
+        raise AssertionError(f"slice (K): a second run's summary {again} differs from {live0}")
+    if _rate_aside(served) != _rate_aside(live0):
+        raise AssertionError(f"slice (K): --artifact's summary {served} differs from {live0}")
+    dumps = sorted(pathlib.Path(work, "eval_live").glob("*.npz"))
+    if len(dumps) != live0["scenes"]:
+        raise AssertionError(f"slice (K): {len(dumps)} npz dumps for {live0['scenes']} scenes")
+    kept = 0
+    for dump in dumps:
+        back = read_scannet_submission(f"{work}/eval_scannet", dump.stem)
+        with np.load(dump) as z, np.load(pathlib.Path(work, "eval_served", dump.name)) as a:
+            if not all(np.array_equal(z[k], a[k]) for k in z.files):
+                raise AssertionError(f"slice (K) {dump.stem}: --artifact's dump differs")
+            if not (np.array_equal(back.masks, z["masks"]) and np.array_equal(
+                    back.classes, z["classes"]) and np.allclose(back.scores, z["scores"],
+                                                                 rtol=0, atol=1e-6)):
+                raise AssertionError(f"slice (K) {dump.stem}: the ScanNet dump reads back "
+                                     "other predictions than the npz dump")
+            kept += z["masks"].shape[0]
+    if not kept:
+        raise AssertionError("slice (K) --score-thresh 0: no prediction to compare")
+    print(f"slice (K) --score-thresh 0: a second run and --artifact (a CUDA graph replay a "
+          f"batch) == the live run: the summary (bitwise), every scene's dump ({kept} "
+          f"predictions, bitwise); the ScanNet dumps read back as the npz dumps")
+
+    _phase("slice (K) paired arms")
+    fps_by_arm = {}
+    for arm in EVAL_ARMS:
+        ops.reset_launch_counts()
+        summary = _eval_main(run_eval, keep_all + EVAL_FLAGSHIP + arm)
+        got = ops.launch_counts()
+        if set(summary) != EVAL_AB_KEYS:
+            raise AssertionError(f"slice (K) {arm}: summary keys {sorted(summary)}")
+        must = {"mask_project_boxed"} | (
+            {"ball_group_strided", "box_group_strided"} if "strided" in arm else set())
+        if not all(got[k] for k in must):
+            raise AssertionError(f"slice (K) {arm}: launches {got}, none of one of {must}")
+        fps_by_arm[arm[0]] = got["fps"]
+        launched = {k: c for k, c in got.items() if c}
+        print(f"slice (K) {' '.join(arm)}: launches {json.dumps(launched)}")
+    batches = live["scenes"] // 4
+    if fps_by_arm["--ab-sa1-fps-segments"] != fps_by_arm["--ab-fps-segments"] + batches:
+        raise AssertionError(f"slice (K): fps launches {fps_by_arm}: arm B's sa1 pass should add "
+                             f"one a batch ({batches})")
+    print(f"slice (K): the sa1 arm launches fps once more a batch ({fps_by_arm})")
+
+    _phase("slice (K) kernel path vs plain path")
+    for extra in ([], *(EVAL_FLAGSHIP + arm for arm in EVAL_ARMS)):
+        seen = _eval_paths_agree(run_eval, bench_slice, ops, keep_all + extra, dev)
+        print(f"slice (K) {' '.join(extra) or 'defaults'}, score_thresh 0: kernel path == plain "
+              f"path in each arm (masks, valid, classes equal; scores, boxes within rtol 1e-4 "
+              f"atol 1e-5); the plain path launched nothing; {json.dumps(seen)}")
+
+    _phase("slice (K) points/s")
+    args = run_eval.parse_args(keep_all + ["--num-scenes", str(EVAL_RATE_SCENES)])
+    cfg, state, z_eps = _eval_weights(run_eval, args, dev)
+    scenes = list(run_eval.scene_batches(args)())
+    infers = {"live": run_eval.live_infer(cfg, state, dev),
+              "artifact": run_eval.artifact_infer(str(art), cfg, state, args, dev)}
+    rates = {name: [] for name in infers}
+    for _ in range(EVAL_RATE_RUNS):
+        for name, infer in infers.items():
+            rates[name].append(run_eval.evaluate(infer, scenes, z_eps).points_per_sec)
+    plain = run_eval.evaluate(run_eval.live_infer(bench_slice.plain_config(cfg), state, dev),
+                              scenes, z_eps).points_per_sec
+    timed = f"batches 2-{len(scenes)} of B=4 x N=4096, --score-thresh 0"
+    for name, got in rates.items():
+        print(f"slice (K) {name}: median {statistics.median(got)} points/s, min-max "
+              f"{min(got)}-{max(got)} over {EVAL_RATE_RUNS} runs ({timed}) [{card}]")
+    print(f"slice (K) plain path: {plain} points/s over 1 run ({timed}) [{card}]")
+    print(f"slice (K) summary at the defaults: {json.dumps(live)}; at --score-thresh 0: "
+          f"{json.dumps(live0)}")
+    return counts
+
+
 def _assert_same_training(what, model, other, losses, other_losses) -> None:
     """Raise unless two training runs gave bitwise-equal losses, parameters
     and buffers (BatchNorm running statistics)."""
@@ -1745,7 +1982,7 @@ def _serving_main(work) -> None:
     from gspn_tpu_torch.ops import _cuda
     from gspn_tpu_torch.utils import bench_slice
 
-    bench_slice.float32_matmuls()
+    bench_slice.pin_float32_matmuls()
     _cuda.library()
     captures, per_request = run_serving(torch.device("cuda", 0), ops, bench_slice,
                                         tk.card_name(), work)
@@ -1769,7 +2006,7 @@ def main() -> None:
                           text=True, check=True).stdout.strip()
     print(f"device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
           f"{nvcc.splitlines()[-1]}")
-    bench_slice.float32_matmuls()
+    bench_slice.pin_float32_matmuls()
 
     _phase("build")
     lib, secs = _cuda.build()
@@ -1782,6 +2019,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as work:
         runs["G"] = run_training(dev, ops, bench_slice, card, work)
         runs["I"] = run_stage2(dev, ops, bench_slice, card, work)
+        runs["K"] = run_eval_slice(dev, ops, bench_slice, card, work)
         runs["J"], per_request = run_serving_process(work)
     a_request = {k: c / (2 * (REQUESTS + 1)) for k, c in runs["A"].items()}
     if a_request != per_request:

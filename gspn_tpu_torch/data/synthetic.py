@@ -1,10 +1,11 @@
 """Synthetic multi-instance scenes (ScanNet-style), NumPy only.
 
-The same generator as ``gspn_tpu/data/synthetic.py`` (default density
-"count", floor background): the same ``numpy.random.Generator`` state gives
-the same arrays, so the port measures the JAX bench's scenes without
-importing JAX. Labels: semantic 1 + shape kind for instances, 0 for
-background; instance 1..I, 0 for background; padding points are invalid.
+The same generator as ``gspn_tpu/data/synthetic.py``, its generator
+families (:data:`FAMILIES`) included: the same ``numpy.random.Generator``
+state gives the same arrays, so the port measures the JAX bench's and
+eval's scenes without importing JAX. Labels: semantic 1 + shape kind for
+instances, 0 for background; instance 1..I, 0 for background; padding
+points are invalid.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ _KINDS = ["box", "sphere", "cylinder"]
 @dataclasses.dataclass
 class Scene:
     xyz: np.ndarray  # (N, 3) f32
-    features: np.ndarray  # (N, 0) f32: no per-point input features
+    features: np.ndarray  # (N, F) f32 (F may be 0)
     valid: np.ndarray  # (N,) bool
     sem_label: np.ndarray  # (N,) int32
     inst_label: np.ndarray  # (N,) int32
@@ -59,21 +60,65 @@ def scene(
     max_instances: int = 8,
     extent: float = 4.0,
     bg_frac: float = 0.3,
+    feature_dim: int = 0,
+    density: str = "count",
+    size_range: tuple[float, float] = (0.3, 0.8),
+    bg_mode: str = "floor",
 ) -> Scene:
-    """A room: floor clutter (``bg_frac`` of the points) plus 2..max_instances
-    objects sharing the rest equally, shuffled."""
-    n_inst = int(rng.integers(2, max_instances + 1))
-    n_bg = int(n_points * bg_frac)
-    counts = [(n_points - n_bg) // n_inst] * n_inst
+    """A room: background clutter plus 2..max_instances objects, shuffled.
 
-    bg = rng.uniform(0, extent, (n_bg, 3)).astype(np.float32)
-    bg[:, 2] = np.abs(rng.standard_normal(n_bg).astype(np.float32)) * 0.02
+    ``density`` splits the points between background and instances:
+    "count" (default) gives the background ``bg_frac`` of them and the
+    instances equal shares of the rest (instances denser than background);
+    "area" shares them by surface area (floor ``extent**2``, an instance
+    ``3 * size**2``) at one density; "sparse" is "area" with the instances
+    at half the background's density. ``bg_mode`` "floor" (default) puts
+    the clutter on the ground plane, "volume" fills the room's lower half.
+    ``feature_dim`` > 0 adds uniform per-point features, drawn last. The
+    draws come in the JAX package's order, so the default stays the
+    sequence every fixture and slice rests on."""
+    n_inst = int(rng.integers(2, max_instances + 1))
+    if density == "count":
+        n_bg = int(n_points * bg_frac)
+        counts = [(n_points - n_bg) // n_inst] * n_inst
+        sizes = None  # drawn in the loop below, as the default sequence has them
+    elif density in ("area", "sparse"):
+        sizes = rng.uniform(size_range[0], size_range[1], n_inst)
+        w = np.concatenate([[extent * extent], 3.0 * sizes**2])
+        if density == "sparse":
+            w[1:] *= 0.5
+        w = w / w.sum()
+        counts = np.maximum((n_points * w[1:]).astype(int), 16)
+        n_bg = n_points - int(counts.sum())
+        if n_bg < 0:  # tiny scenes: shrink the instances to fit
+            counts = np.maximum((counts * n_points) // (counts.sum() + 16), 8)
+            # drop instances from the end, then trim the first, so that no
+            # instance counted in the labels loses its points to the crop
+            while len(counts) > 1 and counts.sum() > n_points:
+                counts = counts[:-1]
+            if counts.sum() > n_points:
+                counts[0] = n_points
+            n_inst = len(counts)
+            sizes = sizes[:n_inst]
+            n_bg = max(n_points - int(counts.sum()), 0)
+        counts = list(counts)
+    else:
+        raise ValueError(f"density must be count|area|sparse, got {density!r}")
+
+    if bg_mode == "floor":
+        bg = rng.uniform(0, extent, (n_bg, 3)).astype(np.float32)
+        bg[:, 2] = np.abs(rng.standard_normal(n_bg).astype(np.float32)) * 0.02
+    elif bg_mode == "volume":
+        bg = rng.uniform(0, extent, (n_bg, 3)).astype(np.float32)
+        bg[:, 2] *= 0.5  # room height ~ extent/2
+    else:
+        raise ValueError(f"bg_mode must be floor|volume, got {bg_mode!r}")
     xyz = [bg]
     sem = [np.zeros(n_bg, np.int32)]
     inst = [np.zeros(n_bg, np.int32)]
     for i in range(n_inst):
         pts, kind = single_object(rng, counts[i])
-        size = rng.uniform(0.3, 0.8)
+        size = rng.uniform(size_range[0], size_range[1]) if sizes is None else float(sizes[i])
         loc = rng.uniform(0.7, extent - 0.7, 3).astype(np.float32)
         loc[2] = size * 0.5
         xyz.append((pts * size + loc).astype(np.float32))
@@ -92,8 +137,24 @@ def scene(
     if pad > 0:
         valid[-pad:] = False
     perm = rng.permutation(n_points)  # FPS seeds at index 0: don't bias it
-    feats = np.zeros((n_points, 0), np.float32)
+    feats = (rng.uniform(0, 1, (n_points, feature_dim)).astype(np.float32) if feature_dim
+             else np.zeros((n_points, 0), np.float32))
     return Scene(xyz[perm], feats, valid[perm], sem[perm], inst[perm], n_inst)
+
+
+# The generator families of the JAX package (``run_eval --family``): the
+# default's instances are denser than its background, which the spatial
+# segmented FPS's equal-count Morton tiles key on; the others vary or
+# invert that.
+FAMILIES: dict[str, dict] = {
+    "default": {},
+    "uniform": {"density": "area"},  # instances at background density
+    "sparse": {"density": "sparse"},  # instances sparser than background
+    "heavy_bg": {"bg_frac": 0.7},  # background dominates the count
+    "many_small": {"max_instances": 16, "size_range": (0.15, 0.35)},
+    "few_large": {"max_instances": 3, "size_range": (0.8, 1.4)},
+    "volume_bg": {"bg_mode": "volume"},  # no floor structure
+}
 
 
 def scene_batch(rng, batch: int, **kw):

@@ -1,7 +1,8 @@
 """Full-scene instance-segmentation inference: GSPN proposals -> NMS ->
 Point RoIAlign -> heads -> per-point masks. The PyTorch counterpart of
 ``gspn_tpu/models/pipeline.py``: exact or segmented FPS shared by the seeds
-and backbone sa1, ``mask_project`` "1nn" (nearest sample) or "3nn"
+and backbone sa1 (or, with ``sa1_fps_segments > 0``, a pass each),
+``mask_project`` "1nn" (nearest sample) or "3nn"
 (inverse-distance weighted), and ``mask_project_prune="auto"`` (box-pruned
 1-NN projection over the shared pass's Morton-sorted view).
 
@@ -24,14 +25,7 @@ import torch
 from torch import nn
 
 from gspn_tpu_torch import ops
-from gspn_tpu_torch.models.gspn import (
-    GSPN,
-    KNOB_PATHS,
-    GSPNConfig,
-    check_stage_config,
-    not_ported,
-    proposal_boxes,
-)
+from gspn_tpu_torch.models.gspn import GSPN, GSPNConfig, check_stage_config, proposal_boxes
 from gspn_tpu_torch.models.rpointnet import RPointNet, RPointNetConfig, apply_box_deltas
 from gspn_tpu_torch.nn.layers import glorot_init_
 from gspn_tpu_torch.utils.cuda_graph import GraphedRequest
@@ -73,8 +67,6 @@ def check_supported(cfg: PipelineConfig) -> None:
         raise ValueError(f"mask projection mode must be 1nn|3nn, got {cfg.mask_project!r}")
     if cfg.mask_project_prune not in ("auto", "off"):
         raise ValueError(f"mask_project_prune must be auto|off, got {cfg.mask_project_prune!r}")
-    if cfg.sa1_fps_segments > 0:
-        raise not_ported("sa1_fps_segments>0 (split FPS passes)", KNOB_PATHS)
     check_stage_config(cfg.gspn)
     check_stage_config(cfg.rpointnet)
     if cfg.rpointnet.roi_sample not in ("inbox", "grid"):
@@ -134,17 +126,27 @@ def shared_fps_indices_view(cfg: PipelineConfig, xyz, valid):
     backbone's sa1 when both stages sample the same way (at multiples of
     the segment count for a segmented pass). The spatial mode Morton-sorts
     once, runs contiguous chains over the sorted view and returns the view
-    ``(sxyz, svalid, sidx)`` for the box-pruned mask projection."""
-    if cfg.sa1_fps_segments:
-        raise not_ported("sa1_fps_segments>0 (split FPS passes)", KNOB_PATHS)
+    ``(sxyz, svalid, sidx)`` for the box-pruned mask projection.
+
+    An explicit ``sa1_fps_segments`` takes two passes
+    (:func:`_split_fps_indices`) unless the shared pass already delivers
+    sa1 at exactly that count: with ``sa1_fps_segments == fps_segments``
+    but a seed-ineligible shared pass, the shared path would fall back to
+    the exact FPS and ignore the count."""
     g, rp = cfg.gspn, cfg.rpointnet
     sa1_n = rp.sa_layers[0].npoint
     n = xyz.shape[1]
-    if (
-        g.ops_impl == rp.ops_impl
-        and g.fps_segments == rp.fps_segments
-        and g.fps_segment_mode == rp.fps_segment_mode
-    ):
+    same = (g.ops_impl == rp.ops_impl and g.fps_segments == rp.fps_segments
+            and g.fps_segment_mode == rp.fps_segment_mode)
+    if cfg.sa1_fps_segments:
+        shared_ok = (
+            same and cfg.sa1_fps_segments == g.fps_segments
+            and ops.shared_eligible_fps_segments(g.fps_segments, (cfg.num_seeds, sa1_n), n)
+            == cfg.sa1_fps_segments
+        )
+        if not shared_ok:
+            return _split_fps_indices(cfg, xyz, valid, sa1_n, n)
+    if same:
         segs = ops.shared_eligible_fps_segments(g.fps_segments, (cfg.num_seeds, sa1_n), n)
         total = max(cfg.num_seeds, sa1_n)
         view = None
@@ -170,6 +172,34 @@ def shared_fps_indices_view(cfg: PipelineConfig, xyz, valid):
     return seed_idx, None, None  # the backbone samples with its own settings
 
 
+def _split_fps_indices(cfg: PipelineConfig, xyz, valid, sa1_n: int, n: int):
+    """The seeds and sa1 in two FPS passes (``cfg.sa1_fps_segments > 0``):
+    the seeds at the GSPN stage's segment count (capped by the seed count's
+    eligibility), sa1 at its own, much higher one. When both passes are
+    spatial on the same ``ops_impl``, one Morton sort
+    (``ops.spatial_sorted_view``) feeds both as contiguous chains over the
+    sorted view, bitwise two ``segment_mode="spatial"`` calls, and the view
+    is returned for the box-pruned mask projection."""
+    g, rp = cfg.gspn, cfg.rpointnet
+    seed_segs = ops.eligible_fps_segments(g.fps_segments, cfg.num_seeds, n)
+    sa1_segs = ops.eligible_fps_segments(cfg.sa1_fps_segments, sa1_n, n)
+    if (g.ops_impl == rp.ops_impl and g.fps_segment_mode == rp.fps_segment_mode == "spatial"
+            and seed_segs > 1 and sa1_segs > 1):
+        view = ops.spatial_sorted_view(xyz, valid)
+        sxyz, svalid, sidx = view
+        seed_pos = ops.farthest_point_sample(cfg.num_seeds, sxyz, svalid, impl=g.ops_impl,
+                                             segments=seed_segs, segment_mode="contiguous")
+        sa1_pos = ops.farthest_point_sample(sa1_n, sxyz, svalid, impl=rp.ops_impl,
+                                            segments=sa1_segs, segment_mode="contiguous")
+        return (torch.gather(sidx, 1, seed_pos.long()), torch.gather(sidx, 1, sa1_pos.long()),
+                view)
+    seed_idx = ops.farthest_point_sample(cfg.num_seeds, xyz, valid, impl=g.ops_impl,
+                                         segments=seed_segs, segment_mode=g.fps_segment_mode)
+    sa1_idx = ops.farthest_point_sample(sa1_n, xyz, valid, impl=rp.ops_impl,
+                                        segments=sa1_segs, segment_mode=rp.fps_segment_mode)
+    return seed_idx, sa1_idx, None
+
+
 class PipelineModel(nn.Module):
     """Both stages' weights: ``gspn`` and ``rpointnet``."""
 
@@ -191,7 +221,8 @@ def make_inference_fn(cfg: PipelineConfig):
 
     Float32 matrix products are assumed to stay float32 (torch's default;
     a TF32 product can flip a mask threshold): callers that enable TF32 get
-    different masks. ``utils.bench_slice.float32_matmuls`` pins it."""
+    different masks. ``serve.runtime.float32_matmuls`` pins it for a block,
+    ``utils.bench_slice.pin_float32_matmuls`` for the process."""
     check_supported(cfg)
 
     def infer(model: PipelineModel, xyz, valid=None, z_eps=None, generator=None):

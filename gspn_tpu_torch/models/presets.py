@@ -9,7 +9,49 @@ import torch
 
 from gspn_tpu_torch.models.gspn import GSPNConfig
 from gspn_tpu_torch.models.pipeline import PipelineConfig
-from gspn_tpu_torch.models.rpointnet import RPointNetConfig
+from gspn_tpu_torch.models.rpointnet import RPointNetConfig, SALayerSpec
+
+
+def _scale(widths, mult):
+    return tuple(int(x * mult) for x in widths)
+
+
+def scale_gspn_widths(cfg: GSPNConfig, mult: int) -> GSPNConfig:
+    """Every GSPN MLP and FC width, and the conditioning dim, times
+    ``mult``; the latent dim and the context geometry stay. The trainers'
+    ``--width-mult``: a stage-2 run, an export or an eval that restores the
+    checkpoint must scale by the same multiplier."""
+    return dataclasses.replace(
+        cfg,
+        encoder_mlp=_scale(cfg.encoder_mlp, mult),
+        center_mlp=_scale(cfg.center_mlp, mult),
+        center_fc=_scale(cfg.center_fc, mult),
+        generator_fc=_scale(cfg.generator_fc, mult),
+        objectness_fc=_scale(cfg.objectness_fc, mult),
+        cond_dim=int(cfg.cond_dim * mult),
+    )
+
+
+def scale_rpointnet_widths(cfg: RPointNetConfig, mult: int) -> RPointNetConfig:
+    """Every backbone and head MLP width times ``mult``; the sampling
+    geometry (npoint, radius, nsample, roi_samples) stays."""
+    return dataclasses.replace(
+        cfg,
+        sa_layers=tuple(SALayerSpec(s.npoint, s.radius, s.nsample, _scale(s.mlp, mult))
+                        for s in cfg.sa_layers),
+        fp_mlps=tuple(_scale(m, mult) for m in cfg.fp_mlps),
+        roi_mlp=_scale(cfg.roi_mlp, mult),
+        cls_fc=_scale(cfg.cls_fc, mult),
+        box_fc=_scale(cfg.box_fc, mult),
+        mask_mlp=_scale(cfg.mask_mlp, mult),
+    )
+
+
+def scale_pipeline_widths(cfg: PipelineConfig, mult: int) -> PipelineConfig:
+    """Both stages' widths times ``mult`` (:func:`scale_gspn_widths`,
+    :func:`scale_rpointnet_widths`)."""
+    return dataclasses.replace(cfg, gspn=scale_gspn_widths(cfg.gspn, mult),
+                               rpointnet=scale_rpointnet_widths(cfg.rpointnet, mult))
 
 
 def set_pipeline_group_select(cfg: PipelineConfig, select: str) -> PipelineConfig:

@@ -15,8 +15,9 @@ weights, traces the program at the serving shape and writes the artifact
 
 ``--verify`` runs the artifact against the live pipeline on seeded scenes
 and requires every output bit for bit before the artifact is put in place.
-``--feature-dim``, ``--width-mult``, ``--dtype bf16`` and ``--platform``
-(cross-exporting) are not ported and raise ``NotImplementedError``.
+``--width-mult`` must be the value the checkpoints were trained with.
+``--feature-dim``, ``--dtype bf16`` and ``--platform`` (cross-exporting)
+are not ported and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -42,7 +43,8 @@ def parse_args(argv=None):
     p.add_argument("--num-classes", type=int, default=18)
     p.add_argument("--feature-dim", type=int, default=0, help="not ported")
     p.add_argument("--preset", choices=["default", "tiny"], default="default")
-    p.add_argument("--width-mult", type=int, default=1, help="not ported")
+    p.add_argument("--width-mult", type=int, default=1,
+                   help="MLP width multiplier: the checkpoints' training value")
     p.add_argument("--dtype", choices=["f32", "bf16"], default="f32")
     p.add_argument("--fps-segments", type=int, default=None,
                    help="segmented parallel-chain FPS baked into the artifact (default: the "
@@ -61,12 +63,11 @@ def parse_args(argv=None):
 def build_config(args):
     from gspn_tpu_torch.models.gspn import KNOB_PATHS, GSPNConfig, not_ported
     from gspn_tpu_torch.models.pipeline import PipelineConfig
-    from gspn_tpu_torch.models.presets import set_pipeline_fps_segments
+    from gspn_tpu_torch.models.presets import scale_pipeline_widths, set_pipeline_fps_segments
     from gspn_tpu_torch.models.rpointnet import RPointNetConfig
 
     for flagged, what, item in (
         (args.feature_dim, "--feature-dim", KNOB_PATHS),
-        (args.width_mult != 1, "--width-mult", KNOB_PATHS),
         (args.dtype == "bf16", "--dtype bf16", KNOB_PATHS),
         (args.platform is not None, "--platform", CROSS_PLATFORM),
     ):
@@ -81,6 +82,8 @@ def build_config(args):
         gspn, rpointnet = GSPNConfig(), RPointNetConfig(num_classes=args.num_classes)
     cfg = PipelineConfig(gspn=gspn, rpointnet=rpointnet, num_seeds=args.num_seeds,
                          score_thresh=args.score_thresh)
+    if args.width_mult != 1:
+        cfg = scale_pipeline_widths(cfg, args.width_mult)
     if args.fps_segments is not None:
         cfg = set_pipeline_fps_segments(cfg, args.fps_segments, args.fps_segment_mode)
     return cfg
@@ -111,15 +114,11 @@ def main(argv=None) -> pathlib.Path:
     args = parse_args(argv)
     from gspn_tpu_torch.models.pipeline import PipelineModel, init_pipeline_variables
     from gspn_tpu_torch.serve.export import export_inference, load_artifact, save_artifact
-    from gspn_tpu_torch.serve.runtime import restore_checkpoints
+    from gspn_tpu_torch.serve.runtime import float32_matmuls, restore_checkpoints
     from gspn_tpu_torch.train.train_gspn import resolve_device
 
     cfg = build_config(args)
     device = resolve_device(args.device, "export_serving")
-    if device.type == "cuda":
-        from gspn_tpu_torch.utils.bench_slice import float32_matmuls
-
-        float32_matmuls()
     state = init_pipeline_variables(cfg, torch.Generator().manual_seed(0), args.num_points)
     restore_checkpoints(state, args.gspn_ckpt, args.rpointnet_ckpt)
     for name, ckpt in (("gspn", args.gspn_ckpt), ("rpointnet", args.rpointnet_ckpt)):
@@ -129,14 +128,15 @@ def main(argv=None) -> pathlib.Path:
     model.load_state_dict(state)
     model = model.to(device).eval()
 
-    program = export_inference(cfg, model, args.num_points, batch_size=args.batch,
-                               device=device)
-    out = pathlib.Path(args.out)
-    tmp = out.with_name(out.name + ".tmp")
-    save_artifact(tmp, program, cfg, extra_meta={"gspn_ckpt": args.gspn_ckpt,
-                                                 "rpointnet_ckpt": args.rpointnet_ckpt})
-    if args.verify:
-        verify(cfg, model, load_artifact(tmp, device)[0], args, device)
+    with float32_matmuls():
+        program = export_inference(cfg, model, args.num_points, batch_size=args.batch,
+                                   device=device)
+        out = pathlib.Path(args.out)
+        tmp = out.with_name(out.name + ".tmp")
+        save_artifact(tmp, program, cfg, extra_meta={"gspn_ckpt": args.gspn_ckpt,
+                                                     "rpointnet_ckpt": args.rpointnet_ckpt})
+        if args.verify:
+            verify(cfg, model, load_artifact(tmp, device)[0], args, device)
     os.replace(tmp, out)
     print(f"wrote {out} ({out.stat().st_size / 1e6:.2f} MB) platforms={[device.type]}")
     return out

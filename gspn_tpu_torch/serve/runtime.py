@@ -83,7 +83,7 @@ def chunk_noise(seed: int, chunk: int, shape) -> torch.Tensor:
 
 
 @contextlib.contextmanager
-def _float32_matmuls():
+def float32_matmuls():
     """TF32 off for matmuls and cuDNN while the program runs (and while it
     is captured): a TF32 product can flip a mask threshold."""
     saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
@@ -123,7 +123,7 @@ class InferenceSession:
         self.module = self.program.module()
         self._graphed = None
         if self.device.type == "cuda":
-            with torch.inference_mode(), _float32_matmuls():
+            with torch.inference_mode(), float32_matmuls():
                 example = (torch.zeros((self.batch_size, self.num_points, 3), device=self.device),
                            torch.ones((self.batch_size, self.num_points), dtype=torch.bool,
                                       device=self.device),
@@ -137,7 +137,7 @@ class InferenceSession:
         """One request at the compiled shape, tensors on the session's
         device: the graph's replay on the card, the program on the CPU.
         Returns ``(masks, scores, classes, boxes, valid)``."""
-        with self._lock, torch.inference_mode(), _float32_matmuls():
+        with self._lock, torch.inference_mode(), float32_matmuls():
             if self._graphed is not None:
                 return self._graphed(xyz, valid, z_eps)
             return self._call(xyz, valid, z_eps)

@@ -29,6 +29,7 @@ from gspn_tpu_torch.data.augment import augment_scene
 from gspn_tpu_torch.data.iterator import DeterministicBatches, make_feed, to_device
 from gspn_tpu_torch.data.layout_probe import warn_if_layout_biased
 from gspn_tpu_torch.models.gspn import KNOB_PATHS, GSPN, GSPNConfig, not_ported
+from gspn_tpu_torch.models.presets import scale_gspn_widths
 from gspn_tpu_torch.nn.layers import glorot_init_
 from gspn_tpu_torch.train.checkpoint import CheckpointManager
 from gspn_tpu_torch.train.config_io import save_config
@@ -77,7 +78,10 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--resume", action="store_true",
                    help="restore the latest checkpoint under --log-dir and continue the run")
     p.add_argument("--dtype", choices=["f32", "bf16"], default="f32", help="bf16 is not ported")
-    p.add_argument("--width-mult", type=int, default=1, help="not ported")
+    p.add_argument("--width-mult", type=int, default=1,
+                   help="multiply every MLP/FC width (sampling geometry unchanged; "
+                        "models/presets.py scale_*_widths); stage 2, export and eval must "
+                        "pass the value the checkpoint was trained with")
     p.add_argument("--profile-steps", type=int, default=0,
                    help="torch.profiler trace of this many steps (after one warm-up step) "
                         "under {log_dir}/trace, with a JSON line of wall and device ms per "
@@ -137,7 +141,6 @@ def check_ported(args) -> None:
         (args.preset == "object", "--preset object", DATA_LOADERS),
         (args.morton, "--morton (host Morton sort)", DATA_LOADERS),
         (args.dtype == "bf16", "--dtype bf16", KNOB_PATHS),
-        (args.width_mult != 1, "--width-mult", KNOB_PATHS),
     ]
     for flagged, what, item in unported:
         if flagged:
@@ -148,7 +151,7 @@ def resolve_device(name: str, prog: str = "train_gspn") -> torch.device:
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"{prog}: --device cuda needs a CUDA device and "
-                         "torch.cuda.is_available() is false; pass --device cpu to train "
+                         "torch.cuda.is_available() is false; pass --device cpu to run "
                          "on the CPU")
     return device
 
@@ -169,6 +172,8 @@ def model_config(args, first: dict) -> GSPNConfig:
     fdim = int(first["features"].shape[-1]) if "features" in first else 0
     if fdim != cfg.feature_dim:  # consume RGB & friends when the data has them
         cfg = dataclasses.replace(cfg, feature_dim=fdim)
+    if args.width_mult != 1:
+        cfg = scale_gspn_widths(cfg, args.width_mult)
     if args.fps_segments != 1:
         cfg = dataclasses.replace(cfg, fps_segments=args.fps_segments,
                                   fps_segment_mode=args.fps_segment_mode)

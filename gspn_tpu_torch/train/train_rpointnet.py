@@ -30,6 +30,7 @@ from gspn_tpu_torch.convert import GSPN_TRAINING_ONLY
 from gspn_tpu_torch.data.iterator import DeterministicBatches
 from gspn_tpu_torch.data.layout_probe import warn_if_layout_biased
 from gspn_tpu_torch.models.gspn import KNOB_PATHS, GSPN, GSPNConfig, not_ported
+from gspn_tpu_torch.models.presets import scale_gspn_widths, scale_rpointnet_widths
 from gspn_tpu_torch.models.rpointnet import RPointNet, RPointNetConfig, SALayerSpec
 from gspn_tpu_torch.nn.layers import glorot_init_
 from gspn_tpu_torch.train.checkpoint import latest_model_state
@@ -92,7 +93,6 @@ def check_ported(args) -> None:
         (args.partnet_dir, "--partnet-dir (PartNet parts)", DATA_LOADERS),
         (args.morton, "--morton (host Morton sort)", DATA_LOADERS),
         (args.dtype == "bf16", "--dtype bf16", KNOB_PATHS),
-        (args.width_mult != 1, "--width-mult", KNOB_PATHS),
     ]
     for flagged, what, item in unported:
         if flagged:
@@ -116,11 +116,14 @@ def tiny_rpointnet(num_classes: int) -> RPointNetConfig:
     )
 
 
-def _stage_knobs(cfg, args, fdim: int):
-    """The data's feature width and the trainer's FPS and selection flags on
-    a stage config, as the JAX trainer sets them on both stages."""
+def _stage_knobs(cfg, args, fdim: int, scale_widths):
+    """The data's feature width, ``--width-mult`` (by ``scale_widths``, the
+    stage's ``presets.scale_*_widths``) and the trainer's FPS and selection
+    flags on a stage config, as the JAX trainer sets them on both stages."""
     if fdim != cfg.feature_dim:
         cfg = dataclasses.replace(cfg, feature_dim=fdim)
+    if args.width_mult != 1:
+        cfg = scale_widths(cfg, args.width_mult)
     if args.fps_segments != 1:
         cfg = dataclasses.replace(cfg, fps_segments=args.fps_segments,
                                   fps_segment_mode=args.fps_segment_mode)
@@ -133,7 +136,7 @@ def model_config(args, first: dict) -> RPointNetConfig:
     cfg = (tiny_rpointnet(args.num_classes) if args.preset == "tiny"
            else RPointNetConfig(num_classes=args.num_classes))
     fdim = int(first["features"].shape[-1]) if "features" in first else 0
-    cfg = _stage_knobs(cfg, args, fdim)
+    cfg = _stage_knobs(cfg, args, fdim, scale_rpointnet_widths)
     if args.group_select == "first":  # warn when the layout is in the first-K pathology regime
         sa1 = cfg.sa_layers[0]
         warn_if_layout_biased(first, radius=float(sa1.radius), k=int(sa1.nsample),
@@ -174,7 +177,7 @@ def main(argv=None) -> TrainState:
     frozen = None
     if args.gspn_ckpt and not args.gt_boxes:
         gcfg = _stage_knobs(TINY_GSPN if args.preset == "tiny" else GSPNConfig(), args,
-                            cfg.feature_dim)
+                            cfg.feature_dim, scale_gspn_widths)
         frozen = (load_frozen_gspn(args.gspn_ckpt, gcfg, device), args.num_seeds)
         print(f"loaded frozen GSPN from {args.gspn_ckpt}")
     loss_fn = make_rpointnet_loss_fn(args.max_instances, frozen,

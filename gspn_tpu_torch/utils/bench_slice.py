@@ -123,9 +123,11 @@ def request(cfg: PipelineConfig, shape: str, device, seed: int):
     return torch.from_numpy(xyz).to(device), torch.from_numpy(valid).to(device), eps.to(device)
 
 
-def float32_matmuls() -> None:
-    """Turn TF32 off for matmuls and cuDNN, process-wide: a TF32 product can
-    flip a mask threshold between the kernel path and its references."""
+def pin_float32_matmuls() -> None:
+    """Turn TF32 off for matmuls and cuDNN, process-wide, for scripts that
+    time and compare (``serve.runtime.float32_matmuls`` is the same for a
+    block): a TF32 product can flip a mask threshold between the kernel path
+    and its references."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 

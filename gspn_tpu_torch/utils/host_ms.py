@@ -70,7 +70,7 @@ def main(argv=None) -> None:
     if not _cuda.__file__.startswith(tree):
         raise SystemExit(f"host_ms: imported {_cuda.__file__}, not from {tree}")
     dev = torch.device("cuda", 0)
-    bench_slice.float32_matmuls()
+    bench_slice.pin_float32_matmuls()
     _cuda.library()
     out = {"tree": args.tree, "card": card_name()}
 

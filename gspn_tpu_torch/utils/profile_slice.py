@@ -86,7 +86,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice: needs a CUDA device")
     dev = torch.device("cuda", 0)
-    bench_slice.float32_matmuls()
+    bench_slice.pin_float32_matmuls()
     cfg = bench_slice.slice_config()
     model = bench_slice.seeded_model(cfg, dev)
     runs = ((args.variant, bench_slice.variant_config(args.variant)),) if args.variant else (

@@ -529,7 +529,7 @@ def main(argv=None) -> None:
     if not ops.__file__.startswith(tree):
         raise SystemExit(f"time_kernels: imported {ops.__file__}, not from {tree}")
     card = card_name()
-    bench_slice.float32_matmuls()
+    bench_slice.pin_float32_matmuls()
     names = args.kernels.split(",")
     for name, items in cases(ops, bench_slice, torch.device("cuda", 0)).items():
         if name not in names:

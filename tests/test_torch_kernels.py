@@ -1201,7 +1201,7 @@ def test_train_step_kernel_path_matches_plain_path(dev):
     its terms and the gradients bitwise equal (the kernels are bitwise,
     the rest is the same PyTorch, and every sum is taken in a fixed
     order)."""
-    bench_slice.float32_matmuls()
+    bench_slice.pin_float32_matmuls()
     cfg = bench_slice.train_config()
     batch = bench_slice.train_batch(dev)
     model = bench_slice.seeded_gspn(cfg, dev)
@@ -1229,7 +1229,7 @@ def test_train_steps_are_bitwise_reproducible(dev):
     """Two kernel-path runs of three GSPN training steps at full width from
     the same weights: losses, gradients, parameters and running statistics
     bitwise equal (every sum is taken in a fixed order)."""
-    bench_slice.float32_matmuls()
+    bench_slice.pin_float32_matmuls()
     cfg = bench_slice.train_config()
     batch = bench_slice.train_batch(dev)
     eps = torch.randn((4, 64, cfg.latent_dim), generator=torch.Generator().manual_seed(1)).to(dev)
@@ -1252,7 +1252,7 @@ def test_train_steps_are_bitwise_reproducible(dev):
 def _stage2_small(dev):
     """A small stage-2 step's inputs at full width: B=2 x N=2048 scenes, the
     frozen GSPN and R-PointNet seeded, their plain twins, and its noise."""
-    bench_slice.float32_matmuls()
+    bench_slice.pin_float32_matmuls()
     gcfg, rcfg = bench_slice.stage2_configs()
     batch = bench_slice.train_batch(dev, b=2, n=2048)
     gmodel = bench_slice.seeded_frozen_gspn(gcfg, dev)
@@ -1361,7 +1361,7 @@ def test_training_goes_through_the_registered_ops(dev, slice_):
     nothing; and the two paths still train bitwise the same (loss, terms,
     gradients)."""
     if slice_ == "G":
-        bench_slice.float32_matmuls()
+        bench_slice.pin_float32_matmuls()
         cfg = bench_slice.train_config()
         batch = bench_slice.train_batch(dev)
         model = bench_slice.seeded_gspn(cfg, dev)
@@ -1422,7 +1422,7 @@ def test_streamed_graph_replay_equals_eager(dev, shape):
     capture: no launch, each batch still its eager call's answer."""
     from gspn_tpu_torch.models import pipeline as tpl
 
-    bench_slice.float32_matmuls()
+    bench_slice.pin_float32_matmuls()
     if shape == "tiny":
         cfg, t_steps = _tiny_serving_config(), 3
         xyz, valid = _scenes(dev, 2, 512)
@@ -1484,3 +1484,31 @@ def test_cuda_artifact_serves_bitwise_and_is_refused_on_the_cpu(dev, tmp_path):
             want = infer(model, x, v, z_eps=eps)
         for f in tpl.PREDICTION_FIELDS:
             np.testing.assert_array_equal(got[f][lo:hi], getattr(want, f)[:hi - lo].cpu().numpy())
+
+
+def test_run_eval_artifact_equals_live_on_the_card(dev, tmp_path):
+    """``run_eval.main`` at ``--preset tiny --device cuda``: ``--artifact`` (a
+    cuda artifact, its program replayed from a CUDA graph) gives the live
+    kernel path's summary and dumps, bit for bit."""
+    import contextlib
+    import io
+    import json
+
+    from gspn_tpu_torch.eval import run_eval
+    from gspn_tpu_torch.serve import export_serving
+
+    common = ["--preset", "tiny", "--num-points", "512", "--num-seeds", "8", "--num-classes", "3"]
+    art = export_serving.main(common + ["--batch", "2", "--out", str(tmp_path / "t.gspnt")])
+    argv = common + ["--device", "cuda", "--num-scenes", "4", "--batch", "2", "--bootstrap", "8"]
+    summaries = []
+    for extra, dumps in (([], "live"), (["--artifact", str(art)], "served")):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            run_eval.main(argv + extra + ["--dump-dir", str(tmp_path / dumps)])
+        summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+        summaries.append({k: v for k, v in summary.items() if k != "points_per_sec"})
+    assert summaries[0] == summaries[1] and summaries[0]["scenes"] == 4
+    for dump in sorted((tmp_path / "live").glob("*.npz")):
+        with np.load(dump) as a, np.load(tmp_path / "served" / dump.name) as b:
+            for k in a.files:
+                np.testing.assert_array_equal(a[k], b[k])

@@ -61,6 +61,11 @@ def _cases():
         ),
         "exact_fps_3nn": dataclasses.replace(TINY_3NN, mask_thresh=0.47),
         "strided_select": set_pipeline_group_select(tiny, "strided"),
+        # sa1 in a pass of its own at 4 segments: both passes spatial on one
+        # Morton sort, or two contiguous passes over the input
+        "sa1_split_spatial": dataclasses.replace(_spatial(tiny), sa1_fps_segments=4),
+        "sa1_split_contiguous": dataclasses.replace(set_pipeline_fps_segments(
+            dataclasses.replace(tiny, num_seeds=16), 2, "contiguous"), sa1_fps_segments=4),
     }
 
 
@@ -85,9 +90,9 @@ def _port_model(cfg, variables):
 @pytest.mark.parametrize(
     "case",
     ["exact_fps", "spatial_fps", "strided_fps", "pruned_spatial", "grid_roi", "exact_fps_3nn",
-     "strided_select"],
+     "strided_select", "sa1_split_spatial", "sa1_split_contiguous"],
 )
-def test_slice_matches_jax_make_inference_fn(case):
+def test_slice_matches_jax_make_inference_fn(case, monkeypatch):
     jcfg = _cases()[case]
     xyz, valid, variables = _inputs(case)
     want = jpl.make_inference_fn(jcfg)(
@@ -104,10 +109,17 @@ def test_slice_matches_jax_make_inference_fn(case):
         jnp.float32,
     ))
     cfg = pipeline_config(jcfg)
+    sorts, fps_calls = [], []
+    for name, sink in (("spatial_sorted_view", sorts), ("farthest_point_sample", fps_calls)):
+        real = getattr(ops, name)
+        monkeypatch.setattr(ops, name, lambda *a, _r=real, _s=sink, **k: _s.append(a[0]) or _r(
+            *a, **k))
     with torch.inference_mode():
         got = tpl.make_inference_fn(cfg)(
             _port_model(cfg, variables), t(xyz), t(valid), z_eps=t(eps)
         )
+    if case.startswith("sa1_split"):  # the seeds' pass and sa1's, then SA2
+        assert fps_calls == [16, 32, 8] and len(sorts) == (case == "sa1_split_spatial")
     for f in ("masks", "valid", "classes"):
         np.testing.assert_array_equal(n(getattr(got, f)), np.asarray(getattr(want, f)))
     for f in ("scores", "boxes"):
@@ -159,6 +171,7 @@ def test_package_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'gspn_tpu')]\n"
         "assert not bad, bad\n"
+        "assert 'gspn_tpu_torch.eval.run_eval' in sys.modules\n"
         "print(len([m for m in sys.modules if m.startswith('gspn_tpu_torch')]))\n"
     )
     res = subprocess.run(
@@ -169,7 +182,6 @@ def test_package_imports_no_jax():
 
 
 _UNPORTED_KNOBS = [
-    {"sa1_fps_segments": 8},
     {"dtype": torch.bfloat16},
     {"feature_dim": 3},
 ]
@@ -209,8 +221,10 @@ def test_unknown_group_select_raises_value_error(stage):
 def test_not_ported_messages_quote_roadmap_titles():
     """Each not-ported message names its ROADMAP.md entry by a title that is
     in ROADMAP.md (numbers move when the queues are renumbered)."""
+    from gspn_tpu_torch.eval import run_eval
     from gspn_tpu_torch.train import train_gspn as ttrain
     from gspn_tpu_torch.train import train_rpointnet as ttrain2
+    from tests.test_torch_eval import EVAL_UNPORTED_FLAGS
     from tests.test_torch_rpointnet_train import RP_UNPORTED_FLAGS
     from tests.test_torch_train import UNPORTED_FLAGS
 
@@ -226,6 +240,10 @@ def test_not_ported_messages_quote_roadmap_titles():
     for flags, _ in RP_UNPORTED_FLAGS:  # the stage-2 trainer's
         with pytest.raises(NotImplementedError) as err:
             ttrain2.check_ported(ttrain2.parse_args(flags))
+        messages.append(str(err.value))
+    for flags, _ in EVAL_UNPORTED_FLAGS:  # the eval's
+        with pytest.raises(NotImplementedError) as err:
+            run_eval.check_ported(run_eval.parse_args(flags))
         messages.append(str(err.value))
     roadmap = (REPO / "ROADMAP.md").read_text()
     for msg in messages:
@@ -270,9 +288,15 @@ def test_variants_take_the_same_weights():
         dict(n_points=192, max_instances=3, extent=2.0),
         dict(n_points=1000, max_instances=24, extent=8.0),
         dict(n_points=64, max_instances=8, bg_frac=0.5),
-    ],
+        dict(n_points=64, feature_dim=3),
+    ] + [dict(jsynthetic.FAMILIES[f], n_points=192) for f in sorted(jsynthetic.FAMILIES)]
+    + [dict(jsynthetic.FAMILIES[f], n_points=40) for f in ("uniform", "sparse")],
+    ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()),
 )
 def test_scene_batch_matches_jax_package(kw):
+    """Bitwise the JAX package's scenes, every generator family (run_eval
+    ``--family``) included; 40 points shrink the area families' instances."""
+    assert tsynthetic.FAMILIES == jsynthetic.FAMILIES
     a = tsynthetic.scene_batch(np.random.default_rng(0), 3, **kw)
     b = jsynthetic.scene_batch(np.random.default_rng(0), 3, **kw)
     assert a.keys() == b.keys()
@@ -386,24 +410,28 @@ def test_streamed_inference_matches_jax():
 
 
 @pytest.mark.parametrize("fixture", ["instance_inference", "inference_segfps",
-                                     "inference_segfps_spatial"])
+                                     "inference_segfps_spatial", "inference_width2"])
 def test_slice_matches_frozen_fixture(fixture):
     """The port against the frozen outputs ``scripts/make_fixtures.py``
     wrote (TINY at its own thresholds; the segmented cases at 16 seeds and
     S=2), on the fixture's weights and scenes with the noise it drew,
     ``PRNGKey(1)``: masks, valid and classes equal, scores and boxes within
-    the fixtures' tolerances (``tests/test_fixtures.py``)."""
+    the fixtures' tolerances (``tests/test_fixtures.py``). The width-2 case
+    runs ``scale_pipeline_widths(TINY, 2)`` on that fixture's own weights."""
     base = _load("instance_inference.npz")
     frozen = _load(f"{fixture}.npz")
     cfg = pipeline_config(TINY)
-    if fixture != "instance_inference":
+    weights = base
+    if fixture == "inference_width2":
+        cfg, weights = tpresets.scale_pipeline_widths(cfg, 2), frozen
+    elif fixture != "instance_inference":
         mode = "spatial" if fixture.endswith("spatial") else "contiguous"
         cfg = tpresets.set_pipeline_fps_segments(dataclasses.replace(cfg, num_seeds=16), 2, mode)
     xyz, valid = base["in/xyz"], base["in/valid"]
     eps = np.asarray(jax.random.normal(
         jax.random.PRNGKey(1), (xyz.shape[0], cfg.num_seeds, cfg.gspn.latent_dim), jnp.float32))
     with torch.inference_mode():
-        got = tpl.make_inference_fn(cfg)(_port_model(cfg, _base_pipeline_variables(base)),
+        got = tpl.make_inference_fn(cfg)(_port_model(cfg, _base_pipeline_variables(weights)),
                                          t(xyz), t(valid), z_eps=t(eps))
     for f in ("masks", "valid", "classes"):
         np.testing.assert_array_equal(n(getattr(got, f)), frozen[f"out/{f}"], f)

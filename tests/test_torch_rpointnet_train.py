@@ -713,8 +713,24 @@ RP_UNPORTED_FLAGS = [
     (["--dp"], "Parallel"), (["--point-sharded"], "Parallel"), (["--data-rows", "2"], "Parallel"),
     (["--scannet-dir", "x"], "Data loaders"), (["--partnet-dir", "x"], "Data loaders"),
     (["--morton"], "Data loaders"), (["--dtype", "bf16"], "Knob paths"),
-    (["--width-mult", "2"], "Knob paths"),
 ]
+
+
+def test_train_rpointnet_width_mult_scales_both_stages(tmp_path):
+    """``--width-mult 2`` on a ``--width-mult 2`` stage-1 checkpoint: stage 2
+    trains the JAX trainer's scaled R-PointNet over a frozen GSPN scaled the
+    same way (unscaled, the checkpoint would not load into it)."""
+    from gspn_tpu.models.presets import scale_rpointnet_widths
+
+    common = ["--device", "cpu", "--preset", "tiny", "--steps", "1", "--batch", "2",
+              "--num-points", "128", "--num-seeds", "8", "--log-every", "1", "--width-mult", "2"]
+    ttrain_gspn.main(common + ["--gt-size", "16", "--log-dir", str(tmp_path / "g")])
+    state = ttrain.main(common + ["--num-classes", "3", "--gspn-ckpt", str(tmp_path / "g" / "ckpt"),
+                                  "--log-dir", str(tmp_path / "r")])
+    want = rpointnet_config(scale_rpointnet_widths(jtrain.tiny_rpointnet(3), 2))
+    assert state.model.config == want and state.step == 1
+    saved = json.loads((tmp_path / "r" / "config.json").read_text())["model"]
+    assert saved["roi_mlp"] == list(want.roi_mlp) and saved["__dataclass__"] == "RPointNetConfig"
 
 
 @pytest.mark.parametrize("flags,item", RP_UNPORTED_FLAGS, ids=lambda f: f[0] if f else "")

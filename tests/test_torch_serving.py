@@ -371,6 +371,7 @@ def test_command_lines_export_and_serve(tmp_path):
     checkpoints, and a ``Client`` gets the session's answer; the unported
     flags raise quoting their ROADMAP entry, and the default device needs a
     card."""
+    from gspn_tpu_torch.models.presets import scale_pipeline_widths
     from gspn_tpu_torch.serve import export_serving, serve_gspnx
     from gspn_tpu_torch.train.train_gspn import TINY_GSPN
     from gspn_tpu_torch.train.train_rpointnet import tiny_rpointnet
@@ -402,8 +403,10 @@ def test_command_lines_export_and_serve(tmp_path):
     assert not server.is_alive() and not sock.exists()
     session = session_from_checkpoints(out, dirs["gspn"], dirs["rpointnet"], device="cpu")
     _equal(got, session.predict(sb["xyz"], sb["valid"], seed=1))
-    for flags in (["--width-mult", "2"], ["--dtype", "bf16"], ["--feature-dim", "3"],
-                  ["--platform", "cpu"]):
+    wide = export_serving.main([*args, "--width-mult", "2", "--out", str(tmp_path / "w.gspnt")])
+    assert pipeline_config_from_manifest(load_artifact(wide, "cpu")[1]) == scale_pipeline_widths(
+        cfg, 2)
+    for flags in (["--dtype", "bf16"], ["--feature-dim", "3"], ["--platform", "cpu"]):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             export_serving.main([*args, *flags, "--out", str(tmp_path / "x.gspnt")])
     if not torch.cuda.is_available():

@@ -623,8 +623,33 @@ def test_train_gspn_needs_a_card_by_default(tmp_path, monkeypatch):
 UNPORTED_FLAGS = [
     ["--dp"], ["--point-sharded"], ["--data-rows", "2"], ["--scannet-dir", "x"],
     ["--shapenet-dir", "x"], ["--partnet-dir", "x"], ["--synthetic-objects"],
-    ["--preset", "object"], ["--morton"], ["--dtype", "bf16"], ["--width-mult", "2"],
+    ["--preset", "object"], ["--morton"], ["--dtype", "bf16"],
 ]
+
+
+@pytest.mark.parametrize("preset", ["tiny", "default"])
+def test_width_mult_scales_like_jax(preset):
+    """``--width-mult 2``: the trainer's config and ``scale_*_widths`` of both
+    stages and the pipeline are the JAX package's, widths only."""
+    from gspn_tpu.models import presets as jpresets
+    from gspn_tpu.models.pipeline import PipelineConfig as JPipelineConfig
+    from gspn_tpu.models.rpointnet import RPointNetConfig as JRPointNetConfig
+    from gspn_tpu.train.train_rpointnet import tiny_rpointnet as jtiny_rpointnet
+    from gspn_tpu_torch.models import presets as tpresets
+    from tests.torch_parity import pipeline_config, rpointnet_config
+
+    jg_cfg = jtrain.TINY_GSPN if preset == "tiny" else jg.GSPNConfig()
+    jr_cfg = jtiny_rpointnet(3) if preset == "tiny" else JRPointNetConfig(num_classes=3)
+    args = ttrain.parse_args(["--preset", preset, "--width-mult", "2"])
+    first = tsynthetic.scene_batch(np.random.default_rng(0), 1, n_points=64)
+    want = gspn_config(jpresets.scale_gspn_widths(jg_cfg, 2))
+    assert ttrain.model_config(args, first) == want
+    assert want.latent_dim == jg_cfg.latent_dim and want.cond_dim == 2 * jg_cfg.cond_dim
+    assert tpresets.scale_rpointnet_widths(rpointnet_config(jr_cfg), 2) == rpointnet_config(
+        jpresets.scale_rpointnet_widths(jr_cfg, 2))
+    jp = JPipelineConfig(gspn=jg_cfg, rpointnet=jr_cfg)
+    assert tpresets.scale_pipeline_widths(pipeline_config(jp), 2) == pipeline_config(
+        jpresets.scale_pipeline_widths(jp, 2))
 
 
 @pytest.mark.parametrize("flags", UNPORTED_FLAGS, ids=lambda f: f[0])

@@ -64,9 +64,10 @@ def pipeline_config(jcfg, **override) -> tp.PipelineConfig:
     )
 
 
-def randomized(variables, seed: int):
+def randomized(variables, seed: int, std: float = 0.3):
     """The same variable tree with every leaf redrawn (BatchNorm variances
-    positive), so BatchNorm and biases are exercised, not their init."""
+    positive, the rest normal with ``std``), so BatchNorm and biases are
+    exercised, not their init."""
     rng = np.random.default_rng(seed)
 
     def draw(path, leaf):
@@ -76,7 +77,7 @@ def randomized(variables, seed: int):
             return jnp.asarray(rng.uniform(0.5, 2.0, shape), jnp.float32)
         if name == "scale":
             return jnp.asarray(rng.uniform(0.5, 1.5, shape), jnp.float32)
-        return jnp.asarray(rng.normal(0.0, 0.3, shape), jnp.float32)
+        return jnp.asarray(rng.normal(0.0, std, shape), jnp.float32)
 
     return jax.tree_util.tree_map_with_path(draw, variables)
 
