@@ -139,7 +139,23 @@ line or a few:
    of each of those configs and at the defaults, at the eval's mask
    threshold 0.5; and the eval's points/s, live and from the artifact
    (median and range of 5 runs of 64 scenes) and on the plain path;
-8. the ranking: for the flagship and the whole-scene request of slices
+8. slice (L), the knob paths (``run_knob_slice``), after slice (K):
+   (L-bf16) ``set_pipeline_dtype(slice_config(), bfloat16)`` on (A)'s
+   weights at both shapes, kernel path against its plain path as every
+   slice, (A)'s launches a request, and against the float32 kernel path
+   within ``tests/test_bf16.py``'s bounds (boxes rtol/atol 0.1, scores
+   0.25), the share of mask cells that differ printed; (L-rgb)
+   ``slice_config(feature_dim=3)`` on the flagship scenes with RGB, FP4's
+   interp_mm launched with the 3-channel skip; an export and a CUDA-graph
+   replay of each, bitwise the live kernel path; (L-object) ``train_gspn
+   --preset object --synthetic-objects --num-points 4096``'s model and
+   batch, 1 + 3 steps a path, (G)'s kernels once a step (the ball group
+   at one radius with K = 4096), kernel path bitwise the plain path, then
+   ``train_gspn.main`` with those flags for 3 steps; host ms a request of
+   bf16 and float32 and a step of the object preset; the kernel phase
+   also times the ball group at (L-object)'s crop and interp_mm at FP4
+   with the RGB skip;
+9. the ranking: for the flagship and the whole-scene request of slices
    (A), (B), (E) and (H), a pass of (F) at each shape and a step of (G),
    each kernel's (device ms - bound ms) summed over every launch of that
    request at its own shape (the launches must be the slice's, kernel for
@@ -224,11 +240,17 @@ SLICE_KERNELS = {  # what each slice's kernel path launches; the others stay at 
     "G": {"fps", "ball_group", "nn_argmin", "index_add"},
     "I": set(I_PER_STEP),
     "K": PATH_KERNELS | {"mask_project"},
+    "L-bf16": PATH_KERNELS | {"mask_project"},
+    "L-rgb": PATH_KERNELS | {"mask_project"},
+    "L-object": {"fps", "ball_group", "nn_argmin", "index_add"},
 }
 # slice (G) launches per step: nn_argmin gives the chamfer's argmins both
 # ways in one launch; index_add is the chamfer's gather backward into the
 # generated points
 G_PER_STEP = {"fps": 1, "ball_group": 1, "nn_argmin": 1, "index_add": 1}
+# slice (L): the knob paths' RGB width, and train_gspn --preset object's
+# point count (one crop of K = OBJECT_N points) and timed steps per path
+FDIM, OBJECT_N, OBJECT_STEPS = 3, 4096, 3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 # H100 SXM float32 outside the tensor cores, one instruction per lane and
 # clock: 132 SMs x 128 lanes x 1.98 GHz. The published 67 TFLOP/s counts an
@@ -349,6 +371,12 @@ def check_kernels(dev, ops, bench_slice):
     ).to(dev)
     big_valid = torch.ones((1, FPS_ROWS_N), dtype=torch.bool, device=dev)
     big_valid[:, -FPS_ROWS_N // 10:] = False
+    # (L)'s launch shapes: the object preset's crop (one radius of 2.0, K =
+    # OBJECT_N, about 64 seeds of 4 objects) and FP4 with the RGB skip
+    objs = synthetic.object_scene_batch(np.random.default_rng(0), 4, OBJECT_N)
+    obj_xyz, obj_valid = (torch.from_numpy(objs[k]).to(dev) for k in ("xyz", "valid"))
+    obj_q = ops.gather_point(obj_xyz, ops.farthest_point_sample(64, obj_xyz, obj_valid))
+    fp4_rgb = (*main_path["interp_mm"][0][1][:3], torch.rand((B, N, FDIM), generator=gen).to(dev))
 
     # work(plain outputs) -> (bytes, float32 operations) that these inputs
     # need; see _bound
@@ -471,7 +499,12 @@ def check_kernels(dev, ops, bench_slice):
              lambda impl: ops.farthest_point_sample(256, big, big_valid, impl=impl),
              fps_work(big, big_valid, 256)),
         ],
-        "ball_group": main_cases("ball_group"),
+        "ball_group": main_cases("ball_group") + [
+            (f"object preset crops (L-object): 4 x 64 seeds, r 2.0, K = {OBJECT_N} <- "
+             f"{OBJECT_N} pts",
+             lambda impl: ops.query_ball_group_multi((2.0,), (OBJECT_N,), obj_xyz, obj_q,
+                                                     obj_valid, impl=impl),
+             ball_work(obj_xyz, obj_valid, obj_q, 1, False))],
         "ball_group_strided": main_cases("ball_group_strided"),
         "box_group": main_cases("box_group"),
         "box_group_strided": main_cases("box_group_strided"),
@@ -483,6 +516,9 @@ def check_kernels(dev, ops, bench_slice):
         # the FP levels from the distances (FP1-FP3 with their skip rows),
         # then the form that takes weights (three_interpolate_mm)
         "interp_mm": main_cases("interp_mm") + [
+            (f"FP4 with the RGB skip (L-rgb): {B}x{N} targets <- 1024 x "
+             f"{fp4_rgb[0].shape[-1]}, C1 = {FDIM}, direct",
+             lambda impl: ops.three_interpolate_fp(*fp4_rgb, impl=impl), mm_work(fp4_rgb))] + [
             (f"weights form: {label}", lambda impl, a=a, w=w: ops.three_interpolate_mm(
                 a[0], a[1], w, impl=impl), mm_work((a[0], a[1], w)))
             for label, a, w in ((first_label("interp_mm", 0), fp4, fp4_w),
@@ -883,11 +919,12 @@ def _timed_requests(infer, model, req, n_requests):
     """One warm-up request, then ``n_requests`` timed ones on the host clock
     around a synchronized call. Returns ``(ms per request, output)`` and
     raises unless every timed request gave the same output."""
-    xyz, valid, eps = req
-    infer(model, xyz, valid, z_eps=eps)
+    xyz, valid, eps, *feats = req  # (L)'s RGB requests carry features
+    features = feats[0] if feats else None
+    infer(model, xyz, valid, z_eps=eps, features=features)
     times, first = [], None
     for _ in range(n_requests):
-        ms, out = _host_ms(lambda: infer(model, xyz, valid, z_eps=eps))
+        ms, out = _host_ms(lambda: infer(model, xyz, valid, z_eps=eps, features=features))
         times.append(ms)
         if first is None:
             first = out
@@ -1867,6 +1904,172 @@ def run_eval_slice(dev, ops, bench_slice, card, work):
     return counts
 
 
+def _rgb_request(cfg, bench_slice, dev):
+    """(L)'s flagship request with features: the synthetic scenes with RGB
+    (``scene_batch(default_rng(0), 8, n_points=8192, feature_dim=3)``),
+    the flagship request's noise."""
+    from gspn_tpu_torch.data import synthetic
+
+    sb = synthetic.scene_batch(np.random.default_rng(0), B, n_points=N, max_instances=8,
+                               feature_dim=FDIM)
+    eps = bench_slice.request(cfg, FLAGSHIP, dev, 1)[2]
+    return tuple(torch.from_numpy(sb[k]).to(dev) for k in ("xyz", "valid")) + (
+        eps, torch.from_numpy(sb["features"]).to(dev))
+
+
+def run_knob_slice(dev, ops, bench_slice, card, work, a_counts):
+    """Slice (L): the knob paths at full width. (L-bf16) ``set_pipeline_dtype(
+    slice_config(), bfloat16)`` on (A)'s weights at both shapes: the kernel
+    path against the bf16 plain path as every slice, the launches a request
+    (A)'s, and against the float32 kernel path on the same weights within
+    ``tests/test_bf16.py``'s bounds (boxes rtol/atol 0.1, scores 0.25), the
+    share of mask cells that differ printed, host ms a request of both.
+    (L-rgb) ``slice_config(feature_dim=3)`` on the flagship scenes with RGB:
+    kernel path against plain path, FP4's interp_mm launched with the RGB
+    skip (C1 = 3). One export and replay (``InferenceSession``, a CUDA
+    graph) each of (L-bf16) and (L-rgb) at the flagship, bitwise the live
+    kernel path. (L-object) ``train_gspn --preset object
+    --synthetic-objects --num-points 4096``'s model and first batch: 1 +
+    ``OBJECT_STEPS`` steps a path, exactly (G)'s kernels once a step (the
+    ball group at one radius with K = 4096), the kernel path bitwise the
+    plain path (step 1's loss, terms and gradients, every loss, the
+    parameters and running statistics), host ms a step; then
+    ``train_gspn.main`` with those flags for 3 steps. Returns each
+    sub-slice's launch counts."""
+    from gspn_tpu_torch.data.iterator import DeterministicBatches, to_device
+    from gspn_tpu_torch.models.pipeline import PREDICTION_FIELDS, make_inference_fn
+    from gspn_tpu_torch.models.presets import set_pipeline_dtype
+    from gspn_tpu_torch.ops import interpolate as tinterp
+    from gspn_tpu_torch.serve import InferenceSession, export_inference, save_artifact
+    from gspn_tpu_torch.serve.export import serving_state
+    from gspn_tpu_torch.train import train_gspn
+
+    runs = {}
+    a_request = {k: c / (2 * (REQUESTS + 1)) for k, c in a_counts.items()}
+    cfg = bench_slice.slice_config()
+    model = bench_slice.seeded_model(cfg, dev)
+    reqs = {shape: bench_slice.request(cfg, shape, dev, seed)
+            for seed, shape in enumerate((FLAGSHIP, WHOLE_SCENE), start=1)}
+    with torch.inference_mode():
+        bcfg = set_pipeline_dtype(cfg, torch.bfloat16)
+        bmodel = bench_slice.rebuilt_model(bcfg, model)
+        bf16, _, runs["L-bf16"] = run_slice("L-bf16", ops, bench_slice, bcfg, bmodel, reqs,
+                                            VARIANT_REQUESTS)
+        per = {k: c / (2 * (VARIANT_REQUESTS + 1)) for k, c in runs["L-bf16"].items()}
+        if per != a_request:
+            raise AssertionError(f"(L-bf16) launches a request {per}, (A)'s {a_request}")
+        infer = make_inference_fn(cfg)
+        for shape, req in reqs.items():
+            f32_times, f32 = _timed_requests(infer, model, req, VARIANT_REQUESTS)
+            times, got = bf16[shape]
+            torch.testing.assert_close(got.boxes, f32.boxes, rtol=0.1, atol=0.1)
+            gap = (got.scores - f32.scores).abs().max().item()
+            if gap >= 0.25:
+                raise AssertionError(f"(L-bf16) {shape}: scores {gap} from float32's")
+            differ = (got.masks != f32.masks).float().mean().item()
+            box_gap = (got.boxes - f32.boxes).abs().max().item()
+            print(f"slice (L-bf16) {shape}: bf16 vs float32 kernel path on the same weights: "
+                  f"boxes within rtol/atol 0.1 (max abs gap {box_gap:.4f}), scores within "
+                  f"{gap:.4f}, mask cells that differ "
+                  f"{differ:.6f}, valid that differ {(got.valid != f32.valid).sum().item()}; "
+                  f"host ms a request bf16 median {statistics.median(times):.3f}, float32 "
+                  f"{statistics.median(f32_times):.3f} ({VARIANT_REQUESTS} requests after a "
+                  f"warm-up each) [{card}]")
+
+        fcfg = bench_slice.slice_config(feature_dim=FDIM)
+        fmodel = bench_slice.seeded_model(fcfg, dev)
+        freq = {FLAGSHIP: _rgb_request(fcfg, bench_slice, dev)}
+        skips, direct = [], tinterp._interp_mm_cuda
+
+        def recording(points, idx, wd, skip=None, **kw):  # the FP levels' skip widths
+            skips.append(0 if skip is None else skip.shape[-1])
+            return direct(points, idx, wd, skip, **kw)
+
+        tinterp._interp_mm_cuda = recording
+        try:
+            _, _, runs["L-rgb"] = run_slice("L-rgb", ops, bench_slice, fcfg, fmodel, freq,
+                                            VARIANT_REQUESTS)
+        finally:
+            tinterp._interp_mm_cuda = direct
+        per = {k: c / (VARIANT_REQUESTS + 1) for k, c in runs["L-rgb"].items()}
+        if per != a_request or skips.count(FDIM) != VARIANT_REQUESTS + 1:
+            raise AssertionError(f"(L-rgb) launches a request {per} ((A)'s {a_request}), "
+                                 f"interp_mm skip widths {sorted(set(skips))}")
+        print(f"slice (L-rgb): FP4's interp_mm launched with the RGB skip (C1 = {FDIM}) once "
+              f"a request; skip widths {sorted(set(skips))}")
+
+        for name, ecfg, emodel, req in (("L-bf16", bcfg, bmodel, reqs[FLAGSHIP]),
+                                        ("L-rgb", fcfg, fmodel, freq[FLAGSHIP])):
+            t0 = time.perf_counter()
+            program = export_inference(ecfg, emodel, N, batch_size=B, device=dev)
+            path = save_artifact(pathlib.Path(work) / f"{name}.gspnt", program, ecfg)
+            session = InferenceSession(path, serving_state(emodel), device=dev)
+            secs = time.perf_counter() - t0
+            xyz, valid, eps, *feats = req
+            live = make_inference_fn(ecfg)(emodel, xyz, valid, z_eps=eps,
+                                           features=feats[0] if feats else None)
+            got = session.run(xyz, valid, eps, *feats)
+            for f, g in zip(PREDICTION_FIELDS, got, strict=True):
+                if not torch.equal(g, getattr(live, f)):
+                    raise AssertionError(f"({name}) the artifact's replay differs in {f}")
+            times = [_host_ms(lambda: session.run(xyz, valid, eps, *feats))[0]
+                     for _ in range(VARIANT_REQUESTS)]
+            print(f"slice ({name}) export: exported, written, loaded and captured in "
+                  f"{secs:.1f} s; InferenceSession.run (graph replay) == the live kernel path "
+                  f"bitwise; replay host ms median {statistics.median(times):.3f} "
+                  f"({VARIANT_REQUESTS} requests) [{card}]")
+
+    _phase("slice (L-object)")
+    flags = ["--preset", "object", "--synthetic-objects", "--num-points", str(OBJECT_N)]
+    args = train_gspn.parse_args(flags)
+    first = DeterministicBatches(train_gspn.make_sample_fn(args), args.batch, args.seed
+                                 ).batch_at(0)
+    ocfg = train_gspn.model_config(args, first)
+    if ocfg.context_nsample != (OBJECT_N,) or ocfg.context_radii != (2.0,):
+        raise AssertionError(f"(L-object) config {ocfg}")
+    batch = to_device(first, dev)
+    omodel = bench_slice.seeded_gspn(ocfg, dev)
+    _, pmodel = bench_slice.plain_gspn(ocfg, omodel)
+    eps = torch.randn((args.batch, args.num_seeds, ocfg.latent_dim),
+                      generator=torch.Generator().manual_seed(1)).to(dev)
+    ops.reset_launch_counts()
+    ofirst, ograds, losses, times = _train_steps(bench_slice, omodel, batch, eps, OBJECT_STEPS)
+    runs["L-object"] = ops.launch_counts()
+    want = {k: c * (OBJECT_STEPS + 1) for k, c in G_PER_STEP.items()}
+    if {k: c for k, c in runs["L-object"].items() if c} != want:
+        raise AssertionError(f"(L-object) launched {runs['L-object']}, expected {want}")
+    before = ops.launch_counts()
+    pfirst, pgrads, plosses, ptimes = _train_steps(bench_slice, pmodel, batch, eps, OBJECT_STEPS)
+    if ops.launch_counts() != before:
+        raise AssertionError("(L-object): the plain path launched kernels")
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f"(L-object): non-finite losses {losses.tolist()}")
+    for k in ofirst:
+        if not torch.equal(ofirst[k], pfirst[k]):
+            raise AssertionError(f"(L-object) step 1 {k}: {ofirst[k].item()} vs "
+                                 f"{pfirst[k].item()}")
+    differ = [k for k in ograds if not torch.equal(ograds[k], pgrads[k])]
+    if differ:
+        raise AssertionError(f"(L-object): step-1 gradients differ in {differ[:3]}")
+    _assert_same_training("(L-object) kernel path vs plain path", omodel, pmodel, losses,
+                          plosses)
+    print(f"slice (L-object) {args.batch} objects x {OBJECT_N} points, {args.num_seeds} seeds, "
+          f"one crop of K = {OBJECT_N}: kernel path == plain path bitwise over 1 + "
+          f"{OBJECT_STEPS} steps (losses, step-1 gradients, parameters, running statistics); "
+          f"losses {[round(x, 4) for x in losses.tolist()]}; host ms a step kernel median "
+          f"{statistics.median(times):.3f}, plain {statistics.median(ptimes):.3f} [{card}]")
+    with tempfile.TemporaryDirectory() as tmp:
+        state = train_gspn.main(flags + ["--steps", "3", "--log-every", "1", "--ckpt-every", "3",
+                                         "--log-dir", tmp])
+        lines = [json.loads(x) for x in pathlib.Path(tmp, "train.jsonl").read_text().splitlines()]
+    if state.step != 3 or len(lines) != 3 or not all(
+            np.isfinite(v) for rec in lines for v in rec.values()):
+        raise AssertionError(f"train_gspn {' '.join(flags)}: step {state.step}, {lines}")
+    print(f"slice (L-object) train_gspn.main {' '.join(flags)}: 3 steps, 3 finite metric lines; "
+          f"last loss {lines[-1]['loss']:.4f}")
+    return runs
+
+
 def _assert_same_training(what, model, other, losses, other_losses) -> None:
     """Raise unless two training runs gave bitwise-equal losses, parameters
     and buffers (BatchNorm running statistics)."""
@@ -2020,6 +2223,7 @@ def main() -> None:
         runs["G"] = run_training(dev, ops, bench_slice, card, work)
         runs["I"] = run_stage2(dev, ops, bench_slice, card, work)
         runs["K"] = run_eval_slice(dev, ops, bench_slice, card, work)
+        runs.update(run_knob_slice(dev, ops, bench_slice, card, work, runs["A"]))
         runs["J"], per_request = run_serving_process(work)
     a_request = {k: c / (2 * (REQUESTS + 1)) for k, c in runs["A"].items()}
     if a_request != per_request:

@@ -1,4 +1,5 @@
-"""Synthetic multi-instance scenes (ScanNet-style), NumPy only.
+"""Synthetic multi-instance scenes (ScanNet-style) and single objects
+(ShapeNet-style), NumPy only.
 
 The same generator as ``gspn_tpu/data/synthetic.py``, its generator
 families (:data:`FAMILIES`) included: the same ``numpy.random.Generator``
@@ -166,4 +167,29 @@ def scene_batch(rng, batch: int, **kw):
         "valid": np.stack([s.valid for s in scenes]),
         "sem_label": np.stack([s.sem_label for s in scenes]),
         "inst_label": np.stack([s.inst_label for s in scenes]),
+    }
+
+
+def object_batch(rng, batch: int, n: int, kind: str | None = None):
+    """``(B, N, 3)`` normalized single objects and their kind ids (B,)
+    int32, for the CVAE's single-object pretraining."""
+    pts, kinds = [], []
+    for _ in range(batch):
+        p, k = single_object(rng, n, kind)
+        pts.append(p)
+        kinds.append(_KINDS.index(k))
+    return np.stack(pts), np.asarray(kinds, np.int32)
+
+
+def object_scene_batch(rng, batch: int, n_points: int, kind: str | None = None):
+    """Single objects in the scene layout, the whole object one instance:
+    BASELINE config 1's workload (single-object CVAE reconstruction)
+    without ShapeNet files."""
+    pts, kinds = object_batch(rng, batch, n_points, kind)
+    return {
+        "xyz": pts.astype(np.float32),
+        "features": np.zeros((batch, n_points, 0), np.float32),
+        "valid": np.ones((batch, n_points), bool),
+        "sem_label": np.tile((kinds + 1)[:, None], (1, n_points)).astype(np.int32),
+        "inst_label": np.ones((batch, n_points), np.int32),
     }

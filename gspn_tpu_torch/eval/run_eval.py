@@ -41,7 +41,7 @@ from gspn_tpu_torch.data import synthetic
 from gspn_tpu_torch.data.layout_probe import warn_if_layout_biased
 from gspn_tpu_torch.eval import instance_eval as ie
 from gspn_tpu_torch.eval.scannet_export import write_scannet_submission
-from gspn_tpu_torch.models.gspn import KNOB_PATHS, GSPNConfig, not_ported
+from gspn_tpu_torch.models.gspn import GSPNConfig, not_ported
 from gspn_tpu_torch.models.pipeline import (
     PipelineConfig,
     PipelineModel,
@@ -50,12 +50,19 @@ from gspn_tpu_torch.models.pipeline import (
 )
 from gspn_tpu_torch.models.presets import (
     scale_pipeline_widths,
+    set_pipeline_dtype,
     set_pipeline_fps_segments,
     set_pipeline_group_select,
 )
 from gspn_tpu_torch.models.rpointnet import RPointNetConfig
 from gspn_tpu_torch.serve.runtime import chunk_noise, float32_matmuls, restore_checkpoints
-from gspn_tpu_torch.train.train_gspn import DATA_LOADERS, PARALLEL, TINY_GSPN, resolve_device
+from gspn_tpu_torch.train.train_gspn import (
+    DATA_LOADERS,
+    PARALLEL,
+    TINY_GSPN,
+    batch_feature_dim,
+    resolve_device,
+)
 from gspn_tpu_torch.train.train_rpointnet import tiny_rpointnet
 
 
@@ -88,7 +95,8 @@ def parse_args(argv=None):
     p.add_argument("--preset", choices=["default", "tiny"], default="default")
     p.add_argument("--width-mult", type=int, default=1,
                    help="MLP width multiplier: the value the checkpoints were trained with")
-    p.add_argument("--dtype", choices=["f32", "bf16"], default="f32", help="bf16 is not ported")
+    p.add_argument("--dtype", choices=["f32", "bf16"], default="f32",
+                   help="MLP and head compute dtype (parameters stay float32)")
     p.add_argument("--fps-segments", type=int, default=None,
                    help="segmented parallel-chain FPS (default: the preset's); 1 forces the "
                         "exact greedy FPS")
@@ -162,7 +170,6 @@ def check_ported(args) -> None:
         (args.morton, "--morton (host Morton sort)", DATA_LOADERS),
         (args.point_sharded, "--point-sharded", PARALLEL),
         (args.data_rows, "--data-rows", PARALLEL),
-        (args.dtype == "bf16", "--dtype bf16", KNOB_PATHS),
     ]
     for flagged, what, item in unported:
         if flagged:
@@ -171,8 +178,9 @@ def check_ported(args) -> None:
 
 def build_config(args) -> PipelineConfig:
     """The eval's pipeline: the preset at ``--num-seeds``, ``--num-classes``,
-    ``--box-percentile`` and ``--score-thresh``, then ``--width-mult`` and
-    the FPS, selection and pruning flags, as the JAX eval sets them."""
+    ``--box-percentile`` and ``--score-thresh``, then ``--width-mult``,
+    ``--dtype`` and the FPS, selection and pruning flags, as the JAX eval
+    sets them."""
     if args.preset == "tiny":
         gspn, rpointnet = TINY_GSPN, tiny_rpointnet(args.num_classes)
     else:
@@ -181,6 +189,8 @@ def build_config(args) -> PipelineConfig:
                          box_percentile=args.box_percentile, score_thresh=args.score_thresh)
     if args.width_mult != 1:
         cfg = scale_pipeline_widths(cfg, args.width_mult)
+    if args.dtype == "bf16":
+        cfg = set_pipeline_dtype(cfg, torch.bfloat16)
     if args.fps_segments is not None:
         cfg = set_pipeline_fps_segments(cfg, args.fps_segments, args.fps_segment_mode)
     if args.sa1_fps_segments is not None:
@@ -203,6 +213,14 @@ def ab_config(cfg: PipelineConfig, args) -> PipelineConfig | None:
     if args.ab_group_select is not None:
         cfg = set_pipeline_group_select(cfg, args.ab_group_select)
     return cfg
+
+
+def with_feature_dim(cfg: PipelineConfig, fdim: int) -> PipelineConfig:
+    """``cfg`` with both stages at the data's feature width ``fdim``."""
+    if fdim == cfg.gspn.feature_dim == cfg.rpointnet.feature_dim:
+        return cfg
+    return dataclasses.replace(cfg, gspn=dataclasses.replace(cfg.gspn, feature_dim=fdim),
+                               rpointnet=dataclasses.replace(cfg.rpointnet, feature_dim=fdim))
 
 
 def scene_batches(args) -> Callable[[], Iterable[dict]]:
@@ -273,7 +291,8 @@ class EvalRun:
 def evaluate(infer, batches: Iterable[dict], z_eps: torch.Tensor, infer_b=None,
              dump_dir: str | pathlib.Path | None = None, dump_format: str = "npz") -> EvalRun:
     """The evaluation loop. ``infer(xyz, valid, z_eps)`` (and ``infer_b``,
-    the paired arm) runs one batch on ``z_eps``'s device and returns the
+    the paired arm; both also given ``features=`` where the batches carry
+    per-point features) runs one batch on ``z_eps``'s device and returns the
     port's predictions in any form ``instance_eval.predictions_from_device``
     takes; every batch of ``b`` scenes gets ``z_eps[:b]``. Runs under
     ``torch.inference_mode`` with float32 matmuls. The first batch (which
@@ -291,13 +310,17 @@ def evaluate(infer, batches: Iterable[dict], z_eps: torch.Tensor, infer_b=None,
             xyz = torch.from_numpy(batch["xyz"]).to(z_eps.device)
             valid = torch.from_numpy(batch["valid"]).to(z_eps.device)
             eps = z_eps[: xyz.shape[0]]
+            feats = batch.get("features")
+            kw = ({"features": torch.from_numpy(feats).to(z_eps.device)}
+                  if feats is not None and feats.shape[-1] else {})
             t0 = time.perf_counter()
-            scenes = ie.predictions_from_device(infer(xyz, valid, eps), batch["valid"])  # syncs
+            scenes = ie.predictions_from_device(infer(xyz, valid, eps, **kw),
+                                                batch["valid"])  # syncs
             if scene_i > 0:
                 infer_s += time.perf_counter() - t0
                 infer_pts += int(batch["valid"].size)
             if infer_b is not None:  # the paired arm: the same batch and noise
-                preds_b.extend(ie.predictions_from_device(infer_b(xyz, valid, eps),
+                preds_b.extend(ie.predictions_from_device(infer_b(xyz, valid, eps, **kw),
                                                           batch["valid"]))
             for bi, sp in enumerate(scenes):
                 v = batch["valid"][bi]
@@ -345,17 +368,19 @@ def summarize(run: EvalRun, args) -> tuple[dict, dict]:
 
 
 def live_infer(cfg: PipelineConfig, state: dict, device):
-    """``infer(xyz, valid, z_eps)`` of a :class:`PipelineModel` built from
-    ``cfg`` with ``state``'s weights, on ``device`` in eval mode."""
+    """``infer(xyz, valid, z_eps, features=None)`` of a
+    :class:`PipelineModel` built from ``cfg`` with ``state``'s weights, on
+    ``device`` in eval mode."""
     model = PipelineModel(cfg)
     model.load_state_dict(state)
     model = model.to(device).eval()
     fn = make_inference_fn(cfg)
-    return lambda xyz, valid, z_eps: fn(model, xyz, valid, z_eps=z_eps)
+    return lambda xyz, valid, z_eps, features=None: fn(model, xyz, valid, z_eps=z_eps,
+                                                       features=features)
 
 
 def artifact_infer(path: str, cfg: PipelineConfig, state: dict, args, device):
-    """``infer(xyz, valid, z_eps)``: ``InferenceSession.run`` of the artifact
+    """``infer(xyz, valid, z_eps, features=None)``: ``InferenceSession.run`` of the artifact
     at ``path`` with ``state``'s weights (on the card a CUDA graph's
     replay). Refuses an artifact exported for another seed count, batch or
     point count than the eval's."""
@@ -387,7 +412,8 @@ def main(argv=None) -> dict:
         warn_if_layout_biased(first, radius=float(cfg.gspn.context_radii[mid]),
                               k=int(cfg.gspn.context_nsample[mid]), where="eval data")
     n = first["xyz"].shape[1]
-    fdim = int(first["features"].shape[-1])
+    fdim = batch_feature_dim(first)
+    cfg = with_feature_dim(cfg, fdim)  # both stages read the data's features
     state = init_pipeline_variables(cfg, torch.Generator().manual_seed(args.seed), n)
     for name, ckpt in (("gspn", args.gspn_ckpt), ("rpointnet", args.rpointnet_ckpt)):
         if ckpt:

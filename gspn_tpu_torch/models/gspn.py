@@ -7,6 +7,11 @@ centre's frame, and an objectness logit. At inference the latent is drawn
 from the learned prior; in training (``GSPN(cfg, recognition=True)`` given
 the seeds' GT instances) the recognition network encodes the GT and the
 latent is drawn from its posterior. The training loss is :func:`gspn_loss`.
+
+``feature_dim > 0``: each crop carries the grouped per-point features
+after its local coordinates. ``dtype``: the MLPs' and heads' compute dtype
+(``nn.layers``); the crops, the centre, the generated points and the
+outputs other than ``cond`` are float32, where the JAX package casts them.
 """
 
 from __future__ import annotations
@@ -26,9 +31,6 @@ def not_ported(what: str, item: str) -> NotImplementedError:
     """``item`` is the title of the ROADMAP.md entry that ports ``what``
     (titles stay put when the queues are renumbered)."""
     return NotImplementedError(f'{what} is not ported to gspn_tpu_torch yet (ROADMAP.md, "{item}")')
-
-
-KNOB_PATHS = "Knob paths"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,14 +57,19 @@ class GSPNConfig:
     dtype: torch.dtype = torch.float32
 
 
+def shapenet_config(num_points: int = 1024, num_gen_points: int = 1024) -> GSPNConfig:
+    """The single-object CVAE pretraining config (BASELINE.json config 1):
+    the whole unit-normalized object is one context of ``num_points``
+    points at one radius, 2.0."""
+    return GSPNConfig(context_radii=(2.0,), context_nsample=(num_points,),
+                      num_gen_points=num_gen_points)
+
+
 def check_stage_config(cfg) -> None:
-    """Raise ``ValueError`` for a ``group_select`` no version takes and
-    ``NotImplementedError`` for the knobs of a stage config that this port
-    does not run yet."""
-    if cfg.feature_dim > 0:
-        raise not_ported("feature_dim>0 (per-point input features)", KNOB_PATHS)
-    if cfg.dtype != torch.float32:
-        raise not_ported(f"dtype={cfg.dtype} (bf16 compute)", KNOB_PATHS)
+    """Raise ``ValueError`` for a value of a stage config no version
+    takes."""
+    if cfg.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"dtype must be torch.float32 or torch.bfloat16, got {cfg.dtype}")
     if cfg.group_select not in ("first", "strided"):
         raise ValueError(f"group_select must be first|strided, got {cfg.group_select!r}")
 
@@ -84,9 +91,9 @@ class PointNetEncoder(nn.Module):
     with ``mask (..., K)`` the pool and the BatchNorm statistics skip the
     masked-out points."""
 
-    def __init__(self, in_dim, mlp, use_bn):
+    def __init__(self, in_dim, mlp, use_bn, dtype=torch.float32):
         super().__init__()
-        self.mlp = PointMLP(in_dim, mlp, use_bn=use_bn)
+        self.mlp = PointMLP(in_dim, mlp, use_bn=use_bn, dtype=dtype)
 
     def forward(self, pts, mask=None):
         h = self.mlp(pts, mask)
@@ -99,9 +106,9 @@ class GaussianHead(nn.Module):
     """FC -> (mu, logvar), logvar clipped to [-10, 10]. The FC stack sits
     under ``FCLayers_0``, the name Flax gave it."""
 
-    def __init__(self, in_dim, hidden, latent):
+    def __init__(self, in_dim, hidden, latent, dtype=torch.float32):
         super().__init__()
-        self.FCLayers_0 = FCLayers(in_dim, hidden, 2 * latent)
+        self.FCLayers_0 = FCLayers(in_dim, hidden, 2 * latent, dtype=dtype)
 
     def forward(self, x):
         mu, logvar = self.FCLayers_0(x).chunk(2, dim=-1)
@@ -120,43 +127,55 @@ class GSPN(nn.Module):
         super().__init__()
         check_stage_config(config)
         cfg = self.config = config
-        ns = len(cfg.context_radii)
-        self.center_enc = PointNetEncoder(3, cfg.center_mlp, cfg.use_bn)
-        self.center_fc = FCLayers(cfg.center_mlp[-1], cfg.center_fc, 3)
+        ns, dt = len(cfg.context_radii), cfg.dtype
+        crop_dim = 3 + cfg.feature_dim
+        self.center_enc = PointNetEncoder(crop_dim, cfg.center_mlp, cfg.use_bn, dt)
+        self.center_fc = FCLayers(cfg.center_mlp[-1], cfg.center_fc, 3, dtype=dt)
         for s in range(ns):
-            self.add_module(f"ctx_enc_{s}", PointNetEncoder(3, cfg.encoder_mlp, cfg.use_bn))
-        self.cond_fc = FCLayers(ns * cfg.encoder_mlp[-1], (), cfg.cond_dim)
-        self.prior = GaussianHead(cfg.cond_dim, (cfg.cond_dim,), cfg.latent_dim)
+            self.add_module(f"ctx_enc_{s}",
+                            PointNetEncoder(crop_dim, cfg.encoder_mlp, cfg.use_bn, dt))
+        self.cond_fc = FCLayers(ns * cfg.encoder_mlp[-1], (), cfg.cond_dim, dtype=dt)
+        self.prior = GaussianHead(cfg.cond_dim, (cfg.cond_dim,), cfg.latent_dim, dt)
         self.generator = FCLayers(
-            cfg.latent_dim + cfg.cond_dim, cfg.generator_fc, cfg.num_gen_points * 3
+            cfg.latent_dim + cfg.cond_dim, cfg.generator_fc, cfg.num_gen_points * 3, dtype=dt
         )
-        self.objectness = FCLayers(cfg.cond_dim, cfg.objectness_fc, 1)
+        self.objectness = FCLayers(cfg.cond_dim, cfg.objectness_fc, 1, dtype=dt)
         self.has_recognition = recognition
         if recognition:
-            self.recog_enc = PointNetEncoder(3, cfg.encoder_mlp, cfg.use_bn)
+            self.recog_enc = PointNetEncoder(3, cfg.encoder_mlp, cfg.use_bn, dt)
             self.recognition = GaussianHead(
-                cfg.encoder_mlp[-1] + cfg.cond_dim, (cfg.cond_dim,), cfg.latent_dim
+                cfg.encoder_mlp[-1] + cfg.cond_dim, (cfg.cond_dim,), cfg.latent_dim, dt
             )
 
     def forward(self, xyz, seed_idx, valid=None, z_eps=None, generator=None,
-                gt_points=None, gt_valid=None) -> GSPNOutputs:
+                gt_points=None, gt_valid=None, features=None) -> GSPNOutputs:
         """``xyz (B,N,3)``, ``seed_idx (B,S)`` int, ``valid (B,N)``;
         ``z_eps (B,S,latent)`` N(0,1) noise, or drawn from ``generator``.
         ``gt_points (B,S,G,3)`` and ``gt_valid (B,S,G)``, the seeds' GT
         instances (training), draw the latent from the recognition
-        network's posterior instead of the prior."""
+        network's posterior instead of the prior. ``features (B,N,F)``:
+        the per-point input features, read when ``feature_dim > 0``."""
         cfg = self.config
         seed_xyz = ops.gather_point(xyz, seed_idx, impl=cfg.ops_impl)  # (B, S, 3)
         per_scale = ops.query_ball_group_multi(
             cfg.context_radii, cfg.context_nsample, xyz, seed_xyz, valid,
             impl=cfg.ops_impl, select=cfg.group_select,
         )
-        crops = [local for _, _, local in per_scale]  # (B, S, K_s, 3)
+        if cfg.feature_dim > 0:
+            if features is None:
+                raise ValueError(f"the config has feature_dim={cfg.feature_dim}: pass features")
+            crops = [torch.cat([local, ops.group_point(features, idx, impl=cfg.ops_impl)], -1)
+                     for idx, _, local in per_scale]  # (B, S, K_s, 3 + F)
+        else:
+            crops = [local for _, _, local in per_scale]  # (B, S, K_s, 3)
 
         offset = self.center_fc(self.center_enc(crops[-1]))
-        center = seed_xyz + offset
+        center = seed_xyz + offset.float()
+        off = offset.float()[:, :, None, :]
         encs = [
-            getattr(self, f"ctx_enc_{s}")(crops[s] - offset[:, :, None, :])
+            getattr(self, f"ctx_enc_{s}")(
+                crops[s] - off if cfg.feature_dim == 0
+                else torch.cat([crops[s][..., :3] - off, crops[s][..., 3:]], -1))
             for s in range(len(crops))
         ]
         cond = torch.relu(self.cond_fc(torch.cat(encs, dim=-1)))
@@ -177,17 +196,17 @@ class GSPN(nn.Module):
                 prior_mu.shape, generator=generator, dtype=torch.float32,
                 device=generator.device,
             ).to(prior_mu.device)
-        if q_mu is not None:  # training: reparameterized sample from q
-            z = q_mu + z_eps.to(torch.float32) * torch.exp(0.5 * q_logvar)
-        else:  # inference: sample from the learned prior
-            z = prior_mu + z_eps.to(torch.float32) * torch.exp(0.5 * prior_logvar)
+        # the reparameterized sample from q (training) or the prior: float32
+        # noise promotes it, and XLA's bfloat16 exp feeds it unrounded
+        mu, logvar = (prior_mu, prior_logvar) if q_mu is None else (q_mu, q_logvar)
+        z = mu + z_eps.to(torch.float32) * torch.exp(0.5 * logvar.float())
 
-        gen = self.generator(torch.cat([z, cond], dim=-1))
+        gen = self.generator(torch.cat([z.to(cfg.dtype), cond], dim=-1))
         gen = gen.reshape(*gen.shape[:-1], cfg.num_gen_points, 3)
-        generated = gen + center[:, :, None, :]
-        objectness = self.objectness(cond)[..., 0]
-        return GSPNOutputs(center, generated, objectness, prior_mu, prior_logvar, cond,
-                           q_mu, q_logvar)
+        generated = gen.float() + center[:, :, None, :]
+        objectness = self.objectness(cond)[..., 0].float()
+        f32 = [None if v is None else v.float() for v in (prior_mu, prior_logvar, q_mu, q_logvar)]
+        return GSPNOutputs(center, generated, objectness, f32[0], f32[1], cond, f32[2], f32[3])
 
 
 # ---------------------------------------------------------------------------

@@ -210,10 +210,12 @@ class PipelineModel(nn.Module):
 
 
 def make_inference_fn(cfg: PipelineConfig):
-    """Returns ``infer(model, xyz, valid=None, z_eps=None, generator=None)
-    -> InstancePredictions`` for a :class:`PipelineModel` in eval mode.
-    ``z_eps (B, num_seeds, latent_dim)`` is the CVAE noise; without it the
-    noise is drawn from ``generator``.
+    """Returns ``infer(model, xyz, valid=None, z_eps=None, generator=None,
+    features=None) -> InstancePredictions`` for a :class:`PipelineModel` in
+    eval mode. ``z_eps (B, num_seeds, latent_dim)`` is the CVAE noise;
+    without it the noise is drawn from ``generator``. ``features (B, N,
+    feature_dim)``, the per-point input features, go to both stages when
+    the config's ``feature_dim`` is above 0 (and are required then).
 
     The model must have been built from this config's stages (its modules
     keep their ``ops_impl``), or ``infer`` raises ``ValueError``: the config
@@ -225,21 +227,23 @@ def make_inference_fn(cfg: PipelineConfig):
     ``utils.bench_slice.pin_float32_matmuls`` for the process."""
     check_supported(cfg)
 
-    def infer(model: PipelineModel, xyz, valid=None, z_eps=None, generator=None):
+    def infer(model: PipelineModel, xyz, valid=None, z_eps=None, generator=None,
+              features=None):
         if model.gspn.config != cfg.gspn or model.rpointnet.config != cfg.rpointnet:
             raise ValueError(
                 "the model was built from other stage configs than this inference "
                 "function's; build it from the same PipelineConfig"
             )
         seed_idx, sa1_idx, view = shared_fps_indices_view(cfg, xyz, valid)
-        gout = model.gspn(xyz, seed_idx, valid, z_eps=z_eps, generator=generator)
+        gout = model.gspn(xyz, seed_idx, valid, z_eps=z_eps, generator=generator,
+                          features=features)
         boxes = proposal_boxes(gout.generated, cfg.rpointnet.box_margin, cfg.box_percentile)
         obj = torch.sigmoid(gout.objectness)
         keep = ops.nms_3d_batched(
             boxes, obj, cfg.rpointnet.nms_iou, impl=cfg.rpointnet.ops_impl
         )
 
-        out = model.rpointnet(xyz, boxes, valid, sa1_fps_idx=sa1_idx)
+        out = model.rpointnet(xyz, boxes, valid, sa1_fps_idx=sa1_idx, features=features)
         fg_prob = torch.softmax(out.cls_logits, dim=-1)[..., 1:]  # drop background
         cls = (fg_prob.argmax(dim=-1) + 1).to(torch.int32)
         score = obj * fg_prob.amax(dim=-1)
@@ -300,17 +304,26 @@ def make_streamed_inference_fn(cfg: PipelineConfig):
     return run
 
 
-def init_pipeline_variables(cfg: PipelineConfig, generator: torch.Generator, n: int):
+def init_pipeline_variables(cfg: PipelineConfig, generator: torch.Generator, n: int,
+                            feature_dim: int | None = None):
     """Seeded weights for both stages as a :class:`PipelineModel` state dict,
     initialized as the JAX package initializes them
     (``nn.layers.glorot_init_``: glorot-uniform Linear weights, zero biases,
-    BatchNorm scale 1 / bias 0 / mean 0 / var 1).
+    BatchNorm scale 1 / bias 0 / mean 0 / var 1). Parameters are float32
+    whatever the config's ``dtype``.
 
     ``n`` (points per scene) is kept for signature parity with the JAX
     function, which traces dummy inputs of that size; no width here depends
-    on it. The draws come from ``generator`` in module order, so they are
-    reproducible but are not the JAX package's numbers."""
+    on it. The first layers' widths follow the stage configs'
+    ``feature_dim``; ``feature_dim``, the JAX function's argument, must
+    equal theirs when given. The draws come from ``generator`` in module
+    order, so they are reproducible but are not the JAX package's
+    numbers."""
     del n
+    if feature_dim is not None and {feature_dim} != {cfg.gspn.feature_dim,
+                                                     cfg.rpointnet.feature_dim}:
+        raise ValueError(f"feature_dim={feature_dim}, the stage configs have "
+                         f"{cfg.gspn.feature_dim} and {cfg.rpointnet.feature_dim}")
     model = PipelineModel(cfg)
     glorot_init_(model, generator)
     return model.state_dict()

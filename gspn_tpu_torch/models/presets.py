@@ -54,6 +54,19 @@ def scale_pipeline_widths(cfg: PipelineConfig, mult: int) -> PipelineConfig:
                                rpointnet=scale_rpointnet_widths(cfg.rpointnet, mult))
 
 
+def set_pipeline_dtype(cfg: PipelineConfig, dtype: torch.dtype) -> PipelineConfig:
+    """Both stages' MLP and head compute dtype (``torch.bfloat16`` or
+    ``torch.float32``); the parameters stay float32 and the point-op
+    kernels (FPS, grouping, interpolation, chamfer, NMS, mask projection)
+    always run float32: their outputs are indices or depend on exact
+    comparisons."""
+    return dataclasses.replace(
+        cfg,
+        gspn=dataclasses.replace(cfg.gspn, dtype=dtype),
+        rpointnet=dataclasses.replace(cfg.rpointnet, dtype=dtype),
+    )
+
+
 def set_pipeline_group_select(cfg: PipelineConfig, select: str) -> PipelineConfig:
     """Both stages' neighborhood K-selection: "first" (first K in input
     order) or "strided" (a systematic sample of every hit, for spatially

@@ -11,6 +11,11 @@ Training (``model.train()``) also applies ``head_dropout`` in the
 classification and box heads. For the stage-2 loss: GT boxes from the
 per-point labels (:func:`instance_gt_boxes`), IoU matching of RoIs to them
 (:func:`match_rois`) and :func:`rpointnet_loss`.
+
+``feature_dim > 0``: the backbone's first SA groups the per-point input
+features beside the local coordinates. ``dtype``: the backbone's, the RoI
+MLP's and the heads' compute dtype (``nn.layers``); the heads' outputs are
+float32.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ from torch import nn
 
 from gspn_tpu_torch import ops
 from gspn_tpu_torch.models.gspn import check_stage_config, huber
-from gspn_tpu_torch.nn.layers import FCLayers, PointMLP
+from gspn_tpu_torch.nn.layers import Dense, FCLayers, PointMLP
 from gspn_tpu_torch.nn.pointnet2 import PointNetFPModule, PointNetSAModule
 
 
@@ -81,7 +86,7 @@ class Backbone(nn.Module):
     def __init__(self, config: RPointNetConfig):
         super().__init__()
         cfg = self.config = config
-        chans = [0]  # feature channels per level (level 0: no input features)
+        chans = [cfg.feature_dim]  # feature channels per level (level 0: the input's)
         for i, spec in enumerate(cfg.sa_layers):
             self.add_module(
                 f"sa{i + 1}",
@@ -90,6 +95,7 @@ class Backbone(nn.Module):
                     use_bn=cfg.use_bn, ops_impl=cfg.ops_impl,
                     fps_segments=cfg.fps_segments,
                     fps_segment_mode=cfg.fps_segment_mode, select=cfg.group_select,
+                    dtype=cfg.dtype,
                 ),
             )
             chans.append(spec.mlp[-1])
@@ -98,13 +104,18 @@ class Backbone(nn.Module):
             lvl = len(cfg.sa_layers) - 1 - i  # target level
             self.add_module(
                 f"fp{i + 1}",
-                PointNetFPModule(feat + chans[lvl], mlp, use_bn=cfg.use_bn, ops_impl=cfg.ops_impl),
+                PointNetFPModule(feat + chans[lvl], mlp, use_bn=cfg.use_bn,
+                                 ops_impl=cfg.ops_impl, dtype=cfg.dtype),
             )
             feat = mlp[-1]
 
-    def forward(self, xyz, valid=None, sa1_fps_idx=None):
+    def forward(self, xyz, valid=None, sa1_fps_idx=None, features=None):
+        """``features (B,N,F)``: the per-point input features, read when
+        ``feature_dim > 0``."""
         cfg = self.config
-        xs, fs, vs = [xyz], [None], [valid]
+        if cfg.feature_dim > 0 and features is None:
+            raise ValueError(f"the config has feature_dim={cfg.feature_dim}: pass features")
+        xs, fs, vs = [xyz], [features if cfg.feature_dim > 0 else None], [valid]
         for i in range(len(cfg.sa_layers)):
             nx, nf, nv = getattr(self, f"sa{i + 1}")(
                 xs[-1], fs[-1], vs[-1], sa1_fps_idx if i == 0 else None
@@ -227,13 +238,14 @@ class RoIOutputs:
 class RoIHeads(nn.Module):
     def __init__(self, config: RPointNetConfig, feat_dim: int):
         super().__init__()
-        cfg = config
-        self.roi_mlp = PointMLP(3 + feat_dim, cfg.roi_mlp, use_bn=cfg.use_bn)
+        cfg, dt = config, config.dtype
+        self.roi_mlp = PointMLP(3 + feat_dim, cfg.roi_mlp, use_bn=cfg.use_bn, dtype=dt)
         c = cfg.roi_mlp[-1]
-        self.cls = FCLayers(c, cfg.cls_fc, cfg.num_classes + 1, dropout=cfg.head_dropout)
-        self.box = FCLayers(c, cfg.box_fc, 6, dropout=cfg.head_dropout)
-        self.mask_mlp = PointMLP(2 * c, cfg.mask_mlp, use_bn=cfg.use_bn)
-        self.mask_out = nn.Linear(cfg.mask_mlp[-1], 1)
+        self.cls = FCLayers(c, cfg.cls_fc, cfg.num_classes + 1, dropout=cfg.head_dropout,
+                            dtype=dt)
+        self.box = FCLayers(c, cfg.box_fc, 6, dropout=cfg.head_dropout, dtype=dt)
+        self.mask_mlp = PointMLP(2 * c, cfg.mask_mlp, use_bn=cfg.use_bn, dtype=dt)
+        self.mask_out = Dense(cfg.mask_mlp[-1], 1, dtype=dt)
 
     def forward(self, canon, roi_feats, dropout_keep=None, generator=None):
         """``canon (B,R,S,3)``, ``roi_feats (B,R,S,C)`` -> ``(cls_logits,
@@ -249,7 +261,7 @@ class RoIHeads(nn.Module):
         box_deltas = self.box(pooled, keep.get("box"), generator)
         per_pt = torch.cat([pt, pooled[..., None, :].expand_as(pt)], dim=-1)
         mask_logits = self.mask_out(self.mask_mlp(per_pt))[..., 0]
-        return cls_logits, box_deltas, mask_logits
+        return cls_logits.float(), box_deltas.float(), mask_logits.float()
 
 
 class RPointNet(nn.Module):
@@ -265,13 +277,14 @@ class RPointNet(nn.Module):
         self.heads = RoIHeads(config, config.fp_mlps[-1][-1])
 
     def forward(self, xyz, boxes, valid=None, sa1_fps_idx=None, gumbel=None,
-                dropout_keep=None, generator=None) -> RoIOutputs:
+                dropout_keep=None, generator=None, features=None) -> RoIOutputs:
         """In training mode with ``roi_randomize``, the RoIs' Gumbel noise
         ``gumbel (B,R,N)``, and with ``head_dropout``, the heads' keep masks
         ``dropout_keep`` (``RoIHeads.forward``); each not given is drawn from
-        ``generator``, the Gumbel noise first."""
+        ``generator``, the Gumbel noise first. ``features (B,N,F)``: the
+        per-point input features (``Backbone.forward``)."""
         cfg = self.config
-        feat = self.backbone(xyz, valid, sa1_fps_idx)
+        feat = self.backbone(xyz, valid, sa1_fps_idx, features)
         if cfg.roi_sample == "grid":
             roi_xyz, canon = roi_grid_points(boxes, cfg.roi_samples)
             roi_feats, idx = interpolate_roi_features(xyz, feat, roi_xyz, valid, impl=cfg.ops_impl)

@@ -3,9 +3,15 @@
 Submodules are named after the Flax scopes (``dense_0``, ``bn_0``,
 ``fc_0``, ``fc_out``) so that carrying JAX weights across is a mechanical
 rename (``gspn_tpu_torch/convert.py``). Shared per-point MLPs are
-``nn.Linear`` on the channel axis, as the JAX package uses ``nn.Dense``:
-a float32 matrix product that cuDNN's TF32 default for ``Conv1d`` would
-otherwise round.
+:class:`Dense` (an ``nn.Linear``) on the channel axis, as the JAX package
+uses ``nn.Dense``: a float32 matrix product that cuDNN's TF32 default for
+``Conv1d`` would otherwise round.
+
+``dtype`` is the compute dtype of the MLPs and heads, as in the JAX
+package (``dtype`` / ``param_dtype``): the parameters and BatchNorm's
+running statistics stay float32, a bfloat16 layer casts its input and
+parameters to bfloat16, and BatchNorm normalizes in float32 and casts its
+output back.
 """
 
 from __future__ import annotations
@@ -35,21 +41,25 @@ class MaskedBatchNorm(nn.Module):
     ``max(E[x^2] - E[x]^2, 0)`` over ``max(sum of weights, 1)`` entries. The
     running statistics then move as ``momentum * old + (1 - momentum) *
     batch``, outside autograd. In eval mode the running statistics
-    normalize."""
+    normalize. The input is normalized in float32 and the output cast to
+    ``dtype``."""
 
-    def __init__(self, c: int, epsilon: float = 1e-3, momentum: float = BN_MOMENTUM):
+    def __init__(self, c: int, epsilon: float = 1e-3, momentum: float = BN_MOMENTUM,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.epsilon = epsilon
         self.momentum = momentum
+        self.dtype = dtype
         self.scale = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("mean", torch.zeros(c))
         self.register_buffer("var", torch.ones(c))
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+        x = x.float()
         if not self.training:
             y = (x - self.mean) * torch.rsqrt(self.var + self.epsilon)
-            return y * self.scale + self.bias
+            return (y * self.scale + self.bias).to(self.dtype)
         red = tuple(range(x.ndim - 1))
         if mask is None:
             # a device tensor: a CPU scalar divisor would run as a multiply
@@ -70,7 +80,30 @@ class MaskedBatchNorm(nn.Module):
             self.mean.copy_(m * self.mean + (1.0 - m) * mean)
             self.var.copy_(m * self.var + (1.0 - m) * var)
         y = (x - mean) * torch.rsqrt(var + self.epsilon)
-        return y * self.scale + self.bias
+        return (y * self.scale + self.bias).to(self.dtype)
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` with float32 parameters computing in ``dtype``. In
+    bfloat16, Flax's ``nn.Dense``: the input, kernel and bias cast to
+    bfloat16, the product rounded to bfloat16, then the bias added in
+    bfloat16 (two roundings, where ``F.linear`` in bfloat16 would round
+    once)."""
+
+    def __init__(self, in_dim: int, out_dim: int, dtype: torch.dtype = torch.float32):
+        super().__init__(in_dim, out_dim)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor, sum_in_f32: bool = False) -> torch.Tensor:
+        """``sum_in_f32``: the caller reads the output in float32 (a
+        BatchNorm does), and the bias is added to the rounded product in
+        float32, without the second rounding, as XLA computes that pair."""
+        if self.dtype == torch.float32:
+            return super().forward(x.float())
+        y = torch.matmul(x.to(self.dtype), self.weight.to(self.dtype).t())
+        if sum_in_f32:
+            return y.float() + self.bias.to(self.dtype).float()
+        return y + self.bias.to(self.dtype)
 
 
 class PointMLP(nn.Module):
@@ -80,15 +113,16 @@ class PointMLP(nn.Module):
     does; ``mask`` (the leading axes' shape, or broadcastable to it)
     weights the BatchNorm training statistics."""
 
-    def __init__(self, in_dim: int, features: Sequence[int], use_bn: bool = True):
+    def __init__(self, in_dim: int, features: Sequence[int], use_bn: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n = len(features)
         self.use_bn = use_bn
         dims = [in_dim, *features]
         for i, ch in enumerate(features):
-            self.add_module(f"dense_{i}", nn.Linear(dims[i], ch))
+            self.add_module(f"dense_{i}", Dense(dims[i], ch, dtype))
             if use_bn:
-                self.add_module(f"bn_{i}", MaskedBatchNorm(ch))
+                self.add_module(f"bn_{i}", MaskedBatchNorm(ch, dtype=dtype))
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
         lead = x.shape[:-1]
@@ -96,7 +130,7 @@ class PointMLP(nn.Module):
         if mask is not None:
             mask = mask.expand(lead).reshape(-1)
         for i in range(self.n):
-            x = getattr(self, f"dense_{i}")(x)
+            x = getattr(self, f"dense_{i}")(x, sum_in_f32=self.use_bn)
             if self.use_bn:
                 x = getattr(self, f"bn_{i}")(x, mask)
             x = torch.relu(x)
@@ -109,14 +143,15 @@ class FCLayers(nn.Module):
     R-PointNet head of both packages builds it. ``dropout`` is the rate of
     :func:`dropout` after each hidden ReLU, in training mode only."""
 
-    def __init__(self, in_dim: int, hidden: Sequence[int], out: int, dropout: float = 0.0):
+    def __init__(self, in_dim: int, hidden: Sequence[int], out: int, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n = len(hidden)
         self.dropout = dropout
         dims = [in_dim, *hidden]
         for i, ch in enumerate(hidden):
-            self.add_module(f"fc_{i}", nn.Linear(dims[i], ch))
-        self.fc_out = nn.Linear(dims[-1], out)
+            self.add_module(f"fc_{i}", Dense(dims[i], ch, dtype))
+        self.fc_out = Dense(dims[-1], out, dtype)
 
     def forward(self, x: torch.Tensor, keep=None, generator=None) -> torch.Tensor:
         """``keep``: one bool mask a hidden layer (its output's shape), the

@@ -1,5 +1,8 @@
 """PointNet++ set abstraction (SSG, max pool) and feature propagation: the
 PyTorch counterpart of ``gspn_tpu/nn/pointnet2.py``'s inference path.
+
+``dtype`` is the MLPs' compute dtype (``nn.layers``); the grouping and the
+FP interpolation stay float32, as the JAX package keeps its point ops.
 """
 
 from __future__ import annotations
@@ -65,13 +68,14 @@ class PointNetSAModule(nn.Module):
         fps_segments: int = 1,
         fps_segment_mode: str = "contiguous",
         select: str = "first",
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.npoint, self.radius, self.nsample = npoint, radius, nsample
         self.ops_impl = ops_impl
         self.fps_segments, self.fps_segment_mode = fps_segments, fps_segment_mode
         self.select = select
-        self.mlp = PointMLP(in_dim, mlp, use_bn=use_bn)
+        self.mlp = PointMLP(in_dim, mlp, use_bn=use_bn, dtype=dtype)
 
     def forward(self, xyz, points=None, valid=None, fps_idx=None):
         new_xyz, new_points, _, _, pts_cnt = sample_and_group(
@@ -100,25 +104,32 @@ class PointNetFPModule(nn.Module):
       launches the ``interp_mm`` kernel once on the card and gives the
       same bits as "exact";
     - "auto": "mm" when ``ops_impl`` resolves to the CUDA kernels for the
-      input, "exact" otherwise (as the JAX "auto" takes "mm" only on the
-      Pallas path)."""
+      input, "exact" otherwise (as the JAX package's "auto" takes "mm" only
+      on the Pallas path).
+
+    Either way the sources and the skip features are cast to float32 first
+    (exact: bfloat16 values are float32 values), the interpolation and the
+    concat are float32, and the MLP casts them to its ``dtype``, as the JAX
+    package's float32 interpolation promotes the concat."""
 
     def __init__(
         self, in_dim: int, mlp: Sequence[int], use_bn: bool = True, ops_impl: str = "auto",
-        interp: str = "auto",
+        interp: str = "auto", dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         if interp not in ("auto", "exact", "mm"):
             raise ValueError(f"interp must be auto|exact|mm, got {interp!r}")
         self.ops_impl = ops_impl
         self.interp = interp
-        self.mlp = PointMLP(in_dim, mlp, use_bn=use_bn)
+        self.mlp = PointMLP(in_dim, mlp, use_bn=use_bn, dtype=dtype)
 
     def forward(self, xyz1, xyz2, points1, points2, valid1=None, valid2=None):
         """``xyz1 (B,N,3)`` targets with skip features ``points1 (B,N,C1)``
         or None; ``xyz2 (B,M,3)`` sources with ``points2 (B,M,C2)`` ->
         ``(B,N,mlp[-1])``."""
         dist, idx = ops.three_nn(xyz1, xyz2, valid2, impl=self.ops_impl)
+        points2 = points2.float()
+        points1 = None if points1 is None else points1.float()
         use_mm = self.interp == "mm" or (
             self.interp == "auto" and ops.resolve_impl(self.ops_impl, xyz1) == "cuda"
         )

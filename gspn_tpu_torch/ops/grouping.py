@@ -133,8 +133,10 @@ class _GatherRows(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        """A bfloat16 gradient (of a bfloat16 MLP's gather) is summed in
+        float32, as the kernel takes it, and rounded once."""
         (idx,) = ctx.saved_tensors
-        return index_add_rows(g, idx, ctx.n, impl=ctx.impl), None, None
+        return index_add_rows(g.float(), idx, ctx.n, impl=ctx.impl).to(g.dtype), None, None
 
 
 def gather_point(inp: torch.Tensor, idx: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:

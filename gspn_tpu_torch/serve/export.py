@@ -7,10 +7,12 @@ The port's counterpart of ``gspn_tpu/serve/export.py``.
 manifest (format and version, platform, shapes, the pipeline config), so
 an artifact describes itself.
 
-The program's inputs are ``(state, xyz, valid, z_eps)``: ``state`` the
-model's state dict (the weights stay an input, as the JAX package's
-variables do, so one artifact serves every checkpoint of its architecture
-and holds no weights), ``z_eps`` the CVAE noise, drawn outside the program.
+The program's inputs are ``(state, xyz, valid, z_eps)``, or ``(state, xyz,
+features, valid, z_eps)`` for a pipeline with per-point features (the JAX
+package's order): ``state`` the model's state dict (the weights stay an
+input, as the JAX package's variables do, so one artifact serves every
+checkpoint of its architecture and holds no weights), ``z_eps`` the CVAE
+noise, drawn outside the program.
 It returns ``(masks, scores, classes, boxes, valid)``. Every kernel call is
 one opaque ``gspn::`` op (``ops.common.gspn_op``), which runs its CUDA
 kernel on the card and its plain version on the CPU.
@@ -62,8 +64,8 @@ class _Infer(nn.Module):
         self.gspn, self.rpointnet = model.gspn, model.rpointnet
         self._infer = make_inference_fn(cfg)
 
-    def forward(self, xyz, valid, z_eps):
-        preds = self._infer(self, xyz, valid, z_eps=z_eps)
+    def forward(self, xyz, valid, z_eps, features=None):
+        preds = self._infer(self, xyz, valid, z_eps=z_eps, features=features)
         return tuple(getattr(preds, f) for f in PREDICTION_FIELDS)
 
 
@@ -81,6 +83,20 @@ class _Serving(nn.Module):
         return torch.func.functional_call(self._pipeline, state, (xyz, valid, z_eps))
 
 
+class _ServingFeatures(_Serving):
+    """``forward(state, xyz, features, valid, z_eps)``: :class:`_Serving`
+    with the per-point input features."""
+
+    def forward(self, state: dict[str, torch.Tensor], xyz, features, valid, z_eps):
+        return torch.func.functional_call(self._pipeline, state, (xyz, valid, z_eps),
+                                          {"features": features})
+
+
+def feature_dim(cfg: PipelineConfig) -> int:
+    """The per-point input features a pipeline reads (0: none)."""
+    return max(cfg.gspn.feature_dim, cfg.rpointnet.feature_dim)
+
+
 def serving_state(model: PipelineModel, device=None) -> dict[str, torch.Tensor]:
     """The program's ``state`` input: ``model``'s state dict, in its key
     order (the exported calling convention keeps that order), on
@@ -90,14 +106,15 @@ def serving_state(model: PipelineModel, device=None) -> dict[str, torch.Tensor]:
 
 
 def _example_inputs(cfg: PipelineConfig, n_points: int, batch_size: int, device):
-    """``(xyz, valid, z_eps)`` of the serving shape: zeros, all points
-    valid. They fix the traced shapes only; no value is read."""
-    return (
-        torch.zeros((batch_size, n_points, 3), dtype=torch.float32, device=device),
-        torch.ones((batch_size, n_points), dtype=torch.bool, device=device),
-        torch.zeros((batch_size, cfg.num_seeds, cfg.gspn.latent_dim), dtype=torch.float32,
-                    device=device),
-    )
+    """``(xyz, [features,] valid, z_eps)`` of the serving shape: zeros, all
+    points valid. They fix the traced shapes only; no value is read."""
+    xyz = torch.zeros((batch_size, n_points, 3), dtype=torch.float32, device=device)
+    rest = (torch.ones((batch_size, n_points), dtype=torch.bool, device=device),
+            torch.zeros((batch_size, cfg.num_seeds, cfg.gspn.latent_dim), dtype=torch.float32,
+                        device=device))
+    if feature_dim(cfg):
+        return (xyz, torch.zeros((batch_size, n_points, feature_dim(cfg)), device=device), *rest)
+    return (xyz, *rest)
 
 
 def export_inference(cfg: PipelineConfig, model: PipelineModel, n_points: int, *,
@@ -105,16 +122,16 @@ def export_inference(cfg: PipelineConfig, model: PipelineModel, n_points: int, *
     """Export ``infer(state, xyz, valid, z_eps)`` at the serving shape
     ``(batch_size, n_points)`` for ``device`` (``"cuda"`` or ``"cpu"``).
     ``model`` (built from ``cfg``, in eval mode) supplies the state's keys,
-    shapes and dtypes; its values are not baked in. Raises
-    ``NotImplementedError`` for the knobs the port does not run
-    (``feature_dim>0``, bf16), as ``make_inference_fn`` does."""
+    shapes and dtypes; its values are not baked in. A pipeline with
+    per-point features (``feature_dim > 0``) takes them as the input after
+    ``xyz``."""
     device = torch.device(device)
     if device.type not in PLATFORMS:
         raise ValueError(f"export for one of {PLATFORMS}, got {device}")
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("exporting for cuda needs a CUDA device")
     model = model.to(device).eval()
-    serving = _Serving(_Infer(cfg, model))
+    serving = (_ServingFeatures if feature_dim(cfg) else _Serving)(_Infer(cfg, model))
     args = (serving_state(model), *_example_inputs(cfg, n_points, batch_size, device))
     with torch.no_grad():
         program = torch.export.export(serving, args, strict=False)
@@ -131,17 +148,21 @@ def _user_inputs(program: torch.export.ExportedProgram) -> list:
 
 def save_artifact(path: str | pathlib.Path, program: torch.export.ExportedProgram,
                   cfg: PipelineConfig, *, extra_meta: dict | None = None) -> pathlib.Path:
-    """Write a single-file artifact: ``zip(manifest.json, program.pt2)``."""
-    xyz, valid, z_eps = _user_inputs(program)[-3:]
-    platform = xyz.device.type
+    """Write a single-file artifact: ``zip(manifest.json, program.pt2)``.
+    The manifest's ``inputs`` holds ``features`` (its shape) for a pipeline
+    with per-point features, and ``pipeline_config`` the config (its
+    ``dtype`` and ``feature_dim`` included)."""
+    names = ("xyz", "features", "valid", "z_eps") if feature_dim(cfg) else (
+        "xyz", "valid", "z_eps")
+    inputs = dict(zip(names, _user_inputs(program)[-len(names):], strict=True))
+    platform = inputs["xyz"].device.type
     outs = [n.meta["val"] for n in program.graph.output_node().args[0]]
     manifest = {
         "format": FORMAT,
         "format_version": FORMAT_VERSION,
         "platforms": [platform],
         "torch": torch.__version__,
-        "inputs": {"xyz": list(xyz.shape), "valid": list(valid.shape),
-                   "z_eps": list(z_eps.shape)},
+        "inputs": {k: list(v.shape) for k, v in inputs.items()},
         "outputs": {f: [list(o.shape), str(o.dtype)]
                     for f, o in zip(PREDICTION_FIELDS, outs, strict=True)},
         "pipeline_config": _to_jsonable(cfg),

@@ -15,9 +15,12 @@ weights, traces the program at the serving shape and writes the artifact
 
 ``--verify`` runs the artifact against the live pipeline on seeded scenes
 and requires every output bit for bit before the artifact is put in place.
-``--width-mult`` must be the value the checkpoints were trained with.
-``--feature-dim``, ``--dtype bf16`` and ``--platform`` (cross-exporting)
-are not ported and raise ``NotImplementedError``.
+``--width-mult`` and ``--feature-dim`` must be the values the checkpoints
+were trained with (a run's ``config.json`` beside its ``ckpt/`` is
+checked); ``--feature-dim`` makes the per-point features an input of the
+program, and ``--dtype bf16`` bakes bfloat16 MLP and head compute in. The
+manifest's ``pipeline_config`` carries both. ``--platform``
+(cross-exporting) is not ported and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -41,7 +44,8 @@ def parse_args(argv=None):
     p.add_argument("--num-points", type=int, default=8192)
     p.add_argument("--num-seeds", type=int, default=64)
     p.add_argument("--num-classes", type=int, default=18)
-    p.add_argument("--feature-dim", type=int, default=0, help="not ported")
+    p.add_argument("--feature-dim", type=int, default=0,
+                   help="per-point input features (e.g. 3 for RGB) the artifact takes")
     p.add_argument("--preset", choices=["default", "tiny"], default="default")
     p.add_argument("--width-mult", type=int, default=1,
                    help="MLP width multiplier: the checkpoints' training value")
@@ -61,18 +65,16 @@ def parse_args(argv=None):
 
 
 def build_config(args):
-    from gspn_tpu_torch.models.gspn import KNOB_PATHS, GSPNConfig, not_ported
+    from gspn_tpu_torch.eval.run_eval import with_feature_dim
+    from gspn_tpu_torch.models.gspn import GSPNConfig, not_ported
     from gspn_tpu_torch.models.pipeline import PipelineConfig
-    from gspn_tpu_torch.models.presets import scale_pipeline_widths, set_pipeline_fps_segments
+    from gspn_tpu_torch.models.presets import (
+        scale_pipeline_widths, set_pipeline_dtype, set_pipeline_fps_segments,
+    )
     from gspn_tpu_torch.models.rpointnet import RPointNetConfig
 
-    for flagged, what, item in (
-        (args.feature_dim, "--feature-dim", KNOB_PATHS),
-        (args.dtype == "bf16", "--dtype bf16", KNOB_PATHS),
-        (args.platform is not None, "--platform", CROSS_PLATFORM),
-    ):
-        if flagged:
-            raise not_ported(what, item)
+    if args.platform is not None:
+        raise not_ported("--platform", CROSS_PLATFORM)
     if args.preset == "tiny":
         from gspn_tpu_torch.train.train_gspn import TINY_GSPN
         from gspn_tpu_torch.train.train_rpointnet import tiny_rpointnet
@@ -82,8 +84,11 @@ def build_config(args):
         gspn, rpointnet = GSPNConfig(), RPointNetConfig(num_classes=args.num_classes)
     cfg = PipelineConfig(gspn=gspn, rpointnet=rpointnet, num_seeds=args.num_seeds,
                          score_thresh=args.score_thresh)
+    cfg = with_feature_dim(cfg, args.feature_dim)
     if args.width_mult != 1:
         cfg = scale_pipeline_widths(cfg, args.width_mult)
+    if args.dtype == "bf16":
+        cfg = set_pipeline_dtype(cfg, torch.bfloat16)
     if args.fps_segments is not None:
         cfg = set_pipeline_fps_segments(cfg, args.fps_segments, args.fps_segment_mode)
     return cfg
@@ -101,9 +106,14 @@ def verify(cfg, model, program, args, device) -> None:
                            .astype(np.float32)).to(device)
     valid = torch.ones((args.batch, args.num_points), dtype=torch.bool, device=device)
     z_eps = chunk_noise(1, 0, (args.batch, cfg.num_seeds, cfg.gspn.latent_dim)).to(device)
+    feats = None
+    if args.feature_dim:
+        feats = torch.from_numpy(rng.standard_normal(
+            (args.batch, args.num_points, args.feature_dim)).astype(np.float32)).to(device)
     with torch.inference_mode():
-        live = make_inference_fn(cfg)(model, xyz, valid, z_eps=z_eps)
-        got = program.module()(serving_state(model), xyz, valid, z_eps)
+        live = make_inference_fn(cfg)(model, xyz, valid, z_eps=z_eps, features=feats)
+        inputs = (xyz, valid, z_eps) if feats is None else (xyz, feats, valid, z_eps)
+        got = program.module()(serving_state(model), *inputs)
     for f, g in zip(PREDICTION_FIELDS, got, strict=True):
         if not torch.equal(g, getattr(live, f)):
             raise AssertionError(f"verify: the artifact's {f} differs from the live pipeline's")
@@ -112,6 +122,7 @@ def verify(cfg, model, program, args, device) -> None:
 
 def main(argv=None) -> pathlib.Path:
     args = parse_args(argv)
+    from gspn_tpu_torch.eval.run_eval import check_checkpoint_config
     from gspn_tpu_torch.models.pipeline import PipelineModel, init_pipeline_variables
     from gspn_tpu_torch.serve.export import export_inference, load_artifact, save_artifact
     from gspn_tpu_torch.serve.runtime import float32_matmuls, restore_checkpoints
@@ -120,6 +131,9 @@ def main(argv=None) -> pathlib.Path:
     cfg = build_config(args)
     device = resolve_device(args.device, "export_serving")
     state = init_pipeline_variables(cfg, torch.Generator().manual_seed(0), args.num_points)
+    for name, ckpt in (("gspn", args.gspn_ckpt), ("rpointnet", args.rpointnet_ckpt)):
+        if ckpt:
+            check_checkpoint_config(ckpt, name, args.feature_dim, getattr(cfg, name))
     restore_checkpoints(state, args.gspn_ckpt, args.rpointnet_ckpt)
     for name, ckpt in (("gspn", args.gspn_ckpt), ("rpointnet", args.rpointnet_ckpt)):
         if ckpt:

@@ -119,36 +119,54 @@ class InferenceSession:
         self.state = {k: state[k].to(self.device) for k in keys}
         self.batch_size, self.num_points = self.manifest["inputs"]["xyz"][:2]
         self.noise_shape = tuple(self.manifest["inputs"]["z_eps"])
+        self.has_features = "features" in self.manifest["inputs"]
+        self.feature_dim = self.manifest["inputs"]["features"][-1] if self.has_features else 0
         self._lock = threading.Lock()
         self.module = self.program.module()
         self._graphed = None
         if self.device.type == "cuda":
             with torch.inference_mode(), float32_matmuls():
-                example = (torch.zeros((self.batch_size, self.num_points, 3), device=self.device),
-                           torch.ones((self.batch_size, self.num_points), dtype=torch.bool,
-                                      device=self.device),
+                b, n = self.batch_size, self.num_points
+                example = (torch.zeros((b, n, 3), device=self.device),
+                           torch.ones((b, n), dtype=torch.bool, device=self.device),
                            torch.zeros(self.noise_shape, device=self.device))
+                if self.has_features:  # one more static input of the graph
+                    example += (torch.zeros((b, n, self.feature_dim), device=self.device),)
                 self._graphed = GraphedRequest(self._call, *example)
 
-    def _call(self, xyz, valid, z_eps):
+    def _call(self, xyz, valid, z_eps, features=None):
+        if self.has_features:
+            return self.module(self.state, xyz, features, valid, z_eps)
         return self.module(self.state, xyz, valid, z_eps)
 
-    def run(self, xyz: torch.Tensor, valid: torch.Tensor, z_eps: torch.Tensor):
+    def _check_features(self, features) -> None:
+        if self.has_features and features is None:
+            raise ValueError(f"artifact expects features (feature_dim={self.feature_dim})")
+        if not self.has_features and features is not None:
+            raise ValueError("artifact was exported without features")
+
+    def run(self, xyz: torch.Tensor, valid: torch.Tensor, z_eps: torch.Tensor,
+            features: torch.Tensor | None = None):
         """One request at the compiled shape, tensors on the session's
-        device: the graph's replay on the card, the program on the CPU.
-        Returns ``(masks, scores, classes, boxes, valid)``."""
+        device (``features``, the per-point input features, for an artifact
+        exported with them): the graph's replay on the card, the program on
+        the CPU. Returns ``(masks, scores, classes, boxes, valid)``."""
+        self._check_features(features)
+        inputs = (xyz, valid, z_eps) + ((features,) if self.has_features else ())
         with self._lock, torch.inference_mode(), float32_matmuls():
             if self._graphed is not None:
-                return self._graphed(xyz, valid, z_eps)
-            return self._call(xyz, valid, z_eps)
+                return self._graphed(*inputs)
+            return self._call(*inputs)
 
     def predict(self, xyz: np.ndarray, valid: np.ndarray | None = None,
                 features: np.ndarray | None = None, seed: int = 0) -> dict[str, np.ndarray]:
         """Inference on ``xyz (b, n, 3)`` for any ``b >= 1``; ``n`` must be
-        the artifact's point count. Returns numpy ``masks``, ``scores``,
-        ``classes``, ``boxes`` and ``valid`` with a leading ``b``. Chunk
-        ``ci`` of the batch (``batch_size`` scenes, the last padded)
-        takes :func:`chunk_noise` ``(seed, ci)``."""
+        the artifact's point count, and ``features (b, n, feature_dim)`` are
+        required by an artifact exported with them and refused by one
+        without. Returns numpy ``masks``, ``scores``, ``classes``, ``boxes``
+        and ``valid`` with a leading ``b``. Chunk ``ci`` of the batch
+        (``batch_size`` scenes, the last padded) takes :func:`chunk_noise`
+        ``(seed, ci)``."""
         xyz = np.asarray(xyz, np.float32)
         if xyz.ndim != 3 or xyz.shape[-1] != 3:
             raise ValueError(f"xyz must be (b, n, 3), got {xyz.shape}")
@@ -161,8 +179,12 @@ class InferenceSession:
         valid = np.ones((b, n), bool) if valid is None else np.asarray(valid, bool)
         if valid.shape != (b, n):
             raise ValueError(f"valid must be {(b, n)}, got {valid.shape}")
+        self._check_features(features)
         if features is not None:
-            raise ValueError("artifact was exported without features")
+            features = np.asarray(features, np.float32)
+            if features.shape != (b, n, self.feature_dim):
+                raise ValueError(f"features must be {(b, n, self.feature_dim)}, got "
+                                 f"{features.shape}")
 
         outs = []
         bs = self.batch_size
@@ -176,7 +198,8 @@ class InferenceSession:
                 return torch.from_numpy(np.concatenate([part, np.repeat(part[:1], bs - take, 0)]))
 
             preds = self.run(chunk(xyz).to(self.device), chunk(valid).to(self.device),
-                             chunk_noise(seed, ci, self.noise_shape).to(self.device))
+                             chunk_noise(seed, ci, self.noise_shape).to(self.device),
+                             None if features is None else chunk(features).to(self.device))
             outs.append([p[:take].cpu().numpy() for p in preds])
         return {f: np.concatenate(parts) for f, parts in zip(PREDICTION_FIELDS, zip(*outs))}
 
@@ -284,9 +307,10 @@ class Server:
                  max_request_scenes: int = 1024):
         self.session = session
         self._conn_sem = threading.BoundedSemaphore(max_connections)
-        # a scene's xyz in float32, its valid flags (a bit each up to an
-        # int64 from a sloppy client) and the container's overhead
-        per_scene = session.num_points * (3 * 4 + 8) + 4096
+        # a scene's xyz and features in float32, its valid flags (a bit
+        # each up to an int64 from a sloppy client) and the container's
+        # overhead
+        per_scene = session.num_points * ((3 + session.feature_dim) * 4 + 8) + 4096
         self.max_request_bytes = min(_MAX_PAYLOAD, max_request_scenes * per_scene + (1 << 20))
         self._unix_path = None
         if isinstance(address, (str, pathlib.Path)):

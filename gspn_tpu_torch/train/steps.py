@@ -57,7 +57,9 @@ def make_gspn_loss_fn(num_seeds: int, gt_size: int, loss_weights: dict | None = 
     where ``ops.eligible_fps_segments`` allows), or with ``seed_method=
     "random"`` uniformly over the valid points by ``ops.prob_sample`` at the
     uniforms ``seed_u (B, num_seeds)``. Then the seeds' GT instances
-    (``gather_seed_instances``), the training forward and ``gspn_loss``.
+    (``gather_seed_instances``), the training forward (on the batch's
+    ``features (B,N,F)`` where the model's ``feature_dim`` is above 0) and
+    ``gspn_loss``.
     The CVAE noise is ``z_eps (B, num_seeds, latent)``. What is not given
     is drawn from ``generator``, the uniforms first."""
     lw = loss_weights or {}
@@ -86,7 +88,7 @@ def make_gspn_loss_fn(num_seeds: int, gt_size: int, loss_weights: dict | None = 
             xyz, batch["inst_label"], seed_idx, gt_size
         )
         out = model(xyz, seed_idx, valid, z_eps=z_eps, generator=generator,
-                    gt_points=gt_points, gt_valid=gt_valid)
+                    gt_points=gt_points, gt_valid=gt_valid, features=batch.get("features"))
         return gspn_loss(out, gt_points, gt_valid, gt_center, is_fg, impl=cfg.ops_impl, **lw)
 
     return loss_fn
@@ -114,7 +116,8 @@ def make_rpointnet_loss_fn(max_instances: int, frozen_gspn: tuple | None = None,
     ``ops_impl`` gives both the seeds and SA1's centres (greedy FPS is
     prefix-consistent; the JAX package's ``share_fps=True``, what its
     trainer and bench run). Then the training forward (``gumbel`` and
-    ``dropout_keep``: ``RPointNet.forward``), the IoU match (in GT-box mode
+    ``dropout_keep``: ``RPointNet.forward``; both stages read the batch's
+    ``features`` where their ``feature_dim`` is above 0), the IoU match (in GT-box mode
     only RoIs of present instances count) and ``rpointnet_loss``. What is
     not given is drawn from ``generator``, in the module docstring's
     order."""
@@ -125,7 +128,7 @@ def make_rpointnet_loss_fn(max_instances: int, frozen_gspn: tuple | None = None,
                 dropout_keep=None, generator=None):
         _check_training(model, "R-PointNet")
         cfg = model.config
-        xyz, valid = batch["xyz"], batch["valid"]
+        xyz, valid, features = batch["xyz"], batch["valid"], batch.get("features")
         gt_boxes, gt_cls, present = instance_gt_boxes(
             xyz, batch["inst_label"], batch["sem_label"], max_instances)
         if box_noise is None:
@@ -146,14 +149,15 @@ def make_rpointnet_loss_fn(max_instances: int, frozen_gspn: tuple | None = None,
                 segment_mode=cfg.fps_segment_mode)
             seed_idx, sa1_fps_idx = fps_all[:, :num_seeds], fps_all[:, :sa1_n]
             with torch.no_grad():
-                gout = gmodel(xyz, seed_idx, valid, z_eps=z_eps, generator=generator)
+                gout = gmodel(xyz, seed_idx, valid, z_eps=z_eps, generator=generator,
+                              features=features)
                 rois = proposal_boxes(gout.generated, cfg.box_margin)
             if mix_gt_boxes:
                 rois = torch.cat([rois, gt_rois], dim=1)
         else:
             rois = gt_rois
         out = model(xyz, rois, valid, sa1_fps_idx=sa1_fps_idx, gumbel=gumbel,
-                    dropout_keep=dropout_keep, generator=generator)
+                    dropout_keep=dropout_keep, generator=generator, features=features)
         roi_valid = out.roi_valid & present if frozen_gspn is None else out.roi_valid
         match = match_rois(rois, roi_valid, gt_boxes, gt_cls, present, cfg.fg_iou, cfg.bg_iou)
         return rpointnet_loss(out, match, batch["inst_label"])

@@ -5,7 +5,10 @@
 
 The flags and defaults of ``gspn_tpu.train.train_gspn`` (synthetic scenes,
 B=4 x N=4096, 64 FPS seeds, 256 GT points per seed, ``GSPNConfig()`` at
-full width, Adam at 1e-3), plus ``--device`` (default ``cuda``; without a
+full width, Adam at 1e-3; ``--preset object --synthetic-objects``, the
+single-object CVAE of ``shapenet_config`` on synthetic objects; ``--dtype
+bf16``, bfloat16 MLP and head compute; the data's per-point features
+widen the crops), plus ``--device`` (default ``cuda``; without a
 CUDA device it exits with an error and never falls back to the CPU). Batch
 ``i`` is a pure function of ``(seed, i)`` and step ``i``'s random draws
 (augmentation, then the CVAE noise) come from a generator seeded by
@@ -28,7 +31,7 @@ from gspn_tpu_torch.data import synthetic
 from gspn_tpu_torch.data.augment import augment_scene
 from gspn_tpu_torch.data.iterator import DeterministicBatches, make_feed, to_device
 from gspn_tpu_torch.data.layout_probe import warn_if_layout_biased
-from gspn_tpu_torch.models.gspn import KNOB_PATHS, GSPN, GSPNConfig, not_ported
+from gspn_tpu_torch.models.gspn import GSPN, GSPNConfig, not_ported, shapenet_config
 from gspn_tpu_torch.models.presets import scale_gspn_widths
 from gspn_tpu_torch.nn.layers import glorot_init_
 from gspn_tpu_torch.train.checkpoint import CheckpointManager
@@ -77,7 +80,8 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--bn-decay-rate", type=float, default=0.5)
     p.add_argument("--resume", action="store_true",
                    help="restore the latest checkpoint under --log-dir and continue the run")
-    p.add_argument("--dtype", choices=["f32", "bf16"], default="f32", help="bf16 is not ported")
+    p.add_argument("--dtype", choices=["f32", "bf16"], default="f32",
+                   help="MLP and head compute dtype (parameters stay float32)")
     p.add_argument("--width-mult", type=int, default=1,
                    help="multiply every MLP/FC width (sampling geometry unchanged; "
                         "models/presets.py scale_*_widths); stage 2, export and eval must "
@@ -120,10 +124,12 @@ def parse_args(argv=None):
     p.add_argument("--shapenet-dir", type=str, default=None, help="not ported")
     p.add_argument("--shapenet-category", type=int, default=None)
     p.add_argument("--partnet-dir", type=str, default=None, help="not ported")
-    p.add_argument("--synthetic-objects", action="store_true", help="not ported")
+    p.add_argument("--synthetic-objects", action="store_true",
+                   help="single synthetic objects, one instance each (BASELINE config 1)")
     p.add_argument("--no-augment", action="store_true")
     p.add_argument("--preset", choices=["default", "tiny", "object"], default="default",
-                   help="tiny = small config for smoke tests / CPU; object is not ported")
+                   help="tiny = small config for smoke tests / CPU; object = the "
+                        "single-object CVAE (one crop of radius 2 holding every point)")
     add_common_args(p)
     return p.parse_args(argv)
 
@@ -137,10 +143,7 @@ def check_ported(args) -> None:
         (args.scannet_dir, "--scannet-dir (ScanNet crops)", DATA_LOADERS),
         (args.shapenet_dir, "--shapenet-dir (ShapeNet objects)", DATA_LOADERS),
         (args.partnet_dir, "--partnet-dir (PartNet parts)", DATA_LOADERS),
-        (args.synthetic_objects, "--synthetic-objects", DATA_LOADERS),
-        (args.preset == "object", "--preset object", DATA_LOADERS),
         (args.morton, "--morton (host Morton sort)", DATA_LOADERS),
-        (args.dtype == "bf16", "--dtype bf16", KNOB_PATHS),
     ]
     for flagged, what, item in unported:
         if flagged:
@@ -163,17 +166,32 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
 
 
 def make_sample_fn(args):
+    """``sample_fn(np_rng, batch_size) -> batch dict``: synthetic single
+    objects with ``--synthetic-objects``, else synthetic scenes."""
+    if getattr(args, "synthetic_objects", False):
+        return lambda rng, b: synthetic.object_scene_batch(rng, b, n_points=args.num_points)
     return lambda rng, b: synthetic.scene_batch(rng, b, n_points=args.num_points,
                                                 max_instances=8)
 
 
+def batch_feature_dim(batch: dict) -> int:
+    """The per-point feature width of a batch (0 without features)."""
+    f = batch.get("features")
+    return 0 if f is None else int(f.shape[-1])
+
+
 def model_config(args, first: dict) -> GSPNConfig:
-    cfg = TINY_GSPN if args.preset == "tiny" else GSPNConfig()
-    fdim = int(first["features"].shape[-1]) if "features" in first else 0
+    if args.preset == "object":
+        cfg = shapenet_config(args.num_points, num_gen_points=512)
+    else:
+        cfg = TINY_GSPN if args.preset == "tiny" else GSPNConfig()
+    fdim = batch_feature_dim(first)
     if fdim != cfg.feature_dim:  # consume RGB & friends when the data has them
         cfg = dataclasses.replace(cfg, feature_dim=fdim)
     if args.width_mult != 1:
         cfg = scale_gspn_widths(cfg, args.width_mult)
+    if args.dtype == "bf16":
+        cfg = dataclasses.replace(cfg, dtype=torch.bfloat16)
     if args.fps_segments != 1:
         cfg = dataclasses.replace(cfg, fps_segments=args.fps_segments,
                                   fps_segment_mode=args.fps_segment_mode)

@@ -29,7 +29,7 @@ import torch
 from gspn_tpu_torch.convert import GSPN_TRAINING_ONLY
 from gspn_tpu_torch.data.iterator import DeterministicBatches
 from gspn_tpu_torch.data.layout_probe import warn_if_layout_biased
-from gspn_tpu_torch.models.gspn import KNOB_PATHS, GSPN, GSPNConfig, not_ported
+from gspn_tpu_torch.models.gspn import GSPN, GSPNConfig, not_ported
 from gspn_tpu_torch.models.presets import scale_gspn_widths, scale_rpointnet_widths
 from gspn_tpu_torch.models.rpointnet import RPointNet, RPointNetConfig, SALayerSpec
 from gspn_tpu_torch.nn.layers import glorot_init_
@@ -41,6 +41,7 @@ from gspn_tpu_torch.train.train_gspn import (
     PARALLEL,
     TINY_GSPN,
     add_common_args,
+    batch_feature_dim,
     make_sample_fn,
     resolve_device,
     train_loop,
@@ -92,7 +93,6 @@ def check_ported(args) -> None:
         (args.scannet_dir, "--scannet-dir (ScanNet crops)", DATA_LOADERS),
         (args.partnet_dir, "--partnet-dir (PartNet parts)", DATA_LOADERS),
         (args.morton, "--morton (host Morton sort)", DATA_LOADERS),
-        (args.dtype == "bf16", "--dtype bf16", KNOB_PATHS),
     ]
     for flagged, what, item in unported:
         if flagged:
@@ -118,12 +118,15 @@ def tiny_rpointnet(num_classes: int) -> RPointNetConfig:
 
 def _stage_knobs(cfg, args, fdim: int, scale_widths):
     """The data's feature width, ``--width-mult`` (by ``scale_widths``, the
-    stage's ``presets.scale_*_widths``) and the trainer's FPS and selection
-    flags on a stage config, as the JAX trainer sets them on both stages."""
+    stage's ``presets.scale_*_widths``), ``--dtype`` and the trainer's FPS
+    and selection flags on a stage config, as the JAX trainer sets them on
+    both stages."""
     if fdim != cfg.feature_dim:
         cfg = dataclasses.replace(cfg, feature_dim=fdim)
     if args.width_mult != 1:
         cfg = scale_widths(cfg, args.width_mult)
+    if args.dtype == "bf16":
+        cfg = dataclasses.replace(cfg, dtype=torch.bfloat16)
     if args.fps_segments != 1:
         cfg = dataclasses.replace(cfg, fps_segments=args.fps_segments,
                                   fps_segment_mode=args.fps_segment_mode)
@@ -135,8 +138,7 @@ def _stage_knobs(cfg, args, fdim: int, scale_widths):
 def model_config(args, first: dict) -> RPointNetConfig:
     cfg = (tiny_rpointnet(args.num_classes) if args.preset == "tiny"
            else RPointNetConfig(num_classes=args.num_classes))
-    fdim = int(first["features"].shape[-1]) if "features" in first else 0
-    cfg = _stage_knobs(cfg, args, fdim, scale_rpointnet_widths)
+    cfg = _stage_knobs(cfg, args, batch_feature_dim(first), scale_rpointnet_widths)
     if args.group_select == "first":  # warn when the layout is in the first-K pathology regime
         sa1 = cfg.sa_layers[0]
         warn_if_layout_biased(first, radius=float(sa1.radius), k=int(sa1.nsample),

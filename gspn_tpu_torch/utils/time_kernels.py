@@ -55,7 +55,7 @@ import torch
 REPO = pathlib.Path(__file__).resolve().parents[2]
 ITERS = 20  # timed launches a case
 CUDA_WINDOWS = 3  # cuda_ms's windows of timed launches
-PROFILER_WINDOWS = 5  # tries at a profiler window that kept its closing spin
+PROFILER_WINDOWS = 8  # tries at a complete profiler window (window_complete)
 SPIN_KERNEL, SPIN_CYCLES = "spin_kernel", 1000  # a window's brackets (torch.cuda._sleep)
 # the kernels' device symbols, before and after their redesigns, so that
 # either tree's kernels are found
@@ -114,18 +114,47 @@ def cuda_ms(fn, iters: int) -> float:
     return statistics.median(windows)
 
 
+def _launch_total() -> int:
+    """Launches of every hand-written kernel so far, by the ctypes
+    library's own counter (``ops._cuda.KERNELS``), in the tree imported."""
+    from gspn_tpu_torch.ops import _cuda
+
+    return sum(k.launches for k in _cuda.KERNELS.values())
+
+
+def kernel_event(name: str) -> bool:
+    """Whether a device event's name is a hand-written kernel's
+    (``SYMBOLS``)."""
+    return any(sym in name for syms in SYMBOLS.values() for sym in syms)
+
+
+def window_complete(names: list[str], launched: int) -> bool:
+    """Whether a profiler window kept every record: ``names``, its device
+    events' names in start order, end with the closing spin, and, where the
+    window's calls launched ``launched`` hand-written kernels by the
+    library's counter, hold as many events of those kernels. A launch the
+    counter does not see (a CUDA graph's replay) leaves ``launched`` at 0,
+    and then only the closing spin is checked."""
+    if not names or SPIN_KERNEL not in names[-1]:
+        return False
+    return not launched or sum(map(kernel_event, names)) == launched
+
+
 def _device_events(fn, iters: int):
     """The device events of a profiler window over ``iters`` calls of
     ``fn``, after a warm-up call. CUPTI loses records now and then (on an
     H100: the window's first kernel, whose launch asks for its first
     activity buffer, in about one window in 400, and in every window once
-    a process has run long kernels; every kernel from some point on; or a
-    whole window). So the window opens with a short spin kernel of its own
-    (``torch.cuda._sleep``), which takes the first of those losses, and
-    closes with another, whose record shows that the window's tail was
-    kept; both are left out of the events. A window without its closing
-    spin is taken again, up to ``PROFILER_WINDOWS`` times, and the last one
-    is returned, with a printed line, if none kept it."""
+    a process has run long kernels; one record in the middle of a window;
+    every kernel from some point on; or a whole window). So the window
+    opens with a short spin kernel of its own (``torch.cuda._sleep``),
+    which takes the first of those losses, and closes with another, whose
+    record shows that the window's tail was kept; both are left out of the
+    events. A window is taken again, up to ``PROFILER_WINDOWS`` times,
+    unless :func:`window_complete`: it kept its closing spin, and its
+    events of the hand-written kernels number the launches the ctypes
+    library counted during its calls. The last window is returned, with a
+    printed line, if none was complete."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(PROFILER_WINDOWS):
@@ -133,18 +162,20 @@ def _device_events(fn, iters: int):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             torch.cuda._sleep(SPIN_CYCLES)
+            before = _launch_total()
             for _ in range(iters):
                 fn()
+            launched = _launch_total() - before
             torch.cuda._sleep(SPIN_CYCLES)
             torch.cuda.synchronize()
         device = sorted((e for e in prof.events()
                          if e.device_type == torch.autograd.DeviceType.CUDA),
                         key=lambda e: e.time_range.start)
         mine = [e for e in device if SPIN_KERNEL not in e.name]
-        if device and SPIN_KERNEL in device[-1].name:
+        if window_complete([e.name for e in device], launched):
             return mine
-    print(f"profiler: none of {PROFILER_WINDOWS} windows kept its closing spin; "
-          f"{len(mine)} events over {iters} calls")
+    print(f"profiler: none of {PROFILER_WINDOWS} windows was complete (closing spin, "
+          f"{launched} kernel launches counted); {len(mine)} events over {iters} calls")
     return mine
 
 

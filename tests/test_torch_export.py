@@ -85,15 +85,6 @@ def test_export_rejects_wrong_shape(tmp_path):
         program.module()(sx.serving_state(model), xyz, valid, eps)
 
 
-@pytest.mark.parametrize("knob", [{"feature_dim": 3}, {"dtype": torch.bfloat16}],
-                         ids=["feature_dim", "bf16"])
-def test_export_refuses_unported_knobs(knob):
-    cfg = dataclasses.replace(CFG, gspn=dataclasses.replace(CFG.gspn, **knob),
-                              rpointnet=dataclasses.replace(CFG.rpointnet, **knob))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        sx.export_inference(cfg, _model(CFG), N, batch_size=B, device="cpu")
-
-
 def _rewrite_manifest(src, dst, **changes):
     with zipfile.ZipFile(src) as z:
         files = {name: z.read(name) for name in z.namelist()}

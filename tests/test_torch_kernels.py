@@ -222,6 +222,27 @@ def test_ball_group_kernel_shapes(dev, b, n, radii, ks, m, masked):
     _ball_equal(xyz, q, valid if masked else None, radii, ks)
 
 
+@pytest.mark.parametrize("invalid", [0.0, 0.1, 0.6], ids=["all_valid", "tail_10", "tail_60"])
+def test_ball_group_kernel_single_object_crop(dev, invalid):
+    """The single-object preset's crop (``shapenet_config(4096)``): one
+    radius of 2.0 with K = 4096 around 64 seeds of 4 unit objects of 4096
+    points, nearly every point a hit. With a tail of invalid points every
+    row holds fewer hits than K and runs its tail fill (slots past the
+    count repeat the first hit). (K above the point count is refused by
+    both packages' plain versions.)"""
+    sb = synthetic.object_scene_batch(np.random.default_rng(0), 4, 4096)
+    xyz = torch.from_numpy(sb["xyz"]).to(dev)
+    valid = torch.from_numpy(sb["valid"]).to(dev)
+    valid[:, 4096 - int(4096 * invalid):] = False
+    q = ops.gather_point(xyz, ops.farthest_point_sample(64, xyz, valid))
+    (idx, cnt, _), = _ball_equal(xyz, q, valid if invalid else None, (2.0,), (4096,))
+    assert idx.shape == (4, 64, 4096) and (cnt > 4096 * (1 - invalid) * 0.5).all()
+    if invalid:
+        assert (cnt < 4096).all()
+        tail = torch.arange(4096, device=dev) >= cnt[..., None]
+        assert (idx == idx[..., :1])[tail].all()
+
+
 @pytest.mark.parametrize("split", [1, 2, 4, 8, 16])
 @pytest.mark.parametrize("b,n", [(1, 8192), (3, 8192), (8, 8192), (2, 8195), (1, 65536)])
 def test_ball_group_kernel_at_every_split(dev, b, n, split):
@@ -873,6 +894,50 @@ def test_interp_fp_backward(dev, c1):
         _equal(got, want)
 
 
+@pytest.mark.parametrize("b,n,m,c2", [(8, 8192, 1024, 128), (1, 65536, 1024, 128),
+                                       (8, 1024, 256, 256)],
+                         ids=["fp4", "fp4_whole_scene", "fp3"])
+def test_interp_fp_kernel_rgb_skip(dev, b, n, m, c2):
+    """``feature_dim=3``: FP4's skip rows are the scene's RGB (C1 = 3, the
+    kernel's scalar skip loads), so FP4 takes the direct form where
+    without a skip it takes the staged one; both forms at FP4's shape,
+    bitwise the plain version."""
+    pts, idx, dist, skip = _fp_case(dev, b, n, m, c2, 3)
+    assert tinterp.interp_mm_plan(b, n, m, c2, 3)[2] == 0  # direct
+    if n >= tinterp.INTERP_MM_STAGE_ROWS:  # without the skip: the staged form
+        assert tinterp.interp_mm_plan(b, n, m, c2, 0)[2] == 32
+    _fp_equal(dev, pts, idx, dist, skip)
+    _fp_equal(dev, pts, idx, dist, None)
+
+
+@pytest.mark.parametrize("c1", [0, 3, 64], ids=["no_skip", "rgb_skip", "skip"])
+def test_interp_fp_kernel_bf16_valued_inputs(dev, c1):
+    """bfloat16 MLPs hand the FP module bfloat16 sources and skip rows; the
+    module casts them to float32 (exact) before the launch. The kernel on
+    those float32 values is bitwise the plain version, and the module's
+    kernel path equals its plain path on bfloat16 inputs."""
+    from gspn_tpu_torch.nn.pointnet2 import PointNetFPModule
+
+    pts, idx, dist, skip = _fp_case(dev, 8, 1024, 256, 64, c1)
+    pts16 = pts.bfloat16()
+    skip16 = None if skip is None else skip.bfloat16()
+    _fp_equal(dev, pts16.float(), idx, dist, None if skip16 is None else skip16.float())
+    gen = torch.Generator().manual_seed(3)
+    xyz1 = torch.rand((8, 1024, 3), generator=gen).to(dev)
+    xyz2 = torch.rand((8, 256, 3), generator=gen).to(dev)
+    outs, state = [], None
+    for impl in ("cuda", "plain"):
+        fp = PointNetFPModule(64 + c1, (32,), ops_impl=impl, dtype=torch.bfloat16).to(dev)
+        if state is None:
+            state = fp.state_dict()
+        fp.load_state_dict(state)
+        before = tinterp.MM_KERNEL.launches
+        outs.append(fp.eval()(xyz1, xyz2, skip16, pts16))
+        assert tinterp.MM_KERNEL.launches == before + (impl == "cuda")
+    assert outs[0].dtype == torch.bfloat16
+    _equal(*outs)
+
+
 # sample offsets from the origin at a squared distance below, exactly at
 # and above 3e10 in float32, with every product and sum exact: 64 x (a, b,
 # c) with a^2 + b^2 + c^2 = 7324218, 7324219 and 7324221
@@ -1182,6 +1247,31 @@ def test_gather_point_backward_launches_the_kernel(dev):
         assert tgroup.KERNEL.launches == before + (d.type == "cuda")
         grads.append(p.grad.cpu())
     _equal(*grads)
+
+
+@pytest.mark.parametrize("b,m,n,c", [(4, 300, 100, 6), (4, 5120, 4096, 128)],
+                         ids=["small", "roi_align"])
+def test_gather_point_backward_bf16_gradient(dev, b, m, n, c):
+    """A bfloat16 gather's gradient (a bfloat16 MLP's SA grouping or RoI
+    gather) on the card: summed by the index_add kernel in float32 (the
+    wrapper's cast) and rounded once, bitwise the CPU's; it launches the
+    kernel and never the plain version."""
+    gen = torch.Generator().manual_seed(9)
+    pts = torch.randn((b, n, c), generator=gen).bfloat16()
+    idx = torch.randint(0, n, (b, m), generator=gen, dtype=torch.int32)
+    g = torch.randn((b, m, c), generator=gen).bfloat16()
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        p = pts.to(d).requires_grad_(True)
+        before = tgroup.KERNEL.launches
+        ops.gather_point(p, idx.to(d)).backward(g.to(d))
+        assert tgroup.KERNEL.launches == before + (d.type == "cuda")
+        assert p.grad.dtype == torch.bfloat16
+        grads.append(p.grad.cpu())
+    _equal(*grads)
+    _equal(grads[0], ops.index_add_rows(g.float(), idx, n, impl="plain").bfloat16())
+    with pytest.raises(ValueError, match="float32"):  # the kernel itself takes float32 only
+        tgroup._index_add_cuda(g.to(dev), idx.to(dev), n)
 
 
 def test_nn_distance_auto_launches_the_kernel(dev):

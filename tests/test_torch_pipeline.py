@@ -181,12 +181,6 @@ def test_package_imports_no_jax():
     assert int(res.stdout.split()[-1]) >= 15  # every module was imported
 
 
-_UNPORTED_KNOBS = [
-    {"dtype": torch.bfloat16},
-    {"feature_dim": 3},
-]
-
-
 def _knobbed(knob, stage="gspn"):
     cfg = pipeline_config(TINY)
     (key, value), = knob.items()
@@ -194,12 +188,6 @@ def _knobbed(knob, stage="gspn"):
         return dataclasses.replace(
             cfg, **{stage: dataclasses.replace(getattr(cfg, stage), **knob)})
     return dataclasses.replace(cfg, **knob)
-
-
-@pytest.mark.parametrize("knob", _UNPORTED_KNOBS, ids=lambda k: next(iter(k)))
-def test_unported_knobs_raise(knob):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tpl.make_inference_fn(_knobbed(knob))
 
 
 def test_unported_ops_raise():
@@ -222,6 +210,7 @@ def test_not_ported_messages_quote_roadmap_titles():
     """Each not-ported message names its ROADMAP.md entry by a title that is
     in ROADMAP.md (numbers move when the queues are renumbered)."""
     from gspn_tpu_torch.eval import run_eval
+    from gspn_tpu_torch.serve import export_serving
     from gspn_tpu_torch.train import train_gspn as ttrain
     from gspn_tpu_torch.train import train_rpointnet as ttrain2
     from tests.test_torch_eval import EVAL_UNPORTED_FLAGS
@@ -229,10 +218,6 @@ def test_not_ported_messages_quote_roadmap_titles():
     from tests.test_torch_train import UNPORTED_FLAGS
 
     messages = []
-    for knob in _UNPORTED_KNOBS:
-        with pytest.raises(NotImplementedError) as err:
-            tpl.make_inference_fn(_knobbed(knob))
-        messages.append(str(err.value))
     for flags in UNPORTED_FLAGS:  # the trainer's flags
         with pytest.raises(NotImplementedError) as err:
             ttrain.check_ported(ttrain.parse_args(flags))
@@ -245,6 +230,12 @@ def test_not_ported_messages_quote_roadmap_titles():
         with pytest.raises(NotImplementedError) as err:
             run_eval.check_ported(run_eval.parse_args(flags))
         messages.append(str(err.value))
+    with pytest.raises(NotImplementedError) as err:  # the exporter's --platform
+        export_serving.build_config(export_serving.parse_args(["--out", "x", "--platform",
+                                                               "cpu"]))
+    messages.append(str(err.value))
+    titles = {re.findall(r'"([^"]+)"', m.split("ROADMAP.md", 1)[1])[0] for m in messages}
+    assert titles == {"Data loaders", "Parallel", "Cross-platform export"}, titles
     roadmap = (REPO / "ROADMAP.md").read_text()
     for msg in messages:
         titles = re.findall(r'"([^"]+)"', msg.split("ROADMAP.md", 1)[1])
@@ -410,20 +401,25 @@ def test_streamed_inference_matches_jax():
 
 
 @pytest.mark.parametrize("fixture", ["instance_inference", "inference_segfps",
-                                     "inference_segfps_spatial", "inference_width2"])
+                                     "inference_segfps_spatial", "inference_width2",
+                                     "inference_bf16"])
 def test_slice_matches_frozen_fixture(fixture):
     """The port against the frozen outputs ``scripts/make_fixtures.py``
     wrote (TINY at its own thresholds; the segmented cases at 16 seeds and
     S=2), on the fixture's weights and scenes with the noise it drew,
     ``PRNGKey(1)``: masks, valid and classes equal, scores and boxes within
-    the fixtures' tolerances (``tests/test_fixtures.py``). The width-2 case
-    runs ``scale_pipeline_widths(TINY, 2)`` on that fixture's own weights."""
+    the fixtures' tolerances (``tests/test_fixtures.py``: 2e-2 for bf16).
+    The width-2 case runs ``scale_pipeline_widths(TINY, 2)`` on that
+    fixture's own weights; the bf16 case ``set_pipeline_dtype(TINY,
+    bfloat16)`` on the base weights."""
     base = _load("instance_inference.npz")
     frozen = _load(f"{fixture}.npz")
     cfg = pipeline_config(TINY)
     weights = base
     if fixture == "inference_width2":
         cfg, weights = tpresets.scale_pipeline_widths(cfg, 2), frozen
+    elif fixture == "inference_bf16":
+        cfg = tpresets.set_pipeline_dtype(cfg, torch.bfloat16)
     elif fixture != "instance_inference":
         mode = "spatial" if fixture.endswith("spatial") else "contiguous"
         cfg = tpresets.set_pipeline_fps_segments(dataclasses.replace(cfg, num_seeds=16), 2, mode)
@@ -435,7 +431,8 @@ def test_slice_matches_frozen_fixture(fixture):
                                          t(xyz), t(valid), z_eps=t(eps))
     for f in ("masks", "valid", "classes"):
         np.testing.assert_array_equal(n(getattr(got, f)), frozen[f"out/{f}"], f)
+    tol = 2e-2 if fixture == "inference_bf16" else None
     for f in ("scores", "boxes"):
-        np.testing.assert_allclose(n(getattr(got, f)), frozen[f"out/{f}"], rtol=1e-4, atol=1e-5,
-                                   err_msg=f)
+        np.testing.assert_allclose(n(getattr(got, f)), frozen[f"out/{f}"], rtol=tol or 1e-4,
+                                   atol=tol or 1e-5, err_msg=f)
     assert frozen["out/valid"].any()

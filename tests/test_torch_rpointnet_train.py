@@ -712,7 +712,7 @@ def test_train_rpointnet_needs_a_card_by_default(tmp_path, monkeypatch):
 RP_UNPORTED_FLAGS = [
     (["--dp"], "Parallel"), (["--point-sharded"], "Parallel"), (["--data-rows", "2"], "Parallel"),
     (["--scannet-dir", "x"], "Data loaders"), (["--partnet-dir", "x"], "Data loaders"),
-    (["--morton"], "Data loaders"), (["--dtype", "bf16"], "Knob paths"),
+    (["--morton"], "Data loaders"),
 ]
 
 

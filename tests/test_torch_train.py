@@ -622,8 +622,7 @@ def test_train_gspn_needs_a_card_by_default(tmp_path, monkeypatch):
 
 UNPORTED_FLAGS = [
     ["--dp"], ["--point-sharded"], ["--data-rows", "2"], ["--scannet-dir", "x"],
-    ["--shapenet-dir", "x"], ["--partnet-dir", "x"], ["--synthetic-objects"],
-    ["--preset", "object"], ["--morton"], ["--dtype", "bf16"],
+    ["--shapenet-dir", "x"], ["--partnet-dir", "x"], ["--morton"],
 ]
 
 

@@ -33,9 +33,7 @@ def _stage(jcfg, tcls, **override):
         elif f.name == "ops_impl":
             kw[f.name] = "auto"
         elif f.name == "dtype":
-            if jcfg.dtype != jnp.float32:
-                raise ValueError("the port runs float32 only")
-            kw[f.name] = torch.float32
+            kw[f.name] = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}[jcfg.dtype]
         elif f.name == "sa_layers":
             kw[f.name] = tuple(tr.SALayerSpec(*dataclasses.astuple(s)) for s in jcfg.sa_layers)
         else:
