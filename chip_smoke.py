@@ -155,7 +155,42 @@ line or a few:
    bf16 and float32 and a step of the object preset; the kernel phase
    also times the ball group at (L-object)'s crop and interp_mm at FP4
    with the RGB skip;
-9. the ranking: for the flagship and the whole-scene request of slices
+9. slice (M), real-layout data (``run_data_slice``), after slice (L): from
+   a seed, ``M_SCANS`` ScanNet scans of ``M_VERTICES`` vertices with RGB on
+   an 8 x 8 m floor (binary PLY, ``segs.json``, ``aggregation.json`` with
+   3-12 nyu40-labelled instances), a ShapeNet-style h5 (64 objects x 2048
+   points, 2 categories) and a PartNet-style h5 (32 shapes x 10,000
+   points), through an npz-backed stand-in for ``h5py.File`` where h5py is
+   not installed; the scans preprocessed with ``python -m
+   gspn_tpu_torch.data.preprocess_scannet`` and read back; host ms a
+   ``ScanNetCrops`` batch (B=4 x N=4096) on the native and plain routes,
+   with and without ``morton`` (median and range of 10); stage 1 at the
+   default preset on the first ``--scannet-dir --morton`` batch (RGB,
+   feature_dim 3), 1 + 3 steps a path, (G)'s kernels once a step, kernel
+   path bitwise the plain path; with the counts set to 0 just before each:
+   ``train_gspn --scannet-dir --morton`` 3 steps ((G)'s kernels a step),
+   ``train_rpointnet --scannet-dir`` 3 steps on that checkpoint ((I)'s
+   kernels), ``run_eval --scannet-dir --dump-format scannet`` on both
+   ((K)'s kernels; the dumps named ``<scene>__crop<k>`` and read back),
+   the eval loop's kernel path against its plain path batch by batch,
+   ``train_gspn --preset object --shapenet-dir --shapenet-category 1
+   --num-points 1024`` and ``train_gspn --partnet-dir`` 3 steps each and
+   ``run_eval --partnet-dir`` at N=4096; the SA1 and crops' ball group and
+   the box group, device ms on the same crops unsorted and Morton-sorted;
+10. slice (N), data-parallel training (``run_dp_slice``), after slice (M):
+   ``N_RANKS`` processes of this script (``--dp-rank WORK``) on the one
+   card in a ``torch.distributed`` group (gloo, NCCL where each rank has a
+   card), waited for with a time limit: in each, one DP step of stage 1
+   (``train_config()``, (G)'s batch and noise) and of stage 2
+   (``stage2_configs()`` without dropout or randomized RoIs, (I)'s draws)
+   against the single-process step on the whole batch (loss within rtol
+   1e-6, every tensor as ``_state_close`` holds it; the JAX package's
+   elementwise bounds reported) and against its own plain path, bitwise,
+   each rank the same state and exactly (G)'s and (I)'s kernels a step;
+   host ms a DP step (Adam) there and in a one-rank group here;
+   ``train_gspn --dp`` (3 steps) and ``train_rpointnet --dp`` (2 steps on
+   that checkpoint), rank 0 alone writing;
+11. the ranking: for the flagship and the whole-scene request of slices
    (A), (B), (E) and (H), a pass of (F) at each shape and a step of (G),
    each kernel's (device ms - bound ms) summed over every launch of that
    request at its own shape (the launches must be the slice's, kernel for
@@ -165,7 +200,8 @@ line or a few:
    named in ``slice``: (A) for the first-K path's, (B) for
    mask_project_boxed, (E) for the strided groups, (F) for the ball
    queries, (H) for fps_cluster, (G) for nn_argmin and index_add;
-   ``launches_by_slice`` for each slice's own count; ``device_events``, the
+   ``launches_by_slice`` for each slice's own count, (M)'s and (N)'s their
+   entry-point runs' and checked DP steps' summed; ``device_events``, the
    profiler's events under ``device_ms``; ``ms_by_cluster_size`` for
    fps_cluster, ``ms_by_ctas`` for nn_argmin, ``ms_by_split`` for the ball
    and box groups,
@@ -180,6 +216,7 @@ from __future__ import annotations
 
 import itertools
 import json
+import os
 import pathlib
 import statistics
 import subprocess
@@ -1717,12 +1754,15 @@ def _rate_aside(summary: dict) -> str:
 
 def _eval_weights(run_eval, args, dev):
     """``(cfg, state, z_eps)`` as ``run_eval.main`` builds them from
-    ``args``: the config, the first weights with the checkpoints restored,
+    ``args``: the config (at the data's feature width), the first weights
+    with the checkpoints restored,
     and the one noise draw every batch takes (on ``dev``)."""
     from gspn_tpu_torch.models.pipeline import init_pipeline_variables
     from gspn_tpu_torch.serve.runtime import chunk_noise, restore_checkpoints
 
     cfg = run_eval.build_config(args)
+    first = next(iter(run_eval.scene_batches(args)()))
+    cfg = run_eval.with_feature_dim(cfg, run_eval.batch_feature_dim(first))  # the data's width
     state = init_pipeline_variables(cfg, torch.Generator().manual_seed(args.seed),
                                     args.num_points)
     restore_checkpoints(state, args.gspn_ckpt, args.rpointnet_ckpt)
@@ -1730,7 +1770,7 @@ def _eval_weights(run_eval, args, dev):
     return cfg, state, z_eps.to(dev)
 
 
-def _eval_paths_agree(run_eval, bench_slice, ops, argv, dev) -> dict:
+def _eval_paths_agree(run_eval, bench_slice, ops, argv, dev, label: str = "(K)") -> dict:
     """The evaluation loop on ``argv``'s config, with its ``--ab-*`` arm as
     ``infer_b`` when it has one, through the kernel path and through the
     plain path (``bench_slice.plain_config`` of each arm) on the same
@@ -1751,8 +1791,8 @@ def _eval_paths_agree(run_eval, bench_slice, ops, argv, dev) -> dict:
         infer = run_eval.live_infer(c, state, dev)
         outs[key] = []
 
-        def call(xyz, valid, eps):
-            outs[key].append(infer(xyz, valid, eps))
+        def call(xyz, valid, eps, **kw):
+            outs[key].append(infer(xyz, valid, eps, **kw))
             return outs[key][-1]
         return call
 
@@ -1761,21 +1801,21 @@ def _eval_paths_agree(run_eval, bench_slice, ops, argv, dev) -> dict:
         before = ops.launch_counts()
         run_eval.evaluate(infers[0], run_eval.scene_batches(args)(), z_eps, *infers[1:])
         if path == "plain" and ops.launch_counts() != before:
-            raise AssertionError(f"slice (K) {argv}: the plain path launched kernels")
+            raise AssertionError(f"slice {label} {argv}: the plain path launched kernels")
     seen = {}
     for arm in arms:
         kernel, plain = outs["kernel", arm], outs["plain", arm]
         for i, (got, want) in enumerate(zip(kernel, plain, strict=True)):
             for f in ("masks", "valid", "classes"):
                 if not torch.equal(getattr(got, f), getattr(want, f)):
-                    raise AssertionError(f"slice (K) {argv} arm {arm} batch {i}: kernel and "
+                    raise AssertionError(f"slice {label} {argv} arm {arm} batch {i}: kernel and "
                                          f"plain paths differ in {f}")
             for f in ("scores", "boxes"):
                 torch.testing.assert_close(getattr(got, f), getattr(want, f), rtol=1e-4,
                                            atol=1e-5)
         share = torch.cat([o.masks[o.valid] for o in kernel]).float().mean().item()
         if not 0.0 < share < 1.0:
-            raise AssertionError(f"slice (K) {argv} arm {arm}: masks of valid instances hold "
+            raise AssertionError(f"slice {label} {argv} arm {arm}: masks of valid instances hold "
                                  f"{share} of the points at mask_thresh {cfg.mask_thresh}")
         seen[arm] = {"batches": len(kernel), "valid": sum(int(o.valid.sum()) for o in kernel),
                      "mask_share": round(share, 4)}
@@ -2070,6 +2110,657 @@ def run_knob_slice(dev, ops, bench_slice, card, work, a_counts):
     return runs
 
 
+# slice (M): real-layout files. ScanNet scans the size of a _vh_clean_2.ply
+# room on a floor larger than the 3 m block crop, a ShapeNet-style h5
+# (objects x points, categories) and a PartNet-style h5 (shapes x points)
+M_SCANS, M_VERTICES, M_FLOOR, M_CELL = 4, 150_000, 8.0, 0.25
+M_SHAPENET, M_PARTNET = (64, 2048, 2), (32, 10_000)
+M_BATCHES, M_STEPS, M_SCENES = 10, 3, 8  # host-timed batches; trainer steps; eval scenes
+# aggregation labels: benchmark nyu40 names, and two outside the benchmark
+M_LABELS = ("cabinet", "bed", "chair", "sofa", "table", "door", "window", "bookshelf",
+            "picture", "counter", "desk", "curtain", "refrigerator", "toilet", "sink",
+            "bathtub", "otherfurniture", "wall", "floor")
+# slice (N): ranks on the one card, and timed steps after a warm-up; the
+# DP step's largest gap from the single-process step, relative to each
+# tensor's largest change (``_state_close``)
+N_RANKS, N_STEPS, DP_GRAD_RTOL = 2, 5, 2e-2
+
+
+def _write_scan(root: pathlib.Path, scene_id: str, rng) -> None:
+    """A scan in the ScanNet release layout: ``M_VERTICES`` vertices with RGB
+    on an ``M_FLOOR`` m square (a binary little-endian PLY with an empty face
+    element), over-segments of ``M_CELL`` m cells (``segs.json``), and 3-12
+    instances, each the cells within 1-3 cells of a centre, labelled with
+    ``M_LABELS`` names (``aggregation.json``)."""
+    scan = root / scene_id
+    scan.mkdir(parents=True)
+    n = M_VERTICES
+    xyz = np.concatenate([rng.uniform(0, M_FLOOR, (n, 2)), rng.uniform(0, 2.5, (n, 1))],
+                         1).astype(np.float32)
+    dt = np.dtype([("x", "<f4"), ("y", "<f4"), ("z", "<f4"),
+                   ("red", "u1"), ("green", "u1"), ("blue", "u1")])
+    arr = np.empty(n, dt)
+    arr["x"], arr["y"], arr["z"] = xyz.T
+    for c in ("red", "green", "blue"):
+        arr[c] = rng.integers(0, 256, n)
+    with open(scan / f"{scene_id}_vh_clean_2.ply", "wb") as f:
+        f.write((f"ply\nformat binary_little_endian 1.0\nelement vertex {n}\n"
+                 "property float x\nproperty float y\nproperty float z\nproperty uchar red\n"
+                 "property uchar green\nproperty uchar blue\nelement face 0\n"
+                 "property list uchar int vertex_indices\nend_header\n").encode())
+        f.write(arr.tobytes())
+    side = int(M_FLOOR / M_CELL)
+    cx, cy = (np.minimum(xyz[:, d] // M_CELL, side - 1).astype(np.int64) for d in (0, 1))
+    (scan / f"{scene_id}_vh_clean_2.0.010000.segs.json").write_text(
+        json.dumps({"segIndices": (cx * side + cy).tolist()}))
+    gx, gy = np.divmod(np.arange(side * side), side)
+    groups = []
+    for _ in range(int(rng.integers(3, 13))):
+        ox, oy, r = rng.integers(0, side), rng.integers(0, side), rng.integers(1, 4)
+        cells = np.flatnonzero((np.abs(gx - ox) <= r) & (np.abs(gy - oy) <= r))
+        groups.append({"label": M_LABELS[int(rng.integers(0, len(M_LABELS)))],
+                       "segments": cells.tolist()})
+    (scan / f"{scene_id}.aggregation.json").write_text(json.dumps({"segGroups": groups}))
+
+
+class _NpzH5File:
+    """The part of ``h5py.File`` that the h5 loaders and (M)'s writers use
+    (``create_dataset``, ``[name]``, ``in``, ``keys``, a context), over an
+    ``.npz`` archive: (M)'s stand-in where ``h5py`` is not installed."""
+
+    def __init__(self, path, mode: str = "r"):
+        self._path, self._mode = pathlib.Path(path), mode
+        self._data = {}
+        if mode == "r":
+            with np.load(self._path) as z:
+                self._data = {k: z[k] for k in z.files}
+
+    def create_dataset(self, name, data):
+        self._data[name] = np.asarray(data)
+
+    def __getitem__(self, name):
+        return self._data[name]
+
+    def __contains__(self, name):
+        return name in self._data
+
+    def keys(self):
+        return self._data.keys()
+
+    def close(self):
+        if self._mode == "w":
+            with open(self._path, "wb") as f:
+                np.savez(f, **self._data)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def _h5_module():
+    """``(module, note)``: ``h5py`` where it is installed, else a module
+    whose ``File`` is ``_NpzH5File``, put in ``sys.modules`` for the
+    loaders' ``import h5py`` (the caller takes it out again)."""
+    import importlib.util
+    import types
+
+    if importlib.util.find_spec("h5py") is not None:
+        import h5py
+
+        return h5py, f"h5py {h5py.__version__}"
+    mod = types.ModuleType("h5py")
+    mod.File = _NpzH5File
+    sys.modules["h5py"] = mod
+    return mod, ("h5py is not installed on this machine: the h5 layouts are written and read "
+                 "through chip_smoke's npz-backed stand-in for h5py.File")
+
+
+def _counted(ops, fn):
+    """``(fn(), the launch counts it made)``: the counts set to 0 just before
+    and read just after."""
+    ops.reset_launch_counts()
+    out = fn()
+    return out, {k: c for k, c in ops.launch_counts().items() if c}
+
+
+def _jsonl_lines(log_dir) -> list[dict]:
+    return [json.loads(x) for x in pathlib.Path(log_dir, "train.jsonl").read_text().splitlines()]
+
+
+def _step_walls(lines: list[dict]) -> list[float]:
+    """The wall seconds between consecutive metric lines (one a step)."""
+    return [round(b["time"] - a["time"], 4) for a, b in zip(lines, lines[1:])]
+
+
+def _check_trainer(what, state, log_dir, steps: int) -> list[dict]:
+    lines = _jsonl_lines(log_dir)
+    if state.step != steps or len(lines) != steps or not all(
+            np.isfinite(v) for rec in lines for v in rec.values()):
+        raise AssertionError(f"{what}: step {state.step}, metrics {lines}")
+    if not pathlib.Path(log_dir, "ckpt", f"ckpt_{steps}.pt").exists():
+        raise AssertionError(f"{what}: no checkpoint at step {steps}")
+    return lines
+
+
+def _add_counts(total: dict, counts: dict) -> None:
+    for k, c in counts.items():
+        total[k] = total.get(k, 0) + c
+
+
+def run_data_slice(dev, ops, bench_slice, card, work) -> dict:
+    """Slice (M): real-layout data. Writes ``M_SCANS`` ScanNet scans of
+    ``M_VERTICES`` vertices, a ShapeNet-style and a PartNet-style h5 from a
+    seed; preprocesses the scans with the port's CLI and reads the npz back;
+    host ms a ``ScanNetCrops`` batch (B=4 x N=4096) on the native and the
+    plain route, unsorted and ``morton``; the stage-1 training step on the
+    first ``--scannet-dir --morton`` batch (RGB, feature_dim 3) through the
+    kernel path and the plain path, bitwise; the trainers and the eval at
+    the default presets on the files, each with the launch counts set to 0
+    just before (stage 1 exactly (G)'s kernels a step; stage 2 (I)'s
+    kernels; the eval (K)'s), the eval's ScanNet dumps named
+    ``<scene>__crop<k>`` and read back, and its loop's kernel path against
+    its plain path batch by batch; then the group kernels' device ms on
+    the same crops unsorted and Morton-sorted. Returns the entry-point
+    runs' launch counts summed."""
+    _phase("slice (M)")
+    root = pathlib.Path(work, "data")
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    for i in range(M_SCANS):
+        _write_scan(root / "scans", f"scene{i:04d}_00", rng)
+    h5, h5_note = _h5_module()
+    try:
+        return _data_slice(dev, ops, bench_slice, card, root, rng, h5, h5_note, t0)
+    finally:
+        if not hasattr(h5, "__version__"):
+            sys.modules.pop("h5py", None)
+
+
+def _data_slice(dev, ops, bench_slice, card, root, rng, h5, h5_note, t0) -> dict:
+    """``run_data_slice`` once the scans are written and ``h5`` is chosen."""
+    from gspn_tpu_torch.data import native, preprocess_scannet
+    from gspn_tpu_torch.data.iterator import DeterministicBatches, to_device
+    from gspn_tpu_torch.data.scannet import ScanNetCrops
+    from gspn_tpu_torch.eval import run_eval
+    from gspn_tpu_torch.models.gspn import GSPNConfig
+    from gspn_tpu_torch.models.rpointnet import RPointNetConfig
+    from gspn_tpu_torch.train import train_gspn, train_rpointnet
+
+    b_obj, n_obj, n_cat = M_SHAPENET
+    (root / "shapenet").mkdir()
+    with h5.File(root / "shapenet" / "train0.h5", "w") as f:
+        f.create_dataset("data", data=(rng.standard_normal((b_obj, n_obj, 3))
+                                       * [0.5, 0.3, 0.4]).astype(np.float32))
+        f.create_dataset("label", data=np.arange(b_obj) % n_cat)
+    b_part, n_part = M_PARTNET
+    (root / "partnet").mkdir()
+    with h5.File(root / "partnet" / "train0.h5", "w") as f:
+        f.create_dataset("pts", data=rng.uniform(-1, 1, (b_part, n_part, 3)).astype(np.float32))
+        f.create_dataset("label", data=rng.integers(-1, 8, (b_part, n_part)))
+        f.create_dataset("ins_label", data=rng.integers(-1, 12, (b_part, n_part)))
+    print(f"slice (M) files: {M_SCANS} ScanNet scans x {M_VERTICES} vertices on "
+          f"{M_FLOOR:g} x {M_FLOOR:g} m, ShapeNet h5 {b_obj} x {n_obj} ({n_cat} categories), "
+          f"PartNet h5 {b_part} x {n_part}, written in {time.perf_counter() - t0:.1f} s; "
+          f"{h5_note}")
+
+    t0 = time.perf_counter()
+    npz = root / "npz"
+    written = preprocess_scannet.main(["--scans", str(root / "scans"), "--out", str(npz)])
+    secs = time.perf_counter() - t0
+    if len(written) != M_SCANS:
+        raise AssertionError(f"preprocess_scannet wrote {written}")
+    kept = []
+    for p in written:
+        with np.load(p) as z:
+            a = {k: z[k] for k in z.files}
+        if (a["xyz"].shape != (M_VERTICES, 3) or a["rgb"].shape != (M_VERTICES, 3)
+                or not 0 <= a["rgb"].min() <= a["rgb"].max() <= 1
+                or not 0 <= a["sem_label"].min() <= a["sem_label"].max() <= 18):
+            raise AssertionError(f"{p.name}: {({k: (v.shape, v.min(), v.max()) for k, v in a.items()})}")
+        kept.append(int(a["inst_label"].max()))
+    if min(kept) < 1:
+        raise AssertionError(f"a preprocessed scan kept no benchmark instance: {kept}")
+    print(f"slice (M) preprocess_scannet: {M_SCANS} scans in {secs:.2f} s, read back: "
+          f"{M_VERTICES} points each, benchmark instances {kept}")
+
+    timing = {}
+    for impl in ("native", "plain"):
+        for morton in (False, True):
+            ds = ScanNetCrops(str(npz), num_points=4096, morton=morton, impl=impl)
+            ds.sample_batch(np.random.default_rng(0), 4)  # loads the scans
+            ts = [_host_ms(lambda i=i: ds.sample_batch(np.random.default_rng(i + 1), 4))[0]
+                  for i in range(M_BATCHES)]
+            timing[impl, morton] = ts
+            print(f"slice (M) host ms a ScanNetCrops batch (B=4 x N=4096), impl={impl}, "
+                  f"morton={morton}: median {statistics.median(ts):.3f} (min {min(ts):.3f}, "
+                  f"max {max(ts):.3f}; {M_BATCHES} batches) [{card}]")
+    crop_ids = ScanNetCrops(str(npz), num_points=4096).sample_batch(
+        np.random.default_rng(1), 1)["inst_label"][0]
+    for impl in ("native", "plain"):
+        ts = [_host_ms(lambda: native.compact_instance_ids(crop_ids, impl=impl))[0]
+              for _ in range(M_BATCHES)]
+        print(f"slice (M) host ms compact_instance_ids on one crop's 4096 ids, impl={impl}: "
+              f"median {statistics.median(ts):.4f} (min {min(ts):.4f}, max {max(ts):.4f})")
+
+    _phase("slice (M) kernel path vs plain path")
+    scannet = ["--scannet-dir", str(npz)]
+    args = train_gspn.parse_args(scannet + ["--morton"])
+    first = DeterministicBatches(train_gspn.make_sample_fn(args), args.batch, args.seed
+                                 ).batch_at(0)
+    cfg = train_gspn.model_config(args, first)
+    if cfg.feature_dim != 3 or first["xyz"].shape != (args.batch, args.num_points, 3):
+        raise AssertionError(f"(M) the ScanNet batch's model: feature_dim {cfg.feature_dim}")
+    batch = to_device(first, dev)
+    model = bench_slice.seeded_gspn(cfg, dev)
+    _, pmodel = bench_slice.plain_gspn(cfg, model)
+    eps = torch.randn((args.batch, args.num_seeds, cfg.latent_dim),
+                      generator=torch.Generator().manual_seed(1)).to(dev)
+    (kfirst, kgrads, losses, times), counts = _counted(
+        ops, lambda: _train_steps(bench_slice, model, batch, eps, M_STEPS))
+    want = {k: c * (M_STEPS + 1) for k, c in G_PER_STEP.items()}
+    if counts != want:
+        raise AssertionError(f"(M) training steps launched {counts}, expected {want}")
+    (pfirst, pgrads, plosses, ptimes), pcounts = _counted(
+        ops, lambda: _train_steps(bench_slice, pmodel, batch, eps, M_STEPS))
+    if pcounts:
+        raise AssertionError(f"(M): the plain path launched {pcounts}")
+    for k in kfirst:
+        if not torch.equal(kfirst[k], pfirst[k]):
+            raise AssertionError(f"(M) step 1 {k}: {kfirst[k].item()} vs {pfirst[k].item()}")
+    differ = [k for k in kgrads if not torch.equal(kgrads[k], pgrads[k])]
+    if differ or not torch.isfinite(losses).all():
+        raise AssertionError(f"(M): step-1 gradients differ in {differ[:3]}, losses {losses}")
+    _assert_same_training("(M) kernel path vs plain path", model, pmodel, losses, plosses)
+    print(f"slice (M) stage 1 on the first --scannet-dir --morton batch (4 x 4096, RGB): kernel "
+          f"path == plain path bitwise over 1 + {M_STEPS} steps (losses, step-1 gradients, "
+          f"parameters, running statistics); losses {[round(x, 4) for x in losses.tolist()]}; "
+          f"host ms a step kernel median {statistics.median(times):.3f}, plain "
+          f"{statistics.median(ptimes):.3f} [{card}]")
+
+    total = dict.fromkeys(ops.launch_counts(), 0)
+    logs = root / "runs"
+    steps = ["--steps", str(M_STEPS), "--log-every", "1", "--ckpt-every", str(M_STEPS)]
+    gspn_log, rp_log = logs / "gspn", logs / "rpointnet"
+    _phase("slice (M) train_gspn --scannet-dir --morton")
+    state, counts = _counted(ops, lambda: train_gspn.main(
+        scannet + ["--morton", "--log-dir", str(gspn_log)] + steps))
+    lines = _check_trainer("(M) train_gspn --scannet-dir --morton", state, gspn_log, M_STEPS)
+    want = {k: c * M_STEPS for k, c in G_PER_STEP.items()}
+    if counts != want or state.model.config.feature_dim != 3:
+        raise AssertionError(f"(M) train_gspn launched {counts}, expected {want}")
+    _add_counts(total, counts)
+    print(f"slice (M) train_gspn.main --scannet-dir --morton (default preset, feature_dim 3): "
+          f"{M_STEPS} steps, launches {json.dumps(counts)}; losses "
+          f"{[round(r['loss'], 4) for r in lines]}; wall s between logged steps "
+          f"{_step_walls(lines)} [{card}]")
+
+    _phase("slice (M) train_rpointnet --scannet-dir")
+    state, counts = _counted(ops, lambda: train_rpointnet.main(
+        scannet + ["--gspn-ckpt", str(gspn_log / "ckpt"), "--log-dir", str(rp_log)] + steps))
+    lines = _check_trainer("(M) train_rpointnet --scannet-dir", state, rp_log, M_STEPS)
+    if set(counts) != set(I_PER_STEP):
+        raise AssertionError(f"(M) train_rpointnet launched {counts}, (I)'s kernels "
+                             f"{sorted(I_PER_STEP)}")
+    _add_counts(total, counts)
+    print(f"slice (M) train_rpointnet.main --scannet-dir --gspn-ckpt: {M_STEPS} steps, "
+          f"launches {json.dumps(counts)}; losses {[round(r['loss'], 4) for r in lines]}, "
+          f"foreground RoIs {[r['num_fg'] for r in lines]}")
+
+    _phase("slice (M) run_eval --scannet-dir")
+    dumps = logs / "dumps"
+    argv = scannet + ["--gspn-ckpt", str(gspn_log / "ckpt"), "--rpointnet-ckpt",
+                      str(rp_log / "ckpt"), "--num-scenes", str(M_SCENES), "--score-thresh", "0"]
+    summary, counts = _counted(ops, lambda: _eval_main(
+        run_eval, argv + ["--dump-format", "scannet", "--dump-dir", str(dumps)]))
+    if set(counts) != SLICE_KERNELS["K"] or summary["scenes"] != M_SCENES:
+        raise AssertionError(f"(M) run_eval launched {counts}; summary {summary}")
+    _add_counts(total, counts)
+    eargs = run_eval.parse_args(argv)
+    seen, names, valid_points = {}, [], []
+    for b in run_eval.scene_batches(eargs)():
+        for sid, v in zip(b["scene_ids"], b["valid"], strict=True):
+            k = seen.get(sid, 0)
+            seen[sid] = k + 1
+            names.append(f"{sid}__crop{k}" if k else sid)
+            valid_points.append(int(v.sum()))
+    got = sorted(p.stem for p in dumps.glob("*.txt"))
+    if got != sorted(names) or not any("__crop" in x for x in names):
+        raise AssertionError(f"(M) run_eval dumps {got}, expected {sorted(names)}")
+    n_masks = 0
+    for name, nv in zip(names, valid_points, strict=True):
+        for line in (dumps / f"{name}.txt").read_text().splitlines():
+            mask = (dumps / line.split()[0]).read_text().split()
+            n_masks += 1
+            if len(mask) != nv or not set(mask) <= {"0", "1"}:
+                raise AssertionError(f"(M) {name}: a mask of {len(mask)} lines, {nv} points")
+    print(f"slice (M) run_eval.main --scannet-dir --dump-format scannet ({M_SCENES} crops of "
+          f"{M_SCANS} scans): launches {json.dumps(counts)}; dumps {names} read back "
+          f"({n_masks} masks); summary {json.dumps(summary)}")
+    agree = _eval_paths_agree(run_eval, bench_slice, ops, argv, dev, "(M)")
+    print(f"slice (M) the eval loop on the ScanNet crops: kernel path vs plain path batch by "
+          f"batch, masks, valid and classes equal, scores and boxes within rtol 1e-4 / atol "
+          f"1e-5: {json.dumps(agree)}")
+
+    _phase("slice (M) ShapeNet and PartNet")
+    sn_log, pn_log = logs / "shapenet", logs / "partnet"
+    flags = ["--preset", "object", "--shapenet-dir", str(root / "shapenet"),
+             "--shapenet-category", "1", "--num-points", "1024", "--log-dir", str(sn_log)]
+    state, counts = _counted(ops, lambda: train_gspn.main(flags + steps))
+    lines = _check_trainer("(M) train_gspn --shapenet-dir", state, sn_log, M_STEPS)
+    if counts != {k: c * M_STEPS for k, c in G_PER_STEP.items()}:
+        raise AssertionError(f"(M) train_gspn --shapenet-dir launched {counts}")
+    _add_counts(total, counts)
+    print(f"slice (M) train_gspn.main {' '.join(flags[:-2])}: {M_STEPS} steps, launches "
+          f"{json.dumps(counts)}; losses {[round(r['loss'], 4) for r in lines]}")
+    partnet = ["--partnet-dir", str(root / "partnet")]
+    state, counts = _counted(ops, lambda: train_gspn.main(
+        partnet + ["--log-dir", str(pn_log)] + steps))
+    lines = _check_trainer("(M) train_gspn --partnet-dir", state, pn_log, M_STEPS)
+    if counts != {k: c * M_STEPS for k, c in G_PER_STEP.items()}:
+        raise AssertionError(f"(M) train_gspn --partnet-dir launched {counts}")
+    _add_counts(total, counts)
+    print(f"slice (M) train_gspn.main --partnet-dir (N=4096): {M_STEPS} steps, launches "
+          f"{json.dumps(counts)}; losses {[round(r['loss'], 4) for r in lines]}")
+    pargv = partnet + ["--gspn-ckpt", str(pn_log / "ckpt"), "--num-scenes", str(M_SCENES),
+                       "--score-thresh", "0"]
+    summary, counts = _counted(ops, lambda: _eval_main(run_eval, pargv))
+    if set(counts) != SLICE_KERNELS["K"] or summary["scenes"] != M_SCENES:
+        raise AssertionError(f"(M) run_eval --partnet-dir launched {counts}; {summary}")
+    _add_counts(total, counts)
+    print(f"slice (M) run_eval.main --partnet-dir (N=4096): launches {json.dumps(counts)}; "
+          f"summary {json.dumps(summary)}")
+
+    _phase("slice (M) Morton order and the group kernels")
+    host = {morton: ScanNetCrops(str(npz), num_points=4096, morton=morton).sample_batch(
+        np.random.default_rng(5), 4) for morton in (False, True)}
+    for i in range(4):
+        u, s = (host[m]["xyz"][i][host[m]["valid"][i]] for m in (False, True))
+        if not np.array_equal(u[np.lexsort(u.T)], s[np.lexsort(s.T)]):
+            raise AssertionError("(M) the sorted crop holds other points than the unsorted")
+    crops = {m: tuple(torch.from_numpy(b[k]).to(dev) for k in ("xyz", "valid"))
+             for m, b in host.items()}
+    xu, vu = crops[False]
+    centres = ops.gather_point(xu, ops.farthest_point_sample(1024, xu, vu))
+    seeds = centres[:, :64]
+    half = (torch.rand((4, 64, 3), generator=torch.Generator().manual_seed(2)) * 0.5
+            + 0.1).to(dev)
+    boxes = torch.cat([seeds - half, seeds + half], dim=-1)
+    sa1, gcfg = RPointNetConfig().sa_layers[0], GSPNConfig()
+    cases = {
+        "ball_group SA1": ("ball_group", lambda x, v: ops.query_ball_group_multi(
+            (sa1.radius,), (sa1.nsample,), x, centres, v, impl="cuda")),
+        "ball_group crops": ("ball_group", lambda x, v: ops.query_ball_group_multi(
+            gcfg.context_radii, gcfg.context_nsample, x, seeds, v, impl="cuda")),
+        "box_group": ("box_group", lambda x, v: ops.query_box_group(
+            boxes, RPointNetConfig().roi_samples, x, v, impl="cuda")),
+    }
+    morton_ms = {}
+    for label, (kernel, fn) in cases.items():
+        for order, (x, v) in (("unsorted", crops[False]), ("sorted", crops[True])):
+            ms, events = tk.device_ms(lambda: fn(x, v), tk.ITERS, tk.SYMBOLS[kernel])
+            morton_ms[f"{label} {order}"] = None if ms is None else round(ms, 5)
+    print(f"slice (M) device ms on the same 4 x 4096 ScanNet crops unsorted and Morton-sorted "
+          f"(torch.profiler, {tk.ITERS} launches; SA1 4 x 1024 centres r {sa1.radius} K "
+          f"{sa1.nsample}, crops 4 x 64 seeds r {gcfg.context_radii} K "
+          f"{gcfg.context_nsample}, boxes 4 x 64 S {RPointNetConfig().roi_samples}): "
+          f"{json.dumps(morton_ms)} [{card}]")
+    return total
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _state_close(what, model, ref, before: dict) -> dict:
+    """Hold ``model``'s parameters and running statistics against ``ref``'s
+    after one SGD step at lr 1 from ``before`` (a parameter's change is its
+    gradient). At full width on the card the JAX package's DP bounds (rtol
+    5e-5 / atol 2e-5) do not hold even between two single-process steps
+    whose scenes are permuted in the batch (summation order alone moves the
+    gradients of the layers before a BatchNorm, remainders of its
+    cancellation, past them), so every tensor is held within the larger of
+    those bounds taken of its largest magnitude and ``DP_GRAD_RTOL`` of its
+    scale, element by element: a parameter's scale is its largest change, a
+    Dense bias that feeds a BatchNorm (true gradient 0: rounding noise)
+    takes its layer weight's, the running statistics their largest
+    magnitude. A wrong global step (a per-rank normalizer or statistic, a
+    gradient not averaged) moves a tensor by its own scale. Returns the
+    largest gap over its bound and how many elements lie beyond the JAX
+    bounds element by element, which are reported."""
+    from gspn_tpu_torch.utils.bench_slice import _BN_FED_BIAS
+
+    got, want = model.state_dict(), ref.state_dict()
+    params = {k for k, _ in ref.named_parameters()}
+    worst, worst_k, beyond, total = 0.0, "", 0, 0
+    for k, w in want.items():
+        d = (got[k].float() - w.float()).abs()
+        beyond += int((d > 2e-5 + 5e-5 * w.float().abs()).sum().item())
+        total += w.numel()
+        if k not in params:
+            scale = w.abs().max().item()
+        elif _BN_FED_BIAS.search(k):
+            wk = k[: -len("bias")] + "weight"
+            scale = (want[wk] - before[wk]).abs().max().item()
+        else:
+            scale = (w - before[k]).abs().max().item()
+        bound = max(2e-5 + 5e-5 * w.abs().max().item(), DP_GRAD_RTOL * scale)
+        ratio = d.max().item() / bound
+        if ratio > worst:
+            worst, worst_k = ratio, k
+    if worst > 1.0:
+        raise AssertionError(f"{what} {worst_k}: gap {worst:.3f} x its bound")
+    return {"worst": worst, "worst_tensor": worst_k, "beyond_jax_bounds": beyond,
+            "elements": total}
+
+
+def _dp_step_check(what, ops, mesh, model, ref, plain, loss_fn, dp_loss_fn, batch,
+                   draws) -> dict:
+    """One SGD (lr 1) step of ``model`` on this rank's rows of ``batch``
+    through ``make_dp_train_step``, and of ``ref`` (the same weights) on the
+    whole batch through the single-process step: the loss within rtol 1e-6,
+    the parameters and running statistics as ``_state_close`` holds them;
+    and the same DP step of ``plain`` (the same weights on the plain ops)
+    bitwise ``model``'s. Returns the losses, the gaps and the kernel path's
+    launch counts."""
+    from gspn_tpu_torch.parallel import make_dp_train_step, shard_batch
+    from gspn_tpu_torch.train.steps import TrainState, make_train_step
+
+    def sgd(m):
+        return TrainState(m, torch.optim.SGD(m.parameters(), lr=1.0))
+
+
+    before = {k: v.detach().clone() for k, v in ref.state_dict().items()}
+    got, counts = _counted(ops, lambda: make_dp_train_step(dp_loss_fn, mesh)(
+        sgd(model), shard_batch(mesh, batch), **draws))
+    want = make_train_step(loss_fn)(sgd(ref), batch, **draws)
+    make_dp_train_step(dp_loss_fn, mesh)(sgd(plain), shard_batch(mesh, batch), **draws)
+    ps = plain.state_dict()
+    differ = [k for k, v in model.state_dict().items() if not torch.equal(v, ps[k])]
+    if differ:
+        raise AssertionError(f"(N) {what}: the DP step's kernel path and plain path differ in "
+                             f"{differ[:3]}")
+    if abs(got["loss"].item() - want["loss"].item()) > 1e-6 * abs(want["loss"].item()):
+        raise AssertionError(f"(N) {what}: DP loss {got['loss'].item()} vs "
+                             f"{want['loss'].item()}")
+    close = _state_close(f"(N) {what}", model, ref, before)
+    return {"loss": got["loss"].item(), "single_loss": want["loss"].item(), **close,
+            "launches": counts}
+
+
+def _dp_step_ms(mesh, model, dp_loss_fn, batch, draws) -> list[float]:
+    """Host ms of ``N_STEPS`` DP steps (Adam at 1e-3) after a warm-up."""
+    from gspn_tpu_torch.parallel import make_dp_train_step, shard_batch
+    from gspn_tpu_torch.train.steps import TrainState, make_optimizer
+
+    step = make_dp_train_step(dp_loss_fn, mesh)
+    state = TrainState(model, make_optimizer(model, 1e-3))
+    rows = shard_batch(mesh, batch)
+    step(state, rows, **draws)
+    return [_host_ms(lambda: step(state, rows, **draws))[0] for _ in range(N_STEPS)]
+
+
+def _dp_work(mesh, ops, bench_slice) -> dict:
+    """(N) on this rank: stage 1 (``train_config()``, (G)'s batch and
+    noise) and stage 2 (``stage2_configs()`` without head dropout or
+    randomized RoIs, which the DP loss refuses; (I)'s draws): one DP step
+    against the single-process step on the whole batch, each, then host ms
+    a DP step of each. Returns what it measured and the launch counts of
+    the DP steps."""
+    import dataclasses
+    import hashlib
+
+    from gspn_tpu_torch.train.steps import make_gspn_loss_fn, make_rpointnet_loss_fn
+
+    dev = mesh.device
+    dp = {"dp_group": mesh.group, "dp_size": mesh.size}
+    batch = bench_slice.train_batch(dev)
+    cfg = bench_slice.train_config()
+    eps = torch.randn((bench_slice.TRAIN_BATCH, bench_slice.TRAIN_SEEDS, cfg.latent_dim),
+                      generator=torch.Generator().manual_seed(1)).to(dev)
+    s1 = (bench_slice.TRAIN_SEEDS, bench_slice.TRAIN_GT)
+    gcfg, rcfg = bench_slice.stage2_configs()
+    rcfg = dataclasses.replace(rcfg, head_dropout=0.0, roi_randomize=False)
+    gmodel = bench_slice.seeded_frozen_gspn(gcfg, dev)
+    frozen = (gmodel, bench_slice.TRAIN_SEEDS)
+    draws2 = _stage2_draws(gcfg, bench_slice.TRAIN_BATCH, 1, dev)
+    out = {}
+    model = bench_slice.seeded_gspn(cfg, dev)
+    out["stage1"] = _dp_step_check(
+        "stage 1", ops, mesh, model, bench_slice.seeded_gspn(cfg, dev),
+        bench_slice.plain_gspn(cfg, bench_slice.seeded_gspn(cfg, dev))[1], make_gspn_loss_fn(*s1),
+        make_gspn_loss_fn(*s1, **dp), batch, {"z_eps": eps})
+    digest = hashlib.sha256()
+    for v in model.state_dict().values():
+        digest.update(v.detach().cpu().numpy().tobytes())
+    model = bench_slice.seeded_rpointnet(rcfg, dev)
+    out["stage2"] = _dp_step_check(
+        "stage 2", ops, mesh, model, bench_slice.seeded_rpointnet(rcfg, dev),
+        bench_slice.plain_rpointnet(rcfg, bench_slice.seeded_rpointnet(rcfg, dev))[1],
+        make_rpointnet_loss_fn(bench_slice.STAGE2_INSTANCES, frozen),
+        make_rpointnet_loss_fn(bench_slice.STAGE2_INSTANCES, frozen, **dp), batch, draws2)
+    for v in model.state_dict().values():
+        digest.update(v.detach().cpu().numpy().tobytes())
+    out["state_sha256"] = digest.hexdigest()
+    out["ms_stage1"] = _dp_step_ms(mesh, bench_slice.seeded_gspn(cfg, dev),
+                                   make_gspn_loss_fn(*s1, **dp), batch, {"z_eps": eps})
+    out["ms_stage2"] = _dp_step_ms(mesh, bench_slice.seeded_rpointnet(rcfg, dev),
+                                   make_rpointnet_loss_fn(bench_slice.STAGE2_INSTANCES, frozen,
+                                                          **dp), batch, draws2)
+    return out
+
+
+def _dp_rank_main(work, device: str = "cuda") -> None:
+    """The ``--dp-rank WORK`` process: one rank of (N)'s group (the
+    ``torch.distributed`` environment from ``run_dp_slice``): ``_dp_work``,
+    then ``train_gspn --dp`` for 3 steps and ``train_rpointnet --dp`` for 2
+    on that checkpoint, every rank on the same log directories (rank 0
+    writes); its results in ``WORK/dp_rank<r>.json``."""
+    from gspn_tpu_torch import ops
+    from gspn_tpu_torch.ops import _cuda
+    from gspn_tpu_torch.parallel import make_mesh
+    from gspn_tpu_torch.train import train_gspn, train_rpointnet
+    from gspn_tpu_torch.utils import bench_slice
+
+    bench_slice.pin_float32_matmuls()
+    _cuda.library()
+    mesh = make_mesh(device, n_ranks=N_RANKS)
+    try:
+        out = _dp_work(mesh, ops, bench_slice)
+        log = pathlib.Path(work, "dp")
+        out["train_gspn_ms"] = _host_ms(lambda: train_gspn.main(
+            ["--dp", "--steps", "3", "--log-every", "1", "--ckpt-every", "3",
+             "--log-dir", str(log / "gspn")]))[0]
+        out["train_rpointnet_ms"] = _host_ms(lambda: train_rpointnet.main(
+            ["--dp", "--steps", "2", "--log-every", "1", "--ckpt-every", "2",
+             "--gspn-ckpt", str(log / "gspn" / "ckpt"), "--log-dir", str(log / "rpointnet")]))[0]
+        out["backend"] = torch.distributed.get_backend()
+        pathlib.Path(work, f"dp_rank{mesh.rank}.json").write_text(json.dumps(out))
+    finally:
+        mesh.close()
+
+
+def run_dp_slice(dev, ops, bench_slice, card, work) -> dict:
+    """Slice (N): data-parallel training. ``N_RANKS`` processes of this
+    script (``--dp-rank WORK``) on this one card form a ``torch.distributed``
+    group (gloo, since the card is shared; NCCL where each rank has a card),
+    waited for with a time limit and killed past it; each runs
+    ``_dp_work`` (each stage's DP step against the single-process step on
+    the whole batch) and the trainers' ``--dp``. Here, a one-rank group
+    times the same DP steps. Raises unless every rank exited 0, the ranks
+    hold the same state, rank 0 alone wrote the trainers' files. Returns
+    the ranks' launch counts summed (their checked DP steps), each rank's
+    exactly (G)'s and (I)'s kernels a step."""
+    from gspn_tpu_torch.parallel import make_mesh
+
+    _phase("slice (N)")
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+               WORLD_SIZE=str(N_RANKS), LOCAL_WORLD_SIZE=str(N_RANKS))
+    procs = [subprocess.Popen([sys.executable, __file__, "--dp-rank", str(work)],
+                              env=dict(env, RANK=str(r), LOCAL_RANK=str(r)))
+             for r in range(N_RANKS)]
+    try:
+        for p in procs:
+            p.wait(timeout=600)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    codes = [p.returncode for p in procs]
+    if codes != [0] * N_RANKS:
+        raise AssertionError(f"(N) ranks exited {codes}")
+    res = [json.loads(pathlib.Path(work, f"dp_rank{r}.json").read_text())
+           for r in range(N_RANKS)]
+    if len({r["state_sha256"] for r in res}) != 1:
+        raise AssertionError("(N) the ranks' parameters differ after their DP steps")
+    log = pathlib.Path(work, "dp")
+    for name, steps in (("gspn", 3), ("rpointnet", 2)):
+        lines = _jsonl_lines(log / name)
+        if len(lines) != steps or not (log / name / "ckpt" / f"ckpt_{steps}.pt").exists() or \
+                not all(np.isfinite(v) for rec in lines for v in rec.values()):
+            raise AssertionError(f"(N) train_{name} --dp: {lines}")
+    r0 = res[0]
+    for stage in ("stage1", "stage2"):
+        print(f"slice (N) {stage}: the {N_RANKS}-rank DP step ({r0['backend']}, one card) "
+              f"== the single-process step on the whole batch (B=4 x N=4096): loss "
+              f"{r0[stage]['loss']:.6f} vs {r0[stage]['single_loss']:.6f} (rtol 1e-6); every "
+              f"tensor within max(rtol 5e-5 / atol 2e-5 of its largest magnitude, "
+              f"{DP_GRAD_RTOL} of its scale) (largest gap over its bound "
+              f"{r0[stage]['worst']:.3f}, {r0[stage]['worst_tensor']}); elements beyond the "
+              f"JAX package's rtol 5e-5 / atol 2e-5: {r0[stage]['beyond_jax_bounds']} of "
+              f"{r0[stage]['elements']}; the DP step's kernel path == its plain path bitwise; "
+              f"every rank the same state")
+    print(f"slice (N) train_gspn --dp 3 steps and train_rpointnet --dp 2 steps on "
+          f"{N_RANKS} ranks: rank 0 wrote each checkpoint and {3}, {2} finite metric lines; "
+          f"host ms {r0['train_gspn_ms']:.1f}, {r0['train_rpointnet_ms']:.1f} (whole runs)")
+
+    mesh = make_mesh(dev, n_ranks=1)
+    try:
+        one = _dp_work(mesh, ops, bench_slice)
+    finally:
+        mesh.close()
+    for stage in ("stage1", "stage2"):
+        ts1, ts2 = one[f"ms_{stage}"], r0[f"ms_{stage}"]
+        print(f"slice (N) {stage} host ms a DP step (Adam, B=4 x N=4096 in all): 1 rank median "
+              f"{statistics.median(ts1):.3f} (min {min(ts1):.3f}, max {max(ts1):.3f}); "
+              f"{N_RANKS} ranks on one card median {statistics.median(ts2):.3f} (min "
+              f"{min(ts2):.3f}, max {max(ts2):.3f}); {N_STEPS} steps after a warm-up [{card}]")
+    total = dict.fromkeys(ops.launch_counts(), 0)
+    for r in res:
+        for stage, per_step in (("stage1", G_PER_STEP), ("stage2", I_PER_STEP)):
+            if r[stage]["launches"] != per_step:
+                raise AssertionError(f"(N) a rank's {stage} DP step launched "
+                                     f"{r[stage]['launches']}, expected {per_step}")
+            _add_counts(total, r[stage]["launches"])
+    return total
+
+
 def _assert_same_training(what, model, other, losses, other_losses) -> None:
     """Raise unless two training runs gave bitwise-equal losses, parameters
     and buffers (BatchNorm running statistics)."""
@@ -2197,6 +2888,9 @@ def main() -> None:
     if sys.argv[1:2] == ["--serving"]:
         _serving_main(sys.argv[2])
         return
+    if sys.argv[1:2] == ["--dp-rank"]:
+        _dp_rank_main(sys.argv[2])
+        return
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs an NVIDIA GPU")
     card = tk.card_name()
@@ -2224,6 +2918,8 @@ def main() -> None:
         runs["I"] = run_stage2(dev, ops, bench_slice, card, work)
         runs["K"] = run_eval_slice(dev, ops, bench_slice, card, work)
         runs.update(run_knob_slice(dev, ops, bench_slice, card, work, runs["A"]))
+        runs["M"] = run_data_slice(dev, ops, bench_slice, card, work)
+        runs["N"] = run_dp_slice(dev, ops, bench_slice, card, work)
         runs["J"], per_request = run_serving_process(work)
     a_request = {k: c / (2 * (REQUESTS + 1)) for k, c in runs["A"].items()}
     if a_request != per_request:

@@ -14,7 +14,10 @@ card. Its layout mirrors the JAX package, which stays the reference:
 - ``gspn_tpu_torch.serve``  — the exported serving artifact, its session
   (a CUDA graph a request on the card) and the socket server.
 - ``gspn_tpu_torch.train``  — the two stages' trainers.
-- ``gspn_tpu_torch.data``   — the synthetic scene generator.
+- ``gspn_tpu_torch.parallel`` — data-parallel training over
+  ``torch.distributed``.
+- ``gspn_tpu_torch.data``   — synthetic scenes, the ScanNet, ShapeNet and
+  PartNet loaders and the host point-prep library (``csrc/pointprep.cpp``).
 - ``gspn_tpu_torch.convert`` — JAX variables -> state dicts.
 
 It imports ``torch`` and never ``jax``, ``flax`` or ``gspn_tpu``.

@@ -12,7 +12,9 @@ RoIAlign, the heads and the masks, through ``make_inference_fn`` (or, with
 then the host-side ScanNet-protocol AP against the GT labels, optionally
 with scene-level bootstrap CIs (``--bootstrap``), a paired second arm
 (``--ab-*``) and per-scene dumps (``--dump-dir``, npz or the official
-ScanNet layout). The JAX eval's flags and defaults, plus ``--device``
+ScanNet layout). The scenes: synthetic ones of ``--family``, ScanNet crops
+(``--scannet-dir``) or PartNet shapes (``--partnet-dir``), Morton-sorted
+with ``--morton``. The JAX eval's flags and defaults, plus ``--device``
 (default ``cuda``; without a CUDA device it exits, never falling back to
 the CPU). Flags whose code is not ported raise ``NotImplementedError``
 naming their ``ROADMAP.md`` entry.
@@ -37,8 +39,10 @@ from collections.abc import Callable, Iterable
 import numpy as np
 import torch
 
-from gspn_tpu_torch.data import synthetic
+from gspn_tpu_torch.data import native, synthetic
 from gspn_tpu_torch.data.layout_probe import warn_if_layout_biased
+from gspn_tpu_torch.data.partnet import PartNetParts
+from gspn_tpu_torch.data.scannet import ScanNetCrops
 from gspn_tpu_torch.eval import instance_eval as ie
 from gspn_tpu_torch.eval.scannet_export import write_scannet_submission
 from gspn_tpu_torch.models.gspn import GSPNConfig, not_ported
@@ -57,7 +61,6 @@ from gspn_tpu_torch.models.presets import (
 from gspn_tpu_torch.models.rpointnet import RPointNetConfig
 from gspn_tpu_torch.serve.runtime import chunk_noise, float32_matmuls, restore_checkpoints
 from gspn_tpu_torch.train.train_gspn import (
-    DATA_LOADERS,
     PARALLEL,
     TINY_GSPN,
     batch_feature_dim,
@@ -72,14 +75,18 @@ def parse_args(argv=None):
                    help="train_gspn's checkpoint directory ({log_dir}/ckpt)")
     p.add_argument("--rpointnet-ckpt", type=str, default=None,
                    help="train_rpointnet's checkpoint directory ({log_dir}/ckpt)")
-    p.add_argument("--scannet-dir", type=str, default=None, help="not ported")
-    p.add_argument("--partnet-dir", type=str, default=None, help="not ported")
+    p.add_argument("--scannet-dir", type=str, default=None,
+                   help="preprocessed ScanNet scenes (data.preprocess_scannet's .npz)")
+    p.add_argument("--partnet-dir", type=str, default=None,
+                   help="PartNet ins_seg h5 dir (part instances)")
     p.add_argument("--num-scenes", type=int, default=16)
     p.add_argument("--family", choices=sorted(synthetic.FAMILIES), default="default",
                    help="synthetic generator family (data/synthetic.py FAMILIES)")
     p.add_argument("--batch", type=int, default=4)
     p.add_argument("--num-points", type=int, default=4096)
-    p.add_argument("--morton", action="store_true", help="not ported")
+    p.add_argument("--morton", action="store_true",
+                   help="Morton-sort each scene's points (AP is unchanged: masks and labels "
+                        "permute together)")
     p.add_argument("--num-seeds", type=int, default=64)
     p.add_argument("--num-classes", type=int, default=18)
     p.add_argument("--dump-dir", type=str, default=None)
@@ -165,9 +172,6 @@ def ab_requested(args) -> bool:
 def check_ported(args) -> None:
     """Raise ``NotImplementedError`` for a flag whose code is not ported."""
     unported = [
-        (args.scannet_dir, "--scannet-dir (ScanNet crops)", DATA_LOADERS),
-        (args.partnet_dir, "--partnet-dir (PartNet parts)", DATA_LOADERS),
-        (args.morton, "--morton (host Morton sort)", DATA_LOADERS),
         (args.point_sharded, "--point-sharded", PARALLEL),
         (args.data_rows, "--data-rows", PARALLEL),
     ]
@@ -225,18 +229,32 @@ def with_feature_dim(cfg: PipelineConfig, fdim: int) -> PipelineConfig:
 
 def scene_batches(args) -> Callable[[], Iterable[dict]]:
     """The eval's data source: a function whose every call yields the same
-    ``--num-scenes`` synthetic scenes of ``--family`` from a fresh
-    ``default_rng(seed)``, ``--batch`` at a time (the last batch ragged),
-    as dicts of numpy arrays."""
-    fam_kw = dict(synthetic.FAMILIES[args.family])
-    fam_kw.setdefault("max_instances", 8)
+    ``--num-scenes`` scenes from a fresh ``default_rng(seed)``, ``--batch``
+    at a time (the last batch ragged), as dicts of numpy arrays: ScanNet
+    crops (``--scannet-dir``; their ``scene_ids`` ride along, and
+    ``--morton`` sorts inside the crop), PartNet shapes (``--partnet-dir``)
+    or synthetic scenes of ``--family``; ``--morton`` sorts the latter two
+    with ``native.morton_sort_batch``, as the JAX eval does."""
+    if args.scannet_dir:
+        sample = ScanNetCrops(args.scannet_dir, num_points=args.num_points,
+                              morton=args.morton).sample_batch
+    elif args.partnet_dir:
+        sample = PartNetParts(args.partnet_dir, num_points=args.num_points).sample_batch
+    else:
+        fam_kw = dict(synthetic.FAMILIES[args.family])
+        fam_kw.setdefault("max_instances", 8)
+
+        def sample(rng, b):
+            return synthetic.scene_batch(rng, b, n_points=args.num_points, **fam_kw)
+    sort = args.morton and not args.scannet_dir
 
     def batches():
         rng = np.random.default_rng(args.seed)
         done = 0
         while done < args.num_scenes:
             b = min(args.batch, args.num_scenes - done)
-            yield synthetic.scene_batch(rng, b, n_points=args.num_points, **fam_kw)
+            batch = sample(rng, b)
+            yield native.morton_sort_batch(batch) if sort else batch
             done += b
 
     return batches
@@ -297,11 +315,14 @@ def evaluate(infer, batches: Iterable[dict], z_eps: torch.Tensor, infer_b=None,
     takes; every batch of ``b`` scenes gets ``z_eps[:b]``. Runs under
     ``torch.inference_mode`` with float32 matmuls. The first batch (which
     pays the kernels' build or the graph's capture) is left out of the
-    points a second. Dumps each scene's predictions under ``dump_dir`` as
-    ``scene_<i>`` (the synthetic scenes have no ids of their own)."""
+    points a second. Dumps each scene's predictions under ``dump_dir``,
+    named by the batch's ``scene_ids`` (ScanNet crops) or ``scene_<i>``;
+    a name seen before (scenes are drawn with replacement) gets
+    ``__crop<k>`` for its k-th repeat, as in the JAX eval."""
     preds, gts = [], []
     preds_b = [] if infer_b is not None else None
     infer_s, infer_pts, scene_i = 0.0, 0, 0
+    dumped: dict[str, int] = {}
     dump_dir = pathlib.Path(dump_dir) if dump_dir else None
     if dump_dir:
         dump_dir.mkdir(parents=True, exist_ok=True)
@@ -328,7 +349,12 @@ def evaluate(infer, batches: Iterable[dict], z_eps: torch.Tensor, infer_b=None,
                 gts.append(ie.gt_from_labels(batch["inst_label"][bi][v],
                                              batch["sem_label"][bi][v]))
                 if dump_dir:
-                    scene_id = f"scene_{scene_i:05d}"
+                    ids = batch.get("scene_ids")
+                    scene_id = ids[bi] if ids is not None else f"scene_{scene_i:05d}"
+                    seen = dumped.get(scene_id, 0)
+                    dumped[scene_id] = seen + 1
+                    if seen:
+                        scene_id = f"{scene_id}__crop{seen}"
                     if dump_format == "scannet":
                         write_scannet_submission(dump_dir, scene_id, sp)
                     else:

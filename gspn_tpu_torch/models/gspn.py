@@ -24,7 +24,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from gspn_tpu_torch import ops
-from gspn_tpu_torch.nn.layers import FCLayers, PointMLP, masked_max
+from gspn_tpu_torch.nn.layers import FCLayers, PointMLP, all_reduce_sum, masked_max
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -248,11 +248,17 @@ def masked_chamfer(pred, gt, gt_valid, impl: str = "auto"):
 
 def gspn_loss(out: GSPNOutputs, gt_points, gt_valid, gt_center, seed_objectness,
               seed_valid=None, kl_weight: float = 1.0, center_weight: float = 1.0,
-              obj_weight: float = 1.0, chamfer_weight: float = 1.0, impl: str = "auto"):
+              obj_weight: float = 1.0, chamfer_weight: float = 1.0, impl: str = "auto",
+              group=None):
     """Total CVAE loss and its terms ``{"loss", "chamfer", "kl", "center",
     "objectness"}`` (0-dim tensors). Chamfer, KL and centre Huber are
     averaged over the seeds on an instance (``seed_objectness``); the
-    objectness BCE over every valid seed, as in the reference."""
+    objectness BCE over every valid seed, as in the reference.
+
+    ``group``: a process group whose ranks hold the other shards of the
+    batch (the JAX package's ``axis_name``): the numerators and seed counts
+    are summed over its ranks (``all_reduce_sum``), so every rank computes
+    the same global loss."""
     if out.q_mu is None:
         raise ValueError("gspn_loss needs the recognition network's outputs (training)")
     pos = seed_objectness.to(torch.float32)
@@ -265,12 +271,17 @@ def gspn_loss(out: GSPNOutputs, gt_points, gt_valid, gt_center, seed_objectness,
     kl = kl_gaussians(out.q_mu, out.q_logvar, out.prior_mu, out.prior_logvar)
     cerr = huber(out.center - gt_center).sum(dim=-1)
     obj_bce = sigmoid_bce(out.objectness, seed_objectness.to(torch.float32))
-    npos = torch.clamp(pos.sum(), min=1.0)
-    nval = torch.clamp(sv.sum(), min=1.0)
-    chamfer_term = (ch * pos).sum() / npos
-    kl_term = (kl * pos).sum() / npos
-    center_term = (cerr * pos).sum() / npos
-    obj_term = (obj_bce * sv).sum() / nval
+    sums = (pos.sum(), sv.sum(), (ch * pos).sum(), (kl * pos).sum(), (cerr * pos).sum(),
+            (obj_bce * sv).sum())
+    if group is not None:
+        sums = all_reduce_sum(torch.stack(sums), group).unbind()
+    npos_raw, nval_raw, ch_sum, kl_sum, cen_sum, obj_sum = sums
+    npos = torch.clamp(npos_raw, min=1.0)
+    nval = torch.clamp(nval_raw, min=1.0)
+    chamfer_term = ch_sum / npos
+    kl_term = kl_sum / npos
+    center_term = cen_sum / npos
+    obj_term = obj_sum / nval
     total = (chamfer_weight * chamfer_term + kl_weight * kl_term
              + center_weight * center_term + obj_weight * obj_term)
     return total, {"loss": total, "chamfer": chamfer_term, "kl": kl_term,

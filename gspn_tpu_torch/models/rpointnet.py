@@ -27,7 +27,7 @@ from torch import nn
 
 from gspn_tpu_torch import ops
 from gspn_tpu_torch.models.gspn import check_stage_config, huber
-from gspn_tpu_torch.nn.layers import Dense, FCLayers, PointMLP
+from gspn_tpu_torch.nn.layers import Dense, FCLayers, PointMLP, all_reduce_sum
 from gspn_tpu_torch.nn.pointnet2 import PointNetFPModule, PointNetSAModule
 
 
@@ -371,12 +371,15 @@ def match_rois(rois, roi_valid, gt_boxes, gt_cls, gt_present, fg_iou: float, bg_
 
 
 def rpointnet_loss(out: RoIOutputs, match: RoIMatch, inst_label, cls_weight: float = 1.0,
-                   box_weight: float = 1.0, mask_weight: float = 1.0):
+                   box_weight: float = 1.0, mask_weight: float = 1.0, group=None):
     """Softmax cross-entropy over foreground and background RoIs, the box
     deltas' Huber over foreground, and the per-sample mask BCE (the target:
     the sample's point belongs to the matched instance) over foreground.
     Returns ``(total, {"loss", "cls", "box", "mask", "num_fg", "num_bg"})``
-    (0-dim tensors)."""
+    (0-dim tensors). ``group``: a process group whose ranks hold the other
+    shards of the batch: the numerators and the foreground and background
+    counts are summed over its ranks (``all_reduce_sum``), so every rank
+    computes the same global loss."""
     train_mask = (match.is_fg | match.is_bg).to(torch.float32)
     fg = match.is_fg.to(torch.float32)
 
@@ -390,12 +393,15 @@ def rpointnet_loss(out: RoIOutputs, match: RoIMatch, inst_label, cls_weight: flo
     logit = out.mask_logits
     bce = torch.clamp(logit, min=0.0) - logit * target + torch.log1p(torch.exp(-torch.abs(logit)))
 
-    ntr_raw, nfg_raw = train_mask.sum(), fg.sum()
-    nbg = match.is_bg.to(torch.float32).sum()
-    cls_term = (ce * train_mask).sum() / torch.clamp(ntr_raw, min=1.0)
+    sums = (train_mask.sum(), fg.sum(), match.is_bg.to(torch.float32).sum(),
+            (ce * train_mask).sum(), (box_err * fg).sum(), (bce.mean(dim=-1) * fg).sum())
+    if group is not None:
+        sums = all_reduce_sum(torch.stack(sums), group).unbind()
+    ntr_raw, nfg_raw, nbg, cls_sum, box_sum, mask_sum = sums
+    cls_term = cls_sum / torch.clamp(ntr_raw, min=1.0)
     nfg = torch.clamp(nfg_raw, min=1.0)
-    box_term = (box_err * fg).sum() / nfg
-    mask_term = (bce.mean(dim=-1) * fg).sum() / nfg
+    box_term = box_sum / nfg
+    mask_term = mask_sum / nfg
     total = cls_weight * cls_term + box_weight * box_term + mask_weight * mask_term
     return total, {"loss": total, "cls": cls_term, "box": box_term, "mask": mask_term,
                    "num_fg": nfg_raw, "num_bg": nbg}

@@ -16,16 +16,46 @@ output back.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from collections.abc import Sequence
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 # The model-level BatchNorm momentum of the JAX package: running statistics
 # update as ``m * old + (1 - m) * batch`` (the opposite of torch's
 # ``momentum``, which weighs the batch).
 BN_MOMENTUM = 0.9
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """The sum over a process group's ranks, whose gradient is the sum of
+    every rank's output gradient (JAX's ``psum`` and its transpose)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over the ranks of the process ``group`` (a new tensor),
+    with the gradient flowing back to every rank's input: on each rank it
+    is the sum of the ranks' output gradients. When every rank computes
+    the same global loss, the ranks' gradients are then ``size`` times
+    their shares of the global gradient, and their mean is the global
+    gradient (``parallel/dp.py``)."""
+    return _AllReduceSum.apply(x, group)
 
 
 class MaskedBatchNorm(nn.Module):
@@ -42,7 +72,14 @@ class MaskedBatchNorm(nn.Module):
     running statistics then move as ``momentum * old + (1 - momentum) *
     batch``, outside autograd. In eval mode the running statistics
     normalize. The input is normalized in float32 and the output cast to
-    ``dtype``."""
+    ``dtype``.
+
+    ``group``: a process group whose ranks hold the other shards of the
+    batch (``cross_rank_statistics``; None alone). The training statistics
+    are then taken over all of them, as the JAX package's ``axis_name``:
+    the sums and the count are summed over the ranks (``all_reduce_sum``,
+    the gradient reaching every rank's input) before the mean and variance
+    are formed."""
 
     def __init__(self, c: int, epsilon: float = 1e-3, momentum: float = BN_MOMENTUM,
                  dtype: torch.dtype = torch.float32):
@@ -50,6 +87,7 @@ class MaskedBatchNorm(nn.Module):
         self.epsilon = epsilon
         self.momentum = momentum
         self.dtype = dtype
+        self.group = None
         self.scale = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("mean", torch.zeros(c))
@@ -72,6 +110,11 @@ class MaskedBatchNorm(nn.Module):
             tot = w.sum()
             s1 = (x * w).sum(dim=red)
             s2 = (x * x * w).sum(dim=red)
+        if self.group is not None:
+            c = x.shape[-1]
+            s1, s2, tot = all_reduce_sum(torch.cat([s1, s2, tot.reshape(1)]),
+                                         self.group).split([c, c, 1])
+            tot = tot.reshape(())
         tot = torch.clamp(tot, min=1.0)
         mean = s1 / tot
         var = torch.clamp(s2 / tot - mean * mean, min=0.0)
@@ -81,6 +124,24 @@ class MaskedBatchNorm(nn.Module):
             self.var.copy_(m * self.var + (1.0 - m) * var)
         y = (x - mean) * torch.rsqrt(var + self.epsilon)
         return (y * self.scale + self.bias).to(self.dtype)
+
+
+@contextlib.contextmanager
+def cross_rank_statistics(model: nn.Module, group):
+    """Within the block, every :class:`MaskedBatchNorm` of ``model`` takes
+    its training statistics over the ranks of the process ``group`` (a
+    no-op for None: this process's batch alone)."""
+    if group is None:
+        yield model
+        return
+    bns = [m for m in model.modules() if isinstance(m, MaskedBatchNorm)]
+    for m in bns:
+        m.group = group
+    try:
+        yield model
+    finally:
+        for m in bns:
+            m.group = None
 
 
 class Dense(nn.Linear):

@@ -1,6 +1,6 @@
 """The stage-1 and stage-2 losses and the train step: the PyTorch
 counterpart of ``gspn_tpu/train/steps.py`` (``make_gspn_loss_fn``,
-``make_rpointnet_loss_fn``, ``make_train_step``), single device.
+``make_rpointnet_loss_fn``, ``make_train_step``, ``dp_slice``).
 
 A :class:`TrainState` holds what the JAX package's ``TrainState`` holds:
 the model (parameters and BatchNorm running statistics), the optimizer
@@ -15,6 +15,15 @@ passed in (a test feeds the JAX package's draws) or drawn from the
 the GT boxes' jitter (``box_noise``), the frozen GSPN's CVAE noise
 (``z_eps``), the randomized RoIs' Gumbel noise (``gumbel``), then the
 heads' dropout keep masks (``dropout_keep``).
+
+A loss built with ``dp_group=`` / ``dp_size=`` is the data-parallel one
+that ``parallel.dp.make_dp_train_step`` takes: each rank holds its shard
+of the batch and computes the global full-batch loss, as the JAX
+package's ``dp_axis`` losses do. The BatchNorm statistics and the loss's
+normalizers are summed over the group's ranks, and the noise is drawn (or
+passed) at the full batch's shape and sliced to the rank's rows
+(``dp_slice``), so a DP step draws what the single-process step on the
+whole batch draws.
 """
 
 from __future__ import annotations
@@ -22,12 +31,13 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from gspn_tpu_torch import ops
 from gspn_tpu_torch.data.instances import gather_seed_instances
 from gspn_tpu_torch.models.gspn import GSPN, gspn_loss, proposal_boxes
 from gspn_tpu_torch.models.rpointnet import instance_gt_boxes, match_rois, rpointnet_loss
-from gspn_tpu_torch.nn.layers import MaskedBatchNorm
+from gspn_tpu_torch.nn.layers import MaskedBatchNorm, cross_rank_statistics
 
 
 @dataclasses.dataclass
@@ -48,8 +58,34 @@ def _check_training(model: torch.nn.Module, what: str) -> None:
         raise ValueError(f"the {what} loss runs the training forward: call model.train()")
 
 
+def dp_slice(a: torch.Tensor, dp_group, dp_size: int) -> torch.Tensor:
+    """This rank's rows of a full-batch-shaped draw (leading dim = local
+    batch x ``dp_size``); ``a`` itself when ``dp_group`` is None."""
+    if dp_group is None:
+        return a
+    per = a.shape[0] // dp_size
+    r = dist.get_rank(dp_group)
+    return a[r * per:(r + 1) * per]
+
+
+def _full_batch_draw(draw, shape, dp_group, dp_size, generator, what: str, device,
+                     uniform: bool = False):
+    """The DP losses' noise: ``draw`` (given at the full batch's shape) or a
+    draw of that shape from ``generator``, sliced to this rank's rows."""
+    if draw is None:
+        if generator is None:
+            raise ValueError(f"pass {what} (noise) or a torch.Generator")
+        fn = torch.rand if uniform else torch.randn
+        draw = fn((shape[0] * dp_size, *shape[1:]), generator=generator, dtype=torch.float32,
+                  device=generator.device)
+    elif draw.shape[0] != shape[0] * dp_size:
+        raise ValueError(f"{what} of a DP loss has the full batch's {shape[0] * dp_size} "
+                         f"rows, got {tuple(draw.shape)}")
+    return dp_slice(draw, dp_group, dp_size).to(device)
+
+
 def make_gspn_loss_fn(num_seeds: int, gt_size: int, loss_weights: dict | None = None,
-                      seed_method: str = "fps"):
+                      seed_method: str = "fps", dp_group=None, dp_size: int = 1):
     """``loss_fn(model, batch, z_eps=None, seed_u=None, generator=None) ->
     (loss, metrics)`` for a ``GSPN(cfg, recognition=True)`` in training
     mode. ``batch``: ``xyz (B,N,3)``, ``valid (B,N)`` bool, ``inst_label
@@ -61,7 +97,10 @@ def make_gspn_loss_fn(num_seeds: int, gt_size: int, loss_weights: dict | None = 
     ``features (B,N,F)`` where the model's ``feature_dim`` is above 0) and
     ``gspn_loss``.
     The CVAE noise is ``z_eps (B, num_seeds, latent)``. What is not given
-    is drawn from ``generator``, the uniforms first."""
+    is drawn from ``generator``, the uniforms first.
+
+    ``dp_group``/``dp_size``: the DP-aware loss (module docstring); ``batch``
+    is the rank's shard, ``seed_u`` and ``z_eps`` are the full batch's."""
     lw = loss_weights or {}
     if seed_method not in ("fps", "random"):
         raise ValueError(f"seed_method must be fps|random, got {seed_method!r}")
@@ -70,6 +109,13 @@ def make_gspn_loss_fn(num_seeds: int, gt_size: int, loss_weights: dict | None = 
         _check_training(model, "GSPN")
         cfg = model.config
         xyz, valid = batch["xyz"], batch["valid"]
+        if dp_group is not None:
+            b = xyz.shape[0]
+            if seed_method == "random":
+                seed_u = _full_batch_draw(seed_u, (b, num_seeds), dp_group, dp_size,
+                                          generator, "seed_u", xyz.device, uniform=True)
+            z_eps = _full_batch_draw(z_eps, (b, num_seeds, cfg.latent_dim), dp_group, dp_size,
+                                     generator, "z_eps", xyz.device)
         if seed_method == "random":
             weights = valid.to(torch.float32)
             if seed_u is not None:
@@ -87,10 +133,13 @@ def make_gspn_loss_fn(num_seeds: int, gt_size: int, loss_weights: dict | None = 
         gt_points, gt_valid, gt_center, is_fg = gather_seed_instances(
             xyz, batch["inst_label"], seed_idx, gt_size
         )
-        out = model(xyz, seed_idx, valid, z_eps=z_eps, generator=generator,
-                    gt_points=gt_points, gt_valid=gt_valid, features=batch.get("features"))
-        return gspn_loss(out, gt_points, gt_valid, gt_center, is_fg, impl=cfg.ops_impl, **lw)
+        with cross_rank_statistics(model, dp_group):
+            out = model(xyz, seed_idx, valid, z_eps=z_eps, generator=generator,
+                        gt_points=gt_points, gt_valid=gt_valid, features=batch.get("features"))
+        return gspn_loss(out, gt_points, gt_valid, gt_center, is_fg, impl=cfg.ops_impl,
+                         group=dp_group, **lw)
 
+    loss_fn.dp_group, loss_fn.dp_size = dp_group, dp_size
     return loss_fn
 
 
@@ -100,7 +149,7 @@ GT_BOX_JITTER = 0.05
 
 
 def make_rpointnet_loss_fn(max_instances: int, frozen_gspn: tuple | None = None,
-                           mix_gt_boxes: bool = True):
+                           mix_gt_boxes: bool = True, dp_group=None, dp_size: int = 1):
     """``loss_fn(model, batch, box_noise=None, z_eps=None, gumbel=None,
     dropout_keep=None, generator=None) -> (loss, metrics)`` for an
     ``RPointNet`` in training mode. ``batch``: ``xyz``, ``valid``,
@@ -120,7 +169,13 @@ def make_rpointnet_loss_fn(max_instances: int, frozen_gspn: tuple | None = None,
     ``features`` where their ``feature_dim`` is above 0), the IoU match (in GT-box mode
     only RoIs of present instances count) and ``rpointnet_loss``. What is
     not given is drawn from ``generator``, in the module docstring's
-    order."""
+    order.
+
+    ``dp_group``/``dp_size``: the DP-aware loss (module docstring); ``batch``
+    is the rank's shard, ``box_noise`` and ``z_eps`` the full batch's. It
+    refuses a model with ``head_dropout > 0`` or ``roi_randomize``, as the
+    JAX package's does: their draws' shapes are the shard's, so they could
+    not match the single-process draws."""
     if frozen_gspn is not None:
         frozen_gspn[0].eval()
 
@@ -131,6 +186,18 @@ def make_rpointnet_loss_fn(max_instances: int, frozen_gspn: tuple | None = None,
         xyz, valid, features = batch["xyz"], batch["valid"], batch.get("features")
         gt_boxes, gt_cls, present = instance_gt_boxes(
             xyz, batch["inst_label"], batch["sem_label"], max_instances)
+        if dp_group is not None:
+            if cfg.head_dropout > 0 or cfg.roi_randomize:
+                raise ValueError(
+                    "the DP-aware stage-2 loss does not support head_dropout > 0 or "
+                    "roi_randomize: their per-rank draws cannot match the single-process "
+                    "full-batch draws; set head_dropout=0 and roi_randomize=False")
+            box_noise = _full_batch_draw(box_noise, tuple(gt_boxes.shape), dp_group, dp_size,
+                                         generator, "box_noise", xyz.device)
+            if frozen_gspn is not None:
+                z_eps = _full_batch_draw(
+                    z_eps, (xyz.shape[0], frozen_gspn[1], frozen_gspn[0].config.latent_dim),
+                    dp_group, dp_size, generator, "z_eps", xyz.device)
         if box_noise is None:
             if generator is None:
                 raise ValueError("pass box_noise (noise) or a torch.Generator")
@@ -156,12 +223,14 @@ def make_rpointnet_loss_fn(max_instances: int, frozen_gspn: tuple | None = None,
                 rois = torch.cat([rois, gt_rois], dim=1)
         else:
             rois = gt_rois
-        out = model(xyz, rois, valid, sa1_fps_idx=sa1_fps_idx, gumbel=gumbel,
-                    dropout_keep=dropout_keep, generator=generator, features=features)
+        with cross_rank_statistics(model, dp_group):
+            out = model(xyz, rois, valid, sa1_fps_idx=sa1_fps_idx, gumbel=gumbel,
+                        dropout_keep=dropout_keep, generator=generator, features=features)
         roi_valid = out.roi_valid & present if frozen_gspn is None else out.roi_valid
         match = match_rois(rois, roi_valid, gt_boxes, gt_cls, present, cfg.fg_iou, cfg.bg_iou)
-        return rpointnet_loss(out, match, batch["inst_label"])
+        return rpointnet_loss(out, match, batch["inst_label"], group=dp_group)
 
+    loss_fn.dp_group, loss_fn.dp_size = dp_group, dp_size
     return loss_fn
 
 
@@ -171,12 +240,13 @@ def set_bn_momentum(model: torch.nn.Module, momentum: float) -> None:
             mod.momentum = momentum
 
 
-def make_train_step(loss_fn, lr_schedule=None, bn_momentum_fn=None):
+def make_train_step(loss_fn, lr_schedule=None, bn_momentum_fn=None, combine_grads=None):
     """``step(state, batch, **draws) -> metrics``: the learning rate
     ``lr_schedule(state.step)`` and the BatchNorm momentum
     ``bn_momentum_fn(state.step)`` (each at the count before the update, as
     optax evaluates a schedule), zero the gradients, the loss (``draws``
-    passed on: the noise and the ``generator``) and its backward, one
+    passed on: the noise and the ``generator``) and its backward,
+    ``combine_grads(model)`` where given (the DP step's cross-rank mean), one
     optimizer step, then ``state.step += 1``."""
 
     def step(state: TrainState, batch: dict, **draws) -> dict:
@@ -189,6 +259,8 @@ def make_train_step(loss_fn, lr_schedule=None, bn_momentum_fn=None):
         state.optimizer.zero_grad(set_to_none=True)
         total, metrics = loss_fn(state.model, batch, **draws)
         total.backward()
+        if combine_grads is not None:
+            combine_grads(state.model)
         state.optimizer.step()
         state.step += 1
         return {k: v.detach() for k, v in metrics.items()}

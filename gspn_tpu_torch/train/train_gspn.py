@@ -7,8 +7,11 @@ The flags and defaults of ``gspn_tpu.train.train_gspn`` (synthetic scenes,
 B=4 x N=4096, 64 FPS seeds, 256 GT points per seed, ``GSPNConfig()`` at
 full width, Adam at 1e-3; ``--preset object --synthetic-objects``, the
 single-object CVAE of ``shapenet_config`` on synthetic objects; ``--dtype
-bf16``, bfloat16 MLP and head compute; the data's per-point features
-widen the crops), plus ``--device`` (default ``cuda``; without a
+bf16``, bfloat16 MLP and head compute; ``--scannet-dir``, ``--shapenet-dir``
+and ``--partnet-dir`` read real data, ``--morton`` sorts each scene's points
+into Morton order; the data's per-point features widen the crops; ``--dp``
+trains data-parallel over the ``torch.distributed`` ranks,
+``parallel/mesh.py``), plus ``--device`` (default ``cuda``; without a
 CUDA device it exits with an error and never falls back to the CPU). Batch
 ``i`` is a pure function of ``(seed, i)`` and step ``i``'s random draws
 (augmentation, then the CVAE noise) come from a generator seeded by
@@ -17,6 +20,14 @@ on the CPU and on the card (``gather_point``'s backward adds in a fixed
 order there too). Float32 matrix products stay float32 (torch's default,
 TF32 off). Flags whose code is not
 ported raise ``NotImplementedError`` naming their ``ROADMAP.md`` entry.
+
+Under ``--dp`` every rank builds the same batches, augments the whole
+batch and trains on its rows (``--batch`` must split evenly over the
+ranks) with the DP-aware loss, so a step is the single-process step on the
+whole batch; rank 0 alone writes the checkpoints, the config and the
+metrics::
+
+    torchrun --nproc-per-node 2 -m gspn_tpu_torch.train.train_gspn --dp --steps 200
 """
 
 from __future__ import annotations
@@ -26,14 +37,19 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from gspn_tpu_torch.data import synthetic
+from gspn_tpu_torch.data import native, synthetic
 from gspn_tpu_torch.data.augment import augment_scene
 from gspn_tpu_torch.data.iterator import DeterministicBatches, make_feed, to_device
 from gspn_tpu_torch.data.layout_probe import warn_if_layout_biased
+from gspn_tpu_torch.data.partnet import PartNetParts
+from gspn_tpu_torch.data.scannet import ScanNetCrops
+from gspn_tpu_torch.data.shapenet import ShapeNetObjects
 from gspn_tpu_torch.models.gspn import GSPN, GSPNConfig, not_ported, shapenet_config
 from gspn_tpu_torch.models.presets import scale_gspn_widths
 from gspn_tpu_torch.nn.layers import glorot_init_
+from gspn_tpu_torch.parallel import DataMesh, make_dp_train_step, make_mesh, replicate, shard_batch
 from gspn_tpu_torch.train.checkpoint import CheckpointManager
 from gspn_tpu_torch.train.config_io import save_config
 from gspn_tpu_torch.train.metrics import MetricsLogger, format_metrics
@@ -46,8 +62,7 @@ from gspn_tpu_torch.train.steps import (
 )
 from gspn_tpu_torch.utils.profiling import StepTraceWindow
 
-PARALLEL = "Parallel"  # ROADMAP.md entries of the flags not ported yet
-DATA_LOADERS = "Data loaders"
+PARALLEL = "Parallel"  # the ROADMAP.md entry of the flags not ported yet
 
 TINY_GSPN = GSPNConfig(
     context_radii=(0.3, 0.6),
@@ -103,7 +118,9 @@ def parse_args(argv=None):
     p.add_argument("--steps", type=int, default=1000)
     p.add_argument("--batch", type=int, default=4)
     p.add_argument("--num-points", type=int, default=4096)
-    p.add_argument("--morton", action="store_true", help="not ported")
+    p.add_argument("--morton", action="store_true",
+                   help="Morton-sort each scene's points (a spatially coherent order the "
+                        "group kernels' AABB tiles prune on)")
     p.add_argument("--num-seeds", type=int, default=64)
     p.add_argument("--gt-size", type=int, default=256)
     p.add_argument("--kl-weight", type=float, default=1.0)
@@ -113,17 +130,20 @@ def parse_args(argv=None):
     p.add_argument("--eval-every", type=int, default=0,
                    help="validation-loss interval on a held-out batch (0 = off)")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--dp", action="store_true", help="not ported")
+    p.add_argument("--dp", action="store_true",
+                   help="data-parallel over the torch.distributed ranks (torchrun)")
     p.add_argument("--point-sharded", action="store_true", help="not ported")
     p.add_argument("--data-rows", type=int, default=0, help="not ported")
     p.add_argument("--prefetch", type=int, default=2,
                    help="stage this many batches on the card ahead of the running step "
                         "(0 disables); the same batches in the same order")
     p.add_argument("--synthetic", action="store_true", default=True)
-    p.add_argument("--scannet-dir", type=str, default=None, help="not ported")
-    p.add_argument("--shapenet-dir", type=str, default=None, help="not ported")
+    p.add_argument("--scannet-dir", type=str, default=None,
+                   help="preprocessed ScanNet scenes (data.preprocess_scannet's .npz)")
+    p.add_argument("--shapenet-dir", type=str, default=None,
+                   help="ShapeNet h5 dir: single-object CVAE pretraining")
     p.add_argument("--shapenet-category", type=int, default=None)
-    p.add_argument("--partnet-dir", type=str, default=None, help="not ported")
+    p.add_argument("--partnet-dir", type=str, default=None, help="PartNet ins_seg h5 dir")
     p.add_argument("--synthetic-objects", action="store_true",
                    help="single synthetic objects, one instance each (BASELINE config 1)")
     p.add_argument("--no-augment", action="store_true")
@@ -135,15 +155,13 @@ def parse_args(argv=None):
 
 
 def check_ported(args) -> None:
-    """Raise ``NotImplementedError`` for a flag whose code is not ported."""
+    """Raise ``NotImplementedError`` for a flag whose code is not ported, after
+    the JAX trainer's refusal of ``--dp`` with ``--point-sharded``."""
+    if args.dp and args.point_sharded:
+        raise SystemExit("--dp and --point-sharded are mutually exclusive")
     unported = [
-        (args.dp, "--dp (data-parallel training)", PARALLEL),
         (args.point_sharded, "--point-sharded", PARALLEL),
         (args.data_rows, "--data-rows", PARALLEL),
-        (args.scannet_dir, "--scannet-dir (ScanNet crops)", DATA_LOADERS),
-        (args.shapenet_dir, "--shapenet-dir (ShapeNet objects)", DATA_LOADERS),
-        (args.partnet_dir, "--partnet-dir (PartNet parts)", DATA_LOADERS),
-        (args.morton, "--morton (host Morton sort)", DATA_LOADERS),
     ]
     for flagged, what, item in unported:
         if flagged:
@@ -165,13 +183,38 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(state[0]))
 
 
-def make_sample_fn(args):
-    """``sample_fn(np_rng, batch_size) -> batch dict``: synthetic single
-    objects with ``--synthetic-objects``, else synthetic scenes."""
+def make_sample_fn(args, impl: str = "auto"):
+    """``sample_fn(np_rng, batch_size) -> batch dict`` for the data source,
+    as the JAX trainer's: ScanNet crops (``--scannet-dir``, Morton-sorted
+    inside the crop with ``--morton``), ShapeNet objects (``--shapenet-dir``,
+    ``--shapenet-category``), PartNet parts (``--partnet-dir``), synthetic
+    single objects (``--synthetic-objects``) or synthetic scenes; with
+    ``--morton`` every source but ScanNet is sorted by
+    ``native.morton_sort_batch``. ``impl``: the point-prep route
+    (``data/native.py``; a ScanNet crop's subsample depends on it)."""
+    if getattr(args, "scannet_dir", None):
+        ds = ScanNetCrops(args.scannet_dir, num_points=args.num_points,
+                          morton=getattr(args, "morton", False), impl=impl)
+        return ds.sample_batch
+    if getattr(args, "shapenet_dir", None):
+        ds = ShapeNetObjects(args.shapenet_dir, num_points=args.num_points,
+                             category=getattr(args, "shapenet_category", None))
+        return _maybe_morton(args, ds.sample_batch, impl)
+    if getattr(args, "partnet_dir", None):
+        ds = PartNetParts(args.partnet_dir, num_points=args.num_points)
+        return _maybe_morton(args, ds.sample_batch, impl)
     if getattr(args, "synthetic_objects", False):
-        return lambda rng, b: synthetic.object_scene_batch(rng, b, n_points=args.num_points)
-    return lambda rng, b: synthetic.scene_batch(rng, b, n_points=args.num_points,
-                                                max_instances=8)
+        return _maybe_morton(args, lambda rng, b: synthetic.object_scene_batch(
+            rng, b, n_points=args.num_points), impl)
+    return _maybe_morton(args, lambda rng, b: synthetic.scene_batch(
+        rng, b, n_points=args.num_points, max_instances=8), impl)
+
+
+def _maybe_morton(args, sample_fn, impl: str):
+    """``sample_fn`` followed by the host Morton sort under ``--morton``."""
+    if not getattr(args, "morton", False):
+        return sample_fn
+    return lambda rng, b: native.morton_sort_batch(sample_fn(rng, b), impl=impl)
 
 
 def batch_feature_dim(batch: dict) -> int:
@@ -216,39 +259,77 @@ def validation_metrics(model, loss_fn, batch, generator) -> dict:
     return {f"val_{k}": float(v) for k, v in metrics.items()}
 
 
+def open_mesh(args, device) -> DataMesh | None:
+    """``--dp``'s :class:`DataMesh` (None without ``--dp``); ``--batch`` must
+    split evenly over its ranks."""
+    if not args.dp:
+        return None
+    mesh = make_mesh(device)
+    if args.batch % mesh.size:
+        mesh.close()
+        raise SystemExit(f"--batch {args.batch} must be divisible by the {mesh.size} ranks "
+                         "of --dp")
+    return mesh
+
+
+def dp_loss_kwargs(mesh: DataMesh | None) -> dict:
+    """The loss factories' DP arguments for ``mesh`` (none without one)."""
+    return {} if mesh is None else {"dp_group": mesh.group, "dp_size": mesh.size}
+
+
 def main(argv=None) -> TrainState:
     args = parse_args(argv)
     check_ported(args)
     device = resolve_device(args.device)
+    mesh = open_mesh(args, device)
+    try:
+        if mesh is not None:
+            device = mesh.device
+        batches = DeterministicBatches(make_sample_fn(args), args.batch, args.seed)
+        cfg = model_config(args, batches.batch_at(0))
+        model = GSPN(cfg, recognition=True)
+        glorot_init_(model, torch.Generator().manual_seed(args.seed))
+        model.to(device).train()
+        if mesh is not None:
+            replicate(mesh, model)
+        lr_fn = build_lr_schedule(args)
+        state = TrainState(model, make_optimizer(model, lr_fn(0)))
+        n_params = sum(p.numel() for p in model.parameters())
+        where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+        if mesh is None or mesh.rank == 0:
+            print(f"GSPN: {n_params / 1e6:.2f}M params, device={device} ({where}), "
+                  f"feature_dim={cfg.feature_dim}"
+                  + (f", --dp over {mesh.size} ranks" if mesh is not None else ""))
 
-    batches = DeterministicBatches(make_sample_fn(args), args.batch, args.seed)
-    cfg = model_config(args, batches.batch_at(0))
-    model = GSPN(cfg, recognition=True)
-    glorot_init_(model, torch.Generator().manual_seed(args.seed))
-    model.to(device).train()
-    lr_fn = build_lr_schedule(args)
-    state = TrainState(model, make_optimizer(model, lr_fn(0)))
-    n_params = sum(p.numel() for p in model.parameters())
-    where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    print(f"GSPN: {n_params / 1e6:.2f}M params, device={device} ({where}), "
-          f"feature_dim={cfg.feature_dim}")
-
-    loss_fn = make_gspn_loss_fn(args.num_seeds, args.gt_size, {"kl_weight": args.kl_weight})
-    return train_loop(args, state, loss_fn, lr_fn, cfg, batches, device)
+        loss_fn = make_gspn_loss_fn(args.num_seeds, args.gt_size, {"kl_weight": args.kl_weight},
+                                    **dp_loss_kwargs(mesh))
+        return train_loop(args, state, loss_fn, lr_fn, cfg, batches, device, mesh)
+    finally:
+        if mesh is not None:
+            mesh.close()
 
 
 def train_loop(args, state: TrainState, loss_fn, lr_fn, cfg, batches: DeterministicBatches,
-               device) -> TrainState:
+               device, mesh: DataMesh | None = None) -> TrainState:
     """Both trainers' loop: ``--resume`` from ``{log_dir}/ckpt``, the config
     beside it, then steps ``start..args.steps-1`` (step ``i``: batch ``i``
     augmented, unless ``--no-augment``, and ``loss_fn``'s draws, both from
     ``step_generator(seed, i)``), metrics JSONL every ``--log-every``, the
     validation loss on a held-out batch every ``--eval-every``, a checkpoint
     every ``--ckpt-every`` and at the end, a profiler window of
-    ``--profile-steps``."""
+    ``--profile-steps``. With a ``mesh`` (``--dp``) each rank steps on its
+    rows of the augmented batch with ``parallel.make_dp_train_step``, and
+    rank 0 alone writes (the others wait for each checkpoint)."""
     bn_fn = (bn_momentum_schedule(decay_steps=args.bn_decay_steps,
                                   decay_rate=args.bn_decay_rate) if args.bn_decay else None)
-    step_fn = make_train_step(loss_fn, lr_fn, bn_fn)
+    if mesh is None:
+        step_fn = make_train_step(loss_fn, lr_fn, bn_fn)
+    else:
+        step_fn = make_dp_train_step(loss_fn, mesh, lr_fn, bn_fn)
+    writer = mesh is None or mesh.rank == 0
+
+    def rows(batch):
+        return batch if mesh is None else shard_batch(mesh, batch)
 
     ckpt = CheckpointManager(f"{args.log_dir}/ckpt")
     if args.resume:
@@ -257,36 +338,43 @@ def train_loop(args, state: TrainState, loss_fn, lr_fn, cfg, batches: Determinis
         else:
             print("--resume: no checkpoint found, starting fresh")
     start_step = state.step
-    logger = MetricsLogger(args.log_dir)
-    save_config(f"{args.log_dir}/config.json", model=cfg, args=args)
+    logger = MetricsLogger(args.log_dir) if writer else None
+    if writer:
+        save_config(f"{args.log_dir}/config.json", model=cfg, args=args)
 
     val_batch = None
     if args.eval_every:  # a held-out batch from a disjoint stream
-        val_batch = to_device(DeterministicBatches(
-            make_sample_fn(args), args.batch, args.seed + 1_000_003).batch_at(0), device)
+        val_batch = rows(to_device(DeterministicBatches(
+            make_sample_fn(args), args.batch, args.seed + 1_000_003).batch_at(0), device))
 
-    tracer = StepTraceWindow(f"{args.log_dir}/trace", start_step + 1, args.profile_steps, device)
+    tracer = StepTraceWindow(f"{args.log_dir}/trace", start_step + 1,
+                             args.profile_steps if writer else 0, device)
     try:
         for i, batch in make_feed(batches, start_step, args.steps, args.prefetch, device):
             tracer.tick(i)
             gen = step_generator(args.seed, i, device)
             if not args.no_augment:
                 batch = dict(batch, xyz=augment_scene(batch["xyz"], batch["valid"], generator=gen))
-            metrics = step_fn(state, batch, generator=gen)
-            if (i + 1) % args.log_every == 0 or i == start_step:
+            metrics = step_fn(state, rows(batch), generator=gen)
+            if writer and ((i + 1) % args.log_every == 0 or i == start_step):
                 m = {k: float(v) for k, v in metrics.items()}
                 logger.log(state.step, m)
                 print(format_metrics(state.step, m))
             if args.eval_every and (i + 1) % args.eval_every == 0:
                 vm = validation_metrics(state.model, loss_fn, val_batch,
                                         step_generator(args.seed + 1, 0, device))
-                logger.log(state.step, vm)
-                print(format_metrics(state.step, vm))
+                if writer:
+                    logger.log(state.step, vm)
+                    print(format_metrics(state.step, vm))
             if (i + 1) % args.ckpt_every == 0 or i + 1 == args.steps:
-                ckpt.save(state)
+                if writer:
+                    ckpt.save(state)
+                if mesh is not None:
+                    dist.barrier()
     finally:
         tracer.close()
-        logger.close()
+        if logger is not None:
+            logger.close()
     return state
 
 

@@ -15,8 +15,16 @@ the jittered GT boxes unless ``--no-mix-gt-boxes``. Batch ``i`` is a pure
 function of ``(seed, i)`` and step ``i``'s draws (augmentation, GT-box
 jitter, the frozen GSPN's noise, then any Gumbel and dropout noise) come
 from a generator seeded by ``(seed, i)``, so ``--resume`` continues the
-uninterrupted run bit for bit. Flags whose code is not ported raise
-``NotImplementedError`` naming their ``ROADMAP.md`` entry.
+uninterrupted run bit for bit. ``--scannet-dir`` and ``--partnet-dir`` read
+real data and ``--morton`` sorts each scene's points, as in ``train_gspn``;
+``--dp`` trains data-parallel over the ``torch.distributed`` ranks as
+``train_gspn --dp`` does::
+
+    torchrun --nproc-per-node 2 -m gspn_tpu_torch.train.train_rpointnet --dp \
+        --gspn-ckpt runs/gspn/ckpt
+
+Flags whose code is not ported raise ``NotImplementedError`` naming their
+``ROADMAP.md`` entry.
 """
 
 from __future__ import annotations
@@ -33,16 +41,18 @@ from gspn_tpu_torch.models.gspn import GSPN, GSPNConfig, not_ported
 from gspn_tpu_torch.models.presets import scale_gspn_widths, scale_rpointnet_widths
 from gspn_tpu_torch.models.rpointnet import RPointNet, RPointNetConfig, SALayerSpec
 from gspn_tpu_torch.nn.layers import glorot_init_
+from gspn_tpu_torch.parallel import replicate
 from gspn_tpu_torch.train.checkpoint import latest_model_state
 from gspn_tpu_torch.train.schedules import build_lr_schedule
 from gspn_tpu_torch.train.steps import TrainState, make_optimizer, make_rpointnet_loss_fn
 from gspn_tpu_torch.train.train_gspn import (
-    DATA_LOADERS,
     PARALLEL,
     TINY_GSPN,
     add_common_args,
     batch_feature_dim,
+    dp_loss_kwargs,
     make_sample_fn,
+    open_mesh,
     resolve_device,
     train_loop,
 )
@@ -53,7 +63,9 @@ def parse_args(argv=None):
     p.add_argument("--steps", type=int, default=1000)
     p.add_argument("--batch", type=int, default=2)
     p.add_argument("--num-points", type=int, default=4096)
-    p.add_argument("--morton", action="store_true", help="not ported")
+    p.add_argument("--morton", action="store_true",
+                   help="Morton-sort each scene's points (a spatially coherent order the "
+                        "group kernels' AABB tiles prune on)")
     p.add_argument("--num-seeds", type=int, default=64)
     p.add_argument("--max-instances", type=int, default=32)
     p.add_argument("--num-classes", type=int, default=18)
@@ -67,15 +79,17 @@ def parse_args(argv=None):
     p.add_argument("--eval-every", type=int, default=0,
                    help="validation-loss interval on a held-out batch (0 = off)")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--dp", action="store_true", help="not ported")
+    p.add_argument("--dp", action="store_true",
+                   help="data-parallel over the torch.distributed ranks (torchrun)")
     p.add_argument("--point-sharded", action="store_true", help="not ported")
     p.add_argument("--data-rows", type=int, default=0, help="not ported")
     p.add_argument("--prefetch", type=int, default=2,
                    help="stage this many batches on the card ahead of the running step "
                         "(0 disables); the same batches in the same order")
     p.add_argument("--synthetic", action="store_true", default=True)
-    p.add_argument("--scannet-dir", type=str, default=None, help="not ported")
-    p.add_argument("--partnet-dir", type=str, default=None, help="not ported")
+    p.add_argument("--scannet-dir", type=str, default=None,
+                   help="preprocessed ScanNet scenes (data.preprocess_scannet's .npz)")
+    p.add_argument("--partnet-dir", type=str, default=None, help="PartNet ins_seg h5 dir")
     p.add_argument("--no-mix-gt-boxes", action="store_true",
                    help="disable GT-box mixing into stage-2 RoIs")
     p.add_argument("--no-augment", action="store_true")
@@ -85,14 +99,13 @@ def parse_args(argv=None):
 
 
 def check_ported(args) -> None:
-    """Raise ``NotImplementedError`` for a flag whose code is not ported."""
+    """Raise ``NotImplementedError`` for a flag whose code is not ported, after
+    the JAX trainer's refusal of ``--dp`` with ``--point-sharded``."""
+    if args.dp and args.point_sharded:
+        raise SystemExit("--dp and --point-sharded are mutually exclusive")
     unported = [
-        (args.dp, "--dp (data-parallel training)", PARALLEL),
         (args.point_sharded, "--point-sharded", PARALLEL),
         (args.data_rows, "--data-rows", PARALLEL),
-        (args.scannet_dir, "--scannet-dir (ScanNet crops)", DATA_LOADERS),
-        (args.partnet_dir, "--partnet-dir (PartNet parts)", DATA_LOADERS),
-        (args.morton, "--morton (host Morton sort)", DATA_LOADERS),
     ]
     for flagged, what, item in unported:
         if flagged:
@@ -162,29 +175,42 @@ def main(argv=None) -> TrainState:
     args = parse_args(argv)
     check_ported(args)
     device = resolve_device(args.device, "train_rpointnet")
+    mesh = open_mesh(args, device)
+    try:
+        if mesh is not None:
+            device = mesh.device
+        batches = DeterministicBatches(make_sample_fn(args), args.batch, args.seed)
+        first = batches.batch_at(0)
+        cfg = model_config(args, first)
+        model = RPointNet(cfg)
+        glorot_init_(model, torch.Generator().manual_seed(args.seed))
+        model.to(device).train()
+        if mesh is not None:
+            replicate(mesh, model)
+        lr_fn = build_lr_schedule(args)
+        state = TrainState(model, make_optimizer(model, lr_fn(0)))
+        n_params = sum(p.numel() for p in model.parameters())
+        where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+        writer = mesh is None or mesh.rank == 0
+        if writer:
+            print(f"R-PointNet: {n_params / 1e6:.2f}M params, device={device} ({where}), "
+                  f"feature_dim={cfg.feature_dim}"
+                  + (f", --dp over {mesh.size} ranks" if mesh is not None else ""))
 
-    batches = DeterministicBatches(make_sample_fn(args), args.batch, args.seed)
-    first = batches.batch_at(0)
-    cfg = model_config(args, first)
-    model = RPointNet(cfg)
-    glorot_init_(model, torch.Generator().manual_seed(args.seed))
-    model.to(device).train()
-    lr_fn = build_lr_schedule(args)
-    state = TrainState(model, make_optimizer(model, lr_fn(0)))
-    n_params = sum(p.numel() for p in model.parameters())
-    where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    print(f"R-PointNet: {n_params / 1e6:.2f}M params, device={device} ({where}), "
-          f"feature_dim={cfg.feature_dim}")
-
-    frozen = None
-    if args.gspn_ckpt and not args.gt_boxes:
-        gcfg = _stage_knobs(TINY_GSPN if args.preset == "tiny" else GSPNConfig(), args,
-                            cfg.feature_dim, scale_gspn_widths)
-        frozen = (load_frozen_gspn(args.gspn_ckpt, gcfg, device), args.num_seeds)
-        print(f"loaded frozen GSPN from {args.gspn_ckpt}")
-    loss_fn = make_rpointnet_loss_fn(args.max_instances, frozen,
-                                     mix_gt_boxes=not args.no_mix_gt_boxes)
-    return train_loop(args, state, loss_fn, lr_fn, cfg, batches, device)
+        frozen = None
+        if args.gspn_ckpt and not args.gt_boxes:
+            gcfg = _stage_knobs(TINY_GSPN if args.preset == "tiny" else GSPNConfig(), args,
+                                cfg.feature_dim, scale_gspn_widths)
+            frozen = (load_frozen_gspn(args.gspn_ckpt, gcfg, device), args.num_seeds)
+            if writer:
+                print(f"loaded frozen GSPN from {args.gspn_ckpt}")
+        loss_fn = make_rpointnet_loss_fn(args.max_instances, frozen,
+                                         mix_gt_boxes=not args.no_mix_gt_boxes,
+                                         **dp_loss_kwargs(mesh))
+        return train_loop(args, state, loss_fn, lr_fn, cfg, batches, device, mesh)
+    finally:
+        if mesh is not None:
+            mesh.close()
 
 
 if __name__ == "__main__":

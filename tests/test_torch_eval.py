@@ -396,9 +396,7 @@ def test_run_eval_width_mismatch_is_friendly_error(tmp_path):
 
 
 EVAL_UNPORTED_FLAGS = [
-    (["--scannet-dir", "x"], "Data loaders"), (["--partnet-dir", "x"], "Data loaders"),
-    (["--morton"], "Data loaders"), (["--point-sharded"], "Parallel"),
-    (["--point-sharded", "--data-rows", "2"], "Parallel"),
+    (["--point-sharded"], "Parallel"), (["--point-sharded", "--data-rows", "2"], "Parallel"),
 ]
 
 

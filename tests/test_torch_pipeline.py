@@ -235,7 +235,7 @@ def test_not_ported_messages_quote_roadmap_titles():
                                                                "cpu"]))
     messages.append(str(err.value))
     titles = {re.findall(r'"([^"]+)"', m.split("ROADMAP.md", 1)[1])[0] for m in messages}
-    assert titles == {"Data loaders", "Parallel", "Cross-platform export"}, titles
+    assert titles == {"Parallel", "Cross-platform export"}, titles
     roadmap = (REPO / "ROADMAP.md").read_text()
     for msg in messages:
         titles = re.findall(r'"([^"]+)"', msg.split("ROADMAP.md", 1)[1])

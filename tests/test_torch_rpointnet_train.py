@@ -709,11 +709,7 @@ def test_train_rpointnet_needs_a_card_by_default(tmp_path, monkeypatch):
     assert ttrain.parse_args([]).device == "cuda"
 
 
-RP_UNPORTED_FLAGS = [
-    (["--dp"], "Parallel"), (["--point-sharded"], "Parallel"), (["--data-rows", "2"], "Parallel"),
-    (["--scannet-dir", "x"], "Data loaders"), (["--partnet-dir", "x"], "Data loaders"),
-    (["--morton"], "Data loaders"),
-]
+RP_UNPORTED_FLAGS = [(["--point-sharded"], "Parallel"), (["--data-rows", "2"], "Parallel")]
 
 
 def test_train_rpointnet_width_mult_scales_both_stages(tmp_path):

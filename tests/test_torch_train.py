@@ -620,10 +620,7 @@ def test_train_gspn_needs_a_card_by_default(tmp_path, monkeypatch):
     assert ttrain.parse_args([]).device == "cuda"
 
 
-UNPORTED_FLAGS = [
-    ["--dp"], ["--point-sharded"], ["--data-rows", "2"], ["--scannet-dir", "x"],
-    ["--shapenet-dir", "x"], ["--partnet-dir", "x"], ["--morton"],
-]
+UNPORTED_FLAGS = [["--point-sharded"], ["--data-rows", "2"]]
 
 
 @pytest.mark.parametrize("preset", ["tiny", "default"])
