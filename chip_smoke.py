@@ -190,7 +190,27 @@ line or a few:
    host ms a DP step (Adam) there and in a one-rank group here;
    ``train_gspn --dp`` (3 steps) and ``train_rpointnet --dp`` (2 steps on
    that checkpoint), rank 0 alone writing;
-11. the ranking: for the flagship and the whole-scene request of slices
+11. slice (O), point sharding (``run_point_sharded_slice``), after slice
+   (N): ``O_RANKS`` processes of this script (``--ps-rank WORK``) on the
+   one card over gloo (correctness and plumbing, not scaling), each on a
+   1-D mesh of every rank and a 2 x 2 one: (A)'s request through
+   ``make_point_sharded_inference`` at the flagship (1-D and 2 x 2) and
+   the whole scene (1-D), against its plain path (the parity rule) and
+   the single-process ``infer`` on the same weights and noise (classes
+   and validity equal, at most ``O_MASK_SHARE`` of the mask cells
+   differing), each rank launching exactly a single-process request's
+   kernels; one point-sharded step of stage 1 ((G)'s config, batch and
+   noise) and of stage 2 ((I)'s without dropout or randomized RoIs: 80
+   RoIs a scene) against the single-process step on the whole batch (loss
+   within rtol 1e-5, every tensor as ``_state_close`` holds it) and
+   bitwise against its own plain path, every rank the same state and
+   (G)'s and (I)'s kernels a step; ``train_gspn --point-sharded`` (3
+   steps), ``train_rpointnet --point-sharded --data-rows 2`` (2 steps on
+   that checkpoint) and ``run_eval --point-sharded`` (8 scenes, its
+   predictions against a single-process eval's batch by batch), rank 0
+   alone writing; host ms of the sharded requests and steps and, here,
+   of the single-process ones;
+12. the ranking: for the flagship and the whole-scene request of slices
    (A), (B), (E) and (H), a pass of (F) at each shape and a step of (G),
    each kernel's (device ms - bound ms) summed over every launch of that
    request at its own shape (the launches must be the slice's, kernel for
@@ -201,7 +221,8 @@ line or a few:
    mask_project_boxed, (E) for the strided groups, (F) for the ball
    queries, (H) for fps_cluster, (G) for nn_argmin and index_add;
    ``launches_by_slice`` for each slice's own count, (M)'s and (N)'s their
-   entry-point runs' and checked DP steps' summed; ``device_events``, the
+   entry-point runs' and checked DP steps' summed, (O)'s its ranks'
+   checked requests and steps summed; ``device_events``, the
    profiler's events under ``device_ms``; ``ms_by_cluster_size`` for
    fps_cluster, ``ms_by_ctas`` for nn_argmin, ``ms_by_split`` for the ball
    and box groups,
@@ -2124,6 +2145,10 @@ M_LABELS = ("cabinet", "bed", "chair", "sofa", "table", "door", "window", "books
 # DP step's largest gap from the single-process step, relative to each
 # tensor's largest change (``_state_close``)
 N_RANKS, N_STEPS, DP_GRAD_RTOL = 2, 5, 2e-2
+# slice (O): ranks on the one card, timed requests and steps after a
+# warm-up, and the share of mask cells a sharded request may flip against
+# the single-process one (the bound the mm-against-exact interpolation has)
+O_RANKS, O_REQUESTS, O_STEPS, O_MASK_SHARE = 4, 3, 3, 1e-3
 
 
 def _write_scan(root: pathlib.Path, scene_id: str, rng) -> None:
@@ -2533,6 +2558,15 @@ def _state_close(what, model, ref, before: dict) -> dict:
     gradient not averaged) moves a tensor by its own scale. Returns the
     largest gap over its bound and how many elements lie beyond the JAX
     bounds element by element, which are reported."""
+    gap = _state_gap(model, ref, before)
+    if gap["worst"] > 1.0:
+        raise AssertionError(f"{what} {gap['worst_tensor']}: gap {gap['worst']:.3f} x its bound")
+    return gap
+
+
+def _state_gap(model, ref, before: dict) -> dict:
+    """``_state_close``'s measure without its verdict: the largest gap over
+    its bound, its tensor, and the elements beyond the JAX bounds."""
     from gspn_tpu_torch.utils.bench_slice import _BN_FED_BIAS
 
     got, want = model.state_dict(), ref.state_dict()
@@ -2553,10 +2587,40 @@ def _state_close(what, model, ref, before: dict) -> dict:
         ratio = d.max().item() / bound
         if ratio > worst:
             worst, worst_k = ratio, k
-    if worst > 1.0:
-        raise AssertionError(f"{what} {worst_k}: gap {worst:.3f} x its bound")
     return {"worst": worst, "worst_tensor": worst_k, "beyond_jax_bounds": beyond,
             "elements": total}
+
+
+def _step_ms(step, model, batch, draws, n_steps: int) -> list[float]:
+    """Host ms of ``n_steps`` steps (Adam at 1e-3) of ``step`` after a
+    warm-up."""
+    from gspn_tpu_torch.train.steps import TrainState, make_optimizer
+
+    state = TrainState(model, make_optimizer(model, 1e-3))
+    step(state, batch, **draws)
+    return [_host_ms(lambda: step(state, batch, **draws))[0] for _ in range(n_steps)]
+
+
+def _wait_ranks(what, procs, timeout: float) -> None:
+    """Wait for the rank processes ``procs``; as soon as one exits non-zero
+    (its peers would wait in a collective) or ``timeout`` seconds pass,
+    kill the others and raise."""
+    t0 = time.perf_counter()
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.returncode not in (None, 0) for p in procs) or \
+                    time.perf_counter() - t0 > timeout:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    codes = [p.returncode for p in procs]
+    if codes != [0] * len(procs):
+        raise AssertionError(f"{what} ranks exited {codes} after "
+                             f"{time.perf_counter() - t0:.1f} s")
 
 
 def _dp_step_check(what, ops, mesh, model, ref, plain, loss_fn, dp_loss_fn, batch,
@@ -2596,13 +2660,9 @@ def _dp_step_check(what, ops, mesh, model, ref, plain, loss_fn, dp_loss_fn, batc
 def _dp_step_ms(mesh, model, dp_loss_fn, batch, draws) -> list[float]:
     """Host ms of ``N_STEPS`` DP steps (Adam at 1e-3) after a warm-up."""
     from gspn_tpu_torch.parallel import make_dp_train_step, shard_batch
-    from gspn_tpu_torch.train.steps import TrainState, make_optimizer
 
-    step = make_dp_train_step(dp_loss_fn, mesh)
-    state = TrainState(model, make_optimizer(model, 1e-3))
-    rows = shard_batch(mesh, batch)
-    step(state, rows, **draws)
-    return [_host_ms(lambda: step(state, rows, **draws))[0] for _ in range(N_STEPS)]
+    return _step_ms(make_dp_train_step(dp_loss_fn, mesh), model, shard_batch(mesh, batch), draws,
+                    N_STEPS)
 
 
 def _dp_work(mesh, ops, bench_slice) -> dict:
@@ -2704,17 +2764,7 @@ def run_dp_slice(dev, ops, bench_slice, card, work) -> dict:
     procs = [subprocess.Popen([sys.executable, __file__, "--dp-rank", str(work)],
                               env=dict(env, RANK=str(r), LOCAL_RANK=str(r)))
              for r in range(N_RANKS)]
-    try:
-        for p in procs:
-            p.wait(timeout=600)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    codes = [p.returncode for p in procs]
-    if codes != [0] * N_RANKS:
-        raise AssertionError(f"(N) ranks exited {codes}")
+    _wait_ranks("(N)", procs, 600)
     res = [json.loads(pathlib.Path(work, f"dp_rank{r}.json").read_text())
            for r in range(N_RANKS)]
     if len({r["state_sha256"] for r in res}) != 1:
@@ -2758,6 +2808,379 @@ def run_dp_slice(dev, ops, bench_slice, card, work) -> dict:
                 raise AssertionError(f"(N) a rank's {stage} DP step launched "
                                      f"{r[stage]['launches']}, expected {per_step}")
             _add_counts(total, r[stage]["launches"])
+    return total
+
+
+def _ps_inference(meshes, ops, bench_slice) -> dict:
+    """(O)'s requests on this rank: (A)'s config, weights and noise, the
+    flagship on the 1-D mesh and on the 2 x 2 one, the whole scene on the
+    1-D mesh, each through ``make_point_sharded_inference``: its kernel
+    path (launch counts set to 0 just before) against its plain path (the
+    parity rule) and against the single-process ``make_inference_fn`` on
+    the same weights and noise (classes and validity equal, at most
+    ``O_MASK_SHARE`` of the mask cells differing); then ``O_REQUESTS``
+    timed requests. Raises unless a sharded request launches exactly the
+    single-process request's kernels (those of (A)) and its plain path
+    none."""
+    from gspn_tpu_torch.models.pipeline import make_inference_fn
+    from gspn_tpu_torch.parallel import make_point_sharded_inference
+
+    dev = meshes["1-D"].device
+    cfg = bench_slice.slice_config()
+    model = bench_slice.seeded_model(cfg, dev)
+    pcfg, pmodel = bench_slice.plain_model(cfg, model)
+    single = make_inference_fn(cfg)
+    out = {}
+    for label, shape, seed in (("1-D", FLAGSHIP, 1), ("2x2", FLAGSHIP, 1), ("1-D", WHOLE_SCENE, 2)):
+        what = f"(O) {label} {shape}"
+        xyz, valid, eps = bench_slice.request(cfg, shape, dev, seed)
+        infer = make_point_sharded_inference(cfg, meshes[label])
+        pinfer = make_point_sharded_inference(pcfg, meshes[label])
+        with torch.inference_mode():
+            got, counts = _counted(ops, lambda: infer(model, xyz, valid, eps))
+            want, single_counts = _counted(ops, lambda: single(model, xyz, valid, z_eps=eps))
+            plain, plain_counts = _counted(ops, lambda: pinfer(pmodel, xyz, valid, eps))
+            times = [_host_ms(lambda: infer(model, xyz, valid, eps))[0]
+                     for _ in range(O_REQUESTS)]
+        if counts != single_counts or set(counts) != SLICE_KERNELS["A"] or plain_counts:
+            raise AssertionError(f"{what}: launches {counts}, single-process {single_counts}, "
+                                 f"plain path {plain_counts}")
+        for f in ("masks", "valid", "classes"):
+            if not torch.equal(getattr(got, f), getattr(plain, f)):
+                raise AssertionError(f"{what}: kernel and plain paths differ in {f}")
+        for f in ("scores", "boxes"):
+            torch.testing.assert_close(getattr(got, f), getattr(plain, f), rtol=1e-4, atol=1e-5)
+        share = got.masks[got.valid].float().mean().item()
+        flipped = (got.masks != want.masks).float().mean().item()
+        same = {f: torch.equal(getattr(got, f), getattr(want, f)) for f in FIELDS}
+        if not (same["classes"] and same["valid"]) or flipped > O_MASK_SHARE \
+                or not 0.0 < share < 1.0:
+            raise AssertionError(f"{what} against the single-process request: {same}, mask "
+                                 f"cells that differ {flipped}, mask share {share}")
+        out[f"{label} {shape}"] = {
+            "times": times, "launches": counts, "mask_share": share, "mask_flipped": flipped,
+            "same": same, "score_gap": (got.scores - want.scores).abs().max().item(),
+            "box_gap": (got.boxes - want.boxes).abs().max().item()}
+    return out
+
+
+def _ps_step_check(what, ops, mesh, models, step, plain_step, single_step, batch, draws,
+                   follow: bool = False) -> dict:
+    """One SGD (lr 1) sharded step of a model from ``models()`` (a fresh
+    seeded model a call) on the whole ``batch`` (launch counts set to 0
+    just before), the same step of the model on the plain ops
+    (``models(plain=True)``), which must launch nothing and give the same
+    state bit for bit, and the single-process step on the whole batch: the
+    loss within rtol 1e-5, every tensor as ``_state_close`` holds it.
+    ``follow`` (stage 2): the heads' max pool of the sharded step held to
+    the bound follows the single-process step's picks on this rank's RoIs
+    (``bench_slice.follow_max_ties``, each forced cell asserted a
+    near-tie); the gap without it is reported."""
+    import hashlib
+
+    from gspn_tpu_torch.train.steps import TrainState
+    from gspn_tpu_torch.utils.bench_slice import follow_max_ties
+
+    def sgd(m):
+        return TrainState(m, torch.optim.SGD(m.parameters(), lr=1.0))
+
+    ref, model, plain = models(), models(), models(plain=True)
+    before = {k: v.detach().clone() for k, v in ref.state_dict().items()}
+    picks = []
+    hook = ref.heads.roi_mlp.register_forward_hook(
+        lambda m, i, o: picks.append(o.detach())) if follow else None
+    want = single_step(sgd(ref), batch, **draws)
+    if hook is not None:
+        hook.remove()
+    got, counts = _counted(ops, lambda: step(sgd(model), batch, **draws))
+    _, plain_counts = _counted(ops, lambda: plain_step(sgd(plain), batch, **draws))
+    ps = plain.state_dict()
+    differ = [k for k, v in model.state_dict().items() if not torch.equal(v, ps[k])]
+    if differ or plain_counts:
+        raise AssertionError(f"(O) {what}: the sharded step's plain path launched "
+                             f"{plain_counts} and differs from its kernel path in {differ[:3]}")
+    if abs(got["loss"].item() - want["loss"].item()) > 1e-5 * abs(want["loss"].item()):
+        raise AssertionError(f"(O) {what}: sharded loss {got['loss'].item()} vs "
+                             f"{want['loss'].item()}")
+    digest = hashlib.sha256()
+    for v in model.state_dict().values():
+        digest.update(v.detach().cpu().numpy().tobytes())
+    out = {"loss": got["loss"].item(), "single_loss": want["loss"].item(), "launches": counts,
+           "sha256": digest.hexdigest()}
+    if follow:
+        out["unfollowed"] = _state_gap(model, ref, before)
+        per = picks[0].shape[1] // mesh.n_space
+        model = models()
+        forced, _ = follow_max_ties(model, picks[0][:, mesh.space_index * per:][:, :per])
+        step(sgd(model), batch, **draws)
+        out["forced_cells"] = forced
+    return {**out, **_state_close(f"(O) {what}", model, ref, before)}
+
+
+def _ps_training(mesh, ops, bench_slice) -> dict:
+    """(O)'s training on this rank, on the 1-D mesh: stage 1 at (G)'s config,
+    batch and noise and stage 2 at (I)'s (``stage2_configs()`` without head
+    dropout or randomized RoIs, which the sharded step refuses; 64 seeds +
+    16 GT boxes = 80 RoIs a scene), one checked step each
+    (``_ps_step_check``), then ``O_STEPS`` timed sharded steps of each.
+    Returns what it measured and the launch counts of the checked steps."""
+    import dataclasses
+
+    from gspn_tpu_torch.parallel import (
+        make_point_sharded_gspn_train_step,
+        make_point_sharded_rpointnet_train_step,
+    )
+    from gspn_tpu_torch.train.steps import (
+        make_gspn_loss_fn, make_rpointnet_loss_fn, make_train_step,
+    )
+
+    dev = mesh.device
+    batch = bench_slice.train_batch(dev)
+    cfg = bench_slice.train_config()
+    eps = torch.randn((bench_slice.TRAIN_BATCH, bench_slice.TRAIN_SEEDS, cfg.latent_dim),
+                      generator=torch.Generator().manual_seed(1)).to(dev)
+    s1 = (bench_slice.TRAIN_SEEDS, bench_slice.TRAIN_GT)
+    gcfg, rcfg = bench_slice.stage2_configs()
+    rcfg = dataclasses.replace(rcfg, head_dropout=0.0, roi_randomize=False)
+    gmodel = bench_slice.seeded_frozen_gspn(gcfg, dev)
+    frozen = (gmodel, bench_slice.TRAIN_SEEDS)
+    pfrozen = (bench_slice.plain_gspn(gcfg, gmodel)[1], bench_slice.TRAIN_SEEDS)
+    draws2 = _stage2_draws(gcfg, bench_slice.TRAIN_BATCH, 1, dev)
+    inst = bench_slice.STAGE2_INSTANCES
+    def gspns(plain=False):
+        model = bench_slice.seeded_gspn(cfg, dev)
+        return bench_slice.plain_gspn(cfg, model)[1] if plain else model
+
+    def rpointnets(plain=False):
+        model = bench_slice.seeded_rpointnet(rcfg, dev)
+        return bench_slice.plain_rpointnet(rcfg, model)[1] if plain else model
+
+    pcfg, prcfg = (dataclasses.replace(c, ops_impl="plain") for c in (cfg, rcfg))
+    out = {"stage1": _ps_step_check(
+        "stage 1", ops, mesh, gspns, make_point_sharded_gspn_train_step(cfg, mesh, *s1),
+        make_point_sharded_gspn_train_step(pcfg, mesh, *s1),
+        make_train_step(make_gspn_loss_fn(*s1)), batch, {"z_eps": eps})}
+    out["stage2"] = _ps_step_check(
+        "stage 2", ops, mesh, rpointnets,
+        make_point_sharded_rpointnet_train_step(rcfg, mesh, inst, frozen),
+        make_point_sharded_rpointnet_train_step(prcfg, mesh, inst, pfrozen),
+        make_train_step(make_rpointnet_loss_fn(inst, frozen)), batch, draws2, follow=True)
+    out["ms_stage1"] = _step_ms(make_point_sharded_gspn_train_step(cfg, mesh, *s1),
+                                bench_slice.seeded_gspn(cfg, dev), batch, {"z_eps": eps},
+                                O_STEPS)
+    out["ms_stage2"] = _step_ms(make_point_sharded_rpointnet_train_step(rcfg, mesh, inst, frozen),
+                                bench_slice.seeded_rpointnet(rcfg, dev), batch, draws2, O_STEPS)
+    return out
+
+
+def _ps_eval(run_eval, mesh, ops, log) -> dict:
+    """``run_eval --point-sharded`` on (O)'s trainer checkpoints, 8 scenes
+    at ``--score-thresh 0`` (launch counts set to 0 just before; the
+    summary line rank 0 prints), then the eval loop on the same scenes,
+    weights and noise with the sharded ``infer`` and the single-process one
+    as its paired arm, batch by batch: classes and validity equal, at most
+    ``O_MASK_SHARE`` of the mask cells differing."""
+    import contextlib
+    import io
+
+    argv = ["--point-sharded", "--num-scenes", "8", "--score-thresh", "0",
+            "--gspn-ckpt", str(log / "gspn" / "ckpt"),
+            "--rpointnet-ckpt", str(log / "rpointnet" / "ckpt"), "--dump-dir", str(log / "dumps")]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        _, counts = _counted(ops, lambda: run_eval.main(argv))
+    lines = buf.getvalue().strip().splitlines()
+    args = run_eval.parse_args(argv)
+    cfg, state, z_eps = _eval_weights(run_eval, args, mesh.device)
+    outs = {"sharded": [], "single": []}
+
+    def recording(key, infer):
+        def call(*a, **kw):
+            outs[key].append(infer(*a, **kw))
+            return outs[key][-1]
+        return call
+
+    run_eval.evaluate(recording("sharded", run_eval.live_infer(cfg, state, mesh.device, mesh)),
+                      run_eval.scene_batches(args)(), z_eps,
+                      recording("single", run_eval.live_infer(cfg, state, mesh.device)))
+    flipped, valid = [], 0
+    for i, (got, want) in enumerate(zip(outs["sharded"], outs["single"], strict=True)):
+        if not (torch.equal(got.classes, want.classes) and torch.equal(got.valid, want.valid)):
+            raise AssertionError(f"(O) run_eval batch {i}: the sharded and single-process "
+                                 "predictions differ in classes or validity")
+        flipped.append((got.masks != want.masks).float().mean().item())
+        valid += int(got.valid.sum())
+    if max(flipped) > O_MASK_SHARE:
+        raise AssertionError(f"(O) run_eval: mask cells that differ a batch {flipped}")
+    return {"launches": counts, "summary": lines[-1] if lines else None, "flipped": flipped,
+            "valid": valid}
+
+
+def _ps_rank_main(work, device: str = "cuda") -> None:
+    """The ``--ps-rank WORK`` process: one rank of (O)'s group (the
+    ``torch.distributed`` environment from ``run_point_sharded_slice``): a
+    1-D mesh of every rank and a 2 x 2 one, ``_ps_inference`` and
+    ``_ps_training``, then ``train_gspn --point-sharded`` for 3 steps,
+    ``train_rpointnet --point-sharded --data-rows 2`` for 2 on that
+    checkpoint and ``_ps_eval``, every rank on the same log directories
+    (rank 0 writes), each entry point's launch counts read; its results in
+    ``WORK/ps_rank<r>.json``."""
+    from gspn_tpu_torch import ops
+    from gspn_tpu_torch.eval import run_eval
+    from gspn_tpu_torch.ops import _cuda
+    from gspn_tpu_torch.parallel import make_mesh_2d
+    from gspn_tpu_torch.train import train_gspn, train_rpointnet
+    from gspn_tpu_torch.utils import bench_slice
+
+    bench_slice.pin_float32_matmuls()
+    _cuda.library()
+    mesh = make_mesh_2d(1, O_RANKS, device=device)
+    try:
+        meshes = {"1-D": mesh, "2x2": make_mesh_2d(2, O_RANKS // 2, device=device)}
+        out = {"inference": _ps_inference(meshes, ops, bench_slice),
+               "training": _ps_training(mesh, ops, bench_slice)}
+        log = pathlib.Path(work, "ps")
+        entry = {}
+        entry["train_gspn"] = _counted(ops, lambda: _host_ms(lambda: train_gspn.main(
+            ["--point-sharded", "--steps", "3", "--log-every", "1", "--ckpt-every", "3",
+             "--log-dir", str(log / "gspn")]))[0])
+        entry["train_rpointnet"] = _counted(ops, lambda: _host_ms(lambda: train_rpointnet.main(
+            ["--point-sharded", "--data-rows", "2", "--steps", "2", "--log-every", "1",
+             "--ckpt-every", "2", "--gspn-ckpt", str(log / "gspn" / "ckpt"),
+             "--log-dir", str(log / "rpointnet")]))[0])
+        out["entry"] = entry
+        out["eval"] = _ps_eval(run_eval, mesh, ops, log)
+        out["backend"] = torch.distributed.get_backend()
+        pathlib.Path(work, f"ps_rank{mesh.rank}.json").write_text(json.dumps(out))
+    finally:
+        mesh.close()
+
+
+def run_point_sharded_slice(dev, ops, bench_slice, card, work) -> dict:
+    """Slice (O): point-sharded inference and training. ``O_RANKS``
+    processes of this script (``--ps-rank WORK``) on this one card form a
+    ``torch.distributed`` group (gloo, since the card is shared: (O) shows
+    correctness and plumbing, not scaling), waited for with a time limit
+    and killed past it; each runs ``_ps_rank_main``. Here, the
+    single-process eager request at both shapes and the single-process
+    step of each stage are timed beside the ranks' sharded ones. Raises
+    unless every rank exited 0, the ranks hold the same state after their
+    checked steps, each rank's checked steps and entry points launched
+    their slices' kernels ((G)'s and (I)'s a step, (K)'s in the eval), and
+    rank 0 alone wrote the trainers' files and the dumps. Returns the
+    ranks' launch counts summed (their checked requests and steps)."""
+    import dataclasses
+
+    from gspn_tpu_torch.models.pipeline import make_inference_fn
+    from gspn_tpu_torch.train.steps import (
+        make_gspn_loss_fn, make_rpointnet_loss_fn, make_train_step,
+    )
+
+    _phase("slice (O)")
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+               WORLD_SIZE=str(O_RANKS), LOCAL_WORLD_SIZE=str(O_RANKS),
+               OMP_NUM_THREADS="1")  # as torchrun sets it for several ranks a host
+    procs = [subprocess.Popen([sys.executable, __file__, "--ps-rank", str(work)],
+                              env=dict(env, RANK=str(r), LOCAL_RANK=str(r)))
+             for r in range(O_RANKS)]
+    _wait_ranks("(O)", procs, 600)
+    res = [json.loads(pathlib.Path(work, f"ps_rank{r}.json").read_text())
+           for r in range(O_RANKS)]
+    if len({(r["training"]["stage1"]["sha256"], r["training"]["stage2"]["sha256"])
+            for r in res}) != 1:
+        raise AssertionError("(O) the ranks' parameters differ after their sharded steps")
+    log = pathlib.Path(work, "ps")
+    for name, steps in (("gspn", 3), ("rpointnet", 2)):
+        lines = _jsonl_lines(log / name)
+        if len(lines) != steps or not (log / name / "ckpt" / f"ckpt_{steps}.pt").exists() or \
+                not all(np.isfinite(v) for rec in lines for v in rec.values()):
+            raise AssertionError(f"(O) train_{name} --point-sharded: {lines}")
+    dumps = sorted(p.name for p in (log / "dumps").iterdir())
+    if len(dumps) != 8:
+        raise AssertionError(f"(O) run_eval --point-sharded dumped {dumps}")
+    total = dict.fromkeys(ops.launch_counts(), 0)
+    for r in res:
+        for stage, per_step in (("stage1", G_PER_STEP), ("stage2", I_PER_STEP)):
+            if r["training"][stage]["launches"] != per_step:
+                raise AssertionError(f"(O) a rank's {stage} sharded step launched "
+                                     f"{r['training'][stage]['launches']}, expected {per_step}")
+            _add_counts(total, r["training"][stage]["launches"])
+        for case in r["inference"].values():
+            _add_counts(total, case["launches"])
+        for name, steps, per_step in (("train_gspn", 3, G_PER_STEP),
+                                      ("train_rpointnet", 2, I_PER_STEP)):
+            got = r["entry"][name][1]
+            if got != {k: steps * c for k, c in per_step.items()}:
+                raise AssertionError(f"(O) {name} --point-sharded launched {got} on a rank")
+        if set(r["eval"]["launches"]) != SLICE_KERNELS["K"]:
+            raise AssertionError(f"(O) run_eval --point-sharded launched {r['eval']['launches']}")
+    r0 = res[0]
+    for key, case in r0["inference"].items():
+        print(f"slice (O) {key}: {O_RANKS} ranks ({r0['backend']}, one card); kernel path == "
+              f"plain path (parity rule); against the single-process request: classes and "
+              f"valid equal, mask cells that differ {case['mask_flipped']:.6f} (bound "
+              f"{O_MASK_SHARE}), scores' largest gap {case['score_gap']:.3e}, boxes' "
+              f"{case['box_gap']:.3e}, bitwise {json.dumps(case['same'])}; mask share "
+              f"{case['mask_share']:.4f}; each rank launched the single-process request's "
+              f"kernels {json.dumps(case['launches'])}")
+    for stage in ("stage1", "stage2"):
+        t = r0["training"][stage]
+        followed = ""
+        if "forced_cells" in t:
+            u = t["unfollowed"]
+            followed = (f" with the heads' max pool following the single-process step's picks "
+                        f"(forced near-tie cells on the ranks: "
+                        f"{[r['training'][stage]['forced_cells'] for r in res]}; without it "
+                        f"the largest gap is {u['worst']:.3f} of the bound, {u['worst_tensor']})")
+        print(f"slice (O) {stage}: the {O_RANKS}-rank point-sharded step == the single-process "
+              f"step on the whole batch (B=4 x N=4096): loss {t['loss']:.6f} vs "
+              f"{t['single_loss']:.6f} (rtol 1e-5); every tensor within _state_close's bound"
+              f"{followed} (largest gap over it {t['worst']:.3f}, {t['worst_tensor']}); "
+              f"elements beyond the JAX package's rtol 5e-5 / atol 2e-5: "
+              f"{t['beyond_jax_bounds']} of {t['elements']}; its kernel path == its plain path "
+              f"bitwise; every rank the same state; launches a step {json.dumps(t['launches'])}")
+    ev = r0["eval"]
+    print(f"slice (O) train_gspn --point-sharded 3 steps (1 x {O_RANKS}), train_rpointnet "
+          f"--point-sharded --data-rows 2 2 steps (2 x {O_RANKS // 2}), run_eval "
+          f"--point-sharded 8 scenes: rank 0 wrote each checkpoint, 3 and 2 metric lines and "
+          f"8 dumps; host ms {r0['entry']['train_gspn'][0]:.1f}, "
+          f"{r0['entry']['train_rpointnet'][0]:.1f} (whole runs); the eval's sharded "
+          f"predictions against the single-process ones batch by batch: classes and valid "
+          f"equal over {ev['valid']} valid instances, mask cells that differ "
+          f"{json.dumps([round(x, 6) for x in ev['flipped']])}; summary {ev['summary']}")
+
+    cfg = bench_slice.slice_config()
+    model = bench_slice.seeded_model(cfg, dev)
+    single = make_inference_fn(cfg)
+    for seed, shape in ((1, FLAGSHIP), (2, WHOLE_SCENE)):
+        xyz, valid, eps = bench_slice.request(cfg, shape, dev, seed)
+        with torch.inference_mode():
+            single(model, xyz, valid, z_eps=eps)
+            ts = [_host_ms(lambda: single(model, xyz, valid, z_eps=eps))[0]
+                  for _ in range(O_REQUESTS)]
+        sharded = "; ".join(f"{k.split()[0]} {_span(c['times'])}"
+                            for k, c in r0["inference"].items() if k.endswith(shape))
+        print(f"slice (O) host ms a {shape} request, median (min-max): single-process eager "
+              f"{_span(ts)}; {O_RANKS} ranks sharded {sharded}; {O_REQUESTS} after "
+              f"a warm-up, the ranks sharing one card [{card}]")
+    batch = bench_slice.train_batch(dev)
+    gcfg, rcfg = bench_slice.stage2_configs()
+    rcfg = dataclasses.replace(rcfg, head_dropout=0.0, roi_randomize=False)
+    eps = torch.randn((bench_slice.TRAIN_BATCH, bench_slice.TRAIN_SEEDS,
+                       bench_slice.train_config().latent_dim),
+                      generator=torch.Generator().manual_seed(1)).to(dev)
+    frozen = (bench_slice.seeded_frozen_gspn(gcfg, dev), bench_slice.TRAIN_SEEDS)
+    for stage, step, model, draws in (
+            ("stage1", make_train_step(make_gspn_loss_fn(bench_slice.TRAIN_SEEDS,
+                                                         bench_slice.TRAIN_GT)),
+             bench_slice.seeded_gspn(bench_slice.train_config(), dev), {"z_eps": eps}),
+            ("stage2", make_train_step(make_rpointnet_loss_fn(bench_slice.STAGE2_INSTANCES,
+                                                              frozen)),
+             bench_slice.seeded_rpointnet(rcfg, dev), _stage2_draws(gcfg, 4, 1, dev))):
+        ts = _step_ms(step, model, batch, draws, O_STEPS)
+        print(f"slice (O) {stage} host ms a step (Adam, B=4 x N=4096), median (min-max): "
+              f"single-process {_span(ts)}; {O_RANKS} ranks point-sharded on one card "
+              f"{_span(r0['training'][f'ms_{stage}'])}; {O_STEPS} after a warm-up [{card}]")
     return total
 
 
@@ -2891,6 +3314,9 @@ def main() -> None:
     if sys.argv[1:2] == ["--dp-rank"]:
         _dp_rank_main(sys.argv[2])
         return
+    if sys.argv[1:2] == ["--ps-rank"]:
+        _ps_rank_main(sys.argv[2])
+        return
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs an NVIDIA GPU")
     card = tk.card_name()
@@ -2920,6 +3346,7 @@ def main() -> None:
         runs.update(run_knob_slice(dev, ops, bench_slice, card, work, runs["A"]))
         runs["M"] = run_data_slice(dev, ops, bench_slice, card, work)
         runs["N"] = run_dp_slice(dev, ops, bench_slice, card, work)
+        runs["O"] = run_point_sharded_slice(dev, ops, bench_slice, card, work)
         runs["J"], per_request = run_serving_process(work)
     a_request = {k: c / (2 * (REQUESTS + 1)) for k, c in runs["A"].items()}
     if a_request != per_request:

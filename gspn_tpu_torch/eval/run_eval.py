@@ -8,7 +8,10 @@
 
 Per scene batch: seeds, the GSPN decode (z from the prior), NMS, Point
 RoIAlign, the heads and the masks, through ``make_inference_fn`` (or, with
-``--artifact``, an exported program replayed by ``InferenceSession``);
+``--artifact``, an exported program replayed by ``InferenceSession``; with
+``--point-sharded``, ``parallel.make_point_sharded_inference`` over the
+``torch.distributed`` ranks, ``--data-rows`` rows of them taking the
+scenes in turn);
 then the host-side ScanNet-protocol AP against the GT labels, optionally
 with scene-level bootstrap CIs (``--bootstrap``), a paired second arm
 (``--ab-*``) and per-scene dumps (``--dump-dir``, npz or the official
@@ -16,15 +19,19 @@ ScanNet layout). The scenes: synthetic ones of ``--family``, ScanNet crops
 (``--scannet-dir``) or PartNet shapes (``--partnet-dir``), Morton-sorted
 with ``--morton``. The JAX eval's flags and defaults, plus ``--device``
 (default ``cuda``; without a CUDA device it exits, never falling back to
-the CPU). Flags whose code is not ported raise ``NotImplementedError``
-naming their ``ROADMAP.md`` entry.
+the CPU).
 
 Every batch takes the same CVAE noise, one draw of ``(batch, num_seeds,
 latent_dim)`` from ``serve.runtime.chunk_noise(seed, 0, ...)`` (a ragged
 last batch its first rows), as the JAX eval passes one ``PRNGKey(seed)``
 to every batch. It is what ``InferenceSession.predict(..., seed=seed)``
 feeds an artifact of batch ``--batch``, so ``--artifact`` gives the live
-run's summary bit for bit.
+run's summary bit for bit. Under ``--point-sharded`` every rank runs the
+loop on that noise and holds every batch's predictions; rank 0 alone
+prints and writes the dumps::
+
+    torchrun --nproc-per-node 4 -m gspn_tpu_torch.eval.run_eval --point-sharded \
+        --gspn-ckpt runs/gspn/ckpt --rpointnet-ckpt runs/rpointnet/ckpt
 """
 
 from __future__ import annotations
@@ -45,7 +52,7 @@ from gspn_tpu_torch.data.partnet import PartNetParts
 from gspn_tpu_torch.data.scannet import ScanNetCrops
 from gspn_tpu_torch.eval import instance_eval as ie
 from gspn_tpu_torch.eval.scannet_export import write_scannet_submission
-from gspn_tpu_torch.models.gspn import GSPNConfig, not_ported
+from gspn_tpu_torch.models.gspn import GSPNConfig
 from gspn_tpu_torch.models.pipeline import (
     PipelineConfig,
     PipelineModel,
@@ -59,9 +66,9 @@ from gspn_tpu_torch.models.presets import (
     set_pipeline_group_select,
 )
 from gspn_tpu_torch.models.rpointnet import RPointNetConfig
+from gspn_tpu_torch.parallel import PointMesh, make_mesh_2d, make_point_sharded_inference
 from gspn_tpu_torch.serve.runtime import chunk_noise, float32_matmuls, restore_checkpoints
 from gspn_tpu_torch.train.train_gspn import (
-    PARALLEL,
     TINY_GSPN,
     batch_feature_dim,
     resolve_device,
@@ -93,8 +100,12 @@ def parse_args(argv=None):
     p.add_argument("--dump-format", choices=["npz", "scannet"], default="npz",
                    help="a compact .npz a scene, or the official ScanNet submission layout "
                         "(a .txt a scene + predicted_masks/)")
-    p.add_argument("--point-sharded", action="store_true", help="not ported")
-    p.add_argument("--data-rows", type=int, default=0, help="not ported")
+    p.add_argument("--point-sharded", action="store_true",
+                   help="shard each scene's points, seeds and RoIs over the torch.distributed "
+                        "ranks (parallel/scene.py)")
+    p.add_argument("--data-rows", type=int, default=0,
+                   help="with --point-sharded: a 2-D mesh, the scenes split over this many "
+                        "rows of ranks (must divide --batch)")
     p.add_argument("--artifact", type=str, default=None,
                    help="serve the eval from an artifact of gspn_tpu_torch.serve.export_serving "
                         "(its batch and point count must be --batch and --num-points)")
@@ -167,17 +178,6 @@ def parse_args(argv=None):
 def ab_requested(args) -> bool:
     return (args.ab_fps_segments is not None or args.ab_sa1_fps_segments is not None
             or args.ab_group_select is not None)
-
-
-def check_ported(args) -> None:
-    """Raise ``NotImplementedError`` for a flag whose code is not ported."""
-    unported = [
-        (args.point_sharded, "--point-sharded", PARALLEL),
-        (args.data_rows, "--data-rows", PARALLEL),
-    ]
-    for flagged, what, item in unported:
-        if flagged:
-            raise not_ported(what, item)
 
 
 def build_config(args) -> PipelineConfig:
@@ -393,13 +393,18 @@ def summarize(run: EvalRun, args) -> tuple[dict, dict]:
     return summary, res
 
 
-def live_infer(cfg: PipelineConfig, state: dict, device):
+def live_infer(cfg: PipelineConfig, state: dict, device, mesh: PointMesh | None = None):
     """``infer(xyz, valid, z_eps, features=None)`` of a
     :class:`PipelineModel` built from ``cfg`` with ``state``'s weights, on
-    ``device`` in eval mode."""
+    ``device`` in eval mode; with a ``mesh``, point-sharded over it
+    (``parallel.make_point_sharded_inference``)."""
     model = PipelineModel(cfg)
     model.load_state_dict(state)
     model = model.to(device).eval()
+    if mesh is not None:
+        sharded = make_point_sharded_inference(cfg, mesh)
+        return lambda xyz, valid, z_eps, features=None: sharded(model, xyz, valid, z_eps,
+                                                                features=features)
     fn = make_inference_fn(cfg)
     return lambda xyz, valid, z_eps, features=None: fn(model, xyz, valid, z_eps=z_eps,
                                                        features=features)
@@ -428,12 +433,21 @@ def artifact_infer(path: str, cfg: PipelineConfig, state: dict, args, device):
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    check_ported(args)
     device = resolve_device(args.device, "run_eval")
+    mesh = make_mesh_2d(args.data_rows or 1, device=device) if args.point_sharded else None
+    try:
+        return _run(args, device if mesh is None else mesh.device, mesh)
+    finally:
+        if mesh is not None:
+            mesh.close()
+
+
+def _run(args, device, mesh: PointMesh | None) -> dict:
+    writer = mesh is None or mesh.rank == 0
     cfg = build_config(args)
     batches = scene_batches(args)
     first = next(iter(batches()))
-    if cfg.gspn.group_select == "first":  # warn when the layout is in the first-K pathology
+    if cfg.gspn.group_select == "first" and writer:  # warn when the layout is first-K's pathology
         mid = min(1, len(cfg.gspn.context_radii) - 1)
         warn_if_layout_biased(first, radius=float(cfg.gspn.context_radii[mid]),
                               k=int(cfg.gspn.context_nsample[mid]), where="eval data")
@@ -445,18 +459,21 @@ def main(argv=None) -> dict:
         if ckpt:
             check_checkpoint_config(ckpt, name, fdim, getattr(cfg, name))
             restore_checkpoints(state, **{f"{name}_ckpt": ckpt})
-            print(f"restored {name} from {ckpt}")
+            if writer:
+                print(f"restored {name} from {ckpt}")
 
     if args.artifact:
         infer = artifact_infer(args.artifact, cfg, state, args, device)
     else:
-        infer = live_infer(cfg, state, device)
+        infer = live_infer(cfg, state, device, mesh)
     cfg_b = ab_config(cfg, args)
     infer_b = live_infer(cfg_b, state, device) if cfg_b is not None else None
     z_eps = chunk_noise(args.seed, 0, (args.batch, cfg.num_seeds, cfg.gspn.latent_dim))
-    run = evaluate(infer, batches(), z_eps.to(device), infer_b, args.dump_dir, args.dump_format)
+    run = evaluate(infer, batches(), z_eps.to(device), infer_b,
+                   args.dump_dir if writer else None, args.dump_format)
     summary, res = summarize(run, args)
-    print(json.dumps(summary))
+    if writer:
+        print(json.dumps(summary))
     return res
 
 

@@ -229,11 +229,7 @@ def make_inference_fn(cfg: PipelineConfig):
 
     def infer(model: PipelineModel, xyz, valid=None, z_eps=None, generator=None,
               features=None):
-        if model.gspn.config != cfg.gspn or model.rpointnet.config != cfg.rpointnet:
-            raise ValueError(
-                "the model was built from other stage configs than this inference "
-                "function's; build it from the same PipelineConfig"
-            )
+        check_model(cfg, model)
         seed_idx, sa1_idx, view = shared_fps_indices_view(cfg, xyz, valid)
         gout = model.gspn(xyz, seed_idx, valid, z_eps=z_eps, generator=generator,
                           features=features)
@@ -244,27 +240,44 @@ def make_inference_fn(cfg: PipelineConfig):
         )
 
         out = model.rpointnet(xyz, boxes, valid, sa1_fps_idx=sa1_idx, features=features)
-        fg_prob = torch.softmax(out.cls_logits, dim=-1)[..., 1:]  # drop background
-        cls = (fg_prob.argmax(dim=-1) + 1).to(torch.int32)
-        score = obj * fg_prob.amax(dim=-1)
-        refined = apply_box_deltas(boxes, out.box_deltas)
-
-        pvalid = keep & out.roi_valid & (score > cfg.score_thresh)
-        masks = project_roi_masks(
-            xyz, refined, out.roi_xyz, out.mask_logits, cfg.mask_thresh, valid,
-            impl=cfg.rpointnet.ops_impl, mode=cfg.mask_project,
-            sorted_view=view if cfg.mask_project_prune == "auto" else None,
-        )
-        masks = masks & pvalid[..., None]
-        return InstancePredictions(
-            masks=masks,
-            scores=torch.where(pvalid, score, torch.zeros_like(score)),
-            classes=cls,
-            boxes=refined,
-            valid=pvalid,
-        )
+        return instance_predictions(cfg, xyz, valid, boxes, obj, keep, out,
+                                    view if cfg.mask_project_prune == "auto" else None)
 
     return infer
+
+
+def check_model(cfg: PipelineConfig, model: PipelineModel) -> None:
+    if model.gspn.config != cfg.gspn or model.rpointnet.config != cfg.rpointnet:
+        raise ValueError(
+            "the model was built from other stage configs than this inference "
+            "function's; build it from the same PipelineConfig"
+        )
+
+
+def instance_predictions(cfg: PipelineConfig, xyz, valid, boxes, obj, keep, out,
+                         sorted_view=None) -> InstancePredictions:
+    """The pipeline's tail on the proposals ``boxes (B,R,6)``, their
+    objectness ``obj`` and NMS ``keep``, and the heads' ``out``
+    (``RoIOutputs``): classes, scores, refined boxes, validity and the
+    projected masks (box-pruned over ``sorted_view`` where given)."""
+    fg_prob = torch.softmax(out.cls_logits, dim=-1)[..., 1:]  # drop background
+    cls = (fg_prob.argmax(dim=-1) + 1).to(torch.int32)
+    score = obj * fg_prob.amax(dim=-1)
+    refined = apply_box_deltas(boxes, out.box_deltas)
+
+    pvalid = keep & out.roi_valid & (score > cfg.score_thresh)
+    masks = project_roi_masks(
+        xyz, refined, out.roi_xyz, out.mask_logits, cfg.mask_thresh, valid,
+        impl=cfg.rpointnet.ops_impl, mode=cfg.mask_project, sorted_view=sorted_view,
+    )
+    masks = masks & pvalid[..., None]
+    return InstancePredictions(
+        masks=masks,
+        scores=torch.where(pvalid, score, torch.zeros_like(score)),
+        classes=cls,
+        boxes=refined,
+        valid=pvalid,
+    )
 
 
 def make_streamed_inference_fn(cfg: PipelineConfig):

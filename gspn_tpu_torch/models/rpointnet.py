@@ -283,8 +283,15 @@ class RPointNet(nn.Module):
         ``dropout_keep`` (``RoIHeads.forward``); each not given is drawn from
         ``generator``, the Gumbel noise first. ``features (B,N,F)``: the
         per-point input features (``Backbone.forward``)."""
-        cfg = self.config
         feat = self.backbone(xyz, valid, sa1_fps_idx, features)
+        return self.roi_forward(xyz, feat, boxes, valid, gumbel, dropout_keep, generator)
+
+    def roi_forward(self, xyz, feat, boxes, valid=None, gumbel=None, dropout_keep=None,
+                    generator=None) -> RoIOutputs:
+        """Point RoIAlign of the backbone's map ``feat (B,N,C)`` at ``boxes``
+        and the heads: :meth:`forward` after the backbone (the sharded
+        pipelines run it on a rank's slice of the RoIs)."""
+        cfg = self.config
         if cfg.roi_sample == "grid":
             roi_xyz, canon = roi_grid_points(boxes, cfg.roi_samples)
             roi_feats, idx = interpolate_roi_features(xyz, feat, roi_xyz, valid, impl=cfg.ops_impl)

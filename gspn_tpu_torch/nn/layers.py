@@ -58,6 +58,46 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     return _AllReduceSum.apply(x, group)
 
 
+def _gather_parts(x: torch.Tensor, group) -> list[torch.Tensor]:
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x, group=group)
+    return parts
+
+
+class _AllGatherTiled(torch.autograd.Function):
+    """Every rank's tensor concatenated along ``dim`` in rank order, whose
+    gradient is the sum of every rank's output gradient, sliced to this
+    rank's part (JAX's ``all_gather(tiled=True)`` and its transpose, a
+    ``psum_scatter``; gloo has no reduce-scatter, so an all-reduce and a
+    slice)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return torch.cat(_gather_parts(x.contiguous(), group), dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        part = grad.chunk(dist.get_world_size(ctx.group), ctx.dim)[dist.get_rank(ctx.group)]
+        return part.contiguous(), None, None
+
+
+def all_gather_tiled(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' ``x`` of the process ``group`` concatenated along ``dim``
+    in rank order (``x`` itself for None: this rank alone). The gradient
+    reaching this rank's ``x`` is its slice of the sum of the ranks' output
+    gradients, so that, as with :func:`all_reduce_sum`, the mean of the
+    ranks' gradients is the global one when every rank computes the same
+    global loss. Bool tensors travel as ``uint8`` and take no gradient."""
+    if group is None:
+        return x
+    if x.dtype == torch.bool:
+        return torch.cat(_gather_parts(x.to(torch.uint8), group), dim).bool()
+    return _AllGatherTiled.apply(x, dim, group)
+
+
 class MaskedBatchNorm(nn.Module):
     """Batch norm with the JAX package's conventions: channel axis last,
     ``epsilon=1e-3`` and ``(x - mean) * rsqrt(var + eps) * scale + bias``

@@ -51,15 +51,24 @@ def make_dp_train_step(loss_fn, mesh: DataMesh, lr_schedule=None, bn_momentum_fn
             f"full-batch-shaped draws would be mis-sliced. Rebuild the loss with "
             f"dp_size={mesh.size}.")
 
+    return make_train_step(loss_fn, lr_schedule, bn_momentum_fn,
+                           combine_grads=mean_gradients(mesh.group, mesh.size))
+
+
+def mean_gradients(group, size: int):
+    """``combine(model)``: every parameter's gradient replaced by its mean
+    over the ``size`` ranks of ``group`` (one all-reduce of the gradients
+    laid end to end, then a division)."""
+
     def combine(model: torch.nn.Module) -> None:
         grads = [p.grad for p in model.parameters() if p.grad is not None]
         flat = torch.cat([g.reshape(-1) for g in grads])
-        dist.all_reduce(flat, group=mesh.group)
-        flat = flat / mesh.size
+        dist.all_reduce(flat, group=group)
+        flat = flat / size
         for g, part in zip(grads, flat.split([g.numel() for g in grads]), strict=True):
             g.copy_(part.view_as(g))
 
-    return make_train_step(loss_fn, lr_schedule, bn_momentum_fn, combine_grads=combine)
+    return combine
 
 
 def rank_generator(seed: int, rank: int, device) -> torch.Generator:

@@ -1,6 +1,6 @@
-"""The data-parallel group: the process-group counterparts of
-``gspn_tpu/parallel/mesh.py``'s ``make_mesh``, ``shard_batch`` and
-``replicate``.
+"""The process-group counterparts of ``gspn_tpu/parallel/mesh.py``: the
+data-parallel group (``make_mesh``, ``shard_batch``, ``replicate``) and the
+point-sharded grid of rows (``make_mesh_2d``).
 
 JAX's ``--dp`` is one process over every local device. Here each rank is a
 process, started by ``torchrun`` (or any launcher that sets ``RANK``,
@@ -17,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 import os
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -101,3 +102,76 @@ def replicate(mesh: DataMesh, module: torch.nn.Module) -> torch.nn.Module:
         for t in list(module.parameters()) + list(module.buffers()):
             dist.broadcast(t.data, src=0, group=mesh.group)
     return module
+
+
+@dataclasses.dataclass(frozen=True)
+class PointMesh:
+    """The point-sharded ranks as a grid of ``n_data`` rows of ``n_space``
+    consecutive ranks (JAX's ``reshape(n_data, n_space)``): scenes split
+    over the rows, each scene's seeds, points and RoIs over the ranks of a
+    row. ``space`` is this rank's row and ``data`` its column, as process
+    groups (None where the group would be this rank alone); ``world`` holds
+    every rank, the reduction set of the training statistics and
+    gradients. ``data_index`` and ``space_index`` are this rank's
+    coordinates. A 1-D space mesh is ``n_data = 1``."""
+
+    world: object
+    space: object | None
+    data: object | None
+    n_data: int
+    n_space: int
+    data_index: int
+    space_index: int
+    device: torch.device
+    owns_group: bool = False
+
+    @property
+    def size(self) -> int:
+        return self.n_data * self.n_space
+
+    @property
+    def rank(self) -> int:
+        return self.data_index * self.n_space + self.space_index
+
+    @property
+    def group(self):
+        """The world group (``replicate`` broadcasts over it)."""
+        return self.world
+
+    def close(self) -> None:
+        """Tear the default group down if :func:`make_mesh_2d` set it up."""
+        if self.owns_group and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def make_mesh_2d(n_data: int, n_space: int | None = None, device="cuda") -> PointMesh:
+    """The hybrid mesh of ``gspn_tpu/parallel/mesh.py``'s ``make_mesh_2d``
+    over the default process group (initialized as :func:`make_mesh` does
+    when no caller did): ``n_data`` rows of ``n_space`` ranks, ``n_space``
+    by default every rank of a row. Every rank creates every row's and
+    every column's group, in the same order, as ``dist.new_group``
+    requires."""
+    base = make_mesh(device)
+    size = base.size
+    if n_space is None:
+        if size % n_data:
+            base.close()
+            raise ValueError(f"{size} devices not divisible into {n_data} data rows")
+        n_space = size // n_data
+    need = n_data * n_space
+    if size != need:
+        base.close()
+        raise ValueError(f"need {need} devices ({n_data}x{n_space}), have {size}")
+    grid = np.arange(need).reshape(n_data, n_space)
+
+    def groups(lines) -> list:
+        if len(lines) == 1:
+            return [base.group]
+        if lines.shape[1] == 1:
+            return [None] * len(lines)
+        return [dist.new_group(line.tolist()) for line in lines]
+
+    rows, cols = groups(grid), groups(grid.T)
+    d, s = divmod(base.rank, n_space)
+    return PointMesh(base.group, rows[d], cols[s], n_data, n_space, d, s, base.device,
+                     base.owns_group)

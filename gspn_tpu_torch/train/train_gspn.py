@@ -11,23 +11,29 @@ bf16``, bfloat16 MLP and head compute; ``--scannet-dir``, ``--shapenet-dir``
 and ``--partnet-dir`` read real data, ``--morton`` sorts each scene's points
 into Morton order; the data's per-point features widen the crops; ``--dp``
 trains data-parallel over the ``torch.distributed`` ranks,
-``parallel/mesh.py``), plus ``--device`` (default ``cuda``; without a
+``parallel/mesh.py``; ``--point-sharded`` shards each scene's seeds over
+them, ``--data-rows`` also its scenes over rows of ranks,
+``parallel/train_points.py``), plus ``--device`` (default ``cuda``; without a
 CUDA device it exits with an error and never falls back to the CPU). Batch
 ``i`` is a pure function of ``(seed, i)`` and step ``i``'s random draws
 (augmentation, then the CVAE noise) come from a generator seeded by
 ``(seed, i)``, so ``--resume`` continues the uninterrupted run bit for bit,
 on the CPU and on the card (``gather_point``'s backward adds in a fixed
 order there too). Float32 matrix products stay float32 (torch's default,
-TF32 off). Flags whose code is not
-ported raise ``NotImplementedError`` naming their ``ROADMAP.md`` entry.
+TF32 off).
 
 Under ``--dp`` every rank builds the same batches, augments the whole
 batch and trains on its rows (``--batch`` must split evenly over the
 ranks) with the DP-aware loss, so a step is the single-process step on the
 whole batch; rank 0 alone writes the checkpoints, the config and the
-metrics::
+metrics. ``--point-sharded`` does the same with the batch whole on every
+rank and each scene's seeds split over the ranks (``--num-seeds`` must
+split over a row); ``--data-rows R`` splits the ranks into R rows, the
+scenes over the rows (``--batch`` must split over them)::
 
     torchrun --nproc-per-node 2 -m gspn_tpu_torch.train.train_gspn --dp --steps 200
+    torchrun --nproc-per-node 4 -m gspn_tpu_torch.train.train_gspn --point-sharded \
+        --data-rows 2 --steps 200
 """
 
 from __future__ import annotations
@@ -46,10 +52,20 @@ from gspn_tpu_torch.data.layout_probe import warn_if_layout_biased
 from gspn_tpu_torch.data.partnet import PartNetParts
 from gspn_tpu_torch.data.scannet import ScanNetCrops
 from gspn_tpu_torch.data.shapenet import ShapeNetObjects
-from gspn_tpu_torch.models.gspn import GSPN, GSPNConfig, not_ported, shapenet_config
+from gspn_tpu_torch.models.gspn import GSPN, GSPNConfig, shapenet_config
 from gspn_tpu_torch.models.presets import scale_gspn_widths
 from gspn_tpu_torch.nn.layers import glorot_init_
-from gspn_tpu_torch.parallel import DataMesh, make_dp_train_step, make_mesh, replicate, shard_batch
+from gspn_tpu_torch.parallel import (
+    DataMesh,
+    PointMesh,
+    make_dp_train_step,
+    make_mesh,
+    make_mesh_2d,
+    make_point_sharded_gspn_loss_fn,
+    make_point_sharded_train_step,
+    replicate,
+    shard_batch,
+)
 from gspn_tpu_torch.train.checkpoint import CheckpointManager
 from gspn_tpu_torch.train.config_io import save_config
 from gspn_tpu_torch.train.metrics import MetricsLogger, format_metrics
@@ -61,8 +77,6 @@ from gspn_tpu_torch.train.steps import (
     make_train_step,
 )
 from gspn_tpu_torch.utils.profiling import StepTraceWindow
-
-PARALLEL = "Parallel"  # the ROADMAP.md entry of the flags not ported yet
 
 TINY_GSPN = GSPNConfig(
     context_radii=(0.3, 0.6),
@@ -132,8 +146,12 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--dp", action="store_true",
                    help="data-parallel over the torch.distributed ranks (torchrun)")
-    p.add_argument("--point-sharded", action="store_true", help="not ported")
-    p.add_argument("--data-rows", type=int, default=0, help="not ported")
+    p.add_argument("--point-sharded", action="store_true",
+                   help="shard each scene's seeds over the torch.distributed ranks, the batch "
+                        "whole on every rank (parallel/train_points.py)")
+    p.add_argument("--data-rows", type=int, default=0,
+                   help="with --point-sharded: a 2-D mesh, the scenes split over this many "
+                        "rows of ranks and each scene's work over the ranks of a row")
     p.add_argument("--prefetch", type=int, default=2,
                    help="stage this many batches on the card ahead of the running step "
                         "(0 disables); the same batches in the same order")
@@ -154,18 +172,14 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def check_ported(args) -> None:
-    """Raise ``NotImplementedError`` for a flag whose code is not ported, after
-    the JAX trainer's refusal of ``--dp`` with ``--point-sharded``."""
+def check_flags(args) -> None:
+    """The JAX trainers' refusal of ``--dp`` with ``--point-sharded``, and
+    of ``--data-rows`` without ``--point-sharded`` (which the JAX trainers
+    ignore)."""
     if args.dp and args.point_sharded:
         raise SystemExit("--dp and --point-sharded are mutually exclusive")
-    unported = [
-        (args.point_sharded, "--point-sharded", PARALLEL),
-        (args.data_rows, "--data-rows", PARALLEL),
-    ]
-    for flagged, what, item in unported:
-        if flagged:
-            raise not_ported(what, item)
+    if args.data_rows and not args.point_sharded:
+        raise SystemExit("--data-rows requires --point-sharded")
 
 
 def resolve_device(name: str, prog: str = "train_gspn") -> torch.device:
@@ -259,9 +273,17 @@ def validation_metrics(model, loss_fn, batch, generator) -> dict:
     return {f"val_{k}": float(v) for k, v in metrics.items()}
 
 
-def open_mesh(args, device) -> DataMesh | None:
-    """``--dp``'s :class:`DataMesh` (None without ``--dp``); ``--batch`` must
-    split evenly over its ranks."""
+def open_mesh(args, device) -> DataMesh | PointMesh | None:
+    """``--dp``'s :class:`DataMesh`, ``--point-sharded``'s :class:`PointMesh`
+    (``--data-rows`` rows, else one), or None; ``--batch`` must split evenly
+    over the DP ranks or the rows."""
+    if args.point_sharded:
+        mesh = make_mesh_2d(args.data_rows or 1, device=device)
+        if args.batch % mesh.n_data:
+            mesh.close()
+            raise SystemExit(f"--batch {args.batch} must be divisible by --data-rows "
+                             f"{args.data_rows}")
+        return mesh
     if not args.dp:
         return None
     mesh = make_mesh(device)
@@ -272,6 +294,13 @@ def open_mesh(args, device) -> DataMesh | None:
     return mesh
 
 
+def mesh_note(mesh) -> str:
+    """How the run is split, for the trainers' first line."""
+    if isinstance(mesh, PointMesh):
+        return f", --point-sharded over {mesh.n_data} x {mesh.n_space} ranks"
+    return f", --dp over {mesh.size} ranks" if mesh is not None else ""
+
+
 def dp_loss_kwargs(mesh: DataMesh | None) -> dict:
     """The loss factories' DP arguments for ``mesh`` (none without one)."""
     return {} if mesh is None else {"dp_group": mesh.group, "dp_size": mesh.size}
@@ -279,7 +308,7 @@ def dp_loss_kwargs(mesh: DataMesh | None) -> dict:
 
 def main(argv=None) -> TrainState:
     args = parse_args(argv)
-    check_ported(args)
+    check_flags(args)
     device = resolve_device(args.device)
     mesh = open_mesh(args, device)
     try:
@@ -298,11 +327,15 @@ def main(argv=None) -> TrainState:
         where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
         if mesh is None or mesh.rank == 0:
             print(f"GSPN: {n_params / 1e6:.2f}M params, device={device} ({where}), "
-                  f"feature_dim={cfg.feature_dim}"
-                  + (f", --dp over {mesh.size} ranks" if mesh is not None else ""))
+                  f"feature_dim={cfg.feature_dim}" + mesh_note(mesh))
 
-        loss_fn = make_gspn_loss_fn(args.num_seeds, args.gt_size, {"kl_weight": args.kl_weight},
-                                    **dp_loss_kwargs(mesh))
+        weights = {"kl_weight": args.kl_weight}
+        if isinstance(mesh, PointMesh):
+            loss_fn = make_point_sharded_gspn_loss_fn(cfg, mesh, args.num_seeds, args.gt_size,
+                                                      weights)
+        else:
+            loss_fn = make_gspn_loss_fn(args.num_seeds, args.gt_size, weights,
+                                        **dp_loss_kwargs(mesh))
         return train_loop(args, state, loss_fn, lr_fn, cfg, batches, device, mesh)
     finally:
         if mesh is not None:
@@ -310,26 +343,30 @@ def main(argv=None) -> TrainState:
 
 
 def train_loop(args, state: TrainState, loss_fn, lr_fn, cfg, batches: DeterministicBatches,
-               device, mesh: DataMesh | None = None) -> TrainState:
+               device, mesh: DataMesh | PointMesh | None = None) -> TrainState:
     """Both trainers' loop: ``--resume`` from ``{log_dir}/ckpt``, the config
     beside it, then steps ``start..args.steps-1`` (step ``i``: batch ``i``
     augmented, unless ``--no-augment``, and ``loss_fn``'s draws, both from
     ``step_generator(seed, i)``), metrics JSONL every ``--log-every``, the
     validation loss on a held-out batch every ``--eval-every``, a checkpoint
     every ``--ckpt-every`` and at the end, a profiler window of
-    ``--profile-steps``. With a ``mesh`` (``--dp``) each rank steps on its
-    rows of the augmented batch with ``parallel.make_dp_train_step``, and
-    rank 0 alone writes (the others wait for each checkpoint)."""
+    ``--profile-steps``. With a ``mesh`` each rank steps on its rows of the
+    augmented batch with ``parallel.make_dp_train_step`` (``--dp``) or on
+    the whole batch with ``parallel.make_point_sharded_train_step``
+    (``--point-sharded``), and rank 0 alone writes (the others wait for
+    each checkpoint)."""
     bn_fn = (bn_momentum_schedule(decay_steps=args.bn_decay_steps,
                                   decay_rate=args.bn_decay_rate) if args.bn_decay else None)
     if mesh is None:
         step_fn = make_train_step(loss_fn, lr_fn, bn_fn)
+    elif isinstance(mesh, PointMesh):
+        step_fn = make_point_sharded_train_step(loss_fn, mesh, lr_fn, bn_fn)
     else:
         step_fn = make_dp_train_step(loss_fn, mesh, lr_fn, bn_fn)
     writer = mesh is None or mesh.rank == 0
 
     def rows(batch):
-        return batch if mesh is None else shard_batch(mesh, batch)
+        return shard_batch(mesh, batch) if isinstance(mesh, DataMesh) else batch
 
     ckpt = CheckpointManager(f"{args.log_dir}/ckpt")
     if args.resume:

@@ -18,13 +18,16 @@ from a generator seeded by ``(seed, i)``, so ``--resume`` continues the
 uninterrupted run bit for bit. ``--scannet-dir`` and ``--partnet-dir`` read
 real data and ``--morton`` sorts each scene's points, as in ``train_gspn``;
 ``--dp`` trains data-parallel over the ``torch.distributed`` ranks as
-``train_gspn --dp`` does::
+``train_gspn --dp`` does; ``--point-sharded`` (and ``--data-rows``) shards
+each scene's frozen-GSPN seeds, backbone points and RoIs over them as
+``train_gspn --point-sharded`` shards its seeds (``--num-seeds``, the
+RoIs a scene, sa1's centres and ``--num-points`` must split over a
+row)::
 
     torchrun --nproc-per-node 2 -m gspn_tpu_torch.train.train_rpointnet --dp \
         --gspn-ckpt runs/gspn/ckpt
-
-Flags whose code is not ported raise ``NotImplementedError`` naming their
-``ROADMAP.md`` entry.
+    torchrun --nproc-per-node 4 -m gspn_tpu_torch.train.train_rpointnet --point-sharded \
+        --data-rows 2 --gspn-ckpt runs/gspn/ckpt
 """
 
 from __future__ import annotations
@@ -37,21 +40,22 @@ import torch
 from gspn_tpu_torch.convert import GSPN_TRAINING_ONLY
 from gspn_tpu_torch.data.iterator import DeterministicBatches
 from gspn_tpu_torch.data.layout_probe import warn_if_layout_biased
-from gspn_tpu_torch.models.gspn import GSPN, GSPNConfig, not_ported
+from gspn_tpu_torch.models.gspn import GSPN, GSPNConfig
 from gspn_tpu_torch.models.presets import scale_gspn_widths, scale_rpointnet_widths
 from gspn_tpu_torch.models.rpointnet import RPointNet, RPointNetConfig, SALayerSpec
 from gspn_tpu_torch.nn.layers import glorot_init_
-from gspn_tpu_torch.parallel import replicate
+from gspn_tpu_torch.parallel import PointMesh, make_point_sharded_rpointnet_loss_fn, replicate
 from gspn_tpu_torch.train.checkpoint import latest_model_state
 from gspn_tpu_torch.train.schedules import build_lr_schedule
 from gspn_tpu_torch.train.steps import TrainState, make_optimizer, make_rpointnet_loss_fn
 from gspn_tpu_torch.train.train_gspn import (
-    PARALLEL,
     TINY_GSPN,
     add_common_args,
     batch_feature_dim,
+    check_flags,
     dp_loss_kwargs,
     make_sample_fn,
+    mesh_note,
     open_mesh,
     resolve_device,
     train_loop,
@@ -81,8 +85,13 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--dp", action="store_true",
                    help="data-parallel over the torch.distributed ranks (torchrun)")
-    p.add_argument("--point-sharded", action="store_true", help="not ported")
-    p.add_argument("--data-rows", type=int, default=0, help="not ported")
+    p.add_argument("--point-sharded", action="store_true",
+                   help="shard each scene's frozen-GSPN seeds, backbone points and RoIs over "
+                        "the torch.distributed ranks, the batch whole on every rank "
+                        "(parallel/train_points.py)")
+    p.add_argument("--data-rows", type=int, default=0,
+                   help="with --point-sharded: a 2-D mesh, the scenes split over this many "
+                        "rows of ranks and each scene's work over the ranks of a row")
     p.add_argument("--prefetch", type=int, default=2,
                    help="stage this many batches on the card ahead of the running step "
                         "(0 disables); the same batches in the same order")
@@ -96,20 +105,6 @@ def parse_args(argv=None):
     p.add_argument("--preset", choices=["default", "tiny"], default="default")
     add_common_args(p)
     return p.parse_args(argv)
-
-
-def check_ported(args) -> None:
-    """Raise ``NotImplementedError`` for a flag whose code is not ported, after
-    the JAX trainer's refusal of ``--dp`` with ``--point-sharded``."""
-    if args.dp and args.point_sharded:
-        raise SystemExit("--dp and --point-sharded are mutually exclusive")
-    unported = [
-        (args.point_sharded, "--point-sharded", PARALLEL),
-        (args.data_rows, "--data-rows", PARALLEL),
-    ]
-    for flagged, what, item in unported:
-        if flagged:
-            raise not_ported(what, item)
 
 
 def tiny_rpointnet(num_classes: int) -> RPointNetConfig:
@@ -173,7 +168,7 @@ def load_frozen_gspn(ckpt_dir: str, cfg: GSPNConfig, device) -> GSPN:
 
 def main(argv=None) -> TrainState:
     args = parse_args(argv)
-    check_ported(args)
+    check_flags(args)
     device = resolve_device(args.device, "train_rpointnet")
     mesh = open_mesh(args, device)
     try:
@@ -194,8 +189,7 @@ def main(argv=None) -> TrainState:
         writer = mesh is None or mesh.rank == 0
         if writer:
             print(f"R-PointNet: {n_params / 1e6:.2f}M params, device={device} ({where}), "
-                  f"feature_dim={cfg.feature_dim}"
-                  + (f", --dp over {mesh.size} ranks" if mesh is not None else ""))
+                  f"feature_dim={cfg.feature_dim}" + mesh_note(mesh))
 
         frozen = None
         if args.gspn_ckpt and not args.gt_boxes:
@@ -204,9 +198,13 @@ def main(argv=None) -> TrainState:
             frozen = (load_frozen_gspn(args.gspn_ckpt, gcfg, device), args.num_seeds)
             if writer:
                 print(f"loaded frozen GSPN from {args.gspn_ckpt}")
-        loss_fn = make_rpointnet_loss_fn(args.max_instances, frozen,
-                                         mix_gt_boxes=not args.no_mix_gt_boxes,
-                                         **dp_loss_kwargs(mesh))
+        mix = not args.no_mix_gt_boxes
+        if isinstance(mesh, PointMesh):
+            loss_fn = make_point_sharded_rpointnet_loss_fn(cfg, mesh, args.max_instances, frozen,
+                                                           mix_gt_boxes=mix)
+        else:
+            loss_fn = make_rpointnet_loss_fn(args.max_instances, frozen, mix_gt_boxes=mix,
+                                             **dp_loss_kwargs(mesh))
         return train_loop(args, state, loss_fn, lr_fn, cfg, batches, device, mesh)
     finally:
         if mesh is not None:

@@ -233,3 +233,50 @@ def assert_grads_close(got: dict, want: dict) -> None:
         if not err <= 1e-4 * ref + 1e-6:
             raise AssertionError(f"gradient {name}: |got - want| = {err:.3e} against "
                                  f"|want| = {ref:.3e}")
+
+
+class _Nudged(torch.autograd.Function):
+    """``x`` forward as ``y`` (``x`` with a few elements moved by an ulp);
+    the gradient passes to ``x`` unchanged."""
+
+    @staticmethod
+    def forward(ctx, x, y):
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def follow_max_ties(model: RPointNet, want, rtol: float = 1e-5, atol: float = 1e-5):
+    """Make ``model``'s heads' max pool over the RoI samples pick the maxima
+    of ``want``, another run's RoI MLP output for the same RoIs (JAX's, or
+    the single-process step's): where the two runs' sets of maxima of a
+    (RoI, channel) differ, the RoI MLP's output there is nudged (``want``'s
+    picks to their largest value, the others an ulp below it), and the
+    gradient flows as if it were not. Such a cell is a near-tie that
+    float32 rounding settles one way in one run and the other way in the
+    other (both split a max's gradient among equal maxima); through the
+    heads' BatchNorm it moves the backbone's gradient, a small remainder of
+    BatchNorm's cancellation, past any strict bound. Each forced cell is
+    asserted to be one: its maxima lie within ``atol + rtol * |max|`` of
+    each other. Returns the list of the forced cells' counts, one a
+    forward, and the hook's handle."""
+    want = torch.as_tensor(np.asarray(want) if not torch.is_tensor(want) else want)
+    forced = []
+
+    def hook(module, inputs, out):
+        x = out.detach()
+        w = want.to(x.device)
+        picks = w == w.amax(-2, keepdim=True)
+        cells = ((x == x.amax(-2, keepdim=True)) != picks).any(-2, keepdim=True)
+        top = torch.where(picks, x, -torch.inf).amax(-2, keepdim=True)
+        gap = x.amax(-2, keepdim=True) - torch.where(picks, x, torch.inf).amin(-2, keepdim=True)
+        near = gap <= atol + rtol * top.abs()
+        assert near[cells].all(), "a forced max is not a near-tie"
+        below = torch.nextafter(top, torch.full_like(top, -torch.inf))
+        y = torch.where(cells & picks, top, torch.where(cells & (x >= top), below, x))
+        forced.append(int(cells.sum()))
+        return _Nudged.apply(out, y)
+
+    return forced, model.heads.roi_mlp.register_forward_hook(hook)

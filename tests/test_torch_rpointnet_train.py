@@ -13,7 +13,7 @@ Tolerances, and why:
 - forwards and losses: ``rtol=1e-5, atol=1e-5`` (matrix products and
   BatchNorm statistics sum in another order);
 - gradients: ``bench_slice.assert_grads_close``, the port's heads' max
-  pool made to pick JAX's maxima (``_follow_jax_max_ties``): where two
+  pool made to pick JAX's maxima (``bench_slice.follow_max_ties``): where two
   RoI samples' values of a channel lie within the forwards' agreement,
   float32 rounding decides whether they tie exactly, both frameworks split
   a max's gradient among exact ties, and the backbone's gradient, a small
@@ -177,49 +177,6 @@ def _jax_draws(world, jcfg, frozen, rng, v):
 
 
 MAX_FORCED = 8  # of the heads' B * R * C = 768 max-pool cells (1-5 seen)
-
-
-class _Nudged(torch.autograd.Function):
-    """``x`` forward as ``y`` (``x`` with a few elements moved by an ulp);
-    the gradient passes to ``x`` unchanged."""
-
-    @staticmethod
-    def forward(ctx, x, y):
-        return y
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
-def _follow_jax_max_ties(model, want):
-    """Make the port's heads' max pool over the RoI samples pick JAX's
-    maxima: where the two runs' sets of maxima of a (RoI, channel) differ,
-    the RoI MLP's output there is nudged (JAX's picks to their largest
-    value in the port, the others an ulp below it), and the gradient flows
-    as if it were not. Such a cell is a near-tie that float32 rounding
-    settles (both frameworks split a max's gradient among equal maxima),
-    which moves the backbone's gradient (the module docstring); each is
-    asserted to be one: its maxima lie within ``FWD`` of each
-    other, as the two runs' forwards do. Returns the list of the
-    forced cells' counts, one a forward, and the hook's handle."""
-    want = t(want)
-    forced = []
-
-    def hook(module, inputs, out):
-        x = out.detach()
-        picks = want == want.amax(-2, keepdim=True)
-        cells = ((x == x.amax(-2, keepdim=True)) != picks).any(-2, keepdim=True)
-        top = torch.where(picks, x, -torch.inf).amax(-2, keepdim=True)
-        gap = x.amax(-2, keepdim=True) - torch.where(picks, x, torch.inf).amin(-2, keepdim=True)
-        near = gap <= FWD["atol"] + FWD["rtol"] * top.abs()
-        assert near[cells].all(), "a forced max is not a near-tie"
-        below = torch.nextafter(top, torch.full_like(top, -torch.inf))
-        y = torch.where(cells & picks, top, torch.where(cells & (x >= top), below, x))
-        forced.append(int(cells.sum()))
-        return _Nudged.apply(out, y)
-
-    return forced, model.heads.roi_mlp.register_forward_hook(hook)
 
 
 @pytest.fixture(scope="module")
@@ -445,7 +402,7 @@ def test_rpointnet_loss_fn_matches_jax(world, jax_runs, mode):
     jtotal, jmetrics, jstats, jgrads, draws, jroi = jax_runs(mode)
     knobs, frozen = MODES[mode]
     tm = _port_rpointnet(dataclasses.replace(JCFG, **knobs), world["rvars"])
-    forced, _ = _follow_jax_max_ties(tm, jroi)
+    forced, _ = bench_slice.follow_max_ties(tm, jroi)
     fz = (_port_gspn(world["gvars"]), S) if frozen else None
     total, metrics = tsteps.make_rpointnet_loss_fn(I, fz)(
         tm, titerator.to_device(world["batch"], "cpu"), **draws)
@@ -540,7 +497,7 @@ def test_rpointnet_train_steps_match_optax(world, jax_steps, n_steps):
         if i:
             _load_jax_state(tstate, jax_steps[i - 1][0])
         state, jmetrics, draws, jroi = jax_steps[i]
-        forced, hook = _follow_jax_max_ties(tm, jroi)
+        forced, hook = bench_slice.follow_max_ties(tm, jroi)
         metrics = tstep(tstate, tb, **draws)
         hook.remove()
         assert len(forced) == 1 and forced[0] <= MAX_FORCED, forced
@@ -709,7 +666,8 @@ def test_train_rpointnet_needs_a_card_by_default(tmp_path, monkeypatch):
     assert ttrain.parse_args([]).device == "cuda"
 
 
-RP_UNPORTED_FLAGS = [(["--point-sharded"], "Parallel"), (["--data-rows", "2"], "Parallel")]
+RP_SHARDED_FLAGS = [(["--point-sharded"], None),
+                    (["--data-rows", "2"], "--data-rows requires --point-sharded")]
 
 
 def test_train_rpointnet_width_mult_scales_both_stages(tmp_path):
@@ -729,10 +687,27 @@ def test_train_rpointnet_width_mult_scales_both_stages(tmp_path):
     assert saved["roi_mlp"] == list(want.roi_mlp) and saved["__dataclass__"] == "RPointNetConfig"
 
 
-@pytest.mark.parametrize("flags,item", RP_UNPORTED_FLAGS, ids=lambda f: f[0] if f else "")
-def test_train_rpointnet_unported_flags_raise(flags, item, tmp_path):
-    with pytest.raises(NotImplementedError, match=f'ROADMAP.md, "{item}"'):
-        ttrain.main(["--device", "cpu", "--log-dir", str(tmp_path)] + flags)
+@pytest.mark.parametrize("flags,said", RP_SHARDED_FLAGS, ids=lambda f: f[0] if f else "")
+def test_train_rpointnet_unported_flags_raise(flags, said, tmp_path, monkeypatch):
+    """The point-sharded flags, which raised before they were ported: on a
+    one-rank world (no launcher) ``--point-sharded`` over a frozen GSPN
+    trains the run without it, bit for bit; ``--data-rows`` alone is
+    refused (``tests/test_torch_point_sharded.py`` runs 4 ranks)."""
+    for var in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    common = ["--device", "cpu", "--preset", "tiny", "--steps", "1", "--batch", "2",
+              "--num-points", "128", "--num-seeds", "8", "--log-every", "1"]
+    if said is not None:
+        with pytest.raises(SystemExit, match=said):
+            ttrain.main(common + ["--log-dir", str(tmp_path)] + flags)
+        return
+    ttrain_gspn.main(common + ["--gt-size", "16", "--log-dir", str(tmp_path / "g")])
+    argv = common + ["--num-classes", "3", "--max-instances", "4",
+                     "--gspn-ckpt", str(tmp_path / "g" / "ckpt")]
+    got = ttrain.main(argv + ["--log-dir", str(tmp_path / "sharded")] + flags)
+    assert not torch.distributed.is_initialized()
+    want = ttrain.main(argv + ["--log-dir", str(tmp_path / "plain")]).model.state_dict()
+    assert all(torch.equal(got.model.state_dict()[k], want[k]) for k in want)
 
 
 def test_train_rpointnet_presets_and_defaults_match_jax():

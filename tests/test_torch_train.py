@@ -620,7 +620,7 @@ def test_train_gspn_needs_a_card_by_default(tmp_path, monkeypatch):
     assert ttrain.parse_args([]).device == "cuda"
 
 
-UNPORTED_FLAGS = [["--point-sharded"], ["--data-rows", "2"]]
+SHARDED_FLAGS = [["--point-sharded"], ["--data-rows", "2"]]
 
 
 @pytest.mark.parametrize("preset", ["tiny", "default"])
@@ -648,10 +648,25 @@ def test_width_mult_scales_like_jax(preset):
         jpresets.scale_pipeline_widths(jp, 2))
 
 
-@pytest.mark.parametrize("flags", UNPORTED_FLAGS, ids=lambda f: f[0])
-def test_train_gspn_unported_flags_raise(flags, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ttrain.main(["--device", "cpu", "--log-dir", str(tmp_path)] + flags)
+@pytest.mark.parametrize("flags", SHARDED_FLAGS, ids=lambda f: f[0])
+def test_train_gspn_unported_flags_raise(flags, tmp_path, monkeypatch):
+    """The point-sharded flags, which raised before they were ported: on a
+    one-rank world (no launcher) ``--point-sharded`` trains the run without
+    it, bit for bit, and tears its world down; ``--data-rows`` alone, which
+    the JAX trainer ignores, is refused (``tests/test_torch_point_sharded.py``
+    runs 4 ranks)."""
+    for var in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    argv = ["--device", "cpu", "--preset", "tiny", "--steps", "2", "--batch", "2",
+            "--num-points", "128", "--num-seeds", "8", "--gt-size", "16", "--log-every", "1"]
+    if flags[0] == "--data-rows":
+        with pytest.raises(SystemExit, match="--data-rows requires --point-sharded"):
+            ttrain.main(argv + ["--log-dir", str(tmp_path)] + flags)
+        return
+    got = ttrain.main(argv + ["--log-dir", str(tmp_path / "sharded")] + flags)
+    assert not torch.distributed.is_initialized()
+    want = ttrain.main(argv + ["--log-dir", str(tmp_path / "plain")]).model.state_dict()
+    assert all(torch.equal(got.model.state_dict()[k], want[k]) for k in want)
 
 
 def test_random_seed_method_matches_jax(jmodel_vars):
