@@ -53,7 +53,7 @@ line or a few:
    their ranked shapes; the exact FPS beyond one block
    (``fps_cluster``) also at 4 x 16384, 2 x 14273 with an all-invalid row
    and 131072 points, and at every cluster size that holds each of those
-   rows and the whole scene's; NMS up to 4096 boxes;
+   rows and the whole scene's; NMS up to 4096 boxes and at 36,864;
    strided selection must differ from first-K at SA1;
 4. slices, seeded weights on the bench's scenes (``gspn_tpu_torch.utils.
    bench_slice``). Each runs its kernel path, with every launch count set to
@@ -152,7 +152,8 @@ line or a few:
    batch, 1 + 3 steps a path, (G)'s kernels once a step (the ball group
    at one radius with K = 4096), kernel path bitwise the plain path, then
    ``train_gspn.main`` with those flags for 3 steps; host ms a request of
-   bf16 and float32 and a step of the object preset; the kernel phase
+   bf16 and float32 and a step of the object preset, and the device
+   operations a bf16 and a float32 request makes; the kernel phase
    also times the ball group at (L-object)'s crop and interp_mm at FP4
    with the RGB skip;
 9. slice (M), real-layout data (``run_data_slice``), after slice (L): from
@@ -214,8 +215,11 @@ line or a few:
    slice (O): ``export_serving`` in two child processes that see no card
    (``CUDA_VISIBLE_DEVICES=""``), ``--platform cuda`` at B=8 x N=8192 and
    ``--platform cpu,cuda`` at B=2 x N=2048 (the CLI's default preset with
-   (A)'s spatial segmented FPS, every proposal kept), while this process
-   exports the same on the card with ``--verify``: each card-less program's
+   (A)'s spatial segmented FPS, every proposal kept), and a third that
+   exports (A)'s pipeline (``mask_thresh`` 0.49) with
+   ``serve.export_inference``, while this process exports the same on the
+   card (``--verify``): the third's outputs, bitwise its twin's and live
+   ``infer``'s, hold masks neither empty nor full; each card-less program's
    graph equal to its twin's (``gspn::`` ops and every call in order); the
    card-less artifacts on the card through ``program.module()`` and
    ``InferenceSession``'s CUDA-graph replay, bitwise the twin's and live
@@ -231,7 +235,18 @@ line or a few:
    bitwise, ``fps`` and ``ball_group`` launched, the plain path none; then
    those two kernels at the MSG stack's shapes, bitwise their plain
    versions, with wrapper, device, plain and bound ms;
-13. the ranking: for the flagship and the whole-scene request of slices
+13. slice (Q), stage 2 with every option (``run_options_slice``), after
+   slice (P): (I)'s configs, batch and frozen GSPN with ``roi_randomize``,
+   ``head_dropout`` 0.3, ``remat``, non-default ``loss_weights`` and
+   ``gt_box_jitter``, and ``share_fps=False``, 1 + 10 steps with every draw
+   from a generator on the card seeded by the step, the launches counted;
+   bitwise its plain path, the same without ``remat`` (the recompute's
+   launches printed), and that with ``share_fps=True`` (exactly one
+   ``fps`` launch a step fewer); ``train_rpointnet`` at its defaults with
+   that model config, 4 steps against 2 + ``--resume`` 2, bitwise; one
+   B=1 x N=65536 step with and without ``remat`` after a warm-up each,
+   bitwise, ``torch.cuda.max_memory_allocated`` and host ms of each;
+14. the ranking: for the flagship and the whole-scene request of slices
    (A), (B), (E) and (H), a pass of (F) at each shape and a step of (G),
    each kernel's (device ms - bound ms) summed over every launch of that
    request at its own shape (the launches must be the slice's, kernel for
@@ -284,6 +299,7 @@ PLAIN_SLOW_ITERS = 3  # timed calls of a plain version or library call slower th
 FIELDS = ("masks", "valid", "classes", "scores", "boxes")  # of InstancePredictions
 PATH_KERNELS = {"fps", "ball_group", "box_group", "three_nn", "interp_mm", "nms"}
 FPS_ROWS_N = 131072  # the cluster FPS's reach: twice the whole scene
+NMS_ABOVE_OLD_CAP = 36864  # boxes a scene, beyond the NMS kernel's limit before 131,072
 SPLITS = (1, 2, 4, 8, 16)  # warps a query the ball and box groups take
 # three_nn: targets a thread, source slices, sources a group
 NN_PER, NN_SPLITS, NN_GROUPS = (1, 2, 4), (1, 2, 4, 8, 16, 32), (1, 32)
@@ -309,6 +325,11 @@ DEVICE_SYMBOLS = {
     "mask_project_boxed": ("nearest_logit_kernel<true>",), "nms": ("nms_kernel",),
     "nn_argmin": ("nn_argmin_kernel",), "index_add": ("index_add_kernel",),
 }
+# slice (Q) launches a step: (I)'s, but fps for the seeds and SA1 apart
+# (share_fps=False), no box_group (randomized RoIs are a Gumbel top-k), and
+# remat's recompute of SA1-SA4 (fps, ball_group) and FP1-FP4 (three_nn,
+# interp_mm) in backward
+Q_PER_STEP = {"fps": 9, "ball_group": 9, "three_nn": 8, "interp_mm": 8, "index_add": 8}
 SLICE_KERNELS = {  # what each slice's kernel path launches; the others stay at 0
     "A": PATH_KERNELS | {"mask_project"},
     "B": PATH_KERNELS | {"mask_project_boxed"},
@@ -324,6 +345,7 @@ SLICE_KERNELS = {  # what each slice's kernel path launches; the others stay at 
     "L-rgb": PATH_KERNELS | {"mask_project"},
     "L-object": {"fps", "ball_group", "nn_argmin", "index_add"},
     "P": PATH_KERNELS | {"mask_project"},
+    "Q": set(Q_PER_STEP),
 }
 # slice (G) launches per step: nn_argmin gives the chamfer's argmins both
 # ways in one launch; index_add is the chamfer's gather backward into the
@@ -434,6 +456,7 @@ def check_kernels(dev, ops, bench_slice):
     chain_boxes, chain_scores = _chain_nms_case(dev, B, 64, 32, gen)
     nms2k, nms4k = _chain_nms_case(dev, 1, 2048, 128, gen), _chain_nms_case(dev, 1, 4096, 128, gen)
     nms1k = _chain_nms_case(dev, 1, 1024, 128, gen)
+    nms36k = _chain_nms_case(dev, 1, NMS_ABOVE_OLD_CAP, 128, gen)
     tie_src = torch.rand((16, 2048, 3), generator=gen) * 4
     tie_src = torch.cat([tie_src, tie_src], dim=1).to(dev)  # source j + 2048 repeats j
     tie_tgt = (torch.rand((16, 4096, 3), generator=gen) * 4).to(dev)
@@ -628,6 +651,9 @@ def check_kernels(dev, ops, bench_slice):
              lambda impl: ops.nms_3d_batched(*nms2k, 0.25, impl=impl), nms_work(*nms2k)),
             ("1x4096 boxes with a suppression chain 128 deep",
              lambda impl: ops.nms_3d_batched(*nms4k, 0.25, impl=impl), nms_work(*nms4k)),
+            (f"1x{NMS_ABOVE_OLD_CAP} boxes with a suppression chain 128 deep (above the "
+             "32,768 the kernel took before its suppressed bits moved to dynamic shared memory)",
+             lambda impl: ops.nms_3d_batched(*nms36k, 0.25, impl=impl), nms_work(*nms36k)),
         ],
         "index_add": main_cases("index_add"),
     }
@@ -1763,6 +1789,209 @@ def run_stage2(dev, ops, bench_slice, card, work):
     return counts
 
 
+# slice (Q): stage 2 with every option of make_rpointnet_loss_fn and the
+# model's training knobs on, at (I)'s full width; the whole scene's step
+Q_LOSS_WEIGHTS = {"cls_weight": 0.7, "box_weight": 1.5, "mask_weight": 0.3}
+Q_JITTER, Q_DROPOUT = 0.1, 0.3
+Q_WS_N = 65536
+
+
+def _q_config(rcfg, **over):
+    """(I)'s R-PointNet with randomized RoIs, head dropout and remat on
+    (``over`` replaces any of them)."""
+    import dataclasses
+
+    return dataclasses.replace(rcfg, **{"roi_randomize": True, "head_dropout": Q_DROPOUT,
+                                        "remat": True, **over})
+
+
+def _q_step(bench_slice, model, gmodel, share_fps=False):
+    """``one(batch, i) -> metrics``: an Adam step (1e-3) of ``model`` on the
+    stage-2 loss with (Q)'s ``loss_weights`` and ``gt_box_jitter``, every
+    draw of step ``i`` (the GT boxes' jitter, the frozen GSPN's noise, the
+    Gumbel noise, the dropout masks) from a generator on the card seeded
+    ``100 + i``, so two runs draw the same."""
+    from gspn_tpu_torch.train.steps import (
+        TrainState, make_optimizer, make_rpointnet_loss_fn, make_train_step,
+    )
+
+    step = make_train_step(make_rpointnet_loss_fn(
+        bench_slice.STAGE2_INSTANCES, (gmodel, bench_slice.TRAIN_SEEDS),
+        loss_weights=Q_LOSS_WEIGHTS, gt_box_jitter=Q_JITTER, share_fps=share_fps))
+    state = TrainState(model, make_optimizer(model, 1e-3))
+
+    def one(batch, i):
+        dev = batch["xyz"].device
+        return step(state, batch, generator=torch.Generator(dev).manual_seed(100 + i))
+
+    return one
+
+
+def _q_steps(bench_slice, model, gmodel, batch, n_steps, share_fps=False):
+    """1 + ``n_steps`` steps of :func:`_q_step`. Returns ``(step 1's metrics,
+    step 1's gradients, every loss, host ms of the timed steps)``."""
+    one = _q_step(bench_slice, model, gmodel, share_fps)
+    first = one(batch, 0)
+    grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+    losses, times = [first["loss"]], []
+    for i in range(1, n_steps + 1):
+        ms, m = _host_ms(lambda i=i: one(batch, i))
+        times.append(ms)
+        losses.append(m["loss"])
+    return first, grads, torch.stack(losses), times
+
+
+def _q_same(what, a, b, model, other) -> None:
+    """Raise unless two (Q) runs (``_q_steps``' results) are bitwise equal:
+    step 1's metrics and gradients, every loss, the parameters and running
+    statistics."""
+    (fa, ga, la, _), (fb, gb, lb, _) = a, b
+    for k in fa:
+        if not torch.equal(fa[k], fb[k]):
+            raise AssertionError(f"{what}: step 1 {k} {fa[k].item()} vs {fb[k].item()}")
+    differ = [k for k in ga if not torch.equal(ga[k], gb[k])]
+    if differ:
+        raise AssertionError(f"{what}: step-1 gradients differ in {differ[:3]}")
+    _assert_same_training(what, model, other, la, lb)
+
+
+def run_options_slice(dev, ops, bench_slice, card, work):
+    """Slice (Q): stage 2 at (I)'s full width (``bench_slice.stage2_configs()``,
+    B=4 x N=4096, 80 RoIs a scene) with every option on: ``roi_randomize``,
+    ``head_dropout`` ``Q_DROPOUT``, ``remat``, ``Q_LOSS_WEIGHTS``,
+    ``gt_box_jitter`` ``Q_JITTER`` and ``share_fps=False``. 1 +
+    ``TRAIN_STEPS`` steps on the kernel path (its launches counted), then
+    bitwise against: its plain path; the same without ``remat``; that with
+    ``share_fps=True`` (one ``fps`` launch a step fewer). ``train_rpointnet``
+    at its defaults with the (Q) model config: 4 steps straight against 2,
+    a checkpoint and ``--resume`` for 2. One B=1 x N=65536 step with and
+    without ``remat``: bitwise, with ``torch.cuda.max_memory_allocated``
+    and host ms of each. Returns the kernel path's launch counts."""
+    import dataclasses
+
+    from gspn_tpu_torch.train import train_rpointnet
+    from gspn_tpu_torch.train.config_io import load_config
+
+    _phase("slice (Q)")
+    t0 = time.perf_counter()
+    gcfg, rcfg = bench_slice.stage2_configs()
+    qcfg = _q_config(rcfg)
+    batch = bench_slice.train_batch(dev)
+    b, n = batch["xyz"].shape[:2]
+    gmodel = bench_slice.seeded_frozen_gspn(gcfg, dev)
+    _, pgmodel = bench_slice.plain_gspn(gcfg, gmodel)
+
+    def model_of(cfg):
+        return bench_slice.seeded_rpointnet(cfg, dev)
+
+    model = model_of(qcfg)
+    _, pmodel = bench_slice.plain_rpointnet(qcfg, model)
+    ops.reset_launch_counts()
+    run = _q_steps(bench_slice, model, gmodel, batch, TRAIN_STEPS)
+    counts = ops.launch_counts()
+    print(f"slice (Q) launches: {json.dumps(counts)}")
+    want = {k: c * (TRAIN_STEPS + 1) for k, c in Q_PER_STEP.items()}
+    if _nonzero(counts) != want or not torch.isfinite(run[2]).all():
+        raise AssertionError(f"slice (Q) launched {_nonzero(counts)}, expected {want}; losses "
+                             f"{run[2].tolist()}")
+    before = ops.launch_counts()
+    prun = _q_steps(bench_slice, pmodel, pgmodel, batch, TRAIN_STEPS)
+    if ops.launch_counts() != before:
+        raise AssertionError("slice (Q): the plain path launched kernels")
+    _q_same("(Q) kernel path vs plain path", run, prun, model, pmodel)
+    print(f"slice (Q): roi_randomize, head_dropout {Q_DROPOUT}, remat, loss_weights "
+          f"{Q_LOSS_WEIGHTS}, gt_box_jitter {Q_JITTER}, share_fps=False; kernel path == plain "
+          f"path bitwise over 1 + {TRAIN_STEPS} steps (step-1 metrics and gradients, losses, "
+          f"parameters, running statistics); step 1 "
+          f"{', '.join(f'{k} {v.item():.6f}' for k, v in run[0].items())}; losses "
+          f"{[round(x, 4) for x in run[2].tolist()]}")
+
+    variants = {}
+    for name, cfg, share in (("no remat", _q_config(rcfg, remat=False), False),
+                             ("no remat, share_fps=True", _q_config(rcfg, remat=False), True)):
+        other = model_of(cfg)
+        ops.reset_launch_counts()
+        variants[name] = (_q_steps(bench_slice, other, gmodel, batch, TRAIN_STEPS, share),
+                          ops.launch_counts(), other)
+    (nr, nr_counts, nr_model), (sh, sh_counts, sh_model) = variants.values()
+    _q_same("(Q) remat vs no remat", run, nr, model, nr_model)
+    _q_same("(Q) share_fps=False vs True", nr, sh, nr_model, sh_model)
+    steps = TRAIN_STEPS + 1
+    extra = {k: nr_counts[k] - sh_counts[k] for k in nr_counts if nr_counts[k] != sh_counts[k]}
+    if extra != {"fps": steps}:
+        raise AssertionError(f"(Q) share_fps=False launched {extra} more than True, not one fps "
+                             "a step")
+    recompute = {k: (counts[k] - nr_counts[k]) / steps for k in counts
+                 if counts[k] != nr_counts[k]}
+    print(f"slice (Q): remat == no remat bitwise, and share_fps=False == True bitwise, over 1 + "
+          f"{TRAIN_STEPS} steps; share_fps=False launches one fps a step more "
+          f"({nr_counts['fps'] // steps} against {sh_counts['fps'] // steps}); remat's "
+          f"recompute adds a step {json.dumps(recompute)}")
+    times = {"remat": run[3], "no remat": nr[3], "share_fps=True, no remat": sh[3],
+             "plain path": prun[3]}
+    print(f"slice (Q) host ms a step (B={b} x N={n}, {TRAIN_STEPS} steps after a warm-up): "
+          + ", ".join(f"{k} {_span(v)}" for k, v in times.items()) + f" [{card}]")
+
+    _phase("slice (Q) train_rpointnet")
+    real = train_rpointnet.model_config
+
+    def q_model_config(args, first):
+        return _q_config(real(args, first))
+
+    def lines_of(log_dir):
+        return [json.loads(x) for x in pathlib.Path(log_dir, "train.jsonl").read_text()
+                .splitlines()]
+
+    train_rpointnet.model_config = q_model_config
+    try:
+        flags = ["--ckpt-every", "1", "--log-every", "1"]
+        straight = train_rpointnet.main(flags + ["--steps", "4", "--log-dir", f"{work}/q_a"])
+        train_rpointnet.main(flags + ["--steps", "2", "--log-dir", f"{work}/q_b"])
+        resumed = train_rpointnet.main(flags + ["--steps", "4", "--resume",
+                                                "--log-dir", f"{work}/q_b"])
+    finally:
+        train_rpointnet.model_config = real
+    saved = load_config(f"{work}/q_a/config.json")["model"]
+    if not (saved["remat"] and saved["roi_randomize"] and straight.model.config.remat):
+        raise AssertionError(f"(Q) train_rpointnet: config {saved}")
+    la, lb = (torch.tensor([r["loss"] for r in lines_of(f"{work}/q_{x}")]) for x in "ab")
+    if not torch.isfinite(la).all():
+        raise AssertionError(f"(Q) train_rpointnet: losses {la.tolist()}")
+    _assert_same_training("(Q) train_rpointnet 4 steps vs 2 + --resume 2", straight.model,
+                          resumed.model, la, lb)
+    print(f"slice (Q) train_rpointnet.main at its defaults (GT boxes) with remat, "
+          f"roi_randomize and head_dropout {Q_DROPOUT} in its model config (config.json holds "
+          f"them): 4 steps straight == 2 steps, a checkpoint and --resume for 2 (parameters, "
+          f"running statistics, losses bitwise); losses {la.tolist()}")
+
+    _phase("slice (Q) whole scene")
+    wbatch = bench_slice.train_batch(dev, b=1, n=Q_WS_N)
+    whole = {}
+    for remat in (True, False):
+        one = _q_step(bench_slice, model_of(_q_config(rcfg, remat=remat)), gmodel)
+        losses = [one(wbatch, 0)["loss"]]  # the warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+        ms, m = _host_ms(lambda: one(wbatch, 1))
+        peak = torch.cuda.max_memory_allocated(dev)
+        losses.append(m["loss"])
+        times = [ms] + [_host_ms(lambda i=i: one(wbatch, i))[0] for i in (2, 3)]
+        whole[remat] = (peak, held, torch.stack(losses), times)
+        print(f"slice (Q) B=1 x N={Q_WS_N} stage-2 step {'with' if remat else 'without'} remat "
+              f"(after a warm-up step): torch.cuda.max_memory_allocated {peak / 2**20:.1f} MiB "
+              f"({held / 2**20:.1f} MiB held before the step), host ms {ms:.3f} (3 steps "
+              f"{_span(times)}) [{card}]")
+    if not torch.equal(whole[True][2], whole[False][2]):
+        raise AssertionError(f"(Q) B=1 x N={Q_WS_N}: remat losses {whole[True][2].tolist()} vs "
+                             f"{whole[False][2].tolist()}")
+    print(f"slice (Q) B=1 x N={Q_WS_N}: remat == no remat bitwise (2 losses "
+          f"{whole[True][2].tolist()}); peak memory remat / no remat "
+          f"{whole[True][0] / whole[False][0]:.3f}")
+    print(f"slice (Q) {time.perf_counter() - t0:.1f} s [{card}]")
+    return counts
+
+
 # the JAX eval's summary keys with --bootstrap and an --ab-* arm
 EVAL_AB_KEYS = {"scenes", "ap", "ap_50", "ap_25", "points_per_sec", "ap_ci95", "ap_50_ci95",
                 "ap_25_ci95", "ap_armB", "ap_50_armB", "ap_25_armB", "ap_diff", "ap_diff_mean",
@@ -2059,6 +2288,13 @@ def run_knob_slice(dev, ops, bench_slice, card, work, a_counts):
                   f"host ms a request bf16 median {statistics.median(times):.3f}, float32 "
                   f"{statistics.median(f32_times):.3f} ({VARIANT_REQUESTS} requests after a "
                   f"warm-up each) [{card}]")
+            xyz, valid, eps = req[:3]
+            binfer = make_inference_fn(bcfg)
+            n_bf16 = _device_ops(lambda: binfer(bmodel, xyz, valid, z_eps=eps))
+            n_f32 = _device_ops(lambda: infer(model, xyz, valid, z_eps=eps))
+            print(f"slice (L-bf16) {shape}: device operations a request (kernels, copies, "
+                  f"fills; torch.profiler, the most of 3 one-request windows) bf16 {n_bf16}, "
+                  f"float32 {n_f32}, {n_bf16 - n_f32:+d} [{card}]")
 
         fcfg = bench_slice.slice_config(feature_dim=FDIM)
         fmodel = bench_slice.seeded_model(fcfg, dev)
@@ -3263,20 +3499,77 @@ def _ply_vertices(path: pathlib.Path) -> tuple[int, int]:
 
 
 def _p_cross_export(work) -> tuple[list, list]:
-    """Step 1: starts ``export_serving`` twice in child processes that see no
-    card (``CUDA_VISIBLE_DEVICES=""``), both at once: ``--platform cuda`` at
-    the flagship, ``--platform cpu,cuda`` at the small scene. Returns the
-    two artifacts' paths and the processes."""
+    """Step 1: starts three exports in child processes that see no card
+    (``CUDA_VISIBLE_DEVICES=""``), all at once: ``export_serving
+    --platform cuda`` at the flagship, ``--platform cpu,cuda`` at the small
+    scene, and :func:`p_thresh_artifact`. Returns the three artifacts'
+    paths and the processes."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
-    out = [pathlib.Path(work, "p_cross_cuda.gspnt"), pathlib.Path(work, "p_cross_dual.gspnt")]
+    out = [pathlib.Path(work, "p_cross_cuda.gspnt"), pathlib.Path(work, "p_cross_dual.gspnt"),
+           pathlib.Path(work, "p_cross_thresh.gspnt")]
     argvs = [P_FLAGSHIP + ["--platform", "cuda", "--out", str(out[0])],
              P_SMALL + ["--platform", "cpu,cuda", "--out", str(out[1])]]
-    procs = [subprocess.Popen([sys.executable, "-c", "import torch, sys; "
-                               "assert not torch.cuda.is_available(), 'a card is visible'; "
-                               "from gspn_tpu_torch.serve import export_serving; "
-                               "export_serving.main(sys.argv[1:])", *argv],
+    check = "import torch, sys; assert not torch.cuda.is_available(), 'a card is visible'; "
+    procs = [subprocess.Popen([sys.executable, "-c", check + "from gspn_tpu_torch.serve "
+                               "import export_serving; export_serving.main(sys.argv[1:])", *argv],
                               cwd=REPO_DIR, env=env) for argv in argvs]
+    procs.append(subprocess.Popen([sys.executable, "-c", check + "import chip_smoke; "
+                                   "chip_smoke.p_thresh_artifact(sys.argv[1], 'cpu')", str(out[2])],
+                                  cwd=REPO_DIR, env=env))
     return out, procs
+
+
+def p_thresh_artifact(path, device) -> None:
+    """The flagship pipeline at (A)'s thresholds (``bench_slice.slice_config()``:
+    ``mask_thresh`` 0.49, where the seeded weights' masks are neither empty
+    nor full) with ``bench_slice.seeded_model``'s weights on ``device``,
+    exported for ``cuda`` by ``serve.export_inference`` (traced on fake
+    CUDA tensors when no card is visible) and written to ``path``."""
+    from gspn_tpu_torch.serve import export_inference, save_artifact
+    from gspn_tpu_torch.utils import bench_slice
+
+    cfg = bench_slice.slice_config()
+    program = export_inference(cfg, bench_slice.seeded_model(cfg, device), N, batch_size=B,
+                               device="cuda")
+    save_artifact(path, program, cfg)
+
+
+def _p_thresh_check(dev, ops, bench_slice, work, path, total) -> None:
+    """Step 4b: the card-less export at ``mask_thresh`` 0.49 against its twin
+    exported on the card: equal graphs, and on (A)'s flagship request both
+    programs bitwise live ``infer``, with masks neither empty nor full."""
+    from gspn_tpu_torch.models.pipeline import PREDICTION_FIELDS, make_inference_fn
+    from gspn_tpu_torch.serve import load_artifact
+    from gspn_tpu_torch.serve.export import serving_state
+
+    twin = pathlib.Path(work, "p_twin_thresh.gspnt")
+    p_thresh_artifact(twin, dev)
+    cfg = bench_slice.slice_config()
+    model = bench_slice.seeded_model(cfg, dev)
+    program, _ = load_artifact(path, dev)
+    twin_program, _ = load_artifact(twin, dev)
+    _same_graph(f"{path.name} for cuda", program, twin_program)
+    xyz, valid, eps = bench_slice.request(cfg, FLAGSHIP, dev, 1)
+    sd = serving_state(model)
+    with torch.inference_mode():
+        live = make_inference_fn(cfg)(model, xyz, valid, z_eps=eps)
+        ops.reset_launch_counts()
+        got = program.module()(sd, xyz, valid, eps)
+        _add_counts(total, ops.launch_counts())
+        want = twin_program.module()(sd, xyz, valid, eps)
+    for f, g, w in zip(PREDICTION_FIELDS, got, want, strict=True):
+        if not (torch.equal(g, w) and torch.equal(g, getattr(live, f))):
+            raise AssertionError(f"(P) {path.name}: {f} differs from the card-exported twin's "
+                                 "or the live infer's")
+    m = got[0][got[4]]
+    share = m.float().mean().item() if m.numel() else 0.0
+    if not 0.0 < share < 1.0:
+        raise AssertionError(f"(P) {path.name} at mask_thresh {cfg.mask_thresh}: "
+                             f"{int(got[4].sum())} kept, mask cells {share} set (empty or full)")
+    print(f"slice (P) {path.name} (export_inference without a card, mask_thresh "
+          f"{cfg.mask_thresh}, B={B} x N={N}): graph == the card-exported twin's; outputs "
+          f"bitwise the twin's and live infer's; {int(got[4].sum())} kept, mask cells "
+          f"{share:.4f} set (neither empty nor full)")
 
 
 def _p_artifacts(dev, ops, bench_slice, work, total) -> None:
@@ -3302,10 +3595,12 @@ def _p_artifacts(dev, ops, bench_slice, work, total) -> None:
     finally:
         _wait_ranks("(P) export_serving without a card:", procs, 300)
     print(f"slice (P) export_serving without a card: --platform cuda (B={B} x N={N}) and "
-          f"--platform cpu,cuda (B=2 x N=2048), two processes, and the card-exported twins "
+          f"--platform cpu,cuda (B=2 x N=2048), and export_inference at mask_thresh 0.49 "
+          f"(B={B} x N={N}), three processes, and the export_serving twins "
           f"with --verify here at the same time: twins {twin_s:.1f} s, all "
           f"{time.perf_counter() - t0:.1f} s")
     small = synthetic.scene_batch(np.random.default_rng(0), 2, n_points=2048)
+    _p_thresh_check(dev, ops, bench_slice, work, cross[2], total)
     for label, flags, path, twin, scenes in (
             ("cuda", P_FLAGSHIP, cross[0], twins[0], bench_slice.scenes(FLAGSHIP)),
             ("cpu,cuda", P_SMALL, cross[1], twins[1], (small["xyz"], small["valid"]))):
@@ -3715,6 +4010,7 @@ def main() -> None:
         runs["N"] = run_dp_slice(dev, ops, bench_slice, card, work)
         runs["O"] = run_point_sharded_slice(dev, ops, bench_slice, card, work)
         runs["P"] = run_complete_slice(dev, ops, bench_slice, card, work)
+        runs["Q"] = run_options_slice(dev, ops, bench_slice, card, work)
         runs["J"], per_request = run_serving_process(work)
     a_request = {k: c / (2 * (REQUESTS + 1)) for k, c in runs["A"].items()}
     if a_request != per_request:

@@ -28,7 +28,8 @@
 // 3. Greedy sweep, 64 rows a step: one warp holds the rows' diagonal words
 //    and sets keep[i] = alive[i] && !removed[i] in order (a shuffle a row,
 //    no barrier); then the whole CTA ORs the kept rows' later words into
-//    `removed`, every load of the step at once. Exactly the sequential loop.
+//    `removed` (ceil(R / 64) words of dynamic shared memory), every load of
+//    the step at once. Exactly the sequential loop.
 // 4. keep written at each box's original position.
 
 #include "common.cuh"
@@ -44,8 +45,12 @@ constexpr int kOneCtaR = 128;       // boxes one CTA takes, mask in shared memor
 constexpr int kCtaRows = 16;        // mask rows a CTA computes above that
 constexpr int kColChunk = 512;      // column boxes staged a pass
 constexpr int kChunkWords = kColChunk / 64;
-constexpr int kMaxR = 32768;        // the wrapper's MAX_R
-constexpr int kMaxWords = kMaxR / 64;
+constexpr int kMaxR = 131072;       // the wrapper's MAX_R
+// the sweep's suppressed bits, a word a 64 sorted boxes, live in dynamic
+// shared memory (16 KB at kMaxR); beside the 34 KB of static arrays, more
+// than 4 KB of them (R above 32,768) passes the 48 KB a launch may take
+// without asking
+constexpr size_t kUnaskedRemovedBytes = 4096;
 
 // torch.maximum / torch.minimum: NaN in either operand gives NaN
 __device__ __forceinline__ float max_nan(float a, float b) {
@@ -112,7 +117,7 @@ __global__ void __launch_bounds__(kThreads) nms_kernel(
   __shared__ float4 row_lo[kOneCtaR];
   __shared__ float4 row_hi[kOneCtaR];
   __shared__ u64 mask_s[kOneCtaR * (kOneCtaR / 64)];
-  __shared__ u64 removed_s[kMaxWords];
+  extern __shared__ u64 removed_s[];  // ceil(r / 64) words
   __shared__ u64 kept_s;
   __shared__ int last_s;
 
@@ -252,8 +257,15 @@ extern "C" int gspn_nms(const float* boxes, const float* scores,
   const int ctas = r <= kOneCtaR ? 1 : (r + kCtaRows - 1) / kCtaRows;
   if (ctas > 1 && (mask == nullptr || counter == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  const size_t removed_bytes = static_cast<size_t>((r + 63) / 64) * sizeof(u64);
+  if (removed_bytes > kUnaskedRemovedBytes) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        nms_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(removed_bytes));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   if (nb > 0)
-    nms_kernel<<<dim3(ctas, nb), kThreads, 0, stream>>>(
+    nms_kernel<<<dim3(ctas, nb), kThreads, removed_bytes, stream>>>(
         boxes, scores, valid, order, r, thresh, mask, counter, keep);
   return static_cast<int>(cudaGetLastError());
 }

@@ -25,6 +25,13 @@ class DeterministicBatches:
         rng = np.random.default_rng(np.random.SeedSequence(entropy=self.seed, spawn_key=(step,)))
         return self.sample_fn(rng, self.batch_size)
 
+    def iterate(self, start_step: int = 0):
+        """Batches ``start_step``, ``start_step + 1``, ... without end."""
+        step = start_step
+        while True:
+            yield self.batch_at(step)
+            step += 1
+
 
 def to_device(batch: dict, device) -> dict:
     """A host batch's arrays as tensors on ``device`` (host-only metadata,

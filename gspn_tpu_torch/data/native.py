@@ -94,6 +94,16 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+def available() -> bool:
+    """Whether the library builds and loads here (``g++`` on the PATH); the
+    ``"plain"`` route needs neither."""
+    try:
+        library()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 def _native(impl: str) -> ctypes.CDLL | None:
     """The library for ``"auto"``/``"native"``, None for ``"plain"``."""
     if impl not in IMPLS:

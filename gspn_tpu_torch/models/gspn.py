@@ -221,8 +221,10 @@ def huber(x, delta: float = 1.0):
     return torch.where(a <= delta, 0.5 * x * x, delta * (a - 0.5 * delta))
 
 
-def sigmoid_bce(logits, labels):
-    """Binary cross-entropy on logits, ``-y log p - (1 - y) log(1 - p)``."""
+def optax_sigmoid_bce(logits, labels):
+    """Binary cross-entropy on logits, ``-y log p - (1 - y) log(1 - p)`` with
+    both logs by ``logsigmoid`` (the JAX package's inline copy of optax's
+    ``sigmoid_binary_cross_entropy``)."""
     return -labels * F.logsigmoid(logits) - (1.0 - labels) * F.logsigmoid(-logits)
 
 
@@ -264,7 +266,7 @@ def gspn_loss(out: GSPNOutputs, gt_points, gt_valid, gt_center, seed_objectness,
     ch = masked_chamfer(out.generated, gt_points, gt_valid, impl)
     kl = kl_gaussians(out.q_mu, out.q_logvar, out.prior_mu, out.prior_logvar)
     cerr = huber(out.center - gt_center).sum(dim=-1)
-    obj_bce = sigmoid_bce(out.objectness, seed_objectness.to(torch.float32))
+    obj_bce = optax_sigmoid_bce(out.objectness, seed_objectness.to(torch.float32))
     sums = (pos.sum(), sv.sum(), (ch * pos).sum(), (kl * pos).sum(), (cerr * pos).sum(),
             (obj_bce * sv).sum())
     if group is not None:

@@ -119,6 +119,13 @@ def project_roi_masks(xyz, boxes, roi_xyz, mask_logits, mask_thresh, valid=None,
     return inside & (torch.sigmoid(logit) > mask_thresh)
 
 
+def shared_fps_indices(cfg: PipelineConfig, xyz, valid):
+    """``(seed_idx, sa1_fps_idx or None)``: :func:`shared_fps_indices_view`
+    without the sorted view, for callers that only sample."""
+    seed_idx, sa1_idx, _ = shared_fps_indices_view(cfg, xyz, valid)
+    return seed_idx, sa1_idx
+
+
 def shared_fps_indices_view(cfg: PipelineConfig, xyz, valid):
     """``(seed_idx, sa1_fps_idx or None, sorted_view or None)``: greedy FPS
     is prefix-consistent, so ONE pass serves the proposal seeds and the

@@ -20,14 +20,18 @@ float32.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from gspn_tpu_torch import ops
 from gspn_tpu_torch.models.gspn import check_stage_config, huber
-from gspn_tpu_torch.nn.layers import Dense, FCLayers, PointMLP, all_reduce_sum
+from gspn_tpu_torch.nn.layers import (
+    Dense, FCLayers, MaskedBatchNorm, PointMLP, all_reduce_sum, running_statistics_held,
+)
 from gspn_tpu_torch.nn.pointnet2 import PointNetFPModule, PointNetSAModule
 
 
@@ -42,7 +46,8 @@ class SALayerSpec:
 @dataclasses.dataclass(frozen=True)
 class RPointNetConfig:
     """Same names and defaults as the JAX package's ``RPointNetConfig``
-    (its mesh-axis and rematerialization fields left out)."""
+    (its mesh-axis field left out: the port's BatchNorm takes a process
+    group, ``nn.layers.cross_rank_statistics``)."""
 
     sa_layers: tuple[SALayerSpec, ...] = (
         SALayerSpec(1024, 0.1, 32, (32, 32, 64)),
@@ -73,6 +78,9 @@ class RPointNetConfig:
     nms_iou: float = 0.25
     box_margin: float = 0.1
     use_bn: bool = True
+    # rematerialize each SA and FP module in training: its activations are
+    # recomputed in backward instead of kept (less memory, more time)
+    remat: bool = False
     ops_impl: str = "auto"  # auto|cuda|plain (ops/common.py)
     fps_segments: int = 1
     fps_segment_mode: str = "contiguous"
@@ -80,8 +88,39 @@ class RPointNetConfig:
     dtype: torch.dtype = torch.float32
 
 
+@contextlib.contextmanager
+def _recompute_as(bns, groups):
+    """The recompute of a rematerialized module: its BatchNorms' process
+    groups as the forward saw them, their running statistics held."""
+    before = [m.group for m in bns]
+    for m, g in zip(bns, groups, strict=True):
+        m.group = g
+    try:
+        with running_statistics_held():
+            yield
+    finally:
+        for m, g in zip(bns, before, strict=True):
+            m.group = g
+
+
+def _remat(module: nn.Module, *args):
+    """``module(*args)`` under ``torch.utils.checkpoint`` (non-reentrant):
+    only the inputs are kept, and backward runs the forward again, with the
+    BatchNorms' process groups of this call and without blending their
+    running statistics a second time. The SA and FP modules draw no
+    random numbers, so no generator state is stashed."""
+    bns = [m for m in module.modules() if isinstance(m, MaskedBatchNorm)]
+    groups = [m.group for m in bns]
+    return checkpoint(module, *args, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=lambda: (contextlib.nullcontext(), _recompute_as(bns, groups)))
+
+
 class Backbone(nn.Module):
-    """PointNet++ SA x k + FP x k -> per-point features ``(B, N, C)``."""
+    """PointNet++ SA x k + FP x k -> per-point features ``(B, N, C)``.
+    With the config's ``remat``, each SA and FP module runs rematerialized
+    in training while gradients are on (:func:`_remat`), as the JAX
+    package's ``nn.remat``: the same values, less memory held for
+    backward."""
 
     def __init__(self, config: RPointNetConfig):
         super().__init__()
@@ -115,20 +154,23 @@ class Backbone(nn.Module):
         cfg = self.config
         if cfg.feature_dim > 0 and features is None:
             raise ValueError(f"the config has feature_dim={cfg.feature_dim}: pass features")
+        remat = cfg.remat and self.training and torch.is_grad_enabled()
+
+        def run(module, *args):
+            return _remat(module, *args) if remat else module(*args)
+
         xs, fs, vs = [xyz], [features if cfg.feature_dim > 0 else None], [valid]
         for i in range(len(cfg.sa_layers)):
-            nx, nf, nv = getattr(self, f"sa{i + 1}")(
-                xs[-1], fs[-1], vs[-1], sa1_fps_idx if i == 0 else None
-            )
+            nx, nf, nv = run(getattr(self, f"sa{i + 1}"),
+                             xs[-1], fs[-1], vs[-1], sa1_fps_idx if i == 0 else None)
             xs.append(nx)
             fs.append(nf)
             vs.append(nv)
         feat = fs[-1]
         for i in range(len(cfg.fp_mlps)):
             lvl = len(cfg.sa_layers) - 1 - i
-            feat = getattr(self, f"fp{i + 1}")(
-                xs[lvl], xs[lvl + 1], fs[lvl], feat, vs[lvl], vs[lvl + 1]
-            )
+            feat = run(getattr(self, f"fp{i + 1}"),
+                       xs[lvl], xs[lvl + 1], fs[lvl], feat, vs[lvl], vs[lvl + 1])
         return feat
 
 
@@ -170,6 +212,12 @@ def point_roi_align(xyz, boxes, s: int, valid=None, impl: str = "auto", select: 
     center = (boxes[..., 0:3] + boxes[..., 3:6]) * 0.5
     canon = (pts - center[..., None, :]) / extent[..., None, :]
     return idx, canon, roi_valid, torch.clamp(cnt, max=s)
+
+
+def gather_roi_features(features, idx, impl: str = "auto"):
+    """``features (B,N,C)`` at the RoI samples ``idx (B,R,S)`` -> ``(B,R,S,C)``:
+    ``ops.group_point``, whose gradient sums in a fixed order on the card."""
+    return ops.group_point(features, idx, impl=impl)
 
 
 def gumbel_noise(shape, generator: torch.Generator | None) -> torch.Tensor:
@@ -302,8 +350,8 @@ class RPointNet(nn.Module):
                 gumbel=gumbel, generator=generator,
                 randomize=cfg.roi_randomize and self.training,
             )
-            roi_feats = ops.group_point(feat, idx, impl=cfg.ops_impl)
-            roi_xyz = ops.group_point(xyz, idx, impl=cfg.ops_impl)
+            roi_feats = gather_roi_features(feat, idx, cfg.ops_impl)
+            roi_xyz = gather_roi_features(xyz, idx, cfg.ops_impl)
         cls_logits, box_deltas, mask_logits = self.heads(canon, roi_feats, dropout_keep, generator)
         cls_logits = torch.where(roi_valid[..., None], cls_logits, torch.zeros_like(cls_logits))
         mask_logits = torch.where(

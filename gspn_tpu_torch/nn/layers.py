@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+import threading
 from collections.abc import Sequence
 
 import torch
@@ -28,6 +29,9 @@ from torch import nn
 # update as ``m * old + (1 - m) * batch`` (the opposite of torch's
 # ``momentum``, which weighs the batch).
 BN_MOMENTUM = 0.9
+
+# set within running_statistics_held(), per thread
+_HELD = threading.local()
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -110,8 +114,9 @@ class MaskedBatchNorm(nn.Module):
     without the channel axis) when one is given: the biased variance
     ``max(E[x^2] - E[x]^2, 0)`` over ``max(sum of weights, 1)`` entries. The
     running statistics then move as ``momentum * old + (1 - momentum) *
-    batch``, outside autograd. In eval mode the running statistics
-    normalize. The input is normalized in float32 and the output cast to
+    batch``, outside autograd, unless :func:`running_statistics_held` is
+    on (a rematerialized forward recomputed in backward). In eval mode the
+    running statistics normalize. The input is normalized in float32 and the output cast to
     ``dtype``.
 
     ``group``: a process group whose ranks hold the other shards of the
@@ -158,12 +163,27 @@ class MaskedBatchNorm(nn.Module):
         tot = torch.clamp(tot, min=1.0)
         mean = s1 / tot
         var = torch.clamp(s2 / tot - mean * mean, min=0.0)
-        with torch.no_grad():
-            m = self.momentum
-            self.mean.copy_(m * self.mean + (1.0 - m) * mean)
-            self.var.copy_(m * self.var + (1.0 - m) * var)
+        if not getattr(_HELD, "on", False):
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1.0 - m) * mean)
+                self.var.copy_(m * self.var + (1.0 - m) * var)
         y = (x - mean) * torch.rsqrt(var + self.epsilon)
         return (y * self.scale + self.bias).to(self.dtype)
+
+
+@contextlib.contextmanager
+def running_statistics_held():
+    """Within the block (on this thread), every :class:`MaskedBatchNorm` in
+    training mode normalizes by its batch statistics as always but leaves
+    its running statistics alone: the forward that a rematerialized module
+    runs again in backward must not blend them a second time."""
+    prev = getattr(_HELD, "on", False)
+    _HELD.on = True
+    try:
+        yield
+    finally:
+        _HELD.on = prev
 
 
 @contextlib.contextmanager
@@ -209,21 +229,24 @@ class Dense(nn.Linear):
 
 class PointMLP(nn.Module):
     """Shared per-point MLP: ``Linear (+BN) + ReLU`` per width, on the last
-    axis of any ``(..., C)`` input (every caller activates the last layer
-    too). The leading axes are flattened into one, as the JAX package
-    does; ``mask`` (the leading axes' shape, or broadcastable to it)
-    weights the BatchNorm training statistics."""
+    axis of any ``(..., C)`` input; ``last_activation=False`` leaves the
+    last layer's ReLU out (every model activates it). The leading axes are
+    flattened into one, as the JAX package does; ``mask`` (the leading
+    axes' shape, or broadcastable to it) weights the BatchNorm training
+    statistics, whose running averages move at ``bn_momentum``."""
 
     def __init__(self, in_dim: int, features: Sequence[int], use_bn: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, bn_momentum: float = BN_MOMENTUM,
+                 last_activation: bool = True):
         super().__init__()
         self.n = len(features)
         self.use_bn = use_bn
+        self.last_activation = last_activation
         dims = [in_dim, *features]
         for i, ch in enumerate(features):
             self.add_module(f"dense_{i}", Dense(dims[i], ch, dtype))
             if use_bn:
-                self.add_module(f"bn_{i}", MaskedBatchNorm(ch, dtype=dtype))
+                self.add_module(f"bn_{i}", MaskedBatchNorm(ch, momentum=bn_momentum, dtype=dtype))
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
         lead = x.shape[:-1]
@@ -234,24 +257,30 @@ class PointMLP(nn.Module):
             x = getattr(self, f"dense_{i}")(x, sum_in_f32=self.use_bn)
             if self.use_bn:
                 x = getattr(self, f"bn_{i}")(x, mask)
-            x = torch.relu(x)
+            if i < self.n - 1 or self.last_activation:
+                x = torch.relu(x)
         return x.reshape(*lead, x.shape[-1])
 
 
 class FCLayers(nn.Module):
-    """Fully-connected head: ``Linear + ReLU (+ dropout)`` per hidden width,
-    then a linear output ``fc_out``; no BatchNorm, as every GSPN and
-    R-PointNet head of both packages builds it. ``dropout`` is the rate of
-    :func:`dropout` after each hidden ReLU, in training mode only."""
+    """Fully-connected head: ``Linear (+BN) + ReLU (+ dropout)`` per hidden
+    width, then a linear output ``fc_out``. ``use_bn`` puts a
+    :class:`MaskedBatchNorm` (``bn_<i>``) after each hidden ``Linear``;
+    every GSPN and R-PointNet head of both packages leaves it out.
+    ``dropout`` is the rate of :func:`dropout` after each hidden ReLU, in
+    training mode only."""
 
     def __init__(self, in_dim: int, hidden: Sequence[int], out: int, dropout: float = 0.0,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, use_bn: bool = False):
         super().__init__()
         self.n = len(hidden)
         self.dropout = dropout
+        self.use_bn = use_bn
         dims = [in_dim, *hidden]
         for i, ch in enumerate(hidden):
             self.add_module(f"fc_{i}", Dense(dims[i], ch, dtype))
+            if use_bn:
+                self.add_module(f"bn_{i}", MaskedBatchNorm(ch, dtype=dtype))
         self.fc_out = Dense(dims[-1], out, dtype)
 
     def forward(self, x: torch.Tensor, keep=None, generator=None) -> torch.Tensor:
@@ -259,7 +288,10 @@ class FCLayers(nn.Module):
         elements dropout keeps; without it, training-mode dropout draws them
         from ``generator``, layer by layer."""
         for i in range(self.n):
-            x = torch.relu(getattr(self, f"fc_{i}")(x))
+            x = getattr(self, f"fc_{i}")(x, sum_in_f32=self.use_bn)
+            if self.use_bn:
+                x = getattr(self, f"bn_{i}")(x)
+            x = torch.relu(x)
             if self.dropout > 0.0 and self.training:
                 x = dropout(x, self.dropout, None if keep is None else keep[i], generator)
         return self.fc_out(x)

@@ -16,7 +16,8 @@ import torch
 
 from gspn_tpu_torch.ops import _cuda
 from gspn_tpu_torch.ops.ball_query import (
-    ball_query_plain, ball_scan_cuda, check_select, scan_outputs_like, strided_scan_cuda,
+    ball_query_plain, ball_scan_cuda, check_select, query_ball_point_multi, scan_outputs_like,
+    strided_scan_cuda,
 )
 from gspn_tpu_torch.ops.common import gspn_op, resolve_impl
 from gspn_tpu_torch.ops.grouping import group_point
@@ -44,6 +45,16 @@ def query_ball_group_multi(
     flat = _ball_group_op(xyz1, xyz2, valid1, [float(r) for r in radii],
                           [int(k) for k in nsamples], check_select(select), impl)
     return [tuple(flat[i:i + 3]) for i in range(0, len(flat), 3)]
+
+
+def query_ball_multi_v2(
+    radii, nsamples, xyz1, xyz2, valid1=None, *, impl: str = "auto", select=None
+):
+    """The index-only form of :func:`query_ball_group_multi`: per scale
+    ``(idx (B,M,K) int32, cnt (B,M) int32)``, a drop-in for
+    ``ops.query_ball_point_multi``, whose op it runs (on the card the group
+    kernels without their coordinate stores, ``csrc/ball_query.cu``)."""
+    return query_ball_point_multi(radii, nsamples, xyz1, xyz2, valid1, impl=impl, select=select)
 
 
 @gspn_op("ball_group")

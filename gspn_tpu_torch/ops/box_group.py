@@ -77,12 +77,15 @@ def _box_group_cuda(kernel, boxes, s, xyz1, valid1, *extra):
     return idx, cnt, local
 
 
-def query_box_group(boxes, s: int, xyz1, valid1=None, *, impl: str = "auto", select=None):
+def query_box_group(boxes, s: int, xyz1, valid1=None, *, with_coords: bool = True,
+                    impl: str = "auto", select=None):
     """``boxes (B,R,6)`` [lo, hi], ``xyz1 (B,N,3)`` -> ``(idx (B,R,S)
     int32, cnt (B,R) int32, local (B,R,S,3) f32)`` with ``local ==
     xyz1[idx] - (lo + hi) / 2`` bit for bit; ``select`` "first" (default)
-    or "strided"."""
-    return _box_group_op(boxes, xyz1, valid1, int(s), check_select(select), impl)
+    or "strided". ``with_coords=False`` returns ``(idx, cnt)`` alone (the
+    kernel's coordinates are left unread)."""
+    out = _box_group_op(boxes, xyz1, valid1, int(s), check_select(select), impl)
+    return out if with_coords else out[:2]
 
 
 @gspn_op("box_group")

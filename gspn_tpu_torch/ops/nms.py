@@ -29,10 +29,10 @@ from gspn_tpu_torch.ops.common import gspn_op, resolve_impl
 
 KERNEL = _cuda.KERNELS["nms"]
 # Boxes per scene the kernel route takes: the kernel keeps the sweep's
-# suppressed bits of MAX_R boxes in shared memory (4 KB), and the mask
-# above ONE_CTA_R boxes is a device buffer of R * ceil(R / 64) words,
-# 128 MiB a scene at R = 32768.
-MAX_R = 32768
+# suppressed bits of MAX_R boxes in dynamic shared memory (16 KB), and the
+# mask above ONE_CTA_R boxes is a device buffer of R * ceil(R / 64) words,
+# 2 GiB a scene at R = 131072.
+MAX_R = 131072
 SORT_MAX = 1024  # boxes the kernel ranks itself; above, torch.sort here
 ONE_CTA_R = 128  # boxes one CTA takes with its mask in shared memory
 

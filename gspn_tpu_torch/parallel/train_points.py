@@ -137,12 +137,15 @@ def make_point_sharded_gspn_train_step(cfg, mesh: PointMesh, num_seeds: int, gt_
 
 def make_point_sharded_rpointnet_loss_fn(cfg, mesh: PointMesh, max_instances: int,
                                          frozen_gspn: tuple | None = None,
+                                         loss_weights: dict | None = None,
+                                         gt_box_jitter: float = GT_BOX_JITTER,
                                          mix_gt_boxes: bool = True):
     """``loss_fn(model, batch, box_noise=None, z_eps=None, generator=None) ->
     (loss, metrics)``: ``train.steps.make_rpointnet_loss_fn``'s loss with
     the frozen GSPN's seeds, the backbone's points and the RoIs sharded over
     ``mesh.space``, for an ``RPointNet(cfg)`` in training mode.
-    ``frozen_gspn = (GSPN, num_seeds)`` as there. ``batch`` is the whole
+    ``frozen_gspn = (GSPN, num_seeds)``, ``loss_weights`` and
+    ``gt_box_jitter`` as there (the FPS pass is shared). ``batch`` is the whole
     batch, ``box_noise`` and ``z_eps`` the whole batch's draws (else drawn
     from ``generator`` in that order).
 
@@ -167,6 +170,7 @@ def make_point_sharded_rpointnet_loss_fn(cfg, mesh: PointMesh, max_instances: in
         check_divisible("num_seeds", num_seeds, nshards)
         r_total = num_seeds + (max_instances if mix_gt_boxes else 0)
     check_divisible("total RoIs", r_total, nshards)
+    lw = loss_weights or {}
 
     def loss_fn(model, batch: dict, box_noise=None, z_eps=None, generator=None):
         _check_training(model, "R-PointNet")
@@ -177,7 +181,7 @@ def make_point_sharded_rpointnet_loss_fn(cfg, mesh: PointMesh, max_instances: in
         gt_boxes, gt_cls, present = instance_gt_boxes(xyz, inst, sem, max_instances)
         box_noise = _full_batch_draw(box_noise, tuple(gt_boxes.shape), mesh.data, mesh.n_data,
                                      generator, "box_noise", xyz.device)
-        gt_rois = torch.where(present[..., None], gt_boxes + box_noise * GT_BOX_JITTER,
+        gt_rois = torch.where(present[..., None], gt_boxes + box_noise * gt_box_jitter,
                               torch.zeros_like(gt_boxes))
         sa1_fps_idx = None
         if frozen_gspn is not None:
@@ -209,7 +213,7 @@ def make_point_sharded_rpointnet_loss_fn(cfg, mesh: PointMesh, max_instances: in
             roi_valid = roi_valid & shard_slice(present, i, nshards)
         match = match_rois(my_rois, roi_valid, gt_boxes, gt_cls, present, cfg.fg_iou,
                            cfg.bg_iou)
-        return rpointnet_loss(out, match, inst, group=mesh.world)
+        return rpointnet_loss(out, match, inst, group=mesh.world, **lw)
 
     loss_fn.point_mesh = mesh
     return loss_fn
@@ -217,6 +221,8 @@ def make_point_sharded_rpointnet_loss_fn(cfg, mesh: PointMesh, max_instances: in
 
 def make_point_sharded_rpointnet_train_step(cfg, mesh: PointMesh, max_instances: int,
                                             frozen_gspn: tuple | None = None,
+                                            loss_weights: dict | None = None,
+                                            gt_box_jitter: float = GT_BOX_JITTER,
                                             mix_gt_boxes: bool = True, lr_schedule=None,
                                             bn_momentum_fn=None):
     """The fully sharded stage-2 step
@@ -224,5 +230,5 @@ def make_point_sharded_rpointnet_train_step(cfg, mesh: PointMesh, max_instances:
     :func:`make_point_sharded_train_step`): the single-process step of
     ``make_rpointnet_loss_fn`` on the whole batch, to float tolerance."""
     loss_fn = make_point_sharded_rpointnet_loss_fn(cfg, mesh, max_instances, frozen_gspn,
-                                                   mix_gt_boxes)
+                                                   loss_weights, gt_box_jitter, mix_gt_boxes)
     return make_point_sharded_train_step(loss_fn, mesh, lr_schedule, bn_momentum_fn)

@@ -59,6 +59,24 @@ class CheckpointManager:
         state.step = int(payload["step"])
         return True
 
+    def restore_params(self, variables, step: int | None = None) -> dict | None:
+        """The parameters and BatchNorm running statistics of checkpoint
+        ``step`` (default the latest), whatever optimizer wrote it: the
+        entries of ``variables``' state dict (a model, or a state dict; only
+        its keys are read), on the CPU. None when there is no checkpoint,
+        ``KeyError`` naming the entries it lacks."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            return None
+        keys = (variables.state_dict() if isinstance(variables, torch.nn.Module)
+                else variables).keys()
+        state = torch.load(self._dir / f"ckpt_{step}.pt", map_location="cpu",
+                           weights_only=True)["model"]
+        missing = [k for k in keys if k not in state]
+        if missing:
+            raise KeyError(f"the checkpoint under {self._dir} lacks {missing[:5]}")
+        return {k: state[k] for k in keys}
+
 
 def latest_model_state(directory: str | pathlib.Path, map_location="cpu") -> dict:
     """The model state dict of the newest checkpoint under ``directory``
@@ -71,6 +89,22 @@ def latest_model_state(directory: str | pathlib.Path, map_location="cpu") -> dic
         raise FileNotFoundError(f"no checkpoint under {directory}")
     return torch.load(path / f"ckpt_{step}.pt", map_location=map_location,
                       weights_only=True)["model"]
+
+
+def restore_variable_collections(ckpt_dir: str | pathlib.Path,
+                                 variables) -> dict[str, torch.Tensor]:
+    """The parameters and BatchNorm running statistics of the newest
+    checkpoint under ``ckpt_dir``, whatever optimizer wrote it: the entries
+    of ``variables``' state dict (a model, or a state dict; only its keys
+    are read), on the CPU, as eval and a frozen stage restore weights.
+    ``FileNotFoundError`` when there is no checkpoint, ``KeyError`` naming
+    the entries it lacks."""
+    if not pathlib.Path(ckpt_dir).is_dir():
+        raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
+    restored = CheckpointManager(ckpt_dir).restore_params(variables)
+    if restored is None:
+        raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
+    return restored
 
 
 def load_stage1_params(ckpt_dir: str | pathlib.Path, abstract,

@@ -1,8 +1,9 @@
-"""Config serialization: the port's own copy of ``save_config`` and
-``config_from_jsonable`` from ``gspn_tpu/train/config_io.py``. Dataclass
-config trees and argparse namespaces go to JSON beside the checkpoints, so
-a run describes itself, and into a serving artifact's manifest, which
-:func:`config_from_jsonable` reads back."""
+"""Config serialization: the port's own copy of ``save_config``,
+``load_config`` and ``config_from_jsonable`` from
+``gspn_tpu/train/config_io.py``. Dataclass config trees and argparse
+namespaces go to JSON beside the checkpoints, so a run describes itself,
+and into a serving artifact's manifest, which :func:`config_from_jsonable`
+reads back."""
 
 from __future__ import annotations
 
@@ -65,6 +66,12 @@ def config_from_jsonable(obj: Any, registry: dict[str, type], *, _field=None):
             raise ValueError(f"unknown dtype {obj!r}")
         return dtype
     return obj
+
+
+def load_config(path: str | pathlib.Path) -> dict:
+    """A file :func:`save_config` wrote, as its JSON (the dataclasses as
+    tagged dicts; :func:`config_from_jsonable` builds them back)."""
+    return json.loads(pathlib.Path(path).read_text())
 
 
 def save_config(path: str | pathlib.Path, **configs):

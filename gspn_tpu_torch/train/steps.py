@@ -150,33 +150,39 @@ GT_BOX_JITTER = 0.05
 
 
 def make_rpointnet_loss_fn(max_instances: int, frozen_gspn: tuple | None = None,
-                           mix_gt_boxes: bool = True, dp_group=None, dp_size: int = 1):
+                           loss_weights: dict | None = None,
+                           gt_box_jitter: float = GT_BOX_JITTER, mix_gt_boxes: bool = True,
+                           share_fps: bool = True, dp_group=None, dp_size: int = 1):
     """``loss_fn(model, batch, box_noise=None, z_eps=None, gumbel=None,
     dropout_keep=None, generator=None) -> (loss, metrics)`` for an
     ``RPointNet`` in training mode. ``batch``: ``xyz``, ``valid``,
     ``inst_label`` and ``sem_label`` (B,N).
 
     The GT boxes (``instance_gt_boxes`` over ``max_instances``) jittered by
-    ``GT_BOX_JITTER * box_noise`` (``box_noise (B, max_instances, 6)``
+    ``gt_box_jitter * box_noise`` (``box_noise (B, max_instances, 6)``
     N(0,1)) are the RoIs, or, with ``frozen_gspn = (GSPN, num_seeds)`` (an
     inference GSPN, put in eval mode here and run under ``torch.no_grad``),
     the boxes of its proposals at ``num_seeds`` FPS seeds (CVAE noise
-    ``z_eps``), followed by the jittered GT boxes when ``mix_gt_boxes``. One
-    FPS pass of ``max(num_seeds, sa1 npoint)`` picks on the model's
-    ``ops_impl`` gives both the seeds and SA1's centres (greedy FPS is
-    prefix-consistent; the JAX package's ``share_fps=True``, what its
-    trainer and bench run). Then the training forward (``gumbel`` and
-    ``dropout_keep``: ``RPointNet.forward``; both stages read the batch's
-    ``features`` where their ``feature_dim`` is above 0), the IoU match (in GT-box mode
-    only RoIs of present instances count) and ``rpointnet_loss``. What is
-    not given is drawn from ``generator``, in the module docstring's
-    order.
+    ``z_eps``), followed by the jittered GT boxes when ``mix_gt_boxes``.
+    With ``share_fps`` (the default, what the JAX package's trainer and
+    bench run) one FPS pass of ``max(num_seeds, sa1 npoint)`` picks on the
+    model's ``ops_impl`` gives both the seeds and SA1's centres (greedy FPS
+    is prefix-consistent); without it the seeds take a pass of their own
+    and SA1 samples its centres itself, two passes that pick the same
+    points. Then the training forward (``gumbel`` and ``dropout_keep``:
+    ``RPointNet.forward``; both stages read the batch's ``features`` where
+    their ``feature_dim`` is above 0), the IoU match (in GT-box mode only
+    RoIs of present instances count) and ``rpointnet_loss`` with
+    ``loss_weights`` (its ``cls_weight``, ``box_weight``, ``mask_weight``).
+    What is not given is drawn from ``generator``, in the module
+    docstring's order.
 
     ``dp_group``/``dp_size``: the DP-aware loss (module docstring); ``batch``
     is the rank's shard, ``box_noise`` and ``z_eps`` the full batch's. It
     refuses a model with ``head_dropout > 0`` or ``roi_randomize``, as the
     JAX package's does: their draws' shapes are the shard's, so they could
     not match the single-process draws."""
+    lw = loss_weights or {}
     if frozen_gspn is not None:
         frozen_gspn[0].eval()
 
@@ -204,18 +210,23 @@ def make_rpointnet_loss_fn(max_instances: int, frozen_gspn: tuple | None = None,
                 raise ValueError("pass box_noise (noise) or a torch.Generator")
             box_noise = torch.randn(gt_boxes.shape, generator=generator, dtype=torch.float32,
                                     device=generator.device)
-        noise = box_noise.to(xyz.device) * GT_BOX_JITTER
+        noise = box_noise.to(xyz.device) * gt_box_jitter
         gt_rois = torch.where(present[..., None], gt_boxes + noise, torch.zeros_like(gt_boxes))
         sa1_fps_idx = None
         if frozen_gspn is not None:
             gmodel, num_seeds = frozen_gspn
             sa1_n = cfg.sa_layers[0].npoint
-            fps_all = ops.farthest_point_sample(
-                max(num_seeds, sa1_n), xyz, valid, impl=cfg.ops_impl,
-                segments=ops.shared_eligible_fps_segments(
-                    cfg.fps_segments, (num_seeds, sa1_n), xyz.shape[1]),
-                segment_mode=cfg.fps_segment_mode)
-            seed_idx, sa1_fps_idx = fps_all[:, :num_seeds], fps_all[:, :sa1_n]
+            segments = ops.shared_eligible_fps_segments(
+                cfg.fps_segments, (num_seeds, sa1_n), xyz.shape[1])
+            if share_fps:
+                fps_all = ops.farthest_point_sample(
+                    max(num_seeds, sa1_n), xyz, valid, impl=cfg.ops_impl, segments=segments,
+                    segment_mode=cfg.fps_segment_mode)
+                seed_idx, sa1_fps_idx = fps_all[:, :num_seeds], fps_all[:, :sa1_n]
+            else:
+                seed_idx = ops.farthest_point_sample(
+                    num_seeds, xyz, valid, impl=cfg.ops_impl, segments=segments,
+                    segment_mode=cfg.fps_segment_mode)
             with torch.no_grad():
                 gout = gmodel(xyz, seed_idx, valid, z_eps=z_eps, generator=generator,
                               features=features)
@@ -229,7 +240,7 @@ def make_rpointnet_loss_fn(max_instances: int, frozen_gspn: tuple | None = None,
                         dropout_keep=dropout_keep, generator=generator, features=features)
         roi_valid = out.roi_valid & present if frozen_gspn is None else out.roi_valid
         match = match_rois(rois, roi_valid, gt_boxes, gt_cls, present, cfg.fg_iou, cfg.bg_iou)
-        return rpointnet_loss(out, match, batch["inst_label"], group=dp_group)
+        return rpointnet_loss(out, match, batch["inst_label"], group=dp_group, **lw)
 
     loss_fn.dp_group, loss_fn.dp_size = dp_group, dp_size
     return loss_fn

@@ -231,6 +231,31 @@ def _maybe_morton(args, sample_fn, impl: str):
     return lambda rng, b: native.morton_sort_batch(sample_fn(rng, b), impl=impl)
 
 
+def device_batch(b: dict, device="cuda") -> dict:
+    """A host batch staged on ``device`` (``iterator.to_device``: host-only
+    metadata, ``scene_ids``, stays behind)."""
+    return to_device(b, device)
+
+
+def data_iterator(args, np_rng):
+    """Batches of ``make_sample_fn(args)`` drawn from ``np_rng`` one after
+    another (not resumable; the trainers use ``DeterministicBatches``)."""
+    sample_fn = make_sample_fn(args)
+    while True:
+        yield sample_fn(np_rng, args.batch)
+
+
+def restore_or_init(ckpt: CheckpointManager, state: TrainState, resume: bool):
+    """``(state, start_step)``: with ``resume``, the newest checkpoint under
+    ``ckpt`` loaded into ``state`` (in place) where there is one."""
+    if resume:
+        if ckpt.restore(state):
+            print(f"--resume: restored step {state.step}")
+        else:
+            print("--resume: no checkpoint found, starting fresh")
+    return state, state.step
+
+
 def batch_feature_dim(batch: dict) -> int:
     """The per-point feature width of a batch (0 without features)."""
     f = batch.get("features")
@@ -369,12 +394,7 @@ def train_loop(args, state: TrainState, loss_fn, lr_fn, cfg, batches: Determinis
         return shard_batch(mesh, batch) if isinstance(mesh, DataMesh) else batch
 
     ckpt = CheckpointManager(f"{args.log_dir}/ckpt")
-    if args.resume:
-        if ckpt.restore(state):
-            print(f"--resume: restored step {state.step}")
-        else:
-            print("--resume: no checkpoint found, starting fresh")
-    start_step = state.step
+    state, start_step = restore_or_init(ckpt, state, args.resume)
     logger = MetricsLogger(args.log_dir) if writer else None
     if writer:
         save_config(f"{args.log_dir}/config.json", model=cfg, args=args)

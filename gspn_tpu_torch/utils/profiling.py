@@ -1,9 +1,12 @@
-"""Device-time helpers over ``torch.profiler``: a run's device kernels,
-their busy time, and the trainers' ``--profile-steps`` window (the
-counterpart of ``gspn_tpu/utils/profiling.py``'s ``StepTraceWindow``)."""
+"""Device-time helpers over ``torch.profiler``, the counterpart of
+``gspn_tpu/utils/profiling.py``: a traced block (:func:`trace`), named
+regions (:func:`annotate`), a rolling step timer (:class:`StepTimer`), a
+run's device kernels and their busy time, and the trainers'
+``--profile-steps`` window (:class:`StepTraceWindow`)."""
 
 from __future__ import annotations
 
+import contextlib
 import json
 import pathlib
 import time
@@ -11,6 +14,75 @@ import time
 import torch
 
 TOP_KERNELS = 10  # device kernels named in the window's JSON line, by time
+
+
+@contextlib.contextmanager
+def trace(log_dir: str | pathlib.Path):
+    """Profile the block with ``torch.profiler`` (the host, and the card's
+    kernels where CUDA is available) and write its Chrome trace to
+    ``log_dir/trace.json`` (Perfetto or ``chrome://tracing`` read it).
+    Yields the profiler, whose events a caller may read after the block."""
+    from torch.profiler import ProfilerActivity, profile
+
+    log_dir = pathlib.Path(log_dir)
+    log_dir.mkdir(parents=True, exist_ok=True)
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        yield prof
+    prof.export_chrome_trace(str(log_dir / "trace.json"))
+
+
+def annotate(name: str):
+    """A named region in the profiler's trace (``record_function``), as a
+    context manager."""
+    return torch.profiler.record_function(name)
+
+
+class StepTimer:
+    """Rolling step times over the last ``window`` steps, and points a
+    second at ``points_per_step``. On a CUDA ``device`` a step is timed by
+    CUDA events recorded on the current stream at :meth:`start` and
+    :meth:`stop` (``stop`` waits for the second), elsewhere by the host
+    clock."""
+
+    def __init__(self, points_per_step: int, window: int = 20, device=None):
+        self.pps = points_per_step
+        self.window = window
+        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self._times: list[float] = []
+        self._t0 = None
+
+    def start(self) -> None:
+        if self.device.type == "cuda":
+            self._t0 = torch.cuda.Event(enable_timing=True)
+            self._t0.record(torch.cuda.current_stream(self.device))
+        else:
+            self._t0 = time.perf_counter()
+
+    def stop(self) -> float:
+        """The step's seconds since :meth:`start`, kept in the window."""
+        if self.device.type == "cuda":
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(torch.cuda.current_stream(self.device))
+            end.synchronize()
+            dt = self._t0.elapsed_time(end) / 1e3
+        else:
+            dt = time.perf_counter() - self._t0
+        self._times.append(dt)
+        if len(self._times) > self.window:
+            self._times.pop(0)
+        return dt
+
+    @property
+    def mean_step_s(self) -> float:
+        return sum(self._times) / max(len(self._times), 1)
+
+    @property
+    def points_per_sec(self) -> float:
+        m = self.mean_step_s
+        return self.pps / m if m > 0 else 0.0
 
 
 def device_kernels(prof) -> list:

@@ -358,7 +358,7 @@ def test_augment_scene_matches_jax_draws(rng):
     k1, k2, k3, k4 = jax.random.split(key, 4)
     draws = dict(
         theta=t(jax.random.uniform(k1, (b,), minval=0.0, maxval=2 * jnp.pi)),
-        flip=t(jax.random.bernoulli(k2, 0.5, (b, 1, 2))),
+        flips=t(jax.random.bernoulli(k2, 0.5, (b, 1, 2))),
         scale=t(jax.random.uniform(k3, (b, 1, 1), minval=0.9, maxval=1.1)),
         noise=t(jax.random.normal(k4, (b, npts, 3))),
     )
