@@ -246,7 +246,32 @@ line or a few:
    that model config, 4 steps against 2 + ``--resume`` 2, bitwise; one
    B=1 x N=65536 step with and without ``remat`` after a warm-up each,
    bitwise, ``torch.cuda.max_memory_allocated`` and host ms of each;
-14. the ranking: for the flagship and the whole-scene request of slices
+14. slice (R), the trainers' knobs (``run_train_knobs_slice``), after
+   slice (Q), on (G)'s batch with (G)'s and (I)'s seeded weights and
+   noise: (R-bf16) both stages in bfloat16 (``train_config()`` and
+   ``stage2_configs()`` with ``dtype`` bfloat16, as ``--dtype bf16`` sets
+   them), (R-strided) both with ``group_select="strided"`` (stage 2's
+   frozen GSPN too) and (R-wide) both at ``--width-mult 2`` in float32,
+   each 1 + 10 steps on its kernel path with exactly its launches a step
+   ((G)'s and (I)'s; the strided groups in place of the first-K ones),
+   bitwise its plain path (step 1's metrics and gradients, every loss,
+   the parameters and running statistics); the bfloat16 gradients the
+   gathers' backward sums and the bf16 losses beside float32's on the
+   same weights; stage 2's FP plans at ``--width-mult 2`` (FP4, C 256, on
+   the staged form) and the index_add launches of a step's backward with
+   their channels; ``train_gspn`` and ``train_rpointnet --gspn-ckpt`` with
+   ``--width-mult 2 --dtype bf16`` (3 steps; 4 against 2 + ``--resume`` 2,
+   bitwise) and with ``--group-select strided`` (3 steps), each launching
+   its stage's kernels; ``run_eval`` on the wide bf16 checkpoints at
+   ``--score-thresh 0``, its loop's kernel path against its plain path
+   batch by batch, and ``--artifact`` of ``export_serving``'s export of
+   them at the eval's shape with the live summary bit for bit; the width
+   study: host ms a step of each stage, float32 and bf16 at
+   ``--width-mult`` 1, 2 and 4, and at 2 a ``torch.profiler`` window of
+   each dtype (wall and busy ms, idle share, device operations a step);
+   the kernel phase also times (R)'s launch shapes
+   (``time_kernels.knob_launches``);
+15. the ranking: for the flagship and the whole-scene request of slices
    (A), (B), (E) and (H), a pass of (F) at each shape and a step of (G),
    each kernel's (device ms - bound ms) summed over every launch of that
    request at its own shape (the launches must be the slice's, kernel for
@@ -258,7 +283,8 @@ line or a few:
    queries, (H) for fps_cluster, (G) for nn_argmin and index_add;
    ``launches_by_slice`` for each slice's own count, (M)'s and (N)'s their
    entry-point runs' and checked DP steps' summed, (O)'s its ranks'
-   checked requests and steps summed, (P)'s its checked runs' summed; ``device_events``, the
+   checked requests and steps summed, (P)'s its checked runs' summed, (R)'s
+   every kernel-path run of the slice summed; ``device_events``, the
    profiler's events under ``device_ms``; ``ms_by_cluster_size`` for
    fps_cluster, ``ms_by_ctas`` for nn_argmin, ``ms_by_split`` for the ball
    and box groups,
@@ -346,11 +372,21 @@ SLICE_KERNELS = {  # what each slice's kernel path launches; the others stay at 
     "L-object": {"fps", "ball_group", "nn_argmin", "index_add"},
     "P": PATH_KERNELS | {"mask_project"},
     "Q": set(Q_PER_STEP),
+    # (I)'s, strided too, (G)'s argmin, and the eval's (K)
+    "R": set(I_PER_STEP) | set(STRIDED.values()) | {"nn_argmin", "mask_project", "nms"},
 }
 # slice (G) launches per step: nn_argmin gives the chamfer's argmins both
 # ways in one launch; index_add is the chamfer's gather backward into the
 # generated points
 G_PER_STEP = {"fps": 1, "ball_group": 1, "nn_argmin": 1, "index_add": 1}
+# slice (R): the trainers' --dtype bf16, --group-select strided and
+# --width-mult knobs at full width; the width study's multipliers and its
+# profiler windows' steps
+R_WIDTHS, R_WINDOW_STEPS = (1, 2, 4), 3
+# launches a strided step: the strided groups in place of the first-K ones
+# (stage 2's frozen GSPN strided too, as train_rpointnet's _stage_knobs sets it)
+R_STRIDED_G = {STRIDED.get(k, k): c for k, c in G_PER_STEP.items()}
+R_STRIDED_I = {STRIDED.get(k, k): c for k, c in I_PER_STEP.items()}
 # slice (L): the knob paths' RGB width, and train_gspn --preset object's
 # point count (one crop of K = OBJECT_N points) and timed steps per path
 FDIM, OBJECT_N, OBJECT_STEPS = 3, 4096, 3
@@ -1263,9 +1299,9 @@ def _live_answer(infer, model, xyz, valid, seed, batch, noise_shape):
 
 
 def _profile_window(fn, iters: int = 5):
-    """``(wall ms, device busy ms, idle share)`` a call of ``fn`` under
-    ``torch.profiler`` over ``iters`` calls after a warm-up; busy is the
-    union of the device's kernel and copy intervals."""
+    """``(wall ms, device busy ms, idle share, device operations)`` a call
+    of ``fn`` under ``torch.profiler`` over ``iters`` calls after a
+    warm-up; busy is the union of the device's kernel and copy intervals."""
     from torch.profiler import ProfilerActivity, profile
 
     from gspn_tpu_torch.utils.profiling import busy_us, device_kernels
@@ -1278,8 +1314,9 @@ def _profile_window(fn, iters: int = 5):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / iters
-    busy = busy_us(device_kernels(prof)) / 1e3 / iters
-    return wall, busy, 1.0 - busy / wall
+    events = device_kernels(prof)
+    busy = busy_us(events) / 1e3 / iters
+    return wall, busy, 1.0 - busy / wall, len(events) / iters
 
 
 def _times(fn, n: int) -> list[float]:
@@ -1469,7 +1506,7 @@ def run_serving(dev, ops, bench_slice, card, work):
             for k, v in times.items():
                 print(f"slice (J) {shape} {k}: median (min-max) {_span(v)} ms a request, "
                       f"{len(v)} after a warm-up [{card}]")
-            for k, (wall, busy, idle) in windows.items():
+            for k, (wall, busy, idle, _) in windows.items():
                 print(f"slice (J) {shape} {k} under torch.profiler: wall {wall:.3f} ms, device "
                       f"busy {busy:.3f} ms, idle share {idle:.3f} a request [{card}]")
         del session
@@ -1990,6 +2027,382 @@ def run_options_slice(dev, ops, bench_slice, card, work):
           f"{whole[True][0] / whole[False][0]:.3f}")
     print(f"slice (Q) {time.perf_counter() - t0:.1f} s [{card}]")
     return counts
+
+
+
+
+def _r_configs(bench_slice, knob: str = "f32", width: int = 1):
+    """``{1: stage 1's GSPN config, 2: (stage 2's frozen GSPN config, its
+    R-PointNet config)}`` from ``bench_slice.train_config()`` and
+    ``stage2_configs()``, as the trainers set ``--width-mult width`` and
+    ``knob``: "f32" (the default), "bf16" (``--dtype bf16``) or "strided"
+    (``--group-select strided``), on every stage."""
+    import dataclasses
+
+    from gspn_tpu_torch.models.presets import scale_gspn_widths, scale_rpointnet_widths
+
+    def knobbed(cfg, scale):
+        if width != 1:
+            cfg = scale(cfg, width)
+        if knob == "bf16":
+            cfg = dataclasses.replace(cfg, dtype=torch.bfloat16)
+        if knob == "strided":
+            cfg = dataclasses.replace(cfg, group_select="strided")
+        return cfg
+
+    gcfg, rcfg = bench_slice.stage2_configs()
+    return {1: knobbed(bench_slice.train_config(), scale_gspn_widths),
+            2: (knobbed(gcfg, scale_gspn_widths), knobbed(rcfg, scale_rpointnet_widths))}
+
+
+def _r_models(bench_slice, dev, stage: int, cfg, plain: bool = False):
+    """``(model, frozen GSPN or None)`` of ``stage`` from (G)'s and (I)'s
+    seeded weights; with ``plain``, their twins on the plain ops."""
+    if stage == 1:
+        model = bench_slice.seeded_gspn(cfg, dev)
+        return (bench_slice.plain_gspn(cfg, model)[1] if plain else model), None
+    gcfg, rcfg = cfg
+    gmodel = bench_slice.seeded_frozen_gspn(gcfg, dev)
+    model = bench_slice.seeded_rpointnet(rcfg, dev)
+    if plain:
+        return bench_slice.plain_rpointnet(rcfg, model)[1], bench_slice.plain_gspn(gcfg, gmodel)[1]
+    return model, gmodel
+
+
+def _r_run(bench_slice, dev, stage, cfg, batch, noise, plain=False):
+    """1 + ``TRAIN_STEPS`` steps of ``stage`` as (G) and (I) run them (the
+    same batch and noise each step): ``(_train_steps`` or
+    ``_stage2_steps``' result, the model)."""
+    model, gmodel = _r_models(bench_slice, dev, stage, cfg, plain)
+    if stage == 1:
+        return _train_steps(bench_slice, model, batch, noise[1], TRAIN_STEPS), model
+    return _stage2_steps(bench_slice, model, gmodel, batch, noise[2], TRAIN_STEPS), model
+
+
+def _r_noise(cfgs, batch, dev) -> dict:
+    """Each stage's noise, as (G) and (I) draw it: stage 1's CVAE noise,
+    stage 2's box jitter and frozen GSPN noise."""
+    b = batch["xyz"].shape[0]
+    from gspn_tpu_torch.utils.bench_slice import TRAIN_SEEDS
+
+    eps = torch.randn((b, TRAIN_SEEDS, cfgs[1].latent_dim),
+                      generator=torch.Generator().manual_seed(1)).to(dev)
+    return {1: eps, 2: _stage2_draws(cfgs[2][0], b, 1, dev)}
+
+
+def _r_expect(what, counts: dict, want) -> None:
+    """Raise unless the nonzero launch ``counts`` are ``want``: these counts
+    (a dict), or these kernels (a set)."""
+    if (counts if isinstance(want, dict) else set(counts)) != want:
+        raise AssertionError(f"{what} launched {counts}, expected {want}")
+
+
+def _r_paths(label, ops, bench_slice, dev, cfgs, batch, per_step, total) -> dict:
+    """Each stage of ``cfgs`` (``_r_configs``) on its kernel path, 1 +
+    ``TRAIN_STEPS`` steps with exactly ``per_step[stage]`` launches a step
+    (added to ``total``) and finite losses, then on its plain path, which
+    launches nothing, bitwise the same (step 1's metrics and gradients,
+    every loss, the parameters and running statistics). Returns each
+    stage's kernel-path run."""
+    noise = _r_noise(cfgs, batch, dev)
+    runs = {}
+    for stage in (1, 2):
+        ops.reset_launch_counts()
+        run, model = _r_run(bench_slice, dev, stage, cfgs[stage], batch, noise)
+        counts = _nonzero(ops.launch_counts())
+        _add_counts(total, counts)
+        _r_expect(f"({label}) stage {stage}", counts,
+                  {k: c * (TRAIN_STEPS + 1) for k, c in per_step[stage].items()})
+        if not torch.isfinite(run[2]).all():
+            raise AssertionError(f"({label}) stage {stage}: losses {run[2].tolist()}")
+        before = ops.launch_counts()
+        prun, pmodel = _r_run(bench_slice, dev, stage, cfgs[stage], batch, noise, plain=True)
+        if ops.launch_counts() != before:
+            raise AssertionError(f"({label}) stage {stage}: the plain path launched kernels")
+        _q_same(f"({label}) stage {stage} kernel path vs plain path", run, prun, model, pmodel)
+        print(f"slice ({label}) stage {stage}: kernel path == plain path bitwise over 1 + "
+              f"{TRAIN_STEPS} steps (step-1 metrics and gradients, losses, parameters, running "
+              f"statistics); launches {json.dumps(counts)}; step 1 "
+              f"{', '.join(f'{k} {v.item():.6f}' for k, v in run[0].items())}; losses "
+              f"{[round(x, 4) for x in run[2].tolist()]}")
+        runs[stage] = run
+    return runs
+
+
+class _Recorder:
+    """Records the calls of a module's function (or a class's static
+    method) while in its ``with`` block: ``calls`` gets ``what(*args,
+    **kwargs)`` for each."""
+
+    def __init__(self, owner, name: str, what):
+        self.owner, self.name, self.what, self.calls = owner, name, what, []
+
+    def __enter__(self):
+        import inspect
+
+        self.raw = inspect.getattr_static(self.owner, self.name)
+        real = getattr(self.owner, self.name)
+
+        def recording(*args, **kwargs):
+            self.calls.append(self.what(*args, **kwargs))
+            return real(*args, **kwargs)
+
+        static = isinstance(self.raw, staticmethod)
+        setattr(self.owner, self.name, staticmethod(recording) if static else recording)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.raw)
+
+
+def _r_bf16(ops, bench_slice, dev, batch, total) -> None:
+    """(R-bf16): both stages in bfloat16 at full width, kernel against plain
+    path; the bfloat16 gradients the gathers' backward sums on the card;
+    the losses beside float32's from the same weights."""
+    from gspn_tpu_torch.ops import grouping
+
+    _phase("slice (R-bf16)")
+    with _Recorder(grouping._GatherRows, "backward", lambda ctx, g: (
+            str(g.dtype).split(".")[-1], g.shape[-1])) as grads:
+        runs = _r_paths("R-bf16", ops, bench_slice, dev, _r_configs(bench_slice, "bf16"), batch,
+                        {1: G_PER_STEP, 2: I_PER_STEP}, total)
+    # the gathers' backward over both stages' kernel and plain paths, a step
+    per = collections.Counter(grads.calls)
+    steps = 2 * (TRAIN_STEPS + 1)
+    if not any(dt == "bfloat16" for dt, _ in per):
+        raise AssertionError(f"(R-bf16): no bfloat16 gradient reached a gather's backward: {per}")
+    print("slice (R-bf16) the gathers' backward (index_add) a step of each stage, summed, by "
+          "the gradient's dtype and channels: "
+          + ", ".join(f"{dt} C {c}: {n / steps:g}" for (dt, c), n in per.items()))
+    f32 = _r_configs(bench_slice)
+    noise = _r_noise(f32, batch, dev)
+    for stage in (1, 2):
+        ops.reset_launch_counts()
+        losses = _r_run(bench_slice, dev, stage, f32[stage], batch, noise)[0][2]
+        _add_counts(total, _nonzero(ops.launch_counts()))
+        gap = ((runs[stage][2] - losses).abs() / losses.abs()).tolist()
+        print(f"slice (R-bf16) stage {stage}: bf16 against float32 on the same weights, batch and "
+              f"noise, relative loss gap a step {[f'{g:.2e}' for g in gap]} (float32 losses "
+              f"{[round(x, 4) for x in losses.tolist()]}; no bound asserted)")
+
+
+def _r_wide(ops, bench_slice, dev, batch, total) -> None:
+    """(R-wide): both stages at ``--width-mult 2`` in float32, kernel against
+    plain path; stage 2's FP4 plan (staged) and the index_add launches of a
+    step's backward, with their channels."""
+    from gspn_tpu_torch.ops import grouping, interpolate
+
+    _phase("slice (R-wide)")
+    cfgs = _r_configs(bench_slice, width=2)
+    fp_plans = _Recorder(interpolate, "_interp_mm_cuda", lambda points, idx, *a, **k: (
+        tuple(idx.shape[:2]), points.shape[1], points.shape[2], interpolate.interp_mm_plan(
+            idx.shape[0], idx.shape[1], points.shape[1], points.shape[2],
+            0 if (len(a) < 2 or a[1] is None) else a[1].shape[-1],
+            points.contiguous().data_ptr() % 16 == 0)))
+    adds = _Recorder(grouping, "_index_add_cuda", lambda src, idx, n, *a, **k: (
+        tuple(src.shape), n))
+    with fp_plans, adds:
+        _r_paths("R-wide", ops, bench_slice, dev, cfgs, batch, {1: G_PER_STEP, 2: I_PER_STEP},
+                 total)
+    # stage 1's kernel run, then stage 2's (the plain paths launch nothing):
+    # a stage-2 step's FP levels and backward (SA2-SA4's gathers, FP1-FP4,
+    # the RoIAlign) are the recorders' last
+    rcfg, steps = cfgs[2][1], TRAIN_STEPS + 1
+    n_fp, n_add = len(rcfg.fp_mlps), len(rcfg.sa_layers) + len(rcfg.fp_mlps)
+    fp, step_adds = fp_plans.calls[-n_fp:], adds.calls[-n_add:]
+    if (len(fp_plans.calls), len(adds.calls)) != (steps * n_fp, steps * (
+            G_PER_STEP["index_add"] + n_add)):
+        raise AssertionError(f"(R-wide): {len(fp_plans.calls)} interp_mm and {len(adds.calls)} "
+                             "index_add launches recorded")
+    (targets, m, c, plan), = [x for x in fp if x[0][1] == bench_slice.TRAIN_POINTS]
+    if plan[2] == 0:
+        raise AssertionError(f"(R-wide) stage 2 FP4 {targets} <- {m}, C {c}: plan {plan} is not "
+                             "the staged form")
+    print(f"slice (R-wide) stage 2 FP levels (targets <- sources, C: interp_mm_plan's rows x "
+          f"slices x stage): " + "; ".join(f"{t[0]}x{t[1]} <- {mm}, C {cc}: "
+                                           f"{'x'.join(map(str, p))}" for t, mm, cc, p in fp)
+          + f"; FP4 (C {c}) takes the staged form")
+    print("slice (R-wide) stage 2 backward, index_add launches a step ((B, positions, C) -> "
+          "rows): " + "; ".join(f"{s} -> {n}" for s, n in step_adds))
+
+
+def _r_step(bench_slice, stage, model, gmodel, batch, noise):
+    """One Adam step (1e-3) of ``stage``'s loss as (G) and (I) take it, as a
+    call."""
+    from gspn_tpu_torch.train.steps import (
+        TrainState, make_gspn_loss_fn, make_optimizer, make_rpointnet_loss_fn, make_train_step,
+    )
+
+    if stage == 1:
+        loss_fn = make_gspn_loss_fn(bench_slice.TRAIN_SEEDS, bench_slice.TRAIN_GT)
+        kw = {"z_eps": noise[1]}
+    else:
+        loss_fn = make_rpointnet_loss_fn(bench_slice.STAGE2_INSTANCES,
+                                         (gmodel, bench_slice.TRAIN_SEEDS))
+        kw = noise[2]
+    step, state = make_train_step(loss_fn), TrainState(model, make_optimizer(model, 1e-3))
+    return lambda: step(state, batch, **kw)
+
+
+def _r_train(trainer, flags, log_dir, ops, total, want, steps=3):
+    """``trainer.main(flags)`` for ``steps`` steps with a metric line each
+    and a checkpoint at the end, its launches counted (added to ``total``):
+    finite metrics, the checkpoint, exactly the kernels ``want``. Returns
+    the train state."""
+    name = trainer.__name__.split(".")[-1]
+    state, counts = _counted(ops, lambda: trainer.main(flags + [
+        "--steps", str(steps), "--log-every", "1", "--ckpt-every", str(steps),
+        "--log-dir", log_dir]))
+    _add_counts(total, counts)
+    lines = _check_trainer(f"(R) {name} {' '.join(flags)}", state, log_dir, steps)
+    _r_expect(f"(R) {name} {' '.join(flags)}", counts, set(want))
+    print(f"slice (R) {name}.main {' '.join(flags)}: {steps} steps, {steps} finite metric "
+          f"lines, checkpoint ckpt_{steps}.pt; losses {[round(r['loss'], 4) for r in lines]}; "
+          f"launches {json.dumps(counts)}")
+    return state
+
+
+def _r_resume(trainer, flags, work, tag, ops, total) -> None:
+    """``trainer.main(flags)`` 4 steps straight against 2 steps, a
+    checkpoint and ``--resume`` for 2: parameters, running statistics, Adam
+    moments and losses bitwise."""
+    name = trainer.__name__.split(".")[-1]
+    run = flags + ["--ckpt-every", "1", "--log-every", "1"]
+
+    def both():
+        straight = trainer.main(run + ["--steps", "4", "--log-dir", f"{work}/{tag}_a"])
+        trainer.main(run + ["--steps", "2", "--log-dir", f"{work}/{tag}_b"])
+        return straight, trainer.main(run + ["--steps", "4", "--resume",
+                                             "--log-dir", f"{work}/{tag}_b"])
+
+    (straight, resumed), counts = _counted(ops, both)
+    _add_counts(total, counts)
+    la, lb = (torch.tensor([r["loss"] for r in _jsonl_lines(f"{work}/{tag}_{x}")]) for x in "ab")
+    _assert_same_training(f"(R) {name} {' '.join(flags)} 4 steps vs 2 + --resume 2",
+                          straight.model, resumed.model, la, lb)
+    oa, ob = (st.optimizer.state_dict()["state"] for st in (straight, resumed))
+    if not all(torch.equal(oa[i][k].cpu(), ob[i][k].cpu()) for i in oa for k in oa[i]):
+        raise AssertionError(f"(R) {name} {' '.join(flags)} --resume: Adam moments differ")
+    print(f"slice (R) {name} {' '.join(flags)}: 4 steps straight == 2 steps, a checkpoint and "
+          f"--resume for 2 (parameters, running statistics, Adam moments, losses bitwise); "
+          f"losses {la.tolist()}")
+
+
+def _r_entry_points(dev, ops, bench_slice, work, total) -> None:
+    """Both trainers at their defaults with ``--width-mult 2 --dtype bf16``
+    (and ``--resume``) and with ``--group-select strided``; ``run_eval`` on
+    the wide bf16 checkpoints, its kernel path against its plain path, and
+    ``--artifact`` on ``export_serving``'s export of them against the live
+    summary."""
+    from gspn_tpu_torch.eval import run_eval
+    from gspn_tpu_torch.serve import export_serving
+    from gspn_tpu_torch.train import train_gspn, train_rpointnet
+
+    _phase("slice (R) trainers")
+    wide = ["--width-mult", "2", "--dtype", "bf16"]
+    gdir, rdir = f"{work}/r_gspn_wide", f"{work}/r_rpointnet_wide"
+    state = _r_train(train_gspn, wide, gdir, ops, total, G_PER_STEP)
+    want = _r_configs(bench_slice, "bf16", 2)[1]
+    if state.model.config != want:
+        raise AssertionError(f"(R) train_gspn {' '.join(wide)}: config {state.model.config}, "
+                             f"expected {want}")
+    _r_resume(train_gspn, wide, work, "r_gspn_resume", ops, total)
+    gwide = ["--gspn-ckpt", f"{gdir}/ckpt"] + wide
+    state = _r_train(train_rpointnet, gwide, rdir, ops, total, I_PER_STEP)
+    if state.model.config.dtype != torch.bfloat16:
+        raise AssertionError(f"(R) train_rpointnet {' '.join(wide)}: {state.model.config}")
+    _r_resume(train_rpointnet, gwide, work, "r_rpointnet_resume", ops, total)
+    strided = ["--group-select", "strided"]
+    _r_train(train_gspn, strided, f"{work}/r_gspn_strided", ops, total, R_STRIDED_G)
+    _r_train(train_rpointnet, strided + ["--gspn-ckpt", f"{work}/r_gspn_strided/ckpt"],
+             f"{work}/r_rpointnet_strided", ops, total, R_STRIDED_I)
+
+    _phase("slice (R) run_eval --width-mult 2 --dtype bf16")
+    argv = ["--gspn-ckpt", f"{gdir}/ckpt", "--rpointnet-ckpt", f"{rdir}/ckpt", *wide,
+            "--score-thresh", "0"]
+    live, counts = _counted(ops, lambda: _eval_main(run_eval, argv))
+    _add_counts(total, counts)
+    _r_expect(f"(R) run_eval {' '.join(argv)}", counts, SLICE_KERNELS["K"])
+    seen, counts = _counted(ops, lambda: _eval_paths_agree(run_eval, bench_slice, ops, argv, dev,
+                                                           "(R)"))
+    _add_counts(total, counts)
+    print(f"slice (R) run_eval {' '.join(wide)} --score-thresh 0: kernel path == plain path "
+          f"batch by batch (masks, valid, classes equal; scores, boxes within rtol 1e-4 atol "
+          f"1e-5); the plain path launched nothing; {json.dumps(seen)}")
+    art, counts = _counted(ops, lambda: export_serving.main([
+        "--batch", "4", "--num-points", "4096", "--gspn-ckpt", f"{gdir}/ckpt",
+        "--rpointnet-ckpt", f"{rdir}/ckpt", *wide, "--verify", "--score-thresh", "0",
+        "--out", f"{work}/r_wide.gspnt"]))
+    _add_counts(total, counts)
+    served, counts = _counted(ops, lambda: _eval_main(run_eval, argv + ["--artifact", str(art)]))
+    _add_counts(total, counts)
+    if _rate_aside(served) != _rate_aside(live):
+        raise AssertionError(f"(R) run_eval --artifact: summary {served}, live {live}")
+    print(f"slice (R) export_serving {' '.join(wide)} at B=4 x N=4096, then run_eval "
+          f"--artifact on it: the live run's summary bit for bit: {_rate_aside(live)}")
+
+
+def _r_width_study(dev, ops, bench_slice, card, batch, total) -> None:
+    """Host ms a step of each stage on the kernel path, float32 and bf16 at
+    ``--width-mult`` 1, 2 and 4 (median, min-max of ``TRAIN_STEPS`` after
+    a warm-up), and at 2 a ``torch.profiler`` window of each dtype: wall and
+    device busy ms, idle share and device operations a step."""
+    _phase("slice (R) width study")
+    noise = _r_noise(_r_configs(bench_slice), batch, dev)
+    table, windows = {}, {}
+    for stage in (1, 2):
+        for width in R_WIDTHS:
+            for knob in ("f32", "bf16"):
+                cfg = _r_configs(bench_slice, knob, width)[stage]
+                step = _r_step(bench_slice, stage, *_r_models(bench_slice, dev, stage, cfg),
+                               batch, noise)
+                ops.reset_launch_counts()
+                table[stage, width, knob] = _times(step, TRAIN_STEPS)
+                if width == 2:
+                    windows[stage, knob] = _profile_window(step, R_WINDOW_STEPS)
+                _add_counts(total, _nonzero(ops.launch_counts()))
+    print(f"slice (R) width study, host ms a training step (B={bench_slice.TRAIN_BATCH} x "
+          f"N={bench_slice.TRAIN_POINTS}, Adam; median (min-max) of {TRAIN_STEPS} after a "
+          f"warm-up) [{card}]:")
+    for stage in (1, 2):
+        for width in R_WIDTHS:
+            f32, bf16 = table[stage, width, "f32"], table[stage, width, "bf16"]
+            print(f"  stage {stage} x{width}: f32 {_span(f32)}, bf16 {_span(bf16)}, bf16 / f32 "
+                  f"{statistics.median(bf16) / statistics.median(f32):.3f}")
+    for (stage, knob), (wall, busy, idle, n_ops) in windows.items():
+        print(f"slice (R) stage {stage} x2 {knob} under torch.profiler ({R_WINDOW_STEPS} steps "
+              f"after a warm-up): wall {wall:.3f} ms, device busy {busy:.3f} ms, idle share "
+              f"{idle:.3f}, {n_ops:g} device operations a step [{card}]")
+
+
+def run_train_knobs_slice(dev, ops, bench_slice, card, work) -> dict:
+    """Slice (R): the trainers' knobs at full width on (G)'s batch (B=4 x
+    N=4096), seeded weights, TF32 off. (R-bf16) both stages in bfloat16
+    (``train_gspn --dtype bf16``; ``bench_slice.stage2_configs()`` with both
+    stages bf16, as ``train_rpointnet --dtype bf16``); (R-strided) both
+    with ``group_select="strided"`` (stage 2's frozen GSPN too); (R-wide)
+    both at ``--width-mult 2`` in float32: each 1 + ``TRAIN_STEPS`` steps
+    on its kernel path, with exactly its launches a step, bitwise its plain
+    path. Then the entry points: ``train_gspn`` and ``train_rpointnet
+    --gspn-ckpt`` with ``--width-mult 2 --dtype bf16`` (3 steps; 4 against
+    2 + ``--resume`` 2, bitwise) and with ``--group-select strided`` (3
+    steps); ``run_eval`` on the wide bf16 checkpoints (kernel path against
+    plain path, ``--artifact`` of ``export_serving``'s export against the
+    live summary); and the width study. Returns the slice's launches."""
+    _phase("slice (R)")
+    t0 = time.perf_counter()
+    total = {}
+    batch = bench_slice.train_batch(dev)
+    _r_bf16(ops, bench_slice, dev, batch, total)
+    _phase("slice (R-strided)")
+    _r_paths("R-strided", ops, bench_slice, dev, _r_configs(bench_slice, "strided"), batch,
+             {1: R_STRIDED_G, 2: R_STRIDED_I}, total)
+    _r_wide(ops, bench_slice, dev, batch, total)
+    _r_entry_points(dev, ops, bench_slice, work, total)
+    _r_width_study(dev, ops, bench_slice, card, batch, total)
+    _r_expect("slice (R)", total, SLICE_KERNELS["R"])
+    print(f"slice (R) launches: {json.dumps(total)}; {time.perf_counter() - t0:.1f} s [{card}]")
+    return {k: total.get(k, 0) for k in ops.launch_counts()}
 
 
 # the JAX eval's summary keys with --bootstrap and an --ab-* arm
@@ -4011,6 +4424,7 @@ def main() -> None:
         runs["O"] = run_point_sharded_slice(dev, ops, bench_slice, card, work)
         runs["P"] = run_complete_slice(dev, ops, bench_slice, card, work)
         runs["Q"] = run_options_slice(dev, ops, bench_slice, card, work)
+        runs["R"] = run_train_knobs_slice(dev, ops, bench_slice, card, work)
         runs["J"], per_request = run_serving_process(work)
     a_request = {k: c / (2 * (REQUESTS + 1)) for k, c in runs["A"].items()}
     if a_request != per_request:

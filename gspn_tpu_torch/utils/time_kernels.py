@@ -21,7 +21,9 @@ step of (I) (``stage2_launches``: fps's shared pass and SA2-SA4, the
 frozen GSPN's crops and SA1-SA4's ball_group, the RoIAlign box_group,
 three_nn and interp_mm at FP1-FP4, and the backward's eight index_add
 launches), each at its own shape; also index_add with 512 positions on
-each index. Run as a script,
+each index, and slice (R)'s launches at the shapes no other slice gives
+(``knob_launches``: strided groups in training, FP4 and its backward at
+``--width-mult`` 2 and 4, a bfloat16 gradient). Run as a script,
 this module times those cases alone
 (``--kernels`` picks some kernels), importing ``gspn_tpu_torch`` from
 ``--tree DIR`` (another checkout, for example the parent commit unpacked
@@ -453,6 +455,9 @@ def cases(ops, bench_slice, dev, inputs=None) -> dict:
     # (I): one stage-2 training step
     for name, label, args in stage2_launches(ops, bench_slice, dev, gen):
         out[name].append((label, args, (request_key("I", TRAIN_SHAPE),)))
+    # (R): the trainers' knobs, untagged
+    for name, label, args in knob_launches(ops, bench_slice, dev, gen):
+        out[name].append((label, args, ()))
     out["index_add"].sort(key=lambda case: not case[2])  # the steps' cases first
     crowd = torch.randint(0, 8, (16, 4096), generator=gen, dtype=torch.int32).to(dev)
     out["index_add"].append(("16 x 4096 positions -> 8 (512 on each), C 64",
@@ -460,10 +465,11 @@ def cases(ops, bench_slice, dev, inputs=None) -> dict:
     return out
 
 
-def stage2_launches(ops, bench_slice, dev, gen) -> list:
+def stage2_launches(ops, bench_slice, dev, gen, configs=None) -> list:
     """``[(kernel, label, args)]``: every kernel launch of one stage-2
     training step (``chip_smoke.py`` slice (I): ``bench_slice``'s stage-2
-    configs on ``train_batch``), at the shapes the step gives it: the shared
+    configs, or ``configs`` = (frozen GSPN, R-PointNet), on
+    ``train_batch``), at the shapes the step gives it: the shared
     exact FPS pass (the 64 seeds and SA1's 1024 centres) and SA2-SA4's; the
     frozen GSPN's crops and SA1-SA4's ball groups; the RoIAlign box group
     over the seeded frozen GSPN's 64 proposals and the 16 jittered GT boxes
@@ -475,7 +481,7 @@ def stage2_launches(ops, bench_slice, dev, gen) -> list:
     from gspn_tpu_torch.models.gspn import proposal_boxes
     from gspn_tpu_torch.models.rpointnet import instance_gt_boxes, point_roi_align
 
-    gcfg, rcfg = bench_slice.stage2_configs()
+    gcfg, rcfg = configs or bench_slice.stage2_configs()
     tb = bench_slice.train_batch(dev)
     xyz, valid = tb["xyz"], tb["valid"]
     b, n = xyz.shape[:2]
@@ -542,6 +548,40 @@ def stage2_launches(ops, bench_slice, dev, gen) -> list:
                   (rand(b, roi_idx.shape[1] * rcfg.roi_samples, feat_c),
                    roi_idx.reshape(b, -1), n)))
     return out + [("index_add", label, args) for label, args in reversed(grads)]
+
+
+def knob_launches(ops, bench_slice, dev, gen) -> list:
+    """``[(kernel, label, args)]``: the launches of slice (R) (the trainers'
+    ``--group-select strided``, ``--width-mult`` and ``--dtype bf16`` at
+    full width) at shapes no other slice gives their kernel: the strided
+    ball group at (G)'s crops and the strided ball and box groups at every
+    launch of a stage-2 step (the frozen GSPN's crops, SA1-SA4, the
+    RoIAlign's 80 RoIs a scene); at ``--width-mult`` 2 and 4, FP4's
+    interpolation (C 256 and 512, the staged form) and the index_add of
+    its backward and of the RoIAlign's; and the RoIAlign backward's
+    index_add at (I)'s shape with a bfloat16 gradient, which the gather's
+    backward sums in float32 (its values rounded to bfloat16 here)."""
+    from gspn_tpu_torch.models.presets import scale_gspn_widths, scale_rpointnet_widths
+
+    tb = bench_slice.train_batch(dev)
+    tseeds = ops.gather_point(tb["xyz"], ops.farthest_point_sample(64, tb["xyz"], tb["valid"]))
+    b, n = tb["xyz"].shape[:2]
+    out = [("ball_group_strided", f"(R-strided) training crops: {b}x64 seeds over {n}, "
+            "K 64/128/256", ((0.25, 0.5, 1.0), (64, 128, 256), tb["xyz"], tseeds, tb["valid"]))]
+    strided = {"ball_group": "ball_group_strided", "box_group": "box_group_strided"}
+    for name, label, args in stage2_launches(ops, bench_slice, dev, gen):
+        if name in strided:
+            out.append((strided[name], f"(R-strided) {label}", args))
+        if name == "index_add" and "RoIAlign" in label:
+            out.append((name, f"(R-bf16) {label}, a bfloat16 gradient",
+                        (args[0].bfloat16().float(), *args[1:])))
+    gcfg, rcfg = bench_slice.stage2_configs()
+    for mult in (2, 4):
+        wide = (scale_gspn_widths(gcfg, mult), scale_rpointnet_widths(rcfg, mult))
+        for name, label, args in stage2_launches(ops, bench_slice, dev, gen, wide):
+            if name in ("interp_mm", "index_add") and ("fp4" in label or "RoIAlign" in label):
+                out.append((name, f"(R-wide x{mult}) {label}", args))
+    return out
 
 
 def main(argv=None) -> None:
