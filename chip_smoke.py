@@ -271,7 +271,29 @@ line or a few:
    each dtype (wall and busy ms, idle share, device operations a step);
    the kernel phase also times (R)'s launch shapes
    (``time_kernels.knob_launches``);
-15. the ranking: for the flagship and the whole-scene request of slices
+15. slice (S), the utils the port had left out (``run_roofline_slice``,
+   ``run_sanitize_slice``), after slice (R): (S-roofline) each stage's
+   floor under ``utils/roofline.py``'s model and the whole call timed
+   with ``utils.timing.time_fn`` (median, min and max of
+   ``ROOFLINE_CALLS``), its ``frac_of_roof`` and ``mfu`` against
+   ``H100_SXM`` (``H100_SXM_BF16`` for bf16), for (A)'s config at both
+   shapes, eager and through ``InferenceSession.run``, (L-bf16)'s
+   flagship, a (G) step and an (I) step (``utils/profile_roofline.py``
+   builds each call), with the launch counts set to 0 just before and
+   read just after; and each kernel's model floor at its first shape
+   beside its ``_bound`` (on slice (S)'s own lines, not in the kernels
+   line; a ratio above 2 marked); (S-sanitize) ``python -m
+   gspn_tpu_torch.utils.debug --sanitize`` (every launch of
+   ``time_kernels.cases``, every forced plan of
+   ``time_kernels.forced_plans``, a few small cases for the paths no
+   slice takes; each bitwise its plain version) under
+   ``compute-sanitizer`` with memcheck, racecheck, synccheck and initcheck
+   at once, only the port's kernels checked; any report fails; where the
+   machine has no ``compute-sanitizer``, or it answers "Device not
+   supported" for a program that runs no kernel of the port (the card's
+   machine), a line says so and the phase is left out; any other failure
+   of that probe fails the run;
+16. the ranking: for the flagship and the whole-scene request of slices
    (A), (B), (E) and (H), a pass of (F) at each shape and a step of (G),
    each kernel's (device ms - bound ms) summed over every launch of that
    request at its own shape (the launches must be the slice's, kernel for
@@ -313,6 +335,7 @@ import torch
 
 from gspn_tpu_torch.utils import time_kernels as tk
 from gspn_tpu_torch.utils.bench_slice import STAGE2_PER_STEP as I_PER_STEP  # slice (I)
+from gspn_tpu_torch.utils.roofline import H100_SXM
 
 B, N = 8, 8192  # flagship request: 8 scenes x 8192 points
 WS_N = 65536  # whole-scene request: 1 scene, last 10% of points padding
@@ -326,13 +349,6 @@ FIELDS = ("masks", "valid", "classes", "scores", "boxes")  # of InstancePredicti
 PATH_KERNELS = {"fps", "ball_group", "box_group", "three_nn", "interp_mm", "nms"}
 FPS_ROWS_N = 131072  # the cluster FPS's reach: twice the whole scene
 NMS_ABOVE_OLD_CAP = 36864  # boxes a scene, beyond the NMS kernel's limit before 131,072
-SPLITS = (1, 2, 4, 8, 16)  # warps a query the ball and box groups take
-# three_nn: targets a thread, source slices, sources a group
-NN_PER, NN_SPLITS, NN_GROUPS = (1, 2, 4), (1, 2, 4, 8, 16, 32), (1, 32)
-# the FP interpolation: rows a task and slices (direct), rows a chunk
-# (staged); the two-way argmin: CTAs a row
-FP_ROWS, FP_SLICES, FP_CHUNKS = (1, 2, 4, 8), (1, 2, 3, 4, 6), (512, 1024, 2048)
-NN_CTAS = (1, 2, 4, 8, 12, 16)
 STRIDED = {"ball_group": "ball_group_strided", "box_group": "box_group_strided"}
 # the kernel's symbols in the profiler's (demangled) device events; the
 # template arguments of group_first_kernel and group_strided_kernel: the
@@ -390,12 +406,15 @@ R_STRIDED_I = {STRIDED.get(k, k): c for k, c in I_PER_STEP.items()}
 # slice (L): the knob paths' RGB width, and train_gspn --preset object's
 # point count (one crop of K = OBJECT_N points) and timed steps per path
 FDIM, OBJECT_N, OBJECT_STEPS = 3, 4096, 3
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
-# H100 SXM float32 outside the tensor cores, one instruction per lane and
-# clock: 132 SMs x 128 lanes x 1.98 GHz. The published 67 TFLOP/s counts an
-# FMA as two; the kernels build with -fmad=false, so none of their adds,
-# multiplies and compares is fused.
-F32_OPS_PER_S = 33.5e12
+# the card's peaks (utils/roofline.py H100_SXM, NVIDIA's data sheet): HBM3
+# bytes/s, and float32 operations outside the tensor cores, one a lane and
+# clock (132 SMs x 128 lanes x 1.98 GHz; the published 67 TFLOP/s counts an
+# FMA as two, and the kernels build with -fmad=false, so none of their
+# adds, multiplies and compares is fused)
+HBM_BYTES_PER_S, F32_OPS_PER_S = H100_SXM.hbm_bytes, H100_SXM.vpu_ops
+# slice (S-roofline): timed calls of each case after a warm-up; a kernel
+# whose model floor and _bound differ by more than this factor is marked
+ROOFLINE_CALLS, ROOFLINE_GAP = 10, 2.0
 _T0 = time.perf_counter()
 
 
@@ -457,14 +476,18 @@ def _chain_nms_case(dev, b: int, r: int, chain: int, gen):
 
 def check_kernels(dev, ops, bench_slice):
     """Phase 3. Returns ``(the JSON entries, {request: [(kernel, case
-    label)]})``: each kernel's times at its first shape, and every launch
-    of the ranked slices' requests (``time_kernels.ranked_keys``)."""
+    label)]}, {kernel: floors})``: each kernel's times at its first shape,
+    every launch of the ranked slices' requests
+    (``time_kernels.ranked_keys``), and each kernel's floors at its first
+    shape under the roofline model's per-op cost
+    (``profile_roofline.kernel_cost``), which slice (S) prints."""
     from gspn_tpu_torch.data import synthetic
     from gspn_tpu_torch.models.rpointnet import roi_grid_points
     from gspn_tpu_torch.ops import fps as tfps
     from gspn_tpu_torch.ops.mask_project import (
         ROI_BLOCK_BOXED, TILE_N_BOXED, boxed_layout, tile_relevance,
     )
+    from gspn_tpu_torch.utils import profile_roofline
 
     # the main path's inputs (time_kernels.main_path_inputs): scenes, their
     # sorted views, seeds, SA centres, boxes about the seeds, RoI samples
@@ -821,7 +844,7 @@ def check_kernels(dev, ops, bench_slice):
         "index_add": [(first["index_add"], "index_add_",
                        index_add_library(*main_path["index_add"][0][1]), max_rel_diff, 1e-5)],
     }
-    entries = []
+    entries, model_floors = [], {}
     for name, shapes in cases.items():
         k = ops.KERNELS[name]
         main = None
@@ -859,6 +882,7 @@ def check_kernels(dev, ops, bench_slice):
                 lib_fn, KERNEL_ITERS if first_ms < 20 else PLAIN_SLOW_ITERS)
             print(f"kernel {name} [{label}]: library call {lib_name} "
                   f"{library_ms[key]:.4f} ms (max abs diff {lib_err:.2e})")
+        model_floors[name] = profile_roofline.kernel_cost(name, main_path[name][0][1]).floors()
         entries.append({
             "name": name, "route": "cuda", "source": k.source,
             "replaces": "; ".join(r.split()[0] for r in k.replaces.split("; ")),
@@ -879,10 +903,7 @@ def check_kernels(dev, ops, bench_slice):
             (f"1 x {FPS_ROWS_N}, 256 picks", big, big_valid, 256)):
         want = ops.farthest_point_sample(npoint, pts, pvalid, impl="plain")
         times = {}
-        for cs in tfps.FPS_CLUSTER_SIZES[1:]:
-            if -(-pts.shape[1] // cs) > tfps.FPS_MAX_N:
-                continue
-            run = lambda cs=cs: tfps._fps_cuda(pts, npoint, pvalid, cluster=cs)  # noqa: E731
+        for cs, run in tk.forced_plans("fps_cluster", (npoint, pts, pvalid)).items():
             tk.max_abs_err([run()], [want])
             times[cs] = tk.cuda_ms(run, KERNEL_ITERS)
         sweep[label] = times
@@ -898,21 +919,8 @@ def check_kernels(dev, ops, bench_slice):
     # the wrapper's host work (~0.1 ms) would hide the kernel; the strided
     # groups' pick (ops.ball_query.strided_split) marked
     from gspn_tpu_torch.ops import ball_query as tquery
-    from gspn_tpu_torch.ops import box_group as tbox
-    from gspn_tpu_torch.ops.ball_group import _ball_group_cuda, _ball_group_strided_cuda
 
-    def strided_plan(split):
-        return (1, True) if split == "direct" else (split, False)
-
-    split_runs = {
-        "ball_group": lambda args, split: _ball_group_cuda(*args, split=split),
-        "box_group": lambda args, split: tbox._box_group_cuda(tbox.KERNEL, *args, split),
-        "ball_group_strided": lambda args, split: _ball_group_strided_cuda(
-            *args, plan=strided_plan(split)),
-        "box_group_strided": lambda args, split: tbox._box_group_strided_cuda(
-            *args, plan=strided_plan(split)),
-    }
-    for name, launch in split_runs.items():
+    for name in ("ball_group", "box_group", "ball_group_strided", "box_group_strided"):
         splits = {}
         strided = name in STRIDED.values()
         for label, args, _ in swept(name):
@@ -923,8 +931,7 @@ def check_kernels(dev, ops, bench_slice):
                 split, direct = tquery.strided_split(q.shape[0] * q.shape[1], pts.shape[1])
                 pick = "direct" if direct else split
             times = {}
-            for split in SPLITS + ("direct",) * strided:
-                run = lambda args=args, split=split: launch(args, split)  # noqa: E731
+            for split, run in tk.forced_plans(name, args).items():
                 tk.max_abs_err(tk.flatten(run()), want)
                 times[split] = tk.device_ms(run, KERNEL_ITERS, DEVICE_SYMBOLS[name])[0]
             splits[label] = times
@@ -944,12 +951,9 @@ def check_kernels(dev, ops, bench_slice):
         pick = "x".join(map(str, tinterp.three_nn_plan(args[0].shape[0], args[0].shape[1],
                                                        args[1].shape[1])))
         times = {}
-        for plan in itertools.product(NN_PER, NN_SPLITS, NN_GROUPS):
-            run = lambda args=args, plan=plan: (  # noqa: E731
-                tinterp._three_nn_cuda(*args, plan=plan))
+        for plan, run in tk.forced_plans("three_nn", args).items():
             tk.max_abs_err(tk.flatten(run()), want)
-            times["x".join(map(str, plan))] = tk.device_ms(run, KERNEL_ITERS,
-                                                           DEVICE_SYMBOLS["three_nn"])[0]
+            times[plan] = tk.device_ms(run, KERNEL_ITERS, DEVICE_SYMBOLS["three_nn"])[0]
         plans[label] = times
         print(f"three_nn plan sweep [{label}]: device ms by targets a thread x source slices "
               "x sources a group (bitwise the plain version at each) " + ", ".join(
@@ -963,24 +967,14 @@ def check_kernels(dev, ops, bench_slice):
     plans = {}
     for label, args, _ in swept("interp_mm"):
         pts, idx, _, skip = args
-        b, n, m, c = idx.shape[0], idx.shape[1], pts.shape[1], pts.shape[2]
-        c1 = 0 if skip is None else skip.shape[-1]
         want = tk.flatten(ops.three_interpolate_fp(*args, impl="plain"))
-        picked = tinterp.interp_mm_plan(b, n, m, c, c1)
-        pick = "x".join(map(str, picked))
-        candidates = list(itertools.product(FP_ROWS, FP_SLICES, (0,)))
-        if c1 == 0:
-            st = tinterp.INTERP_MM_STAGE
-            candidates += [(chunk, c // st, st) for chunk in FP_CHUNKS
-                           if c % st == 0 and m * st * 4 + chunk * 32 <= tinterp.INTERP_MM_SMEM]
-        candidates += [picked] * (picked not in candidates)
+        pick = "x".join(map(str, tinterp.interp_mm_plan(
+            idx.shape[0], idx.shape[1], pts.shape[1], pts.shape[2],
+            0 if skip is None else skip.shape[-1])))
         times = {}
-        for plan in candidates:
-            run = lambda args=args, plan=plan: tinterp._interp_mm_cuda(  # noqa: E731
-                *args[:3], args[3], from_dist=True, plan=plan)
+        for plan, run in tk.forced_plans("interp_mm", args).items():
             tk.max_abs_err(tk.flatten(run()), want)
-            times["x".join(map(str, plan))] = tk.device_ms(run, KERNEL_ITERS,
-                                                           DEVICE_SYMBOLS["interp_mm"])[0]
+            times[plan] = tk.device_ms(run, KERNEL_ITERS, DEVICE_SYMBOLS["interp_mm"])[0]
         plans[label] = times
         print(f"interp_mm plan sweep [{label}]: device ms by rows x slices x stage (bitwise the "
               "plain version at each) " + ", ".join(
@@ -995,9 +989,8 @@ def check_kernels(dev, ops, bench_slice):
     want = tk.flatten(ops.nn_argmin_pair(tie_tgt, tie_src, tie_valid1, tie_valid, impl="plain"))
     pick = tchamfer.nn_argmin_plan(tie_tgt.shape[1])
     times = {}
-    for ctas in NN_CTAS:
-        run = lambda ctas=ctas: tchamfer._argmin_cuda(  # noqa: E731
-            tie_tgt, tie_src, tie_valid1, tie_valid, both=True, ctas=ctas)
+    for ctas, run in tk.forced_plans("nn_argmin", (tie_tgt, tie_src, tie_valid1,
+                                                   tie_valid)).items():
         tk.max_abs_err(tk.flatten(run()), want)
         times[ctas] = tk.device_ms(run, KERNEL_ITERS, DEVICE_SYMBOLS["nn_argmin"])[0]
     print("nn_argmin CTA sweep [16 rows x 4096 <-> 4096 both ways]: device ms by CTAs a row "
@@ -1039,7 +1032,7 @@ def check_kernels(dev, ops, bench_slice):
     if not rows:
         raise AssertionError("sa1: strided selection equals first-K")
     print(f"sa1: strided selection differs from first-K in {rows} of {B * 1024} balls")
-    return entries, requests
+    return entries, requests, model_floors
 
 
 def _cpu_reference(name, infer, model, cpu_model, sx, sv, seps, dev) -> None:
@@ -4355,6 +4348,119 @@ def _print_ranking(entries, requests, runs) -> None:
               for v, name, s, each in sorted(off, reverse=True)) or "none"))
 
 
+S_KERNELS = PATH_KERNELS | {"mask_project"} | set(G_PER_STEP) | set(I_PER_STEP)
+
+
+def _roofline_case(label, fn, cost, peaks, card) -> None:
+    """Time ``ROOFLINE_CALLS`` calls of ``fn`` after a warm-up
+    (``profile_roofline.timed``: ``time_fn`` of each synchronized call) and
+    print ``cost``'s report against ``peaks``."""
+    from gspn_tpu_torch.utils import profile_roofline as pr
+
+    rep = pr.report(cost, pr.timed(fn, ROOFLINE_CALLS), peaks)
+    print(f"slice (S-roofline) {label}: measured {rep['measured_ms']:.3f} ms (min "
+          f"{rep['min_ms']:.3f}, max {rep['max_ms']:.3f}; median of {rep['calls']} after a "
+          f"warm-up); floor {rep['floor_ms']:.5f} ms ({rep['bound']}); frac_of_roof "
+          f"{rep['frac_of_roof']:.5f}; mfu {rep['mfu']:.6f} against {peaks.name} [{card}]",
+          flush=True)
+
+
+def run_roofline_slice(dev, ops, bench_slice, card, work, entries, model_floors) -> dict:
+    """Slice (S-roofline): the model's floors of each stage and the measured
+    calls' shares of the card (``utils/roofline.py``,
+    ``utils/profile_roofline.py``): (A)'s config at both shapes, eager and
+    replayed by an ``InferenceSession``; (L-bf16)'s flagship against the
+    bf16 peaks; a (G) and an (I) training step. Then each kernel's model
+    floor at its first shape beside ``_bound``'s. Returns the launch
+    counts."""
+    from gspn_tpu_torch.models.presets import set_pipeline_dtype
+    from gspn_tpu_torch.utils import profile_roofline as pr
+
+    _phase("slice (S-roofline)")
+    cfg = bench_slice.slice_config()
+    bcfg = set_pipeline_dtype(cfg, torch.bfloat16)
+    stage1, stage2 = pr.pipeline_config("1"), pr.pipeline_config("2")
+    b, n = bench_slice.TRAIN_BATCH, bench_slice.TRAIN_POINTS
+    cases = [  # (label, config, stage, B, N, way)
+        (f"(A) flagship B={B} x N={N}", cfg, "infer", B, N, ("eager", "session")),
+        (f"(A) whole scene B=1 x N={WS_N} (10 % padding)", cfg, "infer", 1, WS_N,
+         ("eager", "session")),
+        (f"(L-bf16) flagship B={B} x N={N}", bcfg, "infer", B, N, ("eager",)),
+        (f"(G) stage-1 step B={b} x N={n}", stage1, "1", b, n, ("step",)),
+        (f"(I) stage-2 step B={b} x N={n}", stage2, "2", b, n, ("step",)),
+    ]
+    ops.reset_launch_counts()
+    for label, ccfg, stage, cb, cn, ways in cases:
+        peaks = pr.peaks_for(ccfg)
+        stages = pr.stage_costs(ccfg, stage, cb, cn, bench_slice.TRAIN_GT)
+        print(f"slice (S-roofline) {label} floors:\n  "
+              + "\n  ".join(pr.floor_lines(stages, peaks)))
+        for way in ways:
+            fn = (pr.step_fn(ccfg, stage, cb, cn, dev, bench_slice.TRAIN_GT) if way == "step"
+                  else pr.request_fn(ccfg, cb, cn, dev, way, work))
+            name = {"eager": "eager infer", "session": "InferenceSession.run",
+                    "step": "a training step"}[way]
+            _roofline_case(f"{label}, {name}", fn, stages["total"], peaks, card)
+    counts = ops.launch_counts()
+    launched = {k for k, c in counts.items() if c}
+    if launched != S_KERNELS:
+        raise AssertionError(f"slice (S-roofline) launched {sorted(launched)}, expected "
+                             f"{sorted(S_KERNELS)}")
+    print(f"slice (S-roofline) launches: {json.dumps(counts)}")
+    for e in entries:
+        model = model_floors[e["name"]]
+        floor_ms = model["floor"] * 1e3
+        ratio = floor_ms / e["bound_ms"] if e["bound_ms"] else float("inf")
+        mark = f" (differ by more than {ROOFLINE_GAP:g}x)" if not (
+            1 / ROOFLINE_GAP <= ratio <= ROOFLINE_GAP) else ""
+        print(f"slice (S-roofline) kernel {e['name']} [{next(iter(e['bound_ms_by_shape']))}]: "
+              f"model floor {floor_ms:.5f} ms ({model['bound']}), _bound "
+              f"{e['bound_ms']:.5f} ms ({e['bound_by']}), model / _bound {ratio:.3f}{mark}")
+    return counts
+
+
+def run_sanitize_slice(card) -> None:
+    """Slice (S-sanitize): ``utils/debug.py --sanitize`` under
+    compute-sanitizer's memcheck, racecheck, synccheck and initcheck at
+    once (only the port's kernels checked); any report fails. Where the
+    machine has no compute-sanitizer, or it answers "Device not supported"
+    for a program that runs no kernel of the port
+    (``debug.sanitizer_usable``), the phase is left out and says why; any
+    other failure of that probe fails."""
+    from gspn_tpu_torch.utils import debug
+
+    _phase("slice (S-sanitize)")
+    path = debug.sanitizer_path()
+    if path is None:
+        print("slice (S-sanitize): left out: no compute-sanitizer on this machine (PATH, "
+              "$CUDA_HOME/bin, /usr/local/cuda/bin)")
+        return
+    version = subprocess.run([path, "--version"], capture_output=True, text=True)
+    version = version.stdout.strip().splitlines()[-1]
+    usable, why = debug.sanitizer_usable()
+    if not usable:
+        print(f"slice (S-sanitize): left out: {path} ({version}) cannot check this card; "
+              f"under memcheck a program that runs no kernel of the port answers: {why} "
+              f"[{card}]")
+        return
+    print(f"slice (S-sanitize): {path}, {version}")
+    t0 = time.perf_counter()
+    results = debug.run_under(debug.SANITIZER_TOOLS)
+    failed = []
+    for tool, r in results.items():
+        done = next((ln for ln in r["output"].splitlines() if ln.startswith(debug.SANITIZE_DONE)),
+                    "not done")
+        print(f"slice (S-sanitize) {tool}: {'clean' if r['ok'] else 'FAILED'}, exit {r['rc']} "
+              f"in {r['seconds']:.1f} s; {done}; {r['summary']} [{card}]", flush=True)
+        if not r["ok"]:
+            failed.append(tool)
+            print(r["output"][-12000:])
+    if failed:
+        raise AssertionError(f"slice (S-sanitize): compute-sanitizer reported under {failed}")
+    print(f"slice (S-sanitize): every kernel on each path clean under "
+          f"{', '.join(debug.SANITIZER_TOOLS)} in {time.perf_counter() - t0:.1f} s")
+
+
 def run_serving_process(work) -> tuple[dict, dict]:
     """Slice (J) in a process of its own (this script with ``--serving
     WORK``), waited for: its profiler windows count device operations
@@ -4412,7 +4518,7 @@ def main() -> None:
     print(f"build: {lib.name} in {secs:.1f} s")
 
     dev = torch.device("cuda", 0)
-    entries, requests = check_kernels(dev, ops, bench_slice)
+    entries, requests, model_floors = check_kernels(dev, ops, bench_slice)
     runs = run_slices(dev, ops, bench_slice, card)
     with tempfile.TemporaryDirectory() as work:
         runs["G"] = run_training(dev, ops, bench_slice, card, work)
@@ -4425,6 +4531,9 @@ def main() -> None:
         runs["P"] = run_complete_slice(dev, ops, bench_slice, card, work)
         runs["Q"] = run_options_slice(dev, ops, bench_slice, card, work)
         runs["R"] = run_train_knobs_slice(dev, ops, bench_slice, card, work)
+        runs["S"] = run_roofline_slice(dev, ops, bench_slice, card, work, entries,
+                                           model_floors)
+        run_sanitize_slice(card)
         runs["J"], per_request = run_serving_process(work)
     a_request = {k: c / (2 * (REQUESTS + 1)) for k, c in runs["A"].items()}
     if a_request != per_request:

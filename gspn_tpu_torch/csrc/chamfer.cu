@@ -56,6 +56,11 @@
 
 #include "common.cuh"
 
+// the kernels live in gspn:: (their names carry it, so that a sanitizer or
+// profiler can pick them out); the C entry points below use them unqualified
+using namespace gspn;
+
+namespace gspn {
 namespace {
 
 constexpr int kLanes = 32;                 // a lane a group of targets
@@ -342,6 +347,7 @@ cudaError_t launch(const float* xyz1, const float* xyz2, const uint8_t* valid1,
 }
 
 }  // namespace
+}  // namespace gspn
 
 // idx1 (nb, n): each xyz1 target's nearest valid xyz2 source; idx2 (nb, m),
 // or null for the row direction alone: each source's nearest valid target.

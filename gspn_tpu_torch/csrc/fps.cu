@@ -78,6 +78,11 @@
 
 #include "common.cuh"
 
+// the kernels live in gspn:: (their names carry it, so that a sanitizer or
+// profiler can pick them out); the C entry points below use them unqualified
+using namespace gspn;
+
+namespace gspn {
 namespace {
 
 namespace cg = cooperative_groups;
@@ -423,11 +428,13 @@ __global__ void __launch_bounds__(1024, 1)
 }
 
 }  // namespace
+}  // namespace gspn
 
 extern "C" const char* gspn_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+namespace gspn {
 namespace {
 
 template <int kPer>
@@ -449,6 +456,7 @@ cudaError_t launch_fps(const float* xyz, const uint8_t* valid, int rows, int n,
 }
 
 }  // namespace
+}  // namespace gspn
 
 extern "C" int gspn_fps(const float* xyz, const uint8_t* valid, int rows, int n,
                         int npoint, int* out, cudaStream_t stream) {
@@ -469,6 +477,7 @@ extern "C" int gspn_fps(const float* xyz, const uint8_t* valid, int rows, int n,
   return static_cast<int>(err);
 }
 
+namespace gspn {
 namespace {
 
 // Launch fps_cluster_kernel<kPer> over rows of n points, a cluster of cs
@@ -541,6 +550,7 @@ cudaError_t cluster_dispatch(const float* xyz, const uint8_t* valid, int rows,
 }
 
 }  // namespace
+}  // namespace gspn
 
 // How many clusters of `cs` CTAs, each holding a slice of a row of `n`
 // points, can be resident at once (0: the cluster cannot run).

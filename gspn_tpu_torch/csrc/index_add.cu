@@ -62,6 +62,11 @@
 
 #include "common.cuh"
 
+// the kernels live in gspn:: (their names carry it, so that a sanitizer or
+// profiler can pick them out); the C entry points below use them unqualified
+using namespace gspn;
+
+namespace gspn {
 namespace {
 
 constexpr int kWarps = 16;
@@ -360,6 +365,7 @@ int launch(const float* src, const int* idx, int nb, int m, int n, int c,
 }
 
 }  // namespace
+}  // namespace gspn
 
 // bins (output rows a CTA, 1..kMaxBins) and tile_c (channels a CTA, with
 // bins * tile_c <= kAccFloats): ops/grouping.py index_add_plan.

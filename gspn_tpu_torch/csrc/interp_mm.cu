@@ -45,6 +45,11 @@
 
 #include "common.cuh"
 
+// the kernels live in gspn:: (their names carry it, so that a sanitizer or
+// profiler can pick them out); the C entry points below use them unqualified
+using namespace gspn;
+
+namespace gspn {
 namespace {
 
 constexpr int kWarps = 8;        // tasks a CTA
@@ -251,6 +256,7 @@ cudaError_t launch_staged(const float* points, const int* idx, const float* wd,
 }
 
 }  // namespace
+}  // namespace gspn
 
 // wd: (nb, n, 3) weights, or three_nn's squared distances when from_dist;
 // skip: (nb, n, c1) rows copied after the c interpolated channels (c1 = 0:

@@ -53,6 +53,11 @@
 
 #include "common.cuh"
 
+// the kernels live in gspn:: (their names carry it, so that a sanitizer or
+// profiler can pick them out); the C entry points below use them unqualified
+using namespace gspn;
+
+namespace gspn {
 namespace {
 
 constexpr int kThreads = 128;  // threads a CTA
@@ -214,6 +219,7 @@ int launch(bool boxed, const float* xyz, const float* sampled,
 }
 
 }  // namespace
+}  // namespace gspn
 
 extern "C" int gspn_mask_project(const float* xyz, const float* sampled,
                                  const float* logits, const uint8_t* svalid,

@@ -34,6 +34,11 @@
 
 #include "common.cuh"
 
+// the kernels live in gspn:: (their names carry it, so that a sanitizer or
+// profiler can pick them out); the C entry points below use them unqualified
+using namespace gspn;
+
+namespace gspn {
 namespace {
 
 using u64 = unsigned long long;
@@ -242,6 +247,7 @@ __global__ void __launch_bounds__(kThreads) nms_kernel(
 }
 
 }  // namespace
+}  // namespace gspn
 
 // boxes (nb, r, 6), scores (nb, r), valid (nb, r) bytes or null; order
 // (nb, r) int64, the stable descending order of the scores with invalid

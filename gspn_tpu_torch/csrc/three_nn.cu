@@ -42,6 +42,11 @@
 
 #include "common.cuh"
 
+// the kernels live in gspn:: (their names carry it, so that a sanitizer or
+// profiler can pick them out); the C entry points below use them unqualified
+using namespace gspn;
+
+namespace gspn {
 namespace {
 
 constexpr int kMaxSplit = 32;
@@ -306,6 +311,7 @@ int launch_group(int group, int per, const float* xyz1, const float* xyz2,
 }
 
 }  // namespace
+}  // namespace gspn
 
 // per: targets a thread (1, 2 or 4); split: source slices (a power of 2,
 // 1-32); group: sources compared before any insertion (32; 1: each source

@@ -11,7 +11,9 @@ every module on machines without ``nvcc``.
 ``-fmad=false`` keeps ``nvcc`` from contracting ``a*b+c`` into an FMA, so
 squared distances round exactly as in the plain PyTorch versions and the
 JAX package (strict ``d2 < r2`` tests and argmin/argmax tie-breaks depend
-on it).
+on it). ``-lineinfo`` keeps the source lines in the library, so that a
+sanitizer's report (``utils/debug.py``) names them; it leaves the code as
+it was.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ HEADERS = ("common.cuh", "group_first.cuh", "group_strided.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
-    "-fmad=false",
+    "-fmad=false", "-lineinfo",
 )
 LINK_FLAGS = ("-shared", "-gencode", "arch=compute_90a,code=sm_90a")
 

@@ -5,7 +5,9 @@ the PyTorch counterpart of the JAX package's ``auto|pallas|xla``:
 
 - ``"auto"``: the kernel for a CUDA tensor, the plain PyTorch version for a
   CPU tensor. This is the only place a plain version is chosen for the
-  caller; a CUDA tensor never falls back to it.
+  caller; a CUDA tensor never falls back to it, but within
+  ``utils.debug.plain_kernels()`` (:data:`AUTO_PLAIN`), a debugging aid
+  that nothing on the main path enters, "auto" is "plain" everywhere.
 - ``"cuda"``: the kernel; a CPU tensor raises.
 - ``"plain"``: the plain PyTorch version on any device. It is the reference
   a kernel is held against (tests, ``chip_smoke.py``), never the main path.
@@ -20,6 +22,8 @@ from __future__ import annotations
 import torch
 
 LIBRARY = torch.library.Library("gspn", "DEF")
+# set by utils.debug.plain_kernels for its block: "auto" resolves to "plain"
+AUTO_PLAIN = False
 
 
 def gspn_op(name: str):
@@ -49,7 +53,7 @@ def round_up(x: int, m: int) -> int:
 def resolve_impl(impl: str, x: torch.Tensor) -> str:
     """Resolve ``impl`` for the tensor ``x`` to ``"cuda"`` or ``"plain"``."""
     if impl == "auto":
-        return "cuda" if x.is_cuda else "plain"
+        return "cuda" if x.is_cuda and not AUTO_PLAIN else "plain"
     if impl == "cuda":
         if not x.is_cuda:
             raise ValueError(f"impl='cuda' needs a CUDA tensor, got {x.device}")

@@ -316,6 +316,73 @@ def call(ops, name: str, args, impl: str):
     return getattr(ops, entry)(*args, impl=impl, **KEYWORDS.get(name, {}))
 
 
+SPLITS = (1, 2, 4, 8, 16)  # warps a query the ball and box groups take
+# three_nn: targets a thread, source slices, sources a group
+NN_PER, NN_SPLITS, NN_GROUPS = (1, 2, 4), (1, 2, 4, 8, 16, 32), (1, 32)
+# the FP interpolation: rows a task and slices (direct), rows a chunk
+# (staged); the two-way argmin: CTAs a row
+FP_ROWS, FP_SLICES, FP_CHUNKS = (1, 2, 4, 8), (1, 2, 3, 4, 6), (512, 1024, 2048)
+NN_CTAS = (1, 2, 4, 8, 12, 16)
+
+
+def forced_plans(name: str, args) -> dict:
+    """``{plan: launch()}``: kernel ``name`` on a case's ``args`` (in
+    ``cases``' layout) at each plan its launcher can be forced to, the
+    wrapper's own pick among them; ``{}`` for a kernel without one.
+    fps_cluster: each cluster size of two or more CTAs that holds the rows;
+    the ball and box groups: each split (warps a query), and for the
+    strided ones also "direct" (a warp a query reading the scene); three_nn:
+    each "targets a thread x source slices x sources a group"; interp_mm
+    (from the distances): each "rows x slices x 0" (direct) and, without
+    skip rows, each "rows a chunk x slices x 32" (staged) whose sources fit
+    in shared memory; nn_argmin (both ways): each count of CTAs a row up
+    to the row's tiles of targets."""
+    import functools
+    import itertools
+
+    from gspn_tpu_torch.ops import box_group as tbox
+    from gspn_tpu_torch.ops import chamfer as tchamfer
+    from gspn_tpu_torch.ops import fps as tfps
+    from gspn_tpu_torch.ops import interpolate as tinterp
+    from gspn_tpu_torch.ops.ball_group import _ball_group_cuda, _ball_group_strided_cuda
+
+    part = functools.partial
+    if name == "fps_cluster":
+        npoint, xyz, valid = args
+        return {cs: part(tfps._fps_cuda, xyz, npoint, valid, cluster=cs)
+                for cs in tfps.FPS_CLUSTER_SIZES[1:] if -(-xyz.shape[1] // cs) <= tfps.FPS_MAX_N}
+    if name == "ball_group":
+        return {s: part(_ball_group_cuda, *args, split=s) for s in SPLITS}
+    if name == "box_group":
+        return {s: part(tbox._box_group_cuda, tbox.KERNEL, *args, s) for s in SPLITS}
+    strided = {"ball_group_strided": _ball_group_strided_cuda,
+               "box_group_strided": tbox._box_group_strided_cuda}
+    if name in strided:
+        return {s: part(strided[name], *args, plan=(1, True) if s == "direct" else (s, False))
+                for s in SPLITS + ("direct",)}
+    if name == "three_nn":
+        return {"x".join(map(str, p)): part(tinterp._three_nn_cuda, *args, plan=p)
+                for p in itertools.product(NN_PER, NN_SPLITS, NN_GROUPS)}
+    if name == "interp_mm":
+        pts, idx, _, skip = args
+        b, n, m, c = idx.shape[0], idx.shape[1], pts.shape[1], pts.shape[2]
+        c1 = 0 if skip is None else skip.shape[-1]
+        plans = list(itertools.product(FP_ROWS, FP_SLICES, (0,)))
+        if c1 == 0:
+            st = tinterp.INTERP_MM_STAGE
+            plans += [(chunk, c // st, st) for chunk in FP_CHUNKS
+                      if c % st == 0 and m * st * 4 + chunk * 32 <= tinterp.INTERP_MM_SMEM]
+        picked = tinterp.interp_mm_plan(b, n, m, c, c1)
+        plans += [picked] * (picked not in plans)
+        return {"x".join(map(str, p)): part(tinterp._interp_mm_cuda, *args, from_dist=True,
+                                            plan=p) for p in plans}
+    if name == "nn_argmin":  # at most a CTA a tile of a row's targets
+        tiles = -(-args[0].shape[1] // tchamfer.NN_ARGMIN_TARGETS)
+        return {ctas: part(tchamfer._argmin_cuda, *args, both=True, ctas=ctas)
+                for ctas in NN_CTAS if ctas <= tiles}
+    return {}
+
+
 def main_path_inputs(ops, bench_slice, dev) -> dict:
     """``{request: dict}`` for the flagship and the whole-scene request
     (``bench_slice``'s scenes): the scene (``xyz``, ``valid``), its

@@ -1602,3 +1602,28 @@ def test_run_eval_artifact_equals_live_on_the_card(dev, tmp_path):
         with np.load(dump) as a, np.load(tmp_path / "served" / dump.name) as b:
             for k in a.files:
                 np.testing.assert_array_equal(a[k], b[k])
+
+
+def test_sanitize_cases_launch_every_kernel_bitwise(dev):
+    """``utils.debug --sanitize``'s launches: every kernel once on each code
+    path, each bitwise its plain version, every kernel launched."""
+    from gspn_tpu_torch.utils import debug
+
+    counts = debug.run_sanitize_cases()
+    assert set(counts) == set(ops.KERNELS) and all(counts.values())
+
+
+def test_plain_kernels_runs_auto_on_the_plain_versions(dev):
+    """Within ``plain_kernels`` an ``impl="auto"`` op on the card launches
+    no kernel and answers as its plain version; ``impl="cuda"`` still
+    launches."""
+    from gspn_tpu_torch.utils import debug
+
+    xyz, valid = _scenes(dev, 2, 512)
+    want = ops.farthest_point_sample(32, xyz, valid, impl="plain")
+    before = ops.launch_counts()["fps"]
+    with debug.plain_kernels():
+        assert torch.equal(ops.farthest_point_sample(32, xyz, valid), want)
+        assert ops.launch_counts()["fps"] == before
+        assert torch.equal(ops.farthest_point_sample(32, xyz, valid, impl="cuda"), want)
+    assert ops.launch_counts()["fps"] == before + 1
