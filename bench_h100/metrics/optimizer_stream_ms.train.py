@@ -1,0 +1,8 @@
+"""Stream ms of a step's Adam update (train.optimizer, events on the stream;
+idle inside it included)."""
+
+from bench_h100 import program_spans
+
+
+def read(ctx):
+    return program_spans.mean(ctx, "train", "train.optimizer@stream")

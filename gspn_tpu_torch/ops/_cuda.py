@@ -26,6 +26,7 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 
 import torch
@@ -46,6 +47,7 @@ LINK_FLAGS = ("-shared", "-gencode", "arch=compute_90a,code=sm_90a")
 
 _ptr = ctypes.c_void_p
 _int = ctypes.c_int
+_COUNT_LOCK = threading.Lock()  # guards every kernel's ``launches``
 
 
 def nvcc_path() -> str:
@@ -122,7 +124,8 @@ def library() -> ctypes.CDLL:
 
 class CudaKernel:
     """One kernel of ``csrc/``: its C entry point, where it came from, and
-    ``launches``, the number of times a wrapper launched it."""
+    ``launches``, the number of times a wrapper launched it (counted under
+    a lock, so threads launching at once lose no count)."""
 
     def __init__(self, name, source, symbol, argtypes, replaces):
         self.name = name
@@ -151,7 +154,8 @@ class CudaKernel:
         if err != 0:
             msg = lib.gspn_error_string(err).decode()
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch: {msg} ({err})")
-        self.launches += 1
+        with _COUNT_LOCK:
+            self.launches += 1
 
 
 KERNELS: dict[str, CudaKernel] = {
@@ -267,12 +271,16 @@ KERNELS: dict[str, CudaKernel] = {
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS.values():
-        k.launches = 0
+    with _COUNT_LOCK:
+        for k in KERNELS.values():
+            k.launches = 0
 
 
 def launch_counts() -> dict[str, int]:
-    return {name: k.launches for name, k in KERNELS.items()}
+    """Each kernel's launches since the process started or since
+    :func:`reset_launch_counts`."""
+    with _COUNT_LOCK:
+        return {name: k.launches for name, k in KERNELS.items()}
 
 
 def ptr(t: torch.Tensor | None) -> int:

@@ -57,6 +57,7 @@ from gspn_tpu_torch.models.pipeline import (
     make_inference_fn,
 )
 from gspn_tpu_torch.train.config_io import _to_jsonable
+from gspn_tpu_torch.utils.profiling import span
 
 FORMAT = "gspn_tpu_torch.serving"
 FORMAT_VERSION = 2  # 2: a program a platform; 1: one ``program.pt2``
@@ -200,8 +201,13 @@ def export_inference(cfg: PipelineConfig, model: PipelineModel, n_points: int, *
     per-point features (``feature_dim > 0``) takes them as the input after
     ``xyz``. With a card the model is moved to ``device`` and traced there;
     for ``cuda`` without one it is traced on fake CUDA tensors and not
-    moved."""
-    device = torch.device(device)
+    moved. The call is a span ``serve.export`` (``utils.profiling.span``)."""
+    with span("serve.export"):
+        return _export_inference(cfg, model, n_points, batch_size, torch.device(device))
+
+
+def _export_inference(cfg: PipelineConfig, model: PipelineModel, n_points: int,
+                      batch_size: int, device: torch.device) -> torch.export.ExportedProgram:
     if device.type not in PLATFORMS:
         raise ValueError(f"export for one of {PLATFORMS}, got {device}")
     cls = _ServingFeatures if feature_dim(cfg) else _Serving

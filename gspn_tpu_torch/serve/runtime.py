@@ -7,7 +7,16 @@ The port's counterpart of ``gspn_tpu/serve/runtime.py``:
   a batch smaller than the compiled one is padded by replicating its first
   scene (the padding rows are dropped on return), a larger one is chunked,
   the inputs are validated, and the device work sits behind a lock, so
-  one session serves many threads. On the card it replays the program from
+  one session serves many threads. Each call is a span ``serve.predict``
+  tiled by six more (``utils.profiling.span``): ``serve.inputs`` (checks,
+  padding, host-to-card copies, the noise draw), ``serve.lock_wait`` (the
+  wait for the lock: the queue behind other threads' requests),
+  ``serve.launch`` (inside the lock: the graph's input copies, replay
+  and output clones), ``serve.device_wait`` (the host waiting for this
+  request's device work, on an event of its thread recorded after the
+  clones), ``serve.fetch`` (the outputs' copies to numpy) and
+  ``serve.assemble`` (the chunks joined); the constructor is a span
+  ``serve.open``. On the card it replays the program from
   a CUDA graph (``utils.cuda_graph.GraphedRequest``) at the compiled
   shape, the counterpart of the JAX package's one compiled program; on
   the CPU it calls the program.
@@ -59,6 +68,7 @@ from gspn_tpu_torch.serve.export import load_artifact
 from gspn_tpu_torch.train.config_io import config_from_jsonable
 from gspn_tpu_torch.train.train_gspn import step_generator
 from gspn_tpu_torch.utils.cuda_graph import GraphedRequest
+from gspn_tpu_torch.utils.profiling import span
 
 _MAGIC = b"GSPN"
 _VERSION = 2  # responses echo the request's _rid (the JAX package's version 2)
@@ -106,6 +116,10 @@ class InferenceSession:
 
     def __init__(self, artifact: str | pathlib.Path | None, state: dict, *, device="cuda",
                  loaded: tuple | None = None):
+        with span("serve.open"):
+            self._open(artifact, state, device, loaded)
+
+    def _open(self, artifact, state: dict, device, loaded) -> None:
         self.device = torch.device(device)
         self.program, self.manifest = (loaded if loaded is not None
                                        else load_artifact(artifact, self.device))
@@ -122,6 +136,7 @@ class InferenceSession:
         self.has_features = "features" in self.manifest["inputs"]
         self.feature_dim = self.manifest["inputs"]["features"][-1] if self.has_features else 0
         self._lock = threading.Lock()
+        self._thread = threading.local()  # each thread's event marking its request's end
         self.module = self.program.module()
         self._graphed = None
         if self.device.type == "cuda":
@@ -153,10 +168,33 @@ class InferenceSession:
         the CPU. Returns ``(masks, scores, classes, boxes, valid)``."""
         self._check_features(features)
         inputs = (xyz, valid, z_eps) + ((features,) if self.has_features else ())
-        with self._lock, torch.inference_mode(), float32_matmuls():
-            if self._graphed is not None:
-                return self._graphed(*inputs)
-            return self._call(*inputs)
+        with span("serve.lock_wait"):
+            self._lock.acquire()
+        try:
+            with span("serve.launch"), torch.inference_mode(), float32_matmuls():
+                if self._graphed is None:
+                    return self._call(*inputs)
+                preds = self._graphed(*inputs)
+                self._done_event().record(torch.cuda.current_stream(self.device))
+                return preds
+        finally:
+            self._lock.release()
+
+    def _done_event(self) -> torch.cuda.Event:
+        """The calling thread's event, made at its first request and
+        recorded after each of its replays (inside the lock, so no other
+        thread's work lies before it)."""
+        event = getattr(self._thread, "done", None)
+        if event is None:
+            event = self._thread.done = torch.cuda.Event()
+        return event
+
+    def _wait_for_device(self) -> None:
+        """Wait for the calling thread's last replay (the wait its outputs'
+        copies to the host would do); nothing off the card."""
+        event = getattr(self._thread, "done", None)
+        if event is not None:
+            event.synchronize()
 
     def predict(self, xyz: np.ndarray, valid: np.ndarray | None = None,
                 features: np.ndarray | None = None, seed: int = 0) -> dict[str, np.ndarray]:
@@ -167,24 +205,29 @@ class InferenceSession:
         and ``valid`` with a leading ``b``. Chunk ``ci`` of the batch
         (``batch_size`` scenes, the last padded) takes :func:`chunk_noise`
         ``(seed, ci)``."""
-        xyz = np.asarray(xyz, np.float32)
-        if xyz.ndim != 3 or xyz.shape[-1] != 3:
-            raise ValueError(f"xyz must be (b, n, 3), got {xyz.shape}")
-        b, n = xyz.shape[:2]
-        if b < 1:
-            raise ValueError("xyz must contain at least one scene (b >= 1)")
-        if n != self.num_points:
-            raise ValueError(f"artifact was exported for n_points={self.num_points}, got {n}; "
-                             "re-export for this size")
-        valid = np.ones((b, n), bool) if valid is None else np.asarray(valid, bool)
-        if valid.shape != (b, n):
-            raise ValueError(f"valid must be {(b, n)}, got {valid.shape}")
-        self._check_features(features)
-        if features is not None:
-            features = np.asarray(features, np.float32)
-            if features.shape != (b, n, self.feature_dim):
-                raise ValueError(f"features must be {(b, n, self.feature_dim)}, got "
-                                 f"{features.shape}")
+        with span("serve.predict"):
+            return self._predict(xyz, valid, features, seed)
+
+    def _predict(self, xyz, valid, features, seed) -> dict[str, np.ndarray]:
+        with span("serve.inputs"):
+            xyz = np.asarray(xyz, np.float32)
+            if xyz.ndim != 3 or xyz.shape[-1] != 3:
+                raise ValueError(f"xyz must be (b, n, 3), got {xyz.shape}")
+            b, n = xyz.shape[:2]
+            if b < 1:
+                raise ValueError("xyz must contain at least one scene (b >= 1)")
+            if n != self.num_points:
+                raise ValueError(f"artifact was exported for n_points={self.num_points}, got "
+                                 f"{n}; re-export for this size")
+            valid = np.ones((b, n), bool) if valid is None else np.asarray(valid, bool)
+            if valid.shape != (b, n):
+                raise ValueError(f"valid must be {(b, n)}, got {valid.shape}")
+            self._check_features(features)
+            if features is not None:
+                features = np.asarray(features, np.float32)
+                if features.shape != (b, n, self.feature_dim):
+                    raise ValueError(f"features must be {(b, n, self.feature_dim)}, got "
+                                     f"{features.shape}")
 
         outs = []
         bs = self.batch_size
@@ -197,11 +240,17 @@ class InferenceSession:
                 part = a[lo:lo + take]
                 return torch.from_numpy(np.concatenate([part, np.repeat(part[:1], bs - take, 0)]))
 
-            preds = self.run(chunk(xyz).to(self.device), chunk(valid).to(self.device),
-                             chunk_noise(seed, ci, self.noise_shape).to(self.device),
-                             None if features is None else chunk(features).to(self.device))
-            outs.append([p[:take].cpu().numpy() for p in preds])
-        return {f: np.concatenate(parts) for f, parts in zip(PREDICTION_FIELDS, zip(*outs))}
+            with span("serve.inputs"):
+                args = (chunk(xyz).to(self.device), chunk(valid).to(self.device),
+                        chunk_noise(seed, ci, self.noise_shape).to(self.device),
+                        None if features is None else chunk(features).to(self.device))
+            preds = self.run(*args)
+            with span("serve.device_wait"):
+                self._wait_for_device()
+            with span("serve.fetch"):
+                outs.append([p[:take].cpu().numpy() for p in preds])
+        with span("serve.assemble"):
+            return {f: np.concatenate(parts) for f, parts in zip(PREDICTION_FIELDS, zip(*outs))}
 
 
 def session_from_checkpoints(artifact: str | pathlib.Path, gspn_ckpt: str | None = None,

@@ -39,6 +39,7 @@ from gspn_tpu_torch.data.instances import gather_seed_instances
 from gspn_tpu_torch.models.gspn import GSPN, gspn_loss, proposal_boxes
 from gspn_tpu_torch.models.rpointnet import instance_gt_boxes, match_rois, rpointnet_loss
 from gspn_tpu_torch.nn.layers import MaskedBatchNorm, cross_rank_statistics
+from gspn_tpu_torch.utils.profiling import StreamPhases, span
 
 
 @dataclasses.dataclass
@@ -175,7 +176,9 @@ def make_rpointnet_loss_fn(max_instances: int, frozen_gspn: tuple | None = None,
     RoIs of present instances count) and ``rpointnet_loss`` with
     ``loss_weights`` (its ``cls_weight``, ``box_weight``, ``mask_weight``).
     What is not given is drawn from ``generator``, in the module
-    docstring's order.
+    docstring's order. With a frozen GSPN, the seeds' FPS, the GSPN and
+    ``proposal_boxes`` are a span ``train.proposals`` with its stream
+    milliseconds (``utils.profiling.StreamPhases``).
 
     ``dp_group``/``dp_size``: the DP-aware loss (module docstring); ``batch``
     is the rank's shard, ``box_noise`` and ``z_eps`` the full batch's. It
@@ -185,6 +188,7 @@ def make_rpointnet_loss_fn(max_instances: int, frozen_gspn: tuple | None = None,
     lw = loss_weights or {}
     if frozen_gspn is not None:
         frozen_gspn[0].eval()
+    proposals_clock = StreamPhases(("train.proposals",))
 
     def loss_fn(model, batch: dict, box_noise=None, z_eps=None, gumbel=None,
                 dropout_keep=None, generator=None):
@@ -218,19 +222,22 @@ def make_rpointnet_loss_fn(max_instances: int, frozen_gspn: tuple | None = None,
             sa1_n = cfg.sa_layers[0].npoint
             segments = ops.shared_eligible_fps_segments(
                 cfg.fps_segments, (num_seeds, sa1_n), xyz.shape[1])
-            if share_fps:
-                fps_all = ops.farthest_point_sample(
-                    max(num_seeds, sa1_n), xyz, valid, impl=cfg.ops_impl, segments=segments,
-                    segment_mode=cfg.fps_segment_mode)
-                seed_idx, sa1_fps_idx = fps_all[:, :num_seeds], fps_all[:, :sa1_n]
-            else:
-                seed_idx = ops.farthest_point_sample(
-                    num_seeds, xyz, valid, impl=cfg.ops_impl, segments=segments,
-                    segment_mode=cfg.fps_segment_mode)
-            with torch.no_grad():
-                gout = gmodel(xyz, seed_idx, valid, z_eps=z_eps, generator=generator,
-                              features=features)
-                rois = proposal_boxes(gout.generated, cfg.box_margin)
+            proposals_clock.start(xyz.device)
+            with span("train.proposals"):
+                if share_fps:
+                    fps_all = ops.farthest_point_sample(
+                        max(num_seeds, sa1_n), xyz, valid, impl=cfg.ops_impl,
+                        segments=segments, segment_mode=cfg.fps_segment_mode)
+                    seed_idx, sa1_fps_idx = fps_all[:, :num_seeds], fps_all[:, :sa1_n]
+                else:
+                    seed_idx = ops.farthest_point_sample(
+                        num_seeds, xyz, valid, impl=cfg.ops_impl, segments=segments,
+                        segment_mode=cfg.fps_segment_mode)
+                with torch.no_grad():
+                    gout = gmodel(xyz, seed_idx, valid, z_eps=z_eps, generator=generator,
+                                  features=features)
+                    rois = proposal_boxes(gout.generated, cfg.box_margin)
+            proposals_clock.mark(1)
             if mix_gt_boxes:
                 rois = torch.cat([rois, gt_rois], dim=1)
         else:
@@ -259,23 +266,39 @@ def make_train_step(loss_fn, lr_schedule=None, bn_momentum_fn=None, combine_grad
     optax evaluates a schedule), zero the gradients, the loss (``draws``
     passed on: the noise and the ``generator``) and its backward,
     ``combine_grads(model)`` where given (the DP step's cross-rank mean), one
-    optimizer step, then ``state.step += 1``."""
+    optimizer step, then ``state.step += 1``.
+
+    A step is a span ``train.step`` (``utils.profiling.span``) holding three:
+    ``train.forward`` (the loss), ``train.backward`` (its backward and
+    ``combine_grads``) and ``train.optimizer``. On the card events on the
+    current stream at the step's start and at each phase's end give each
+    phase's stream milliseconds (``utils.profiling.StreamPhases``: read once
+    complete, never waited for)."""
+    clock = StreamPhases(("train.forward", "train.backward", "train.optimizer"))
 
     def step(state: TrainState, batch: dict, **draws) -> dict:
-        if lr_schedule is not None:
-            lr = lr_schedule(state.step)
-            for group in state.optimizer.param_groups:
-                group["lr"] = lr
-        if bn_momentum_fn is not None:
-            set_bn_momentum(state.model, bn_momentum_fn(state.step))
-        state.optimizer.zero_grad(set_to_none=True)
-        total, metrics = loss_fn(state.model, batch, **draws)
-        total.backward()
-        if combine_grads is not None:
-            combine_grads(state.model)
-        state.optimizer.step()
-        state.step += 1
-        return {k: v.detach() for k, v in metrics.items()}
+        with span("train.step"):
+            clock.start(next(state.model.parameters()).device)
+            if lr_schedule is not None:
+                lr = lr_schedule(state.step)
+                for group in state.optimizer.param_groups:
+                    group["lr"] = lr
+            if bn_momentum_fn is not None:
+                set_bn_momentum(state.model, bn_momentum_fn(state.step))
+            state.optimizer.zero_grad(set_to_none=True)
+            with span("train.forward"):
+                total, metrics = loss_fn(state.model, batch, **draws)
+            clock.mark(1)
+            with span("train.backward"):
+                total.backward()
+                if combine_grads is not None:
+                    combine_grads(state.model)
+            clock.mark(2)
+            with span("train.optimizer"):
+                state.optimizer.step()
+            clock.mark(3)
+            state.step += 1
+            return {k: v.detach() for k, v in metrics.items()}
 
     return step
 
