@@ -10,7 +10,8 @@ line or a few:
 1. device: the card's name and power limit, CUDA and nvcc versions;
 2. build: compiles the hand-written kernels (``gspn_tpu_torch/csrc``), one
    ``nvcc`` per source, all at once;
-3. kernels: each of the fifteen kernels against its plain PyTorch version at
+3. kernels: each of the nineteen kernels (fifteen point kernels and the
+   training BatchNorm's four) against its plain PyTorch version at
    the slices' shapes, bitwise (integer outputs equal, floats bit for
    bit), with the wrapper's and the plain version's times from CUDA events
    over as many launches, the median of three windows (a plain version
@@ -37,7 +38,11 @@ line or a few:
    (``nn_argmin_pair``) and the gather backward ``index_add``), and the
    other form of two kernels (interp_mm from weights,
    ``three_interpolate_mm``, at FP4 and FP1; nn_argmin one way, and both
-   ways at 16 rows x 4096 with ties), with each
+   ways at 16 rows x 4096 with ties), the BatchNorm's ``bn_stats``,
+   ``bn_apply``, ``bn_grad_terms`` and ``bn_grad_input`` at the training
+   cells' layer shapes (``time_kernels.bn_cases``: 262,144 x 256,
+   1,048,576 x 32 and 262,144 x 64 masked; ``F.batch_norm`` and
+   ``aten.native_batch_norm_backward`` as the library calls), with each
    shape's device and bound ms in ``device_ms_by_shape`` /
    ``bound_ms_by_shape``, every launch of one stage-2 training step of (I)
    at its own shape (``time_kernels.stage2_launches``), and index_add also
@@ -88,7 +93,8 @@ line or a few:
    about; then one warm-up step and ``TRAIN_STEPS`` timed steps with the
    same noise each step, launch counts set to 0 just before (exactly fps,
    ball_group, nn_argmin (both ways) and the gather backward's index_add
-   once a step), a second kernel-path run from the same weights that must be
+   once a step, and the BatchNorm's four kernels once a trained layer and
+   step: ``G_PER_STEP``), a second kernel-path run from the same weights that must be
    bitwise equal (losses, parameters, running statistics), then the plain
    path (a GSPN built from the plain config with the same initial
    weights), which launches nothing and must train the same model bit for
@@ -187,7 +193,8 @@ line or a few:
    against the single-process step on the whole batch (loss within rtol
    1e-6, every tensor as ``_state_close`` holds it; the JAX package's
    elementwise bounds reported) and against its own plain path, bitwise,
-   each rank the same state and exactly (G)'s and (I)'s kernels a step;
+   each rank the same state and exactly (G)'s and (I)'s point kernels a
+   step (BatchNorm on cross-rank statistics launches no kernel of its own);
    host ms a DP step (Adam) there and in a one-rank group here;
    ``train_gspn --dp`` (3 steps) and ``train_rpointnet --dp`` (2 steps on
    that checkpoint), rank 0 alone writing;
@@ -205,7 +212,7 @@ line or a few:
    RoIs a scene) against the single-process step on the whole batch (loss
    within rtol 1e-5, every tensor as ``_state_close`` holds it) and
    bitwise against its own plain path, every rank the same state and
-   (G)'s and (I)'s kernels a step; ``train_gspn --point-sharded`` (3
+   (G)'s and (I)'s point kernels a step; ``train_gspn --point-sharded`` (3
    steps), ``train_rpointnet --point-sharded --data-rows 2`` (2 steps on
    that checkpoint) and ``run_eval --point-sharded`` (8 scenes, its
    predictions against a single-process eval's batch by batch), rank 0
@@ -297,8 +304,8 @@ line or a few:
    (A), (B), (E) and (H), a pass of (F) at each shape and a step of (G),
    each kernel's (device ms - bound ms) summed over every launch of that
    request at its own shape (the launches must be the slice's, kernel for
-   kernel), then the kernels no ranked request launches (none since all
-   fifteen are ranked), by slice; a JSON line of kernel
+   kernel), then the kernels no ranked request launches (the BatchNorm's
+   four, at their layers' shapes), by slice; a JSON line of kernel
    results (``launches`` from the first slice that launches the kernel,
    named in ``slice``: (A) for the first-K path's, (B) for
    mask_project_boxed, (E) for the strided groups, (F) for the ball
@@ -334,7 +341,7 @@ import numpy as np
 import torch
 
 from gspn_tpu_torch.utils import time_kernels as tk
-from gspn_tpu_torch.utils.bench_slice import STAGE2_PER_STEP as I_PER_STEP  # slice (I)
+from gspn_tpu_torch.utils.bench_slice import STAGE2_PER_STEP as I_POINTS  # slice (I)
 from gspn_tpu_torch.utils.roofline import H100_SXM
 
 B, N = 8, 8192  # flagship request: 8 scenes x 8192 points
@@ -366,12 +373,38 @@ DEVICE_SYMBOLS = {
     "mask_project": ("nearest_logit_kernel<false>",),
     "mask_project_boxed": ("nearest_logit_kernel<true>",), "nms": ("nms_kernel",),
     "nn_argmin": ("nn_argmin_kernel",), "index_add": ("index_add_kernel",),
+    **tk.BN_SYMBOLS,
 }
+
+
+def bn_per_step(layers: int, recomputed: int = 0) -> dict:
+    """The training BatchNorm's launches a step (``ops/batchnorm.py``): each
+    training-mode ``MaskedBatchNorm`` layer launches ``bn_stats`` and
+    ``bn_apply`` forward and ``bn_grad_terms`` and ``bn_grad_input``
+    backward, once each; ``recomputed`` layers run forward again in
+    remat's recompute. Cross-rank statistics ((N), (O)) run the module's
+    own code and launch none."""
+    return {"bn_stats": layers + recomputed, "bn_apply": layers + recomputed,
+            "bn_grad_terms": layers, "bn_grad_input": layers}
+
+
+# the trained BatchNorm layers: stage 1's center_enc, ctx_enc_0-2 and
+# recog_enc (3 each; the object preset has one context encoder); stage 2's
+# SA1-SA4 (3 each), FP1-FP4 (2, 2, 2, 3), roi_mlp and mask_mlp (2 each)
+G_BN, OBJECT_BN, I_BN, I_REMAT_BN = 15, 9, 25, 21
+# slice (G)'s point kernels a step: nn_argmin gives the chamfer's argmins
+# both ways in one launch; index_add is the chamfer's gather backward into
+# the generated points
+G_POINTS = {"fps": 1, "ball_group": 1, "nn_argmin": 1, "index_add": 1}
+G_PER_STEP = {**G_POINTS, **bn_per_step(G_BN)}
+OBJECT_PER_STEP = {**G_POINTS, **bn_per_step(OBJECT_BN)}  # train_gspn --preset object
+I_PER_STEP = {**I_POINTS, **bn_per_step(I_BN)}
 # slice (Q) launches a step: (I)'s, but fps for the seeds and SA1 apart
 # (share_fps=False), no box_group (randomized RoIs are a Gumbel top-k), and
 # remat's recompute of SA1-SA4 (fps, ball_group) and FP1-FP4 (three_nn,
-# interp_mm) in backward
-Q_PER_STEP = {"fps": 9, "ball_group": 9, "three_nn": 8, "interp_mm": 8, "index_add": 8}
+# interp_mm, and their BatchNorms' forward) in backward
+Q_PER_STEP = {"fps": 9, "ball_group": 9, "three_nn": 8, "interp_mm": 8, "index_add": 8,
+              **bn_per_step(I_BN, I_REMAT_BN)}
 SLICE_KERNELS = {  # what each slice's kernel path launches; the others stay at 0
     "A": PATH_KERNELS | {"mask_project"},
     "B": PATH_KERNELS | {"mask_project_boxed"},
@@ -380,21 +413,17 @@ SLICE_KERNELS = {  # what each slice's kernel path launches; the others stay at 
     "E": {STRIDED.get(k, k) for k in PATH_KERNELS} | {"mask_project"},
     "F": {"fps", "ball_query", "ball_query_strided"},
     "H": PATH_KERNELS | {"mask_project", "fps_cluster"},
-    "G": {"fps", "ball_group", "nn_argmin", "index_add"},
+    "G": set(G_PER_STEP),
     "I": set(I_PER_STEP),
     "K": PATH_KERNELS | {"mask_project"},
     "L-bf16": PATH_KERNELS | {"mask_project"},
     "L-rgb": PATH_KERNELS | {"mask_project"},
-    "L-object": {"fps", "ball_group", "nn_argmin", "index_add"},
+    "L-object": set(G_PER_STEP),
     "P": PATH_KERNELS | {"mask_project"},
     "Q": set(Q_PER_STEP),
     # (I)'s, strided too, (G)'s argmin, and the eval's (K)
     "R": set(I_PER_STEP) | set(STRIDED.values()) | {"nn_argmin", "mask_project", "nms"},
 }
-# slice (G) launches per step: nn_argmin gives the chamfer's argmins both
-# ways in one launch; index_add is the chamfer's gather backward into the
-# generated points
-G_PER_STEP = {"fps": 1, "ball_group": 1, "nn_argmin": 1, "index_add": 1}
 # slice (R): the trainers' --dtype bf16, --group-select strided and
 # --width-mult knobs at full width; the width study's multipliers and its
 # profiler windows' steps
@@ -716,6 +745,30 @@ def check_kernels(dev, ops, bench_slice):
         ],
         "index_add": main_cases("index_add"),
     }
+    # the training BatchNorm's kernels at the training cells' layer shapes
+    # (time_kernels.bn_cases), each against what the kernel itself reads
+    # and writes: the column sums around it are PyTorch's reductions, in
+    # the wrapper's ms and not in the kernel's device ms
+    bn = tk.bn_cases(ops, dev)
+
+    def bn_work(name, a):
+        x = a[0]
+        if name == "bn_stats":  # the sums s1, s2 (and the weights' total) in, the stats out
+            c = x.shape[1]
+            return lambda out: (_nbytes(out) + 4 * (2 * c + (a[1] is not None)), 10 * c)
+        # an element: apply's subtract, two multiplies, add and ReLU; the
+        # terms' recomputed output, its ReLU test and four products; dx's
+        # two adds of the square term, the mean term's add and, masked, two
+        # multiplies by the weight
+        per = {"bn_apply": 5, "bn_grad_terms": 10,
+               "bn_grad_input": 4 if a[2] is None else 6}[name]
+        return lambda out: (_nbytes(*a, *tk.flatten(out)), x.numel() * per)
+
+    for name, items in bn.items():
+        cases[name] = [(label, lambda impl, a=a, kw=kw, name=name: tk.bn_call(ops, name, a, kw,
+                                                                               impl),
+                        bn_work(name, a)) for label, a, kw in items]
+
     def cdist_pair(tgt, src, svalid, mode):
         """One ``torch.cdist`` (``mode``: explicit differences, or the
         matmul expansion ``|a|^2 - 2ab + |b|^2``) and its two argmins: each
@@ -844,6 +897,34 @@ def check_kernels(dev, ops, bench_slice):
         "index_add": [(first["index_add"], "index_add_",
                        index_add_library(*main_path["index_add"][0][1]), max_rel_diff, 1e-5)],
     }
+
+    def bn_forward_library(x, stats, scale, bias):
+        """One ``F.batch_norm`` in training mode (its own statistics) and the
+        ReLU: the layer's forward as the library takes it, unweighted."""
+        return lambda: torch.relu(torch.nn.functional.batch_norm(
+            x, None, None, scale, bias, True, 0.0, tk.BN_EPS))
+
+    def bn_backward_library(x, g, stats, scale, bias):
+        """One ``aten.native_batch_norm_backward`` of the ReLU's gradient (made
+        here, untimed) given the batch's mean and rstd: the layer's backward
+        as the library takes it (dx, and the scale's and bias' gradients)."""
+        c = x.shape[1]
+        gy = ops.batch_norm_grad_terms(x, g, stats, scale, bias, relu=True, impl="plain")[0]
+        return lambda: torch.ops.aten.native_batch_norm_backward(
+            gy, x, scale, None, None, stats[:c], stats[c:2 * c], True, tk.BN_EPS,
+            [True, True, True])
+
+    # the unweighted shapes (F.batch_norm takes no row weights); sums in
+    # another order: about 1e-6 of the largest output apart on the CPU
+    for (label, a, _), (_, ta, _) in zip(bn["bn_apply"], bn["bn_grad_terms"], strict=True):
+        if "masked" in label:
+            continue
+        library.setdefault("bn_apply", []).append(
+            (label, "F.batch_norm + ReLU (training)", bn_forward_library(*a), max_rel_diff,
+             1e-4))
+        library.setdefault("bn_grad_input", []).append(
+            (label, "aten.native_batch_norm_backward", bn_backward_library(*ta),
+             lambda got, want: max_rel_diff(got[0], want), 1e-4))
     entries, model_floors = [], {}
     for name, shapes in cases.items():
         k = ops.KERNELS[name]
@@ -882,7 +963,8 @@ def check_kernels(dev, ops, bench_slice):
                 lib_fn, KERNEL_ITERS if first_ms < 20 else PLAIN_SLOW_ITERS)
             print(f"kernel {name} [{label}]: library call {lib_name} "
                   f"{library_ms[key]:.4f} ms (max abs diff {lib_err:.2e})")
-        model_floors[name] = profile_roofline.kernel_cost(name, main_path[name][0][1]).floors()
+        if name in main_path:  # the roofline model prices no BatchNorm kernel
+            model_floors[name] = profile_roofline.kernel_cost(name, main_path[name][0][1]).floors()
         entries.append({
             "name": name, "route": "cuda", "source": k.source,
             "replaces": "; ".join(r.split()[0] for r in k.replaces.split("; ")),
@@ -2761,7 +2843,7 @@ def run_knob_slice(dev, ops, bench_slice, card, work, a_counts):
     ops.reset_launch_counts()
     ofirst, ograds, losses, times = _train_steps(bench_slice, omodel, batch, eps, OBJECT_STEPS)
     runs["L-object"] = ops.launch_counts()
-    want = {k: c * (OBJECT_STEPS + 1) for k, c in G_PER_STEP.items()}
+    want = {k: c * (OBJECT_STEPS + 1) for k, c in OBJECT_PER_STEP.items()}
     if {k: c for k, c in runs["L-object"].items() if c} != want:
         raise AssertionError(f"(L-object) launched {runs['L-object']}, expected {want}")
     before = ops.launch_counts()
@@ -3139,7 +3221,7 @@ def _data_slice(dev, ops, bench_slice, card, root, rng, h5, h5_note, t0) -> dict
              "--shapenet-category", "1", "--num-points", "1024", "--log-dir", str(sn_log)]
     state, counts = _counted(ops, lambda: train_gspn.main(flags + steps))
     lines = _check_trainer("(M) train_gspn --shapenet-dir", state, sn_log, M_STEPS)
-    if counts != {k: c * M_STEPS for k, c in G_PER_STEP.items()}:
+    if counts != {k: c * M_STEPS for k, c in OBJECT_PER_STEP.items()}:
         raise AssertionError(f"(M) train_gspn --shapenet-dir launched {counts}")
     _add_counts(total, counts)
     print(f"slice (M) train_gspn.main {' '.join(flags[:-2])}: {M_STEPS} steps, launches "
@@ -3420,7 +3502,7 @@ def run_dp_slice(dev, ops, bench_slice, card, work) -> dict:
     times the same DP steps. Raises unless every rank exited 0, the ranks
     hold the same state, rank 0 alone wrote the trainers' files. Returns
     the ranks' launch counts summed (their checked DP steps), each rank's
-    exactly (G)'s and (I)'s kernels a step."""
+    exactly (G)'s and (I)'s point kernels a step."""
     from gspn_tpu_torch.parallel import make_mesh
 
     _phase("slice (N)")
@@ -3467,8 +3549,8 @@ def run_dp_slice(dev, ops, bench_slice, card, work) -> dict:
               f"{N_RANKS} ranks on one card median {statistics.median(ts2):.3f} (min "
               f"{min(ts2):.3f}, max {max(ts2):.3f}); {N_STEPS} steps after a warm-up [{card}]")
     total = dict.fromkeys(ops.launch_counts(), 0)
-    for r in res:
-        for stage, per_step in (("stage1", G_PER_STEP), ("stage2", I_PER_STEP)):
+    for r in res:  # the DP steps' BatchNorms take cross-rank statistics: the module's code
+        for stage, per_step in (("stage1", G_POINTS), ("stage2", I_POINTS)):
             if r[stage]["launches"] != per_step:
                 raise AssertionError(f"(N) a rank's {stage} DP step launched "
                                      f"{r[stage]['launches']}, expected {per_step}")
@@ -3764,16 +3846,16 @@ def run_point_sharded_slice(dev, ops, bench_slice, card, work) -> dict:
     if len(dumps) != 8:
         raise AssertionError(f"(O) run_eval --point-sharded dumped {dumps}")
     total = dict.fromkeys(ops.launch_counts(), 0)
-    for r in res:
-        for stage, per_step in (("stage1", G_PER_STEP), ("stage2", I_PER_STEP)):
+    for r in res:  # the sharded steps' BatchNorms take cross-rank statistics: the module's code
+        for stage, per_step in (("stage1", G_POINTS), ("stage2", I_POINTS)):
             if r["training"][stage]["launches"] != per_step:
                 raise AssertionError(f"(O) a rank's {stage} sharded step launched "
                                      f"{r['training'][stage]['launches']}, expected {per_step}")
             _add_counts(total, r["training"][stage]["launches"])
         for case in r["inference"].values():
             _add_counts(total, case["launches"])
-        for name, steps, per_step in (("train_gspn", 3, G_PER_STEP),
-                                      ("train_rpointnet", 2, I_PER_STEP)):
+        for name, steps, per_step in (("train_gspn", 3, G_POINTS),
+                                      ("train_rpointnet", 2, I_POINTS)):
             got = r["entry"][name][1]
             if got != {k: steps * c for k, c in per_step.items()}:
                 raise AssertionError(f"(O) {name} --point-sharded launched {got} on a rank")
@@ -4315,7 +4397,9 @@ def _print_ranking(entries, requests, runs) -> None:
         for launches in mine.values():
             for name, _ in launches:
                 planned[name] = planned.get(name, 0) + 1
-        for name in SLICE_KERNELS[s] | set(planned):
+        # the training BatchNorm's kernels launch at their layers' shapes,
+        # which no request lists: they are ranked off the requests
+        for name in (SLICE_KERNELS[s] - set(tk.BN_SYMBOLS)) | set(planned):
             if runs[s][name] != planned.get(name, 0) * per_run[s]:
                 raise AssertionError(f"{name}: slice ({s}) launched it {runs[s][name]} times, "
                                      f"the ranking counts {planned.get(name, 0)} a run of "
@@ -4408,7 +4492,11 @@ def run_roofline_slice(dev, ops, bench_slice, card, work, entries, model_floors)
                              f"{sorted(S_KERNELS)}")
     print(f"slice (S-roofline) launches: {json.dumps(counts)}")
     for e in entries:
-        model = model_floors[e["name"]]
+        model = model_floors.get(e["name"])
+        if model is None:
+            print(f"slice (S-roofline) kernel {e['name']}: no model floor (utils/roofline.py "
+                  "prices no BatchNorm kernel)")
+            continue
         floor_ms = model["floor"] * 1e3
         ratio = floor_ms / e["bound_ms"] if e["bound_ms"] else float("inf")
         mark = f" (differ by more than {ROOFLINE_GAP:g}x)" if not (

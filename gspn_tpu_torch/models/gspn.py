@@ -85,9 +85,9 @@ class PointNetEncoder(nn.Module):
     with ``mask (..., K)`` the pool and the BatchNorm statistics skip the
     masked-out points."""
 
-    def __init__(self, in_dim, mlp, use_bn, dtype=torch.float32):
+    def __init__(self, in_dim, mlp, use_bn, dtype=torch.float32, ops_impl="auto"):
         super().__init__()
-        self.mlp = PointMLP(in_dim, mlp, use_bn=use_bn, dtype=dtype)
+        self.mlp = PointMLP(in_dim, mlp, use_bn=use_bn, dtype=dtype, ops_impl=ops_impl)
 
     def forward(self, pts, mask=None):
         h = self.mlp(pts, mask)
@@ -123,11 +123,12 @@ class GSPN(nn.Module):
         cfg = self.config = config
         ns, dt = len(cfg.context_radii), cfg.dtype
         crop_dim = 3 + cfg.feature_dim
-        self.center_enc = PointNetEncoder(crop_dim, cfg.center_mlp, cfg.use_bn, dt)
+        self.center_enc = PointNetEncoder(crop_dim, cfg.center_mlp, cfg.use_bn, dt, cfg.ops_impl)
         self.center_fc = FCLayers(cfg.center_mlp[-1], cfg.center_fc, 3, dtype=dt)
         for s in range(ns):
             self.add_module(f"ctx_enc_{s}",
-                            PointNetEncoder(crop_dim, cfg.encoder_mlp, cfg.use_bn, dt))
+                            PointNetEncoder(crop_dim, cfg.encoder_mlp, cfg.use_bn, dt,
+                                            cfg.ops_impl))
         self.cond_fc = FCLayers(ns * cfg.encoder_mlp[-1], (), cfg.cond_dim, dtype=dt)
         self.prior = GaussianHead(cfg.cond_dim, (cfg.cond_dim,), cfg.latent_dim, dt)
         self.generator = FCLayers(
@@ -136,7 +137,7 @@ class GSPN(nn.Module):
         self.objectness = FCLayers(cfg.cond_dim, cfg.objectness_fc, 1, dtype=dt)
         self.has_recognition = recognition
         if recognition:
-            self.recog_enc = PointNetEncoder(3, cfg.encoder_mlp, cfg.use_bn, dt)
+            self.recog_enc = PointNetEncoder(3, cfg.encoder_mlp, cfg.use_bn, dt, cfg.ops_impl)
             self.recognition = GaussianHead(
                 cfg.encoder_mlp[-1] + cfg.cond_dim, (cfg.cond_dim,), cfg.latent_dim, dt
             )

@@ -287,12 +287,14 @@ class RoIHeads(nn.Module):
     def __init__(self, config: RPointNetConfig, feat_dim: int):
         super().__init__()
         cfg, dt = config, config.dtype
-        self.roi_mlp = PointMLP(3 + feat_dim, cfg.roi_mlp, use_bn=cfg.use_bn, dtype=dt)
+        self.roi_mlp = PointMLP(3 + feat_dim, cfg.roi_mlp, use_bn=cfg.use_bn, dtype=dt,
+                                ops_impl=cfg.ops_impl)
         c = cfg.roi_mlp[-1]
         self.cls = FCLayers(c, cfg.cls_fc, cfg.num_classes + 1, dropout=cfg.head_dropout,
                             dtype=dt)
         self.box = FCLayers(c, cfg.box_fc, 6, dropout=cfg.head_dropout, dtype=dt)
-        self.mask_mlp = PointMLP(2 * c, cfg.mask_mlp, use_bn=cfg.use_bn, dtype=dt)
+        self.mask_mlp = PointMLP(2 * c, cfg.mask_mlp, use_bn=cfg.use_bn, dtype=dt,
+                                 ops_impl=cfg.ops_impl)
         self.mask_out = Dense(cfg.mask_mlp[-1], 1, dtype=dt)
 
     def forward(self, canon, roi_feats, dropout_keep=None, generator=None):

@@ -25,6 +25,9 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from gspn_tpu_torch.ops.batchnorm import batch_norm_train
+from gspn_tpu_torch.ops.common import resolve_impl
+
 # The model-level BatchNorm momentum of the JAX package: running statistics
 # update as ``m * old + (1 - m) * batch`` (the opposite of torch's
 # ``momentum``, which weighs the batch).
@@ -124,22 +127,41 @@ class MaskedBatchNorm(nn.Module):
     are then taken over all of them, as the JAX package's ``axis_name``:
     the sums and the count are summed over the ranks (``all_reduce_sum``,
     the gradient reaching every rank's input) before the mean and variance
-    are formed."""
+    are formed.
+
+    ``relu``: the ReLU after the normalization (and the cast), as
+    :class:`PointMLP` applies it. ``ops_impl`` (``ops/common.py``): where it
+    resolves to the CUDA kernels for the input, training mode without a
+    ``group`` runs ``ops.batchnorm.batch_norm_train``: the statistics, the
+    normalization, the ReLU and their backward on four hand-written kernels
+    around PyTorch's column sums, bitwise this module's code and its
+    autograd gradients, which run everywhere else."""
 
     def __init__(self, c: int, epsilon: float = 1e-3, momentum: float = BN_MOMENTUM,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, ops_impl: str = "auto"):
         super().__init__()
         self.epsilon = epsilon
         self.momentum = momentum
         self.dtype = dtype
+        self.ops_impl = ops_impl
         self.group = None
         self.scale = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("mean", torch.zeros(c))
         self.register_buffer("var", torch.ones(c))
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None,
+                relu: bool = False) -> torch.Tensor:
         x = x.float()
+        if self.training and self.group is None and resolve_impl(self.ops_impl, x) == "cuda":
+            return batch_norm_train(
+                x, mask, self.scale, self.bias, self.mean, self.var, eps=self.epsilon,
+                momentum=self.momentum, update=not getattr(_HELD, "on", False), relu=relu,
+                dtype=self.dtype)
+        y = self._normalize(x, mask)
+        return torch.relu(y) if relu else y
+
+    def _normalize(self, x: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
         if not self.training:
             y = (x - self.mean) * torch.rsqrt(self.var + self.epsilon)
             return (y * self.scale + self.bias).to(self.dtype)
@@ -233,11 +255,13 @@ class PointMLP(nn.Module):
     last layer's ReLU out (every model activates it). The leading axes are
     flattened into one, as the JAX package does; ``mask`` (the leading
     axes' shape, or broadcastable to it) weights the BatchNorm training
-    statistics, whose running averages move at ``bn_momentum``."""
+    statistics, whose running averages move at ``bn_momentum``. Each
+    BatchNorm applies the ReLU after it, and takes its kernels on
+    ``ops_impl``'s route (:class:`MaskedBatchNorm`)."""
 
     def __init__(self, in_dim: int, features: Sequence[int], use_bn: bool = True,
                  dtype: torch.dtype = torch.float32, bn_momentum: float = BN_MOMENTUM,
-                 last_activation: bool = True):
+                 last_activation: bool = True, ops_impl: str = "auto"):
         super().__init__()
         self.n = len(features)
         self.use_bn = use_bn
@@ -246,7 +270,8 @@ class PointMLP(nn.Module):
         for i, ch in enumerate(features):
             self.add_module(f"dense_{i}", Dense(dims[i], ch, dtype))
             if use_bn:
-                self.add_module(f"bn_{i}", MaskedBatchNorm(ch, momentum=bn_momentum, dtype=dtype))
+                self.add_module(f"bn_{i}", MaskedBatchNorm(ch, momentum=bn_momentum, dtype=dtype,
+                                                           ops_impl=ops_impl))
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
         lead = x.shape[:-1]
@@ -255,9 +280,10 @@ class PointMLP(nn.Module):
             mask = mask.expand(lead).reshape(-1)
         for i in range(self.n):
             x = getattr(self, f"dense_{i}")(x, sum_in_f32=self.use_bn)
+            relu = i < self.n - 1 or self.last_activation
             if self.use_bn:
-                x = getattr(self, f"bn_{i}")(x, mask)
-            if i < self.n - 1 or self.last_activation:
+                x = getattr(self, f"bn_{i}")(x, mask, relu=relu)
+            elif relu:
                 x = torch.relu(x)
         return x.reshape(*lead, x.shape[-1])
 
@@ -265,8 +291,9 @@ class PointMLP(nn.Module):
 class FCLayers(nn.Module):
     """Fully-connected head: ``Linear (+BN) + ReLU (+ dropout)`` per hidden
     width, then a linear output ``fc_out``. ``use_bn`` puts a
-    :class:`MaskedBatchNorm` (``bn_<i>``) after each hidden ``Linear``;
-    every GSPN and R-PointNet head of both packages leaves it out.
+    :class:`MaskedBatchNorm` (``bn_<i>``, which applies the ReLU) after each
+    hidden ``Linear``; every GSPN and R-PointNet head of both packages
+    leaves it out.
     ``dropout`` is the rate of :func:`dropout` after each hidden ReLU, in
     training mode only."""
 
@@ -289,9 +316,7 @@ class FCLayers(nn.Module):
         from ``generator``, layer by layer."""
         for i in range(self.n):
             x = getattr(self, f"fc_{i}")(x, sum_in_f32=self.use_bn)
-            if self.use_bn:
-                x = getattr(self, f"bn_{i}")(x)
-            x = torch.relu(x)
+            x = getattr(self, f"bn_{i}")(x, relu=True) if self.use_bn else torch.relu(x)
             if self.dropout > 0.0 and self.training:
                 x = dropout(x, self.dropout, None if keep is None else keep[i], generator)
         return self.fc_out(x)

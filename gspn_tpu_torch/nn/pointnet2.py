@@ -124,9 +124,10 @@ class PointNetSAModule(nn.Module):
         self.select = select
         self.group_all, self.pooling = group_all, pooling
         self.use_knn, self.use_xyz = use_knn, use_xyz
-        self.mlp = PointMLP(in_dim, mlp, use_bn=use_bn, dtype=dtype)
+        self.mlp = PointMLP(in_dim, mlp, use_bn=use_bn, dtype=dtype, ops_impl=ops_impl)
         pooled = mlp[-1] * (2 if pooling == "max_and_avg" else 1)
-        self.mlp2 = PointMLP(pooled, mlp2, use_bn=use_bn, dtype=dtype) if mlp2 else None
+        self.mlp2 = (PointMLP(pooled, mlp2, use_bn=use_bn, dtype=dtype, ops_impl=ops_impl)
+                     if mlp2 else None)
 
     def forward(self, xyz, points=None, valid=None, fps_idx=None):
         if self.group_all:
@@ -198,7 +199,8 @@ class PointNetSAModuleMSG(nn.Module):
         self.fps_segments, self.fps_segment_mode = fps_segments, fps_segment_mode
         self.select = select
         for s, mlp in enumerate(mlp_list):
-            self.add_module(f"mlp_s{s}", PointMLP(in_dim, mlp, use_bn=use_bn, dtype=dtype))
+            self.add_module(f"mlp_s{s}", PointMLP(in_dim, mlp, use_bn=use_bn, dtype=dtype,
+                                                  ops_impl=ops_impl))
 
     def forward(self, xyz, points=None, valid=None):
         fps_idx = ops.farthest_point_sample(
@@ -256,7 +258,7 @@ class PointNetFPModule(nn.Module):
             raise ValueError(f"interp must be auto|exact|mm, got {interp!r}")
         self.ops_impl = ops_impl
         self.interp = interp
-        self.mlp = PointMLP(in_dim, mlp, use_bn=use_bn, dtype=dtype)
+        self.mlp = PointMLP(in_dim, mlp, use_bn=use_bn, dtype=dtype, ops_impl=ops_impl)
 
     def forward(self, xyz1, xyz2, points1, points2, valid1=None, valid2=None):
         """``xyz1 (B,N,3)`` targets with skip features ``points1 (B,N,C1)``

@@ -6,13 +6,18 @@ or "strided", ``query_ball_point(_multi)``, ``three_nn``,
 ``three_interpolate_mm`` and ``three_interpolate_fp``,
 ``nearest_sample_logit``, ``nearest_sample_logit_boxed``,
 ``nms_3d(_batched)``, ``nn_argmin`` and ``nn_argmin_pair`` (under
-``nn_distance``), and ``index_add_rows``, the deterministic backward of
-``gather_point`` / ``group_point``) take
+``nn_distance``), ``index_add_rows``, the deterministic backward of
+``gather_point`` / ``group_point``, and the training-mode BatchNorm with
+its ReLU, ``batch_norm_train``: ``batch_norm_stats``, ``batch_norm_apply``
+and its backward, ``batch_norm_grad_terms`` and ``batch_norm_grad_input``) take
 ``impl="auto|cuda|plain"`` (see ``ops/common.py``); each kernel counts its
-launches in ``KERNELS[name].launches``. Each of them calls its kernel (or
-its plain version) through one op of the ``gspn`` namespace
-(``common.gspn_op``), so ``torch.export`` keeps the call as one opaque
-node (``serve/export.py``); eager calls take the same op.
+launches in ``KERNELS[name].launches``. Each of them but the BatchNorm's
+calls its kernel (or its plain version) through one op of the ``gspn``
+namespace (``common.gspn_op``), so ``torch.export`` keeps the call as one
+opaque node (``serve/export.py``); eager calls take the same op. The
+BatchNorm's four are plain functions under ``batch_norm_train``'s
+``torch.autograd.Function``: only a training step calls them, and an
+export traces eval mode.
 """
 
 from gspn_tpu_torch.ops._cuda import KERNELS, launch_counts, reset_launch_counts
@@ -21,6 +26,13 @@ from gspn_tpu_torch.ops.ball_query import (
     ball_query_plain,
     query_ball_point,
     query_ball_point_multi,
+)
+from gspn_tpu_torch.ops.batchnorm import (
+    batch_norm_apply,
+    batch_norm_grad_input,
+    batch_norm_grad_terms,
+    batch_norm_stats,
+    batch_norm_train,
 )
 from gspn_tpu_torch.ops.box_group import box_contains, query_box_group
 from gspn_tpu_torch.ops.chamfer import chamfer_loss, nn_argmin, nn_argmin_pair, nn_distance
@@ -52,6 +64,11 @@ __all__ = [
     "KERNELS",
     "apply_order",
     "ball_query_plain",
+    "batch_norm_apply",
+    "batch_norm_grad_input",
+    "batch_norm_grad_terms",
+    "batch_norm_stats",
+    "batch_norm_train",
     "box_contains",
     "box_iou",
     "box_volume",

@@ -35,7 +35,7 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
 SOURCES = (
     "fps.cu", "ball_group.cu", "box_group.cu", "ball_query.cu", "three_nn.cu",
-    "interp_mm.cu", "mask_project.cu", "nms.cu", "chamfer.cu", "index_add.cu",
+    "interp_mm.cu", "mask_project.cu", "nms.cu", "chamfer.cu", "index_add.cu", "batchnorm.cu",
 )
 HEADERS = ("common.cuh", "group_first.cuh", "group_strided.cuh")
 NVCC_FLAGS = (
@@ -47,6 +47,7 @@ LINK_FLAGS = ("-shared", "-gencode", "arch=compute_90a,code=sm_90a")
 
 _ptr = ctypes.c_void_p
 _int = ctypes.c_int
+_float = ctypes.c_float
 _COUNT_LOCK = threading.Lock()  # guards every kernel's ``launches``
 
 
@@ -265,6 +266,34 @@ KERNELS: dict[str, CudaKernel] = {
             # src, idx, b, m, n, c, bins, tile_c (grouping.index_add_plan), out
             (_ptr, _ptr, _int, _int, _int, _int, _int, _int, _ptr),
             "none (a repair kernel: gather_point's deterministic backward)",
+        ),
+        CudaKernel(
+            "bn_stats", "batchnorm.cu", "gspn_bn_stats",
+            # column sums s1, s2, weight total (or null), rows, c, eps,
+            # momentum, 1 - momentum, update, stats, running mean, running var
+            (_ptr, _ptr, _ptr, _int, _int, _float, _float, _float, _int, _ptr, _ptr, _ptr),
+            "none (nn/layers.py MaskedBatchNorm's training statistics, which XLA fuses on the TPU)",
+        ),
+        CudaKernel(
+            "bn_apply", "batchnorm.cu", "gspn_bn_apply",
+            # x, stats, scale, bias, rows, c, CTAs (batchnorm.batch_norm_plan),
+            # relu, bf16 out, out
+            (_ptr, _ptr, _ptr, _ptr, _int, _int, _int, _int, _int, _ptr),
+            "none (nn/layers.py MaskedBatchNorm's normalization and the ReLU after it)",
+        ),
+        CudaKernel(
+            "bn_grad_terms", "batchnorm.cu", "gspn_bn_grad_terms",
+            # x, g, bf16 g, stats, scale, bias, relu, rows, c, CTAs, gy (or
+            # null), ts, tr, td
+            (_ptr, _ptr, _int, _ptr, _ptr, _ptr, _int, _int, _int, _int, _ptr, _ptr, _ptr, _ptr),
+            "none (MaskedBatchNorm and ReLU's backward: the terms autograd reduces)",
+        ),
+        CudaKernel(
+            "bn_grad_input", "batchnorm.cu", "gspn_bn_grad_input",
+            # x, td, row weights (or null), their kind, stats, sum of tr, sum
+            # of td, rows, c, CTAs, dx
+            (_ptr, _ptr, _ptr, _int, _ptr, _ptr, _ptr, _int, _int, _int, _ptr),
+            "none (MaskedBatchNorm and ReLU's backward: the input's gradient)",
         ),
     )
 }

@@ -124,7 +124,8 @@ def extra_cases(ops, dev) -> list[tuple[str, str, object, tuple]]:
     interp_mm from weights (``three_interpolate_mm``); NMS above 1024 boxes
     (ranked before the kernel); nn_argmin both ways with a row's targets
     over 17 tiles (each count of CTAs a row, 16 taking two passes), and
-    one way."""
+    one way; the training BatchNorm's four kernels (masked, with the
+    ReLU) and its odd-width path (C 37, one channel a thread)."""
     from gspn_tpu_torch.ops.fps import FPS_MAX_N
 
     gen = torch.Generator().manual_seed(0)
@@ -151,7 +152,29 @@ def extra_cases(ops, dev) -> list[tuple[str, str, object, tuple]]:
     nms_scores = torch.rand((1, 1100), generator=gen).to(dev)
     a, av = scene(2, 4100)
     bb, bv = scene(2, 500)
-    return [
+    part = functools.partial
+    bn = []
+    for c, label in ((64, "3000 x 64, masked, ReLU"), (37, "3000 x 37 (odd width), masked, ReLU")):
+        x = (torch.randn((3000, c), generator=gen) + 1.0).to(dev)
+        g = torch.randn((3000, c), generator=gen).to(dev)
+        mask = (torch.rand(3000, generator=gen) > 0.3).to(dev)
+        scale = (torch.rand(c, generator=gen) + 0.5).to(dev)
+        bias = torch.randn(c, generator=gen).to(dev)
+        running = (torch.zeros(c, device=dev), torch.ones(c, device=dev))
+        stats = ops.batch_norm_stats(x, mask, *running, eps=1e-3, momentum=0.9, update=False,
+                                     impl="plain")
+        _, _, tr, td = ops.batch_norm_grad_terms(x, g, stats, scale, bias, relu=True,
+                                                 impl="plain")
+        bn += [
+            ("bn_stats", label, part(ops.batch_norm_stats, eps=1e-3, momentum=0.9, update=False),
+             (x, mask, *running)),
+            ("bn_apply", label, part(ops.batch_norm_apply, relu=True), (x, stats, scale, bias)),
+            ("bn_grad_terms", label, part(ops.batch_norm_grad_terms, relu=True),
+             (x, g, stats, scale, bias)),
+            ("bn_grad_input", label, ops.batch_norm_grad_input,
+             (x, td, mask, stats, tr.sum(dim=0), td.sum(dim=0))),
+        ]
+    return bn + [
         ("fps_cluster", f"2 x {FPS_MAX_N + 1} pts (a row all invalid), 32 picks", None,
          (32, xyz, valid)),
         ("ball_group", "Ball<2>: 2 x 64 q over 2048, r .2/.4, K 8/16", None, scales),

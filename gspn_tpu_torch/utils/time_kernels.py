@@ -85,6 +85,20 @@ SYMBOLS = {
     "mask_project_boxed": ("nearest_logit_kernel<true>", "mask_project_kernel<true>"),
     "nn_argmin": ("nn_argmin_kernel",), "index_add": ("index_add_kernel",),
 }
+# the training BatchNorm's kernels (namespace gspn_bn), each launched once a
+# layer and step, and their entry points in ``gspn_tpu_torch.ops``
+BN_SYMBOLS = {"bn_stats": ("bn_stats_kernel",), "bn_apply": ("bn_apply_kernel",),
+              "bn_grad_terms": ("bn_grad_terms_kernel",),
+              "bn_grad_input": ("bn_grad_input_kernel",)}
+BN_ENTRY_POINTS = {"bn_stats": "batch_norm_stats", "bn_apply": "batch_norm_apply",
+                   "bn_grad_terms": "batch_norm_grad_terms",
+                   "bn_grad_input": "batch_norm_grad_input"}
+# (rows, channels, masked) of the training cells' BatchNorm layers: stage
+# 1's largest crop (16 x 64 seeds x K 256, 256 channels), stage 2's SA1
+# (32 x 1024 centres x K 32, 32 channels) and recog_enc's GT points (16 x 64
+# seeds x 256, 64 channels, weighted by their validity)
+BN_SHAPES = ((262144, 256, False), (1048576, 32, False), (262144, 64, True))
+BN_EPS, BN_MOMENTUM = 1e-3, 0.9  # nn/layers.py MaskedBatchNorm's
 
 
 def card_name() -> str:
@@ -126,8 +140,9 @@ def _launch_total() -> int:
 
 def kernel_event(name: str) -> bool:
     """Whether a device event's name is a hand-written kernel's
-    (``SYMBOLS``)."""
-    return any(sym in name for syms in SYMBOLS.values() for sym in syms)
+    (``SYMBOLS``, ``BN_SYMBOLS``)."""
+    return any(sym in name for table in (SYMBOLS, BN_SYMBOLS) for syms in table.values()
+               for sym in syms)
 
 
 def window_complete(names: list[str], launched: int) -> bool:
@@ -530,6 +545,44 @@ def cases(ops, bench_slice, dev, inputs=None) -> dict:
     out["index_add"].append(("16 x 4096 positions -> 8 (512 on each), C 64",
                              (torch.randn((16, 4096, 64), generator=gen).to(dev), crowd, 8), ()))
     return out
+
+
+def bn_cases(ops, dev, shapes=BN_SHAPES) -> dict:
+    """``{kernel: [(label, args, keywords)]}``: the training BatchNorm's four
+    kernels at each ``(rows, channels, masked)`` of ``shapes``, on one
+    layer's inputs from a fixed seed: ``x`` about a per-channel offset, the
+    output's gradient ``g``, a quarter of the rows masked out where
+    ``masked``, the ReLU on; the statistics, the backward's terms and their
+    column sums from the plain versions. ``bn_stats`` leaves the running
+    statistics as they are (``update`` False). Call one with
+    :func:`bn_call`."""
+    gen = torch.Generator().manual_seed(2)
+    out = {name: [] for name in BN_ENTRY_POINTS}
+    for rows, c, masked in shapes:
+        label = f"{rows} x {c}{', masked' if masked else ''}, ReLU"
+        x = (torch.randn((rows, c), generator=gen) + torch.randn(c, generator=gen)).to(dev)
+        g = torch.randn((rows, c), generator=gen).to(dev)
+        mask = (torch.rand(rows, generator=gen) > 0.25).to(dev) if masked else None
+        scale = (torch.rand(c, generator=gen) + 0.5).to(dev)
+        bias = (torch.randn(c, generator=gen) * 0.1).to(dev)
+        running = (torch.zeros(c, device=dev), torch.ones(c, device=dev))
+        stats = ops.batch_norm_stats(x, mask, *running, eps=BN_EPS, momentum=BN_MOMENTUM,
+                                     update=False, impl="plain")
+        _, _, tr, td = ops.batch_norm_grad_terms(x, g, stats, scale, bias, relu=True,
+                                                 impl="plain")
+        out["bn_stats"].append((label, (x, mask, *running),
+                                {"eps": BN_EPS, "momentum": BN_MOMENTUM, "update": False}))
+        out["bn_apply"].append((label, (x, stats, scale, bias), {"relu": True}))
+        out["bn_grad_terms"].append((label, (x, g, stats, scale, bias), {"relu": True}))
+        out["bn_grad_input"].append((label, (x, td, mask, stats, tr.sum(dim=0), td.sum(dim=0)),
+                                     {}))
+    return out
+
+
+def bn_call(ops, name: str, args, keywords: dict, impl: str):
+    """The entry point of BatchNorm kernel ``name`` on a :func:`bn_cases`
+    case."""
+    return getattr(ops, BN_ENTRY_POINTS[name])(*args, impl=impl, **keywords)
 
 
 def stage2_launches(ops, bench_slice, dev, gen, configs=None) -> list:

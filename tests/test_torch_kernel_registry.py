@@ -10,6 +10,7 @@ the card unless these tests read the sources.
 import re
 
 import pytest
+import torch
 
 import chip_smoke
 from gspn_tpu_torch import ops
@@ -220,3 +221,39 @@ def test_profile_slice_names_global_functions():
 
     declared = {f for text in _sources().values() for f in _GLOBAL.findall(text)}
     assert {h.split("<")[0] for h in HAND_WRITTEN} <= declared
+
+
+def _bn_layers(model, prefix: str = "") -> int:
+    from gspn_tpu_torch.nn.layers import MaskedBatchNorm
+
+    return sum(isinstance(m, MaskedBatchNorm) and name.startswith(prefix)
+               for name, m in model.named_modules())
+
+
+def test_chip_smoke_counts_every_trained_batch_norm():
+    """``chip_smoke``'s BatchNorm launches a step are one of each kernel for
+    every ``MaskedBatchNorm`` of the slices' models: stage 1 at
+    ``train_config()`` and the object preset, stage 2's R-PointNet, and
+    remat's recompute of the SA and FP modules' forward; the slices' other
+    kernels are the point kernels' counts."""
+    from gspn_tpu_torch.models.gspn import shapenet_config
+    from gspn_tpu_torch.utils import bench_slice
+
+    cpu = torch.device("cpu")
+    gspn = bench_slice.seeded_gspn(bench_slice.train_config(), cpu)
+    obj = bench_slice.seeded_gspn(shapenet_config(chip_smoke.OBJECT_N, num_gen_points=512), cpu)
+    rpn = bench_slice.seeded_rpointnet(bench_slice.stage2_configs()[1], cpu)
+    assert chip_smoke.G_BN == _bn_layers(gspn)
+    assert chip_smoke.OBJECT_BN == _bn_layers(obj)
+    assert chip_smoke.I_BN == _bn_layers(rpn)
+    assert chip_smoke.I_REMAT_BN == sum(_bn_layers(rpn, f"backbone.{level}")
+                                        for level in ("sa", "fp"))
+    bn = set(time_kernels.BN_SYMBOLS)
+    for per_step, points, layers in ((chip_smoke.G_PER_STEP, chip_smoke.G_POINTS, 15),
+                                     (chip_smoke.OBJECT_PER_STEP, chip_smoke.G_POINTS, 9),
+                                     (chip_smoke.I_PER_STEP, chip_smoke.I_POINTS, 25)):
+        assert {k: c for k, c in per_step.items() if k not in bn} == points
+        assert {per_step[k] for k in bn} == {layers}
+    q = chip_smoke.Q_PER_STEP
+    assert (q["bn_stats"], q["bn_apply"], q["bn_grad_terms"], q["bn_grad_input"]) == (
+        46, 46, 25, 25)

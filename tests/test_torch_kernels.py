@@ -1286,11 +1286,185 @@ def test_nn_distance_auto_launches_the_kernel(dev):
         _equal(x, y)
 
 
+# the fused training BatchNorm at the training cells' shapes: stage 1's
+# largest crop (16 x 64 seeds x K 256 rows, C 256, unmasked), stage 2's SA1
+# (32 x 1024 centres x K 32 rows, C 32) and the recognition encoder (16 x
+# 64 seeds x 256 GT points, C 64, masked by the GT's validity)
+BN_SHAPES = [(262144, 256, False), (1048576, 32, False), (262144, 64, True)]
+BN_IDS = ["crop_k256_c256", "sa1_c32", "recog_c64_masked"]
+BN_KERNELS = ("bn_stats", "bn_apply", "bn_grad_terms", "bn_grad_input")
+
+
+def _bn_case(dev, rows, c, masked, seed=0):
+    """A Dense output's scale: channels of means 0-2 and spreads 0.5-2.5;
+    scale and bias as Adam leaves them after a few steps; the output's
+    gradient."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    mu = 2.0 * torch.rand(c, generator=gen, device=dev)
+    sd = 0.5 + 2.0 * torch.rand(c, generator=gen, device=dev)
+    x = torch.randn((rows, c), generator=gen, device=dev) * sd + mu
+    mask = torch.rand(rows, generator=gen, device=dev) > 0.3 if masked else None
+    scale = 1.0 + 0.1 * torch.randn(c, generator=gen, device=dev)
+    bias = 0.1 * torch.randn(c, generator=gen, device=dev)
+    g = torch.randn((rows, c), generator=gen, device=dev) * 1e-3
+    return x, mask, scale, bias, g
+
+
+def _launched(fn):
+    before = ops.launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: c - before[k] for k, c in ops.launch_counts().items() if c != before[k]}
+
+
+def _running(c, dev):
+    gen = torch.Generator(device=dev).manual_seed(7)
+    return (torch.randn(c, generator=gen, device=dev), torch.rand(c, generator=gen, device=dev))
+
+
+@pytest.mark.parametrize("rows,c,masked", BN_SHAPES, ids=BN_IDS)
+def test_bn_stats_kernel(dev, rows, c, masked):
+    """The statistics, one launch of the kernel after PyTorch's column sums:
+    mean, rstd, the clamp's gate, tot and the blended running statistics
+    bitwise the plain version (the module's code); ``update=False`` leaves
+    the running statistics alone."""
+    x, mask, _, _, _ = _bn_case(dev, rows, c, masked)
+    got_run, want_run = _running(c, dev), _running(c, dev)
+    stats, launched = _launched(lambda: ops.batch_norm_stats(
+        x, mask, *got_run, eps=1e-3, momentum=0.9, impl="cuda"))
+    assert launched == {"bn_stats": 1}
+    _equal(stats, ops.batch_norm_stats(x, mask, *want_run, eps=1e-3, momentum=0.9,
+                                       impl="plain"))
+    for a, b in zip(got_run, want_run, strict=True):
+        _equal(a, b)
+    held = tuple(t.clone() for t in got_run)
+    _equal(ops.batch_norm_stats(x, mask, *held, eps=1e-3, momentum=0.9, update=False,
+                                impl="cuda"), stats)
+    for a, b in zip(held, got_run, strict=True):
+        _equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("relu", [False, True], ids=["no_relu", "relu"])
+@pytest.mark.parametrize("rows,c,masked", BN_SHAPES, ids=BN_IDS)
+def test_bn_apply_kernel_bitwise(dev, rows, c, masked, relu, dtype):
+    """The normalization kernel, one launch, bitwise the plain version (the
+    module's chain of ops) given the same statistics."""
+    x, mask, scale, bias, _ = _bn_case(dev, rows, c, masked)
+    stats = ops.batch_norm_stats(x, mask, *_running(c, dev), eps=1e-3, momentum=0.9,
+                                 impl="plain")
+    got, launched = _launched(lambda: ops.batch_norm_apply(
+        x, stats, scale, bias, relu=relu, dtype=dtype, impl="cuda"))
+    assert launched == {"bn_apply": 1}
+    _equal(got, ops.batch_norm_apply(x, stats, scale, bias, relu=relu, dtype=dtype,
+                                     impl="plain"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("relu", [False, True], ids=["no_relu", "relu"])
+@pytest.mark.parametrize("rows,c,masked", BN_SHAPES, ids=BN_IDS)
+def test_bn_backward_kernels(dev, rows, c, masked, relu, dtype):
+    """The backward's two kernels, one launch each, bitwise the plain
+    versions: the ReLU's gradient and the three terms autograd reduces,
+    then ``dx`` from their column sums."""
+    x, mask, scale, bias, g = _bn_case(dev, rows, c, masked)
+    g = g.to(dtype)
+    stats = ops.batch_norm_stats(x, mask, *_running(c, dev), eps=1e-3, momentum=0.9,
+                                 impl="plain")
+    got, launched = _launched(lambda: ops.batch_norm_grad_terms(
+        x, g, stats, scale, bias, relu=relu, impl="cuda"))
+    assert launched == {"bn_grad_terms": 1}
+    want = ops.batch_norm_grad_terms(x, g, stats, scale, bias, relu=relu, impl="plain")
+    for a, b in zip(got, want, strict=True):
+        _equal(a, b)
+    sums = (got[2].sum(0), got[3].sum(0))
+    dx, launched = _launched(lambda: ops.batch_norm_grad_input(
+        x, got[3], mask, stats, *sums, impl="cuda"))
+    assert launched == {"bn_grad_input": 1}
+    _equal(dx, ops.batch_norm_grad_input(x, got[3], mask, stats, *sums, impl="plain"))
+
+
+def test_bn_kernels_take_odd_widths_and_float_weights(dev):
+    """C not a multiple of 4 (one channel a thread), an unaligned input, a
+    float row weight and all rows masked out: every kernel bitwise its
+    plain version."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    base = torch.randn((1001 * 37 + 1,), generator=gen, device=dev)
+    x = base[1:].view(1001, 37)  # 4 bytes past an aligned start
+    scale, bias = torch.rand(37, device=dev) + 0.5, torch.randn(37, device=dev)
+    g = torch.randn((1001, 37), generator=gen, device=dev)
+    for mask in (None, torch.rand(1001, generator=gen, device=dev),
+                 torch.zeros(1001, dtype=torch.bool, device=dev)):
+        stats = ops.batch_norm_stats(x, mask, *_running(37, dev), eps=1e-3, momentum=0.9,
+                                     impl="cuda")
+        _equal(stats, ops.batch_norm_stats(x, mask, *_running(37, dev), eps=1e-3, momentum=0.9,
+                                           impl="plain"))
+        _equal(ops.batch_norm_apply(x, stats, scale, bias, relu=True, impl="cuda"),
+               ops.batch_norm_apply(x, stats, scale, bias, relu=True, impl="plain"))
+        terms = ops.batch_norm_grad_terms(x, g, stats, scale, bias, relu=True, impl="cuda")
+        for a, b in zip(terms, ops.batch_norm_grad_terms(x, g, stats, scale, bias, relu=True,
+                                                         impl="plain"), strict=True):
+            _equal(a, b)
+        sums = (terms[2].sum(0), terms[3].sum(0))
+        _equal(ops.batch_norm_grad_input(x, terms[3], mask, stats, *sums, impl="cuda"),
+               ops.batch_norm_grad_input(x, terms[3], mask, stats, *sums, impl="plain"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_point_mlp_takes_the_kernels_in_training_only(dev, dtype):
+    """A PointMLP in training mode on the card: four kernel launches a
+    BatchNorm layer and step (statistics and normalization forward, the
+    two backward passes), output, gradients and running statistics bitwise
+    the module's own code (``ops_impl="plain"``), which launches none; in
+    eval mode none either."""
+    from gspn_tpu_torch.nn.layers import PointMLP
+
+    torch.manual_seed(0)
+    mlp = PointMLP(3, (32, 64, 128), dtype=dtype).to(dev).train()
+    plain = PointMLP(3, (32, 64, 128), dtype=dtype, ops_impl="plain").to(dev).train()
+    plain.load_state_dict(mlp.state_dict())
+    x = torch.randn((4, 256, 64, 3), device=dev)
+    mask = torch.rand((4, 256, 64), device=dev) > 0.2
+    runs = []
+    for m in (mlp, plain):
+        out, launched = _launched(lambda m=m: m(x, mask).float().square().mean().backward())
+        runs.append((launched, {k: p.grad for k, p in m.named_parameters()}))
+    (launched, grads), (plaunched, pgrads) = runs
+    assert launched == {k: 3 for k in BN_KERNELS} and not plaunched
+    for k in grads:
+        _equal(grads[k], pgrads[k])
+    for k, v in mlp.state_dict().items():
+        _equal(v, plain.state_dict()[k])
+    with torch.no_grad():
+        _equal(mlp(x, mask), plain(x, mask))  # held alike: both blend once more
+    _, launched = _launched(lambda: mlp.eval()(x, mask))
+    assert not launched
+
+
+def _step_equal(got: dict, want: dict, grads: dict, pgrads: dict) -> None:
+    """A training step's kernel path bitwise its plain path: the loss, its
+    terms and every gradient."""
+    for k in want:
+        _equal(got[k], want[k])
+    for k in pgrads:
+        _equal(grads[k], pgrads[k])
+
+
+# the BatchNorm layers a training step normalizes on the kernels: stage 1's
+# center_enc, ctx_enc_0-2 and recog_enc (3 each); stage 2's SA1-SA4 (3
+# each), FP1-FP4 (2, 2, 2, 3), roi_mlp and mask_mlp (2 each)
+BN_LAYERS = {1: 15, 2: 25}
+
+
+def _with_bn(launches: dict, stage: int) -> dict:
+    return {**launches, **{k: BN_LAYERS[stage] for k in BN_KERNELS}}
+
+
 def test_train_step_kernel_path_matches_plain_path(dev):
     """One GSPN training step at full width on the slice's batch: the loss,
     its terms and the gradients bitwise equal (the kernels are bitwise,
-    the rest is the same PyTorch, and every sum is taken in a fixed
-    order)."""
+    the BatchNorm's among them, the rest is the same PyTorch, and every
+    sum is taken in a fixed order)."""
     bench_slice.pin_float32_matmuls()
     cfg = bench_slice.train_config()
     batch = bench_slice.train_batch(dev)
@@ -1307,12 +1481,9 @@ def test_train_step_kernel_path_matches_plain_path(dev):
         launched = {k: c - before[k] for k, c in ops.launch_counts().items() if c != before[k]}
         runs.append((metrics, {k: p.grad for k, p in m.named_parameters()}, launched))
     (got, grads, launched), (want, pgrads, plain_launched) = runs
-    assert launched == {"fps": 1, "ball_group": 1, "nn_argmin": 1, "index_add": 1}
+    assert launched == _with_bn({"fps": 1, "ball_group": 1, "nn_argmin": 1, "index_add": 1}, 1)
     assert not plain_launched
-    for k in want:
-        _equal(got[k], want[k])
-    for k in pgrads:
-        _equal(grads[k], pgrads[k])
+    _step_equal(got, want, grads, pgrads)
 
 
 def test_train_steps_are_bitwise_reproducible(dev):
@@ -1375,13 +1546,10 @@ def test_stage2_step_kernel_path_matches_plain_path(dev):
         launched = {k: c - before[k] for k, c in ops.launch_counts().items() if c != before[k]}
         runs.append((metrics, {k: p.grad for k, p in m.named_parameters()}, launched))
     (got, grads, launched), (want, pgrads, plain_launched) = runs
-    assert launched == bench_slice.STAGE2_PER_STEP
+    assert launched == _with_bn(bench_slice.STAGE2_PER_STEP, 2)
     assert not plain_launched
     assert got["num_fg"].item() > 0
-    for k in want:
-        _equal(got[k], want[k])
-    for k in pgrads:
-        _equal(grads[k], pgrads[k])
+    _step_equal(got, want, grads, pgrads)
 
 
 def test_stage2_steps_are_bitwise_reproducible(dev):
@@ -1445,11 +1613,12 @@ _OP_OF = {"fps": "fps", "ball_group": "ball_group", "box_group": "box_group",
 
 @pytest.mark.parametrize("slice_", ["G", "I"])
 def test_training_goes_through_the_registered_ops(dev, slice_):
-    """A stage-1 (G) and a stage-2 (I) training step: each kernel launch is
-    one call of its ``gspn::`` op; the plain path calls the same ops but
-    the FP interpolation's (it takes the exact interpolation) and launches
-    nothing; and the two paths still train bitwise the same (loss, terms,
-    gradients)."""
+    """A stage-1 (G) and a stage-2 (I) training step: each point kernel's
+    launch is one call of its ``gspn::`` op (the BatchNorm's kernels run
+    under ``batch_norm_train``'s autograd function, by no op); the plain
+    path calls the same ops but the FP interpolation's (it takes the exact
+    interpolation) and launches nothing; and the two paths still train
+    bitwise the same (loss, terms, gradients)."""
     if slice_ == "G":
         bench_slice.pin_float32_matmuls()
         cfg = bench_slice.train_config()
@@ -1460,14 +1629,15 @@ def test_training_goes_through_the_registered_ops(dev, slice_):
         draws = {"z_eps": eps.to(dev)}
         step = tsteps.make_train_step(tsteps.make_gspn_loss_fn(64, 256))
         paths = [(model, step), (pmodel, step)]
-        want_launches = {"fps": 1, "ball_group": 1, "nn_argmin": 1, "index_add": 1}
+        want_launches = _with_bn({"fps": 1, "ball_group": 1, "nn_argmin": 1, "index_add": 1},
+                                 1)
     else:
         gcfg, rcfg, batch, gmodel, draws = _stage2_small(dev)
         model = bench_slice.seeded_rpointnet(rcfg, dev)
         _, pmodel = bench_slice.plain_rpointnet(rcfg, model)
         _, pgmodel = bench_slice.plain_gspn(gcfg, gmodel)
         paths = [(model, _stage2_step(gmodel)), (pmodel, _stage2_step(pgmodel))]
-        want_launches = bench_slice.STAGE2_PER_STEP
+        want_launches = _with_bn(bench_slice.STAGE2_PER_STEP, 2)
     runs = []
     for m, step in paths:
         before = ops.launch_counts()
@@ -1482,13 +1652,11 @@ def test_training_goes_through_the_registered_ops(dev, slice_):
     assert launched == want_launches and not plain_launched
     want_ops = {}
     for k, c in launched.items():
-        want_ops[_OP_OF[k]] = want_ops.get(_OP_OF[k], 0) + c
+        if k not in BN_KERNELS:
+            want_ops[_OP_OF[k]] = want_ops.get(_OP_OF[k], 0) + c
     assert op_calls == want_ops
     assert set(plain_calls) == set(op_calls) - {"three_interpolate_fp"}
-    for k in want:
-        _equal(got[k], want[k])
-    for k in pgrads:
-        _equal(grads[k], pgrads[k])
+    _step_equal(got, want, grads, pgrads)
 
 
 def _tiny_serving_config():
